@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own line with elapsed seconds:
+  1. the card (nvidia-smi name and power limit; compute capability 9.0);
+  2. build the CUDA kernels (plain nvcc into a .so, loaded with ctypes);
+  3. hold each kernel against its plain PyTorch version at the main
+     path's shapes in bf16, and time kernel, plain version, one PyTorch
+     library call doing the same function (a yardstick only: the port
+     never calls it) and the card's bound for the work;
+  4. the port on a small input on the card (float32, kernels on) against
+     the same code on the CPU (plain versions);
+  5. the main path: ``cli.generate``'s code at the full width of the 638850
+     preset (2x2 tiles of 256^2 px x 100 channels, 15 DDIM steps, bf16,
+     block-major, window_chunk 1), one warm-up step, then one timed chain
+     with the kernels' launch counters set to 0 just before it;
+  6. a ``{"kernels": [...]}`` line, then the card line, then the result.
+
+Any failure raises and exits non-zero.  Needs one CUDA card; imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+T0 = time.perf_counter()
+
+H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
+H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
+H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    """A check that stays under ``python -O`` (unlike assert)."""
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call, from CUDA events around ``iters``."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, flop_rate: float):
+    """(bound_ms, bound_by): the larger of bytes/bandwidth and ops/peak."""
+    tb = nbytes / H100_BYTES_PER_S * 1e3
+    to = flops / flop_rate * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ulp_err(out, ref) -> float:
+    """Largest |out - ref| in units of the bf16 spacing at |ref|."""
+    import torch
+    r = ref.float().abs().clamp_min(2.0 ** -126)
+    spacing = torch.exp2(torch.floor(torch.log2(r)) - 7)
+    return float(((out.float() - ref.float()).abs() / spacing).max())
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (rows, C) that the main path gives K1: level-0 ResBlock in_norm (81
+# patches x 2 z x 64 x 64 voxels, 64 + 32 channels), mid_res0.in_norm
+# (512 + 229), the deepest decoder concat (512 + 512 + 229, collage batch
+# of 64 patches) and the gene-token q_norm (81 x 229 rows of 64).
+K1_SHAPES = [(663_552, 96), (10_368, 741), (8_192, 1253), (18_549, 64)]
+# (B, N, D) that the main path gives K2: encoder and collage decoder at
+# resolution 16, and the middle block.
+K2_SHAPES = [(324, 128, 256), (256, 128, 256), (324, 32, 512)]
+# shapes off the main path that the wrappers accept: ragged rows and
+# channels, ragged query tiles and key chunks, the largest shared-memory
+# footprint (N = D = 512); correctness only
+K1_EDGE = [(7, 1), (13, 33), (1029, 2050)]
+K2_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512)]
+K1_MAX_ULP = 4.0   # bf16 spacings at |ref|: the f32 sum of squares runs in
+                   # another order, so bf16(inv) may round one step apart
+                   # (2^-8 relative), which two rounded multiplies carry
+                   # into y as up to 3 spacings
+# K2 in bf16: two correct versions differ only where an f32 sum in another
+# order moves a rounding (of p or of the output) by one step, in a few
+# outputs per thousand.  Faults a bf16 kernel could have (p left unrounded
+# or truncated, a truncated output, a wrong scale, ignored logits) change
+# a third or more of them.  tests/test_torch_ops.py holds this check to
+# both on the CPU.
+K2_MAX_SPACINGS = 2.0   # max |o - ref| in bf16 spacings at max |ref|
+K2_MAX_SHARE = 1e-2     # share of outputs that are not bit-equal
+K2_LOGIT_STD = 3.0      # the peaked inputs: q.k * scale of std ~3, where
+                        # the path's randn inputs give an almost flat
+                        # softmax (logit std 1/sqrt(D))
+
+
+def k2_agreement(out, ref):
+    """(max |out - ref|, the same in bf16 spacings at max |ref|, share of
+    outputs that differ at all)."""
+    import torch
+    d = (out.float() - ref.float()).abs()
+    top = ref.float().abs().max().clamp_min(2.0 ** -126)
+    spacing = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return (float(d.max()), float(d.max() / spacing),
+            float((d > 0).float().mean()))
+
+
+def k2_inputs(g, b, n, d, dtype, device, peaked):
+    """q, k, v from randn; ``peaked`` scales q and k so that the logits
+    q.k/d have std ``K2_LOGIT_STD``."""
+    import torch
+    sig = (K2_LOGIT_STD * d ** 0.5) ** 0.5 if peaked else 1.0
+    return tuple((s * torch.randn(b, n, d, generator=g)).to(device, dtype)
+                 for s in (sig, sig, 1.0))
+
+
+def require_k2(out, ref, what: str):
+    import torch
+    err, spacings, share = k2_agreement(out, ref)
+    require(bool(torch.isfinite(out.float()).all()),
+            f"K2 {what}: output not finite")
+    require(spacings <= K2_MAX_SPACINGS and share <= K2_MAX_SHARE,
+            f"K2 {what}: max_abs_err {err} = {spacings} bf16 spacings, "
+            f"{share} of outputs differ")
+    return err, spacings, share
+
+
+def check_kernels(device) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    for i, (n, c) in enumerate(K1_SHAPES):
+        x = torch.randn(n, c, generator=g).to(device, bf16)
+        w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, bf16)
+        out = k1.rmsnorm_cuda(x, w)
+        torch.cuda.synchronize()
+        ref = k1.rmsnorm_plain(x, w)
+        err_ulp = ulp_err(out, ref)
+        err = float((out.float() - ref.float()).abs().max())
+        require(bool(torch.isfinite(out.float()).all()), "K1 output not finite")
+        require(err_ulp <= K1_MAX_ULP, f"K1 {n}x{c}: {err_ulp} bf16 ulp")
+        # f32 input: the same kernel's float instantiation
+        xf = x[:4096].float()
+        errf = float((k1.rmsnorm_cuda(xf, w.float())
+                      - k1.rmsnorm_plain(xf, w.float())).abs().max())
+        require(errf <= 1e-5, f"K1 {n}x{c} f32: {errf}")
+        ms = time_ms(lambda: k1.rmsnorm_cuda(x, w))
+        plain_ms = time_ms(lambda: k1.rmsnorm_plain(x, w))
+        lib_ms = time_ms(lambda: F.rms_norm(x, (c,), w, 1e-6))
+        bms, by = bound(2 * (2 * n * c + c), 4 * n * c, H100_F32_FLOP_PER_S)
+        log(f"K1 rmsnorm ({n}, {c}) bf16: max_abs_err {err:.3g} "
+            f"({err_ulp:.2f} bf16 ulp, tol {K1_MAX_ULP}), f32 err {errf:.3g}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.rms_norm {lib_ms:.4f} ms, bound {bms * 1e3:.1f} us ({by})")
+        if i == 0:
+            rows["rmsnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bms, bound_by=by,
+                                   library_ms=lib_ms, shape=[n, c])
+
+    for n, c in K1_EDGE:
+        for dt in (bf16, torch.float32):
+            x = torch.randn(n, c, generator=g).to(device, dt)
+            w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, dt)
+            out, ref = k1.rmsnorm_cuda(x, w), k1.rmsnorm_plain(x, w)
+            err = (ulp_err(out, ref) if dt == bf16
+                   else float((out - ref).abs().max()))
+            require(err <= (K1_MAX_ULP if dt == bf16 else 1e-5),
+                    f"K1 edge {n}x{c} {dt}: {err}")
+    log(f"K1 edge shapes {K1_EDGE} agree (bf16 and f32)")
+
+    for i, (b, n, d) in enumerate(K2_SHAPES):
+        scale = 1.0 / d
+        errs = []
+        for peaked in (False, True):
+            q, k, v = k2_inputs(g, b, n, d, bf16, device, peaked)
+            out = k2.attention_cuda(q, k, v, scale)
+            torch.cuda.synchronize()
+            ref = k2.attention_plain(q, k, v, scale)
+            errs.append(require_k2(out, ref, f"{b}x{n}x{d} "
+                                   f"{'peaked' if peaked else 'randn'}"))
+        err = max(e[0] for e in errs)
+        qf, kf, vf = (t[:8].float() for t in (q, k, v))
+        errf = float((k2.attention_cuda(qf, kf, vf, scale)
+                      - k2.attention_plain(qf, kf, vf, scale)).abs().max())
+        require(errf <= 1e-5, f"K2 {b}x{n}x{d} f32: {errf}")
+        q, k, v = k2_inputs(g, b, n, d, bf16, device, False)
+        ms = time_ms(lambda: k2.attention_cuda(q, k, v, scale))
+        plain_ms = time_ms(lambda: k2.attention_plain(q, k, v, scale))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        bms, by = bound(2 * 4 * b * n * d, 4 * b * n * n * d,
+                        H100_BF16_FLOP_PER_S)
+        agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
+                          f"spacings, {sh:.2e} differ"
+                          for kind, (e, sp, sh) in zip(("randn", "peaked"),
+                                                       errs))
+        log(f"K2 window_attention ({b}, {n}, {d}) bf16: {agree} (tol "
+            f"{K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}); f32 err "
+            f"{errf:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"SDPA {lib_ms:.4f} ms, bound {bms * 1e3:.1f} us ({by})")
+        if i == 0:
+            rows["window_attention"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, shape=[b, n, d])
+    for b, n, d in K2_EDGE:
+        for peaked in (False, True):
+            q, k, v = k2_inputs(g, b, n, d, bf16, device, peaked)
+            require_k2(k2.attention_cuda(q, k, v, 1.0 / d),
+                       k2.attention_plain(q, k, v, 1.0 / d),
+                       f"edge {b}x{n}x{d}")
+            q, k, v = (t.float() for t in (q, k, v))
+            err = float((k2.attention_cuda(q, k, v, 1.0 / d)
+                         - k2.attention_plain(q, k, v, 1.0 / d)).abs().max())
+            require(err <= 1e-5, f"K2 edge {b}x{n}x{d} f32: {err}")
+    log(f"K2 edge shapes {K2_EDGE} agree (bf16 and f32)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the port on a small input, card against CPU
+# ---------------------------------------------------------------------------
+
+SMALL_ATOL = 2e-3  # f32 on both sides (cuDNN TF32 off); conv algorithms
+                   # and kernel sums reassociate, and the DDIM update at
+                   # the largest t scales eps errors by sqrt(1/abar - 1)
+
+
+def check_small_chain(device) -> float:
+    """A 2x2-tile, 3-step block-major chain of a narrow TeraUNet (the CPU
+    tests' config, every weight random) on the card with the kernels and
+    on the CPU with their plain versions; returns the max abs difference."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.diffusion.sampler import (DiffusionSampler,
+                                                       SamplerConfig)
+    from tera_mind_tpu_torch.diffusion.schedule import spaced_schedule
+    from tera_mind_tpu_torch.models.nn import channels_last_, init_weights
+    from tera_mind_tpu_torch.models.unet import TeraUNetConfig
+    from tera_mind_tpu_torch.parallel.generator import (GeneratorConfig,
+                                                        TeraGenerator)
+
+    mconf = TeraUNetConfig(image_size=32, in_channels=2, out_channels=2,
+                           model_channels=8, embed_channels=32,
+                           num_res_blocks=1, attention_resolutions=(8,),
+                           rna_num=6, gn_sz=2, use_zero_module=False)
+    gconf = GeneratorConfig(tile=64, patch=32, gn_blk=16, snum=4,
+                            n_slices=4, stains=1, gdim=6, window_chunk=1)
+    cpu_model = init_weights(mconf.make_model(), seed=3).eval()
+    gene = np.random.default_rng(9).integers(
+        0, 3, (2, 2, gconf.gsz, gconf.gsz, gconf.z_pad, gconf.gdim)
+    ).astype(np.uint8)
+    outs = []
+    for dev, model in ((torch.device("cpu"), cpu_model),
+                       (device, channels_last_(copy.deepcopy(cpu_model)
+                                               .to(device)))):
+        sampler = DiffusionSampler(spaced_schedule("linear", 1000, "ddim3"),
+                                   SamplerConfig(patch_size=32, gn_sz=2))
+        gen = TeraGenerator(
+            sampler, lambda xp, tm, rp, p1, p2, m=model: m(
+                xp, tm, rp, p1, p2, decode_original=False),
+            gconf, device=dev)
+        outs.append(gen.run(gene, row0=1, col0=1, grid_w=16,
+                            progress=False))
+    require(outs[1].shape == (128, 128, 4) and bool(np.isfinite(outs[1]).all()),
+            f"small chain output {outs[1].shape} not finite or misshapen")
+    err = float(np.abs(outs[1] - outs[0]).max())
+    require(err <= SMALL_ATOL, f"small chain card vs CPU: {err}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path
+# ---------------------------------------------------------------------------
+
+def start_card_sampler() -> subprocess.Popen:
+    """nvidia-smi sampling SM clock, power draw and temperature every
+    500 ms, to show whether the card held its clocks during the chain."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits", "-lms", "500"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def stop_card_sampler(proc: subprocess.Popen) -> str:
+    proc.terminate()
+    out, _ = proc.communicate(timeout=30)
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(v) for v in line.split(",")])
+        except ValueError:      # "[N/A]" fields on some drivers
+            continue
+    if not rows:
+        return "card clocks not sampled"
+    sm, pw, temp = zip(*rows)
+    return (f"SM clock {min(sm):.0f}-{max(sm):.0f} MHz, power draw up to "
+            f"{max(pw):.0f} W, temperature up to {max(temp):.0f} C "
+            f"({len(rows)} samples)")
+
+
+GRID = 2          # 2x2 tiles of 256^2 px x 100 channels
+STEPS = 15        # DDIM steps (eta 0)
+
+
+def run_main_path(device) -> dict:
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.cli import generate
+    from tera_mind_tpu_torch.models.attention import CrossAttention
+    from tera_mind_tpu_torch.models.nn import RMSNorm
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+
+    args = generate.parse_args(["--synthetic", "--hnm", str(GRID),
+                                "--wnm", str(GRID), "--tot_epoch",
+                                str(STEPS), "--device", str(device)])
+    t0 = time.perf_counter()
+    gen, model, gene, (row0, col0) = generate.build(args)
+    n_norm = sum(isinstance(m, RMSNorm) for m in model.modules())
+    n_attn = sum(isinstance(m, CrossAttention) for m in model.modules())
+    calls = gen.conf.n_win // gen._wchunk() * STEPS
+    want = {"rmsnorm": n_norm * calls, "window_attention": n_attn * calls}
+    log(f"main path: 638850 TeraUNet "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params "
+        f"bf16, {n_norm} RMSNorm + {n_attn} CrossAttention per UNet call, "
+        f"{calls} UNet calls per chain; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    state0 = torch.as_tensor(gen.init_state(GRID, GRID, row0=row0,
+                                            col0=col0), device=device)
+    t0 = time.perf_counter()
+    gen.compile_step(GRID, GRID)(state0, torch.as_tensor(gene, device=device),
+                                 STEPS - 1)
+    torch.cuda.synchronize()
+    log(f"warm-up step: {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    smi_proc = start_card_sampler()
+    try:
+        k1.launches = 0
+        k2.launches = 0
+        t0 = time.perf_counter()
+        out = gen.run(gene, row0=row0, col0=col0, grid_w=416, progress=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        card = stop_card_sampler(smi_proc)
+    got = {"rmsnorm": k1.launches, "window_attention": k2.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"chain: {GRID}x{GRID} tiles x {STEPS} steps in {secs:.2f} s = "
+        f"{GRID * GRID / secs:.5f} tiles/s; peak device memory "
+        f"{peak:.2f} GiB; launches {got} (expected {want}); {card}")
+
+    require(out.shape == (GRID * 256, GRID * 256, 100), f"shape {out.shape}")
+    require(bool(np.isfinite(out).all()), "non-finite output")
+    require(out.min() >= -1.0 and out.max() <= 1.0,
+            f"output outside [-1, 1]: [{out.min()}, {out.max()}]")
+    require(got == want, f"launches {got}, expected {want}")
+    require(want == {"rmsnorm": 31_125, "window_attention": 2_250},
+            f"per-chain launch counts {want} differ from the model's 83 "
+            "norms and 6 attentions x 25 windows x 15 steps")
+    log(f"output {out.shape} in [{out.min():.4f}, {out.max():.4f}], "
+        f"mean {out.mean():.4f}, std {out.std():.4f}")
+    return dict(launches=got, seconds=secs, tiles_per_s=GRID * GRID / secs,
+                peak_gib=peak)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
+        return 1
+    # the port must be beside this script (fails alone, before any output)
+    from tera_mind_tpu_torch.ops import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    cap = torch.cuda.get_device_capability(0)
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda},"
+        f" capability {cap}")
+    require(cap == (9, 0), f"needs a Hopper card (sm_90), found {cap}")
+    device = torch.device("cuda:0")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.lib()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {_build.build_seconds or 0:.1f} s) -> {path.name}")
+
+    rows = check_kernels(device)
+    err = check_small_chain(device)
+    log(f"small chain card vs CPU: max_abs_err {err:.3g} "
+        f"(tol {SMALL_ATOL})")
+    main_path = run_main_path(device)
+
+    sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
+                           "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
+               "window_attention": ("tera_mind_tpu_torch/csrc/attention.cu",
+                                    "tera_mind_tpu/ops/attention_kernel.py:62")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        r = rows[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": main_path["launches"][name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"]})
+    print(json.dumps({"kernels": kernels, "chain_seconds":
+                      main_path["seconds"], "tiles_per_s":
+                      main_path["tiles_per_s"]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""Profile the PyTorch port's tera-generator step on one CUDA card.
+
+    python scripts/profile_torch_step.py [--json PATH]
+
+Builds the ``cli.generate`` path (638850 preset, 2x2 tiles, bf16,
+block-major, window_chunk 1) and, after a warm-up step, traces one step
+with ``torch.profiler``: it prints device time by category (convolution,
+K1 rmsnorm, K2 window attention, matmul, elementwise/copies, other), the
+top kernels, and the device's idle share over the step (1 - summed
+kernel time / wall time).  Every line names the card and its power
+limit.  ``--json PATH`` also writes the per-kernel table there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from tera_mind_tpu_torch.cli import generate  # noqa: E402
+
+TILES = 2          # 2x2 tiles of 256^2 px, as chip_smoke.py's main path
+
+CATEGORIES = (  # first match wins, on the lower-cased kernel name
+    ("K1 rmsnorm", ("rmsnorm_kernel",)),
+    ("K2 window_attention", ("attention_kernel",)),
+    ("convolution", ("conv", "implicit", "xmma_fprop", "dgrad", "wgrad",
+                     "cudnn", "fprop", "winograd")),
+    ("matmul", ("gemm", "cutlass", "sm90_xmma", "nvjet", "ampere_", "sm80")),
+    ("elementwise/copy", ("elementwise", "copy", "cat", "vectorized",
+                          "reduce", "index", "pad", "fill", "unrolled")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", type=Path, default=None)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+
+    args = generate.parse_args(["--synthetic", "--hnm", str(TILES),
+                                "--wnm", str(TILES)])
+    gen, _, gene, (row0, col0) = generate.build(args)
+    dev = gen.device
+    state = torch.as_tensor(gen.init_state(TILES, TILES, row0=row0,
+                                           col0=col0), device=dev)
+    gene = torch.as_tensor(gene, device=dev)
+    t = 7
+    step = gen.compile_step(TILES, TILES)
+    step(state, gene, t)                           # warm-up
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, gene, t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    kernels = defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels[ev.name]
+            k[0] += ev.device_time_total if hasattr(
+                ev, "device_time_total") else ev.cuda_time_total
+            k[1] += 1
+    total_us = sum(v[0] for v in kernels.values())
+    cats = defaultdict(float)
+    for name, (us, _) in kernels.items():
+        cats[category(name)] += us
+    print(f"traced step: wall {wall:.4f} s, "
+          f"device busy {total_us / 1e6:.4f} s, idle share "
+          f"{1 - total_us / 1e6 / wall:.3f} ({card})", flush=True)
+    for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:22s} {us / 1e3:9.2f} ms  {100 * us / total_us:5.1f} %")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    for name, (us, n) in top[:25]:
+        print(f"  {us / 1e3:9.2f} ms  {n:6d}x  [{category(name)}] "
+              f"{name[:110]}")
+    if a.json is None:
+        return
+    a.json.parent.mkdir(parents=True, exist_ok=True)
+    a.json.write_text(json.dumps({
+        "card": card, "wall_s": wall, "busy_us": total_us,
+        "categories_us": cats,
+        "kernels": {n: v for n, v in top}}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,168 @@
+"""Neural-net primitives, channels-last ``(B, Z, H, W, C)``.
+
+Port of ``tera_mind_tpu/models/nn.py``.  A module computes in the dtype of
+its weights (the model is cast to the compute dtype, as the JAX
+modules' ``dtype=`` casts their params at compute time, apart from the
+float32 ``TimeEmbed``); inputs are cast to that dtype first, as flax's
+``dtype=`` does.  Parameter names follow
+the flax ones (``kernel`` -> ``weight``), so ``convert.load_jax_params``
+maps a flax tree one for one.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.rmsnorm_kernel import rmsnorm
+
+
+class RMSNorm(nn.Module):
+    """RMS norm over the channel (last) axis, statistics in float32.
+
+    CUDA tensors (float32 or bf16) go through K1 (``ops/rmsnorm_kernel``),
+    CPU tensors through its plain version."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.weight, self.eps)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10_000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding, [cos | sin] order (cos first)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that casts its input to the weight dtype (flax Dense
+    with ``dtype=``).  Weight is ``(out, in)``; flax's kernel is its
+    transpose."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class TimeEmbed(nn.Module):
+    """Time MLP: linear-SiLU-linear (the position half of the JAX module,
+    ``use_pos``, serves the patch-dm baseline, not ported yet).
+
+    Computes in the dtype of its weights, which ``TeraUNetConfig.make_model``
+    keeps in float32 whatever the model's dtype, as the JAX module (no
+    ``dtype=``) computes in float32 on float32 params."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.time_0 = Dense(in_channels, out_channels)
+        self.time_2 = Dense(out_channels, out_channels)
+
+    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+        return self.time_2(F.silu(self.time_0(t_emb)))
+
+
+class Mlp(nn.Module):
+    """dense -> GELU(tanh) -> dense."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: Optional[int] = None):
+        super().__init__()
+        self.fc1 = Dense(in_features, hidden_features)
+        self.fc2 = Dense(hidden_features, out_features or in_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+def modulate(norm: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+             shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """adaLN modulation: norm(x) * (1 + scale) + shift."""
+    return norm(x) * (scale + 1.0) + shift
+
+
+class Conv3d(nn.Module):
+    """3D conv over (Z, H, W) of a channels-last ``(B, Z, H, W, C)`` map.
+
+    Padding defaults to the symmetric ``(k - 1) // 2`` per axis (the JAX
+    ``conv3d``).  The input is handed to ``F.conv3d`` as an NCDHW view of
+    the channels-last storage (``channels_last_3d`` strides, no copy) and
+    the result is viewed back.  ``zero_init`` marks the residual out-convs
+    that :func:`init_weights` zeroes (``use_zero_module``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Sequence[int], *, padding: Optional[Sequence[int]]
+                 = None, use_bias: bool = True, zero_init: bool = False):
+        super().__init__()
+        self.padding = tuple(padding if padding is not None
+                             else [(k - 1) // 2 for k in kernel])
+        self.zero_init = zero_init
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               *kernel))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias \
+            else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype).permute(0, 4, 1, 2, 3)
+        y = F.conv3d(x, self.weight, self.bias, padding=self.padding)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+def upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbor 2x spatial upsample of (B, Z, H, W, C); z untouched."""
+    b, z, h, w, c = x.shape
+    x = x[:, :, :, None, :, None, :].expand(b, z, h, 2, w, 2, c)
+    return x.reshape(b, z, h * 2, w * 2, c)
+
+
+def downsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 spatial average-pool of (B, Z, H, W, C); z untouched."""
+    b, z, h, w, c = x.shape
+    return x.reshape(b, z, h // 2, 2, w // 2, 2, c).mean(dim=(3, 5))
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random init in the JAX package's scheme: lecun-normal
+    kernels (std sqrt(1/fan_in), not truncated), zero biases, unit norm
+    weights, and zero ``zero_init`` convs.  Drawn on a CPU generator, so
+    the weights do not depend on the device."""
+    g = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, Conv3d)):
+            w = mod.weight
+            fan_in = w[0].numel()
+            if getattr(mod, "zero_init", False):
+                val = torch.zeros(w.shape)
+            else:
+                val = torch.randn(w.shape, generator=g) / math.sqrt(fan_in)
+            w.copy_(val)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
+    return model
+
+
+def channels_last_(model: nn.Module) -> nn.Module:
+    """Store every conv kernel as ``channels_last_3d`` so cuDNN runs the
+    channels-last convolution without converting the weight per call."""
+    for mod in model.modules():
+        if isinstance(mod, Conv3d):
+            mod.weight.data = mod.weight.data.contiguous(
+                memory_format=torch.channels_last_3d)
+    return model

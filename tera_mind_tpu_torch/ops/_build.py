@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels: plain ``nvcc`` + ``ctypes``.
+
+All sources under ``tera_mind_tpu_torch/csrc/`` compile into ONE shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds).  The library lands in ``tera_mind_tpu_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the sources and flags, and is built at
+first use.  Each ``extern "C"`` entry point takes device pointers and the
+stream as ``void*``, returns ``cudaGetLastError()`` after its launch, and
+the Python wrapper raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh codes
+
+_ptr, _int, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+SIGNATURES = {
+    "tmt_rmsnorm": [_ptr, _ptr, _ptr, _i64, _int, _f32, _int, _ptr],
+    "tmt_window_attention": [_ptr, _ptr, _ptr, _ptr, _int, _int, _int,
+                             _f32, _int, _ptr],
+}
+
+_lib = None
+_lock = threading.Lock()
+build_seconds = None   # wall time of the last build (None: loaded cached)
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("NVCC"),
+                 shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME, or put nvcc "
+                       "on PATH (the kernels build on a CUDA machine)")
+
+
+def lib_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libtmt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed .so (no-op if it exists)."""
+    global build_seconds
+    out = lib_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS,
+           "-I", str(CSRC), "-o", tmp,
+           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent build sees a whole file
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    try:
+        return DTYPES[t.dtype]
+    except KeyError:
+        raise TypeError(f"{name}: no kernel for dtype {t.dtype}") from None

@@ -6,16 +6,18 @@
 Phases, each printed on its own line with elapsed seconds:
   1. the card (nvidia-smi name and power limit; compute capability 9.0);
   2. build the CUDA kernels (plain nvcc into a .so, loaded with ctypes);
-  3. hold each kernel against its plain PyTorch version at the main
-     path's shapes in bf16, and time kernel, plain version, one PyTorch
-     library call doing the same function (a yardstick only: the port
-     never calls it) and the card's bound for the work;
+  3. hold each kernel against its plain PyTorch version at every main
+     path shape in bf16 (and each variant at edge shapes), and time the
+     kernel, the plain version and one PyTorch library call doing the
+     same function (a yardstick only: the port never calls it) on the
+     device (CUDA graph replay), beside the card's bound for the work;
   4. the port on a small input on the card (float32, kernels on) against
      the same code on the CPU (plain versions);
   5. the main path: ``cli.generate``'s code at the full width of the 638850
      preset (2x2 tiles of 256^2 px x 100 channels, 15 DDIM steps, bf16,
      block-major, window_chunk 1), one warm-up step, then one timed chain
-     with the kernels' launch counters set to 0 just before it;
+     with the kernels' launch counters (total and per variant) set to 0
+     just before it;
   6. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
@@ -25,6 +27,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,6 +37,7 @@ T0 = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
 H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
+H100_L2_BYTES = 50 * 2 ** 20
 
 
 class SmokeFailure(RuntimeError):
@@ -50,20 +54,50 @@ def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``."""
+def device_ms(fn, arg_sets, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn(*args)``: after a warm-up call on each set,
+    ``calls`` calls cycling over ``arg_sets`` are captured in one CUDA
+    graph, and its ``reps`` replays are timed between two CUDA events.
+    The host's cost per call (wrapper, ctypes, allocator) is spent at
+    capture, so it cannot bound the time; the device-side gap between
+    two graph nodes (about a microsecond) stays in it."""
     import torch
-    for _ in range(warmup):
-        fn()
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    n = max(calls, len(arg_sets))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (reps * n)
+
+
+def input_sets(tensors: tuple, nbytes: int) -> list:
+    """``tensors`` and copies of them, enough that one pass over the sets
+    moves twice the L2's bytes: each call then finds its inputs in device
+    memory, as the bound counts them, and not in the L2."""
+    k = max(1, math.ceil(2 * H100_L2_BYTES / nbytes))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(k - 1)]
+
+
+def variant_of(mod, fn, *args):
+    """(fn(*args), the variant of ``mod``'s kernel that the call launched)."""
+    before = dict(mod.launches_by_variant)
+    out = fn(*args)
+    moved = [k for k, v in mod.launches_by_variant.items() if v != before[k]]
+    require(len(moved) == 1, f"{mod.__name__}: launches {moved}")
+    return out, moved[0]
 
 
 def bound(nbytes: float, flops: float, flop_rate: float):
@@ -88,15 +122,23 @@ def ulp_err(out, ref) -> float:
 # (rows, C) that the main path gives K1: level-0 ResBlock in_norm (81
 # patches x 2 z x 64 x 64 voxels, 64 + 32 channels), mid_res0.in_norm
 # (512 + 229), the deepest decoder concat (512 + 512 + 229, collage batch
-# of 64 patches) and the gene-token q_norm (81 x 229 rows of 64).
-K1_SHAPES = [(663_552, 96), (10_368, 741), (8_192, 1253), (18_549, 64)]
+# of 64 patches) and the gene-token q_norm (81 x 229 rows of 64); then
+# one shape for each lane group G of the vector variant that the main
+# path reaches and the shapes above miss (C = 96 is G = 4, C = 64 is
+# G = 2): the encoder's q_norm at head dim 256 (324 x 128 rows, G = 8),
+# the middle block's norms of 512 channels (G = 16) and dec_3_res.in_norm
+# (512 + 384, collage batch of 64 patches, G = 32).
+K1_SHAPES = [(663_552, 96), (10_368, 741), (8_192, 1253), (18_549, 64),
+             (41_472, 256), (10_368, 512), (32_768, 896)]
 # (B, N, D) that the main path gives K2: encoder and collage decoder at
 # resolution 16, and the middle block.
 K2_SHAPES = [(324, 128, 256), (256, 128, 256), (324, 32, 512)]
 # shapes off the main path that the wrappers accept: ragged rows and
 # channels, ragged query tiles and key chunks, the largest shared-memory
-# footprint (N = D = 512); correctness only
-K1_EDGE = [(7, 1), (13, 33), (1029, 2050)]
+# footprint (N = D = 512), the vector variant at one 16-byte vector a row
+# (C = 8) and at a row that leaves lanes of its group unequal (C = 264);
+# correctness only
+K1_EDGE = [(7, 1), (13, 33), (1029, 2050), (1000, 8), (517, 264)]
 K2_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512)]
 K1_MAX_ULP = 4.0   # bf16 spacings at |ref|: the f32 sum of squares runs in
                    # another order, so bf16(inv) may round one step apart
@@ -146,101 +188,139 @@ def require_k2(out, ref, what: str):
     return err, spacings, share
 
 
-def check_kernels(device) -> dict:
-    import torch
+def time_k1(k1, x, w, n, c) -> dict:
     import torch.nn.functional as F
+    sets = input_sets((x, w), 2 * x.numel() * x.element_size())
+    bms, by = bound(2 * (2 * n * c + c), 4 * n * c, H100_F32_FLOP_PER_S)
+    return dict(ms=device_ms(k1.rmsnorm_cuda, sets),
+                plain_ms=device_ms(k1.rmsnorm_plain, sets),
+                library_ms=device_ms(
+                    lambda a, b: F.rms_norm(a, (c,), b, 1e-6), sets),
+                bound_ms=bms, bound_by=by)
+
+
+def time_k2(k2, q, k, v, scale, b, n, d) -> dict:
+    import torch.nn.functional as F
+    sets = input_sets((q, k, v), 4 * q.numel() * q.element_size())
+    bms, by = bound(2 * 4 * b * n * d, 4 * b * n * n * d,
+                    H100_BF16_FLOP_PER_S)
+    return dict(ms=device_ms(lambda *a: k2.attention_cuda(*a, scale), sets),
+                plain_ms=device_ms(lambda *a: k2.attention_plain(*a, scale),
+                                   sets),
+                library_ms=device_ms(lambda *a: F.scaled_dot_product_attention(
+                    *a, scale=scale), sets),
+                bound_ms=bms, bound_by=by)
+
+
+def timing_text(t: dict, lib: str) -> str:
+    return (f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, {lib} "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f} % of it)")
+
+
+def check_kernels(device) -> dict:
+    """Each kernel against its plain version at every main-path shape
+    (bf16 and f32) and at the edge shapes, with device times at the
+    main-path shapes.  Returns {name: [row per main-path shape]}."""
+    import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
 
     g = torch.Generator(device="cpu").manual_seed(0)
     bf16 = torch.bfloat16
-    rows = {}
+    rows = {"rmsnorm": [], "window_attention": []}
 
-    for i, (n, c) in enumerate(K1_SHAPES):
+    def k1_agrees(x, w, what):
+        out, variant = variant_of(k1, k1.rmsnorm_cuda, x, w)
+        ref = k1.rmsnorm_plain(x, w)
+        require(bool(torch.isfinite(out.float()).all()),
+                f"K1 {what}: output not finite")
+        err = (ulp_err(out, ref) if x.dtype == bf16
+               else float((out - ref).abs().max()))
+        require(err <= (K1_MAX_ULP if x.dtype == bf16 else 1e-5),
+                f"K1 {what} {x.dtype} ({variant}): {err}")
+        return out, ref, err, variant
+
+    for n, c in K1_SHAPES:
         x = torch.randn(n, c, generator=g).to(device, bf16)
         w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, bf16)
-        out = k1.rmsnorm_cuda(x, w)
-        torch.cuda.synchronize()
-        ref = k1.rmsnorm_plain(x, w)
-        err_ulp = ulp_err(out, ref)
+        out, ref, err_ulp, variant = k1_agrees(x, w, f"{n}x{c}")
         err = float((out.float() - ref.float()).abs().max())
-        require(bool(torch.isfinite(out.float()).all()), "K1 output not finite")
-        require(err_ulp <= K1_MAX_ULP, f"K1 {n}x{c}: {err_ulp} bf16 ulp")
-        # f32 input: the same kernel's float instantiation
-        xf = x[:4096].float()
-        errf = float((k1.rmsnorm_cuda(xf, w.float())
-                      - k1.rmsnorm_plain(xf, w.float())).abs().max())
-        require(errf <= 1e-5, f"K1 {n}x{c} f32: {errf}")
-        ms = time_ms(lambda: k1.rmsnorm_cuda(x, w))
-        plain_ms = time_ms(lambda: k1.rmsnorm_plain(x, w))
-        lib_ms = time_ms(lambda: F.rms_norm(x, (c,), w, 1e-6))
-        bms, by = bound(2 * (2 * n * c + c), 4 * n * c, H100_F32_FLOP_PER_S)
-        log(f"K1 rmsnorm ({n}, {c}) bf16: max_abs_err {err:.3g} "
+        want = "vector" if c % 8 == 0 else "strided"
+        require(variant == want, f"K1 {n}x{c} took {variant}, not {want}")
+        # f32 input: the same variant's float instantiation
+        _, _, errf, _ = k1_agrees(x[:4096].float(), w.float(), f"{n}x{c}")
+        t = time_k1(k1, x, w, n, c)
+        log(f"K1 rmsnorm ({n}, {c}) bf16 [{variant}]: max_abs_err {err:.3g} "
             f"({err_ulp:.2f} bf16 ulp, tol {K1_MAX_ULP}), f32 err {errf:.3g}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.rms_norm {lib_ms:.4f} ms, bound {bms * 1e3:.1f} us ({by})")
-        if i == 0:
-            rows["rmsnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bms, bound_by=by,
-                                   library_ms=lib_ms, shape=[n, c])
+            + timing_text(t, "F.rms_norm"))
+        rows["rmsnorm"].append(dict(shape=[n, c], variant=variant,
+                                    max_abs_err=err, **t))
 
+    seen = []
     for n, c in K1_EDGE:
         for dt in (bf16, torch.float32):
             x = torch.randn(n, c, generator=g).to(device, dt)
             w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, dt)
-            out, ref = k1.rmsnorm_cuda(x, w), k1.rmsnorm_plain(x, w)
-            err = (ulp_err(out, ref) if dt == bf16
-                   else float((out - ref).abs().max()))
-            require(err <= (K1_MAX_ULP if dt == bf16 else 1e-5),
-                    f"K1 edge {n}x{c} {dt}: {err}")
-    log(f"K1 edge shapes {K1_EDGE} agree (bf16 and f32)")
+            seen.append(f"({n}, {c}) {str(dt)[6:]} {k1_agrees(x, w, 'edge')[3]}")
+    # a contiguous tensor whose storage starts one element off 16 bytes
+    for dt in (bf16, torch.float32):
+        c = 96
+        base = torch.randn(4096 * c + 1, generator=g).to(device, dt)
+        x = base[1:].view(4096, c)
+        w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, dt)
+        require(x.is_contiguous() and x.data_ptr() % 16 != 0,
+                "K1 misaligned input is not misaligned")
+        variant = k1_agrees(x, w, "misaligned")[3]
+        require(variant == "strided", f"K1 misaligned took {variant}")
+        seen.append(f"(4096, 96) {str(dt)[6:]} misaligned {variant}")
+    log(f"K1 edge shapes agree: {'; '.join(seen)}")
 
-    for i, (b, n, d) in enumerate(K2_SHAPES):
+    for b, n, d in K2_SHAPES:
         scale = 1.0 / d
         errs = []
         for peaked in (False, True):
             q, k, v = k2_inputs(g, b, n, d, bf16, device, peaked)
-            out = k2.attention_cuda(q, k, v, scale)
+            out, variant = variant_of(k2, k2.attention_cuda, q, k, v, scale)
             torch.cuda.synchronize()
             ref = k2.attention_plain(q, k, v, scale)
             errs.append(require_k2(out, ref, f"{b}x{n}x{d} "
                                    f"{'peaked' if peaked else 'randn'}"))
+            require(variant == "tensor_core",
+                    f"K2 {b}x{n}x{d} bf16 took {variant}")
         err = max(e[0] for e in errs)
         qf, kf, vf = (t[:8].float() for t in (q, k, v))
-        errf = float((k2.attention_cuda(qf, kf, vf, scale)
-                      - k2.attention_plain(qf, kf, vf, scale)).abs().max())
-        require(errf <= 1e-5, f"K2 {b}x{n}x{d} f32: {errf}")
+        outf, variant_f = variant_of(k2, k2.attention_cuda, qf, kf, vf, scale)
+        errf = float((outf - k2.attention_plain(qf, kf, vf, scale))
+                     .abs().max())
+        require(errf <= 1e-5, f"K2 {b}x{n}x{d} f32 ({variant_f}): {errf}")
         q, k, v = k2_inputs(g, b, n, d, bf16, device, False)
-        ms = time_ms(lambda: k2.attention_cuda(q, k, v, scale))
-        plain_ms = time_ms(lambda: k2.attention_plain(q, k, v, scale))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale))
-        bms, by = bound(2 * 4 * b * n * d, 4 * b * n * n * d,
-                        H100_BF16_FLOP_PER_S)
+        t = time_k2(k2, q, k, v, scale, b, n, d)
         agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
                           f"spacings, {sh:.2e} differ"
                           for kind, (e, sp, sh) in zip(("randn", "peaked"),
                                                        errs))
-        log(f"K2 window_attention ({b}, {n}, {d}) bf16: {agree} (tol "
-            f"{K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}); f32 err "
-            f"{errf:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA {lib_ms:.4f} ms, bound {bms * 1e3:.1f} us ({by})")
-        if i == 0:
-            rows["window_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms, shape=[b, n, d])
+        log(f"K2 window_attention ({b}, {n}, {d}) bf16 [{variant}]: {agree} "
+            f"(tol {K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}); f32 "
+            f"[{variant_f}] err {errf:.3g}; " + timing_text(t, "SDPA"))
+        rows["window_attention"].append(dict(shape=[b, n, d], variant=variant,
+                                             max_abs_err=err, **t))
+    seen = []
     for b, n, d in K2_EDGE:
         for peaked in (False, True):
             q, k, v = k2_inputs(g, b, n, d, bf16, device, peaked)
-            require_k2(k2.attention_cuda(q, k, v, 1.0 / d),
-                       k2.attention_plain(q, k, v, 1.0 / d),
-                       f"edge {b}x{n}x{d}")
+            out, variant = variant_of(k2, k2.attention_cuda, q, k, v, 1.0 / d)
+            require_k2(out, k2.attention_plain(q, k, v, 1.0 / d),
+                       f"edge {b}x{n}x{d} ({variant})")
             q, k, v = (t.float() for t in (q, k, v))
-            err = float((k2.attention_cuda(q, k, v, 1.0 / d)
-                         - k2.attention_plain(q, k, v, 1.0 / d)).abs().max())
+            outf, variant_f = variant_of(k2, k2.attention_cuda, q, k, v,
+                                         1.0 / d)
+            err = float((outf - k2.attention_plain(q, k, v, 1.0 / d))
+                        .abs().max())
             require(err <= 1e-5, f"K2 edge {b}x{n}x{d} f32: {err}")
-    log(f"K2 edge shapes {K2_EDGE} agree (bf16 and f32)")
+        seen.append(f"({b}, {n}, {d}) bf16 {variant}, f32 {variant_f}")
+    log(f"K2 edge shapes agree (randn and peaked): {'; '.join(seen)}")
     return rows
 
 
@@ -348,13 +428,21 @@ def run_main_path(device) -> dict:
                                 str(STEPS), "--device", str(device)])
     t0 = time.perf_counter()
     gen, model, gene, (row0, col0) = generate.build(args)
-    n_norm = sum(isinstance(m, RMSNorm) for m in model.modules())
+    norms = [m.weight.numel() for m in model.modules()
+             if isinstance(m, RMSNorm)]
+    n_norm, n_vec = len(norms), sum(c % 8 == 0 for c in norms)
     n_attn = sum(isinstance(m, CrossAttention) for m in model.modules())
     calls = gen.conf.n_win // gen._wchunk() * STEPS
     want = {"rmsnorm": n_norm * calls, "window_attention": n_attn * calls}
+    want_variants = {
+        "rmsnorm": {"strided": (n_norm - n_vec) * calls,
+                    "vector": n_vec * calls},
+        "window_attention": {"cuda_core": 0,
+                             "tensor_core": n_attn * calls}}
     log(f"main path: 638850 TeraUNet "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params "
-        f"bf16, {n_norm} RMSNorm + {n_attn} CrossAttention per UNet call, "
+        f"bf16, {n_norm} RMSNorm ({n_vec} with C % 8 == 0) + {n_attn} "
+        f"CrossAttention per UNet call, "
         f"{calls} UNet calls per chain; built in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -369,8 +457,8 @@ def run_main_path(device) -> dict:
     torch.cuda.reset_peak_memory_stats()
     smi_proc = start_card_sampler()
     try:
-        k1.launches = 0
-        k2.launches = 0
+        k1.reset_launches()
+        k2.reset_launches()
         t0 = time.perf_counter()
         out = gen.run(gene, row0=row0, col0=col0, grid_w=416, progress=True)
         torch.cuda.synchronize()
@@ -378,10 +466,13 @@ def run_main_path(device) -> dict:
     finally:
         card = stop_card_sampler(smi_proc)
     got = {"rmsnorm": k1.launches, "window_attention": k2.launches}
+    got_variants = {"rmsnorm": dict(k1.launches_by_variant),
+                    "window_attention": dict(k2.launches_by_variant)}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"chain: {GRID}x{GRID} tiles x {STEPS} steps in {secs:.2f} s = "
         f"{GRID * GRID / secs:.5f} tiles/s; peak device memory "
-        f"{peak:.2f} GiB; launches {got} (expected {want}); {card}")
+        f"{peak:.2f} GiB; launches {got} (expected {want}), by variant "
+        f"{got_variants} (expected {want_variants}); {card}")
 
     require(out.shape == (GRID * 256, GRID * 256, 100), f"shape {out.shape}")
     require(bool(np.isfinite(out).all()), "non-finite output")
@@ -391,10 +482,12 @@ def run_main_path(device) -> dict:
     require(want == {"rmsnorm": 31_125, "window_attention": 2_250},
             f"per-chain launch counts {want} differ from the model's 83 "
             "norms and 6 attentions x 25 windows x 15 steps")
+    require(got_variants == want_variants,
+            f"launches by variant {got_variants}, expected {want_variants}")
     log(f"output {out.shape} in [{out.min():.4f}, {out.max():.4f}], "
         f"mean {out.mean():.4f}, std {out.std():.4f}")
-    return dict(launches=got, seconds=secs, tiles_per_s=GRID * GRID / secs,
-                peak_gib=peak)
+    return dict(launches=got, variants=got_variants, seconds=secs,
+                tiles_per_s=GRID * GRID / secs, peak_gib=peak)
 
 
 def main() -> int:
@@ -421,6 +514,8 @@ def main() -> int:
     _build.lib()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds or 0:.1f} s) -> {path.name}")
+    for line in _build.ptxas_report(_build.build_log):
+        log(f"ptxas: {line}")
 
     rows = check_kernels(device)
     err = check_small_chain(device)
@@ -434,14 +529,17 @@ def main() -> int:
                                     "tera_mind_tpu/ops/attention_kernel.py:62")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        r = rows[name]
+        r = rows[name][0]   # the main path's largest shape
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": main_path["launches"][name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"]})
+                        "launches_by_variant": main_path["variants"][name],
+                        "max_abs_err": max(x["max_abs_err"]
+                                           for x in rows[name]),
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        "shapes": rows[name]})
     print(json.dumps({"kernels": kernels, "chain_seconds":
                       main_path["seconds"], "tiles_per_s":
                       main_path["tiles_per_s"]}), flush=True)

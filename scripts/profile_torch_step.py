@@ -5,9 +5,9 @@
 Builds the ``cli.generate`` path (638850 preset, 2x2 tiles, bf16,
 block-major, window_chunk 1) and, after a warm-up step, traces one step
 with ``torch.profiler``: it prints device time by category (convolution,
-K1 rmsnorm, K2 window attention, matmul, elementwise/copies, other), the
-top kernels, and the device's idle share over the step (1 - summed
-kernel time / wall time).  Every line names the card and its power
+each variant of K1 rmsnorm and of K2 window attention, matmul,
+elementwise/copies, other), the top kernels, and the device's idle share
+over the step (1 - summed kernel time / wall time).  Every line names the card and its power
 limit.  ``--json PATH`` also writes the per-kernel table there.
 """
 
@@ -30,8 +30,10 @@ from tera_mind_tpu_torch.cli import generate  # noqa: E402
 TILES = 2          # 2x2 tiles of 256^2 px, as chip_smoke.py's main path
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("K1 rmsnorm", ("rmsnorm_kernel",)),
-    ("K2 window_attention", ("attention_kernel",)),
+    ("K1 rmsnorm vector", ("rmsnorm_kernel_vec",)),
+    ("K1 rmsnorm strided", ("rmsnorm_kernel",)),
+    ("K2 attention tensor_core", ("attention_kernel_tc",)),
+    ("K2 attention cuda_core", ("attention_kernel",)),
     ("convolution", ("conv", "implicit", "xmma_fprop", "dgrad", "wgrad",
                      "cudnn", "fprop", "winograd")),
     ("matmul", ("gemm", "cutlass", "sm90_xmma", "nvjet", "ampere_", "sm80")),
@@ -94,7 +96,7 @@ def main() -> None:
           f"device busy {total_us / 1e6:.4f} s, idle share "
           f"{1 - total_us / 1e6 / wall:.3f} ({card})", flush=True)
     for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat:22s} {us / 1e3:9.2f} ms  {100 * us / total_us:5.1f} %")
+        print(f"  {cat:26s} {us / 1e3:9.2f} ms  {100 * us / total_us:5.1f} %")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     for name, (us, n) in top[:25]:
         print(f"  {us / 1e3:9.2f} ms  {n:6d}x  [{category(name)}] "

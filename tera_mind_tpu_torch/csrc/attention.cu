@@ -3,22 +3,42 @@
 //
 // Replaces the Pallas kernel tera_mind_tpu/ops/attention_kernel.py
 // (fused_attention / _attn_kernel), which keeps q, k, v and the N x N
-// logits of one batch index in VMEM.  At N = 128, D = 256 in bf16 that is
-// more than a Hopper block's 227 KB of shared memory, so here one block
-// takes one batch index and a tile of kQT query rows:
-//   1. the q tile goes to shared memory (float);
-//   2. K is staged in chunks of kKC rows (float, rows padded by one word
-//      so the threads of a warp, one key each, hit distinct banks) and the
-//      block's full rows of f32 logits are kept in shared memory;
-//   3. each row is max-subtracted, exponentiated and normalised, and p is
-//      rounded to the input type, as the TPU kernel does before its p.v
-//      product (no online rescaling: at N <= 512 the whole row fits);
-//   4. V is staged in the same chunks and p.v is accumulated in float
-//      registers, each thread owning one or two output columns.
-// The work is 4*N*N*D operations per batch index on CUDA cores; this
-// first version uses no tensor cores, so it is bound by the float FMA and
-// shared-memory rate rather than by device memory (q, k, v are read from
-// L2 once per query tile).
+// logits of one batch index in VMEM.  Every variant keeps the TPU's
+// rounding: f32 logits q.k^T * scale, an exact softmax (row max, exp,
+// divide by the row sum), p rounded to the input type after it is
+// normalised, f32 accumulation of p.v and one rounding of the output.
+//
+// Two variants, chosen by the caller from dtype, shape and alignment
+// before the launch (ops/attention_kernel.py attention_variant):
+//
+// tensor_core (bf16; D % 16 == 0, N <= 128, 16-byte aligned pointers,
+//   3 * round16(N) * (D + 8) * 2 bytes of shared memory, plus
+//   round16(N) * (round16(N) + 8) * 2 when round16(N) > D, within 227 KB).
+//   At N = 128 the work is N / 2 = 64 operations per byte, far under the
+//   H100's 295 for bf16, so it is bound by the bytes it moves.  One block
+//   of 8 warps takes one batch index, so K and V leave device memory once:
+//   1. q and k, then v, are copied into shared memory as bf16 with 16-byte
+//      cp.async (two groups, so v arrives while q.k^T runs); rows are
+//      padded by 16 bytes so that ldmatrix hits 8 distinct bank groups;
+//   2. each warp takes 16 query rows and computes their logits with
+//      mma.sync m16n8k16 (bf16 in, f32 out), keeping all N of them in
+//      registers (N / 2 floats a thread); the softmax runs on those
+//      registers with quad shuffles, and p = bf16(exp(s - m) / sum)
+//      overwrites q in shared memory (or goes after v when it does not
+//      fit there);
+//   3. the N x D output is cut into 32 x 64 tiles that the 8 warps share,
+//      so no warp holds more than 64 f32 accumulators: p.v by mma.sync
+//      with V read through ldmatrix.trans, rounded once to bf16, staged in
+//      k's buffer and written out as 16-byte stores.
+//   At (324, 128, 256) a block holds 198 KB (one block an SM, 2.5 waves
+//   over 132 SMs); at (324, 32, 512) 97.5 KB (two blocks an SM).
+//
+// cuda_core (float32, and bf16 shapes the tensor-core variant does not
+//   take): one block takes one batch index and a tile of kQT query rows;
+//   the q tile goes to shared memory (float), K and V are staged in
+//   chunks of kKC rows (float, rows padded by one word), the block's full
+//   rows of f32 logits stay in shared memory for the softmax, and p.v is
+//   accumulated in float registers.  At N = D = 512 it needs 192 KB.
 
 #include <math.h>
 
@@ -26,16 +46,23 @@
 
 namespace {
 
+enum : int { kCudaCore = 0, kTensorCore = 1 };  // ops/attention_kernel.py
+
+constexpr int kMaxN = 512;
+constexpr int kMaxD = 512;
+
+// ---------------------------------------------------------------------------
+// cuda_core variant
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
 constexpr int kQT = 16;                    // query rows per block
 constexpr int kKC = 64;                    // key/value rows per chunk
 constexpr int kGroups = kThreads / kKC;    // row groups in the logit pass
 constexpr int kRowsPer = kQT / kGroups;    // rows per thread there
-constexpr int kMaxN = 512;
-constexpr int kMaxD = 512;
 constexpr int kDPT = kMaxD / kThreads;     // output columns per thread
 
-size_t smem_bytes(int n, int d) {
+constexpr size_t smem_bytes(int n, int d) {
   return sizeof(float) * ((size_t)kQT * d + (size_t)kQT * n +
                           (size_t)kKC * (d + 1));
 }
@@ -149,35 +176,286 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int n, int d, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n, d);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+int launch_cuda_core(const void* q, const void* k, const void* v, void* o,
+                     int b, int n, int d, float scale, cudaStream_t stream) {
+  // the shared-memory limit is raised once per instantiation and device,
+  // for the largest shape
+  static std::atomic<int> opted_in[kMaxDevices];
+  const cudaError_t attr = smem_opt_in(
+      attention_kernel<T>, (int)smem_bytes(kMaxN, kMaxD), opted_in);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(b, (n + kQT - 1) / kQT);
-  attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  attention_kernel<T><<<grid, kThreads, smem_bytes(n, d), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n, d, scale);
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tensor_core variant (bf16)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcMaxN = 128;          // a warp's 16 x N logits: N/2 floats
+constexpr int kTcMaxKT = kTcMaxN / 8; //   a thread, in kTcMaxKT 8-key tiles
+constexpr int kPad = 8;               // bf16 row padding (16 bytes)
+
+// Shared-memory layout, in bf16 elements: q, k, v tiles of np rows of
+// ld = d + kPad, and p (np rows of ldp = np + kPad) over q when it fits
+// there, else after v.
+struct TcLayout {
+  int np, ld, ldp;
+  size_t k, v, p, bytes;
+};
+
+__host__ __device__ constexpr TcLayout tc_layout(int n, int d) {
+  const int np = (n + 15) & ~15;
+  const size_t tile = (size_t)np * (d + kPad);
+  const size_t pe = (size_t)np * (np + kPad);
+  const bool p_in_q = pe <= tile;
+  return TcLayout{np, d + kPad, np + kPad, tile, 2 * tile,
+                  p_in_q ? 0 : 3 * tile,
+                  2 * (3 * tile + (p_in_q ? 0 : pe))};
+}
+
+constexpr bool tc_takes(int n, int d) {
+  return n <= kTcMaxN && d % 16 == 0 && d <= kMaxD &&
+         tc_layout(n, d).bytes <= (size_t)kMaxBlockSmem;
+}
+
+static_assert(tc_takes(128, 256) && tc_takes(32, 512) &&
+                  tc_layout(128, 256).bytes == 202752,
+              "main-path shapes must take the tensor-core variant");
+
+__device__ __forceinline__ void zero16(bf16* p) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(0, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+attention_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, int n,
+                    int d, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TcLayout L = tc_layout(n, d);
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + L.k;
+  bf16* vs = qs + L.v;
+  bf16* ps = qs + L.p;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c4 = lane & 3;  // fragment row, column pair
+  const size_t base = (size_t)blockIdx.x * n * d;
+  const int vpr = d / 8;                   // 16-byte vectors a row
+
+  // 1. q and k (group 0), then v (group 1); rows n..np-1 are zero
+  for (int idx = tid; idx < L.np * vpr; idx += kTcThreads) {
+    const int r = idx / vpr, c = (idx - r * vpr) * 8;
+    if (r < n) {
+      cp_async16(qs + r * L.ld + c, q + base + (size_t)r * d + c);
+      cp_async16(ks + r * L.ld + c, k + base + (size_t)r * d + c);
+    } else {
+      zero16(qs + r * L.ld + c);
+      zero16(ks + r * L.ld + c);
+    }
+  }
+  cp_async_commit();
+  for (int idx = tid; idx < L.np * vpr; idx += kTcThreads) {
+    const int r = idx / vpr, c = (idx - r * vpr) * 8;
+    if (r < n)
+      cp_async16(vs + r * L.ld + c, v + base + (size_t)r * d + c);
+    else
+      zero16(vs + r * L.ld + c);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // 2. logits of rows r0..r0+15 against every key, in registers:
+  //    s[j] is the 16 x 8 tile of keys 8j..8j+7
+  const int r0 = 16 * warp;
+  const bool has_rows = r0 < L.np;
+  float s[kTcMaxKT][4];
+#pragma unroll
+  for (int j = 0; j < kTcMaxKT; ++j)
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  if (has_rows) {
+    const bf16* qa = qs + (r0 + (lane & 15)) * L.ld + (lane >> 4) * 8;
+    const bf16* kb = ks + ((lane & 7) + ((lane >> 4) << 3)) * L.ld +
+                     ((lane >> 3) & 1) * 8;
+    for (int k0 = 0; k0 < d; k0 += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qa + k0);
+#pragma unroll
+      for (int j = 0; j < kTcMaxKT / 2; ++j) {
+        if (16 * j < L.np) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kb + 16 * j * L.ld + k0);
+          mma_bf16_16816(s[2 * j], a, b[0], b[1]);
+          mma_bf16_16816(s[2 * j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    // exact softmax of rows g (elements 0, 1) and g + 8 (2, 3); a row's
+    // keys are spread over the 4 lanes of a quad
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kTcMaxKT; ++j) {
+      if (8 * j < L.np) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * j + 2 * c4 + (e & 1);
+          s[j][e] = key < n ? s[j][e] * scale : -INFINITY;
+        }
+        m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
+        m_hi = fmaxf(m_hi, fmaxf(s[j][2], s[j][3]));
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
+      m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
+    }
+    float l_lo = 0.f, l_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTcMaxKT; ++j) {
+      if (8 * j < L.np) {
+        s[j][0] = expf(s[j][0] - m_lo);
+        s[j][1] = expf(s[j][1] - m_lo);
+        s[j][2] = expf(s[j][2] - m_hi);
+        s[j][3] = expf(s[j][3] - m_hi);
+        l_lo += s[j][0] + s[j][1];
+        l_hi += s[j][2] + s[j][3];
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+#pragma unroll
+    for (int j = 0; j < kTcMaxKT; ++j) {
+      s[j][0] /= l_lo;
+      s[j][1] /= l_lo;
+      s[j][2] /= l_hi;
+      s[j][3] /= l_hi;
+    }
+  }
+  __syncthreads();  // every warp is done with q before p overwrites it
+  if (has_rows) {
+    uint32_t* lo = reinterpret_cast<uint32_t*>(ps + (r0 + g) * L.ldp +
+                                               2 * c4);
+    uint32_t* hi = reinterpret_cast<uint32_t*>(ps + (r0 + g + 8) * L.ldp +
+                                               2 * c4);
+#pragma unroll
+    for (int j = 0; j < kTcMaxKT; ++j) {
+      if (8 * j < L.np) {
+        lo[4 * j] = pack_bf16x2(s[j][0], s[j][1]);
+        hi[4 * j] = pack_bf16x2(s[j][2], s[j][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 3. o = p v in 32 x 64 tiles (two 16-row halves x eight 8-column
+  //    tiles), staged as bf16 in k's buffer
+  const int n_ct = (d + 63) / 64;
+  const int n_tiles = ((L.np + 31) / 32) * n_ct;
+  for (int t = warp; t < n_tiles; t += kTcWarps) {
+    const int rb = (t / n_ct) * 32, cb = (t % n_ct) * 64;
+    const bool two = rb + 16 < L.np;
+    float acc[2][8][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0.f;
+    const bf16* pa = ps + (rb + (lane & 15)) * L.ldp + (lane >> 4) * 8;
+    const bf16* vb = vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * L.ld + cb +
+                     (lane >> 4) * 8;
+    for (int k0 = 0; k0 < L.np; k0 += 16) {
+      uint32_t a0[4], a1[4];
+      ldmatrix_x4(a0, pa + k0);
+      if (two) ldmatrix_x4(a1, pa + 16 * L.ldp + k0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (cb + 16 * j < d) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vb + k0 * L.ld + 16 * j);
+          mma_bf16_16816(acc[0][2 * j], a0, b[0], b[1]);
+          mma_bf16_16816(acc[0][2 * j + 1], a0, b[2], b[3]);
+          if (two) {
+            mma_bf16_16816(acc[1][2 * j], a1, b[0], b[1]);
+            mma_bf16_16816(acc[1][2 * j + 1], a1, b[2], b[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !two) break;
+      const int row = rb + 16 * h + g;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = cb + 8 * j + 2 * c4;
+        if (cb + 8 * j < d) {
+          *reinterpret_cast<uint32_t*>(ks + row * L.ld + c) =
+              pack_bf16x2(acc[h][j][0], acc[h][j][1]);
+          *reinterpret_cast<uint32_t*>(ks + (row + 8) * L.ld + c) =
+              pack_bf16x2(acc[h][j][2], acc[h][j][3]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < n * vpr; idx += kTcThreads) {
+    const int r = idx / vpr, c = (idx - r * vpr) * 8;
+    *reinterpret_cast<uint4*>(o + base + (size_t)r * d + c) =
+        *reinterpret_cast<const uint4*>(ks + r * L.ld + c);
+  }
+}
+
+int launch_tensor_core(const void* q, const void* k, const void* v, void* o,
+                       int b, int n, int d, float scale,
+                       cudaStream_t stream) {
+  static std::atomic<int> opted_in[kMaxDevices];
+  const cudaError_t attr =
+      smem_opt_in(attention_kernel_tc, kMaxBlockSmem, opted_in);
+  if (attr != cudaSuccess) return (int)attr;
+  attention_kernel_tc<<<b, kTcThreads, tc_layout(n, d).bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), n, d, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k, v, o: device pointers to contiguous (b, n, d) arrays of one dtype.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// q, k, v, o: device pointers to contiguous (b, n, d) arrays of one dtype;
+// variant: 0 cuda_core, 1 tensor_core (bf16 only, within the limits in
+// the header of this file).  A variant that cannot take the call is an
+// error, never a fallback.  Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int tmt_window_attention(const void* q, const void* k,
                                     const void* v, void* o, int b, int n,
                                     int d, float scale, int dtype,
-                                    void* stream) {
+                                    int variant, void* stream) {
   if (b <= 0 || n <= 0 || d <= 0 || n > kMaxN || d > kMaxD)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  if (variant == kTensorCore) {
+    if (dtype != kBFloat16 || !tc_takes(n, d) || !aligned16(q) ||
+        !aligned16(k) || !aligned16(v) || !aligned16(o))
+      return (int)cudaErrorInvalidValue;
+    return launch_tensor_core(q, k, v, o, b, n, d, scale, s);
+  }
+  if (variant != kCudaCore) return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case kFloat32: return launch<float>(q, k, v, o, b, n, d, scale, s);
+    case kFloat32:
+      return launch_cuda_core<float>(q, k, v, o, b, n, d, scale, s);
     case kBFloat16:
-      return launch<__nv_bfloat16>(q, k, v, o, b, n, d, scale, s);
+      return launch_cuda_core<bf16>(q, k, v, o, b, n, d, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

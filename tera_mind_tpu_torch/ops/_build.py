@@ -5,8 +5,11 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  The library lands in ``tera_mind_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, and is built at
 first use.  Each ``extern "C"`` entry point takes device pointers and the
-stream as ``void*``, returns ``cudaGetLastError()`` after its launch, and
-the Python wrapper raises when that is not 0.
+stream as ``void*`` and the variant the wrapper chose as an ``int``,
+returns ``cudaGetLastError()`` after its launch, and the Python wrapper
+raises when that is not 0.  ``ptxas`` reports each kernel's registers,
+shared memory and spills (``-Xptxas -v``); ``build_log`` keeps that report
+of the last build and ``ptxas_report`` condenses it.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,20 +31,22 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh codes
 
 _ptr, _int, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 SIGNATURES = {
-    "tmt_rmsnorm": [_ptr, _ptr, _ptr, _i64, _int, _f32, _int, _ptr],
+    "tmt_rmsnorm": [_ptr, _ptr, _ptr, _i64, _int, _f32, _int, _int, _ptr],
     "tmt_window_attention": [_ptr, _ptr, _ptr, _ptr, _int, _int, _int,
-                             _f32, _int, _ptr],
+                             _f32, _int, _int, _ptr],
 }
 
 _lib = None
 _lock = threading.Lock()
 build_seconds = None   # wall time of the last build (None: loaded cached)
+build_log = ""         # nvcc's and ptxas's output of the last build
 
 
 def sources() -> list[Path]:
@@ -69,7 +75,7 @@ def lib_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the hashed .so (no-op if it exists)."""
-    global build_seconds
+    global build_seconds, build_log
     out = lib_path()
     if out.exists():
         return out
@@ -82,12 +88,34 @@ def build() -> Path:
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
     if res.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent build sees a whole file
     return out
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel of ``log``: its mangled name (which
+    holds the kernel's name), registers, and spill stores/loads."""
+    rows, name, spills = [], None, "spills not reported"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), "spills not reported"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = f"spill {m.group(1)}/{m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, {spills}")
+            name = None
+    return rows
 
 
 def lib() -> ctypes.CDLL:

@@ -6,14 +6,20 @@ batch, heads and the 2x2 spatial windows folded into B; on the flagship
 path N is 128 or 32 and D is 256 or 512, in bf16.  The model's scale is
 ``1 / head_dim`` (not 1/sqrt), passed by the caller.
 
-The TPU kernel keeps one batch index's q, k, v and N x N logits in VMEM,
-which does not fit a Hopper block's 227 KB at N = 128, D = 256.  The CUDA
-kernel (``csrc/attention.cu``) takes one batch index and 16 query rows per
-block, stages K and V through shared memory in chunks of 64 rows, and
-keeps the block's full rows of f32 logits on chip, so the softmax is the
-TPU's exact two-pass form (max-subtract, normalise, then round p to v's
-dtype) with no online rescaling.  It runs on CUDA cores, so it is bound by
-operations (4*B*N*N*D) rather than by the bytes it moves.
+Every variant keeps the TPU kernel's rounding: f32 logits, the exact
+softmax (max-subtract, exp, divide by the row sum), p rounded to v's dtype
+after it is normalised, f32 accumulation of p.v, one rounding of the
+output.  ``attention_variant`` picks the variant from dtype, shape and
+alignment before the launch (``csrc/attention.cu`` holds the designs):
+
+- ``tensor_core``: bf16 with D % 16 == 0, N <= 128, 16-byte aligned
+  q, k, v, and ``tc_smem_bytes(N, D)`` within a block's 227 KB.  One block
+  per batch index keeps q, k, v in shared memory as bf16, computes q.k^T
+  and p.v with ``mma.sync`` on the tensor cores and the softmax in
+  registers.  All three main-path shapes take it.
+- ``cuda_core``: everything else (float32; bf16 with N > 128, D not a
+  multiple of 16, or too large for shared memory).  Float arithmetic on
+  CUDA cores, 16 query rows per block, logits in shared memory.
 """
 
 from __future__ import annotations
@@ -24,8 +30,40 @@ from . import _build
 
 MAX_N = 512
 MAX_D = 512
+TC_MAX_N = 128
+SMEM_LIMIT = 232_448       # bytes of shared memory a block may use (H100)
+VARIANTS = ("cuda_core", "tensor_core")   # csrc/attention.cu codes
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    for name in VARIANTS:
+        launches_by_variant[name] = 0
+
+
+def tc_smem_bytes(n: int, d: int) -> int:
+    """Shared memory of the tensor-core variant (``tc_layout`` in
+    csrc/attention.cu): q, k, v tiles of round16(N) rows of D + 8 bf16,
+    and p (round16(N) rows of round16(N) + 8) over q when it fits."""
+    np_ = (n + 15) // 16 * 16
+    tile = np_ * (d + 8)
+    p = np_ * (np_ + 8)
+    return 2 * (3 * tile + (0 if p <= tile else p))
+
+
+def attention_variant(n: int, d: int, dtype: torch.dtype,
+                      aligned: bool) -> str:
+    """The variant a CUDA call with these N, D, dtype and pointer
+    alignment (all 16-byte aligned or not) launches."""
+    if (dtype == torch.bfloat16 and aligned and n <= TC_MAX_N
+            and d % 16 == 0 and d <= MAX_D
+            and tc_smem_bytes(n, d) <= SMEM_LIMIT):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,11 +94,14 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0:
         return o
     code = _build.dtype_code(q, "window_attention")
+    variant = attention_variant(
+        n, d, q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v, o)))
     err = _build.lib().tmt_window_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, d,
-        scale, code, _build.stream_ptr(q))
-    _build.check(err, "tmt_window_attention")
+        scale, code, VARIANTS.index(variant), _build.stream_ptr(q))
+    _build.check(err, f"tmt_window_attention ({variant})")
     launches += 1
+    launches_by_variant[variant] += 1
     return o
 
 

@@ -2,11 +2,19 @@
 
 Replaces the Pallas TPU kernel ``tera_mind_tpu/ops/rmsnorm_kernel.py``
 (``rmsnorm_fused``, ``_kernel``).  On Hopper it is bound by memory: one
-read and one write of ``rows * C`` elements.  The CUDA kernel
-(``csrc/rmsnorm.cu``) gives each row one warp, so any row count and any C
-work (C here runs from 64 to 1253, e.g. 741 = 512 + 229) and the TPU
-kernel's fallback for rows that do not block has no counterpart: a CUDA
-tensor always goes through the kernel.
+read and one write of ``rows * C`` elements.  ``rmsnorm_variant`` picks
+one of two CUDA kernels (``csrc/rmsnorm.cu``) from C, dtype and pointer
+alignment before the launch:
+
+- ``vector``: C % 8 == 0, a row of at most 2,048 bytes (C <= 1024 in bf16,
+  512 in float32), and x, w, y 16-byte aligned.  A group of lanes sized to
+  C holds the row in registers from 16-byte loads, reduces it with warp
+  shuffles and writes y from the same registers.
+- ``strided``: any other C (741 and 1,253 on the main path) or pointer;
+  one warp per row with a strided loop.
+
+Any row count works, so the TPU kernel's fallback for rows that do not
+block has no counterpart: a CUDA tensor always goes through a kernel.
 
 Statistics are float32.  For bf16 the rounding follows the TPU kernel
 (inv and w cast to bf16 before the two multiplies); for float32 the
@@ -19,7 +27,26 @@ import torch
 
 from . import _build
 
+VEC_MAX_ROW_BYTES = 2048   # csrc/rmsnorm.cu kVecMaxBytes
+VARIANTS = ("strided", "vector")   # csrc/rmsnorm.cu codes
+
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    for name in VARIANTS:
+        launches_by_variant[name] = 0
+
+
+def rmsnorm_variant(c: int, itemsize: int, aligned: bool) -> str:
+    """The variant a CUDA call with rows of C elements of ``itemsize``
+    bytes launches; ``aligned``: x, w and y all start on 16 bytes."""
+    if aligned and c % 8 == 0 and c * itemsize <= VEC_MAX_ROW_BYTES:
+        return "vector"
+    return "strided"
 
 
 def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -47,11 +74,15 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
     if x2.shape[0] == 0:
         return y.reshape(x.shape)
     code = _build.dtype_code(x, "rmsnorm")
+    variant = rmsnorm_variant(
+        c, x.element_size(), all(t.data_ptr() % 16 == 0 for t in (x2, w, y)))
     err = _build.lib().tmt_rmsnorm(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
                                    x2.shape[0], c, eps, code,
+                                   VARIANTS.index(variant),
                                    _build.stream_ptr(x))
-    _build.check(err, "tmt_rmsnorm")
+    _build.check(err, f"tmt_rmsnorm ({variant})")
     launches += 1
+    launches_by_variant[variant] += 1
     return y.reshape(x.shape)
 
 

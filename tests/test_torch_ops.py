@@ -81,11 +81,13 @@ def test_attention_plain_matches_jax(b, n, d):
 def test_wrappers_route_cpu_to_plain_and_count_no_launch():
     x, w = torch.from_numpy(randn(8, 5, 3, 24)), torch.ones(24)
     q = torch.from_numpy(randn(9, 2, 16, 8))
-    before = (k1.launches, k2.launches)
+    before = (k1.launches, k2.launches, dict(k1.launches_by_variant),
+              dict(k2.launches_by_variant))
     assert torch.equal(k1.rmsnorm(x, w), k1.rmsnorm_plain(x, w))
     assert torch.equal(k2.window_attention(q, q, q, 0.125),
                        k2.attention_plain(q, q, q, 0.125))
-    assert (k1.launches, k2.launches) == before
+    assert (k1.launches, k2.launches, k1.launches_by_variant,
+            k2.launches_by_variant) == before
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
@@ -121,12 +123,123 @@ def test_build_is_plain_nvcc_without_torch_headers():
     assert path.name.startswith("libtmt_kernels_") and path.suffix == ".so"
 
 
+MAIN_K2 = [(324, 128, 256), (256, 128, 256), (324, 32, 512)]
+
+
+@pytest.mark.parametrize("b,n,d", MAIN_K2 + [(5, 100, 48)])
+def test_attention_routes_main_path_bf16_to_tensor_cores(b, n, d):
+    assert k2.attention_variant(n, d, torch.bfloat16, True) == "tensor_core"
+    # the same shapes in f32, or misaligned, stay on CUDA cores
+    assert k2.attention_variant(n, d, torch.float32, True) == "cuda_core"
+    assert k2.attention_variant(n, d, torch.bfloat16, False) == "cuda_core"
+
+
+@pytest.mark.parametrize("n,d", [(17, 130), (512, 512), (129, 64),
+                                 (128, 512), (16, 520)])
+def test_attention_routes_other_bf16_shapes_to_cuda_cores(n, d):
+    """D not a multiple of 16, N above 128, or q, k, v over 227 KB of
+    shared memory (N = 128, D = 512 needs 390 KB)."""
+    assert k2.attention_variant(n, d, torch.bfloat16, True) == "cuda_core"
+
+
+def test_tensor_core_smem_matches_the_kernels_layout():
+    src = (_build.CSRC / "attention.cu").read_text()
+    common = (_build.CSRC / "common.cuh").read_text()
+    assert f"kTcMaxN = {k2.TC_MAX_N};" in src
+    assert f"kMaxBlockSmem = {k2.SMEM_LIMIT};" in common
+    assert "tc_layout(128, 256).bytes == 202752" in src
+    assert k2.tc_smem_bytes(128, 256) == 202_752   # p over q
+    assert k2.tc_smem_bytes(32, 512) == 99_840     # two blocks an SM
+    # N = 100 pads to 112 rows; p (112 x 120) does not fit over q (112 x 56)
+    assert k2.tc_smem_bytes(100, 48) == 2 * (3 * 112 * 56 + 112 * 120)
+
+
+def test_rmsnorm_routes_by_channels_and_alignment():
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    assert f"kVecMaxBytes = 32 * kVecMax * 16;" in src
+    assert "kVecMax = 4;" in src and k1.VEC_MAX_ROW_BYTES == 32 * 4 * 16
+    for c in (96, 64, 8, 264, 1024):
+        assert k1.rmsnorm_variant(c, 2, True) == "vector", c
+    for c in (741, 1253, 2050, 33, 1):
+        assert k1.rmsnorm_variant(c, 2, True) == "strided", c
+    assert k1.rmsnorm_variant(96, 2, False) == "strided"      # misaligned
+    assert k1.rmsnorm_variant(1032, 2, True) == "strided"     # > 2 KB a row
+    assert k1.rmsnorm_variant(512, 4, True) == "vector"       # f32
+    assert k1.rmsnorm_variant(520, 4, True) == "strided"
+
+
+def test_main_path_norms_with_c_multiple_of_8_take_the_vector_variant():
+    """Every RMSNorm of the 638850 model whose C % 8 == 0 fits the vector
+    variant in bf16, the count chip_smoke.py expects of the main path."""
+    from tera_mind_tpu_torch.config import prep_config
+    from tera_mind_tpu_torch.models.nn import RMSNorm
+    with torch.device("meta"):
+        model = prep_config("638850").make_model_conf().make_model()
+    widths = [m.weight.numel() for m in model.modules()
+              if isinstance(m, RMSNorm)]
+    vec = [c for c in widths if k1.rmsnorm_variant(c, 2, True) == "vector"]
+    assert len(widths) == 83
+    assert vec == [c for c in widths if c % 8 == 0] and len(vec) == 77
+    assert sorted({c for c in widths if c % 8}) == [485, 741, 997, 1253]
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119attention_kernel_tcEPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119attention_kernel_tcEPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 0 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z14rmsnorm_kernelIfEvPKfS1_Pfxif' for 'sm_90a'
+ptxas info    : Function properties for _Z14rmsnorm_kernelIfEvPKfS1_Pfxif
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 30 registers, 400 bytes cmem[0]
+"""
+    assert _build.ptxas_report(log) == [
+        "_ZN12_GLOBAL__N_119attention_kernel_tcEPK13__nv_bfloat16: "
+        "122 registers, spill 0/0 B",
+        "_Z14rmsnorm_kernelIfEvPKfS1_Pfxif: 30 registers, spill 4/12 B"]
+    assert "-v" in _build.NVCC_FLAGS
+
+
+def test_chip_smoke_input_sets_exceed_the_l2():
+    import chip_smoke as cs
+    x = torch.zeros(4)
+    assert len(cs.input_sets((x,), 300 * 2 ** 20)) == 1
+    sets = cs.input_sets((x, x), 3 * 2 ** 20)
+    assert len(sets) == 34 and sets[0][0] is x
+    assert all(s[0] is not x and torch.equal(s[0], x) for s in sets[1:])
+
+
 def _k2_f64_sums(q, k, v, scale):
     """A correct K2 whose f32 sums run in another order (f64, rounded)."""
     logits = torch.matmul(q.double(), k.double().transpose(-1, -2)).float()
     e = torch.exp(logits * scale - (logits * scale).amax(-1, keepdim=True))
     p = (e / e.double().sum(-1, keepdim=True).float()).to(v.dtype)
     return torch.matmul(p.double(), v.double()).float().to(q.dtype)
+
+
+def _chunked_f32(a, b):
+    """a @ b as tensor cores sum it: each chunk of 16 along the reduction
+    axis summed exactly (f64) and rounded to f32, the chunk sums added in
+    f32 in order."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 16):
+        acc = acc + torch.matmul(a[..., k0:k0 + 16].double(),
+                                 b[..., k0:k0 + 16, :].double()).float()
+    return acc
+
+
+def _k2_tensor_core_order(q, k, v, scale):
+    """A correct K2 whose products run in the tensor-core kernel's order:
+    q.k^T and p.v in f32 chunks of 16, p normalised, then rounded."""
+    logits = _chunked_f32(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(v.dtype)
+    return _chunked_f32(p, v).to(q.dtype)
+
+
+CORRECT_K2 = {"f64 sums": _k2_f64_sums,
+              "tensor-core order": _k2_tensor_core_order}
 
 
 def _to_bf16_toward_zero(x):
@@ -148,20 +261,64 @@ def _k2_faults(q, k, v, scale):
     }
 
 
+@pytest.mark.parametrize("correct", list(CORRECT_K2))
 @pytest.mark.parametrize("peaked", [False, True])
 @pytest.mark.parametrize("n,d", [(128, 256), (32, 512)])
-def test_chip_smoke_k2_check_separates_reorder_from_faults(n, d, peaked):
+def test_chip_smoke_k2_check_separates_reorder_from_faults(n, d, peaked,
+                                                          correct):
     """chip_smoke.py's bf16 check of K2 passes a correct version whose sums
-    run in another order and fails each fault a bf16 kernel could have, on
-    the main path's randn inputs and on peaked ones."""
+    run in another order (f64, or the tensor cores' chunks of 16) and
+    fails each fault a bf16 kernel could have, on the main path's randn
+    inputs and on peaked ones."""
     import chip_smoke as cs
     g = torch.Generator().manual_seed(n + d + peaked)
     q, k, v = cs.k2_inputs(g, 16, n, d, torch.bfloat16, "cpu", peaked)
     scale = 1.0 / d
     ref = k2.attention_plain(q, k, v, scale)
-    _, spacings, share = cs.require_k2(_k2_f64_sums(q, k, v, scale), ref,
-                                       "f64 sums")
+    _, spacings, share = cs.require_k2(CORRECT_K2[correct](q, k, v, scale),
+                                       ref, correct)
     assert spacings <= 1.0 and share <= 2e-3
     for fault, out in _k2_faults(q, k, v, scale).items():
         with pytest.raises(cs.SmokeFailure):
             cs.require_k2(out, ref, fault)
+
+
+def _k1_vector_group(c, itemsize):
+    """The lanes a row gets in K1's vector variant: csrc/rmsnorm.cu's
+    launch_vector, which picks one instantiation per group size."""
+    nvec, g = c // (16 // itemsize), 1
+    while g < 32 and g * 4 < nvec:     # kVecMax = 4
+        g *= 2
+    return g
+
+
+def test_chip_smoke_times_main_path_shapes():
+    """The shapes chip_smoke.py checks and times are ones the main path
+    gives the kernels (scripts/kernel_shapes.py, one UNet call on the meta
+    device), every K2 shape of the main path is among them, and so is a
+    shape of every vector-variant instantiation (lane group G) of K1 that
+    the main path launches in bf16."""
+    import importlib.util
+
+    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "kernel_shapes", _build.PKG.parent / "scripts" / "kernel_shapes.py")
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    k1_shapes, k2_shapes = ks.per_call_shapes()
+    assert sum(k1_shapes.values()) == 83 and sum(k2_shapes.values()) == 6
+    assert set(cs.K1_SHAPES) <= set(k1_shapes)
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    assert "while (g < 32 && g * kVecMax < nvec) g *= 2;" in src
+    assert "kVecMax = 4;" in src
+
+    def groups(shapes):
+        return {_k1_vector_group(c, 2) for _, c in shapes
+                if k1.rmsnorm_variant(c, 2, True) == "vector"}
+    assert groups(k1_shapes) == {2, 4, 8, 16, 32}
+    assert groups(cs.K1_SHAPES) == groups(k1_shapes)
+    assert set(cs.K2_SHAPES) == set(k2_shapes)
+    # the stand-ins are gone again
+    x = torch.ones(2, 8)
+    assert torch.equal(k1.rmsnorm(x, torch.ones(8)), k1.rmsnorm_plain(
+        x, torch.ones(8)))

@@ -11,14 +11,23 @@ Phases, each printed on its own line with elapsed seconds:
      kernel, the plain version and one PyTorch library call doing the
      same function (a yardstick only: the port never calls it) on the
      device (CUDA graph replay), beside the card's bound for the work;
-  4. the port on a small input on the card (float32, kernels on) against
-     the same code on the CPU (plain versions);
-  5. the main path: ``cli.generate``'s code at the full width of the 638850
-     preset (2x2 tiles of 256^2 px x 100 channels, 15 DDIM steps, bf16,
-     block-major, window_chunk 1), one warm-up step, then one timed chain
-     with the kernels' launch counters (total and per variant) set to 0
-     just before it;
-  6. a ``{"kernels": [...]}`` line, then the card line, then the result.
+  4. the kernels' autograd guard: each wrapper refuses a CUDA input that
+     requires grad under grad mode (no backward kernels yet) and runs
+     under ``torch.no_grad()``;
+  5. the port on a small input on the card (float32, kernels on) against
+     the same code on the CPU (plain versions), for the 5D model; the
+     packed model (its weights packed from the 5D model's) on the card
+     against the CPU, against the 5D model and with ``packed_attn``;
+  6. resume on the card: the small packed chain spilled every step
+     through ``StateCheckpoint('grid')`` and resumed from its epoch-1
+     spill, against the uninterrupted chain;
+  7. the main path: ``cli.generate.build`` with its defaults (the packed
+     model) at the full width of the 638850 preset (2x2 tiles of 256^2 px
+     x 100 channels, 15 DDIM steps, bf16, block-major, window_chunk 1),
+     one warm-up step, then one timed chain with the kernels' launch
+     counters (total and per variant) set to 0 just before it; then the
+     same for the 5D model (``--no_packed``) on the same weights;
+  8. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
 nothing of JAX.
@@ -325,18 +334,85 @@ def check_kernels(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the port on a small input, card against CPU
+# phase 4: the kernels' autograd guard
+# ---------------------------------------------------------------------------
+
+def check_autograd_guard(device) -> None:
+    """Each kernel wrapper, as the model calls it, raises before the launch
+    on a CUDA input that requires grad while grad mode is on, and runs
+    the same call under ``torch.no_grad()``."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(256, 96, generator=g).to(device, torch.bfloat16)
+    w = torch.ones(96, device=device, dtype=torch.bfloat16)
+    q, k, v = (torch.randn(4, 32, 64, generator=g).to(device, torch.bfloat16)
+               for _ in range(3))
+    cases = (("rmsnorm", k1, k1.rmsnorm, (x, w), 0),
+             ("window_attention", k2, k2.window_attention,
+              (q, k, v, 1.0 / 64), 1))
+    for name, mod, fn, args, leaf in cases:
+        args = list(args)
+        args[leaf] = args[leaf].detach().requires_grad_(True)
+        before = mod.launches
+        refused = None
+        try:
+            fn(*args)
+        except RuntimeError as err:
+            refused = str(err)
+        require(refused is not None and "K1b and K2b" in refused,
+                f"{name} ran on an input that requires grad: {refused}")
+        require(mod.launches == before, f"{name} launched before refusing")
+        with torch.no_grad():
+            out = fn(*args)
+        torch.cuda.synchronize()
+        require(mod.launches == before + 1 and out.grad_fn is None
+                and bool(torch.isfinite(out.float()).all()),
+                f"{name} under no_grad: launches {mod.launches - before}")
+        log(f"{name}: refused under grad mode ({refused[:60]}...), "
+            "ran under no_grad")
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the port on a small input, card against CPU, and resume
 # ---------------------------------------------------------------------------
 
 SMALL_ATOL = 2e-3  # f32 on both sides (cuDNN TF32 off); conv algorithms
                    # and kernel sums reassociate, and the DDIM update at
                    # the largest t scales eps errors by sqrt(1/abar - 1)
+# The spill is float16: rounding moves each state value by up to 2^-11 of
+# it (2e-3 at |x| < 4, the state's range after one step), and the two
+# steps left carry that into the output scaled by up to 1/sqrt(abar) of
+# the remaining timesteps (under 2 here) plus the model's response; a
+# resume from the wrong step or state moves outputs by 0.1 or more.
+RESUME_ATOL = 1e-2
 
 
-def check_small_chain(device) -> float:
-    """A 2x2-tile, 3-step block-major chain of a narrow TeraUNet (the CPU
-    tests' config, every weight random) on the card with the kernels and
-    on the CPU with their plain versions; returns the max abs difference."""
+def small_setup():
+    """The CPU tests' narrow config: (model config, generator config,
+    gene grid of 2x2 tiles)."""
+    import numpy as np
+
+    from tera_mind_tpu_torch.models.unet import TeraUNetConfig
+    from tera_mind_tpu_torch.parallel.generator import GeneratorConfig
+
+    mconf = TeraUNetConfig(image_size=32, in_channels=2, out_channels=2,
+                           model_channels=8, embed_channels=32,
+                           num_res_blocks=1, attention_resolutions=(8,),
+                           rna_num=6, gn_sz=2, use_zero_module=False)
+    gconf = GeneratorConfig(tile=64, patch=32, gn_blk=16, snum=4,
+                            n_slices=4, stains=1, gdim=6, window_chunk=1)
+    gene = np.random.default_rng(9).integers(
+        0, 3, (2, 2, gconf.gsz, gconf.gsz, gconf.z_pad, gconf.gdim)
+    ).astype(np.uint8)
+    return mconf, gconf, gene
+
+
+def small_chain(model, device, gconf, gene, **run_kw):
+    """The 2x2-tile, 3-step block-major chain of ``model`` on ``device``."""
     import copy
 
     import numpy as np
@@ -345,42 +421,102 @@ def check_small_chain(device) -> float:
     from tera_mind_tpu_torch.diffusion.sampler import (DiffusionSampler,
                                                        SamplerConfig)
     from tera_mind_tpu_torch.diffusion.schedule import spaced_schedule
-    from tera_mind_tpu_torch.models.nn import channels_last_, init_weights
-    from tera_mind_tpu_torch.models.unet import TeraUNetConfig
-    from tera_mind_tpu_torch.parallel.generator import (GeneratorConfig,
-                                                        TeraGenerator)
+    from tera_mind_tpu_torch.models.nn import channels_last_
+    from tera_mind_tpu_torch.parallel.generator import TeraGenerator
 
-    mconf = TeraUNetConfig(image_size=32, in_channels=2, out_channels=2,
-                           model_channels=8, embed_channels=32,
-                           num_res_blocks=1, attention_resolutions=(8,),
-                           rna_num=6, gn_sz=2, use_zero_module=False)
-    gconf = GeneratorConfig(tile=64, patch=32, gn_blk=16, snum=4,
-                            n_slices=4, stains=1, gdim=6, window_chunk=1)
-    cpu_model = init_weights(mconf.make_model(), seed=3).eval()
-    gene = np.random.default_rng(9).integers(
-        0, 3, (2, 2, gconf.gsz, gconf.gsz, gconf.z_pad, gconf.gdim)
-    ).astype(np.uint8)
-    outs = []
-    for dev, model in ((torch.device("cpu"), cpu_model),
-                       (device, channels_last_(copy.deepcopy(cpu_model)
-                                               .to(device)))):
-        sampler = DiffusionSampler(spaced_schedule("linear", 1000, "ddim3"),
-                                   SamplerConfig(patch_size=32, gn_sz=2))
-        gen = TeraGenerator(
-            sampler, lambda xp, tm, rp, p1, p2, m=model: m(
-                xp, tm, rp, p1, p2, decode_original=False),
-            gconf, device=dev)
-        outs.append(gen.run(gene, row0=1, col0=1, grid_w=16,
-                            progress=False))
-    require(outs[1].shape == (128, 128, 4) and bool(np.isfinite(outs[1]).all()),
-            f"small chain output {outs[1].shape} not finite or misshapen")
-    err = float(np.abs(outs[1] - outs[0]).max())
-    require(err <= SMALL_ATOL, f"small chain card vs CPU: {err}")
+    if device.type == "cuda":
+        model = channels_last_(copy.deepcopy(model).to(device))
+    sampler = DiffusionSampler(spaced_schedule("linear", 1000, "ddim3"),
+                               SamplerConfig(patch_size=32, gn_sz=2))
+    gen = TeraGenerator(
+        sampler, lambda xp, tm, rp, p1, p2: model(
+            xp, tm, rp, p1, p2, decode_original=False),
+        gconf, device=device)
+    out = gen.run(gene, row0=1, col0=1, grid_w=16, progress=False, **run_kw)
+    require(out.shape == (128, 128, 4) and bool(np.isfinite(out).all()),
+            f"small chain output {out.shape} not finite or misshapen")
+    return out
+
+
+def check_small_chain(device) -> dict:
+    """The small chain of the 5D model (every weight random) and of the
+    packed model on the same weights: card against CPU for both, packed
+    against 5D and ``packed_attn`` against not on the card, each within
+    ``SMALL_ATOL``; returns the max abs differences and the packed
+    model's card output."""
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.convert import export_params, load_jax_params
+    from tera_mind_tpu_torch.models.nn import init_weights
+    from tera_mind_tpu_torch.models.unet_packed import (make_packed_model,
+                                                        pack_unet_params)
+
+    mconf, gconf, gene = small_setup()
+    model5 = init_weights(mconf.make_model(), seed=3).eval()
+    packed_tree = pack_unet_params(export_params(model5), mconf)
+    packed, packed_attn = (
+        load_jax_params(make_packed_model(mconf, packed_attn=pa),
+                        packed_tree).eval() for pa in (False, True))
+    cpu = torch.device("cpu")
+    out = {"5d_cpu": small_chain(model5, cpu, gconf, gene),
+           "5d": small_chain(model5, device, gconf, gene),
+           "packed_cpu": small_chain(packed, cpu, gconf, gene),
+           "packed": small_chain(packed, device, gconf, gene),
+           "packed_attn": small_chain(packed_attn, device, gconf, gene)}
+    errs = {}
+    for name, (a, b) in {"5d card vs CPU": ("5d", "5d_cpu"),
+                         "packed card vs CPU": ("packed", "packed_cpu"),
+                         "packed vs 5d on the card": ("packed", "5d"),
+                         "packed_attn vs packed on the card":
+                             ("packed_attn", "packed")}.items():
+        errs[name] = float(np.abs(out[a] - out[b]).max())
+        require(errs[name] <= SMALL_ATOL, f"small chain {name}: "
+                f"{errs[name]} > {SMALL_ATOL}")
+    return dict(errs=errs, packed=packed, out=out["packed"])
+
+
+def check_resume(device, packed, want) -> float:
+    """The small packed chain on the card, spilled every step into a
+    temporary directory and resumed from its epoch-1 spill (two steps
+    left), against the uninterrupted chain ``want``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tera_mind_tpu_torch.data.tilestore import StateCheckpoint
+
+    class KeepAll(StateCheckpoint):
+        """Keeps every spill, so epoch 1's outlives the run."""
+
+        def prune(self, keep_t):
+            pass
+
+    _, gconf, gene = small_setup()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spilled = small_chain(packed, device, gconf, gene,
+                              checkpoint=KeepAll(tmp / "run", "grid"),
+                              checkpoint_every=1)
+        require(sorted(p.name for p in tmp.iterdir()) == ["run_1", "run_2"],
+                f"spills {sorted(p.name for p in tmp.iterdir())}")
+        shutil.copytree(tmp / "run_1", tmp / "resume_1")
+        resumed = small_chain(packed, device, gconf, gene,
+                              checkpoint=StateCheckpoint(tmp / "resume",
+                                                         "grid"))
+    require(bool(np.array_equal(spilled, want)),
+            "spilling changed the chain's result")
+    err = float(np.abs(resumed - want).max())
+    require(err <= RESUME_ATOL, f"resume from epoch 1: {err} > {RESUME_ATOL}")
+    log(f"resume: mean |resumed - uninterrupted| "
+        f"{float(np.abs(resumed - want).mean()):.3g}")
     return err
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phase 7: the main path
 # ---------------------------------------------------------------------------
 
 def start_card_sampler() -> subprocess.Popen:
@@ -413,7 +549,19 @@ GRID = 2          # 2x2 tiles of 256^2 px x 100 channels
 STEPS = 15        # DDIM steps (eta 0)
 
 
-def run_main_path(device) -> dict:
+# launches per chain: K1 norms and K2 attentions per UNet call x 25
+# z-windows x 15 steps.  The packed model's 46 ResBlock and output norms
+# are GroupedRMSNorm (plain PyTorch), so K1 runs only in the 6 DiT blocks
+# (norm1, norm2, q_norm, k_norm) and the gene-gene block (q_norm, norm2).
+CHAIN_LAUNCHES = {
+    "packed": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
+    "5d": {"rmsnorm": 83 * 375, "window_attention": 6 * 375}}
+
+
+def run_main_path(device, packed: bool = True) -> dict:
+    """``cli.generate.build`` with its defaults (or ``--no_packed``), one
+    warm-up step, then the timed chain with the launch counters set to 0
+    just before it and read just after it."""
     import numpy as np
     import torch
 
@@ -423,13 +571,17 @@ def run_main_path(device) -> dict:
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
 
+    path = "packed" if packed else "5d"
     args = generate.parse_args(["--synthetic", "--hnm", str(GRID),
                                 "--wnm", str(GRID), "--tot_epoch",
-                                str(STEPS), "--device", str(device)])
+                                str(STEPS), "--device", str(device)]
+                               + ([] if packed else ["--no_packed"]))
     t0 = time.perf_counter()
     gen, model, gene, (row0, col0) = generate.build(args)
+    # K1 runs in every RMSNorm itself; its GroupedRMSNorm subclass is
+    # plain PyTorch
     norms = [m.weight.numel() for m in model.modules()
-             if isinstance(m, RMSNorm)]
+             if type(m) is RMSNorm]
     n_norm, n_vec = len(norms), sum(c % 8 == 0 for c in norms)
     n_attn = sum(isinstance(m, CrossAttention) for m in model.modules())
     calls = gen.conf.n_win // gen._wchunk() * STEPS
@@ -439,9 +591,9 @@ def run_main_path(device) -> dict:
                     "vector": n_vec * calls},
         "window_attention": {"cuda_core": 0,
                              "tensor_core": n_attn * calls}}
-    log(f"main path: 638850 TeraUNet "
+    log(f"main path [{path}]: 638850 {type(model).__name__} "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params "
-        f"bf16, {n_norm} RMSNorm ({n_vec} with C % 8 == 0) + {n_attn} "
+        f"bf16, {n_norm} K1 RMSNorm ({n_vec} with C % 8 == 0) + {n_attn} "
         f"CrossAttention per UNet call, "
         f"{calls} UNet calls per chain; built in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -469,28 +621,31 @@ def run_main_path(device) -> dict:
     got_variants = {"rmsnorm": dict(k1.launches_by_variant),
                     "window_attention": dict(k2.launches_by_variant)}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"chain: {GRID}x{GRID} tiles x {STEPS} steps in {secs:.2f} s = "
-        f"{GRID * GRID / secs:.5f} tiles/s; peak device memory "
-        f"{peak:.2f} GiB; launches {got} (expected {want}), by variant "
-        f"{got_variants} (expected {want_variants}); {card}")
+    log(f"chain [{path}]: {GRID}x{GRID} tiles x {STEPS} steps in "
+        f"{secs:.2f} s = {GRID * GRID / secs:.5f} tiles/s; peak device "
+        f"memory {peak:.2f} GiB; launches {got} (expected {want}), by "
+        f"variant {got_variants} (expected {want_variants}); {card}")
 
     require(out.shape == (GRID * 256, GRID * 256, 100), f"shape {out.shape}")
     require(bool(np.isfinite(out).all()), "non-finite output")
     require(out.min() >= -1.0 and out.max() <= 1.0,
             f"output outside [-1, 1]: [{out.min()}, {out.max()}]")
     require(got == want, f"launches {got}, expected {want}")
-    require(want == {"rmsnorm": 31_125, "window_attention": 2_250},
-            f"per-chain launch counts {want} differ from the model's 83 "
-            "norms and 6 attentions x 25 windows x 15 steps")
+    require(want == CHAIN_LAUNCHES[path],
+            f"per-chain launch counts {want} differ from the {path} "
+            f"model's {CHAIN_LAUNCHES[path]}")
     require(got_variants == want_variants,
             f"launches by variant {got_variants}, expected {want_variants}")
     log(f"output {out.shape} in [{out.min():.4f}, {out.max():.4f}], "
         f"mean {out.mean():.4f}, std {out.std():.4f}")
+    del gen, model
+    torch.cuda.empty_cache()
     return dict(launches=got, variants=got_variants, seconds=secs,
-                tiles_per_s=GRID * GRID / secs, peak_gib=peak)
+                tiles_per_s=GRID * GRID / secs, peak_gib=peak, out=out)
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -518,10 +673,20 @@ def main() -> int:
         log(f"ptxas: {line}")
 
     rows = check_kernels(device)
-    err = check_small_chain(device)
-    log(f"small chain card vs CPU: max_abs_err {err:.3g} "
-        f"(tol {SMALL_ATOL})")
-    main_path = run_main_path(device)
+    check_autograd_guard(device)
+    small = check_small_chain(device)
+    for name, err in small["errs"].items():
+        log(f"small chain {name}: max_abs_err {err:.3g} (tol {SMALL_ATOL})")
+    err = check_resume(device, small["packed"], small["out"])
+    log(f"resume from the epoch-1 float16 spill vs uninterrupted: "
+        f"max_abs_err {err:.3g} (tol {RESUME_ATOL})")
+    chains = {"packed": run_main_path(device, packed=True),
+              "5d": run_main_path(device, packed=False)}
+    diff = np.abs(chains["packed"].pop("out") - chains["5d"].pop("out"))
+    log(f"full-width bf16 outputs, packed vs 5d on the same weights and "
+        f"noise: max |d| {diff.max():.4g}, mean |d| {diff.mean():.4g} "
+        "(informative; the small f32 chain is the gate)")
+    main_path = chains["packed"]
 
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
                            "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
@@ -529,11 +694,15 @@ def main() -> int:
                                     "tera_mind_tpu/ops/attention_kernel.py:62")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        r = rows[name][0]   # the main path's largest shape
+        r = rows[name][0]   # the largest shape the kernel gets
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": main_path["launches"][name],
                         "launches_by_variant": main_path["variants"][name],
+                        "launches_by_path": {
+                            path: {"launches": c["launches"][name],
+                                   "by_variant": c["variants"][name]}
+                            for path, c in chains.items()},
                         "max_abs_err": max(x["max_abs_err"]
                                            for x in rows[name]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -542,7 +711,11 @@ def main() -> int:
                         "shapes": rows[name]})
     print(json.dumps({"kernels": kernels, "chain_seconds":
                       main_path["seconds"], "tiles_per_s":
-                      main_path["tiles_per_s"]}), flush=True)
+                      main_path["tiles_per_s"],
+                      "chains": {p: {k: c[k] for k in ("seconds",
+                                                       "tiles_per_s",
+                                                       "peak_gib")}
+                                 for p, c in chains.items()}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

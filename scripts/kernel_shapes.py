@@ -1,10 +1,11 @@
 """The shapes the main path gives K1 and K2, and how often, per chain.
 
-    python scripts/kernel_shapes.py
+    python scripts/kernel_shapes.py [--no_packed]
 
 Runs one UNet call of the 638850 preset (bf16, 9x9 patches of 64^2 px,
-collage decoder only, as ``cli.generate`` calls it) on PyTorch's ``meta``
-device, with K1 and K2 replaced by stand-ins that record their input
+collage decoder only, as ``cli.generate`` calls it: the z-packed
+``PackedTeraUNet`` by default, the 5D ``TeraUNet`` with ``--no_packed``)
+on PyTorch's ``meta`` device, with K1 and K2 replaced by stand-ins that record their input
 shapes: no data, no card, about a second on a CPU.  Prints each
 (rows, C) of K1 and (B, N, D) of K2 with its launches per UNet call and
 per chain (one call per z-window per step of chip_smoke.py's chain),
@@ -16,6 +17,7 @@ in scripts/profile_torch_step.py.
 
 from __future__ import annotations
 
+import argparse
 import sys
 from collections import Counter
 from contextlib import contextmanager
@@ -29,6 +31,8 @@ from chip_smoke import STEPS  # noqa: E402
 from tera_mind_tpu_torch.config import prep_config  # noqa: E402
 from tera_mind_tpu_torch.models import attention as attention_mod  # noqa: E402
 from tera_mind_tpu_torch.models import nn as nn_mod  # noqa: E402
+from tera_mind_tpu_torch.models.unet_packed import (  # noqa: E402
+    make_packed_model)
 from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
     attention_variant)
 from tera_mind_tpu_torch.ops.rmsnorm_kernel import rmsnorm_variant  # noqa: E402
@@ -57,13 +61,14 @@ def recording(k1: Counter, k2: Counter):
         nn_mod.rmsnorm, attention_mod.window_attention = saved
 
 
-def per_call_shapes() -> tuple[Counter, Counter]:
+def per_call_shapes(packed: bool = True) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one UNet
-    call on the main path."""
+    call on the main path (the packed model, or the 5D one)."""
     conf = prep_config("638850").make_model_conf()
     k1, k2 = Counter(), Counter()
     with recording(k1, k2), torch.device("meta"):
-        model = conf.make_model().to(torch.bfloat16)
+        model = make_packed_model(conf) if packed else conf.make_model()
+        model = model.to(torch.bfloat16)
         p = conf.image_size
         x = torch.empty(PATCHES ** 2, p, p, conf.in_channels)
         rna = torch.empty(PATCHES ** 2, conf.gn_sz, conf.gn_sz,
@@ -74,8 +79,13 @@ def per_call_shapes() -> tuple[Counter, Counter]:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--no_packed", action="store_true",
+                    help="the 5D TeraUNet instead of the packed model")
+    args = ap.parse_args()
     calls = STEPS * WINDOWS
-    k1, k2 = per_call_shapes()
+    k1, k2 = per_call_shapes(packed=not args.no_packed)
+    print("PackedTeraUNet" if not args.no_packed else "TeraUNet (5D)")
     for name, counts in (("K1 rmsnorm (rows, C)", k1),
                          ("K2 window_attention (B, N, D)", k2)):
         print(f"{name}: {sum(counts.values())} per UNet call, "

@@ -2,9 +2,9 @@
 
 Port of ``tera_mind_tpu/config.py``: ``TrainConfig`` with the fields the
 generation slice reads, the canonical preset ``prep_config`` (reference
-config_parm.py:5-59) and the model / eval-sampler factories.  Only the
-``ours`` model is ported; training, data-loading and run-naming fields
-come with the slices that read them.
+config_parm.py:5-59), ``config_from_name`` and the model / eval-sampler
+factories.  Only the ``ours`` model is ported; training, data-loading and
+run-naming fields come with the slices that read them.
 """
 
 from __future__ import annotations
@@ -99,3 +99,20 @@ def prep_config(mouse: str, *, size: int = 64, stain: str = "all",
         nrna = 229 if mouse == "638850" else 500
     return TrainConfig(mouse=mouse, image_size=size, stain=stain,
                        rna_num=nrna, rna_slices=srna)
+
+
+def config_from_name(name: str) -> TrainConfig:
+    """Re-derive a config from a run or checkpoint directory name,
+    ``{mouse}_{size}_{nrna}_{stain}_{srna}[_{method}]`` (reference
+    test_brn.py:337-344).  Only the ``ours`` method is ported."""
+    parts = name.split("_")
+    if len(parts) < 5:
+        raise ValueError(f"run name {name!r} is not "
+                         "mouse_size_nrna_stain_srna[_method]")
+    mouse, size, nrna, stain, srna = parts[:5]
+    method = parts[5] if len(parts) > 5 else "ours"
+    if method != "ours":
+        raise NotImplementedError(f"method {method!r}: only 'ours' is "
+                                  "ported (the baselines are not)")
+    return prep_config(mouse, size=int(size), stain=stain, nrna=int(nrna),
+                       srna=int(srna))

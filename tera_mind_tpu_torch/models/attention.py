@@ -1,7 +1,7 @@
 """Attention blocks: DiT-style adaLN image->gene cross-attention with 2x2
 spatial windowing, and the symmetric gene-gene attention block.
 
-Port of ``tera_mind_tpu/models/attention.py`` ("zhw" token order).
+Port of ``tera_mind_tpu/models/attention.py`` (both token orders).
 Logits are ``(q . k) / d``, NOT ``/ sqrt(d)`` (the reference's scaling
 quirk).  The windowed cross-attention runs K2
 (``ops/attention_kernel``) on CUDA tensors.
@@ -19,35 +19,52 @@ from ..ops.attention_kernel import window_attention
 from .nn import Conv3d, Dense, Mlp, RMSNorm, modulate
 
 
-def _window_fold(t: torch.Tensor, z: int, n_win: int) -> torch.Tensor:
-    """(B, heads, n, d) -> (B, heads*n_win^2, z*(h/n)*(w/n), d), tokens in
-    (z, h, w) order, windows head-major."""
+def _window_fold(t: torch.Tensor, z: int, n_win: int,
+                 order: str = "zhw") -> torch.Tensor:
+    """(B, heads, n, d) -> (B, heads*n_win^2, z*(h/n)*(w/n), d), windows
+    head-major.  ``order`` is the incoming token order: 'zhw' (5D layout,
+    token (zi*h + hr)*w + wc) or 'hwz' (z-packed layout, token
+    (hr*w + wc)*z + zi, a reshape of the z-major packed channels); tokens
+    keep that order inside a window."""
     b, nh, n, d = t.shape
     s = int(round((n // z) ** 0.5))
     hw = s // n_win
-    t = t.reshape(b, nh, z, n_win, hw, n_win, hw, d)
-    t = t.permute(0, 1, 3, 5, 2, 4, 6, 7)  # b nh n_h n_w z h w d
+    if order == "hwz":
+        t = t.reshape(b, nh, n_win, hw, n_win, hw, z, d)
+        t = t.permute(0, 1, 2, 4, 3, 5, 6, 7)  # b nh n_h n_w h w z d
+    else:
+        t = t.reshape(b, nh, z, n_win, hw, n_win, hw, d)
+        t = t.permute(0, 1, 3, 5, 2, 4, 6, 7)  # b nh n_h n_w z h w d
     return t.reshape(b, nh * n_win * n_win, z * hw * hw, d)
 
 
-def _window_unfold(t: torch.Tensor, z: int, n_win: int,
-                   num_heads: int) -> torch.Tensor:
+def _window_unfold(t: torch.Tensor, z: int, n_win: int, num_heads: int,
+                   order: str = "zhw") -> torch.Tensor:
     """Inverse of :func:`_window_fold`."""
     b, nhw, n, d = t.shape
     hw = int(round((n // z) ** 0.5))
-    t = t.reshape(b, num_heads, n_win, n_win, z, hw, hw, d)
-    t = t.permute(0, 1, 4, 2, 5, 3, 6, 7)  # b nh z n_h h n_w w d
+    if order == "hwz":
+        t = t.reshape(b, num_heads, n_win, n_win, hw, hw, z, d)
+        t = t.permute(0, 1, 2, 4, 3, 5, 6, 7)  # b nh n_h h n_w w z d
+    else:
+        t = t.reshape(b, num_heads, n_win, n_win, z, hw, hw, d)
+        t = t.permute(0, 1, 4, 2, 5, 3, 6, 7)  # b nh z n_h h n_w w d
     return t.reshape(b, num_heads, z * (n_win * hw) ** 2, d)
 
 
 class CrossAttention(nn.Module):
     """Multi-head (optionally windowed) cross-attention, q from x, k/v
-    from y (self-attention when y is None), per-head RMS-normed q and k."""
+    from y (self-attention when y is None), per-head RMS-normed q and k.
+    ``token_order`` is the order of the n tokens ('zhw' or, from the
+    z-packed layout, 'hwz'; see :func:`_window_fold`)."""
 
     def __init__(self, dim: int, num_heads: int = 1,
-                 n_win: Optional[int] = None):
+                 n_win: Optional[int] = None, token_order: str = "zhw"):
         super().__init__()
+        if token_order not in ("zhw", "hwz"):
+            raise ValueError(f"token_order {token_order!r}")
         self.dim, self.num_heads, self.n_win = dim, num_heads, n_win
+        self.token_order = token_order
         hd = dim // num_heads
         self.q, self.k, self.v, self.proj = (Dense(dim, dim)
                                              for _ in range(4))
@@ -64,7 +81,7 @@ class CrossAttention(nn.Module):
         def heads(t):
             t = t.reshape(b, n, nh, hd).transpose(1, 2)
             if self.n_win is not None:
-                t = _window_fold(t, z_size, self.n_win)
+                t = _window_fold(t, z_size, self.n_win, self.token_order)
             return t
 
         q = self.q_norm(heads(self.q(x)))
@@ -75,7 +92,8 @@ class CrossAttention(nn.Module):
                                v.reshape(bh, nt, hd), 1.0 / hd)
         out = out.reshape(q.shape)
         if self.n_win is not None:
-            out = _window_unfold(out, z_size, self.n_win, nh)
+            out = _window_unfold(out, z_size, self.n_win, nh,
+                                 self.token_order)
         out = out.transpose(1, 2).reshape(b, n, self.dim)
         return self.proj(out)
 
@@ -83,32 +101,48 @@ class CrossAttention(nn.Module):
 class DiTBlock(nn.Module):
     """adaLN-zero DiT block with 7-way modulation and gene cross-attention
     within 2x2 spatial windows.  ``cond_channels`` is the width of the
-    per-token conditioning (the RNA feature map)."""
+    per-token conditioning (the RNA feature map).
+
+    ``packed_tokens``: x and cond are z-major packed ``(B, H, W, Z*C)``
+    (``ops/zpack.py``) and ``z_size`` is given; tokens then flatten in
+    (h, w, z) order by a reshape alone.  Same parameters; outputs equal the
+    5D order's up to float reassociation in the attention sums."""
 
     def __init__(self, hidden_size: int, cond_channels: int,
                  num_heads: int = 1, n_win: Optional[int] = 2,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, packed_tokens: bool = False):
         super().__init__()
         c = hidden_size
         self.hidden_size = c
+        self.packed_tokens = packed_tokens
         self.adaLN = Dense(cond_channels, 7 * c)
         self.norm1 = RMSNorm(c)
         self.norm2 = RMSNorm(c)
-        self.attn = CrossAttention(c, num_heads, n_win)
+        self.attn = CrossAttention(c, num_heads, n_win,
+                                   "hwz" if packed_tokens else "zhw")
         self.mlp = Mlp(c, int(c * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        b, z, h, w, c = x.shape
-        assert c == self.hidden_size, (x.shape, self.hidden_size)
-        xt = x.reshape(b, z * h * w, c)
-        ct = cond.reshape(b, z * h * w, cond.shape[-1])
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                z_size: Optional[int] = None) -> torch.Tensor:
+        c = self.hidden_size
+        if self.packed_tokens:
+            b, h, w, zc = x.shape
+            z = z_size
+            assert z is not None and zc == z * c, (x.shape, z, c)
+            xt = x.reshape(b, h * w * z, c)
+            ct = cond.reshape(b, h * w * z, cond.shape[-1] // z)
+        else:
+            b, z, h, w, _ = x.shape
+            assert x.shape[-1] == c, (x.shape, c)
+            xt = x.reshape(b, z * h * w, c)
+            ct = cond.reshape(b, z * h * w, cond.shape[-1])
         (shift_msa, scale_msa, gate_msa, crss_cnd,
          shift_mlp, scale_mlp, gate_mlp) = self.adaLN(F.silu(ct)).chunk(7, -1)
         xt = xt + gate_msa * self.attn(
             modulate(self.norm1, xt, shift_msa, scale_msa), crss_cnd, z)
         xt = xt + gate_mlp * self.mlp(
             modulate(self.norm2, xt, shift_mlp, scale_mlp))
-        return xt.reshape(b, z, h, w, c)
+        return xt.reshape(x.shape)
 
 
 # z-collapse conv kernel size per RNA z depth (reference MBAblocks.py:472).

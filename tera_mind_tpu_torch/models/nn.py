@@ -122,6 +122,19 @@ class Conv3d(nn.Module):
         return y.permute(0, 2, 3, 4, 1)
 
 
+class Conv2d(Conv3d):
+    """2D conv over (H, W) of a channels-last ``(B, H, W, C)`` map: the
+    z-packed model's convs (``models/unet_packed.py``).  Weight
+    ``(out, in, kh, kw)``; flax's HWIO kernel is its transpose.  Handed to
+    ``F.conv2d`` as an NCHW view of the channels-last storage, as
+    :class:`Conv3d` does, whose parameters, padding and init it shares."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        y = F.conv2d(x, self.weight, self.bias, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
 def upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbor 2x spatial upsample of (B, Z, H, W, C); z untouched."""
     b, z, h, w, c = x.shape
@@ -135,21 +148,28 @@ def downsample_2x(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, z, h // 2, 2, w // 2, 2, c).mean(dim=(3, 5))
 
 
+# flax's variance_scaling "truncated_normal": the std of a standard normal
+# cut to [-2, 2], which the draw is divided by to keep the variance
+TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init in the JAX package's scheme: lecun-normal
-    kernels (std sqrt(1/fan_in), not truncated), zero biases, unit norm
+    kernels as flax's ``variance_scaling(1.0, "fan_in",
+    "truncated_normal")`` draws them (a standard normal cut to [-2, 2],
+    times ``sqrt(1 / fan_in) / TRUNC_STD``), zero biases, unit norm
     weights, and zero ``zero_init`` convs.  Drawn on a CPU generator, so
     the weights do not depend on the device."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, Conv3d)):
+        if isinstance(mod, (nn.Linear, Conv3d)):   # and Conv3d's subclasses
             w = mod.weight
             fan_in = w[0].numel()
-            if getattr(mod, "zero_init", False):
-                val = torch.zeros(w.shape)
-            else:
-                val = torch.randn(w.shape, generator=g) / math.sqrt(fan_in)
+            val = torch.zeros(w.shape)
+            if not getattr(mod, "zero_init", False):
+                nn.init.trunc_normal_(val, 0.0, 1.0, -2.0, 2.0, generator=g)
+                val *= math.sqrt(1.0 / fan_in) / TRUNC_STD
             w.copy_(val)
             if mod.bias is not None:
                 mod.bias.zero_()
@@ -159,10 +179,12 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def channels_last_(model: nn.Module) -> nn.Module:
-    """Store every conv kernel as ``channels_last_3d`` so cuDNN runs the
-    channels-last convolution without converting the weight per call."""
+    """Store every conv kernel channels-last (``channels_last_3d`` or, for
+    2D kernels, ``channels_last``) so cuDNN runs the channels-last
+    convolution without converting the weight per call."""
     for mod in model.modules():
         if isinstance(mod, Conv3d):
-            mod.weight.data = mod.weight.data.contiguous(
-                memory_format=torch.channels_last_3d)
+            fmt = torch.channels_last if mod.weight.dim() == 4 \
+                else torch.channels_last_3d
+            mod.weight.data = mod.weight.data.contiguous(memory_format=fmt)
     return model

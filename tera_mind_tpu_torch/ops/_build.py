@@ -141,6 +141,23 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def autograd_required(*tensors: torch.Tensor) -> bool:
+    """Whether a call on ``tensors`` would have to record a backward:
+    grad mode is on and an input requires grad.  The kernels have no
+    backward yet (K1b and K2b come with the training slice), so their
+    wrappers refuse such a call instead of returning a detached output."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    if autograd_required(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the CUDA kernel has no "
+            "backward yet (the backward kernels K1b and K2b come with the "
+            "training slice); call it under torch.no_grad() or "
+            "torch.inference_mode()")
+
+
 def dtype_code(t: torch.Tensor, name: str) -> int:
     try:
         return DTYPES[t.dtype]

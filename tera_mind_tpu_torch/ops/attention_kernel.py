@@ -77,8 +77,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
-    """Launch K2 on CUDA tensors of shape (B, N, D) and one dtype."""
+    """Launch K2 on CUDA tensors of shape (B, N, D) and one dtype.  Raises
+    when autograd would need a backward (``_build.autograd_required``)."""
     global launches
+    _build.refuse_autograd("window_attention", q, k, v)
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"window_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} must be "

@@ -61,8 +61,10 @@ def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
 
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
-    """Launch K1 on a CUDA tensor (weight is cast to x's dtype)."""
+    """Launch K1 on a CUDA tensor (weight is cast to x's dtype).  Raises
+    when autograd would need a backward (``_build.autograd_required``)."""
     global launches
+    _build.refuse_autograd("rmsnorm", x, weight)
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
     if not x2.is_contiguous():

@@ -12,20 +12,23 @@ image windows are NON-overlapping groups of ``snum//2`` slices; RNA windows
 are OVERLAPPING groups of ``snum`` slices with stride ``snum//2`` over the
 z-padded gene stack.
 
-Not ported yet: the tile-major step, ``auto_plan`` (XLA memory analysis),
-meshes, checkpoints and streaming.
+``run`` resumes from a given state or from the latest spill of a
+``StateCheckpoint`` and spills every ``checkpoint_every`` steps.  Not
+ported yet: the tile-major step, ``auto_plan`` (XLA memory analysis),
+meshes, multi-process runs and streaming.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from ..data.noise import tile_init_noise
+from ..data.tilestore import StateCheckpoint
 from ..diffusion.sampler import DiffusionSampler
 from ..ops.collage import patchify
 from .halo import pad_halo_single
@@ -61,6 +64,19 @@ def assemble_bins(tiles: torch.Tensor, nb: int, hb: int) -> torch.Tensor:
          grid(tiles[-1:, :, hb + nb:, hb:hb + nb])[:hb],
          tiles[-1, -1, hb + nb:, hb + nb:]], dim=1)
     return torch.cat([top, mid, bot], dim=0)
+
+
+def grid_to_image(grid: np.ndarray) -> np.ndarray:
+    """(rows, cols, tile, tile, C) tile grid -> (rows*tile, cols*tile, C)."""
+    r, c, th, tw, ch = grid.shape
+    return grid.transpose(0, 2, 1, 3, 4).reshape(r * th, c * tw, ch)
+
+
+def image_to_grid(img: np.ndarray, tile: int) -> np.ndarray:
+    """Inverse of :func:`grid_to_image`."""
+    h, w, ch = img.shape
+    return img.reshape(h // tile, tile, w // tile, tile, ch).transpose(
+        0, 2, 1, 3, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,26 +255,80 @@ class TeraGenerator:
                                       "yet; use block_major=True")
         return self._block_major_step
 
-    def run(self, gene_grid: np.ndarray, *, row0: int = 1, col0: int = 1,
-            grid_w: int = 416, progress: bool = True) -> np.ndarray:
-        """Generate the (rows x cols) tile grid from its LCG noise; returns
-        the final image.  gene_grid: (R, C, gsz, gsz, z_pad, G) host
-        array; it goes to the device once."""
+    def _device_gene(self, gene: Union[np.ndarray, Callable], rows: int,
+                     cols: int) -> torch.Tensor:
+        """The (R, C, gsz, gsz, z_pad, G) gene grid on the device.  A
+        provider ``(r, c) -> (gsz, gsz, z_pad, G)`` is read one tile row at
+        a time into the device buffer, so the host holds one row."""
+        if not callable(gene):
+            return torch.as_tensor(gene, device=self.device)
         c = self.conf
-        rows, cols = gene_grid.shape[:2]
+        band = np.stack([gene(0, cc) for cc in range(cols)])
+        want = (c.gsz, c.gsz, c.z_pad)
+        if band.shape[1:4] != want:
+            raise ValueError(f"gene tiles {band.shape[1:]}, expected "
+                             f"{want} + (genes,)")
+        dev = torch.empty((rows,) + band.shape,
+                          dtype=torch.from_numpy(band).dtype,
+                          device=self.device)
+        for r in range(rows):
+            if r:
+                band = np.stack([gene(r, cc) for cc in range(cols)])
+            dev[r] = torch.from_numpy(band)
+        return dev
+
+    def run(self, gene_grid: Union[np.ndarray, Callable], *,
+            rows: Optional[int] = None, cols: Optional[int] = None,
+            row0: int = 1, col0: int = 1, grid_w: int = 416,
+            state: Optional[np.ndarray] = None,
+            start_t: Optional[int] = None,
+            checkpoint: Optional[StateCheckpoint] = None,
+            checkpoint_every: int = 0, progress: bool = True) -> np.ndarray:
+        """Generate the (rows x cols) tile grid; returns the final image.
+
+        ``gene_grid``: a host array (R, C, gsz, gsz, z_pad, G), or a
+        provider ``(r, c) -> (gsz, gsz, z_pad, G)`` (grid-local indices)
+        with ``rows`` and ``cols`` given.  The grid starts from its LCG
+        noise, or resumes: from ``state`` (R*tile, C*tile, channels) at
+        ``start_t`` steps left, or else from the latest spill of
+        ``checkpoint``.  With ``checkpoint_every`` the state is spilled to
+        ``checkpoint`` after every that many steps (not after the last)
+        and older spills are pruned."""
+        c = self.conf
+        if callable(gene_grid):
+            if rows is None or cols is None:
+                raise ValueError("a gene provider needs rows and cols")
+        else:
+            rows, cols = gene_grid.shape[:2]
         T = self.sampler.schedule.num_timesteps
-        dev_gene = torch.as_tensor(gene_grid, device=self.device)
-        dev_state = torch.as_tensor(
-            self.init_state(rows, cols, row0=row0, col0=col0, grid_w=grid_w),
-            device=self.device)
+        if state is None and checkpoint is not None:
+            latest = checkpoint.latest()
+            if latest is not None:
+                grid, meta = checkpoint.load_grid(latest)
+                # the state-protocol guard (reference test_brn.py:178)
+                got = (meta["rows"], meta["cols"], meta["size"],
+                       meta["channels"])
+                if got != (rows, cols, c.tile, c.channels):
+                    raise ValueError(f"spill at t={latest} holds (rows, "
+                                     f"cols, size, channels) {got}, not "
+                                     f"{(rows, cols, c.tile, c.channels)}")
+                state = grid_to_image(grid)
+                start_t = T - latest          # epochs done = latest
+        if start_t is None:
+            start_t = T
+        dev_gene = self._device_gene(gene_grid, rows, cols)
+        if state is None:
+            state = self.init_state(rows, cols, row0=row0, col0=col0,
+                                    grid_w=grid_w)
+        dev_state = torch.as_tensor(state, device=self.device)
         step = self.compile_step(rows, cols)
         t_start = None
-        for t in range(T - 1, -1, -1):
+        for t in range(start_t - 1, -1, -1):
             dev_state = step(dev_state, dev_gene, t)
+            epoch = T - t
             if progress:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-                epoch = T - t
                 now = time.perf_counter()
                 if t_start is None:   # first step includes warm-up
                     t_start, e_start, rate = now, epoch, ""
@@ -267,5 +337,11 @@ class TeraGenerator:
                             " tile-steps/s")
                 print(f"[tera] step t={t} done ({epoch}/{T}){rate}",
                       flush=True)
+            if checkpoint is not None and checkpoint_every and t > 0 \
+                    and epoch % checkpoint_every == 0:
+                checkpoint.save_grid(
+                    epoch, image_to_grid(dev_state.cpu().numpy(), c.tile),
+                    hst=row0 * c.tile, wst=col0 * c.tile, size=c.tile)
+                checkpoint.prune(keep_t=epoch)
         assert dev_state.shape == (rows * c.tile, cols * c.tile, c.channels)
         return dev_state.cpu().numpy()

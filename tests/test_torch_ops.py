@@ -293,11 +293,13 @@ def _k1_vector_group(c, itemsize):
 
 
 def test_chip_smoke_times_main_path_shapes():
-    """The shapes chip_smoke.py checks and times are ones the main path
+    """The shapes chip_smoke.py checks and times are ones the 5D chain
     gives the kernels (scripts/kernel_shapes.py, one UNet call on the meta
     device), every K2 shape of the main path is among them, and so is a
     shape of every vector-variant instantiation (lane group G) of K1 that
-    the main path launches in bf16."""
+    the main path launches in bf16.  The packed chain (the CLI's default)
+    launches a subset of the 5D chain's shapes: its ResBlock norms are
+    GroupedRMSNorm, not K1."""
     import importlib.util
 
     import chip_smoke as cs
@@ -305,8 +307,11 @@ def test_chip_smoke_times_main_path_shapes():
         "kernel_shapes", _build.PKG.parent / "scripts" / "kernel_shapes.py")
     ks = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ks)
-    k1_shapes, k2_shapes = ks.per_call_shapes()
+    k1_shapes, k2_shapes = ks.per_call_shapes(packed=False)
     assert sum(k1_shapes.values()) == 83 and sum(k2_shapes.values()) == 6
+    k1_packed, k2_packed = ks.per_call_shapes()
+    assert sum(k1_packed.values()) == 26 and k2_packed == k2_shapes
+    assert set(k1_packed) <= set(k1_shapes)
     assert set(cs.K1_SHAPES) <= set(k1_shapes)
     src = (_build.CSRC / "rmsnorm.cu").read_text()
     assert "while (g < 32 && g * kVecMax < nvec) g *= 2;" in src
@@ -316,6 +321,7 @@ def test_chip_smoke_times_main_path_shapes():
         return {_k1_vector_group(c, 2) for _, c in shapes
                 if k1.rmsnorm_variant(c, 2, True) == "vector"}
     assert groups(k1_shapes) == {2, 4, 8, 16, 32}
+    assert groups(k1_packed) <= groups(cs.K1_SHAPES)
     assert groups(cs.K1_SHAPES) == groups(k1_shapes)
     assert set(cs.K2_SHAPES) == set(k2_shapes)
     # the stand-ins are gone again

@@ -1,0 +1,312 @@
+"""The port's z-packed model against the JAX package's, on the CPU in f32.
+
+``ops/zpack`` (parameter-time numpy functions exactly, tensor functions
+exactly), ``GroupedRMSNorm``, ``PackedResBlock``, the DiT block on packed
+tokens and ``PackedTeraUNet`` with ``from_5d`` and ``packed_attn`` both
+ways, held against ``tera_mind_tpu.models.unet_packed`` on the same numpy
+inputs and seeded flax trees; the packed model against the port's own 5D
+``TeraUNet`` through ``export_params`` -> ``pack_unet_params``; plus the
+truncated lecun-normal init and the kernels' autograd guard.  Tolerances
+are the port's f32 reassociation levels (test_torch_models.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+from test_torch_models import GOLDEN_KW, close, randn, seeded_params, t
+
+from tera_mind_tpu.models import attention as jattn
+from tera_mind_tpu.models import unet_packed as jpk
+from tera_mind_tpu.models.unet import TeraUNetConfig as JUNetConfig
+from tera_mind_tpu.ops import zpack as jz
+from tera_mind_tpu_torch.convert import export_params, load_jax_params
+from tera_mind_tpu_torch.models import attention as tattn
+from tera_mind_tpu_torch.models import nn as tnn
+from tera_mind_tpu_torch.models import unet_packed as tpk
+from tera_mind_tpu_torch.models.unet import TeraUNetConfig as TUNetConfig
+from tera_mind_tpu_torch.ops import _build
+from tera_mind_tpu_torch.ops import zpack as tz
+
+ATOL = 2e-5   # block level, O(1) activations
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this module: tier-1 runs several pytest
+    workers on one host, and their torch thread pools, each as large as
+    the host's cores, then oversubscribe it (small CPU ops ran up to 100x
+    slower under four workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}"
+        out.update(flat(v, name) if isinstance(v, dict) else
+                   {name: np.asarray(v)})
+    return out
+
+
+def assert_trees_equal(got, want):
+    got, want = flat(got), flat(want)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# --------------------------------------------------------------------- #
+# ops/zpack                                                              #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("kz,segs", [(3, None), (1, None), (3, (5, 3, 4)),
+                                     (1, (2, 6))])
+def test_zpack_numpy_functions_equal_jax(kz, segs):
+    rng = np.random.default_rng(0)
+    ci = sum(segs) if segs else 7
+    w3 = randn(rng, kz, 3, 3, ci, 6)
+    b, p = randn(rng, 6), randn(rng, ci)
+    for z in (2, 3):
+        np.testing.assert_array_equal(tz.pack_conv3d_kernel(w3, z, segs),
+                                      jz.pack_conv3d_kernel(w3, z, segs))
+        np.testing.assert_array_equal(tz.pack_conv3d_bias(b, z),
+                                      jz.pack_conv3d_bias(b, z))
+        np.testing.assert_array_equal(tz.pack_channel_param(p, z, segs),
+                                      jz.pack_channel_param(p, z, segs))
+        if segs:
+            np.testing.assert_array_equal(tz.seg_perm(z, segs),
+                                          jz.seg_perm(z, segs))
+
+
+@pytest.mark.parametrize("kz,segs", [(3, None), (3, (5, 3, 4)), (1, (2, 6))])
+def test_tensor_kernel_pack_equals_numpy_and_jax(kz, segs):
+    """The from_5d model's per-call kernel build, in the port's
+    (out, in, ...) layout, equals the numpy and the jnp versions."""
+    ci = sum(segs) if segs else 7
+    w3 = randn(np.random.default_rng(1), kz, 3, 3, ci, 6)  # flax layout
+    got = tz.pack_conv3d_kernel_t(t(w3.transpose(4, 3, 0, 1, 2).copy()), 2,
+                                  segs)
+    want = jz.pack_conv3d_kernel(w3, 2, segs).transpose(3, 2, 0, 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        want, np.asarray(jz.pack_conv3d_kernel_jnp(jnp.asarray(w3), 2,
+                                                   segs)).transpose(3, 2, 0, 1))
+
+
+def test_tensor_pack_functions_equal_jax():
+    rng = np.random.default_rng(2)
+    x5 = randn(rng, 3, 2, 4, 6, 5)
+    xp = randn(rng, 3, 4, 6, 10)
+    for name, x in (("pack_features", x5), ("unpack_features", xp),
+                    ("pixel_to_packed", xp), ("packed_to_pixel", xp)):
+        got = getattr(tz, name)(t(x), 2)
+        want = np.asarray(getattr(jz, name)(jnp.asarray(x), 2))
+        assert got.shape == want.shape, name
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    np.testing.assert_array_equal(
+        tz.unpack_features(tz.pack_features(t(x5), 2), 2).numpy(), x5)
+    np.testing.assert_array_equal(
+        tz.packed_to_pixel(tz.pixel_to_packed(t(xp), 2), 2).numpy(), xp)
+
+
+# --------------------------------------------------------------------- #
+# GroupedRMSNorm                                                         #
+# --------------------------------------------------------------------- #
+NORM_CASES = [((12,), False), ((5, 3), False), ((8, 16, 6), False),
+              ((12,), True), ((5, 3), True)]
+
+
+def norm_case(segs, from_5d, seed=3):
+    rng = np.random.default_rng(seed)
+    z = 2
+    x = randn(rng, 3, 4, 5, z * sum(segs), scale=3.0)
+    w = 1.0 + 0.2 * randn(rng, sum(segs) * (1 if from_5d else z))
+    jm = jpk.GroupedRMSNorm(z=z, segments=segs, from_5d=from_5d)
+    p = {"params": {"weight": w}}
+    tm = load_jax_params(tpk.GroupedRMSNorm(z, segs, from_5d=from_5d), p)
+    return x, p, jm, tm
+
+
+@pytest.mark.parametrize("segs,from_5d", NORM_CASES)
+def test_grouped_rmsnorm_f32_matches_jax(segs, from_5d):
+    x, p, jm, tm = norm_case(segs, from_5d)
+    close(tm(t(x)), jm.apply(p, jnp.asarray(x)), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("segs,from_5d", NORM_CASES)
+def test_grouped_rmsnorm_bf16_matches_jax(segs, from_5d):
+    """Both round after each of the two multiplies; the f32 statistics
+    are summed in other orders, so at most 1 bf16 spacing apart."""
+    x, p, jm, tm = norm_case(segs, from_5d, seed=4)
+    xb = x.astype(ml_dtypes.bfloat16)
+    want = np.asarray(jm.apply(p, jnp.asarray(xb))).astype(np.float32)
+    got = tm.to(torch.bfloat16)(t(xb.astype(np.float32)).bfloat16())
+    assert got.dtype == torch.bfloat16
+    got = got.detach().float().numpy()
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    assert (np.abs(got - want) <= ulp).all()
+
+
+# --------------------------------------------------------------------- #
+# PackedResBlock and the DiT block on packed tokens                       #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("segs,cout,up,down,from_5d", [
+    ((5, 3), 8, False, False, False), ((5, 3), 6, False, False, False),
+    ((6,), 6, True, False, False), ((6,), 6, False, True, False),
+    ((4, 3, 5), 7, False, False, True), ((6,), 6, True, False, True)])
+def test_packed_resblock_matches_jax(segs, cout, up, down, from_5d):
+    rng = np.random.default_rng(5)
+    z = 2
+    x, emb = randn(rng, 3, 8, 8, z * sum(segs)), randn(rng, 3, 32)
+    jm = jpk.PackedResBlock(out_channels=cout, z=z,
+                            in_segments=segs if len(segs) > 1 else None,
+                            up=up, down=down, dropout=0.0, from_5d=from_5d)
+    p = seeded_params(jm, x, emb, seed=6)
+    tm = load_jax_params(tpk.PackedResBlock(
+        sum(segs), cout, z, 32, in_segments=segs, up=up, down=down,
+        from_5d=from_5d), p)
+    close(tm(t(x), t(emb)), jm.apply(p, x, emb))
+
+
+def test_window_fold_hwz_matches_jax():
+    x = randn(np.random.default_rng(7), 2, 3, 2 * 8 * 8, 5)
+    folded = tattn._window_fold(t(x), 2, 2, "hwz")
+    np.testing.assert_array_equal(
+        folded.numpy(), np.asarray(jattn._window_fold(x, 2, 2, "hwz")))
+    np.testing.assert_array_equal(
+        tattn._window_unfold(folded, 2, 2, 3, "hwz").numpy(), x)
+
+
+def test_dit_block_packed_tokens_matches_jax():
+    rng = np.random.default_rng(8)
+    x, cond = randn(rng, 2, 8, 8, 2 * 16), randn(rng, 2, 8, 8, 2 * 6)
+    jm = jattn.DiTBlock(hidden_size=16, n_win=2, packed_tokens=True)
+    p = seeded_params(jm, x, cond, 2, seed=9)
+    tm = load_jax_params(tattn.DiTBlock(16, 6, n_win=2, packed_tokens=True),
+                         p)
+    assert tm.attn.token_order == "hwz"
+    close(tm(t(x), t(cond), 2), jm.apply(p, x, cond, 2))
+
+
+# --------------------------------------------------------------------- #
+# PackedTeraUNet                                                         #
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def packed_case():
+    """Inputs, a seeded 5D flax tree, JAX's packed tree of it and the JAX
+    packed model's outputs (both decoders, 3x3 patch grid): from packed
+    params without packed_attn, and from the 5D params with it."""
+    rng = np.random.default_rng(20)
+    x = randn(rng, 4 * 9, 32, 32, 4)
+    rna = ((rng.random((36, 2, 2, 64)) < 0.2) * 3).astype(np.float32)
+    ts = np.array([500, 20, 999, 0], np.int32)
+    jconf = JUNetConfig(**GOLDEN_KW, dropout=0.0)
+    p5 = seeded_params(jconf.make_model(), x[:4], ts[:1], rna[:4], 2, 2,
+                       seed=21)
+    p5 = jax.tree.map(lambda a: np.asarray(a, np.float32), p5)
+    pp = jpk.pack_unet_params(p5, jconf)
+    want = {}
+    for packed_attn, from_5d, p in ((False, False, pp), (True, True, p5)):
+        jm = jpk.PackedTeraUNet(jconf, from_5d=from_5d,
+                                packed_attn=packed_attn)
+        col, orig = jax.jit(lambda q, m=jm: m.apply(q, x, ts, rna, 3, 3))(p)
+        want[packed_attn] = (np.asarray(col), np.asarray(orig))
+    return x, rna, ts, p5, pp, want
+
+
+def test_pack_unet_params_equals_jax(packed_case):
+    _, _, _, p5, pp, _ = packed_case
+    assert_trees_equal(
+        tpk.pack_unet_params(p5, TUNetConfig(**GOLDEN_KW)), pp)
+
+
+@pytest.mark.parametrize("from_5d", [False, True])
+@pytest.mark.parametrize("packed_attn", [False, True])
+def test_packed_teraunet_matches_jax(packed_case, from_5d, packed_attn):
+    """Against the JAX packed model run with the same ``packed_attn``
+    (its ``from_5d`` setting only changes where the kernels are packed,
+    not the arithmetic)."""
+    x, rna, ts, p5, pp, want = packed_case
+    model = tpk.make_packed_model(TUNetConfig(**GOLDEN_KW), from_5d=from_5d,
+                                  packed_attn=packed_attn)
+    load_jax_params(model, p5 if from_5d else pp)
+    with torch.no_grad():
+        col, orig = model(t(x), t(ts).long(), t(rna), 3, 3)
+    assert col.dtype == torch.float32 and col.shape == want[packed_attn][0].shape
+    close(col, want[packed_attn][0], atol=1e-4, rtol=1e-4)
+    close(orig, want[packed_attn][1], atol=1e-4, rtol=1e-4)
+
+
+def test_packed_teraunet_matches_the_ports_5d_model(packed_case):
+    """The port's packed model on ``pack_unet_params(export_params(5D))``
+    reproduces the port's 5D model (a re-parameterization, equal up to
+    f32 reassociation), collage decoder only."""
+    x, rna, ts, p5, _, _ = packed_case
+    conf = TUNetConfig(**GOLDEN_KW)
+    model5 = load_jax_params(conf.make_model(), p5)
+    packed = load_jax_params(
+        tpk.make_packed_model(conf),
+        tpk.pack_unet_params(export_params(model5), conf))
+    with torch.no_grad():
+        want, _ = model5(t(x), t(ts).long(), t(rna), 3, 3,
+                         decode_original=False)
+        got, none = packed(t(x), t(ts).long(), t(rna), 3, 3,
+                           decode_original=False)
+    assert none is None
+    close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_export_params_is_the_inverse_of_load(packed_case, packed):
+    _, _, _, p5, pp, _ = packed_case
+    conf = TUNetConfig(**GOLDEN_KW)
+    tree = pp if packed else p5
+    model = tpk.make_packed_model(conf) if packed else conf.make_model()
+    assert_trees_equal(export_params(load_jax_params(model, tree)), tree)
+
+
+# --------------------------------------------------------------------- #
+# init and the kernels' autograd guard                                   #
+# --------------------------------------------------------------------- #
+def test_init_weights_is_truncated_lecun_normal():
+    """flax's lecun_normal: a standard normal cut to [-2, 2], scaled to
+    std sqrt(1/fan_in) (variance_scaling 'truncated_normal')."""
+    model = torch.nn.Sequential(tnn.Conv3d(64, 96, (3, 3, 3)),
+                                tnn.Dense(40, 30), tnn.Conv2d(16, 8, (3, 3)),
+                                tnn.Conv3d(8, 8, (1, 1, 1), zero_init=True),
+                                tnn.RMSNorm(6))
+    tnn.init_weights(model, seed=1).requires_grad_(False)
+    for mod in list(model)[:3]:
+        w = mod.weight
+        std = (1.0 / w[0].numel()) ** 0.5
+        assert float(w.abs().max()) <= 2.0 * std / tnn.TRUNC_STD
+        assert float(w.abs().max()) > 1.8 * std / tnn.TRUNC_STD
+        assert float(mod.bias.abs().max()) == 0.0
+    big = model[0].weight                          # 165,888 draws
+    assert abs(float(big.std()) / (1.0 / big[0].numel()) ** 0.5 - 1) < 0.02
+    assert float(model[3].weight.abs().max()) == 0.0
+    assert torch.equal(model[4].weight, torch.ones(6))
+    again = tnn.init_weights(torch.nn.Sequential(
+        tnn.Conv3d(64, 96, (3, 3, 3))), seed=1)
+    assert torch.equal(again[0].weight, big)
+
+
+def test_autograd_guard_predicate():
+    a = torch.ones(3)
+    p = torch.nn.Parameter(torch.ones(3))
+    assert not _build.autograd_required(a, a)
+    assert _build.autograd_required(a, p)
+    with torch.no_grad():
+        assert not _build.autograd_required(a, p)
+    with torch.inference_mode():
+        assert not _build.autograd_required(a, p)
+    with pytest.raises(RuntimeError, match="K1b and K2b"):
+        _build.refuse_autograd("rmsnorm", a, p)
+    _build.refuse_autograd("rmsnorm", a, a)

@@ -21,13 +21,31 @@ Phases, each printed on its own line with elapsed seconds:
   6. resume on the card: the small packed chain spilled every step
      through ``StateCheckpoint('grid')`` and resumed from its epoch-1
      spill, against the uninterrupted chain;
-  7. the main path: ``cli.generate.build`` with its defaults (the packed
+  7. streaming and the tile-major step on the small f32 input on the
+     card: a 3x3 grid in 2x2 windows (edge windows shifted inward),
+     streamed tile-major and block-major against the in-memory run of
+     the same step, the in-memory tile-major step against the
+     block-major one, K = 2 against K = 1, the worker pipeline against
+     one sequential sweep, memmapped against in-memory state, a streamed
+     run resumed from its epoch-1 spill, and bf16 transfers against f32;
+  8. the main path: ``cli.generate.build`` with its defaults (the packed
      model) at the full width of the 638850 preset (2x2 tiles of 256^2 px
-     x 100 channels, 15 DDIM steps, bf16, block-major, window_chunk 1),
-     one warm-up step, then one timed chain with the kernels' launch
-     counters (total and per variant) set to 0 just before it; then the
-     same for the 5D model (``--no_packed``) on the same weights;
-  8. a ``{"kernels": [...]}`` line, then the card line, then the result.
+     x 100 channels, 15 DDIM steps, bf16, block-major, window_chunk -1,
+     which the memory planner resolves to the whole block and one
+     z-window a call), one warm-up step that plans, then one timed chain
+     with the kernels' launch counters (total and per variant) set to 0
+     just before it; then the same for the 5D model (``--no_packed``) on
+     the same weights and for the tile-major step (``--tile_major``,
+     window_chunk 5);
+  9. the planner at full width: its plan, the measured peak of its probe
+     and the budget for 2x2, 4x4, 8x8 and 16x16 grids;
+ 10. whole-brain streaming: ``cli.generate.main`` with ``--stream`` at
+     its defaults (2x2-tile windows, K 1, f32 transfers, 3 windows in
+     flight, 4 GB of device gene cache, window_chunk 5) on a 4x4 grid,
+     15 steps, with the counters set to 0 just before it; then a 2-step
+     run of the same grid with ``TMT_STREAM_TIMING`` for its per-phase
+     seconds;
+ 11. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
 nothing of JAX.
@@ -40,6 +58,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 T0 = time.perf_counter()
 
@@ -138,10 +157,23 @@ def ulp_err(out, ref) -> float:
 # the middle block's norms of 512 channels (G = 16) and dec_3_res.in_norm
 # (512 + 384, collage batch of 64 patches, G = 32).
 K1_SHAPES = [(663_552, 96), (10_368, 741), (8_192, 1253), (18_549, 64),
-             (41_472, 256), (10_368, 512), (32_768, 896)]
+             (41_472, 256), (10_368, 512), (32_768, 896), (32_768, 256)]
 # (B, N, D) that the main path gives K2: encoder and collage decoder at
 # resolution 16, and the middle block.
 K2_SHAPES = [(324, 128, 256), (256, 128, 256), (324, 32, 512)]
+# The packed model's K1 and K2 shapes on the other generation paths
+# (scripts/kernel_shapes.py --patches P --chunk 5): the tile-major step
+# (one tile's 5x5 patches, 5 z-windows a call) and the streamed 2x2-tile
+# windows (9x9 patches, 5 z-windows a call: the main path's rows and
+# batches x 5, up to 1,620 K2 blocks)
+PATH_SHAPES = {
+    "tile_major": ([(40_960, 256), (64_000, 256), (16_000, 512),
+                    (28_625, 64)],
+                   [(320, 128, 256), (500, 128, 256), (500, 32, 512)]),
+    "stream": ([(163_840, 256), (207_360, 256), (51_840, 512),
+                (92_745, 64)],
+               [(1_280, 128, 256), (1_620, 128, 256), (1_620, 32, 512)]),
+}
 # shapes off the main path that the wrappers accept: ragged rows and
 # channels, ragged query tiles and key chunks, the largest shared-memory
 # footprint (N = D = 512), the vector variant at one 16-byte vector a row
@@ -228,9 +260,10 @@ def timing_text(t: dict, lib: str) -> str:
 
 
 def check_kernels(device) -> dict:
-    """Each kernel against its plain version at every main-path shape
-    (bf16 and f32) and at the edge shapes, with device times at the
-    main-path shapes.  Returns {name: [row per main-path shape]}."""
+    """Each kernel against its plain version at every shape of the main
+    path and of the tile-major and streaming paths (bf16 and f32) and at
+    the edge shapes, with device times at the paths' shapes.  Returns
+    {name: [row per path shape]}."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
@@ -251,7 +284,7 @@ def check_kernels(device) -> dict:
                 f"K1 {what} {x.dtype} ({variant}): {err}")
         return out, ref, err, variant
 
-    for n, c in K1_SHAPES:
+    def k1_shape(n, c, path):
         x = torch.randn(n, c, generator=g).to(device, bf16)
         w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, bf16)
         out, ref, err_ulp, variant = k1_agrees(x, w, f"{n}x{c}")
@@ -261,12 +294,14 @@ def check_kernels(device) -> dict:
         # f32 input: the same variant's float instantiation
         _, _, errf, _ = k1_agrees(x[:4096].float(), w.float(), f"{n}x{c}")
         t = time_k1(k1, x, w, n, c)
-        log(f"K1 rmsnorm ({n}, {c}) bf16 [{variant}]: max_abs_err {err:.3g} "
-            f"({err_ulp:.2f} bf16 ulp, tol {K1_MAX_ULP}), f32 err {errf:.3g}; "
-            + timing_text(t, "F.rms_norm"))
-        rows["rmsnorm"].append(dict(shape=[n, c], variant=variant,
+        log(f"K1 rmsnorm ({n}, {c}) bf16 [{variant}, {path}]: max_abs_err "
+            f"{err:.3g} ({err_ulp:.2f} bf16 ulp, tol {K1_MAX_ULP}), f32 err "
+            f"{errf:.3g}; " + timing_text(t, "F.rms_norm"))
+        rows["rmsnorm"].append(dict(shape=[n, c], path=path, variant=variant,
                                     max_abs_err=err, **t))
 
+    for n, c in K1_SHAPES:
+        k1_shape(n, c, "block_major")
     seen = []
     for n, c in K1_EDGE:
         for dt in (bf16, torch.float32):
@@ -286,7 +321,7 @@ def check_kernels(device) -> dict:
         seen.append(f"(4096, 96) {str(dt)[6:]} misaligned {variant}")
     log(f"K1 edge shapes agree: {'; '.join(seen)}")
 
-    for b, n, d in K2_SHAPES:
+    def k2_shape(b, n, d, path):
         scale = 1.0 / d
         errs = []
         for peaked in (False, True):
@@ -310,11 +345,15 @@ def check_kernels(device) -> dict:
                           f"spacings, {sh:.2e} differ"
                           for kind, (e, sp, sh) in zip(("randn", "peaked"),
                                                        errs))
-        log(f"K2 window_attention ({b}, {n}, {d}) bf16 [{variant}]: {agree} "
-            f"(tol {K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}); f32 "
+        log(f"K2 window_attention ({b}, {n}, {d}) bf16 [{variant}, {path}]: "
+            f"{agree} (tol {K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}); f32 "
             f"[{variant_f}] err {errf:.3g}; " + timing_text(t, "SDPA"))
-        rows["window_attention"].append(dict(shape=[b, n, d], variant=variant,
+        rows["window_attention"].append(dict(shape=[b, n, d], path=path,
+                                             variant=variant,
                                              max_abs_err=err, **t))
+
+    for b, n, d in K2_SHAPES:
+        k2_shape(b, n, d, "block_major")
     seen = []
     for b, n, d in K2_EDGE:
         for peaked in (False, True):
@@ -330,6 +369,11 @@ def check_kernels(device) -> dict:
             require(err <= 1e-5, f"K2 edge {b}x{n}x{d} f32: {err}")
         seen.append(f"({b}, {n}, {d}) bf16 {variant}, f32 {variant_f}")
     log(f"K2 edge shapes agree (randn and peaked): {'; '.join(seen)}")
+    for path, (k1_shapes, k2_shapes) in PATH_SHAPES.items():
+        for n, c in k1_shapes:
+            k1_shape(n, c, path)
+        for b, n, d in k2_shapes:
+            k2_shape(b, n, d, path)
     return rows
 
 
@@ -411,12 +455,10 @@ def small_setup():
     return mconf, gconf, gene
 
 
-def small_chain(model, device, gconf, gene, **run_kw):
-    """The 2x2-tile, 3-step block-major chain of ``model`` on ``device``."""
+def small_gen(model, device, gconf):
+    """A generator of ``model`` on ``device`` (a copy on the card) with the
+    small chain's 3-step schedule."""
     import copy
-
-    import numpy as np
-    import torch
 
     from tera_mind_tpu_torch.diffusion.sampler import (DiffusionSampler,
                                                        SamplerConfig)
@@ -428,11 +470,19 @@ def small_chain(model, device, gconf, gene, **run_kw):
         model = channels_last_(copy.deepcopy(model).to(device))
     sampler = DiffusionSampler(spaced_schedule("linear", 1000, "ddim3"),
                                SamplerConfig(patch_size=32, gn_sz=2))
-    gen = TeraGenerator(
+    return TeraGenerator(
         sampler, lambda xp, tm, rp, p1, p2: model(
             xp, tm, rp, p1, p2, decode_original=False),
         gconf, device=device)
-    out = gen.run(gene, row0=1, col0=1, grid_w=16, progress=False, **run_kw)
+
+
+def small_chain(model, device, gconf, gene, **run_kw):
+    """The 2x2-tile, 3-step block-major chain of ``model`` on ``device``."""
+    import numpy as np
+
+    out = small_gen(model, device, gconf).run(
+        gene, row0=1, col0=1, grid_w=16, progress=False, block_major=True,
+        **run_kw)
     require(out.shape == (128, 128, 4) and bool(np.isfinite(out).all()),
             f"small chain output {out.shape} not finite or misshapen")
     return out
@@ -516,7 +566,148 @@ def check_resume(device, packed, want) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the main path
+# phase 7: streaming and the tile-major step, small, on the card
+# ---------------------------------------------------------------------------
+
+STREAM_BF16_MAX = 0.05    # bf16 transfers against f32, the JAX package's
+STREAM_BF16_MEAN = 5e-3   # bounds (tests/test_streaming.py)
+
+
+def small_field_gene(gconf, rows: int, cols: int, seed: int = 11):
+    """Per-tile gene bins cut from one field, so neighbours' overlapping
+    bins agree (block-major and K > 1 windows need it)."""
+    import numpy as np
+    nb, hb = gconf.tile // gconf.gn_blk, gconf.pad // gconf.gn_blk
+    field = np.random.default_rng(seed).integers(
+        0, 3, (rows * nb + 2 * hb, cols * nb + 2 * hb, gconf.z_pad,
+               gconf.gdim)).astype(np.uint8)
+    return np.stack([np.stack([field[r * nb:r * nb + nb + 2 * hb,
+                                     c * nb:c * nb + nb + 2 * hb]
+                               for c in range(cols)]) for r in range(rows)])
+
+
+def check_small_streaming(device, packed) -> dict:
+    """The small packed model in f32 on a 3x3 grid (2x2 windows, so edge
+    windows shift inward): streamed against in-memory runs, and each
+    streaming option against the plain sweep; returns the differences."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tera_mind_tpu_torch.data.tilestore import StateCheckpoint
+    from tera_mind_tpu_torch.parallel.streaming import (StreamConfig,
+                                                        StreamingGenerator)
+
+    class KeepAll(StateCheckpoint):
+        def prune(self, keep_t):
+            pass
+
+    _, gconf, _ = small_setup()
+    gene = small_field_gene(gconf, 3, 3)
+    gen = small_gen(packed, device, gconf)
+
+    def run(**kw):
+        return gen.run(gene, row0=1, col0=1, grid_w=16, progress=False,
+                       **kw)
+
+    def stream(**kw):
+        ck = kw.pop("checkpoint", None)
+        st = StreamingGenerator(gen, StreamConfig(
+            progress=False, **kw)).run(3, 3, gene, row0=1, col0=1,
+                                       grid_w=16, checkpoint=ck)
+        out = st.read.float().numpy()
+        require(out.shape == (192, 192, 4) and bool(np.isfinite(out).all()),
+                f"small stream {kw}: {out.shape} not finite or misshapen")
+        return out
+
+    tile, block = run(block_major=False), run(block_major=True)
+    s_block = stream(block_major=True)
+    errs = {"in-memory tile-major vs block-major": (tile, block),
+            "stream tile-major vs in-memory": (stream(), tile),
+            "stream block-major vs in-memory": (s_block, block),
+            "stream K=2 vs K=1": (stream(block_major=True,
+                                        steps_per_window=2), s_block),
+            "stream pipeline off vs on": (stream(block_major=True,
+                                                 pipeline=False), s_block)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        errs["stream memmap vs in-memory"] = (
+            stream(block_major=True, memmap_dir=str(tmp / "mm")), s_block)
+        spilled = stream(block_major=True, checkpoint_every=1,
+                         checkpoint=KeepAll(tmp / "run", "grid"))
+        require(bool(np.array_equal(spilled, s_block)),
+                "spilling changed the streamed result")
+        shutil.copytree(tmp / "run_1", tmp / "resume_1")
+        resumed = stream(block_major=True,
+                         checkpoint=StateCheckpoint(tmp / "resume", "grid"))
+    out = {}
+    for name, (a, b) in errs.items():
+        out[name] = float(np.abs(a - b).max())
+        require(out[name] <= SMALL_ATOL,
+                f"small {name}: {out[name]} > {SMALL_ATOL}")
+    out["stream resume from epoch 1"] = float(np.abs(resumed - s_block).max())
+    require(out["stream resume from epoch 1"] <= RESUME_ATOL,
+            f"streamed resume: {out['stream resume from epoch 1']}")
+    # bf16 transfers against f32: gated at the JAX test's bounds on the
+    # JAX test's toy model and data; on the small UNet the mean is gated
+    # and the max printed (the JAX package's own max there is 0.0700, over
+    # 0.05 at 9 of 147,456 values, tests/test_torch_streaming.py)
+    d = np.abs(stream(block_major=True, transfer_dtype="bfloat16") - s_block)
+    out["stream bf16 vs f32 transfers, small UNet, max"] = float(d.max())
+    out["stream bf16 vs f32 transfers, small UNet, mean"] = float(d.mean())
+    require(d.mean() < STREAM_BF16_MEAN,
+            f"bf16 transfers, small UNet: mean |d| {d.mean()}")
+    d = toy_bf16_gap(device)
+    out["stream bf16 vs f32 transfers, toy model, max"] = float(d.max())
+    out["stream bf16 vs f32 transfers, toy model, mean"] = float(d.mean())
+    require(d.max() < STREAM_BF16_MAX and d.mean() < STREAM_BF16_MEAN,
+            f"bf16 transfers, toy model: max |d| {d.max()}, mean {d.mean()}")
+    return out
+
+
+def toy_model(xp, tm, rp, p1, p2):
+    """tests/test_streaming.py's stand-in model: eps from the patch and
+    its gene conditioning, decoded through the collage."""
+    from tera_mind_tpu_torch.ops.collage import to_collage
+    g = rp.mean(dim=(1, 2, 3))
+    eps = 0.1 * xp + 0.01 * g[:, None, None, None]
+    return to_collage(eps[:, None], p1, p2)[:, 0], eps
+
+
+def toy_bf16_gap(device):
+    """|bf16-transfer stream - f32 stream| of tests/test_streaming.py's
+    bf16 test (toy model, 2x2 tiles of 64^2 px x 8 channels, 3 steps)."""
+    import numpy as np
+
+    from tera_mind_tpu_torch.diffusion.sampler import (DiffusionSampler,
+                                                       SamplerConfig)
+    from tera_mind_tpu_torch.diffusion.schedule import spaced_schedule
+    from tera_mind_tpu_torch.parallel.generator import (GeneratorConfig,
+                                                        TeraGenerator)
+    from tera_mind_tpu_torch.parallel.streaming import (StreamConfig,
+                                                        StreamingGenerator)
+
+    gconf = GeneratorConfig(tile=64, patch=32, gn_blk=16, snum=4,
+                            n_slices=4, stains=2, gdim=8)
+    gen = TeraGenerator(DiffusionSampler(
+        spaced_schedule("linear", 1000, "ddim3"),
+        SamplerConfig(patch_size=32, gn_sz=2)), toy_model, gconf,
+        device=device)
+    gene = (np.random.default_rng(17).random(
+        (2, 2, gconf.gsz, gconf.gsz, gconf.z_pad, gconf.gdim))
+        < 0.05).astype(np.uint8)
+    f32, b16 = (StreamingGenerator(gen, StreamConfig(
+        progress=False, transfer_dtype=dt)).run(
+            2, 2, gene, row0=1, col0=1).read.float().numpy()
+        for dt in ("float32", "bfloat16"))
+    require(bool(np.isfinite(b16).all()), "toy bf16 stream not finite")
+    return np.abs(b16 - f32)
+
+
+# ---------------------------------------------------------------------------
+# phases 8 to 10: the main path
 # ---------------------------------------------------------------------------
 
 def start_card_sampler() -> subprocess.Popen:
@@ -549,99 +740,274 @@ GRID = 2          # 2x2 tiles of 256^2 px x 100 channels
 STEPS = 15        # DDIM steps (eta 0)
 
 
-# launches per chain: K1 norms and K2 attentions per UNet call x 25
-# z-windows x 15 steps.  The packed model's 46 ResBlock and output norms
-# are GroupedRMSNorm (plain PyTorch), so K1 runs only in the 6 DiT blocks
+# launches per chain: K1 norms and K2 attentions per UNet call x UNet
+# calls.  The packed model's 46 ResBlock and output norms are
+# GroupedRMSNorm (plain PyTorch), so K1 runs only in the 6 DiT blocks
 # (norm1, norm2, q_norm, k_norm) and the gene-gene block (q_norm, norm2).
+# Block-major 2x2: 25 z-windows x 15 steps = 375 calls; tile-major 2x2 at
+# window_chunk 5: 4 tiles x 5 calls x 15 steps = 300; streamed 4x4 in 2x2
+# windows at window_chunk 5: 4 windows x 5 calls x 15 steps = 300.
 CHAIN_LAUNCHES = {
     "packed": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
-    "5d": {"rmsnorm": 83 * 375, "window_attention": 6 * 375}}
+    "5d": {"rmsnorm": 83 * 375, "window_attention": 6 * 375},
+    "tile_major": {"rmsnorm": 26 * 300, "window_attention": 6 * 300},
+    "stream": {"rmsnorm": 26 * 300, "window_attention": 6 * 300}}
+STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
 
 
-def run_main_path(device, packed: bool = True) -> dict:
-    """``cli.generate.build`` with its defaults (or ``--no_packed``), one
-    warm-up step, then the timed chain with the launch counters set to 0
-    just before it and read just after it."""
+def per_call_counts(model) -> tuple:
+    """(K1 norms, of them with C % 8 == 0, K2 attentions) per UNet call.
+    K1 runs in every RMSNorm itself; its GroupedRMSNorm subclass is plain
+    PyTorch."""
+    from tera_mind_tpu_torch.models.attention import CrossAttention
+    from tera_mind_tpu_torch.models.nn import RMSNorm
+    norms = [m.weight.numel() for m in model.modules()
+             if type(m) is RMSNorm]
+    return (len(norms), sum(c % 8 == 0 for c in norms),
+            sum(isinstance(m, CrossAttention) for m in model.modules()))
+
+
+def expected_launches(counts: tuple, calls: int) -> tuple:
+    """(launches, launches by variant) of ``calls`` UNet calls."""
+    n_norm, n_vec, n_attn = counts
+    return ({"rmsnorm": n_norm * calls, "window_attention": n_attn * calls},
+            {"rmsnorm": {"strided": (n_norm - n_vec) * calls,
+                         "vector": n_vec * calls},
+             "window_attention": {"cuda_core": 0,
+                                  "tensor_core": n_attn * calls}})
+
+
+def read_launches() -> tuple:
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    return ({"rmsnorm": k1.launches, "window_attention": k2.launches},
+            {"rmsnorm": dict(k1.launches_by_variant),
+             "window_attention": dict(k2.launches_by_variant)})
+
+
+def reset_launches() -> None:
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    k1.reset_launches()
+    k2.reset_launches()
+
+
+def require_output(out, shape) -> None:
     import numpy as np
+    require(out.shape == shape, f"shape {out.shape}, expected {shape}")
+    require(bool(np.isfinite(out).all()), "non-finite output")
+    require(out.min() >= -1.0 and out.max() <= 1.0,
+            f"output outside [-1, 1]: [{out.min()}, {out.max()}]")
+    log(f"output {out.shape} in [{out.min():.4f}, {out.max():.4f}], "
+        f"mean {out.mean():.4f}, std {out.std():.4f}")
+
+
+def run_main_path(device, path: str = "packed") -> dict:
+    """``cli.generate.build`` with its defaults (path "packed"),
+    ``--no_packed`` ("5d") or ``--tile_major`` ("tile_major"), one
+    warm-up step (which plans the block-major step's memory), then the
+    timed chain with the launch counters set to 0 just before it and read
+    just after it."""
     import torch
 
     from tera_mind_tpu_torch.cli import generate
-    from tera_mind_tpu_torch.models.attention import CrossAttention
-    from tera_mind_tpu_torch.models.nn import RMSNorm
-    from tera_mind_tpu_torch.ops import attention_kernel as k2
-    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
 
-    path = "packed" if packed else "5d"
+    tile_major = path == "tile_major"
+    flags = {"packed": [], "5d": ["--no_packed"],
+             "tile_major": ["--tile_major"]}[path]
     args = generate.parse_args(["--synthetic", "--hnm", str(GRID),
                                 "--wnm", str(GRID), "--tot_epoch",
-                                str(STEPS), "--device", str(device)]
-                               + ([] if packed else ["--no_packed"]))
+                                str(STEPS), "--device", str(device)] + flags)
     t0 = time.perf_counter()
     gen, model, gene, (row0, col0) = generate.build(args)
-    # K1 runs in every RMSNorm itself; its GroupedRMSNorm subclass is
-    # plain PyTorch
-    norms = [m.weight.numel() for m in model.modules()
-             if type(m) is RMSNorm]
-    n_norm, n_vec = len(norms), sum(c % 8 == 0 for c in norms)
-    n_attn = sum(isinstance(m, CrossAttention) for m in model.modules())
-    calls = gen.conf.n_win // gen._wchunk() * STEPS
-    want = {"rmsnorm": n_norm * calls, "window_attention": n_attn * calls}
-    want_variants = {
-        "rmsnorm": {"strided": (n_norm - n_vec) * calls,
-                    "vector": n_vec * calls},
-        "window_attention": {"cuda_core": 0,
-                             "tensor_core": n_attn * calls}}
-    log(f"main path [{path}]: 638850 {type(model).__name__} "
-        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params "
-        f"bf16, {n_norm} K1 RMSNorm ({n_vec} with C % 8 == 0) + {n_attn} "
-        f"CrossAttention per UNet call, "
-        f"{calls} UNet calls per chain; built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
 
     state0 = torch.as_tensor(gen.init_state(GRID, GRID, row0=row0,
                                             col0=col0), device=device)
     t0 = time.perf_counter()
-    gen.compile_step(GRID, GRID)(state0, torch.as_tensor(gene, device=device),
-                                 STEPS - 1)
+    gen.compile_step(GRID, GRID, block_major=not tile_major)(
+        state0, torch.as_tensor(gene, device=device), STEPS - 1)
     torch.cuda.synchronize()
     log(f"warm-up step: {time.perf_counter() - t0:.2f} s")
+    if tile_major:
+        require(gen.conf.window_chunk == 5,
+                f"--tile_major window_chunk {gen.conf.window_chunk}, not 5")
+    else:
+        # the planner picks the whole 2x2 block (81 patches a z-window,
+        # nearest TMT_TARGET_PATCHES) and one z-window a call
+        require((gen.conf.strip_rows, gen.conf.window_chunk) == (0, 1),
+                f"planned strip_rows {gen.conf.strip_rows}, window_chunk "
+                f"{gen.conf.window_chunk}; expected 0 and 1")
+        probe = gen.plan_probe
+        log(f"planner [{path}]: strip_rows 0, window_chunk 1; probe peak "
+            f"{probe['need'] / 2 ** 30:.2f} GiB of a "
+            f"{probe['budget'] / 2 ** 30:.2f} GiB budget")
+    counts = per_call_counts(model)
+    calls = gen.conf.n_win // gen._wchunk() * STEPS * (
+        GRID * GRID if tile_major else 1)
+    want, want_variants = expected_launches(counts, calls)
+    log(f"main path [{path}]: 638850 {type(model).__name__} "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params "
+        f"bf16, {counts[0]} K1 RMSNorm ({counts[1]} with C % 8 == 0) + "
+        f"{counts[2]} CrossAttention per UNet call, {calls} UNet calls per "
+        f"chain; built in {build_s:.1f} s")
 
+    before = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     smi_proc = start_card_sampler()
     try:
-        k1.reset_launches()
-        k2.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
-        out = gen.run(gene, row0=row0, col0=col0, grid_w=416, progress=True)
+        out = gen.run(gene, row0=row0, col0=col0, grid_w=416,
+                      block_major=not tile_major, progress=True)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
         card = stop_card_sampler(smi_proc)
-    got = {"rmsnorm": k1.launches, "window_attention": k2.launches}
-    got_variants = {"rmsnorm": dict(k1.launches_by_variant),
-                    "window_attention": dict(k2.launches_by_variant)}
+    got, got_variants = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"chain [{path}]: {GRID}x{GRID} tiles x {STEPS} steps in "
         f"{secs:.2f} s = {GRID * GRID / secs:.5f} tiles/s; peak device "
-        f"memory {peak:.2f} GiB; launches {got} (expected {want}), by "
+        f"memory {peak:.2f} GiB ({before:.2f} GiB allocated before the "
+        f"chain); launches {got} (expected {want}), by "
         f"variant {got_variants} (expected {want_variants}); {card}")
 
-    require(out.shape == (GRID * 256, GRID * 256, 100), f"shape {out.shape}")
-    require(bool(np.isfinite(out).all()), "non-finite output")
-    require(out.min() >= -1.0 and out.max() <= 1.0,
-            f"output outside [-1, 1]: [{out.min()}, {out.max()}]")
+    require_output(out, (GRID * 256, GRID * 256, 100))
     require(got == want, f"launches {got}, expected {want}")
     require(want == CHAIN_LAUNCHES[path],
             f"per-chain launch counts {want} differ from the {path} "
             f"model's {CHAIN_LAUNCHES[path]}")
     require(got_variants == want_variants,
             f"launches by variant {got_variants}, expected {want_variants}")
-    log(f"output {out.shape} in [{out.min():.4f}, {out.max():.4f}], "
-        f"mean {out.mean():.4f}, std {out.std():.4f}")
-    del gen, model
-    torch.cuda.empty_cache()
     return dict(launches=got, variants=got_variants, seconds=secs,
-                tiles_per_s=GRID * GRID / secs, peak_gib=peak, out=out)
+                tiles_per_s=GRID * GRID / secs, peak_gib=peak, out=out,
+                gen=gen, counts=counts)
+
+
+def check_planner(gen) -> list:
+    """``auto_plan`` of the full-width packed generator for square grids:
+    its plan, the measured peak of its probe and the budget; the 2x2 plan
+    must be the whole block with one z-window a call."""
+    import dataclasses
+
+    rows = []
+    for g in (2, 4, 8, 16):
+        gen.conf = dataclasses.replace(gen.conf, strip_rows=0,
+                                       window_chunk=-1)
+        t0 = time.perf_counter()
+        plan = gen.auto_plan(g, g, verbose=False)
+        probe = gen.plan_probe
+        rows.append(dict(grid=g, **plan, need_gib=probe["need"] / 2 ** 30,
+                         budget_gib=probe["budget"] / 2 ** 30,
+                         seconds=time.perf_counter() - t0))
+        log(f"planner {g}x{g}: {plan}; probe peak "
+            f"{rows[-1]['need_gib']:.2f} GiB of a "
+            f"{rows[-1]['budget_gib']:.2f} GiB budget "
+            f"({rows[-1]['seconds']:.1f} s)")
+    require(rows[0]["tile_major"] is False and rows[0]["strip_rows"] == 0
+            and rows[0]["window_chunk"] == 1,
+            f"2x2 plan {rows[0]}, expected the whole block, window_chunk 1")
+    return rows
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident set so far, GiB (``ru_maxrss``)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+class Tee:
+    """Writes to standard output and keeps a copy."""
+
+    def __init__(self):
+        import io
+        self.copy = io.StringIO()
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return self.copy.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def run_stream_path(device, counts: tuple) -> dict:
+    """``cli.generate.main --stream`` at its defaults on a 4x4 grid, 15
+    steps, with the launch counters set to 0 just before it, then a 2-step
+    run of the same grid under ``TMT_STREAM_TIMING``."""
+    import contextlib
+    import os
+    import re
+    import tempfile
+
+    import torch
+
+    from tera_mind_tpu_torch.cli import generate
+
+    g = STREAM_GRID
+    rss_before = peak_rss_gib()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--stream", "--hnm", str(g), "--wnm", str(g),
+                "--tot_epoch", str(STEPS), "--device", str(device),
+                "--out_dir", f"{tmp}/tiles"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tee = Tee()
+        smi_proc = start_card_sampler()
+        try:
+            reset_launches()
+            with contextlib.redirect_stdout(tee):
+                out = generate.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            card = stop_card_sampler(smi_proc)
+        got, got_variants = read_launches()
+        n_tiles = len(list(Path(tmp, "tiles").glob("*.npy")))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rss = peak_rss_gib()
+    text = tee.copy.getvalue()
+    done = re.search(r"in ([0-9.]+) s;", text)
+    auto = re.search(r"window_chunk auto -> (\d+)", text)
+    require(done is not None and auto is not None,
+            "the streamed run printed no run time or window_chunk")
+    secs, wc = float(done.group(1)), int(auto.group(1))
+    calls = 25 // wc * (g // 2) ** 2 * STEPS
+    want, want_variants = expected_launches(counts, calls)
+    log(f"chain [stream]: {g}x{g} tiles x {STEPS} steps in {secs:.2f} s = "
+        f"{g * g / secs:.5f} tiles/s (window_chunk {wc}, {calls} UNet "
+        f"calls); peak device memory {peak:.2f} GiB, the process's peak "
+        f"host RSS {rss:.2f} GiB ({rss_before:.2f} GiB before the chain); "
+        f"launches {got} (expected {want}), by variant "
+        f"{got_variants} (expected {want_variants}); {card}")
+    require_output(out, (g * 256, g * 256, 100))
+    require(n_tiles == g * g, f"{n_tiles} tiles exported, not {g * g}")
+    require(got == want, f"launches {got}, expected {want}")
+    require(want == CHAIN_LAUNCHES["stream"],
+            f"per-chain launch counts {want} differ from "
+            f"{CHAIN_LAUNCHES['stream']}")
+    require(got_variants == want_variants,
+            f"launches by variant {got_variants}, expected {want_variants}")
+
+    # the per-phase breakdown: one sequential sweep, 2 steps
+    args = generate.parse_args(argv[:6] + ["--tot_epoch", "2", "--device",
+                                           str(device)])
+    gen, _, gene, (row0, col0) = generate.build(args)
+    sgen = generate.make_streamer(args, gen)
+    os.environ["TMT_STREAM_TIMING"] = "1"
+    try:
+        t0 = time.perf_counter()
+        sgen.run(g, g, gene, row0=row0, col0=col0, grid_w=416)
+        timed_s = time.perf_counter() - t0
+    finally:
+        del os.environ["TMT_STREAM_TIMING"]
+    timing = dict(sgen.timing, seconds=timed_s)
+    log(f"stream timing, {g}x{g} x 2 steps, one worker: " + ", ".join(
+        f"{k} {v:.3f} s" if k != "n" else f"{v} windows"
+        for k, v in timing.items()))
+    return dict(launches=got, variants=got_variants, seconds=secs,
+                tiles_per_s=g * g / secs, peak_gib=peak, host_rss_gib=rss,
+                host_rss_before_gib=rss_before, window_chunk=wc,
+                timing=timing, out=out)
 
 
 def main() -> int:
@@ -680,12 +1046,27 @@ def main() -> int:
     err = check_resume(device, small["packed"], small["out"])
     log(f"resume from the epoch-1 float16 spill vs uninterrupted: "
         f"max_abs_err {err:.3g} (tol {RESUME_ATOL})")
-    chains = {"packed": run_main_path(device, packed=True),
-              "5d": run_main_path(device, packed=False)}
-    diff = np.abs(chains["packed"].pop("out") - chains["5d"].pop("out"))
-    log(f"full-width bf16 outputs, packed vs 5d on the same weights and "
-        f"noise: max |d| {diff.max():.4g}, mean |d| {diff.mean():.4g} "
-        "(informative; the small f32 chain is the gate)")
+    small_stream = check_small_streaming(device, small["packed"])
+    for name, err in small_stream.items():
+        log(f"small {name}: max_abs_err {err:.3g}")
+    chains, plans = {}, None
+    for path in ("packed", "5d", "tile_major"):
+        chains[path] = run_main_path(device, path)
+        gen = chains[path].pop("gen")
+        if path == "tile_major":
+            plans = check_planner(gen)
+        del gen
+        torch.cuda.empty_cache()
+    outs = {p: c.pop("out") for p, c in chains.items()}
+    for other in ("5d", "tile_major"):
+        diff = np.abs(outs["packed"] - outs[other])
+        log(f"full-width bf16 outputs, packed vs {other} on the same "
+            f"weights and noise: max |d| {diff.max():.4g}, mean |d| "
+            f"{diff.mean():.4g} (informative; the small f32 chains are the "
+            "gate)")
+    del outs
+    chains["stream"] = run_stream_path(device, chains["packed"]["counts"])
+    chains["stream"].pop("out")
     main_path = chains["packed"]
 
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
@@ -712,10 +1093,14 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "chain_seconds":
                       main_path["seconds"], "tiles_per_s":
                       main_path["tiles_per_s"],
-                      "chains": {p: {k: c[k] for k in ("seconds",
-                                                       "tiles_per_s",
-                                                       "peak_gib")}
-                                 for p, c in chains.items()}}), flush=True)
+                      "chains": {p: {k: c[k] for k in (
+                          "seconds", "tiles_per_s", "peak_gib",
+                          "host_rss_gib", "host_rss_before_gib",
+                          "window_chunk", "timing")
+                          if k in c}
+                          for p, c in chains.items()},
+                      "planner": plans, "small_stream": small_stream}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

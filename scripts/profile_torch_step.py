@@ -1,18 +1,24 @@
 """Profile the PyTorch port's tera-generator step on one CUDA card.
 
-    python scripts/profile_torch_step.py [--no_packed] [--json PATH]
+    python scripts/profile_torch_step.py [--no_packed]
+        [--path block_major|tile_major|stream] [--json PATH]
 
-Builds the ``cli.generate`` path (638850 preset, 2x2 tiles, bf16,
-block-major, window_chunk 1; the packed model, or the 5D one with
-``--no_packed``) and, after a warm-up step, traces one step with
-``torch.profiler``: it prints device time by category (convolution, each
-variant of K1 rmsnorm and of K2 window attention, matmul,
-elementwise/copies, other), the device time of the kernels launched
-inside ``GroupedRMSNorm`` (plain PyTorch, spread over the categories
-above; each call is wrapped in a ``record_function`` range for the
-trace), the top kernels, and the device's idle share over the step
-(1 - summed kernel time / wall time).  Every line names the card and its
-power limit.  ``--json PATH`` also writes the per-kernel table there.
+Builds the ``cli.generate`` path (638850 preset, bf16; the packed model,
+or the 5D one with ``--no_packed``): ``block_major`` (the default, 2x2
+tiles, the planned window_chunk 1), ``tile_major`` (2x2 tiles,
+``--tile_major``, window_chunk 5) or ``stream`` (``--stream`` at its
+defaults on 4x4 tiles: one step is a sweep of four 2x2-tile windows, 3
+in flight on their own streams).  After a warm-up step it traces one
+step with ``torch.profiler``: it prints device time by category
+(convolution, each variant of K1 rmsnorm and of K2 window attention,
+matmul, elementwise/copies, other), the device time of the kernels
+launched inside ``GroupedRMSNorm`` (plain PyTorch, spread over the
+categories above; each call is wrapped in a ``record_function`` range
+for the trace), the top kernels, and the device's idle share over the
+step: 1 - (time in which at least one kernel runs) / wall time, which on
+one stream is 1 - summed kernel time / wall time.  Every line names the
+card and its power limit.  ``--json PATH`` also writes the per-kernel
+table there.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tera_mind_tpu_torch.cli import generate  # noqa: E402
 from tera_mind_tpu_torch.models import unet_packed  # noqa: E402
 
-TILES = 2          # 2x2 tiles of 256^2 px, as chip_smoke.py's main path
+TILES = {"block_major": 2, "tile_major": 2, "stream": 4}  # grid side
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("K1 rmsnorm vector", ("rmsnorm_kernel_vec",)),
@@ -66,9 +72,48 @@ def trace_grouped_norms() -> None:
     unet_packed.GroupedRMSNorm.forward = traced
 
 
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals: the time in which at
+    least one kernel runs, on any stream."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def make_step(path: str, no_packed: bool):
+    """(one step of ``path`` as a callable, the CUDA device)."""
+    n = TILES[path]
+    flags = {"block_major": [], "tile_major": ["--tile_major"],
+             "stream": ["--stream"]}[path]
+    args = generate.parse_args(["--synthetic", "--hnm", str(n), "--wnm",
+                                str(n)] + flags + ["--no_packed"] * no_packed)
+    gen, _, gene, (row0, col0) = generate.build(args)
+    dev = gen.device
+    state0 = gen.init_state(n, n, row0=row0, col0=col0)
+    t = 7
+    if path == "stream":
+        sgen = generate.make_streamer(args, gen)
+        sgen.sconf.progress = False
+        hs = sgen.make_state(n, n)
+
+        def step():   # one sweep: the last timestep of the chain
+            hs.read[:] = torch.from_numpy(state0)
+            sgen.run(n, n, gene, row0=row0, col0=col0, state=hs, start_t=1)
+        return step, dev
+    state = torch.as_tensor(state0, device=dev)
+    gene = torch.as_tensor(gene, device=dev)
+    fn = gen.compile_step(n, n, block_major=path == "block_major")
+    return (lambda: fn(state, gene, t)), dev
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no_packed", action="store_true")
+    ap.add_argument("--path", default="block_major",
+                    choices=("block_major", "tile_major", "stream"))
     ap.add_argument("--json", type=Path, default=None)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -79,25 +124,16 @@ def main() -> None:
     print(f"card: {card}", flush=True)
 
     trace_grouped_norms()
-    args = generate.parse_args(["--synthetic", "--hnm", str(TILES),
-                                "--wnm", str(TILES)]
-                               + ["--no_packed"] * a.no_packed)
-    gen, _, gene, (row0, col0) = generate.build(args)
-    dev = gen.device
-    state = torch.as_tensor(gen.init_state(TILES, TILES, row0=row0,
-                                           col0=col0), device=dev)
-    gene = torch.as_tensor(gene, device=dev)
-    t = 7
-    step = gen.compile_step(TILES, TILES)
-    step(state, gene, t)                           # warm-up
+    step, dev = make_step(a.path, a.no_packed)
+    step()                                         # warm-up
 
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, gene, t)
-        torch.cuda.synchronize()
+        step()
+        torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
 
     def dev_us(ev):
@@ -107,6 +143,7 @@ def main() -> None:
     kernels = defaultdict(lambda: [0.0, 0])
     grouped = [0.0, 0]    # device us of the kernels inside, and calls
     grouped_span = 0.0    # device us of the ranges' spans on the card
+    spans = []            # (start, end) us of every kernel on the card
     for ev in prof.events():
         on_card = ev.device_type == torch.autograd.DeviceType.CUDA
         if ev.name == "GroupedRMSNorm":
@@ -119,18 +156,25 @@ def main() -> None:
             k = kernels[ev.name]
             k[0] += dev_us(ev)
             k[1] += 1
+            spans.append((ev.time_range.start, ev.time_range.end))
     total_us = sum(v[0] for v in kernels.values())
+    union_us = busy_us(spans)
     cats = defaultdict(float)
     for name, (us, _) in kernels.items():
         cats[category(name)] += us
-    print(f"traced step: wall {wall:.4f} s, "
-          f"device busy {total_us / 1e6:.4f} s, idle share "
-          f"{1 - total_us / 1e6 / wall:.3f} ({card})", flush=True)
+    print(f"traced step [{a.path}]: wall {wall:.4f} s, kernel time "
+          f"{total_us / 1e6:.4f} s, device busy {union_us / 1e6:.4f} s, "
+          f"idle share {1 - union_us / 1e6 / wall:.3f} ({card})", flush=True)
     for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:26s} {us / 1e3:9.2f} ms  {100 * us / total_us:5.1f} %")
-    print(f"  GroupedRMSNorm: kernels inside its {grouped[1]} calls "
-          f"{grouped[0] / 1e3:.2f} ms ({100 * grouped[0] / total_us:.1f} %),"
-          f" its ranges' spans on the card {grouped_span / 1e3:.2f} ms")
+    if a.path == "stream":
+        print("  GroupedRMSNorm: its ranges run on the window workers' "
+              "threads, which the profiler does not record")
+    else:
+        print(f"  GroupedRMSNorm: kernels inside its {grouped[1]} calls "
+              f"{grouped[0] / 1e3:.2f} ms "
+              f"({100 * grouped[0] / total_us:.1f} %), its ranges' spans "
+              f"on the card {grouped_span / 1e3:.2f} ms")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     for name, (us, n) in top[:25]:
         print(f"  {us / 1e3:9.2f} ms  {n:6d}x  [{category(name)}] "
@@ -139,8 +183,9 @@ def main() -> None:
         return
     a.json.parent.mkdir(parents=True, exist_ok=True)
     a.json.write_text(json.dumps({
-        "card": card, "packed": not a.no_packed, "wall_s": wall,
-        "busy_us": total_us, "categories_us": cats,
+        "card": card, "packed": not a.no_packed, "path": a.path,
+        "wall_s": wall, "kernel_us": total_us, "busy_us": union_us,
+        "categories_us": cats,
         "grouped_rmsnorm_us": grouped[0],
         "grouped_rmsnorm_calls": grouped[1],
         "grouped_rmsnorm_span_us": grouped_span,

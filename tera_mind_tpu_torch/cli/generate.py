@@ -1,4 +1,4 @@
-"""Tera-scale generation CLI, in-memory on one device.
+"""Tera-scale generation CLI on one device: in memory, or host-streamed.
 
     python -m tera_mind_tpu_torch.cli.generate --mouse 638850 \
         --ckpt_pth checkpoints/638850_64_229_all_4_ours/last.ckpt \
@@ -7,10 +7,18 @@
 
     python -m tera_mind_tpu_torch.cli.generate --synthetic --hnm 2 --wnm 2
 
+    python -m tera_mind_tpu_torch.cli.generate --synthetic --stream \
+        --hnm 4 --wnm 4
+
 Port of ``tera_mind_tpu/cli/generate.py`` for one device: the z-packed
 ``PackedTeraUNet`` by default (``--no_packed``: the 5D ``TeraUNet``,
-``--packed_attn``: DiT blocks on the packed tokens), in bf16, block-major
-DDIM steps (eta 0), per-tile LCG noise drawn on the CPU.  Weights come
+``--packed_attn``: DiT blocks on the packed tokens), in bf16, DDIM steps
+(eta 0), block-major by default (``--tile_major``: per-tile windows),
+per-tile LCG noise drawn on the CPU.  ``--window_chunk -1`` (the default)
+plans the in-memory step's memory (``TeraGenerator.auto_plan``); with
+``--stream`` the state stays on the host and windows of
+``--stream_block``^2 tiles stream through the card
+(``parallel/streaming.py``).  Weights come
 from a reference Lightning ``.ckpt`` (the preset is read from its run
 directory's name) or, without one, from a seeded random init.  Gene tiles
 come from the reference's per-tile COO files under ``--data_path`` or,
@@ -20,12 +28,14 @@ from the latest spill, or from ``--cur_epoch``'s.  The final tiles are
 written to ``--out_dir`` as float16 ``.npy`` files named
 ``{h0}_{h1}_{w0}_{w1}``, with per-slice jpg previews under
 ``{out_dir}/preview`` for grids of up to 32x32 tiles.  Not ported yet:
-orbax checkpoints, streaming, multi-process runs and int8.
+orbax checkpoints, multi-process runs (``--coordinator``,
+``--num_processes``, ``--process_id``) and int8 (``--quant*``).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from pathlib import Path
 from typing import Callable, Optional, Sequence
@@ -42,6 +52,7 @@ from ..models.nn import channels_last_, init_weights
 from ..models.unet import TeraUNetConfig
 from ..models.unet_packed import make_packed_model, pack_unet_params
 from ..parallel.generator import GeneratorConfig, TeraGenerator, grid_to_image
+from ..parallel.streaming import StreamConfig, StreamingGenerator
 
 TILE = 256          # px per tile side, the reference's grid unit
 
@@ -139,8 +150,53 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="spill the state every this many steps (0: never)")
     ap.add_argument("--synthetic", action="store_true",
                     help="a seeded synthetic gene grid instead of gene files")
-    ap.add_argument("--window_chunk", type=int, default=1,
-                    help="z-windows per model call (0 = all 25)")
+    ap.add_argument("--stream", action="store_true",
+                    help="host-resident state, block-streamed through the "
+                    "device (grids larger than its memory; "
+                    "parallel/streaming.py)")
+    ap.add_argument("--stream_block", type=int, default=2,
+                    help="tiles per streamed device window (per side)")
+    ap.add_argument("--stream_k", type=int, default=1,
+                    help="temporal halo blocking: DDIM steps per window "
+                    "visit (exact; cuts the host<->device state traffic "
+                    "~K-fold at the cost of an enlarged window halo; "
+                    "max tile//patch + 1)")
+    ap.add_argument("--stream_memmap", type=str, default=None,
+                    help="disk-back the host state (beyond-RAM grids)")
+    ap.add_argument("--stream_inflight", type=int, default=3,
+                    help="streaming windows in flight (worker threads, each "
+                    "with its own CUDA stream: assembly and transfers "
+                    "overlap compute; results identical, see "
+                    "StreamConfig.inflight)")
+    ap.add_argument("--stream_gene_gb", type=float, default=4.0,
+                    help="device budget (GB) for pinning the timestep-"
+                    "invariant gene blocks on the card across sweeps "
+                    "(0 disables; bit-identical either way)")
+    ap.add_argument("--stream_dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="host<->device state transfer dtype; bfloat16 "
+                    "halves the state's round trip (the reference "
+                    "round-trips fp16 state through disk every step). "
+                    "The host state buffers are stored in this dtype too "
+                    "(bit-identical, halves host RAM/memmap bytes and "
+                    "makes window staging a memcpy); --stream_state_dtype "
+                    "overrides")
+    ap.add_argument("--stream_state_dtype", default=None,
+                    choices=(None, "float32", "bfloat16"),
+                    help="override the HOST state buffer dtype (default: "
+                    "same as --stream_dtype)")
+    ap.add_argument("--window_chunk", type=int, default=-1,
+                    help="z-windows per model call (activation-memory "
+                    "bound; 0 = all 25). Default -1 = AUTO: the in-memory "
+                    "generator plans (strip_rows, window_chunk) from the "
+                    "grid size and a measured probe of the card's memory; "
+                    "--stream resolves it per block size (5 at the "
+                    "default 2x2 block); --tile_major takes 5")
+    ap.add_argument("--tile_major", action="store_true",
+                    help="per-tile window processing (the reference's "
+                    "layout); default is block-major: one patch grid over "
+                    "the block, ~36%% fewer patches at scale, the same "
+                    "result")
     ap.add_argument("--no_packed", action="store_true",
                     help="run the 5D TeraUNet instead of its z-packed "
                     "re-parameterization (models/unet_packed.py)")
@@ -148,7 +204,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="run the DiT blocks on the packed (h, w, z) tokens "
                     "(no unpack/pack around each block; equal up to float "
                     "reassociation)")
-    ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="cuda (the default) or cpu")
     ap.add_argument("--out", type=str, default=None,
                     help="also save the final (H, W, channels) state here "
                     "as .npy")
@@ -193,6 +250,9 @@ def build(args: argparse.Namespace):
     ``args``, the model on the device."""
     device = torch.device(args.device)
     conf = run_config(args)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: run on the card, or pass "
+                         "--device cpu")
     mconf = conf.make_model_conf()
     params5 = None
     if args.ckpt_pth is not None:
@@ -209,7 +269,10 @@ def build(args: argparse.Namespace):
     gconf = GeneratorConfig(tile=TILE, patch=conf.image_size, gn_blk=16,
                             snum=conf.rna_slices, n_slices=50,
                             stains=2 if conf.stain == "all" else 1,
-                            gdim=500, window_chunk=args.window_chunk)
+                            gdim=500,
+                            window_chunk=(5 if args.tile_major
+                                          and args.window_chunk < 0
+                                          else args.window_chunk))
 
     def model_fn(xp, tm, rp, p1, p2):
         # sampling reads only the collage decode
@@ -222,9 +285,23 @@ def build(args: argparse.Namespace):
                                    gconf.z_pad, gconf.gdim)
     else:
         gdir = Path(args.data_path or f"Data/MERFISH_50/gene_{conf.mouse}")
-        gene = gene_provider(gdir, args.hst, args.wst, gdim=gconf.gdim,
-                             spad=gconf.spad)
+        gene = functools.lru_cache(maxsize=4 * (args.stream_block + 2) ** 2)(
+            gene_provider(gdir, args.hst, args.wst, gdim=gconf.gdim,
+                          spad=gconf.spad))
     return gen, model, gene, (args.hst // TILE, args.wst // TILE)
+
+
+def make_streamer(args: argparse.Namespace,
+                  gen: TeraGenerator) -> StreamingGenerator:
+    """The ``--stream*`` options' streaming generator around ``gen``."""
+    return StreamingGenerator(gen, StreamConfig(
+        block_rows=args.stream_block, block_cols=args.stream_block,
+        checkpoint_every=args.ckpt_every, memmap_dir=args.stream_memmap,
+        block_major=not args.tile_major, steps_per_window=args.stream_k,
+        inflight=args.stream_inflight,
+        gene_device_cache_gb=args.stream_gene_gb,
+        transfer_dtype=args.stream_dtype,
+        state_dtype=args.stream_state_dtype))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
@@ -245,9 +322,21 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
         start_t = args.tot_epoch - args.cur_epoch
 
     t0 = time.perf_counter()
-    out = gen.run(gene, rows=rows, cols=cols, row0=row0, col0=col0,
-                  grid_w=416, state=state0, start_t=start_t, checkpoint=ck,
-                  checkpoint_every=args.ckpt_every)
+    if args.stream:
+        sgen = make_streamer(args, gen)
+        hstate = None
+        if state0 is not None:
+            hstate = sgen.make_state(rows, cols)
+            hstate.read[:] = torch.from_numpy(state0)
+        hstate = sgen.run(rows, cols, gene, row0=row0, col0=col0,
+                          grid_w=416, checkpoint=ck, state=hstate,
+                          start_t=start_t)
+        out = hstate.read.float().numpy()
+    else:
+        out = gen.run(gene, rows=rows, cols=cols, row0=row0, col0=col0,
+                      grid_w=416, state=state0, start_t=start_t,
+                      checkpoint=ck, checkpoint_every=args.ckpt_every,
+                      block_major=not args.tile_major)
     dt = time.perf_counter() - t0
 
     store = TileStore(args.out_dir).create()

@@ -45,6 +45,7 @@ SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()   # guards every wrapper's launch counters
 build_seconds = None   # wall time of the last build (None: loaded cached)
 build_log = ""         # nvcc's and ptxas's output of the last build
 
@@ -130,6 +131,24 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def count_launch(counters, variant: str) -> None:
+    """Add one launch of ``variant`` to ``counters.launches`` and
+    ``counters.launches_by_variant`` (a kernel wrapper module) under one
+    lock: streaming runs windows on worker threads, where a bare
+    ``+= 1`` can lose an increment."""
+    with _count_lock:
+        counters.launches += 1
+        counters.launches_by_variant[variant] += 1
+
+
+def reset_launches(counters) -> None:
+    """Set ``counters.launches`` and every variant's count to 0."""
+    with _count_lock:
+        counters.launches = 0
+        for name in counters.launches_by_variant:
+            counters.launches_by_variant[name] = 0
 
 
 def check(err: int, name: str) -> None:

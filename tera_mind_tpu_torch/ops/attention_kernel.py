@@ -24,6 +24,8 @@ alignment before the launch (``csrc/attention.cu`` holds the designs):
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from . import _build
@@ -39,10 +41,7 @@ launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    for name in VARIANTS:
-        launches_by_variant[name] = 0
+    _build.reset_launches(sys.modules[__name__])
 
 
 def tc_smem_bytes(n: int, d: int) -> int:
@@ -79,7 +78,6 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
     """Launch K2 on CUDA tensors of shape (B, N, D) and one dtype.  Raises
     when autograd would need a backward (``_build.autograd_required``)."""
-    global launches
     _build.refuse_autograd("window_attention", q, k, v)
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"window_attention: q {tuple(q.shape)}, "
@@ -102,8 +100,7 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, d,
         scale, code, VARIANTS.index(variant), _build.stream_ptr(q))
     _build.check(err, f"tmt_window_attention ({variant})")
-    launches += 1
-    launches_by_variant[variant] += 1
+    _build.count_launch(sys.modules[__name__], variant)
     return o
 
 

@@ -23,6 +23,8 @@ result is ``w * (x * inv)``, the JAX package's f32 formula.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from . import _build
@@ -35,10 +37,7 @@ launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    for name in VARIANTS:
-        launches_by_variant[name] = 0
+    _build.reset_launches(sys.modules[__name__])
 
 
 def rmsnorm_variant(c: int, itemsize: int, aligned: bool) -> str:
@@ -63,7 +62,6 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """Launch K1 on a CUDA tensor (weight is cast to x's dtype).  Raises
     when autograd would need a backward (``_build.autograd_required``)."""
-    global launches
     _build.refuse_autograd("rmsnorm", x, weight)
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
@@ -83,8 +81,7 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
                                    VARIANTS.index(variant),
                                    _build.stream_ptr(x))
     _build.check(err, f"tmt_rmsnorm ({variant})")
-    launches += 1
-    launches_by_variant[variant] += 1
+    _build.count_launch(sys.modules[__name__], variant)
     return y.reshape(x.shape)
 
 

@@ -1,11 +1,20 @@
 """Tera-scale generation: the timestep-major tile-grid sampling loop.
 
-Port of ``tera_mind_tpu/parallel/generator.py`` for one device, block-major
-steps only.  The whole tile-grid state lives on the device as one
-channels-last image; each DDIM step pads it with a -1 halo, cuts it into z
-windows and denoises each window's whole patch grid in one batch
-(``_window_update_bins``), ``window_chunk`` windows per model call.  The
-Python loop over window chunks takes the place of the JAX ``lax.scan``.
+Port of ``tera_mind_tpu/parallel/generator.py`` for one device.  The whole
+tile-grid state lives on the device as one channels-last image; each DDIM
+step pads it with a -1 halo and cuts it into z windows.  Two steps give
+the same result:
+
+- tile-major (``_block_step``): every tile's 320x320 halo window is
+  denoised on its own, ``(tile/patch + 1)^2`` patches per z-window;
+- block-major (``_block_major_step``): one patch grid over the whole block
+  (or over row strips of it), ``window_chunk`` z-windows per model call.
+
+The Python loops over tiles and window chunks take the place of the JAX
+``lax.scan``s.  With ``window_chunk`` -1 the block-major step is planned
+(``auto_plan``): on the card each candidate plan's peak device memory is
+measured with one model call at its largest patch batch, where JAX reads
+XLA's memory analysis.
 
 z-window semantics: image channels are (stain, window, z) stain-major;
 image windows are NON-overlapping groups of ``snum//2`` slices; RNA windows
@@ -13,16 +22,17 @@ are OVERLAPPING groups of ``snum`` slices with stride ``snum//2`` over the
 z-padded gene stack.
 
 ``run`` resumes from a given state or from the latest spill of a
-``StateCheckpoint`` and spills every ``checkpoint_every`` steps.  Not
-ported yet: the tile-major step, ``auto_plan`` (XLA memory analysis),
-meshes, multi-process runs and streaming.
+``StateCheckpoint`` and spills every ``checkpoint_every`` steps.  Host
+streaming of grids larger than the device is ``parallel/streaming.py``;
+meshes and multi-process runs are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -89,7 +99,8 @@ class GeneratorConfig:
     stains: int = 2
     gdim: int = 500            # gene panel carried in the gene stack
     window_chunk: int = 0      # z-windows per model call (0 = all at
-                               # once); bounds activation memory
+                               # once, -1 = planned by auto_plan);
+                               # bounds activation memory
     strip_rows: int = 0        # tile rows per block-major strip (0 =
                                # whole block); strips read their halo from
                                # the previous-step state, so results equal
@@ -133,6 +144,69 @@ class GeneratorConfig:
         return (self.tile + 2 * self.pad) // self.gn_blk
 
 
+Plan = tuple  # (tile_major, strip_rows, window_chunk)
+
+
+def plan_candidates(rows: int, cols: int, conf: GeneratorConfig
+                    ) -> list[Plan]:
+    """The plans ``auto_plan`` tries, best first, as the JAX package
+    orders them: block-major row strips by distance of their patches per
+    z-window from ``TMT_TARGET_PATCHES`` (160), none above
+    ``TMT_MAX_PATCHES`` (600), then the largest tile-major window chunk
+    under that bound (tile-major with chunk 1 if nothing fits)."""
+    p_max = int(os.environ.get("TMT_MAX_PATCHES", "600"))
+    p_tgt = int(os.environ.get("TMT_TARGET_PATCHES", "160"))
+    tpp = conf.tile // conf.patch
+
+    def ppw(sr: int) -> int:    # patches per z-window of a strip
+        return (sr * tpp + 1) * (cols * tpp + 1)
+
+    cands = []
+    for sr in sorted((s for s in range(1, rows + 1) if rows % s == 0),
+                     key=lambda s: (abs(ppw(s) - p_tgt), -s)):
+        if ppw(sr) <= p_max:
+            cands.append((False, 0 if sr == rows else sr, 1))
+    ppt = (tpp + 1) ** 2
+    for wc in sorted((w for w in range(1, conf.n_win + 1)
+                      if conf.n_win % w == 0), reverse=True):
+        if wc * ppt <= p_max:
+            cands.append((True, 0, wc))
+            break
+    if not cands:
+        cands.append((True, 0, 1))
+    return cands
+
+
+def walk_plans(cands: Sequence[Plan], need: Callable[[Plan], int],
+               budget: int, *, verbose: bool = True) -> tuple[Plan, int]:
+    """(the first candidate whose ``need`` fits ``budget``, its need).
+
+    A candidate whose probe runs out of device memory is passed over, as
+    a compile-time RESOURCE_EXHAUSTED is in JAX; when none fits, the last
+    (safest) candidate is taken with need -1.  Any other error raises."""
+    for cand in cands:
+        tm, sr, wc = cand
+        try:
+            n = need(cand)
+        except torch.cuda.OutOfMemoryError:
+            if verbose:
+                print(f"auto_plan: candidate strip={sr} wc={wc} "
+                      f"tile_major={tm} rejected (out of device memory)",
+                      flush=True)
+            continue
+        if n <= budget:
+            if verbose:
+                print(f"auto_plan: strip={sr} wc={wc} tile_major={tm} "
+                      f"needs {n / 1e9:.1f} GB <= {budget / 1e9:.1f} GB",
+                      flush=True)
+            return cand, n
+        if verbose:
+            print(f"auto_plan: candidate strip={sr} wc={wc} tile_major={tm}"
+                  f" needs {n / 1e9:.1f} GB > {budget / 1e9:.1f} GB",
+                  flush=True)
+    return cands[-1], -1
+
+
 class TeraGenerator:
     """Runs the tile-grid reverse diffusion on one device.
 
@@ -146,6 +220,8 @@ class TeraGenerator:
         self.sampler = sampler.to(self.device)
         self.model_fn = model_fn
         self.conf = conf
+        self.plan_probe = None   # {"need", "budget"} bytes of the last
+                                 # auto_plan on the card
 
     def init_state(self, rows: int, cols: int, *, row0: int = 1,
                    col0: int = 1, grid_w: int = 416) -> np.ndarray:
@@ -164,7 +240,7 @@ class TeraGenerator:
         return out
 
     def _wchunk(self) -> int:
-        """window_chunk: 0 = all windows at once, -1 = 1."""
+        """window_chunk: 0 = all windows at once, -1 (not planned) = 1."""
         wc, n_win = self.conf.window_chunk, self.conf.n_win
         chunk = n_win if wc == 0 else (1 if wc < 0 else wc)
         if n_win % chunk:
@@ -172,6 +248,32 @@ class TeraGenerator:
                              f"{n_win} z-windows")
         return chunk
 
+    def _tile_update(self, padded: torch.Tensor, gene_tile: torch.Tensor,
+                     r: int, cc: int, t: int) -> torch.Tensor:
+        """Denoise tile (r, cc) of the halo-padded local image on its own:
+        its (tile + 2*pad)^2 window, unfolded into z-windows, through the
+        model ``window_chunk`` z-windows a call.  Returns (tile, tile,
+        channels)."""
+        c = self.conf
+        size = c.tile + 2 * c.pad
+        win = padded[r * c.tile:r * c.tile + size,
+                     cc * c.tile:cc * c.tile + size]
+        x = win.reshape(size, size, c.stains, c.n_win, c.zi)
+        x = x.permute(3, 0, 1, 2, 4).reshape(c.n_win, size, size,
+                                             c.stains * c.zi)
+        g = gene_tile.float()                       # (gsz, gsz, z_pad, G)
+        rna = torch.stack([g[:, :, w * c.zi:w * c.zi + c.snum]
+                           for w in range(c.n_win)])
+        rna = rna.reshape(c.n_win, c.gsz, c.gsz, c.snum * g.shape[-1])
+        chunk = self._wchunk()
+        t_b = torch.full((chunk,), t, dtype=torch.long, device=padded.device)
+        outs = [self.sampler.denoise_step(
+                    self.model_fn, x[w0:w0 + chunk],
+                    patchify(rna[w0:w0 + chunk], c.patch // c.gn_blk), t_b)
+                for w0 in range(0, c.n_win, chunk)]
+        out = torch.cat(outs).reshape(c.n_win, c.tile, c.tile, c.stains,
+                                      c.zi)
+        return out.permute(1, 2, 3, 0, 4).reshape(c.tile, c.tile, c.channels)
     def _window_update(self, padded: torch.Tensor, gene_tiles: torch.Tensor,
                        t: int) -> torch.Tensor:
         """Denoise every tile of a halo-padded block in ONE patch grid.
@@ -245,15 +347,108 @@ class TeraGenerator:
                 for i in range(rows // sr)])
         return out.to(state.dtype)
 
+    @torch.inference_mode()
+    def _block_step(self, state: torch.Tensor, gene: torch.Tensor,
+                    t: int) -> torch.Tensor:
+        """One tile-major timestep over the (R*tile, C*tile, chn) state:
+        each tile denoised from its own halo window (``_tile_update``)."""
+        c = self.conf
+        padded = pad_halo_single(state, c.pad, fill=-1.0)
+        rows, cols = gene.shape[:2]
+        out = torch.cat([
+            torch.cat([self._tile_update(padded, gene[r, cc], r, cc, t)
+                       for cc in range(cols)], dim=1)
+            for r in range(rows)])
+        return out.to(state.dtype)
+
+    def compile_pieces(self) -> Callable:
+        """The JAX package's piece-wise step: a pad, then one call per tile
+        from a Python loop.  PyTorch runs eagerly, so that is the
+        tile-major step itself."""
+        return self._block_step
+
+    def auto_plan(self, rows: int, cols: int, *,
+                  state_dtype=torch.float32, gene_dtype=torch.uint8,
+                  verbose: bool = True) -> dict:
+        """Pick (strip_rows, window_chunk), or the tile-major fallback, so
+        the step fits the device; sets ``self.conf`` to the plan and
+        returns it.
+
+        Off the card the first candidate of ``plan_candidates`` is taken.
+        On the card each candidate's peak memory is measured
+        (``_plan_bytes``) against 92 % of the card's memory
+        (``TMT_HBM_BYTES`` overrides the card's total), best first."""
+        c = self.conf
+        cands = plan_candidates(rows, cols, c)
+        if self.device.type != "cuda":
+            (tm, sr, wc), self.plan_probe = cands[0], None
+        else:
+            total = torch.cuda.mem_get_info(self.device)[1]
+            budget = int(os.environ.get("TMT_HBM_BYTES", total)) * 92 // 100
+            (tm, sr, wc), need = walk_plans(
+                cands, lambda cand: self._plan_bytes(
+                    cand, rows, cols, state_dtype, gene_dtype),
+                budget, verbose=verbose)
+            self.plan_probe = {"need": need, "budget": budget}
+        self.conf = dataclasses.replace(c, strip_rows=sr, window_chunk=wc)
+        return {"tile_major": tm, "strip_rows": sr, "window_chunk": wc}
+
+    def _plan_bytes(self, cand: Plan, rows: int, cols: int, state_dtype,
+                    gene_dtype) -> int:
+        """Peak device bytes of one candidate plan, measured: the grid's
+        state, gene and padded buffers are allocated, the peak counter is
+        reset, and one model call runs at the candidate's largest patch
+        batch on zero inputs.  Raises ``torch.cuda.OutOfMemoryError`` when
+        that does not fit."""
+        tm, sr, wc = cand
+        c, dev = self.conf, self.device
+        tpp = c.tile // c.patch
+        if tm:       # one tile's halo window
+            p1 = p2 = tpp + 1
+        else:        # a strip of sr (0: all) tile rows across the block
+            p1, p2 = (sr or rows) * tpp + 1, cols * tpp + 1
+        chunk = c.n_win if wc == 0 else wc
+        gn = c.patch // c.gn_blk
+        bufs = []
+        try:
+            bufs += [torch.zeros((rows * c.tile, cols * c.tile, c.channels),
+                                 dtype=state_dtype, device=dev),
+                     torch.zeros((rows, cols, c.gsz, c.gsz, c.z_pad,
+                                  c.gdim), dtype=gene_dtype, device=dev),
+                     torch.zeros((rows * c.tile + 2 * c.pad,
+                                  cols * c.tile + 2 * c.pad, c.channels),
+                                 dtype=state_dtype, device=dev)]
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            with torch.inference_mode():
+                x = torch.zeros((chunk, p1 * c.patch, p2 * c.patch,
+                                 c.stains * c.zi), dtype=state_dtype,
+                                device=dev)
+                rna = torch.zeros((chunk * p1 * p2, gn, gn,
+                                   c.snum * c.gdim), device=dev)
+                t_b = torch.zeros((chunk,), dtype=torch.long, device=dev)
+                bufs.append(self.sampler.denoise_step(self.model_fn, x, rna,
+                                                      t_b))
+            torch.cuda.synchronize(dev)
+            return torch.cuda.max_memory_allocated(dev)
+        finally:
+            del bufs
+            torch.cuda.empty_cache()
+
     def compile_step(self, rows: int, cols: int, *,
-                     block_major: bool = True) -> Callable:
+                     block_major: bool = False, state_dtype=torch.float32,
+                     gene_dtype=torch.uint8) -> Callable:
         """The per-step function ``(state, gene, t) -> state`` for a grid
         (the JAX package's entry point; PyTorch runs eagerly, so nothing
-        is compiled and any grid shape works)."""
-        if not block_major:
-            raise NotImplementedError("the tile-major step is not ported "
-                                      "yet; use block_major=True")
-        return self._block_major_step
+        is compiled).  ``block_major``: one patch grid over the block
+        instead of the per-tile windows, the same result with fewer
+        patches.  With ``conf.window_chunk`` -1 the block-major step is
+        planned first (``auto_plan``), which may fall back to tile-major."""
+        if block_major and self.conf.window_chunk < 0:
+            plan = self.auto_plan(rows, cols, state_dtype=state_dtype,
+                                  gene_dtype=gene_dtype)
+            block_major = not plan["tile_major"]
+        return self._block_major_step if block_major else self._block_step
 
     def _device_gene(self, gene: Union[np.ndarray, Callable], rows: int,
                      cols: int) -> torch.Tensor:
@@ -283,7 +478,8 @@ class TeraGenerator:
             state: Optional[np.ndarray] = None,
             start_t: Optional[int] = None,
             checkpoint: Optional[StateCheckpoint] = None,
-            checkpoint_every: int = 0, progress: bool = True) -> np.ndarray:
+            checkpoint_every: int = 0, fused: bool = True,
+            block_major: bool = False, progress: bool = True) -> np.ndarray:
         """Generate the (rows x cols) tile grid; returns the final image.
 
         ``gene_grid``: a host array (R, C, gsz, gsz, z_pad, G), or a
@@ -293,7 +489,9 @@ class TeraGenerator:
         ``start_t`` steps left, or else from the latest spill of
         ``checkpoint``.  With ``checkpoint_every`` the state is spilled to
         ``checkpoint`` after every that many steps (not after the last)
-        and older spills are pruned."""
+        and older spills are pruned.  ``block_major`` and ``fused`` choose
+        the step as in JAX: ``compile_step(block_major=...)``, or with
+        ``fused=False`` the tile-major ``compile_pieces``."""
         c = self.conf
         if callable(gene_grid):
             if rows is None or cols is None:
@@ -316,12 +514,16 @@ class TeraGenerator:
                 start_t = T - latest          # epochs done = latest
         if start_t is None:
             start_t = T
+        step = (self.compile_step(
+                    rows, cols, block_major=block_major,
+                    state_dtype=(torch.as_tensor(state).dtype
+                                 if state is not None else torch.float32))
+                if fused else self.compile_pieces())
         dev_gene = self._device_gene(gene_grid, rows, cols)
         if state is None:
             state = self.init_state(rows, cols, row0=row0, col0=col0,
                                     grid_w=grid_w)
         dev_state = torch.as_tensor(state, device=self.device)
-        step = self.compile_step(rows, cols)
         t_start = None
         for t in range(start_t - 1, -1, -1):
             dev_state = step(dev_state, dev_gene, t)

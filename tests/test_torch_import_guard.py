@@ -29,7 +29,9 @@ def test_port_modules_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n_loaded, bad = res.stdout.strip().splitlines()[-2:]
-    n_modules = len(list(pkgutil.walk_packages(
-        tera_mind_tpu_torch.__path__, "tera_mind_tpu_torch.")))
+    names = {m.name for m in pkgutil.walk_packages(
+        tera_mind_tpu_torch.__path__, "tera_mind_tpu_torch.")}
+    assert "tera_mind_tpu_torch.parallel.streaming" in names
+    n_modules = len(names)
     assert int(n_loaded) >= n_modules > 15
     assert bad == "[]", bad

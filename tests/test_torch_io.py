@@ -318,7 +318,8 @@ def test_packed_chain_matches_jax(packed_chain):
     """The slice end to end on the packed model: 2x2 tiles x 3 steps,
     2e-4 absolute as the 5D chain (test_torch_generator.py)."""
     _, gene, want, _, port = packed_chain
-    got = port().run(gene, row0=1, col0=1, grid_w=16, progress=False)
+    got = port().run(gene, row0=1, col0=1, grid_w=16, block_major=True,
+                     progress=False)
     assert got.shape == want.shape == (128, 128, 4)
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
 
@@ -328,7 +329,8 @@ def test_resume_from_a_spill_matches_jax(packed_chain):
     the last two steps: they agree within the chain tolerance."""
     tmp, gene, _, resumed, port = packed_chain
     shutil.copytree(tmp / "j_1", tmp / "port_1")
-    got = port().run(gene, row0=1, col0=1, grid_w=16, progress=False,
+    got = port().run(gene, row0=1, col0=1, grid_w=16, block_major=True,
+                     progress=False,
                      checkpoint=tts.StateCheckpoint(tmp / "port", "grid"))
     np.testing.assert_allclose(got, resumed, atol=2e-4, rtol=1e-3)
 
@@ -341,7 +343,8 @@ def test_port_spills_match_jax_and_provider_feeds_the_same_chain(
     tolerance plus one float16 rounding; a provider-fed run gives the
     array-fed result exactly."""
     tmp, gene, _, _, port = packed_chain
-    got = port().run(gene, row0=1, col0=1, grid_w=16, progress=False,
+    got = port().run(gene, row0=1, col0=1, grid_w=16, block_major=True,
+                     progress=False,
                      checkpoint=tts.StateCheckpoint(tmp_path / "s", "grid"),
                      checkpoint_every=1)
     assert [p.name for p in tmp_path.iterdir()] == ["s_2"]
@@ -352,7 +355,7 @@ def test_port_spills_match_jax_and_provider_feeds_the_same_chain(
     np.testing.assert_allclose(mine, theirs, rtol=1e-3,
                                atol=2e-4 + np.spacing(np.float16(4.0)))
     fed = port().run(lambda r, c: gene[r, c], rows=2, cols=2, row0=1,
-                     col0=1, grid_w=16, progress=False)
+                     col0=1, grid_w=16, block_major=True, progress=False)
     np.testing.assert_array_equal(fed, got)
     with pytest.raises(ValueError):
         port().run(lambda r, c: gene[r, c], progress=False)
@@ -385,7 +388,7 @@ def test_cli_exports_tiles_and_resumes(packed_chain, tmp_path, monkeypatch):
         .load_grid(2)
     again = tcli.main(argv + ["--cur_epoch", "2"])
     np.testing.assert_array_equal(again, gen.run(
-        gene, row0=1, col0=1, grid_w=16, progress=False,
+        gene, row0=1, col0=1, grid_w=16, block_major=True, progress=False,
         state=tgen.grid_to_image(state), start_t=1))
 
 

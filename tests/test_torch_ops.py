@@ -328,3 +328,38 @@ def test_chip_smoke_times_main_path_shapes():
     x = torch.ones(2, 8)
     assert torch.equal(k1.rmsnorm(x, torch.ones(8)), k1.rmsnorm_plain(
         x, torch.ones(8)))
+
+
+def test_chip_smoke_times_tile_major_and_stream_shapes():
+    """chip_smoke.py's shapes of the tile-major step (one tile's 5x5
+    patches, 5 z-windows a call) and of the streamed 2x2-tile windows
+    (9x9 patches, 5 z-windows a call) are exactly the packed model's
+    shapes there (scripts/kernel_shapes.py --patches P --chunk 5), each
+    launching the main path's variants, and chip_smoke's chain counts are
+    26 K1 and 6 K2 a call times 300 calls."""
+    import importlib.util
+
+    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "kernel_shapes", _build.PKG.parent / "scripts" / "kernel_shapes.py")
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    for path, patches in (("tile_major", 25), ("stream", 81)):
+        k1_shapes, k2_shapes = ks.per_call_shapes(patches=patches, chunk=5)
+        want_k1, want_k2 = cs.PATH_SHAPES[path]
+        assert set(want_k1) == set(k1_shapes), path
+        assert set(want_k2) == set(k2_shapes), path
+        assert all(k1.rmsnorm_variant(c, 2, True) == "vector"
+                   for _, c in want_k1)
+        assert all(k2.attention_variant(n, d, torch.bfloat16, True)
+                   == "tensor_core" for _, n, d in want_k2)
+        assert cs.CHAIN_LAUNCHES[path] == {
+            "rmsnorm": sum(k1_shapes.values()) * 300,
+            "window_attention": sum(k2_shapes.values()) * 300}
+    # the streamed window's rows and batches are the main path's x 5
+    main_k1, main_k2 = ks.per_call_shapes()
+    assert {(5 * n, c) for n, c in main_k1} == set(cs.PATH_SHAPES["stream"][0])
+    assert {(5 * b, n, d) for b, n, d in main_k2} == \
+        set(cs.PATH_SHAPES["stream"][1])
+    with pytest.raises(ValueError):
+        ks.per_call_shapes(patches=80)

@@ -11,9 +11,15 @@ Phases, each printed on its own line with elapsed seconds:
      kernel, the plain version and one PyTorch library call doing the
      same function (a yardstick only: the port never calls it) on the
      device (CUDA graph replay), beside the card's bound for the work;
-  4. the kernels' autograd guard: each wrapper refuses a CUDA input that
-     requires grad under grad mode (no backward kernels yet) and runs
-     under ``torch.no_grad()``;
+  4. the backward kernels K1b and K2b against their plain versions at
+     every shape of a training step (``scripts/kernel_shapes.py --train``)
+     in bf16 and f32 and at edge shapes, each run twice for bit-equal
+     results, and timed against their bound, their plain version and a
+     library yardstick (PyTorch autograd through ``F.rms_norm`` or SDPA);
+     then the autograd guard: each raw forward launcher refuses a CUDA
+     input that requires grad under grad mode and runs under
+     ``torch.no_grad()``, and each dispatcher records its backward (one
+     forward and one backward launch, finite gradients);
   5. the port on a small input on the card (float32, kernels on) against
      the same code on the CPU (plain versions), for the 5D model; the
      packed model (its weights packed from the 5D model's) on the card
@@ -45,7 +51,17 @@ Phases, each printed on its own line with elapsed seconds:
      15 steps, with the counters set to 0 just before it; then a 2-step
      run of the same grid with ``TMT_STREAM_TIMING`` for its per-phase
      seconds;
- 11. a ``{"kernels": [...]}`` line, then the card line, then the result.
+ 11. training, small: one accumulated f32 train step of a narrow model on
+     the card against the CPU from the same weights, batch and draws
+     (loss 1e-4, gradients 2e-3 of each leaf's max);
+ 12. training at full width: ``cli.train``'s builder on the 638850 preset
+     (``--synthetic --batch 32``: accum 2, 128 patches a microbatch, bf16
+     compute, f32 params, dropout 0.1), the 5D model, then ``--packed``,
+     8 steps each with the counters set to 0 just before ``fit``: finite
+     losses, changed parameters, exact K1 / K1b / K2 / K2b launches a
+     step, samples/s, data wait, peak memory; save -> restore bit-equal;
+     ``cli.generate`` (1x1 grid, 2 steps) from the 5D run's checkpoint;
+ 13. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
 nothing of JAX.
@@ -378,13 +394,222 @@ def check_kernels(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the kernels' autograd guard
+# phase 4: the backward kernels K1b and K2b against their plain versions
+# ---------------------------------------------------------------------------
+
+# (rows, C) and (B, N, D) of one training step of cli.train's defaults
+# (scripts/kernel_shapes.py --train: batch 32, 2 microbatches of 128
+# patches, both decoders); the packed model's K1 shapes are the first
+# four.  K1b and K2b take these shapes as often as K1 and K2 do.
+TRAIN_K1_SHAPES = [
+    (65_536, 256), (16_384, 256), (16_384, 512), (29_312, 64),
+    (262_144, 128), (1_048_576, 64), (262_144, 64), (65_536, 128),
+    (4_096, 512), (1_048_576, 96), (16_384, 741), (4_096, 1253),
+    (262_144, 160), (16_384, 1253), (65_536, 512), (262_144, 256),
+    (1_048_576, 160), (262_144, 192), (65_536, 384), (16_384, 485),
+    (4_096, 997), (16_384, 896), (16_384, 640), (65_536, 448),
+    (65_536, 320), (262_144, 224), (16_384, 997), (65_536, 896),
+    (65_536, 640), (262_144, 448), (262_144, 320), (1_048_576, 128),
+    (1_048_576, 224)]
+TRAIN_K2_SHAPES = [(512, 128, 256), (128, 128, 256), (512, 32, 512)]
+# K1 (and K1b) and K2 (and K2b) launches a training step
+TRAIN_LAUNCHES = {"5d": {"rmsnorm": 252, "window_attention": 18},
+                  "packed": {"rmsnorm": 76, "window_attention": 18}}
+# edge shapes: ragged and odd C, odd row counts, C = 741 and 1,253; N =
+# 17, 100, 512 and D = 48, 130, 512 (the largest shared memory)
+K1B_EDGE = [(7, 33), (13, 100), (1029, 741), (517, 1253), (3, 8)]
+K2B_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512)]
+# Tolerances, set before the first chip run.  Kernel and plain version
+# compute the same float32 formula from the same inputs and differ only
+# in the order of their sums.  float32 dx, dq, dk, dv: within 1e-5 of the
+# output's max |ref| (sums of up to 1,253 products, or 512 keys, in
+# another order move each by a few float32 ulps of the largest terms).
+# float32 dw: within 1e-4 of its max |ref|, since it sums up to 10^6 rows
+# per channel in another order (per-block partials, then the blocks).
+# bf16 dx, dq, dk, dv: the K2 forward's gate (2 bf16 spacings at the
+# output's max |ref|, at most 1 % of elements not bit-equal): a sum in
+# another order moves a rounding by one step in a few outputs per
+# thousand.
+BWD_F32_TOL = 1e-5
+BWD_DW_TOL = 1e-4
+
+
+def rel_err(out, ref) -> float:
+    """max |out - ref| over max |ref|."""
+    r = ref.float()
+    return float((out.float() - r).abs().max()
+                 / r.abs().max().clamp_min(2.0 ** -126))
+
+
+def require_bwd(out, ref, what: str) -> float:
+    """The gate of one backward output: float32 within BWD_F32_TOL of
+    max |ref|, bf16 by the K2 forward's gate; returns the max |error|."""
+    import torch
+    require(bool(torch.isfinite(out.float()).all()),
+            f"{what}: output not finite")
+    if out.dtype == torch.float32:
+        err = rel_err(out, ref)
+        require(err <= BWD_F32_TOL, f"{what}: {err} of max |ref|")
+    else:
+        require_k2(out, ref, what)
+    return float((out.float() - ref.float()).abs().max())
+
+
+def time_k1b(k1, x, g, w) -> dict:
+    """Device times of K1b, its plain version and the library yardstick:
+    ``F.rms_norm``'s forward and ``autograd.grad`` in one graph less its
+    forward alone (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    n, c = x.shape
+    sets = input_sets((x, g, w), 3 * x.numel() * x.element_size())
+    # the weight in x's dtype: F.rms_norm's fused kernel takes one dtype
+    lib_sets = [(a.detach().requires_grad_(), b,
+                 cw.to(a.dtype).requires_grad_()) for a, b, cw in sets]
+
+    def lib_fwd_bwd(a, b, cw):
+        return torch.autograd.grad(F.rms_norm(a, (c,), cw, 1e-6), (a, cw), b)
+
+    lib = (device_ms(lib_fwd_bwd, lib_sets) - device_ms(
+        lambda a, b, cw: F.rms_norm(a, (c,), cw, 1e-6), lib_sets))
+    nbytes = 3 * n * c * x.element_size() + 2 * 4 * c
+    bms, by = bound(nbytes, 10 * n * c, H100_F32_FLOP_PER_S)
+    return dict(ms=device_ms(k1.rmsnorm_bwd_cuda, sets),
+                plain_ms=device_ms(k1.rmsnorm_bwd_plain, sets),
+                library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def time_k2b(k2, q, k, v, g, scale) -> dict:
+    """Device times of K2b, its plain version and the library yardstick:
+    SDPA's (``scale=1/D``) forward and ``autograd.grad`` in one graph less
+    its forward alone (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    b, n, d = q.shape
+    sets = input_sets((q, k, v, g), 4 * q.numel() * q.element_size())
+    lib_sets = [tuple(t.detach().requires_grad_() for t in s[:3]) + (s[3],)
+                for s in sets]
+
+    def sdpa(a, b_, c):
+        return F.scaled_dot_product_attention(a, b_, c, scale=scale)
+
+    lib = (device_ms(lambda a, b_, c, gg: torch.autograd.grad(
+        sdpa(a, b_, c), (a, b_, c), gg), lib_sets)
+        - device_ms(lambda a, b_, c, gg: sdpa(a, b_, c), lib_sets))
+    bms, by = bound(7 * b * n * d * q.element_size(), 10 * b * n * n * d,
+                    H100_BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+                    else H100_F32_FLOP_PER_S)
+    return dict(ms=device_ms(lambda *a: k2.attention_bwd_cuda(*a, scale),
+                             sets),
+                plain_ms=device_ms(
+                    lambda *a: k2.attention_bwd_plain(*a, scale), sets),
+                library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def check_backward_kernels(device) -> dict:
+    """K1b and K2b against their plain versions at every training-step
+    shape (bf16, and float32 on a slice of the rows or batch) and at the
+    edge shapes (both dtypes, a misaligned tensor for K1b), each run
+    twice for bit-equal dw and dk/dv; device times at the training
+    shapes.  Returns {name: [row per training shape]}."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    bf16 = torch.bfloat16
+    rows = {"rmsnorm_bwd": [], "window_attention_bwd": []}
+
+    def k1b_agrees(x, g, w, what):
+        dx, dw = k1.rmsnorm_bwd_cuda(x, g, w)
+        dx2, dw2 = k1.rmsnorm_bwd_cuda(x, g, w)
+        torch.cuda.synchronize()
+        require(torch.equal(dw, dw2) and torch.equal(dx, dx2),
+                f"K1b {what}: two runs differ")
+        rx, rw = k1.rmsnorm_bwd_plain(x, g, w)
+        err = require_bwd(dx, rx, f"K1b {what} dx {x.dtype}")
+        dw_err = rel_err(dw, rw)
+        require(dw.dtype == torch.float32 and dw_err <= BWD_DW_TOL,
+                f"K1b {what} dw: {dw_err} of max |ref|")
+        return err, dw_err
+
+    def k1b_inputs(n, c, dt):
+        x = torch.randn(n, c, generator=gen).to(device, dt)
+        g = torch.randn(n, c, generator=gen).to(device, dt)
+        w = (1 + 0.1 * torch.randn(c, generator=gen)).to(device)
+        return x, g, w
+
+    for n, c in TRAIN_K1_SHAPES:
+        x, g, w = k1b_inputs(n, c, bf16)
+        err, dw_err = k1b_agrees(x, g, w, f"{n}x{c}")
+        xf, gf = x[:4096].float(), g[:4096].float()
+        errf, dwf = k1b_agrees(xf, gf, w, f"{n}x{c}")
+        t = time_k1b(k1, x, g, w)
+        log(f"K1b rmsnorm_bwd ({n}, {c}) bf16: dx max_abs_err {err:.3g}, "
+            f"dw {dw_err:.2e} of max; f32 dx {errf:.3g}, dw {dwf:.2e}; "
+            f"deterministic; " + timing_text(t, "F.rms_norm bwd"))
+        rows["rmsnorm_bwd"].append(dict(shape=[n, c], max_abs_err=err,
+                                        dw_rel_err=dw_err, **t))
+    seen = []
+    for n, c in K1B_EDGE:
+        for dt in (bf16, torch.float32):
+            k1b_agrees(*k1b_inputs(n, c, dt), f"edge {n}x{c}")
+        seen.append(f"({n}, {c})")
+    for dt in (bf16, torch.float32):
+        base = torch.randn(4096 * 96 + 1, generator=gen).to(device, dt)
+        x = base[1:].view(4096, 96)
+        require(x.is_contiguous() and x.data_ptr() % 16 != 0,
+                "K1b misaligned input is not misaligned")
+        _, g, w = k1b_inputs(4096, 96, dt)
+        k1b_agrees(x, g, w, "misaligned 4096x96")
+    log(f"K1b edge shapes agree, bf16 and f32, deterministic: "
+        f"{'; '.join(seen)}; (4096, 96) misaligned")
+
+    def k2b_agrees(b, n, d, dt, peaked, what):
+        q, k, v = k2_inputs(gen, b, n, d, dt, device, peaked)
+        g = torch.randn(b, n, d, generator=gen).to(device, dt)
+        out = k2.attention_bwd_cuda(q, k, v, g, 1.0 / d)
+        out2 = k2.attention_bwd_cuda(q, k, v, g, 1.0 / d)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(out, out2)),
+                f"K2b {what}: two runs differ")
+        ref = k2.attention_bwd_plain(q, k, v, g, 1.0 / d)
+        return max(require_bwd(o, r, f"K2b {what} {name} {dt}")
+                   for o, r, name in zip(out, ref, ("dq", "dk", "dv")))
+
+    for b, n, d in TRAIN_K2_SHAPES:
+        errs = [k2b_agrees(b, n, d, bf16, peaked, f"{b}x{n}x{d}")
+                for peaked in (False, True)]
+        errf = k2b_agrees(8, n, d, torch.float32, False, f"8x{n}x{d}")
+        q, k, v = k2_inputs(gen, b, n, d, bf16, device, False)
+        g = torch.randn(b, n, d, generator=gen).to(device, bf16)
+        t = time_k2b(k2, q, k, v, g, 1.0 / d)
+        log(f"K2b window_attention_bwd ({b}, {n}, {d}) bf16: max_abs_err "
+            f"randn {errs[0]:.3g}, peaked {errs[1]:.3g}; f32 {errf:.3g}; "
+            f"deterministic; " + timing_text(t, "SDPA bwd"))
+        rows["window_attention_bwd"].append(dict(shape=[b, n, d],
+                                                 max_abs_err=max(errs), **t))
+    for b, n, d in K2B_EDGE:
+        for dt in (bf16, torch.float32):
+            for peaked in (False, True):
+                k2b_agrees(b, n, d, dt, peaked, f"edge {b}x{n}x{d}")
+    log("K2b edge shapes agree, bf16 and f32, randn and peaked, "
+        f"deterministic: {K2B_EDGE}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4, continued: the raw launchers' autograd guard, the Functions
 # ---------------------------------------------------------------------------
 
 def check_autograd_guard(device) -> None:
-    """Each kernel wrapper, as the model calls it, raises before the launch
-    on a CUDA input that requires grad while grad mode is on, and runs
-    the same call under ``torch.no_grad()``."""
+    """Each raw forward launcher (``rmsnorm_cuda``, ``attention_cuda``)
+    raises before the launch on a CUDA input that requires grad while
+    grad mode is on, and runs the same call under ``torch.no_grad()``;
+    the dispatchers (``rmsnorm``, ``window_attention``) record a backward
+    instead: one forward and one backward kernel launch, finite
+    gradients, and a float32 dw for a float32 weight."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
@@ -392,32 +617,49 @@ def check_autograd_guard(device) -> None:
 
     g = torch.Generator(device="cpu").manual_seed(1)
     x = torch.randn(256, 96, generator=g).to(device, torch.bfloat16)
-    w = torch.ones(96, device=device, dtype=torch.bfloat16)
+    w = torch.ones(96, device=device)
     q, k, v = (torch.randn(4, 32, 64, generator=g).to(device, torch.bfloat16)
                for _ in range(3))
-    cases = (("rmsnorm", k1, k1.rmsnorm, (x, w), 0),
-             ("window_attention", k2, k2.window_attention,
-              (q, k, v, 1.0 / 64), 1))
-    for name, mod, fn, args, leaf in cases:
-        args = list(args)
-        args[leaf] = args[leaf].detach().requires_grad_(True)
-        before = mod.launches
+    cases = (("rmsnorm", k1, k1.rmsnorm_cuda, k1.rmsnorm, (x, w)),
+             ("window_attention", k2, k2.attention_cuda, k2.window_attention,
+              (q, k, v, 1.0 / 64)))
+    for name, mod, raw, dispatch, args in cases:
+        args = [a.detach().requires_grad_(True) if torch.is_tensor(a) else a
+                for a in args]
+        before = (mod.launches, mod.bwd.launches)
         refused = None
         try:
-            fn(*args)
+            raw(*args)
         except RuntimeError as err:
             refused = str(err)
         require(refused is not None and "K1b and K2b" in refused,
                 f"{name} ran on an input that requires grad: {refused}")
-        require(mod.launches == before, f"{name} launched before refusing")
+        require((mod.launches, mod.bwd.launches) == before,
+                f"{name} launched before refusing")
         with torch.no_grad():
-            out = fn(*args)
+            out = raw(*args)
         torch.cuda.synchronize()
-        require(mod.launches == before + 1 and out.grad_fn is None
+        require(mod.launches == before[0] + 1 and out.grad_fn is None
                 and bool(torch.isfinite(out.float()).all()),
-                f"{name} under no_grad: launches {mod.launches - before}")
-        log(f"{name}: refused under grad mode ({refused[:60]}...), "
-            "ran under no_grad")
+                f"{name} under no_grad: launches {mod.launches - before[0]}")
+        out = dispatch(*args)
+        tensors = [a for a in args if torch.is_tensor(a)]
+        grads = torch.autograd.grad(out.float().square().sum(), tensors)
+        torch.cuda.synchronize()
+        require((mod.launches, mod.bwd.launches)
+                == (before[0] + 2, before[1] + 1),
+                f"{name} dispatcher: forward launches "
+                f"{mod.launches - before[0] - 1}, backward "
+                f"{mod.bwd.launches - before[1]}; expected 1 and 1")
+        require(all(bool(torch.isfinite(gr.float()).all()) for gr in grads),
+                f"{name} dispatcher: gradients not finite")
+        require(all(gr.dtype == a.dtype for gr, a in zip(grads, tensors)),
+                f"{name} dispatcher: gradient dtypes "
+                f"{[gr.dtype for gr in grads]}")
+        log(f"{name}: raw launcher refused under grad mode "
+            f"({refused[:60]}...), ran under no_grad; the dispatcher "
+            "recorded its backward (1 forward + 1 backward launch, finite "
+            "gradients)")
 
 
 # ---------------------------------------------------------------------------
@@ -1010,6 +1252,191 @@ def run_stream_path(device, counts: tuple) -> dict:
                 timing=timing, out=out)
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: training
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_ATOL = 1e-4   # the small f32 train step, card vs CPU: the loss,
+TRAIN_GRAD_TOL = 2e-3    # and each gradient leaf within this share of its
+                         # max |CPU grad| (cuDNN TF32 off; conv algorithms
+                         # and kernel sums reassociate, as the small chains)
+TRAIN_STEPS = 8          # full-width steps a model
+TRAIN_TIMED_FROM = 3     # samples/s and data wait over steps 3..8
+
+
+def small_train_config(**kw):
+    """tests/test_harness.py's narrow training config, float32, no
+    dropout."""
+    from tera_mind_tpu_torch.config import TrainConfig
+    return TrainConfig(image_size=32, net_ch=8, embed_channels=32,
+                       rna_num=16, rna_slices=4, stain="all", batch_size=2,
+                       accum_batches=2, lr=1e-3, compute_dtype="float32",
+                       train_crop=64, dropout=0.0, **kw)
+
+
+def check_small_train_step(device) -> dict:
+    """One accumulated f32 train step of the narrow config on the card and
+    on the CPU from the same weights (every leaf perturbed, so all get a
+    gradient), batch and draws (noise, t, block origin): the loss within
+    TRAIN_LOSS_ATOL and every gradient leaf within TRAIN_GRAD_TOL of its
+    max |CPU grad|; returns the largest differences."""
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.convert import export_params, load_jax_params
+    from tera_mind_tpu_torch.training.harness import Trainer
+
+    conf = small_train_config()
+    cpu = Trainer(conf, device="cpu")
+    cpu.init_state()
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for p in cpu.model.parameters():
+            p.add_(torch.from_numpy(0.05 * rng.standard_normal(
+                tuple(p.shape)).astype(np.float32)))
+    card = Trainer(conf, device=device)
+    load_jax_params(card.model, export_params(cpu.model))
+    crop, gh = conf.train_crop, conf.train_crop // 16 + conf.gn_sz
+    batch = {"image": rng.standard_normal(
+        (4, crop, crop, conf.in_channels)).clip(-1, 1).astype(np.float32),
+        "rna": rng.integers(0, 3, (4, gh, gh, 4 * conf.rna_num)
+                            ).astype(np.float32)}
+    pad = crop + conf.image_size
+    draws = [(rng.integers(0, 1000, 2), rng.standard_normal(
+        (2, pad, pad, conf.in_channels)).astype(np.float32),
+        tuple(int(v) for v in rng.integers(0, 2, 2))) for _ in range(2)]
+
+    def on(tr):
+        return [(torch.as_tensor(t, device=tr.device),
+                 torch.as_tensor(n, device=tr.device), blk)
+                for t, n, blk in draws]
+
+    loss_c, grads_c = cpu.loss_and_grads(cpu.shape_batch(batch), on(cpu))
+    loss_g, grads_g = card.loss_and_grads(card.shape_batch(batch), on(card))
+    out = {"loss": abs(float(loss_g) - float(loss_c)), "grad": 0.0}
+    for name, gc in grads_c.items():
+        top = float(gc.abs().max())
+        d = float((grads_g[name].cpu() - gc).abs().max())
+        require(d <= TRAIN_GRAD_TOL * max(top, 1e-12),
+                f"small train step grad {name}: {d} of max {top}")
+        out["grad"] = max(out["grad"], d / max(top, 1e-12))
+    require(out["loss"] <= TRAIN_LOSS_ATOL,
+            f"small train step loss: card {float(loss_g)}, CPU "
+            f"{float(loss_c)}")
+    log(f"small f32 train step, card vs CPU: loss {float(loss_g):.6f} vs "
+        f"{float(loss_c):.6f} (|d| {out['loss']:.3g}, tol "
+        f"{TRAIN_LOSS_ATOL}); gradients within {out['grad']:.3g} of each "
+        f"leaf's max (tol {TRAIN_GRAD_TOL}), {len(grads_c)} leaves")
+    return out
+
+
+def read_train_launches() -> dict:
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    return {"rmsnorm": k1.launches, "rmsnorm_bwd": k1.bwd.launches,
+            "window_attention": k2.launches,
+            "window_attention_bwd": k2.bwd.launches}
+
+
+def run_training(device, path: str, tmp: Path) -> dict:
+    """``cli.train``'s own builder on the 638850 preset at full width
+    (``--synthetic --batch 32``: accum 2, 128 patches of 64^2 a
+    microbatch; bf16 compute, f32 params, dropout 0.1, lr 2e-5, grad clip
+    1), the 5D model or ``--packed``, for TRAIN_STEPS steps with the
+    launch counters set to 0 just before ``fit``; then save -> restore on
+    the card (bit-equal) and, for the 5D model, ``cli.generate`` on a 1x1
+    grid for 2 steps from the checkpoint the trainer wrote."""
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.cli import generate
+    from tera_mind_tpu_torch.cli import train as train_cli
+    from tera_mind_tpu_torch.training.harness import Trainer
+
+    args = train_cli.parse_args(
+        ["--synthetic", "--batch", "32", "--max_steps", str(TRAIN_STEPS),
+         "--device", str(device)] + (["--packed"] if path == "packed" else []))
+    t0 = time.perf_counter()
+    conf, ds, trainer, _ = train_cli.build(args)
+    conf.base_dir = str(tmp / path)
+    require((conf.batch_size_effective, conf.accum_batches, conf.dropout,
+             conf.lr, conf.grad_clip, conf.compute_dtype, conf.remat)
+            == (64, 2, 0.1, 2e-5, 1.0, "bfloat16", False),
+            f"cli.train preset {conf}")
+    state = trainer.init_state()
+    require(all(p.dtype == torch.float32 for p in trainer.model.parameters()),
+            "training parameters are not float32")
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    n_params = sum(p.numel() for p in state.params.values())
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = peak_rss_gib()
+    smi_proc = start_card_sampler()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.fit(train_cli.epoch_batches(
+            ds, conf.batch_size_effective), max_steps=TRAIN_STEPS,
+            state=state, log_every=1, metrics=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        card = stop_card_sampler(smi_proc)
+    got = read_train_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rss = peak_rss_gib()
+    want_step = TRAIN_LAUNCHES[path]
+    want = {k: want_step[k.removesuffix("_bwd")] * TRAIN_STEPS for k in got}
+    timed = trainer.log[TRAIN_TIMED_FROM - 1:]
+    data_s = sum(r["data_s"] for r in timed)
+    step_s = sum(r["step_s"] for r in timed)
+    rate = conf.batch_size_effective * len(timed) / (data_s + step_s)
+    losses = [r["loss"] for r in trainer.log]
+    changed = max(float((state.params[n].detach() - p).abs().max())
+                  for n, p in before.items())
+    log(f"training [{path}]: {n_params / 1e6:.1f}M f32 params, built in "
+        f"{build_s:.1f} s; {TRAIN_STEPS} steps of 64 samples in {secs:.2f} "
+        f"s; steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS}: {rate:.2f} samples/s, "
+        f"{step_s / len(timed):.3f} s a step on the device, data wait "
+        f"{100 * data_s / (data_s + step_s):.1f} %; losses "
+        f"{[round(v, 4) for v in losses]}; peak device memory {peak:.2f} "
+        f"GiB, the process's peak host RSS {rss:.2f} GiB ({rss_before:.2f} "
+        f"before); launches {got} (expected {want}); {card}")
+    require(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+            f"training losses {losses}")
+    require(changed > 0, "training left the parameters unchanged")
+    require(got == want, f"training launches {got}, expected {want}")
+
+    # save -> restore on the card, bit for bit
+    trainer.save(state)
+    again = Trainer(conf, device=device).restore()
+    require(again is not None and again.step == state.step
+            and again.opt_state.count == state.opt_state.count,
+            "restore found no checkpoint or another step")
+    for n, p in state.params.items():
+        require(torch.equal(again.params[n], p)
+                and torch.equal(again.opt_state.mu[n], state.opt_state.mu[n])
+                and torch.equal(again.opt_state.nu[n], state.opt_state.nu[n]),
+                f"restore is not bit-equal at {n}")
+    log(f"training [{path}]: save -> restore bit-equal at step {state.step}")
+    out = dict(samples_per_s=rate, step_s=step_s / len(timed),
+               data_wait_pct=100 * data_s / (data_s + step_s),
+               seconds=secs, peak_gib=peak, host_rss_gib=rss,
+               launches=got, launches_per_step=want_step, losses=losses,
+               params_m=n_params / 1e6)
+    del trainer, again, state, before
+    torch.cuda.empty_cache()
+    if path == "5d":
+        gen_out = generate.main([
+            "--ckpt_pth", str(Path(conf.logdir) / "ckpt"), "--hnm", "1",
+            "--wnm", "1", "--tot_epoch", "2", "--synthetic", "--device",
+            str(device), "--out_dir", str(tmp / "gen_tiles")])
+        require_output(gen_out, (256, 256, 100))
+        log("cli.generate from the trained checkpoint: 1x1 grid, 2 steps")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1039,6 +1466,7 @@ def main() -> int:
         log(f"ptxas: {line}")
 
     rows = check_kernels(device)
+    rows.update(check_backward_kernels(device))
     check_autograd_guard(device)
     small = check_small_chain(device)
     for name, err in small["errs"].items():
@@ -1069,6 +1497,12 @@ def main() -> int:
     chains["stream"].pop("out")
     main_path = chains["packed"]
 
+    small_train = check_small_train_step(device)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        train = {path: run_training(device, path, Path(tmp))
+                 for path in ("5d", "packed")}
+
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
                            "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
                "window_attention": ("tera_mind_tpu_torch/csrc/attention.cu",
@@ -1090,7 +1524,28 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         "shapes": rows[name]})
-    print(json.dumps({"kernels": kernels, "chain_seconds":
+    bwd_sources = {
+        "rmsnorm_bwd": ("rmsnorm", "tera_mind_tpu_torch/csrc/rmsnorm_bwd.cu",
+                        "tera_mind_tpu/ops/rmsnorm_kernel.py:91"),
+        "window_attention_bwd": (
+            "window_attention", "tera_mind_tpu_torch/csrc/attention_bwd.cu",
+            "tera_mind_tpu/ops/attention_kernel.py:81")}
+    for name, (fwd, src, replaces) in bwd_sources.items():
+        r = max(rows[name], key=lambda x: x["bound_ms"])  # the largest
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": train["5d"]["launches"][name],
+                        "launches_per_step": {
+                            path: t["launches_per_step"][fwd]
+                            for path, t in train.items()},
+                        "max_abs_err": max(x["max_abs_err"]
+                                           for x in rows[name]),
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        "shapes": rows[name]})
+    print(json.dumps({"kernels": kernels, "train": train,
+                      "small_train": small_train, "chain_seconds":
                       main_path["seconds"], "tiles_per_s":
                       main_path["tiles_per_s"],
                       "chains": {p: {k: c[k] for k in (

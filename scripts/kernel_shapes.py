@@ -22,6 +22,17 @@ in scripts/profile_torch_step.py.
     main path, block-major 2x2:    (defaults)
     tile-major 2x2 (chunk 5):      --patches 25 --chunk 5 --visits 4
     streamed 4x4 in 2x2 windows:   --patches 81 --chunk 5 --visits 4
+
+    python scripts/kernel_shapes.py --train [--packed]
+
+``--train`` runs one training forward of the preset instead: the 5D
+``TeraUNet`` (``--packed``: ``PackedTeraUNet(from_5d=True)``) with
+float32 parameters and bf16 compute, on one microbatch of ``cli.train``'s
+defaults (batch 32: 32 samples, each a 2x2 block of 64^2 patches, so 128
+patches, both decoders), and counts it for one step of ``accum``
+microbatches (2).  In training every K1 and K2 input requires grad, so
+each launch records one backward launch: K1b takes K1's (rows, C) and K2b
+K2's (B, N, D), as often.
 """
 
 from __future__ import annotations
@@ -93,6 +104,42 @@ def per_call_shapes(packed: bool = True, patches: int = PATCHES,
     return k1, k2
 
 
+TRAIN_BATCH = 32    # cli.train's default --batch: samples a microbatch
+TRAIN_ACCUM = 2     # 64 // batch microbatches a step
+
+
+def train_shapes(packed: bool = False, batch: int = TRAIN_BATCH
+                 ) -> tuple[Counter, Counter]:
+    """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one
+    training forward on a microbatch of ``batch`` samples (2x2 blocks of
+    patches, both decoders); K1b and K2b get the same."""
+    conf = prep_config("638850").make_model_conf()
+    k1, k2 = Counter(), Counter()
+    with recording(k1, k2), torch.device("meta"):
+        model = (make_packed_model(conf, torch.float32, from_5d=True)
+                 if packed else conf.make_model(torch.float32)).train()
+        p = conf.image_size
+        x = torch.empty(4 * batch, p, p, conf.in_channels)
+        rna = torch.empty(4 * batch, conf.gn_sz, conf.gn_sz,
+                          len(conf.rna_tpl) * conf.rna_num)
+        model(x, torch.zeros(batch, dtype=torch.long), rna, 2, 2)
+    return k1, k2
+
+
+def main_train(packed: bool) -> None:
+    k1, k2 = train_shapes(packed)
+    print(("PackedTeraUNet(from_5d)" if packed else "TeraUNet (5D)")
+          + f" training, {TRAIN_ACCUM} microbatches of {TRAIN_BATCH} "
+          "samples a step")
+    for name, counts in (("K1 rmsnorm and K1b (rows, C)", k1),
+                         ("K2 window_attention and K2b (B, N, D)", k2)):
+        print(f"{name}: {sum(counts.values())} per microbatch, "
+              f"{sum(counts.values()) * TRAIN_ACCUM} per step, each")
+        for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
+            print(f"  {shape}: {n} per microbatch, {n * TRAIN_ACCUM} per "
+                  "step")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no_packed", action="store_true",
@@ -105,7 +152,14 @@ def main() -> None:
     ap.add_argument("--visits", type=int, default=1,
                     help="z-window sweeps a step (tiles of the tile-major "
                     "step, streamed windows of the grid)")
+    ap.add_argument("--train", action="store_true",
+                    help="one training step of cli.train's defaults")
+    ap.add_argument("--packed", action="store_true",
+                    help="with --train: the packed model")
     args = ap.parse_args()
+    if args.train:
+        main_train(args.packed)
+        return
     per_step = WINDOWS // args.chunk * args.visits
     calls = STEPS * per_step
     k1, k2 = per_call_shapes(packed=not args.no_packed,

@@ -1,7 +1,9 @@
-"""Profile the PyTorch port's tera-generator step on one CUDA card.
+"""Profile the PyTorch port's tera-generator step, or a training step, on
+one CUDA card.
 
     python scripts/profile_torch_step.py [--no_packed]
         [--path block_major|tile_major|stream] [--json PATH]
+    python scripts/profile_torch_step.py --path train [--packed] [--json PATH]
 
 Builds the ``cli.generate`` path (638850 preset, bf16; the packed model,
 or the 5D one with ``--no_packed``): ``block_major`` (the default, 2x2
@@ -10,15 +12,19 @@ tiles, the planned window_chunk 1), ``tile_major`` (2x2 tiles,
 defaults on 4x4 tiles: one step is a sweep of four 2x2-tile windows, 3
 in flight on their own streams).  After a warm-up step it traces one
 step with ``torch.profiler``: it prints device time by category
-(convolution, each variant of K1 rmsnorm and of K2 window attention,
-matmul, elementwise/copies, other), the device time of the kernels
-launched inside ``GroupedRMSNorm`` (plain PyTorch, spread over the
-categories above; each call is wrapped in a ``record_function`` range
-for the trace), the top kernels, and the device's idle share over the
-step: 1 - (time in which at least one kernel runs) / wall time, which on
-one stream is 1 - summed kernel time / wall time.  Every line names the
-card and its power limit.  ``--json PATH`` also writes the per-kernel
-table there.
+(convolution, each variant of K1 rmsnorm and of K2 window attention, the
+backward kernels K1b and K2b, matmul, elementwise/copies, other), the
+device time of the kernels launched inside ``GroupedRMSNorm`` (plain
+PyTorch, spread over the categories above; each call is wrapped in a
+``record_function`` range for the trace) and, for ``--path train``,
+inside the optimizer's update, the top kernels, and the device's idle
+share over the step: 1 - (time in which at least one kernel runs) / wall
+time, which on one stream is 1 - summed kernel time / wall time.
+``--path train`` is one step of ``cli.train``'s builder on the 638850
+preset (``--synthetic --batch 32``: 2 microbatches of 32 samples, bf16
+compute, f32 params, dropout 0.1; the 5D model, ``--packed`` the packed
+one) after a warm-up step.  Every line names the card and its power
+limit.  ``--json PATH`` also writes the per-kernel table there.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -36,11 +43,15 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from tera_mind_tpu_torch.cli import generate  # noqa: E402
+from tera_mind_tpu_torch.cli import train as train_cli  # noqa: E402
 from tera_mind_tpu_torch.models import unet_packed  # noqa: E402
+from tera_mind_tpu_torch.training import harness  # noqa: E402
 
 TILES = {"block_major": 2, "tile_major": 2, "stream": 4}  # grid side
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
+    ("K1b rmsnorm_bwd", ("rmsnorm_bwd_",)),
+    ("K2b attention_bwd", ("attention_bwd_",)),
     ("K1 rmsnorm vector", ("rmsnorm_kernel_vec",)),
     ("K1 rmsnorm strided", ("rmsnorm_kernel",)),
     ("K2 attention tensor_core", ("attention_kernel_tc",)),
@@ -61,15 +72,23 @@ def category(name: str) -> str:
     return "other"
 
 
-def trace_grouped_norms() -> None:
-    """Wrap every GroupedRMSNorm call in a profiler range of that name."""
-    from torch.profiler import record_function
-    forward = unet_packed.GroupedRMSNorm.forward
+RANGES = ("GroupedRMSNorm", "optimizer")   # profiler ranges reported
 
-    def traced(self, x):
-        with record_function("GroupedRMSNorm"):
-            return forward(self, x)
-    unet_packed.GroupedRMSNorm.forward = traced
+
+def trace_ranges() -> None:
+    """Wrap every GroupedRMSNorm call and every optimizer update in a
+    profiler range of that name."""
+    from torch.profiler import record_function
+
+    def wrap(cls, attr, name):
+        fn = getattr(cls, attr)
+
+        def traced(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        setattr(cls, attr, traced)
+    wrap(unet_packed.GroupedRMSNorm, "forward", "GroupedRMSNorm")
+    wrap(harness.Optimizer, "step", "optimizer")
 
 
 def busy_us(intervals) -> float:
@@ -81,6 +100,21 @@ def busy_us(intervals) -> float:
             total += b - max(a, end)
             end = b
     return total
+
+
+def make_train_step(packed: bool, logdir: str):
+    """(one training step of cli.train's builder as a callable, device)."""
+    args = train_cli.parse_args(["--synthetic", "--batch", "32"]
+                                + ["--packed"] * packed)
+    conf, ds, trainer, _ = train_cli.build(args)
+    conf.base_dir = logdir
+    state = trainer.init_state()
+    batch = trainer.shape_batch(next(train_cli.epoch_batches(
+        ds, conf.batch_size_effective)))
+
+    def step():
+        trainer.train_step(state, batch)
+    return step, trainer.device
 
 
 def make_step(path: str, no_packed: bool):
@@ -113,7 +147,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no_packed", action="store_true")
     ap.add_argument("--path", default="block_major",
-                    choices=("block_major", "tile_major", "stream"))
+                    choices=("block_major", "tile_major", "stream", "train"))
+    ap.add_argument("--packed", action="store_true",
+                    help="with --path train: the packed model")
     ap.add_argument("--json", type=Path, default=None)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -123,8 +159,10 @@ def main() -> None:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
 
-    trace_grouped_norms()
-    step, dev = make_step(a.path, a.no_packed)
+    trace_ranges()
+    tmp = tempfile.TemporaryDirectory()
+    step, dev = (make_train_step(a.packed, tmp.name) if a.path == "train"
+                 else make_step(a.path, a.no_packed))
     step()                                         # warm-up
 
     from torch.profiler import ProfilerActivity, profile
@@ -141,17 +179,19 @@ def main() -> None:
             ev, "device_time_total") else ev.cuda_time_total
 
     kernels = defaultdict(lambda: [0.0, 0])
-    grouped = [0.0, 0]    # device us of the kernels inside, and calls
-    grouped_span = 0.0    # device us of the ranges' spans on the card
+    # per range: device us of the kernels inside, calls, and device us of
+    # the ranges' spans on the card
+    ranges = {name: [0.0, 0, 0.0] for name in RANGES}
     spans = []            # (start, end) us of every kernel on the card
     for ev in prof.events():
         on_card = ev.device_type == torch.autograd.DeviceType.CUDA
-        if ev.name == "GroupedRMSNorm":
+        if ev.name in ranges:
+            r = ranges[ev.name]
             if on_card:           # the range itself, not a kernel
-                grouped_span += dev_us(ev)
+                r[2] += dev_us(ev)
             else:
-                grouped[0] += dev_us(ev)
-                grouped[1] += 1
+                r[0] += dev_us(ev)
+                r[1] += 1
         elif on_card:
             k = kernels[ev.name]
             k[0] += dev_us(ev)
@@ -171,10 +211,11 @@ def main() -> None:
         print("  GroupedRMSNorm: its ranges run on the window workers' "
               "threads, which the profiler does not record")
     else:
-        print(f"  GroupedRMSNorm: kernels inside its {grouped[1]} calls "
-              f"{grouped[0] / 1e3:.2f} ms "
-              f"({100 * grouped[0] / total_us:.1f} %), its ranges' spans "
-              f"on the card {grouped_span / 1e3:.2f} ms")
+        for name, (us, calls, span) in ranges.items():
+            if calls:
+                print(f"  {name}: kernels inside its {calls} calls "
+                      f"{us / 1e3:.2f} ms ({100 * us / total_us:.1f} %), "
+                      f"its ranges' spans on the card {span / 1e3:.2f} ms")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     for name, (us, n) in top[:25]:
         print(f"  {us / 1e3:9.2f} ms  {n:6d}x  [{category(name)}] "
@@ -183,12 +224,12 @@ def main() -> None:
         return
     a.json.parent.mkdir(parents=True, exist_ok=True)
     a.json.write_text(json.dumps({
-        "card": card, "packed": not a.no_packed, "path": a.path,
+        "card": card, "path": a.path,
+        "packed": a.packed if a.path == "train" else not a.no_packed,
         "wall_s": wall, "kernel_us": total_us, "busy_us": union_us,
         "categories_us": cats,
-        "grouped_rmsnorm_us": grouped[0],
-        "grouped_rmsnorm_calls": grouped[1],
-        "grouped_rmsnorm_span_us": grouped_span,
+        "ranges": {name: {"us": r[0], "calls": r[1], "span_us": r[2]}
+                   for name, r in ranges.items()},
         "kernels": {n: v for n, v in top}}, indent=1))
 
 

@@ -27,9 +27,13 @@ with ``--synthetic``, from one seeded field.  The state is spilled to
 from the latest spill, or from ``--cur_epoch``'s.  The final tiles are
 written to ``--out_dir`` as float16 ``.npy`` files named
 ``{h0}_{h1}_{w0}_{w1}``, with per-slice jpg previews under
-``{out_dir}/preview`` for grids of up to 32x32 tiles.  Not ported yet:
-orbax checkpoints, multi-process runs (``--coordinator``,
-``--num_processes``, ``--process_id``) and int8 (``--quant*``).
+``{out_dir}/preview`` for grids of up to 32x32 tiles.  ``--ckpt_pth`` is
+a reference ``.ckpt`` or the port trainer's checkpoint directory
+(``{logdir}/ckpt``, its newest step, EMA params when it has them); the
+``config.json`` beside either is preferred over the run directory's
+name.  Not ported yet: the JAX trainer's orbax directories, multi-process
+runs (``--coordinator``, ``--num_processes``, ``--process_id``) and int8
+(``--quant*``).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import config_from_name, prep_config
+from ..config import TrainConfig, config_from_name, prep_config
 from ..convert import (convert_unet_params, export_params, load_jax_params,
                        load_torch_state_dict)
 from ..data.coo import COO
@@ -53,6 +57,7 @@ from ..models.unet import TeraUNetConfig
 from ..models.unet_packed import make_packed_model, pack_unet_params
 from ..parallel.generator import GeneratorConfig, TeraGenerator, grid_to_image
 from ..parallel.streaming import StreamConfig, StreamingGenerator
+from ..training.harness import read_checkpoint
 
 TILE = 256          # px per tile side, the reference's grid unit
 
@@ -135,8 +140,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="directory of the per-tile gene .npz files "
                     "(default Data/MERFISH_50/gene_{mouse})")
     ap.add_argument("--ckpt_pth", type=Path, default=None,
-                    help="reference Lightning .ckpt; its directory's name "
-                    "gives the preset (reference test_brn.py:337-344)")
+                    help="reference Lightning .ckpt, or the port trainer's "
+                    "checkpoint directory ({logdir}/ckpt); the config.json "
+                    "beside it, else its directory's name, gives the "
+                    "preset (reference test_brn.py:337-344)")
     ap.add_argument("--out_dir", "-g", type=str, default="./output_tiles")
     ap.add_argument("--hst", type=int, default=256)
     ap.add_argument("--wst", type=int, default=256)
@@ -231,14 +238,17 @@ def make_model(mconf: TeraUNetConfig, params5: Optional[dict] = None, *,
 
 
 def run_config(args: argparse.Namespace):
-    """The run's ``TrainConfig`` in bf16: the preset of the checkpoint's
-    run directory name, or of ``--mouse``."""
+    """The run's ``TrainConfig`` in bf16: the ``config.json`` beside the
+    checkpoint (what the trainer persisted, exact for fields the run name
+    does not encode, such as ``net_ch``), else the preset of the
+    checkpoint's run directory name, or of ``--mouse``."""
     if args.ckpt_pth is not None:
-        if args.ckpt_pth.suffix != ".ckpt":
-            raise SystemExit(f"--ckpt_pth {args.ckpt_pth}: the port reads "
-                             "reference .ckpt files only (orbax directories "
-                             "come with the training slice)")
-        conf = config_from_name(args.ckpt_pth.parent.name)
+        if args.ckpt_pth.suffix != ".ckpt" and not args.ckpt_pth.is_dir():
+            raise SystemExit(f"--ckpt_pth {args.ckpt_pth}: not a reference "
+                             ".ckpt file or a port checkpoint directory")
+        cj = args.ckpt_pth.parent / "config.json"
+        conf = (TrainConfig.load(cj) if cj.exists()
+                else config_from_name(args.ckpt_pth.parent.name))
     else:
         conf = prep_config(args.mouse)
     conf.compute_dtype = "bfloat16"
@@ -255,10 +265,15 @@ def build(args: argparse.Namespace):
                          "--device cpu")
     mconf = conf.make_model_conf()
     params5 = None
-    if args.ckpt_pth is not None:
+    if args.ckpt_pth is not None and args.ckpt_pth.suffix == ".ckpt":
         params5 = convert_unet_params(load_torch_state_dict(args.ckpt_pth),
                                       mconf)
         print(f"converted torch checkpoint {args.ckpt_pth}", flush=True)
+    elif args.ckpt_pth is not None:
+        tree = read_checkpoint(args.ckpt_pth)
+        params5 = tree["ema_params"] or tree["params"]
+        print(f"restored port checkpoint step {tree['step']}"
+              f"{' (ema)' if tree['ema_params'] else ''}", flush=True)
     else:
         print("WARNING: random init (no checkpoint)", flush=True)
     model = make_model(mconf, params5, seed=conf.seed,

@@ -9,6 +9,9 @@ MOUSE = {
     "638850": [49, []],
 }
 
+# z-slices per stain in the training image arrays.
+NUM_Z_SLICES = 50
+
 # Mouse->human 81-gene index map into the 500-plex panel
 # (reference utils/__init__.py:49-57).
 M2H = [

@@ -12,6 +12,11 @@ parameter names are the flax names, with ``kernel`` -> ``weight``:
 The match is strict both ways: a flax leaf with no port parameter, a port
 parameter with no flax leaf, or a shape mismatch raises.
 
+``jax_tree_to_named`` and ``export_tensors`` do the same for any tree
+shaped like the parameters (the optimizer's moments), and
+``train_state_tree`` carries a JAX ``TrainState`` (numpy leaves) across
+into the port checkpoint's format, which the trainer loads.
+
 ``load_torch_state_dict`` and ``convert_unet_params`` (port of
 ``tera_mind_tpu/convert.py``) turn the reference's Lightning ``.ckpt``
 (keys like ``model.input_blocks.3.0.in_layers.2.weight``) into the 5D
@@ -71,41 +76,53 @@ def torch_to_jax_array(arr: np.ndarray) -> tuple[str, np.ndarray]:
     raise ValueError(f"unexpected weight rank {arr.ndim}")
 
 
+def jax_tree_to_named(model: nn.Module,
+                      tree: Mapping) -> Dict[str, np.ndarray]:
+    """A flax-named tree shaped like ``model``'s parameters (the params,
+    or an optimizer moment of them) as float32 arrays in the port's
+    layout, keyed by ``model``'s parameter names.  Strict both ways: a
+    leaf with no parameter, a parameter with no leaf, or a shape mismatch
+    raises."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    out = {}
+    for path, arr in _flatten(tree).items():
+        prefix, _, leaf = path.rpartition(".")
+        name = "weight" if leaf == "kernel" else leaf
+        name = f"{prefix}.{name}" if prefix else name
+        if name not in shapes:
+            raise KeyError(f"flax leaf {path} has no port parameter {name}")
+        val = np.ascontiguousarray(jax_to_torch_array(leaf, arr),
+                                   dtype=np.float32)
+        if shapes[name] != val.shape:
+            raise ValueError(f"{path}: flax {val.shape} vs port "
+                             f"{shapes[name]}")
+        out[name] = val
+    missing = sorted(set(shapes) - set(out))
+    if missing:
+        raise KeyError(f"port parameters without a flax leaf: {missing}")
+    return out
+
+
 @torch.no_grad()
 def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy a flax param tree into ``model`` in place (each tensor keeps
     its device, dtype and memory format); returns ``model``."""
-    if set(params) == {"params"}:
-        params = params["params"]
-    flat = _flatten(params)
-    targets = dict(model.named_parameters())
-    seen = set()
-    for path, arr in flat.items():
-        prefix, _, leaf = path.rpartition(".")
-        name = "weight" if leaf == "kernel" else leaf
-        name = f"{prefix}.{name}" if prefix else name
-        if name not in targets:
-            raise KeyError(f"flax leaf {path} has no port parameter {name}")
-        val = np.ascontiguousarray(jax_to_torch_array(leaf, arr))
-        dst = targets[name]
-        if tuple(dst.shape) != val.shape:
-            raise ValueError(f"{path}: flax {val.shape} vs port "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(val.astype(np.float32)))
-        seen.add(name)
-    missing = sorted(set(targets) - seen)
-    if missing:
-        raise KeyError(f"port parameters without a flax leaf: {missing}")
+    named = jax_tree_to_named(model, params)
+    for name, dst in model.named_parameters():
+        dst.copy_(torch.from_numpy(named[name]))
     return model
 
 
 @torch.no_grad()
-def export_params(model: nn.Module) -> Dict:
-    """The flax-named tree ``{"params": {...}}`` of ``model``'s parameters
-    as float32 numpy arrays: the exact inverse of :func:`load_jax_params`
-    (bf16 values widen to float32 without change)."""
+def export_tensors(named: Mapping[str, torch.Tensor]) -> Dict:
+    """The flax-named tree ``{"params": {...}}`` of port-named tensors
+    (a model's parameters, or an optimizer moment of them) as float32
+    numpy arrays: the exact inverse of :func:`jax_tree_to_named` (bf16
+    values widen to float32 without change)."""
     out: Dict = {}
-    for name, p in model.named_parameters():
+    for name, p in named.items():
         *path, leaf = name.split(".")
         arr = p.detach().float().cpu().numpy()
         if leaf == "weight":
@@ -115,6 +132,59 @@ def export_params(model: nn.Module) -> Dict:
             node = node.setdefault(key, {})
         node[leaf] = np.ascontiguousarray(arr)
     return {"params": out}
+
+
+def export_params(model: nn.Module) -> Dict:
+    """The flax-named tree ``{"params": {...}}`` of ``model``'s parameters:
+    the exact inverse of :func:`load_jax_params`."""
+    return export_tensors(dict(model.named_parameters()))
+
+
+def train_state_tree(state) -> Dict:
+    """A JAX ``TrainState`` (its leaves as numpy arrays: params, the optax
+    Adam state's ``mu``, ``nu`` and ``count`` found inside ``opt_state``,
+    EMA params, step), or a tree already in the port checkpoint's format,
+    as that format: ``{"step", "params", "mu", "nu", "count",
+    "ema_params"}`` (``ema_params`` None without EMA)."""
+    if isinstance(state, Mapping):
+        return dict(state)
+
+    def adam(node):
+        if all(hasattr(node, k) for k in ("mu", "nu", "count")):
+            return node
+        if isinstance(node, (tuple, list)):
+            for sub in node:
+                found = adam(sub)
+                if found is not None:
+                    return found
+        return None
+
+    opt = adam(state.opt_state)
+    if opt is None:
+        raise ValueError("no Adam state (mu, nu, count) in opt_state")
+    return {"step": int(np.asarray(state.step)), "params": state.params,
+            "mu": opt.mu, "nu": opt.nu, "count": int(np.asarray(opt.count)),
+            "ema_params": getattr(state, "ema_params", None)}
+
+
+def load_pretrain_params(path: str | Path, conf) -> Dict:
+    """Parameters to INITIALIZE training from (the reference's
+    pretrain/``continue_from`` seam, experiment.py:50-58, 464-473): a
+    reference Lightning ``.ckpt`` (converted; ``ema_model`` keys dropped
+    by :func:`load_torch_state_dict`) or a checkpoint directory written
+    by the port's ``Trainer`` (its newest step, the EMA params when it
+    has them).  Returns the 5D flax-named tree, which ``TeraUNet`` and
+    ``PackedTeraUNet(from_5d=True)`` both load.  An orbax directory of the
+    JAX trainer raises ``NotImplementedError``."""
+    from .training.harness import read_checkpoint
+    path = Path(path)
+    if path.suffix == ".ckpt":
+        return convert_unet_params(load_torch_state_dict(path), conf)
+    if path.is_dir():
+        tree = read_checkpoint(path)
+        return tree["ema_params"] or tree["params"]
+    raise ValueError(f"unrecognized pretrain checkpoint: {path} (expected "
+                     "a .ckpt file or a port checkpoint directory)")
 
 
 # --------------------------------------------------------------------- #

@@ -161,6 +161,12 @@ class Schedule:
         """Map a spaced t to the original-T value the model embeds."""
         return self.timestep_map[t]
 
+    def q_sample(self, x0, t, noise):
+        """Sample q(x_t | x_0) (reference base.py:141-158)."""
+        return (self._at(self.sqrt_alphas_cumprod, t, x0.ndim) * x0
+                + self._at(self.sqrt_one_minus_alphas_cumprod, t, x0.ndim)
+                * noise)
+
     def predict_xstart_from_eps(self, x_t, t, eps):
         return (self._at(self.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
                 - self._at(self.sqrt_recipm1_alphas_cumprod, t, x_t.ndim)
@@ -196,3 +202,8 @@ def spaced_schedule(beta_name: str, num_train_timesteps: int,
         tmap.append(i)
     return Schedule.create(np.array(new_betas), timestep_map=tmap,
                            original_num_timesteps=num_train_timesteps)
+
+
+def train_schedule(beta_name: str, num_timesteps: int) -> Schedule:
+    """Full (un-respaced) training schedule."""
+    return Schedule.create(named_beta_schedule(beta_name, num_timesteps))

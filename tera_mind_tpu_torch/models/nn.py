@@ -1,12 +1,17 @@
 """Neural-net primitives, channels-last ``(B, Z, H, W, C)``.
 
-Port of ``tera_mind_tpu/models/nn.py``.  A module computes in the dtype of
-its weights (the model is cast to the compute dtype, as the JAX
-modules' ``dtype=`` casts their params at compute time, apart from the
-float32 ``TimeEmbed``); inputs are cast to that dtype first, as flax's
-``dtype=`` does.  Parameter names follow
-the flax ones (``kernel`` -> ``weight``), so ``convert.load_jax_params``
-maps a flax tree one for one.
+Port of ``tera_mind_tpu/models/nn.py``.  A module with weights (``Dense``,
+``Conv3d`` and its subclasses: :class:`CastsWeights`) computes in its
+``compute_dtype``: it casts its input and its weights to that dtype at
+use, as flax's ``dtype=`` does over float32 params ("bf16 compute, f32
+params"), so training keeps float32 master weights.  Generation casts the
+weights to the compute dtype once (``TeraUNetConfig.make_model()``), and
+the cast at use is then a no-op.  ``TimeEmbed`` computes in float32, as
+the JAX module (no ``dtype=``) does.  ``RMSNorm`` computes in its input's
+dtype and hands its weight as it is to K1 (which casts it to the input's
+dtype) and K1b (which reads it as float32).  Parameter names follow the
+flax ones (``kernel`` -> ``weight``), so ``convert.load_jax_params`` maps
+a flax tree one for one.
 """
 
 from __future__ import annotations
@@ -19,6 +24,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.rmsnorm_kernel import rmsnorm
+
+
+class CastsWeights:
+    """Mixin of the modules that cast their input and weights at use to
+    ``compute_dtype`` (None, the default: the weights' own dtype), set by
+    :func:`set_compute_dtype`."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype this module computes in."""
+        return self.compute_dtype or self.weight.dtype
+
+    def cast(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        return None if t is None else t.to(self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -50,21 +71,21 @@ def timestep_embedding(t: torch.Tensor, dim: int,
     return emb
 
 
-class Dense(nn.Linear):
-    """``nn.Linear`` that casts its input to the weight dtype (flax Dense
-    with ``dtype=``).  Weight is ``(out, in)``; flax's kernel is its
-    transpose."""
+class Dense(CastsWeights, nn.Linear):
+    """``nn.Linear`` in its compute dtype (flax Dense with ``dtype=``).
+    Weight is ``(out, in)``; flax's kernel is its transpose."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(self.cast(x), self.cast(self.weight),
+                        self.cast(self.bias))
 
 
 class TimeEmbed(nn.Module):
     """Time MLP: linear-SiLU-linear (the position half of the JAX module,
     ``use_pos``, serves the patch-dm baseline, not ported yet).
 
-    Computes in the dtype of its weights, which ``TeraUNetConfig.make_model``
-    keeps in float32 whatever the model's dtype, as the JAX module (no
+    Computes in float32 whatever the model's compute dtype
+    (:func:`set_compute_dtype` leaves it out), as the JAX module (no
     ``dtype=``) computes in float32 on float32 params."""
 
     def __init__(self, in_channels: int, out_channels: int):
@@ -95,7 +116,17 @@ def modulate(norm: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     return norm(x) * (scale + 1.0) + shift
 
 
-class Conv3d(nn.Module):
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element where a uniform draw from
+    ``generator`` is below 1 - rate, and scale the kept ones by
+    1 / (1 - rate) in x's dtype."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+class Conv3d(CastsWeights, nn.Module):
     """3D conv over (Z, H, W) of a channels-last ``(B, Z, H, W, C)`` map.
 
     Padding defaults to the symmetric ``(k - 1) // 2`` per axis (the JAX
@@ -117,8 +148,9 @@ class Conv3d(nn.Module):
             else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).permute(0, 4, 1, 2, 3)
-        y = F.conv3d(x, self.weight, self.bias, padding=self.padding)
+        x = self.cast(x).permute(0, 4, 1, 2, 3)
+        y = F.conv3d(x, self.cast(self.weight), self.cast(self.bias),
+                     padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -130,8 +162,9 @@ class Conv2d(Conv3d):
     :class:`Conv3d` does, whose parameters, padding and init it shares."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
-        y = F.conv2d(x, self.weight, self.bias, padding=self.padding)
+        x = self.cast(x).permute(0, 3, 1, 2)
+        y = F.conv2d(x, self.cast(self.weight), self.cast(self.bias),
+                     padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -175,6 +208,28 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 mod.bias.zero_()
         elif isinstance(mod, RMSNorm):
             mod.weight.fill_(1.0)
+    return model
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype, *,
+                      param_dtype: Optional[torch.dtype] = None
+                      ) -> nn.Module:
+    """Store ``model``'s parameters in ``param_dtype`` (default: ``dtype``,
+    as generation runs) with ``TimeEmbed``'s kept float32, and make every
+    weighted module but ``TimeEmbed``'s compute in ``dtype``: in its
+    weights' dtype when that is ``dtype``, else by casting them at use
+    (float32 master weights for training).  Returns ``model``."""
+    param_dtype = param_dtype or dtype
+    model.to(param_dtype)
+    for mod in model.modules():
+        if isinstance(mod, CastsWeights):
+            mod.compute_dtype = None if param_dtype == dtype else dtype
+    for mod in model.modules():
+        if isinstance(mod, TimeEmbed):
+            mod.float()
+            for sub in mod.modules():
+                if isinstance(sub, CastsWeights):
+                    sub.compute_dtype = None
     return model
 
 

@@ -22,14 +22,15 @@ from torch import nn
 from ..ops.collage import to_collage
 from .attention import DiTBlock
 from .blocks import ResBlock3D
-from .nn import Conv3d, RMSNorm, TimeEmbed, timestep_embedding, upsample_2x
+from .nn import (Conv3d, RMSNorm, TimeEmbed, set_compute_dtype,
+                 timestep_embedding, upsample_2x)
 from .rna import RNA_CHANNELS, RNATower, rna_grid_from_dense
 
 
 @dataclasses.dataclass(frozen=True)
 class TeraUNetConfig:
     """Structural hyperparameters (the JAX package's TeraUNetConfig,
-    inference only and without the patch-dm baseline's ``use_pos``)."""
+    without the patch-dm baseline's ``use_pos``)."""
 
     image_size: int = 64          # patch size the UNet operates on
     in_channels: int = 4          # pixel channels = stains * z_size
@@ -44,6 +45,7 @@ class TeraUNetConfig:
     rna_num: int = 500
     gn_sz: int = 4                # gene bins per patch side
     use_zero_module: bool = True  # zero-init residual out-convs
+    dropout: float = 0.1          # ResBlock dropout (training mode only)
     dtype_name: str = "float32"   # compute dtype: float32 | bfloat16
 
     @property
@@ -60,15 +62,17 @@ class TeraUNetConfig:
         return torch.bfloat16 if self.dtype_name == "bfloat16" \
             else torch.float32
 
-    def make_model(self) -> "TeraUNet":
-        """The model in the compute dtype, on the CPU (weights
+    def make_model(self, param_dtype: Optional[torch.dtype] = None
+                   ) -> "TeraUNet":
+        """The model computing in the compute dtype, on the CPU (weights
         uninitialised: see ``models.nn.init_weights`` and
-        ``convert.load_jax_params``).  ``time_embed`` keeps float32
-        weights, as the JAX module (no ``dtype=``) computes in float32 on
-        its float32 params."""
-        model = TeraUNet(self).to(self.dtype)
-        model.time_embed.float()
-        return model
+        ``convert.load_jax_params``), its parameters in ``param_dtype``
+        (default: the compute dtype, for generation; float32 master
+        weights for training).  ``time_embed`` keeps float32 weights, as
+        the JAX module (no ``dtype=``) computes in float32 on its float32
+        params."""
+        return set_compute_dtype(TeraUNet(self), self.dtype,
+                                 param_dtype=param_dtype)
 
 
 def _rna_channels(rna_num: int) -> List[int]:
@@ -86,6 +90,9 @@ class TeraUNet(nn.Module):
 
     Returns (pred_collage (B*(p1-1)*(p2-1), ps, ps, out_channels),
              pred_original (B*p1*p2, ps, ps, out_channels) or None), f32.
+
+    ``generator``: in training mode, the ResBlocks' dropout masks come
+    from it (without one, or in eval mode, no dropout).
     """
 
     def __init__(self, conf: TeraUNetConfig):
@@ -99,7 +106,8 @@ class TeraUNet(nn.Module):
 
         def res(name, cin, cout, **kw):
             self.add_module(name, ResBlock3D(cin, cout, emb,
-                                             use_zero_module=zero, **kw))
+                                             use_zero_module=zero,
+                                             dropout=conf.dropout, **kw))
 
         def dit(name, c, cond):
             self.add_module(name, DiTBlock(c, cond, conf.num_heads, n_win=2))
@@ -153,10 +161,11 @@ class TeraUNet(nn.Module):
         return getattr(self, name, None)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, rna: torch.Tensor,
-                p1: int, p2: int, *, decode_original: bool = True
+                p1: int, p2: int, *, decode_original: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         conf = self.conf
-        dt = self.stem.weight.dtype
+        dt = self.stem.dtype
         z_size = conf.z_size
         nrb = conf.num_res_blocks
         nlvl = len(conf.channel_mult)
@@ -179,13 +188,14 @@ class TeraUNet(nn.Module):
         k = 1
         for lvl in range(nlvl):
             if lvl > 0:
-                h = self._get(f"enc_{k}_res")(h, emb_orig)
+                h = self._get(f"enc_{k}_res")(h, emb_orig,
+                                              generator=generator)
                 k += 1
                 hid.append([h])
             rfeat = rna_feats[nlvl - 1 - lvl]
             for _ in range(nrb):
                 h = self._get(f"enc_{k}_res")(torch.cat([h, rfeat], -1),
-                                              emb_orig)
+                                              emb_orig, generator=generator)
                 attn = self._get(f"enc_{k}_attn")
                 if attn is not None:
                     h = attn(h, rfeat)
@@ -193,9 +203,10 @@ class TeraUNet(nn.Module):
                 k += 1
 
         # ---- middle
-        h = self.mid_res0(torch.cat([h, rna_feats[0]], -1), emb_orig)
+        h = self.mid_res0(torch.cat([h, rna_feats[0]], -1), emb_orig,
+                          generator=generator)
         h = self.mid_attn(h, rna_feats[0])
-        h = self.mid_res1(h, emb_orig)
+        h = self.mid_res1(h, emb_orig, generator=generator)
 
         # ---- dual decoder: o=0 collage pass, o=1 original patches
         preds = []
@@ -218,13 +229,14 @@ class TeraUNet(nn.Module):
                     if o == 0:
                         hcnd = to_collage(hcnd, p1, p2)
                     hdec = self._get(f"dec_{k}_res")(
-                        torch.cat([hdec, hcnd, rcnd], -1), emb)
+                        torch.cat([hdec, hcnd, rcnd], -1), emb,
+                        generator=generator)
                     attn = self._get(f"dec_{k}_attn")
                     if attn is not None:
                         hdec = attn(hdec, rcnd)
                     up = self._get(f"dec_{k}_up")
                     if up is not None:
-                        hdec = up(hdec, emb)
+                        hdec = up(hdec, emb, generator=generator)
                     k += 1
 
             out = self.out_conv(F.silu(self.out_norm(hdec)))

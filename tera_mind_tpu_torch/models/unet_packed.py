@@ -40,7 +40,7 @@ from ..ops.zpack import (pack_channel_param, pack_conv3d_bias,
                          unpack_features)
 from .attention import DiTBlock
 from .nn import (Conv2d, Conv3d, Dense, RMSNorm, TimeEmbed, downsample_2x,
-                 timestep_embedding, upsample_2x)
+                 dropout, set_compute_dtype, timestep_embedding, upsample_2x)
 from .rna import RNATower, rna_grid_from_dense
 from .unet import TeraUNetConfig, _rna_channels
 
@@ -128,9 +128,10 @@ class Conv3DAsPacked(Conv3d):
         self.segments = None if segments is None else tuple(segments)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w2 = pack_conv3d_kernel_t(self.weight, self.z, self.segments)
-        x = x.to(w2.dtype).permute(0, 3, 1, 2)
-        y = F.conv2d(x, w2, self.bias.repeat(self.z),
+        w2 = pack_conv3d_kernel_t(self.cast(self.weight), self.z,
+                                  self.segments)
+        x = self.cast(x).permute(0, 3, 1, 2)
+        y = F.conv2d(x, w2, self.cast(self.bias).repeat(self.z),
                      padding=self.padding[1:])
         return y.permute(0, 2, 3, 1)
 
@@ -146,11 +147,13 @@ class PackedResBlock(nn.Module):
                  emb_channels: Optional[int] = None, *,
                  in_segments: Optional[Sequence[int]] = None,
                  up: bool = False, down: bool = False,
-                 use_zero_module: bool = True, from_5d: bool = False):
+                 use_zero_module: bool = True, from_5d: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         segs = tuple(in_segments or (in_channels,))
         assert sum(segs) == in_channels, (segs, in_channels)
         self.z, self.up, self.down = z, up, down
+        self.dropout = dropout
 
         def conv(cin, cout, k, segments=None, zero_init=False):
             if from_5d:
@@ -168,9 +171,10 @@ class PackedResBlock(nn.Module):
         if in_channels != out_channels:
             self.skip_conv = conv(in_channels, out_channels, 1, segs)
 
-    def forward(self, x: torch.Tensor,
-                emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dt = self.in_conv.weight.dtype
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None,
+                *, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        dt = self.in_conv.dtype
         z = self.z
         h = F.silu(self.in_norm(x.to(dt)))
         if self.up:
@@ -185,7 +189,10 @@ class PackedResBlock(nn.Module):
             scale = scale.repeat(1, z)[:, None, None, :]
             shift = shift.repeat(1, z)[:, None, None, :]
             h = h * (1.0 + scale) + shift
-        h = self.out_conv(F.silu(h))
+        h = F.silu(h)
+        if self.training and self.dropout > 0 and generator is not None:
+            h = dropout(h, self.dropout, generator)   # on the packed map
+        h = self.out_conv(h)
         if hasattr(self, "skip_conv"):
             x = self.skip_conv(x)
         return (x + h).to(dt)
@@ -213,7 +220,7 @@ class PackedTeraUNet(nn.Module):
         def res(name, cin, cout, **kw):
             self.add_module(name, PackedResBlock(
                 cin, cout, z, emb, use_zero_module=conf.use_zero_module,
-                from_5d=from_5d, **kw))
+                from_5d=from_5d, dropout=conf.dropout, **kw))
 
         def dit(name, c, cond):
             self.add_module(name, DiTBlock(c, cond, conf.num_heads, n_win=2,
@@ -285,10 +292,11 @@ class PackedTeraUNet(nn.Module):
                                    unpack_features(cond, z)), z)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, rna: torch.Tensor,
-                p1: int, p2: int, *, decode_original: bool = True
+                p1: int, p2: int, *, decode_original: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         conf = self.conf
-        dt = self.stem.weight.dtype
+        dt = self.stem.dtype
         z = conf.z_size
         nrb = conf.num_res_blocks
         nlvl = len(conf.channel_mult)
@@ -309,13 +317,14 @@ class PackedTeraUNet(nn.Module):
         k = 1
         for lvl in range(nlvl):
             if lvl > 0:
-                h = self._get(f"enc_{k}_res")(h, emb_orig)
+                h = self._get(f"enc_{k}_res")(h, emb_orig,
+                                              generator=generator)
                 k += 1
                 hid.append([h])
             rfeat = rna_feats[nlvl - 1 - lvl]
             for _ in range(nrb):
                 h = self._get(f"enc_{k}_res")(torch.cat([h, rfeat], -1),
-                                              emb_orig)
+                                              emb_orig, generator=generator)
                 attn = self._get(f"enc_{k}_attn")
                 if attn is not None:
                     h = self._attn(attn, h, rfeat)
@@ -323,9 +332,10 @@ class PackedTeraUNet(nn.Module):
                 k += 1
 
         # ---- middle
-        h = self.mid_res0(torch.cat([h, rna_feats[0]], -1), emb_orig)
+        h = self.mid_res0(torch.cat([h, rna_feats[0]], -1), emb_orig,
+                          generator=generator)
         h = self._attn(self.mid_attn, h, rna_feats[0])
-        h = self.mid_res1(h, emb_orig)
+        h = self.mid_res1(h, emb_orig, generator=generator)
 
         # ---- dual decoder: o=0 collage pass, o=1 original patches
         preds = []
@@ -348,13 +358,14 @@ class PackedTeraUNet(nn.Module):
                     if o == 0:
                         hcnd = _collage4(hcnd, p1, p2)
                     hdec = self._get(f"dec_{k}_res")(
-                        torch.cat([hdec, hcnd, rcnd], -1), emb)
+                        torch.cat([hdec, hcnd, rcnd], -1), emb,
+                        generator=generator)
                     attn = self._get(f"dec_{k}_attn")
                     if attn is not None:
                         hdec = self._attn(attn, hdec, rcnd)
                     up = self._get(f"dec_{k}_up")
                     if up is not None:
-                        hdec = up(hdec, emb)
+                        hdec = up(hdec, emb, generator=generator)
                     k += 1
 
             out = self.out_conv(F.silu(self.out_norm(hdec)))
@@ -363,13 +374,15 @@ class PackedTeraUNet(nn.Module):
         return preds[0], (preds[1] if decode_original else None)
 
 
-def make_packed_model(conf: TeraUNetConfig, **kw) -> PackedTeraUNet:
-    """:class:`PackedTeraUNet` in the compute dtype on the CPU, its
-    ``time_embed`` kept float32, as ``TeraUNetConfig.make_model`` does for
-    the 5D model; ``kw``: ``from_5d``, ``packed_attn``."""
-    model = PackedTeraUNet(conf, **kw).to(conf.dtype)
-    model.time_embed.float()
-    return model
+def make_packed_model(conf: TeraUNetConfig,
+                      param_dtype: Optional[torch.dtype] = None,
+                      **kw) -> PackedTeraUNet:
+    """:class:`PackedTeraUNet` computing in the compute dtype on the CPU,
+    its parameters in ``param_dtype`` and its ``time_embed`` float32, as
+    ``TeraUNetConfig.make_model`` does for the 5D model; ``kw``:
+    ``from_5d``, ``packed_attn``."""
+    return set_compute_dtype(PackedTeraUNet(conf, **kw), conf.dtype,
+                             param_dtype=param_dtype)
 
 
 # --------------------------------------------------------------------- #

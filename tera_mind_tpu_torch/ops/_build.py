@@ -41,6 +41,10 @@ SIGNATURES = {
     "tmt_rmsnorm": [_ptr, _ptr, _ptr, _i64, _int, _f32, _int, _int, _ptr],
     "tmt_window_attention": [_ptr, _ptr, _ptr, _ptr, _int, _int, _int,
                              _f32, _int, _int, _ptr],
+    "tmt_rmsnorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i64, _int,
+                        _int, _f32, _int, _ptr],
+    "tmt_window_attention_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                                 _ptr, _int, _int, _int, _f32, _int, _ptr],
 }
 
 _lib = None
@@ -133,6 +137,15 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+class Counters:
+    """Launch counters of one kernel, as a wrapper module keeps its own
+    (``launches``, ``launches_by_variant``): the backward kernels'."""
+
+    def __init__(self, variants):
+        self.launches = 0
+        self.launches_by_variant = dict.fromkeys(variants, 0)
+
+
 def count_launch(counters, variant: str) -> None:
     """Add one launch of ``variant`` to ``counters.launches`` and
     ``counters.launches_by_variant`` (a kernel wrapper module) under one
@@ -162,19 +175,22 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 def autograd_required(*tensors: torch.Tensor) -> bool:
     """Whether a call on ``tensors`` would have to record a backward:
-    grad mode is on and an input requires grad.  The kernels have no
-    backward yet (K1b and K2b come with the training slice), so their
-    wrappers refuse such a call instead of returning a detached output."""
+    grad mode is on and an input requires grad.  The dispatchers
+    (``rmsnorm``, ``window_attention``) then go through their
+    ``autograd.Function``, whose backward launches K1b or K2b; the raw
+    forward launchers refuse such a call instead of returning a detached
+    output."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
     if autograd_required(*tensors):
         raise RuntimeError(
-            f"{name}: an input requires grad, but the CUDA kernel has no "
-            "backward yet (the backward kernels K1b and K2b come with the "
-            "training slice); call it under torch.no_grad() or "
-            "torch.inference_mode()")
+            f"{name}: an input requires grad, but this raw CUDA launcher "
+            "records no backward; call the dispatcher (rmsnorm or "
+            "window_attention), whose autograd.Function launches the "
+            "backward kernels K1b and K2b, or call it under "
+            "torch.no_grad() or torch.inference_mode()")
 
 
 def dtype_code(t: torch.Tensor, name: str) -> int:

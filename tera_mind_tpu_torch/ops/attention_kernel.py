@@ -20,6 +20,15 @@ alignment before the launch (``csrc/attention.cu`` holds the designs):
 - ``cuda_core``: everything else (float32; bf16 with N > 128, D not a
   multiple of 16, or too large for shared memory).  Float arithmetic on
   CUDA cores, 16 query rows per block, logits in shared memory.
+
+K2b, the backward (``csrc/attention_bwd.cu``), replaces the TPU kernel's
+``custom_vjp`` rule ``_bwd``: p recomputed in float32 and never rounded,
+float32 sums, one rounding of dq, dk, dv; a dq pass over query tiles
+that also writes each row's softmax statistics, then a dk/dv pass over
+key tiles, each dk and dv row summed inside one block (deterministic).
+``window_attention`` dispatches as ``rmsnorm`` does: the raw K2 launch
+without a gradient to record, :class:`AttentionFunction` (K2 and K2b, or
+the plain versions on the CPU) with one.
 """
 
 from __future__ import annotations
@@ -38,10 +47,18 @@ VARIANTS = ("cuda_core", "tensor_core")   # csrc/attention.cu codes
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+bwd = _build.Counters(("cuda_core",))   # K2b's launches
 
 
 def reset_launches() -> None:
+    """Set K2's and K2b's launch counters to 0."""
     _build.reset_launches(sys.modules[__name__])
+    _build.reset_launches(bwd)
+
+
+def _calc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32, or float64 for float64 inputs (the gradient checks)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def tc_smem_bytes(n: int, d: int) -> int:
@@ -69,9 +86,40 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Plain PyTorch version: f32 logits and softmax, p rounded to v's
     dtype, f32 accumulation of p.v, output in q's dtype."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    f = _calc_dtype(q.dtype)
+    logits = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
     p = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    return torch.matmul(p.to(f), v.to(f)).to(q.dtype)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, scale: float
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2b, the JAX rule ``_bwd`` term for term:
+    (dq, dk, dv) in the inputs' dtypes, computed in float32 with p
+    recomputed and not rounded."""
+    f = _calc_dtype(q.dtype)
+    qf, kf, vf, gf = (t.to(f) for t in (q, k, v, g))
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> None:
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} must be equal (B, N, D)")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{name}: q, k, v dtypes differ")
+    _, n, d = q.shape
+    if n > MAX_N or d > MAX_D:
+        raise ValueError(f"{name}: N={n}, D={d} above the kernel's limits "
+                         f"N<={MAX_N}, D<={MAX_D}")
 
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,16 +127,8 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K2 on CUDA tensors of shape (B, N, D) and one dtype.  Raises
     when autograd would need a backward (``_build.autograd_required``)."""
     _build.refuse_autograd("window_attention", q, k, v)
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"window_attention: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} must be "
-                         "equal (B, N, D)")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("window_attention: q, k, v dtypes differ")
+    _check_qkv("window_attention", q, k, v)
     b, n, d = q.shape
-    if n > MAX_N or d > MAX_D:
-        raise ValueError(f"window_attention: N={n}, D={d} above the "
-                         f"kernel's limits N<={MAX_N}, D<={MAX_D}")
     q, k, v = (t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)
     if b == 0:
@@ -104,11 +144,69 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       g: torch.Tensor, scale: float
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K2b on CUDA tensors of shape (B, N, D) and one dtype:
+    (dq, dk, dv).  g, which reaches the backward through the window
+    fold's reshapes and transposes, is made contiguous first."""
+    _check_qkv("window_attention_bwd", q, k, v)
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"window_attention_bwd: g {tuple(g.shape)} "
+                         f"{g.dtype} is not q's {tuple(q.shape)} {q.dtype}")
+    b, n, d = q.shape
+    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if b == 0:
+        return dq, dk, dv
+    stats = torch.empty(b, n, 3, device=q.device, dtype=torch.float32)
+    err = _build.lib().tmt_window_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        b, n, d, scale, _build.dtype_code(q, "window_attention_bwd"),
+        _build.stream_ptr(q))
+    _build.check(err, "tmt_window_attention_bwd")
+    _build.count_launch(bwd, "cuda_core")
+    return dq, dk, dv
+
+
+def _device_type(q: torch.Tensor) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"window_attention: no path for device {q.device}")
+    return q.device.type
+
+
+class AttentionFunction(torch.autograd.Function):
+    """K2 forward and K2b backward on CUDA tensors; the plain forward and
+    the plain ``_bwd`` formula on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if _device_type(q) == "cuda":
+            return attention_cuda(q, k, v, scale)
+        return attention_plain(q, k, v, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        bwd_fn = attention_bwd_cuda if q.device.type == "cuda" \
+            else attention_bwd_plain
+        grads = bwd_fn(q, k, v, g.to(q.dtype), ctx.scale)
+        return (*(gr if need else None
+                  for gr, need in zip(grads, ctx.needs_input_grad)), None)
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float) -> torch.Tensor:
-    """K2 for CUDA tensors, the plain version for CPU tensors."""
-    if q.device.type == "cuda":
+    """K2 for CUDA tensors, the plain version for CPU tensors; through
+    :class:`AttentionFunction` (K2b or the plain backward) when autograd
+    has a gradient to record."""
+    dev = _device_type(q)
+    if _build.autograd_required(q, k, v):
+        return AttentionFunction.apply(q, k, v, scale)
+    if dev == "cuda":
         return attention_cuda(q, k, v, scale)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    raise RuntimeError(f"window_attention: no path for device {q.device}")
+    return attention_plain(q, k, v, scale)

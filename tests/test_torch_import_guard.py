@@ -1,5 +1,5 @@
-"""The port and chip_smoke.py never load JAX, flax or the JAX package
-(the GPU machine has none of them)."""
+"""The port and chip_smoke.py never load JAX, flax, optax, orbax or the
+JAX package (the GPU machine has none of them)."""
 
 import pkgutil
 import subprocess
@@ -18,7 +18,8 @@ for m in pkgutil.walk_packages(tera_mind_tpu_torch.__path__,
                                "tera_mind_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "tera_mind_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "orbax", "tera_mind_tpu"))
 print(len([k for k in sys.modules if k.startswith("tera_mind_tpu_torch")]))
 print(bad)
 """
@@ -32,6 +33,9 @@ def test_port_modules_import_without_jax():
     names = {m.name for m in pkgutil.walk_packages(
         tera_mind_tpu_torch.__path__, "tera_mind_tpu_torch.")}
     assert "tera_mind_tpu_torch.parallel.streaming" in names
+    assert names >= {f"tera_mind_tpu_torch.{m}" for m in (
+        "training.harness", "training.tb", "data.dataset", "data.manifest",
+        "diffusion.resample", "cli.train")}
     n_modules = len(names)
     assert int(n_loaded) >= n_modules > 15
     assert bad == "[]", bad

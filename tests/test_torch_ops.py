@@ -363,3 +363,164 @@ def test_chip_smoke_times_tile_major_and_stream_shapes():
         set(cs.PATH_SHAPES["stream"][1])
     with pytest.raises(ValueError):
         ks.per_call_shapes(patches=80)
+
+
+# --------------------------------------------------------------------- #
+# the backward kernels' plain versions and autograd Functions            #
+# --------------------------------------------------------------------- #
+def _rel(got, want):
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+def _bf16_spacings(got, want):
+    """max |got - want| in bf16 spacings at |want|, elementwise."""
+    want = np.asarray(want, np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    return float((np.abs(np.asarray(got, np.float32) - want) / ulp).max())
+
+
+@pytest.mark.parametrize("c", [64, 741])
+def test_rmsnorm_bwd_plain_matches_jax_bwd(c):
+    """K1b's plain version is the JAX rule ``_bwd`` term for term: f32
+    within 1e-5 of each output's max, bf16 dx within one bf16 spacing
+    (the weight stays f32, as in training)."""
+    from tera_mind_tpu.ops.rmsnorm_kernel import _bwd
+    x, g = 3.0 * randn(11, 37, c), randn(12, 37, c)
+    w = 1.0 + 0.2 * randn(13, c)
+    dx, dw = k1.rmsnorm_bwd_plain(*(torch.from_numpy(a) for a in (x, g, w)))
+    jdx, jdw = _bwd(1e-6, (jnp.asarray(x), jnp.asarray(w)), jnp.asarray(g))
+    assert _rel(dx.numpy(), np.asarray(jdx)) <= 1e-5
+    assert _rel(dw.numpy(), np.asarray(jdw)) <= 1e-5
+    xb, gb = (a.astype(ml_dtypes.bfloat16) for a in (x, g))
+    dx, dw = k1.rmsnorm_bwd_plain(
+        torch.from_numpy(xb.astype(np.float32)).bfloat16(),
+        torch.from_numpy(gb.astype(np.float32)).bfloat16(),
+        torch.from_numpy(w))
+    jdx, jdw = _bwd(1e-6, (jnp.asarray(xb), jnp.asarray(w)), jnp.asarray(gb))
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert _bf16_spacings(dx.float().numpy(), np.asarray(jdx)) <= 1.0
+    assert _rel(dw.numpy(), np.asarray(jdw)) <= 1e-5
+
+
+@pytest.mark.parametrize("b,n,d", [(3, 32, 64), (2, 17, 130)])
+def test_attention_bwd_plain_matches_jax_bwd(b, n, d):
+    """K2b's plain version is the JAX rule ``_bwd`` (p recomputed in f32,
+    not rounded): f32 within 1e-5 of each output's max, bf16 within one
+    bf16 spacing."""
+    from tera_mind_tpu.ops.attention_kernel import _bwd
+    q, k, v, g = (randn(s, b, n, d) for s in (21, 22, 23, 24))
+    q, k = 2.0 * q, 2.0 * k     # peaked softmax rows
+    got = k2.attention_bwd_plain(*(torch.from_numpy(a) for a in (q, k, v, g)),
+                                 1.0 / d)
+    want = _bwd(1.0 / d, tuple(jnp.asarray(a) for a in (q, k, v)),
+                jnp.asarray(g))
+    for a, w in zip(got, want):
+        assert _rel(a.numpy(), np.asarray(w)) <= 1e-5
+    qb, kb, vb, gb = (a.astype(ml_dtypes.bfloat16) for a in (q, k, v, g))
+    got = k2.attention_bwd_plain(
+        *(torch.from_numpy(a.astype(np.float32)).bfloat16()
+          for a in (qb, kb, vb, gb)), 1.0 / d)
+    want = _bwd(1.0 / d, tuple(jnp.asarray(a) for a in (qb, kb, vb)),
+                jnp.asarray(gb))
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert _bf16_spacings(a.float().numpy(), np.asarray(w)) <= 1.0
+
+
+def test_rmsnorm_function_gradient_is_the_plain_gradient():
+    """The dispatcher's autograd.Function (on the CPU: the plain forward
+    and the plain ``_bwd``) passes gradcheck in f64 and equals autograd
+    through ``rmsnorm_plain``."""
+    x = torch.from_numpy(randn(31, 3, 5, 12)).double().requires_grad_()
+    w = torch.from_numpy(1 + 0.2 * randn(32, 12)).double().requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, b: k1.rmsnorm(a, b), (x, w))
+    g = torch.from_numpy(randn(33, 3, 5, 12)).double()
+    got = torch.autograd.grad(k1.rmsnorm(x, w), (x, w), g)
+    want = torch.autograd.grad(k1.rmsnorm_plain(x, w), (x, w), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_attention_function_gradient_is_the_plain_gradient():
+    q, k, v = (torch.from_numpy(randn(s, 2, 9, 6)).double().requires_grad_()
+               for s in (34, 35, 36))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: k2.window_attention(a, b, c, 0.3), (q, k, v))
+    g = torch.from_numpy(randn(37, 2, 9, 6)).double()
+    got = torch.autograd.grad(k2.window_attention(q, k, v, 0.3), (q, k, v), g)
+    want = torch.autograd.grad(k2.attention_plain(q, k, v, 0.3), (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_dispatchers_take_the_function_only_when_autograd_records():
+    """With an input that requires grad under grad mode, the dispatchers
+    go through their Functions (a backward node, no launch on the CPU);
+    under no_grad, or without such an input, the plain forward with no
+    node; the raw CUDA launchers keep their guard."""
+    x = torch.from_numpy(randn(38, 6, 16))
+    w = torch.nn.Parameter(torch.ones(16))
+    before = (k1.launches, k1.bwd.launches, k2.launches, k2.bwd.launches)
+    y = k1.rmsnorm(x, w)
+    assert type(y.grad_fn).__name__ == "RMSNormFunctionBackward"
+    y.sum().backward()
+    assert torch.equal(w.grad, k1.rmsnorm_bwd_plain(x, torch.ones_like(x),
+                                                    w)[1])
+    with torch.no_grad():
+        assert k1.rmsnorm(x, w).grad_fn is None
+    q = torch.from_numpy(randn(39, 2, 8, 4)).requires_grad_()
+    o = k2.window_attention(q, q, q, 0.25)
+    assert type(o.grad_fn).__name__ == "AttentionFunctionBackward"
+    assert k2.window_attention(q.detach(), q.detach(), q.detach(),
+                               0.25).grad_fn is None
+    assert (k1.launches, k1.bwd.launches, k2.launches,
+            k2.bwd.launches) == before
+    with pytest.raises(RuntimeError, match="K1b and K2b"):
+        k1.rmsnorm_cuda(torch.empty(2, 8, device="meta"),
+                        torch.nn.Parameter(torch.ones(8, device="meta")))
+    with pytest.raises(RuntimeError):   # no path for the meta device
+        k1.rmsnorm(torch.empty(2, 8, device="meta"), w)
+
+
+def test_backward_constants_match_the_kernels():
+    src = (_build.CSRC / "rmsnorm_bwd.cu").read_text()
+    assert f"kBwdWarps = {k1.BWD_WARPS};" in src
+    assert "kMaxBlocks = 8 * 132;" in src and k1.BWD_MAX_BLOCKS == 8 * 132
+    assert k1.BWD_MAX_C == 232_448 // (4 * k1.BWD_WARPS)
+    assert k1.bwd_blocks(1) == 1 and k1.bwd_blocks(17) == 3
+    assert k1.bwd_blocks(10 ** 6) == k1.BWD_MAX_BLOCKS
+    attn = (_build.CSRC / "attention_bwd.cu").read_text()
+    assert "constexpr int kMaxN = 512;" in attn
+    assert "constexpr int kMaxD = 512;" in attn
+    assert {p.name for p in _build.sources()} >= {"rmsnorm_bwd.cu",
+                                                  "attention_bwd.cu"}
+    assert set(_build.SIGNATURES) >= {"tmt_rmsnorm_bwd",
+                                      "tmt_window_attention_bwd"}
+
+
+def test_chip_smoke_checks_the_training_shapes_and_counts():
+    """chip_smoke.py's K1b/K2b shapes are exactly the shapes one training
+    step of the preset gives K1 and K2 (scripts/kernel_shapes.py
+    --train), and its per-step launch counts are the script's, for the
+    5D and the packed model (whose K1 shapes are the first four)."""
+    import importlib.util
+
+    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "kernel_shapes", _build.PKG.parent / "scripts" / "kernel_shapes.py")
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    for packed, path in ((False, "5d"), (True, "packed")):
+        k1_shapes, k2_shapes = ks.train_shapes(packed)
+        assert cs.TRAIN_LAUNCHES[path] == {
+            "rmsnorm": sum(k1_shapes.values()) * ks.TRAIN_ACCUM,
+            "window_attention": sum(k2_shapes.values()) * ks.TRAIN_ACCUM}
+        assert set(cs.TRAIN_K2_SHAPES) == set(k2_shapes)
+        if packed:
+            assert set(k1_shapes) == set(cs.TRAIN_K1_SHAPES[:4])
+        else:
+            assert set(k1_shapes) == set(cs.TRAIN_K1_SHAPES)
+            assert len(cs.TRAIN_K1_SHAPES) == len(k1_shapes)
+    assert max(c for _, c in cs.TRAIN_K1_SHAPES) <= k1.BWD_MAX_C

@@ -368,9 +368,9 @@ def test_bf16_transfer_gap_of_the_small_unet_equals_jax():
     mconf, gconf, _ = cs.small_setup()
     model5 = init_weights(mconf.make_model(), seed=3).eval()
     p5 = f32_tree(export_params(model5))
-    jconf = JUNetConfig(**{f.name: getattr(mconf, f.name)
-                           for f in dataclasses.fields(mconf)},
-                        dropout=0.0)
+    jconf = JUNetConfig(**{**{f.name: getattr(mconf, f.name)
+                              for f in dataclasses.fields(mconf)},
+                           "dropout": 0.0})
     jm = jpk.PackedTeraUNet(jconf)
     jg = jgen.TeraGenerator(
         JSampler(j_spaced("linear", 1000, "ddim3"),

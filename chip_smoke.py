@@ -11,15 +11,18 @@ Phases, each printed on its own line with elapsed seconds:
      kernel, the plain version and one PyTorch library call doing the
      same function (a yardstick only: the port never calls it) on the
      device (CUDA graph replay), beside the card's bound for the work;
-  4. the backward kernels K1b and K2b against their plain versions at
-     every shape of a training step (``scripts/kernel_shapes.py --train``)
-     in bf16 and f32 and at edge shapes, each run twice for bit-equal
-     results, and timed against their bound, their plain version and a
-     library yardstick (PyTorch autograd through ``F.rms_norm`` or SDPA);
-     then the autograd guard: each raw forward launcher refuses a CUDA
-     input that requires grad under grad mode and runs under
-     ``torch.no_grad()``, and each dispatcher records its backward (one
-     forward and one backward launch, finite gradients);
+  4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
+     ``strided``, K2b ``tensor_core`` and ``cuda_core``) against its plain
+     version at every shape of a training step (``scripts/kernel_shapes.py
+     --train``) in bf16 and f32 and at edge shapes, randn and peaked for
+     K2b, each run twice for bit-equal results, and timed against their
+     bound, their plain version and a library yardstick (PyTorch autograd
+     through ``F.rms_norm`` or SDPA); the C entry points' refusal of a
+     variant that cannot take a call; then the autograd guard: each raw
+     forward launcher refuses a CUDA input that requires grad under grad
+     mode and runs under ``torch.no_grad()``, and each dispatcher records
+     its backward (one forward and one backward launch, finite
+     gradients);
   5. the port on a small input on the card (float32, kernels on) against
      the same code on the CPU (plain versions), for the 5D model; the
      packed model (its weights packed from the 5D model's) on the card
@@ -59,7 +62,8 @@ Phases, each printed on its own line with elapsed seconds:
      compute, f32 params, dropout 0.1), the 5D model, then ``--packed``,
      8 steps each with the counters set to 0 just before ``fit``: finite
      losses, changed parameters, exact K1 / K1b / K2 / K2b launches a
-     step, samples/s, data wait, peak memory; save -> restore bit-equal;
+     step (K1b and K2b by variant), samples/s, data wait, peak memory;
+     save -> restore bit-equal;
      ``cli.generate`` (1x1 grid, 2 steps) from the 5D run's checkpoint;
  13. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
@@ -136,11 +140,13 @@ def input_sets(tensors: tuple, nbytes: int) -> list:
 
 
 def variant_of(mod, fn, *args):
-    """(fn(*args), the variant of ``mod``'s kernel that the call launched)."""
+    """(fn(*args), the variant of ``mod``'s kernel that the call launched;
+    ``mod`` a wrapper module or its ``bwd`` counters)."""
     before = dict(mod.launches_by_variant)
     out = fn(*args)
     moved = [k for k, v in mod.launches_by_variant.items() if v != before[k]]
-    require(len(moved) == 1, f"{mod.__name__}: launches {moved}")
+    require(len(moved) == 1, f"{getattr(mod, '__name__', mod)}: launches "
+            f"{moved}")
     return out, moved[0]
 
 
@@ -415,9 +421,21 @@ TRAIN_K2_SHAPES = [(512, 128, 256), (128, 128, 256), (512, 32, 512)]
 # K1 (and K1b) and K2 (and K2b) launches a training step
 TRAIN_LAUNCHES = {"5d": {"rmsnorm": 252, "window_attention": 18},
                   "packed": {"rmsnorm": 76, "window_attention": 18}}
-# edge shapes: ragged and odd C, odd row counts, C = 741 and 1,253; N =
-# 17, 100, 512 and D = 48, 130, 512 (the largest shared memory)
-K1B_EDGE = [(7, 33), (13, 100), (1029, 741), (517, 1253), (3, 8)]
+# K1b and K2b launches a training step by variant (scripts/kernel_shapes.py
+# --train): the odd C of the gene concats take K1b strided
+TRAIN_BWD_VARIANTS = {
+    "5d": {"rmsnorm_bwd": {"strided": 18, "vector": 234},
+           "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18}},
+    "packed": {"rmsnorm_bwd": {"strided": 0, "vector": 76},
+               "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18}}}
+# edge shapes: ragged and odd C, odd row counts, C = 741 and 1,253 (K1b
+# strided), C = 8, 264 and 1,024 (vector with one 16-byte vector a row,
+# unequal lanes, 32 lanes a row; 1,024 is strided in f32) and 2,050 (a row
+# wider than the strided variant's registers); N = 17, 100, 512 and D =
+# 48, 130, 512 (K2b tensor_core at (5, 100, 48), with N not a multiple of
+# 16; cuda_core at D = 130 and at N = D = 512, the largest shared memory)
+K1B_EDGE = [(7, 33), (13, 100), (1029, 741), (517, 1253), (3, 8),
+            (517, 264), (1000, 1024), (33, 2050)]
 K2B_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512)]
 # Tolerances, set before the first chip run.  Kernel and plain version
 # compute the same float32 formula from the same inputs and differ only
@@ -441,18 +459,19 @@ def rel_err(out, ref) -> float:
                  / r.abs().max().clamp_min(2.0 ** -126))
 
 
-def require_bwd(out, ref, what: str) -> float:
+def require_bwd(out, ref, what: str) -> tuple:
     """The gate of one backward output: float32 within BWD_F32_TOL of
-    max |ref|, bf16 by the K2 forward's gate; returns the max |error|."""
+    max |ref|, bf16 by the K2 forward's gate; returns (max |error|, bf16
+    spacings at max |ref|, share of outputs not bit-equal), the last two
+    0 for float32."""
     import torch
     require(bool(torch.isfinite(out.float()).all()),
             f"{what}: output not finite")
     if out.dtype == torch.float32:
         err = rel_err(out, ref)
         require(err <= BWD_F32_TOL, f"{what}: {err} of max |ref|")
-    else:
-        require_k2(out, ref, what)
-    return float((out.float() - ref.float()).abs().max())
+        return float((out.float() - ref.float()).abs().max()), 0.0, 0.0
+    return require_k2(out, ref, what)
 
 
 def time_k1b(k1, x, g, w) -> dict:
@@ -507,11 +526,12 @@ def time_k2b(k2, q, k, v, g, scale) -> dict:
 
 
 def check_backward_kernels(device) -> dict:
-    """K1b and K2b against their plain versions at every training-step
-    shape (bf16, and float32 on a slice of the rows or batch) and at the
-    edge shapes (both dtypes, a misaligned tensor for K1b), each run
-    twice for bit-equal dw and dk/dv; device times at the training
-    shapes.  Returns {name: [row per training shape]}."""
+    """Each variant of K1b and K2b against its plain version at every
+    training-step shape (bf16, and float32 on a slice of the rows or
+    batch) and at the edge shapes (both dtypes, randn and peaked for K2b,
+    a misaligned tensor for K1b), each run twice for bit-equal outputs;
+    the variant each call takes is required; device times at the
+    training shapes.  Returns {name: [row per training shape]}."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
@@ -521,18 +541,23 @@ def check_backward_kernels(device) -> dict:
     bf16 = torch.bfloat16
     rows = {"rmsnorm_bwd": [], "window_attention_bwd": []}
 
-    def k1b_agrees(x, g, w, what):
-        dx, dw = k1.rmsnorm_bwd_cuda(x, g, w)
+    def k1b_agrees(x, g, w, what, want=None):
+        (dx, dw), variant = variant_of(k1.bwd, k1.rmsnorm_bwd_cuda, x, g, w)
         dx2, dw2 = k1.rmsnorm_bwd_cuda(x, g, w)
         torch.cuda.synchronize()
+        if want is None:
+            want = k1.rmsnorm_bwd_variant(x.shape[-1], x.element_size(),
+                                          True)
+        require(variant == want,
+                f"K1b {what} {x.dtype} took {variant}, not {want}")
         require(torch.equal(dw, dw2) and torch.equal(dx, dx2),
-                f"K1b {what}: two runs differ")
+                f"K1b {what} ({variant}): two runs differ")
         rx, rw = k1.rmsnorm_bwd_plain(x, g, w)
-        err = require_bwd(dx, rx, f"K1b {what} dx {x.dtype}")
+        err = require_bwd(dx, rx, f"K1b {what} ({variant}) dx {x.dtype}")
         dw_err = rel_err(dw, rw)
         require(dw.dtype == torch.float32 and dw_err <= BWD_DW_TOL,
-                f"K1b {what} dw: {dw_err} of max |ref|")
-        return err, dw_err
+                f"K1b {what} ({variant}) dw: {dw_err} of max |ref|")
+        return err, dw_err, variant
 
     def k1b_inputs(n, c, dt):
         x = torch.randn(n, c, generator=gen).to(device, dt)
@@ -542,61 +567,134 @@ def check_backward_kernels(device) -> dict:
 
     for n, c in TRAIN_K1_SHAPES:
         x, g, w = k1b_inputs(n, c, bf16)
-        err, dw_err = k1b_agrees(x, g, w, f"{n}x{c}")
+        (err, sp, sh), dw_err, variant = k1b_agrees(x, g, w, f"{n}x{c}")
         xf, gf = x[:4096].float(), g[:4096].float()
-        errf, dwf = k1b_agrees(xf, gf, w, f"{n}x{c}")
+        (errf, _, _), dwf, variant_f = k1b_agrees(xf, gf, w, f"{n}x{c}")
         t = time_k1b(k1, x, g, w)
-        log(f"K1b rmsnorm_bwd ({n}, {c}) bf16: dx max_abs_err {err:.3g}, "
-            f"dw {dw_err:.2e} of max; f32 dx {errf:.3g}, dw {dwf:.2e}; "
-            f"deterministic; " + timing_text(t, "F.rms_norm bwd"))
-        rows["rmsnorm_bwd"].append(dict(shape=[n, c], max_abs_err=err,
-                                        dw_rel_err=dw_err, **t))
+        log(f"K1b rmsnorm_bwd ({n}, {c}) bf16 [{variant}]: dx max_abs_err "
+            f"{err:.3g} = {sp:.2f} spacings, {sh:.2e} differ, dw "
+            f"{dw_err:.2e} of max; f32 [{variant_f}] dx {errf:.3g}, dw "
+            f"{dwf:.2e}; deterministic; " + timing_text(t, "F.rms_norm bwd"))
+        rows["rmsnorm_bwd"].append(dict(shape=[n, c], variant=variant,
+                                        max_abs_err=err, dw_rel_err=dw_err,
+                                        **t))
     seen = []
     for n, c in K1B_EDGE:
-        for dt in (bf16, torch.float32):
-            k1b_agrees(*k1b_inputs(n, c, dt), f"edge {n}x{c}")
-        seen.append(f"({n}, {c})")
+        got = [k1b_agrees(*k1b_inputs(n, c, dt), f"edge {n}x{c}")[2]
+               for dt in (bf16, torch.float32)]
+        seen.append(f"({n}, {c}) bf16 {got[0]}, f32 {got[1]}")
     for dt in (bf16, torch.float32):
         base = torch.randn(4096 * 96 + 1, generator=gen).to(device, dt)
         x = base[1:].view(4096, 96)
         require(x.is_contiguous() and x.data_ptr() % 16 != 0,
                 "K1b misaligned input is not misaligned")
         _, g, w = k1b_inputs(4096, 96, dt)
-        k1b_agrees(x, g, w, "misaligned 4096x96")
+        k1b_agrees(x, g, w, "misaligned 4096x96", want="strided")
     log(f"K1b edge shapes agree, bf16 and f32, deterministic: "
-        f"{'; '.join(seen)}; (4096, 96) misaligned")
+        f"{'; '.join(seen)}; (4096, 96) misaligned strided")
 
     def k2b_agrees(b, n, d, dt, peaked, what):
         q, k, v = k2_inputs(gen, b, n, d, dt, device, peaked)
         g = torch.randn(b, n, d, generator=gen).to(device, dt)
-        out = k2.attention_bwd_cuda(q, k, v, g, 1.0 / d)
+        out, variant = variant_of(k2.bwd, k2.attention_bwd_cuda, q, k, v, g,
+                                  1.0 / d)
         out2 = k2.attention_bwd_cuda(q, k, v, g, 1.0 / d)
         torch.cuda.synchronize()
+        want = k2.attention_bwd_variant(n, d, dt, True)
+        require(variant == want, f"K2b {what} {dt} took {variant}, not {want}")
         require(all(torch.equal(a, c) for a, c in zip(out, out2)),
-                f"K2b {what}: two runs differ")
+                f"K2b {what} ({variant}): two runs differ")
         ref = k2.attention_bwd_plain(q, k, v, g, 1.0 / d)
-        return max(require_bwd(o, r, f"K2b {what} {name} {dt}")
-                   for o, r, name in zip(out, ref, ("dq", "dk", "dv")))
+        gates = [require_bwd(o, r, f"K2b {what} ({variant}) {name} {dt}")
+                 for o, r, name in zip(out, ref, ("dq", "dk", "dv"))]
+        return tuple(max(e) for e in zip(*gates)), variant
 
     for b, n, d in TRAIN_K2_SHAPES:
         errs = [k2b_agrees(b, n, d, bf16, peaked, f"{b}x{n}x{d}")
                 for peaked in (False, True)]
-        errf = k2b_agrees(8, n, d, torch.float32, False, f"8x{n}x{d}")
+        variant = errs[0][1]
+        (errf, _, _), variant_f = k2b_agrees(8, n, d, torch.float32, False,
+                                             f"8x{n}x{d}")
         q, k, v = k2_inputs(gen, b, n, d, bf16, device, False)
         g = torch.randn(b, n, d, generator=gen).to(device, bf16)
         t = time_k2b(k2, q, k, v, g, 1.0 / d)
-        log(f"K2b window_attention_bwd ({b}, {n}, {d}) bf16: max_abs_err "
-            f"randn {errs[0]:.3g}, peaked {errs[1]:.3g}; f32 {errf:.3g}; "
-            f"deterministic; " + timing_text(t, "SDPA bwd"))
-        rows["window_attention_bwd"].append(dict(shape=[b, n, d],
-                                                 max_abs_err=max(errs), **t))
+        agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
+                          f"spacings, {sh:.2e} differ"
+                          for kind, ((e, sp, sh), _) in zip(
+                              ("randn", "peaked"), errs))
+        log(f"K2b window_attention_bwd ({b}, {n}, {d}) bf16 [{variant}]: "
+            f"dq, dk, dv {agree} (tol {K2_MAX_SPACINGS} spacings, "
+            f"{K2_MAX_SHARE}); f32 [{variant_f}] {errf:.3g}; "
+            "deterministic; " + timing_text(t, "SDPA bwd"))
+        rows["window_attention_bwd"].append(dict(
+            shape=[b, n, d], variant=variant,
+            max_abs_err=max(e[0][0] for e in errs),
+            max_share=max(e[0][2] for e in errs), **t))
+    seen = []
     for b, n, d in K2B_EDGE:
+        got = {}
         for dt in (bf16, torch.float32):
             for peaked in (False, True):
-                k2b_agrees(b, n, d, dt, peaked, f"edge {b}x{n}x{d}")
+                got[dt] = k2b_agrees(b, n, d, dt, peaked,
+                                     f"edge {b}x{n}x{d}")[1]
+        seen.append(f"({b}, {n}, {d}) bf16 {got[bf16]}, f32 "
+                    f"{got[torch.float32]}")
     log("K2b edge shapes agree, bf16 and f32, randn and peaked, "
-        f"deterministic: {K2B_EDGE}")
+        f"deterministic: {'; '.join(seen)}")
     return rows
+
+
+def check_variant_refusal(device) -> None:
+    """The backward kernels' C entry points refuse a variant that cannot
+    take the call (an error code, no launch): K2b ``tensor_core`` on
+    float32, on N = 256 and on a misaligned gradient, an unknown variant;
+    K1b ``vector`` on C = 741 and on a misaligned x."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import _build
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    tc, cc = k2.VARIANTS.index("tensor_core"), k2.VARIANTS.index("cuda_core")
+
+    def k2b(dtype, n, variant, offset=0):
+        t = torch.zeros(4 * n * 64 + 8, device=device, dtype=dtype)
+        a = t[offset:offset + 4 * n * 64]
+        stats = torch.empty(4 * n * 3, device=device)
+        return lib.tmt_window_attention_bwd(
+            *(a.data_ptr(),) * 7, stats.data_ptr(), 4, n, 64, 1 / 64,
+            _build.DTYPES[dtype], variant, stream)
+
+    bf16 = torch.bfloat16
+    require(k2b(bf16, 32, tc) == 0 and k2b(torch.float32, 32, cc) == 0,
+            "K2b entry refused calls its variants take")
+    refused = {"tensor_core on float32": k2b(torch.float32, 32, tc),
+               "tensor_core at N = 256": k2b(bf16, 256, tc),
+               "tensor_core misaligned": k2b(bf16, 32, tc, offset=1),
+               "variant 7": k2b(bf16, 32, 7)}
+    vec, strided = k1.VARIANTS.index("vector"), k1.VARIANTS.index("strided")
+
+    def k1b(c, variant, offset=0):
+        t = torch.zeros(64 * c + 8, device=device, dtype=bf16)
+        x = t[offset:offset + 64 * c]
+        w = torch.ones(c, device=device)
+        partial = torch.empty(8, c, device=device)
+        return lib.tmt_rmsnorm_bwd(
+            x.data_ptr(), x.data_ptr(), w.data_ptr(), x.data_ptr(),
+            partial.data_ptr(), w.data_ptr(), 64, c, 8, 1e-6,
+            _build.DTYPES[bf16], variant, stream)
+
+    require(k1b(96, vec) == 0 and k1b(741, strided) == 0,
+            "K1b entry refused calls its variants take")
+    refused.update({"K1b vector at C = 741": k1b(741, vec),
+                    "K1b vector misaligned": k1b(96, vec, offset=1)})
+    torch.cuda.synchronize()
+    require(all(err != 0 for err in refused.values()),
+            f"backward entry points took calls their variant cannot: "
+            f"{refused}")
+    log(f"K1b and K2b entry points refuse (error codes): {refused}")
 
 
 # ---------------------------------------------------------------------------
@@ -1330,12 +1428,15 @@ def check_small_train_step(device) -> dict:
     return out
 
 
-def read_train_launches() -> dict:
+def read_train_launches() -> tuple:
+    """(launches of K1, K1b, K2, K2b; K1b's and K2b's by variant)."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
-    return {"rmsnorm": k1.launches, "rmsnorm_bwd": k1.bwd.launches,
-            "window_attention": k2.launches,
-            "window_attention_bwd": k2.bwd.launches}
+    return ({"rmsnorm": k1.launches, "rmsnorm_bwd": k1.bwd.launches,
+             "window_attention": k2.launches,
+             "window_attention_bwd": k2.bwd.launches},
+            {"rmsnorm_bwd": dict(k1.bwd.launches_by_variant),
+             "window_attention_bwd": dict(k2.bwd.launches_by_variant)})
 
 
 def run_training(device, path: str, tmp: Path) -> dict:
@@ -1383,11 +1484,13 @@ def run_training(device, path: str, tmp: Path) -> dict:
         secs = time.perf_counter() - t0
     finally:
         card = stop_card_sampler(smi_proc)
-    got = read_train_launches()
+    got, got_variants = read_train_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rss = peak_rss_gib()
     want_step = TRAIN_LAUNCHES[path]
     want = {k: want_step[k.removesuffix("_bwd")] * TRAIN_STEPS for k in got}
+    want_variants = {k: {v: n * TRAIN_STEPS for v, n in by.items()}
+                     for k, by in TRAIN_BWD_VARIANTS[path].items()}
     timed = trainer.log[TRAIN_TIMED_FROM - 1:]
     data_s = sum(r["data_s"] for r in timed)
     step_s = sum(r["step_s"] for r in timed)
@@ -1402,11 +1505,15 @@ def run_training(device, path: str, tmp: Path) -> dict:
         f"{100 * data_s / (data_s + step_s):.1f} %; losses "
         f"{[round(v, 4) for v in losses]}; peak device memory {peak:.2f} "
         f"GiB, the process's peak host RSS {rss:.2f} GiB ({rss_before:.2f} "
-        f"before); launches {got} (expected {want}); {card}")
+        f"before); launches {got} (expected {want}), backward by variant "
+        f"{got_variants} (expected {want_variants}); {card}")
     require(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
             f"training losses {losses}")
     require(changed > 0, "training left the parameters unchanged")
     require(got == want, f"training launches {got}, expected {want}")
+    require(got_variants == want_variants,
+            f"training backward launches by variant {got_variants}, "
+            f"expected {want_variants}")
 
     # save -> restore on the card, bit for bit
     trainer.save(state)
@@ -1423,7 +1530,8 @@ def run_training(device, path: str, tmp: Path) -> dict:
     out = dict(samples_per_s=rate, step_s=step_s / len(timed),
                data_wait_pct=100 * data_s / (data_s + step_s),
                seconds=secs, peak_gib=peak, host_rss_gib=rss,
-               launches=got, launches_per_step=want_step, losses=losses,
+               launches=got, launches_per_step=want_step,
+               launches_by_variant=got_variants, losses=losses,
                params_m=n_params / 1e6)
     del trainer, again, state, before
     torch.cuda.empty_cache()
@@ -1467,6 +1575,7 @@ def main() -> int:
 
     rows = check_kernels(device)
     rows.update(check_backward_kernels(device))
+    check_variant_refusal(device)
     check_autograd_guard(device)
     small = check_small_chain(device)
     for name, err in small["errs"].items():
@@ -1535,9 +1644,14 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": train["5d"]["launches"][name],
+                        "launches_by_variant":
+                            train["5d"]["launches_by_variant"][name],
                         "launches_per_step": {
                             path: t["launches_per_step"][fwd]
                             for path, t in train.items()},
+                        "launches_per_step_by_variant": {
+                            path: TRAIN_BWD_VARIANTS[path][name]
+                            for path in train},
                         "max_abs_err": max(x["max_abs_err"]
                                            for x in rows[name]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -32,7 +32,8 @@ defaults (batch 32: 32 samples, each a 2x2 block of 64^2 patches, so 128
 patches, both decoders), and counts it for one step of ``accum``
 microbatches (2).  In training every K1 and K2 input requires grad, so
 each launch records one backward launch: K1b takes K1's (rows, C) and K2b
-K2's (B, N, D), as often.
+K2's (B, N, D), as often; it also prints the launches a step of each
+K1b and K2b variant (bf16, aligned tensors).
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ from tera_mind_tpu_torch.models import nn as nn_mod  # noqa: E402
 from tera_mind_tpu_torch.models.unet_packed import (  # noqa: E402
     make_packed_model)
 from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
-    attention_variant)
-from tera_mind_tpu_torch.ops.rmsnorm_kernel import rmsnorm_variant  # noqa: E402
+    VARIANTS as K2_VARIANTS, attention_bwd_variant, attention_variant)
+from tera_mind_tpu_torch.ops.rmsnorm_kernel import (  # noqa: E402
+    VARIANTS as K1_VARIANTS, rmsnorm_bwd_variant, rmsnorm_variant)
 
 PATCHES = 81       # 9x9 patches of one z-window's padded 2x2-tile block
 WINDOWS = 25       # z-windows of the 638850 preset, one UNet call each
@@ -126,6 +128,22 @@ def train_shapes(packed: bool = False, batch: int = TRAIN_BATCH
     return k1, k2
 
 
+def train_bwd_variants(packed: bool = False) -> dict:
+    """K1b's and K2b's launches a training step by variant: the shapes of
+    ``train_shapes`` in bf16 with aligned tensors, ``TRAIN_ACCUM``
+    microbatches."""
+    k1, k2 = train_shapes(packed)
+    out = {"rmsnorm_bwd": dict.fromkeys(K1_VARIANTS, 0),
+           "window_attention_bwd": dict.fromkeys(K2_VARIANTS, 0)}
+    for (_, c), n in k1.items():
+        out["rmsnorm_bwd"][rmsnorm_bwd_variant(c, BF16, True)] += (
+            n * TRAIN_ACCUM)
+    for (_, n_, d), n in k2.items():
+        out["window_attention_bwd"][attention_bwd_variant(
+            n_, d, torch.bfloat16, True)] += n * TRAIN_ACCUM
+    return out
+
+
 def main_train(packed: bool) -> None:
     k1, k2 = train_shapes(packed)
     print(("PackedTeraUNet(from_5d)" if packed else "TeraUNet (5D)")
@@ -138,6 +156,8 @@ def main_train(packed: bool) -> None:
         for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
             print(f"  {shape}: {n} per microbatch, {n * TRAIN_ACCUM} per "
                   "step")
+    for name, by in train_bwd_variants(packed).items():
+        print(f"{name} launches a step by variant: {by}")
 
 
 def main() -> None:

@@ -12,8 +12,9 @@ tiles, the planned window_chunk 1), ``tile_major`` (2x2 tiles,
 defaults on 4x4 tiles: one step is a sweep of four 2x2-tile windows, 3
 in flight on their own streams).  After a warm-up step it traces one
 step with ``torch.profiler``: it prints device time by category
-(convolution, each variant of K1 rmsnorm and of K2 window attention, the
-backward kernels K1b and K2b, matmul, elementwise/copies, other), the
+(convolution, each variant of K1 rmsnorm, of K2 window attention and of
+their backward kernels K1b (with its dw sum over the blocks) and K2b,
+matmul, elementwise/copies, other), the
 device time of the kernels launched inside ``GroupedRMSNorm`` (plain
 PyTorch, spread over the categories above; each call is wrapped in a
 ``record_function`` range for the trace) and, for ``--path train``,
@@ -23,14 +24,17 @@ time, which on one stream is 1 - summed kernel time / wall time.
 ``--path train`` is one step of ``cli.train``'s builder on the 638850
 preset (``--synthetic --batch 32``: 2 microbatches of 32 samples, bf16
 compute, f32 params, dropout 0.1; the 5D model, ``--packed`` the packed
-one) after a warm-up step.  Every line names the card and its power
-limit.  ``--json PATH`` also writes the per-kernel table there.
+one) after a warm-up step.  ``--steps N`` first times N untraced steps
+after the warm-up, each ending in ``torch.cuda.synchronize``, and prints
+them and their median.  Every line names the card and its power limit.
+``--json PATH`` also writes the per-kernel table there.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -50,8 +54,11 @@ from tera_mind_tpu_torch.training import harness  # noqa: E402
 TILES = {"block_major": 2, "tile_major": 2, "stream": 4}  # grid side
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("K1b rmsnorm_bwd", ("rmsnorm_bwd_",)),
-    ("K2b attention_bwd", ("attention_bwd_",)),
+    ("K1b rmsnorm_bwd vector", ("rmsnorm_bwd_vec",)),
+    ("K1b rmsnorm_bwd dw sum", ("rmsnorm_bwd_dw",)),
+    ("K1b rmsnorm_bwd strided", ("rmsnorm_bwd_",)),
+    ("K2b attention_bwd tensor_core", ("attention_bwd_tc",)),
+    ("K2b attention_bwd cuda_core", ("attention_bwd_",)),
     ("K1 rmsnorm vector", ("rmsnorm_kernel_vec",)),
     ("K1 rmsnorm strided", ("rmsnorm_kernel",)),
     ("K2 attention tensor_core", ("attention_kernel_tc",)),
@@ -150,6 +157,8 @@ def main() -> None:
                     choices=("block_major", "tile_major", "stream", "train"))
     ap.add_argument("--packed", action="store_true",
                     help="with --path train: the packed model")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="untraced steps to time before the traced one")
     ap.add_argument("--json", type=Path, default=None)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -164,9 +173,19 @@ def main() -> None:
     step, dev = (make_train_step(a.packed, tmp.name) if a.path == "train"
                  else make_step(a.path, a.no_packed))
     step()                                         # warm-up
+    torch.cuda.synchronize(dev)
+    untraced = []
+    for _ in range(a.steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize(dev)
+        untraced.append(time.perf_counter() - t0)
+    if untraced:
+        print(f"untraced steps [{a.path}]: median "
+              f"{statistics.median(untraced):.4f} s of "
+              f"{[round(t, 4) for t in untraced]} ({card})", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -206,7 +225,7 @@ def main() -> None:
           f"{total_us / 1e6:.4f} s, device busy {union_us / 1e6:.4f} s, "
           f"idle share {1 - union_us / 1e6 / wall:.3f} ({card})", flush=True)
     for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat:26s} {us / 1e3:9.2f} ms  {100 * us / total_us:5.1f} %")
+        print(f"  {cat:30s} {us / 1e3:9.2f} ms  {100 * us / total_us:5.1f} %")
     if a.path == "stream":
         print("  GroupedRMSNorm: its ranges run on the window workers' "
               "threads, which the profiler does not record")
@@ -227,6 +246,7 @@ def main() -> None:
         "card": card, "path": a.path,
         "packed": a.packed if a.path == "train" else not a.no_packed,
         "wall_s": wall, "kernel_us": total_us, "busy_us": union_us,
+        "untraced_s": untraced,
         "categories_us": cats,
         "ranges": {name: {"us": r[0], "calls": r[1], "span_us": r[2]}
                    for name, r in ranges.items()},

@@ -230,10 +230,6 @@ static_assert(tc_takes(128, 256) && tc_takes(32, 512) &&
                   tc_layout(128, 256).bytes == 202752,
               "main-path shapes must take the tensor-core variant");
 
-__device__ __forceinline__ void zero16(bf16* p) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(0, 0, 0, 0);
-}
-
 __global__ void __launch_bounds__(kTcThreads, 2)
 attention_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o, int n,

@@ -138,3 +138,37 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// Two floats a, b as bf16 pairs hi = bf16(a, b) and lo = bf16(a - hi_a,
+// b - hi_b), each packed as pack_bf16x2 packs: hi + lo carries 16
+// significant bits of each float where hi alone carries 8 (the
+// subtraction is exact).
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16x2(a - hf.x, b - hf.y);
+}
+
+// 16 zero bytes at p (16-byte aligned shared or device memory)
+__device__ __forceinline__ void zero16(void* p) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(0, 0, 0, 0);
+}
+
+// 32-bit word i of a 16-byte vector
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// 16 bytes of T from 16 / sizeof(T) floats, each rounded to T
+template <typename T> __device__ __forceinline__ uint4
+pack(const float (&f)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 2) {
+    return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                      pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+  } else {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+}

@@ -66,10 +66,6 @@ constexpr int kVecThreads = 256;
 constexpr int kVecMax = 4;        // 16-byte vectors a lane holds
 constexpr int kVecMaxBytes = 32 * kVecMax * 16;   // one row, at most
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // element j of a 16-byte vector of T, as float (bf16 is the high half of
 // a float, element 2i the low half of word i)
 template <typename T> __device__ __forceinline__ float elem(const uint4& v,
@@ -79,18 +75,6 @@ template <typename T> __device__ __forceinline__ float elem(const uint4& v,
     return __uint_as_float((j & 1) ? (w & 0xffff0000u) : (w << 16));
   } else {
     return __uint_as_float(word(v, j));
-  }
-}
-
-// 16 bytes of T from 16 / sizeof(T) floats, each rounded to T
-template <typename T> __device__ __forceinline__ uint4
-pack(const float (&f)[16 / sizeof(T)]) {
-  if constexpr (sizeof(T) == 2) {
-    return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
-                      pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
-  } else {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
 }
 

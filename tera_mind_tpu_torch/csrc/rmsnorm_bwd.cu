@@ -7,36 +7,177 @@
 // Replaces the backward rule of the Pallas kernel's custom_vjp,
 // tera_mind_tpu/ops/rmsnorm_kernel.py _bwd (XLA maths in the JAX
 // package).  Bound by memory: x and g are read, dx written, a few
-// operations an element.  Two kernels, launched by one entry point:
+// operations an element.  Each row kernel reads a row of x and g once
+// into registers, recomputes the row's statistics in float32 from them
+// (sum of squares and sum of (g w) x), writes dx from the same registers
+// and adds its share of dw, g * x * inv, to per-lane float sums that
+// stay in registers over all the rows its lanes visit (a grid-stride
+// loop, so the grid has at most kMaxBlocks blocks).  At the end the block
+// sums its rows' dw in a fixed order into its row of `partial` (blocks x
+// C floats, allocated by the caller), and rmsnorm_bwd_dw_kernel sums
+// `partial` over the blocks: one block per 32 channels, 8 row groups each
+// taking every 8th block in order, then the 8 group sums in order.  No
+// float atomics: the same inputs give the same dw bit for bit.  Two
+// variants, chosen by the caller from C, dtype and pointer alignment
+// before the launch (ops/rmsnorm_kernel.py rmsnorm_bwd_variant), as K1's:
 //
-// rmsnorm_bwd_kernel: one warp a row (any C, any alignment) and a
-//   grid-stride loop over rows, so the grid has at most kMaxBlocks
-//   blocks.  A warp recomputes the row's statistics in float32 (sum of
-//   squares and sum of (g w) x, warp-shuffle reductions) and writes dx in
-//   a second pass over the row (from L1).  Its share of dw, g * x * inv,
-//   goes into the warp's own row of shared memory; the block then sums
-//   its warps' rows in a fixed order into its row of `partial`
-//   (blocks x C floats, allocated by the caller).
-// rmsnorm_bwd_dw_kernel: one block per 32 channels sums `partial` over
-//   the blocks, 8 row groups each taking every 8th block in order, then
-//   the 8 group sums in order.
-// No float atomics: the same inputs give the same dw bit for bit.
+// vector (C % 8 == 0, C * sizeof(T) <= 2048, x, g, w, dx 16-byte aligned):
+//   a row belongs to a group of G lanes, G the smallest power of two that
+//   leaves each lane at most kVecMax 16-byte vectors (csrc/rmsnorm.cu's
+//   launch_vector); a lane loads its vectors of x and g with every load
+//   in flight before the first use, reduces inside the group with
+//   __shfl_xor_sync and writes dx as 16-byte stores.  Its channels' w
+//   (float) are loaded once into registers, and its channels' dw sums
+//   stay there; the block's kVecThreads / G groups meet in shared memory.
+// strided (any other C or pointer: the odd C of the gene concats, 485,
+//   741, 997 and 1,253): one warp a row, lane i holding channels i, i +
+//   32, ... of x and g in registers (up to kStridedMaxPer = 40 a lane, C
+//   <= 1,280; bf16 two to a register, so that two blocks fit an SM), so
+//   the row leaves device memory once; w staged once a block in shared
+//   memory; dw summed in registers; 8 rows in flight a block.  Rows of
+//   more than 1,280 channels (none in this model) keep the first design:
+//   a second pass over the row for dx (from L1) and the warp's dw summed
+//   in its own row of shared memory.
+// The grid (ops/rmsnorm_kernel.py bwd_blocks) stops at two blocks an SM,
+// so a block's lanes visit many rows and `partial` stays small.
 
 #include "common.cuh"
 
 namespace {
 
+enum : int { kStrided = 0, kVector = 1 };  // ops/rmsnorm_kernel.py
+
 constexpr int kBwdWarps = 8;                  // rows in flight a block
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kMaxBlocks = 8 * 132;           // ops/rmsnorm_kernel.py
 constexpr int kMaxC = kMaxBlockSmem / (4 * kBwdWarps);   // 7,264
+constexpr int kStridedMaxPer = 40;            // channels a lane holds
+constexpr int kVecThreads = 256;
+constexpr int kVecMax = 4;                    // 16-byte vectors a lane holds
+constexpr int kVecMaxBytes = 32 * kVecMax * 16;   // one row, at most
 
+// The bf16 in the low or high half of a 32-bit word, as a float.  The asm
+// is volatile so that each use converts anew: otherwise the compiler keeps
+// a float copy of every element of the row alive from the reductions to
+// dx (198 registers at 40 channels a lane, one block an SM), where the
+// packed words take half as many.
+__device__ __forceinline__ float bf16_low(uint32_t u) {
+  uint32_t r;
+  asm volatile("shl.b32 %0, %1, 16;" : "=r"(r) : "r"(u));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ float bf16_high(uint32_t u) {
+  uint32_t r;
+  asm volatile("and.b32 %0, %1, 0xffff0000;" : "=r"(r) : "r"(u));
+  return __uint_as_float(r);
+}
+
+// ---------------------------------------------------------------------------
+// strided variant
+// ---------------------------------------------------------------------------
+
+// The PER channels lane, lane + 32, ... of a row that a lane keeps: floats
+// for float rows; for bf16 rows two to a 32-bit register (channels k and
+// k + 1 of the lane in the low and high half of word k / 2).
+template <typename T, int PER> struct LaneRow {
+  float v[PER];
+  __device__ __forceinline__ void load(const T* r, int lane, int c) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = lane + 32 * k;
+      v[k] = i < c ? to_f32(r[i]) : 0.f;
+    }
+  }
+  __device__ __forceinline__ float operator[](int k) const { return v[k]; }
+};
+
+template <int PER> struct LaneRow<__nv_bfloat16, PER> {
+  uint32_t v[PER / 2];
+  __device__ __forceinline__ void load(const __nv_bfloat16* r, int lane,
+                                       int c) {
+    const unsigned short* b = reinterpret_cast<const unsigned short*>(r);
+#pragma unroll
+    for (int k = 0; k < PER; k += 2) {
+      const int i = lane + 32 * k;
+      const uint32_t lo = i < c ? b[i] : 0u, hi = i + 32 < c ? b[i + 32] : 0u;
+      v[k / 2] = lo | (hi << 16);
+    }
+  }
+  __device__ __forceinline__ float operator[](int k) const {
+    return (k & 1) ? bf16_high(v[k / 2]) : bf16_low(v[k / 2]);
+  }
+};
+
+// Two blocks an SM for bf16 rows (packed, they fit 128 registers a
+// thread); float rows of up to 40 channels a lane take more.
+template <typename T, int PER>
+__global__ void __launch_bounds__(kBwdThreads, sizeof(T) == 2 ? 2 : 1)
+rmsnorm_bwd_strided_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                           const float* __restrict__ w, T* __restrict__ dx,
+                           float* __restrict__ partial, long long rows,
+                           int c, float eps) {
+  extern __shared__ float smem[];
+  float* ws = smem;               // (c) the weight
+  float* sdw = smem + c;          // (kBwdWarps, c) each warp's dw sums
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < c; i += kBwdThreads) ws[i] = w[i];
+  __syncthreads();
+
+  float dw[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) dw[k] = 0.f;
+  const long long stride = (long long)gridDim.x * kBwdWarps;
+  for (long long row = (long long)blockIdx.x * kBwdWarps + warp; row < rows;
+       row += stride) {
+    LaneRow<T, PER> xv, gv;
+    xv.load(x + row * c, lane, c);
+    gv.load(g + row * c, lane, c);
+    float ss = 0.f, gwx = 0.f;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = lane + 32 * k;
+      if (i < c) {
+        ss = fmaf(xv[k], xv[k], ss);
+        gwx = fmaf(gv[k] * ws[i], xv[k], gwx);
+      }
+    }
+    ss = warp_sum(ss);
+    gwx = warp_sum(gwx);
+    const float inv = rsqrtf(ss / (float)c + eps);
+    const float inv3 = inv * inv * inv;
+    const float m = gwx / (float)c;
+    T* dr = dx + row * c;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = lane + 32 * k;
+      if (i < c) {
+        dr[i] = from_f32<T>(inv * (gv[k] * ws[i]) - inv3 * xv[k] * m);
+        dw[k] += gv[k] * xv[k] * inv;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = lane + 32 * k;
+    if (i < c) sdw[warp * c + i] = dw[k];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < c; i += kBwdThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kBwdWarps; ++wi) s += sdw[wi * c + i];
+    partial[(long long)blockIdx.x * c + i] = s;
+  }
+}
+
+// rows of more than 32 * kStridedMaxPer channels
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                   const float* __restrict__ w, T* __restrict__ dx,
-                   float* __restrict__ partial, long long rows, int c,
-                   float eps) {
+rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                        const float* __restrict__ w, T* __restrict__ dx,
+                        float* __restrict__ partial, long long rows, int c,
+                        float eps) {
   extern __shared__ float sdw[];  // (kBwdWarps, c): each warp's dw sums
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* mine = sdw + warp * c;
@@ -75,6 +216,124 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// ---------------------------------------------------------------------------
+// vector variant
+// ---------------------------------------------------------------------------
+
+// element j of a 16-byte vector of T, as float (bf16 is the high half of
+// a float, element 2i the low half of word i), bf16 converted anew at each
+// use as in the strided variant
+template <typename T> __device__ __forceinline__ float elem(const uint4& v,
+                                                            int j) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t u = word(v, j >> 1);
+    return (j & 1) ? bf16_high(u) : bf16_low(u);
+  } else {
+    return __uint_as_float(word(v, j));
+  }
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kVecThreads, 2)
+rmsnorm_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                       const float* __restrict__ w, T* __restrict__ dx,
+                       float* __restrict__ partial, long long rows, int c,
+                       float eps) {
+  constexpr int E = 16 / sizeof(T);     // elements a vector
+  constexpr int kGroups = kVecThreads / G;
+  extern __shared__ float sdw[];        // (kGroups, c): each group's dw
+  const int nvec = c / E;
+  const int sub = threadIdx.x % G;      // lane within the row's group
+  const int grp = threadIdx.x / G;
+
+  // this lane's channels: vector sub + i G, elements e
+  float wv[kVecMax][E], dw[kVecMax][E];
+#pragma unroll
+  for (int i = 0; i < kVecMax; ++i) {
+    const int vi = sub + i * G;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      wv[i][e] = vi < nvec ? w[vi * E + e] : 0.f;
+      dw[i][e] = 0.f;
+    }
+  }
+  // the loop runs as often in every lane (dead groups still join the
+  // shuffles)
+  const long long stride = (long long)gridDim.x * kGroups;
+  for (long long row0 = (long long)blockIdx.x * kGroups; row0 < rows;
+       row0 += stride) {
+    const long long row = row0 + grp;
+    const bool live = row < rows;
+    const uint4* xr =
+        reinterpret_cast<const uint4*>(x + (live ? row : 0) * c);
+    const uint4* gr =
+        reinterpret_cast<const uint4*>(g + (live ? row : 0) * c);
+    uint4 xv[kVecMax], gv[kVecMax];
+#pragma unroll
+    for (int i = 0; i < kVecMax; ++i) {
+      const int vi = sub + i * G;
+      xv[i] = gv[i] = make_uint4(0, 0, 0, 0);
+      if (live && vi < nvec) {
+        xv[i] = xr[vi];
+        gv[i] = gr[vi];
+      }
+    }
+    float ss = 0.f, gwx = 0.f;   // zero vectors add nothing
+#pragma unroll
+    for (int i = 0; i < kVecMax; ++i) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float xf = elem<T>(xv[i], e);
+        ss = fmaf(xf, xf, ss);
+        gwx = fmaf(elem<T>(gv[i], e) * wv[i][e], xf, gwx);
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      gwx += __shfl_xor_sync(0xffffffffu, gwx, off);
+    }
+    if (!live) continue;
+    const float inv = rsqrtf(ss / (float)c + eps);
+    const float inv3 = inv * inv * inv;
+    const float m = gwx / (float)c;
+    uint4* dr = reinterpret_cast<uint4*>(dx + row * c);
+#pragma unroll
+    for (int i = 0; i < kVecMax; ++i) {
+      const int vi = sub + i * G;
+      if (vi < nvec) {
+        float out[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float xf = elem<T>(xv[i], e), gf = elem<T>(gv[i], e);
+          out[e] = inv * (gf * wv[i][e]) - inv3 * xf * m;
+          dw[i][e] += gf * xf * inv;
+        }
+        dr[vi] = pack<T>(out);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kVecMax; ++i) {
+    const int vi = sub + i * G;
+    if (vi < nvec) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) sdw[grp * c + vi * E + e] = dw[i][e];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < c; i += kVecThreads) {
+    float s = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < kGroups; ++r) s += sdw[r * c + i];
+    partial[(long long)blockIdx.x * c + i] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the dw reduction over the blocks, and the launchers
+// ---------------------------------------------------------------------------
+
 constexpr int kDwGroups = 8;
 
 __global__ void __launch_bounds__(32 * kDwGroups)
@@ -97,23 +356,88 @@ rmsnorm_bwd_dw_kernel(const float* __restrict__ partial,
   }
 }
 
+struct Args {
+  const void* x;
+  const void* g;
+  const float* w;
+  void* dx;
+  float* partial;
+  long long rows;
+  int c, blocks;
+  float eps;
+  cudaStream_t stream;
+};
+
+template <typename T, int PER>
+int launch_strided_per(const Args& a) {
+  rmsnorm_bwd_strided_kernel<T, PER><<<a.blocks, kBwdThreads,
+                                       sizeof(float) * (1 + kBwdWarps) * a.c,
+                                       a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.w,
+      static_cast<T*>(a.dx), a.partial, a.rows, a.c, a.eps);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch(const void* x, const void* g, const float* w, void* dx,
-           float* partial, float* dw, long long rows, int c, int blocks,
-           float eps, cudaStream_t stream) {
+int launch_strided(const Args& a) {
+  const int per = (a.c + 31) / 32;
+  if (per <= 8) return launch_strided_per<T, 8>(a);
+  if (per <= 16) return launch_strided_per<T, 16>(a);
+  if (per <= 24) return launch_strided_per<T, 24>(a);
+  if (per <= 32) return launch_strided_per<T, 32>(a);
+  if (per <= kStridedMaxPer) return launch_strided_per<T, kStridedMaxPer>(a);
   static std::atomic<int> opted_in[kMaxDevices];
   const cudaError_t attr = smem_opt_in(
-      rmsnorm_bwd_kernel<T>, (int)(sizeof(float) * kBwdWarps * kMaxC),
+      rmsnorm_bwd_wide_kernel<T>, (int)(sizeof(float) * kBwdWarps * kMaxC),
       opted_in);
   if (attr != cudaSuccess) return (int)attr;
-  rmsnorm_bwd_kernel<T><<<blocks, kBwdThreads,
-                          sizeof(float) * kBwdWarps * c, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), w,
-      static_cast<T*>(dx), partial, rows, c, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rmsnorm_bwd_dw_kernel<<<(c + 31) / 32, 32 * kDwGroups, 0, stream>>>(
-      partial, dw, blocks, c);
+  rmsnorm_bwd_wide_kernel<T><<<a.blocks, kBwdThreads,
+                               sizeof(float) * kBwdWarps * a.c, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.w,
+      static_cast<T*>(a.dx), a.partial, a.rows, a.c, a.eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int G>
+int launch_vec_g(const Args& a) {
+  rmsnorm_bwd_vec_kernel<T, G><<<a.blocks, kVecThreads,
+                                 sizeof(float) * (kVecThreads / G) * a.c,
+                                 a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.w,
+      static_cast<T*>(a.dx), a.partial, a.rows, a.c, a.eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_vector(const Args& a) {
+  const int nvec = a.c / (16 / (int)sizeof(T));
+  int g = 1;
+  while (g < 32 && g * kVecMax < nvec) g *= 2;
+  switch (g) {
+    case 1: return launch_vec_g<T, 1>(a);
+    case 2: return launch_vec_g<T, 2>(a);
+    case 4: return launch_vec_g<T, 4>(a);
+    case 8: return launch_vec_g<T, 8>(a);
+    case 16: return launch_vec_g<T, 16>(a);
+    default: return launch_vec_g<T, 32>(a);
+  }
+}
+
+template <typename T>
+int launch(const Args& a, int variant, float* dw) {
+  int err;
+  if (variant == kStrided) {
+    err = launch_strided<T>(a);
+  } else if (variant == kVector && a.c % 8 == 0 &&
+             (long long)a.c * sizeof(T) <= kVecMaxBytes && aligned16(a.x) &&
+             aligned16(a.g) && aligned16(a.w) && aligned16(a.dx)) {
+    err = launch_vector<T>(a);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_dw_kernel<<<(a.c + 31) / 32, 32 * kDwGroups, 0, a.stream>>>(
+      a.partial, dw, a.blocks, a.c);
   return (int)cudaGetLastError();
 }
 
@@ -122,25 +446,23 @@ int launch(const void* x, const void* g, const float* w, void* dx,
 // x, g, dx: device pointers to row-major (rows, c) arrays of one dtype;
 // w (c,) and dw (c,) float32; partial: float32 scratch of blocks x c;
 // blocks: the row kernel's grid, 1 to kMaxBlocks (the caller sizes
-// partial by it).  Returns cudaGetLastError() after the launches
-// (0 = launched).
+// partial by it); variant: 0 strided, 1 vector (within the limits above:
+// a variant that cannot take the call is an error, never a fallback).
+// Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int tmt_rmsnorm_bwd(const void* x, const void* g, const void* w,
                                void* dx, void* partial, void* dw,
                                long long rows, int c, int blocks, float eps,
-                               int dtype, void* stream) {
+                               int dtype, int variant, void* stream) {
   if (rows <= 0 || c <= 0 || c > kMaxC || blocks <= 0 ||
       blocks > kMaxBlocks)
     return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto wf = static_cast<const float*>(w);
-  auto pf = static_cast<float*>(partial);
+  const Args a{x, g, static_cast<const float*>(w), dx,
+               static_cast<float*>(partial), rows, c, blocks, eps,
+               static_cast<cudaStream_t>(stream)};
   auto dwf = static_cast<float*>(dw);
   switch (dtype) {
-    case kFloat32:
-      return launch<float>(x, g, wf, dx, pf, dwf, rows, c, blocks, eps, s);
-    case kBFloat16:
-      return launch<__nv_bfloat16>(x, g, wf, dx, pf, dwf, rows, c, blocks,
-                                   eps, s);
+    case kFloat32: return launch<float>(a, variant, dwf);
+    case kBFloat16: return launch<__nv_bfloat16>(a, variant, dwf);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -42,9 +42,10 @@ SIGNATURES = {
     "tmt_window_attention": [_ptr, _ptr, _ptr, _ptr, _int, _int, _int,
                              _f32, _int, _int, _ptr],
     "tmt_rmsnorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i64, _int,
-                        _int, _f32, _int, _ptr],
+                        _int, _f32, _int, _int, _ptr],
     "tmt_window_attention_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                                 _ptr, _int, _int, _int, _f32, _int, _ptr],
+                                 _ptr, _int, _int, _int, _f32, _int, _int,
+                                 _ptr],
 }
 
 _lib = None

@@ -25,7 +25,17 @@ K2b, the backward (``csrc/attention_bwd.cu``), replaces the TPU kernel's
 ``custom_vjp`` rule ``_bwd``: p recomputed in float32 and never rounded,
 float32 sums, one rounding of dq, dk, dv; a dq pass over query tiles
 that also writes each row's softmax statistics, then a dk/dv pass over
-key tiles, each dk and dv row summed inside one block (deterministic).
+key tiles, each dq, dk and dv row summed inside one block
+(deterministic).  ``attention_bwd_variant`` picks its variant:
+
+- ``tensor_core``: bf16 with D % 16 == 0, N <= 128, q, k, v, g and the
+  three gradients 16-byte aligned, and both passes' shared memory
+  (``bwd_tc_smem_bytes``) within 227 KB.  q k^T and g v^T by ``mma.sync``
+  on the bf16 inputs; every product with p or ds as two ``mma.sync`` on
+  the split pair hi = bf16(x), lo = bf16(x - hi) into one f32
+  accumulator, which keeps the f32 rule's rounding (a single bf16 operand
+  changes 37-44 % of the outputs).  The three training shapes take it.
+- ``cuda_core``: everything else, f32 ``fmaf`` on CUDA cores.
 ``window_attention`` dispatches as ``rmsnorm`` does: the raw K2 launch
 without a gradient to record, :class:`AttentionFunction` (K2 and K2b, or
 the plain versions on the CPU) with one.
@@ -45,9 +55,11 @@ TC_MAX_N = 128
 SMEM_LIMIT = 232_448       # bytes of shared memory a block may use (H100)
 VARIANTS = ("cuda_core", "tensor_core")   # csrc/attention.cu codes
 
+TC_ROWS = 64               # csrc/attention_bwd.cu kTcRows: a K2b block's rows
+
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
-bwd = _build.Counters(("cuda_core",))   # K2b's launches
+bwd = _build.Counters(VARIANTS)   # K2b's launches (csrc/attention_bwd.cu)
 
 
 def reset_launches() -> None:
@@ -78,6 +90,35 @@ def attention_variant(n: int, d: int, dtype: torch.dtype,
     if (dtype == torch.bfloat16 and aligned and n <= TC_MAX_N
             and d % 16 == 0 and d <= MAX_D
             and tc_smem_bytes(n, d) <= SMEM_LIMIT):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def bwd_tc_smem_bytes(n: int, d: int) -> tuple[int, int]:
+    """Shared memory of K2b's tensor-core passes (``bwd_tc_layout`` in
+    csrc/attention_bwd.cu), (dq pass, dk/dv pass).  np = round16(N) and
+    rt = min(64, np) rows a block; q, k, v, g rows of D + 8 bf16, p and
+    ds rows of np + 8.  dq: q and g tiles (rt rows), k and v (np rows),
+    ds hi and lo (rt rows) over q and g when np <= D, else after v, and
+    3 x 2 x 64 floats.  dk/dv: q and g (np rows), the k and v tiles,
+    p^T and ds^T (hi and lo, rt rows each) over them or past them, and
+    3 x np floats."""
+    np_ = (n + 15) // 16 * 16
+    rt = min(TC_ROWS, np_)
+    tile, full, ds = rt * (d + 8), np_ * (d + 8), 2 * rt * (np_ + 8)
+    dq = 2 * tile + 2 * full + (0 if ds <= 2 * tile else ds)
+    kv = 2 * full + max(2 * ds, 2 * tile)
+    return 2 * dq + 4 * 6 * TC_ROWS, 2 * kv + 4 * 3 * np_
+
+
+def attention_bwd_variant(n: int, d: int, dtype: torch.dtype,
+                          aligned: bool) -> str:
+    """The K2b variant a CUDA call with these N, D, dtype and pointer
+    alignment (q, k, v, g, dq, dk, dv all 16-byte aligned or not)
+    launches."""
+    if (dtype == torch.bfloat16 and aligned and n <= TC_MAX_N
+            and d % 16 == 0 and d <= MAX_D
+            and max(bwd_tc_smem_bytes(n, d)) <= SMEM_LIMIT):
         return "tensor_core"
     return "cuda_core"
 
@@ -160,13 +201,16 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0:
         return dq, dk, dv
     stats = torch.empty(b, n, 3, device=q.device, dtype=torch.float32)
+    code = _build.dtype_code(q, "window_attention_bwd")
+    variant = attention_bwd_variant(
+        n, d, q.dtype,
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v, g, dq, dk, dv)))
     err = _build.lib().tmt_window_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        b, n, d, scale, _build.dtype_code(q, "window_attention_bwd"),
-        _build.stream_ptr(q))
-    _build.check(err, "tmt_window_attention_bwd")
-    _build.count_launch(bwd, "cuda_core")
+        b, n, d, scale, code, VARIANTS.index(variant), _build.stream_ptr(q))
+    _build.check(err, f"tmt_window_attention_bwd ({variant})")
+    _build.count_launch(bwd, variant)
     return dq, dk, dv
 
 

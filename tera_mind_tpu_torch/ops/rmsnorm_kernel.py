@@ -24,6 +24,10 @@ K1b, the backward (``csrc/rmsnorm_bwd.cu``), replaces the TPU kernel's
 ``custom_vjp`` rule ``_bwd``: dx per row from x, g and the float32
 weight with the statistics recomputed in float32, dw from per-block
 partial sums reduced in a second kernel (no atomics, so deterministic).
+``rmsnorm_bwd_variant`` picks its variant by K1's rule: ``vector`` (a
+lane group sized to C, 16-byte loads, w and the dw sums in registers;
+x, g, w, dx 16-byte aligned) or ``strided`` (one warp a row holding it in
+registers, w in shared memory; any C and alignment).
 ``rmsnorm`` dispatches: without a gradient to record, the raw K1 launch
 (or the plain version on the CPU); with one, :class:`RMSNormFunction`,
 whose forward is K1 and backward K1b (on the CPU the plain forward and
@@ -32,6 +36,7 @@ the plain ``_bwd`` formula).
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import torch
@@ -43,10 +48,12 @@ VARIANTS = ("strided", "vector")   # csrc/rmsnorm.cu codes
 BWD_WARPS = 8              # csrc/rmsnorm_bwd.cu kBwdWarps: rows a block
 BWD_MAX_BLOCKS = 8 * 132   # csrc/rmsnorm_bwd.cu kMaxBlocks
 BWD_MAX_C = 7264           # csrc/rmsnorm_bwd.cu kMaxC
+BWD_VEC_THREADS = 256      # csrc/rmsnorm_bwd.cu kVecThreads
+VEC_MAX = 4                # csrc/rmsnorm*.cu kVecMax: 16-byte vectors a lane
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
-bwd = _build.Counters(("rowwise",))   # K1b's launches
+bwd = _build.Counters(VARIANTS)   # K1b's launches (csrc/rmsnorm_bwd.cu)
 
 
 def reset_launches() -> None:
@@ -55,10 +62,31 @@ def reset_launches() -> None:
     _build.reset_launches(bwd)
 
 
-def bwd_blocks(rows: int) -> int:
-    """The grid of K1b's row kernel: a warp a row, at most
-    ``BWD_MAX_BLOCKS`` blocks (the rows of ``partial``)."""
-    return max(1, min(-(-rows // BWD_WARPS), BWD_MAX_BLOCKS))
+def bwd_blocks(rows: int, rows_per_block: int = BWD_WARPS,
+               max_blocks: int = BWD_MAX_BLOCKS) -> int:
+    """The grid of K1b's row kernel: ``rows_per_block`` rows in flight a
+    block (a warp a row in the strided variant), at most ``max_blocks``
+    (up to ``BWD_MAX_BLOCKS``, the rows of ``partial``)."""
+    return max(1, min(-(-rows // rows_per_block), max_blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: torch.device) -> int:
+    """K1b's grid cap on ``device``: two blocks on each SM, the blocks of
+    either variant that fit there at once (each lane's rows in registers
+    over the grid-stride loop), so each block sums its dw once."""
+    return min(2 * torch.cuda.get_device_properties(
+        device).multi_processor_count, BWD_MAX_BLOCKS)
+
+
+def vector_group(c: int, itemsize: int) -> int:
+    """The lanes a row gets in the vector variants (``launch_vector`` in
+    csrc/rmsnorm.cu and csrc/rmsnorm_bwd.cu): the smallest power of two
+    up to 32 that leaves each lane at most ``VEC_MAX`` 16-byte vectors."""
+    nvec, g = c // (16 // itemsize), 1
+    while g < 32 and g * VEC_MAX < nvec:
+        g *= 2
+    return g
 
 
 def _stat_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -72,6 +100,14 @@ def rmsnorm_variant(c: int, itemsize: int, aligned: bool) -> str:
     if aligned and c % 8 == 0 and c * itemsize <= VEC_MAX_ROW_BYTES:
         return "vector"
     return "strided"
+
+
+def rmsnorm_bwd_variant(c: int, itemsize: int, aligned: bool) -> str:
+    """The K1b variant a CUDA call with rows of C elements of
+    ``itemsize`` bytes launches; ``aligned``: x, g, w and dx all start on
+    16 bytes.  K1's rule: ``vector`` for C % 8 == 0 and a row of at most
+    2,048 bytes, else ``strided``."""
+    return rmsnorm_variant(c, itemsize, aligned)
 
 
 def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -147,15 +183,21 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
     dx = torch.empty_like(x2)
     if rows == 0:
         return dx.reshape(x.shape), torch.zeros_like(weight)
-    blocks = bwd_blocks(rows)
+    code = _build.dtype_code(x, "rmsnorm_bwd")
+    variant = rmsnorm_bwd_variant(
+        c, x.element_size(),
+        all(t.data_ptr() % 16 == 0 for t in (x2, g2, w, dx)))
+    blocks = bwd_blocks(rows, BWD_WARPS if variant == "strided" else
+                        BWD_VEC_THREADS // vector_group(c, x.element_size()),
+                        _resident_blocks(x.device))
     partial = torch.empty(blocks, c, device=x.device, dtype=torch.float32)
     dw = torch.empty(c, device=x.device, dtype=torch.float32)
     err = _build.lib().tmt_rmsnorm_bwd(
         x2.data_ptr(), g2.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), rows, c, blocks, eps,
-        _build.dtype_code(x, "rmsnorm_bwd"), _build.stream_ptr(x))
-    _build.check(err, "tmt_rmsnorm_bwd")
-    _build.count_launch(bwd, "rowwise")
+        partial.data_ptr(), dw.data_ptr(), rows, c, blocks, eps, code,
+        VARIANTS.index(variant), _build.stream_ptr(x))
+    _build.check(err, f"tmt_rmsnorm_bwd ({variant})")
+    _build.count_launch(bwd, variant)
     return dx.reshape(x.shape), dw.to(weight.dtype)
 
 

@@ -1,0 +1,254 @@
+"""The backward kernels' variants, K1b (``csrc/rmsnorm_bwd.cu``) and K2b
+(``csrc/attention_bwd.cu``), on the CPU.
+
+The CUDA kernels run only on the card (``chip_smoke.py`` holds each
+variant against its plain version there).  Here: which variant each shape
+of ``chip_smoke.py`` takes, the Python mirrors of the kernels' layouts
+and grids against the constants in the sources, the launch counters by
+variant, and the rounding decision of K2b's ``tensor_core`` variant: an
+emulation of its split-bf16 products stays inside ``chip_smoke.py``'s
+bf16 gate against the plain version and against the JAX rule ``_bwd``,
+where rounding p and ds once to bf16 does not.
+"""
+
+import functools
+import importlib.util
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from tera_mind_tpu.ops.attention_kernel import _bwd as jax_attention_bwd
+from tera_mind_tpu_torch.ops import _build
+from tera_mind_tpu_torch.ops import attention_kernel as k2
+from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _kernel_shapes():
+    spec = importlib.util.spec_from_file_location(
+        "kernel_shapes", _build.PKG.parent / "scripts" / "kernel_shapes.py")
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    return ks
+
+
+# ------------------------------------------------------------------ #
+# which variant each shape takes                                      #
+# ------------------------------------------------------------------ #
+K2B_WANT = {(512, 128, 256): "tensor_core", (128, 128, 256): "tensor_core",
+            (512, 32, 512): "tensor_core", (5, 100, 48): "tensor_core",
+            (3, 17, 130): "cuda_core", (2, 512, 512): "cuda_core"}
+
+
+@pytest.mark.parametrize("b,n,d", cs.TRAIN_K2_SHAPES + cs.K2B_EDGE)
+def test_attention_bwd_variant_of_every_chip_smoke_shape(b, n, d):
+    """bf16 training shapes and (5, 100, 48) take the tensor cores; D =
+    130 (not a multiple of 16) and N = 512 (over 128) stay on CUDA cores;
+    so do float32 and misaligned tensors."""
+    assert set(K2B_WANT) == set(cs.TRAIN_K2_SHAPES + cs.K2B_EDGE)
+    assert k2.attention_bwd_variant(n, d, BF16, True) == K2B_WANT[(b, n, d)]
+    assert k2.attention_bwd_variant(n, d, F32, True) == "cuda_core"
+    assert k2.attention_bwd_variant(n, d, BF16, False) == "cuda_core"
+
+
+@pytest.mark.parametrize("n,c", cs.TRAIN_K1_SHAPES + cs.K1B_EDGE)
+def test_rmsnorm_bwd_variant_of_every_chip_smoke_shape(n, c):
+    """K1's rule: vector for C % 8 == 0 and a row of at most 2,048 bytes
+    with x, g, w, dx aligned, else strided (the odd C of the gene
+    concats, C = 2,050, float32 rows over 512 channels, misaligned)."""
+    vec_bf16 = c % 8 == 0 and c <= 1024
+    assert k1.rmsnorm_bwd_variant(c, 2, True) == (
+        "vector" if vec_bf16 else "strided")
+    assert k1.rmsnorm_bwd_variant(c, 4, True) == (
+        "vector" if c % 8 == 0 and c <= 512 else "strided")
+    assert k1.rmsnorm_bwd_variant(c, 2, False) == "strided"
+    if (n, c) in cs.TRAIN_K1_SHAPES:
+        assert vec_bf16 == (c not in (485, 741, 997, 1253))
+
+
+@pytest.mark.parametrize("packed,path", [(False, "5d"), (True, "packed")])
+def test_chip_smoke_requires_the_training_counts_by_variant(packed, path):
+    """chip_smoke.py's per-step K1b / K2b launches by variant are what
+    scripts/kernel_shapes.py --train attributes to the variants, and add
+    up to its per-step totals."""
+    ks = _kernel_shapes()
+    by = ks.train_bwd_variants(packed)
+    assert by == cs.TRAIN_BWD_VARIANTS[path]
+    assert sum(by["rmsnorm_bwd"].values()) == \
+        cs.TRAIN_LAUNCHES[path]["rmsnorm"]
+    assert by["window_attention_bwd"] == {
+        "cuda_core": 0,
+        "tensor_core": cs.TRAIN_LAUNCHES[path]["window_attention"]}
+
+
+# ------------------------------------------------------------------ #
+# the mirrors of the kernels' layouts and grids                       #
+# ------------------------------------------------------------------ #
+def test_tensor_core_bwd_smem_matches_the_kernels_layout():
+    src = (_build.CSRC / "attention_bwd.cu").read_text()
+    assert f"kTcRows = {k2.TC_ROWS};" in src
+    assert f"kTcMaxN = {k2.TC_MAX_N};" in src
+    assert "bwd_tc_layout(128, 256).dq_bytes == 204288" in src
+    assert "bwd_tc_layout(128, 256).kv_bytes == 206336" in src
+    assert k2.bwd_tc_smem_bytes(128, 256) == (204_288, 206_336)
+    # N = 32: one 32-row tile, ds over q and g; the dk/dv pass's p^T and
+    # ds^T fit over the k and v tiles
+    assert k2.bwd_tc_smem_bytes(32, 512) == (
+        2 * 4 * 32 * 520 + 4 * 6 * 64, 2 * 4 * 32 * 520 + 4 * 3 * 32)
+    # N = 100 pads to 112 rows; ds (64 x 120, twice) does not fit over the
+    # 64 x 56 q and g tiles, so it goes after v
+    assert k2.bwd_tc_smem_bytes(100, 48) == (
+        2 * (2 * 64 * 56 + 2 * 112 * 56 + 2 * 64 * 120) + 4 * 6 * 64,
+        2 * (2 * 112 * 56 + 4 * 64 * 120) + 4 * 3 * 112)
+    # D = 512 at N = 128: k and v alone fill 266 KB
+    assert min(k2.bwd_tc_smem_bytes(128, 512)) > k2.SMEM_LIMIT
+    assert k2.attention_bwd_variant(128, 512, BF16, True) == "cuda_core"
+    assert k2.attention_bwd_variant(64, 512, BF16, True) == "cuda_core"
+    assert k2.attention_bwd_variant(16, 16, BF16, True) == "tensor_core"
+
+
+def test_bwd_entry_points_take_the_variant():
+    """Both C entry points take a variant code after the dtype, and the
+    ctypes signatures pass it."""
+    attn = (_build.CSRC / "attention_bwd.cu").read_text()
+    norm = (_build.CSRC / "rmsnorm_bwd.cu").read_text()
+    assert "float scale, int dtype, int variant," in attn
+    assert "enum : int { kCudaCore = 0, kTensorCore = 1 };" in attn
+    assert "int dtype, int variant, void* stream)" in norm
+    assert "enum : int { kStrided = 0, kVector = 1 };" in norm
+    assert k2.VARIANTS == ("cuda_core", "tensor_core")
+    assert k1.VARIANTS == ("strided", "vector")
+    assert len(_build.SIGNATURES["tmt_window_attention_bwd"]) == 15
+    assert len(_build.SIGNATURES["tmt_rmsnorm_bwd"]) == 13
+
+
+def test_k1b_grid_and_lane_groups_mirror_the_kernel():
+    src = (_build.CSRC / "rmsnorm_bwd.cu").read_text()
+    assert "while (g < 32 && g * kVecMax < nvec) g *= 2;" in src
+    assert f"kVecThreads = {k1.BWD_VEC_THREADS};" in src
+    assert f"kVecMax = {k1.VEC_MAX};" in src
+    assert "kStridedMaxPer = 40;" in src
+    # C = 64 bf16: 8 vectors, 2 lanes a row; C = 1,024: 32 lanes
+    assert [k1.vector_group(c, 2) for c in (8, 64, 96, 256, 512, 1024)] \
+        == [1, 2, 4, 8, 16, 32]
+    assert k1.vector_group(512, 4) == 32
+    assert k1.bwd_blocks(10 ** 6, 128, 264) == 264
+    assert k1.bwd_blocks(4096, 16, 264) == 256
+    assert k1.bwd_blocks(1, 128, 264) == 1
+    assert k1.bwd_blocks(10 ** 6) == k1.BWD_MAX_BLOCKS   # the defaults
+
+
+def test_backward_counters_count_by_variant_and_reset():
+    for mod in (k1, k2):
+        assert set(mod.bwd.launches_by_variant) == set(mod.VARIANTS)
+    _build.count_launch(k2.bwd, "tensor_core")
+    _build.count_launch(k2.bwd, "tensor_core")
+    _build.count_launch(k2.bwd, "cuda_core")
+    _build.count_launch(k1.bwd, "vector")
+    assert k2.bwd.launches >= 3 and k2.bwd.launches_by_variant[
+        "tensor_core"] >= 2 and k1.bwd.launches_by_variant["vector"] >= 1
+    k2.reset_launches()
+    k1.reset_launches()
+    for mod in (k1, k2):
+        assert mod.bwd.launches == 0 and mod.launches == 0
+        assert set(mod.bwd.launches_by_variant.values()) == {0}
+    # the CPU path of the dispatchers launches nothing
+    x = torch.randn(6, 16, requires_grad=True)
+    k1.rmsnorm(x, torch.ones(16)).sum().backward()
+    q = torch.randn(2, 8, 16, requires_grad=True)
+    k2.window_attention(q, q, q, 0.25).sum().backward()
+    assert (k1.bwd.launches, k2.bwd.launches) == (0, 0)
+
+
+# ------------------------------------------------------------------ #
+# the rounding decision of K2b tensor_core                            #
+# ------------------------------------------------------------------ #
+def _split(x):
+    """x as the split pair (hi, lo) of bf16 values (held as float)."""
+    hi = x.to(BF16).float()
+    return hi, (x - hi).to(BF16).float()
+
+
+def _rounded(x):
+    return (x.to(BF16).float(),)
+
+
+def _mma_sum(parts, b):
+    """(sum of parts) @ b as the kernel sums it: along the reduction axis
+    in chunks of 16, each operand part's exact chunk product rounded to
+    float32 and added to one float32 accumulator in order."""
+    acc = torch.zeros(parts[0].shape[:-1] + b.shape[-1:])
+    for k0 in range(0, b.shape[-2], 16):
+        for a in parts:
+            acc = acc + torch.matmul(a[..., k0:k0 + 16].double(),
+                                     b[..., k0:k0 + 16, :].double()).float()
+    return acc
+
+
+def _k2b_emulated(q, k, v, g, scale, operands):
+    """K2b with bf16 mma operands: q k^T and g v^T on the bf16 inputs, p
+    and ds in float32 as the JAX rule has them, and every product with p
+    or ds on ``operands(x)`` (the split pair, or one rounding)."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.softmax(_mma_sum((qf,), kf.transpose(-1, -2)) * scale, -1)
+    dp = _mma_sum((gf,), vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dv = _mma_sum(operands(p.transpose(-1, -2)), gf)
+    dq = _mma_sum(operands(ds), kf) * scale
+    dk = _mma_sum(operands(ds.transpose(-1, -2)), qf) * scale
+    return tuple(t.to(BF16) for t in (dq, dk, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def _emulation(n, d, peaked):
+    """(inputs, plain version's outputs, JAX _bwd's outputs) of 8 batch
+    indices in bf16, randn or peaked as chip_smoke.py draws them."""
+    g_ = torch.Generator().manual_seed(100 * n + d + peaked)
+    q, k, v = cs.k2_inputs(g_, 8, n, d, BF16, "cpu", peaked)
+    g = torch.randn(8, n, d, generator=g_).to(BF16)
+    plain = k2.attention_bwd_plain(q, k, v, g, 1.0 / d)
+    as_jax = [jnp.asarray(t.float().numpy().astype(ml_dtypes.bfloat16))
+              for t in (q, k, v, g)]
+    jax_out = jax_attention_bwd(1.0 / d, tuple(as_jax[:3]), as_jax[3])
+    jax_out = tuple(torch.from_numpy(np.asarray(t).astype(np.float32))
+                    .to(BF16) for t in jax_out)
+    return (q, k, v, g), plain, jax_out
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("n,d", [(128, 256), (32, 512)])
+def test_split_bf16_products_keep_the_jax_rounding(n, d, peaked):
+    """The split pair hi = bf16(x), lo = bf16(x - hi), two products into
+    one float32 accumulator, passes chip_smoke.py's bf16 gate (2 spacings
+    at max |ref|, at most 1 % not bit-equal) against the plain version
+    and against the JAX rule, with about a quarter of a percent of the
+    outputs one rounding step apart."""
+    (q, k, v, g), plain, jax_out = _emulation(n, d, peaked)
+    got = _k2b_emulated(q, k, v, g, 1.0 / d, _split)
+    for name, out, ref, jref in zip(("dq", "dk", "dv"), got, plain, jax_out):
+        _, spacings, share = cs.require_k2(out, ref, f"split {name}")
+        assert spacings <= 1.0 and share <= 5e-3, (name, spacings, share)
+        _, spacings, share = cs.require_k2(out, jref, f"split {name} jax")
+        assert spacings <= 1.0 and share <= 5e-3, (name, spacings, share)
+        # the plain version itself is the JAX rule's bits up to its sums
+        _, _, share = cs.k2_agreement(ref, jref)
+        assert share <= 5e-3
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("n,d", [(128, 256), (32, 512)])
+def test_one_bf16_rounding_of_p_and_ds_breaks_the_gate(n, d, peaked):
+    """Rounding p and ds once to bf16 as mma operands, the cheaper design,
+    changes a third or more of dq, dk and dv: the gate refuses it, which
+    is why K2b's tensor-core variant splits them."""
+    (q, k, v, g), plain, _ = _emulation(n, d, peaked)
+    got = _k2b_emulated(q, k, v, g, 1.0 / d, _rounded)
+    for name, out, ref in zip(("dq", "dk", "dv"), got, plain):
+        assert cs.k2_agreement(out, ref)[2] > 0.3, name
+        with pytest.raises(cs.SmokeFailure):
+            cs.require_k2(out, ref, f"rounded {name}")

@@ -23,41 +23,58 @@ Phases, each printed on its own line with elapsed seconds:
      mode and runs under ``torch.no_grad()``, and each dispatcher records
      its backward (one forward and one backward launch, finite
      gradients);
-  5. the port on a small input on the card (float32, kernels on) against
+  5. int8: K3 (``quant_conv``) bit-equal to its plain version in int32,
+     bf16 and f32 and K4 (``quantize``) bit-equal (int8 values, scale,
+     abs-max) dynamic and static, at every int8 shape of the main path
+     (``scripts/kernel_shapes.py --quant int8``) and at edge shapes (a
+     deep concat at B = 2, Ci = 18 with Co = 24 in 3x3 and 1x1, 105
+     rows; K4: ties that round to even, a saturating outlier, f32),
+     each timed against its bound and its plain version (K3 beside
+     cuDNN's bf16 convolution of the same shape, the time int8 has to
+     beat); the C entry points' refusals; then the small chain in int8
+     (prequantized, DiT denses too) on the card against the CPU and
+     against the card's f32 chain, and int8_static calibrated on the
+     card, at tests/test_quant.py's chain gates; prequant bit-equal to
+     dynamic on one UNet call on the card;
+  6. the port on a small input on the card (float32, kernels on) against
      the same code on the CPU (plain versions), for the 5D model; the
      packed model (its weights packed from the 5D model's) on the card
      against the CPU, against the 5D model and with ``packed_attn``;
-  6. resume on the card: the small packed chain spilled every step
+  7. resume on the card: the small packed chain spilled every step
      through ``StateCheckpoint('grid')`` and resumed from its epoch-1
      spill, against the uninterrupted chain;
-  7. streaming and the tile-major step on the small f32 input on the
+  8. streaming and the tile-major step on the small f32 input on the
      card: a 3x3 grid in 2x2 windows (edge windows shifted inward),
      streamed tile-major and block-major against the in-memory run of
      the same step, the in-memory tile-major step against the
      block-major one, K = 2 against K = 1, the worker pipeline against
      one sequential sweep, memmapped against in-memory state, a streamed
      run resumed from its epoch-1 spill, and bf16 transfers against f32;
-  8. the main path: ``cli.generate.build`` with its defaults (the packed
+  9. the main path: ``cli.generate.build`` with its defaults (the packed
      model) at the full width of the 638850 preset (2x2 tiles of 256^2 px
      x 100 channels, 15 DDIM steps, bf16, block-major, window_chunk -1,
      which the memory planner resolves to the whole block and one
      z-window a call), one warm-up step that plans, then one timed chain
      with the kernels' launch counters (total and per variant) set to 0
-     just before it; then the same for the 5D model (``--no_packed``) on
-     the same weights and for the tile-major step (``--tile_major``,
-     window_chunk 5);
-  9. the planner at full width: its plan, the measured peak of its probe
+     just before it; then the same with ``--quant int8`` and ``--quant
+     int8_static`` (its build calibrates on the 2x2 block, timed with the
+     build), each with exact K3 and K4 launches (75 and 117 a UNet call;
+     the abs-max 117 dynamic, 0 static), tiles/s beside the bf16 chain's
+     and its output against bf16's (informative); then the 5D model
+     (``--no_packed``) on the same weights and the tile-major step
+     (``--tile_major``, window_chunk 5);
+ 10. the planner at full width: its plan, the measured peak of its probe
      and the budget for 2x2, 4x4, 8x8 and 16x16 grids;
- 10. whole-brain streaming: ``cli.generate.main`` with ``--stream`` at
+ 11. whole-brain streaming: ``cli.generate.main`` with ``--stream`` at
      its defaults (2x2-tile windows, K 1, f32 transfers, 3 windows in
      flight, 4 GB of device gene cache, window_chunk 5) on a 4x4 grid,
      15 steps, with the counters set to 0 just before it; then a 2-step
      run of the same grid with ``TMT_STREAM_TIMING`` for its per-phase
      seconds;
- 11. training, small: one accumulated f32 train step of a narrow model on
+ 12. training, small: one accumulated f32 train step of a narrow model on
      the card against the CPU from the same weights, batch and draws
      (loss 1e-4, gradients 2e-3 of each leaf's max);
- 12. training at full width: ``cli.train``'s builder on the 638850 preset
+ 13. training at full width: ``cli.train``'s builder on the 638850 preset
      (``--synthetic --batch 32``: accum 2, 128 patches a microbatch, bf16
      compute, f32 params, dropout 0.1), the 5D model, then ``--packed``,
      8 steps each with the counters set to 0 just before ``fit``: finite
@@ -65,7 +82,7 @@ Phases, each printed on its own line with elapsed seconds:
      step (K1b and K2b by variant), samples/s, data wait, peak memory;
      save -> restore bit-equal;
      ``cli.generate`` (1x1 grid, 2 steps) from the 5D run's checkpoint;
- 13. a ``{"kernels": [...]}`` line, then the card line, then the result.
+ 14. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
 nothing of JAX.
@@ -761,7 +778,413 @@ def check_autograd_guard(device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: the port on a small input, card against CPU, and resume
+# phase 5: int8: K3 and K4 against their plain versions, timed, the C
+# entry points' refusals, and small int8 chains
+# ---------------------------------------------------------------------------
+
+H100_INT8_OPS_PER_S = 1979e12   # dense int8 tensor-core peak
+
+# K3's (x (B, H, W, Ci), w (Co, kh, kw)) and K4's (rows, C, multiple) on
+# the int8 main path, the same for int8 and int8_static
+# (scripts/kernel_shapes.py --quant int8: one UNet call of 81 patches,
+# collage decoder; 75 K3 launches, 117 K4 and 42 torch._int_mm a call)
+K3_SHAPES = [
+    ((81, 64, 64, 128), (128, 3, 3)), ((81, 64, 64, 192), (128, 1, 1)),
+    ((81, 64, 64, 192), (128, 3, 3)), ((64, 64, 64, 128), (128, 3, 3)),
+    ((64, 64, 64, 256), (256, 3, 3)), ((64, 64, 64, 320), (128, 1, 1)),
+    ((64, 64, 64, 320), (128, 3, 3)), ((64, 64, 64, 448), (128, 1, 1)),
+    ((64, 64, 64, 448), (128, 3, 3)), ((81, 32, 32, 128), (128, 3, 3)),
+    ((81, 32, 32, 256), (256, 3, 3)), ((81, 32, 32, 384), (256, 1, 1)),
+    ((81, 32, 32, 384), (256, 3, 3)), ((64, 32, 32, 256), (256, 3, 3)),
+    ((64, 32, 32, 512), (256, 1, 1)), ((64, 32, 32, 512), (256, 3, 3)),
+    ((64, 32, 32, 512), (512, 3, 3)), ((64, 32, 32, 640), (256, 1, 1)),
+    ((64, 32, 32, 640), (256, 3, 3)), ((64, 32, 32, 896), (256, 1, 1)),
+    ((64, 32, 32, 896), (256, 3, 3)), ((81, 16, 16, 256), (256, 3, 3)),
+    ((81, 16, 16, 512), (512, 3, 3)), ((81, 16, 16, 768), (512, 1, 1)),
+    ((81, 16, 16, 768), (512, 3, 3)), ((64, 16, 16, 512), (512, 3, 3)),
+    ((64, 16, 16, 1024), (512, 1, 1)), ((64, 16, 16, 1024), (512, 3, 3)),
+    ((64, 16, 16, 1024), (1024, 3, 3)), ((64, 16, 16, 1280), (512, 1, 1)),
+    ((64, 16, 16, 1280), (512, 3, 3)), ((64, 16, 16, 1792), (512, 1, 1)),
+    ((64, 16, 16, 1792), (512, 3, 3)), ((81, 8, 8, 512), (512, 3, 3)),
+    ((81, 8, 8, 970), (1024, 1, 1)), ((81, 8, 8, 970), (1024, 3, 3)),
+    ((81, 8, 8, 1024), (1024, 3, 3)), ((81, 8, 8, 1482), (1024, 1, 1)),
+    ((81, 8, 8, 1482), (1024, 3, 3)), ((64, 8, 8, 1024), (1024, 3, 3)),
+    ((64, 8, 8, 1994), (1024, 1, 1)), ((64, 8, 8, 1994), (1024, 3, 3)),
+    ((64, 8, 8, 2506), (1024, 1, 1)), ((64, 8, 8, 2506), (1024, 3, 3))]
+K4_SHAPES = [
+    (331776, 128, 16), (331776, 192, 16), (262144, 128, 16),
+    (262144, 256, 16), (262144, 320, 16), (262144, 448, 16),
+    (82944, 128, 16), (82944, 256, 16), (82944, 384, 16), (65536, 256, 16),
+    (65536, 512, 16), (65536, 640, 16), (65536, 896, 16), (41472, 128, 8),
+    (41472, 256, 8), (41472, 1024, 8), (32768, 128, 8), (32768, 256, 8),
+    (32768, 1024, 8), (20736, 256, 16), (20736, 512, 16), (20736, 768, 16),
+    (16384, 512, 16), (16384, 1024, 16), (16384, 1280, 16),
+    (16384, 1792, 16), (10368, 229, 8), (10368, 512, 8), (10368, 2048, 8),
+    (5184, 512, 16), (5184, 970, 16), (5184, 1024, 16), (5184, 1482, 16),
+    (4096, 1024, 16), (4096, 1994, 16), (4096, 2506, 16)]
+# shapes off the main path: a deep concat input at B = 2, a ragged Ci
+# (18, padded to 32) with Co = 24 at B = 1, 3x3 and 1x1, and 105 output
+# rows (not a multiple of the 128-row tile) with H != W
+K3_EDGE = [((2, 8, 8, 970), (1024, 3, 3)), ((1, 8, 8, 18), (24, 3, 3)),
+           ((1, 8, 8, 18), (24, 1, 1)), ((3, 5, 7, 40), (16, 3, 3))]
+# launches of K3, K4 (by variant) and K4's abs-max in a 2x2 chain of 375
+# UNet calls (scripts/kernel_shapes.py --quant)
+QUANT_LAUNCHES = {
+    "int8": {"quant_conv": {"dequant": 75 * 375, "int32": 0},
+             "quantize": {"dynamic": 117 * 375, "static": 0},
+             "absmax": 117 * 375},
+    "int8_static": {"quant_conv": {"dequant": 75 * 375, "int32": 0},
+                    "quantize": {"dynamic": 0, "static": 117 * 375},
+                    "absmax": 0}}
+# tests/test_quant.py's chain gates (mean |d|, correlation, mean shift,
+# relative std shift), here for int8 against f32 chains and, set before the
+# first chip run of them, for the card's int8 chain against the CPU's: the
+# int8 chain is not continuous (a rounding decision that an f32 sum in
+# another order moves changes an activation by a whole step), and a CPU
+# rehearsal that moved every weight by 1e-6 of itself changed the small
+# int8 chain by 0.0155 mean |d| (1.26 max), as much as int8 against f32
+# (0.019), so a tolerance on the max would not separate right from wrong
+CHAIN_GATES = {"mean": 0.03, "corr": 0.99, "mean_shift": 0.01,
+               "std_rel": 0.02}
+
+
+def k3_inputs(g, x_shape, w_shape, device):
+    """Random int8 x and w with their channels zero-padded to 16, as K4
+    writes them and prequantize_params stores them, and a positive f32
+    scale and an f32 bias."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import quant_kernel as qk
+    b, h, w, ci = x_shape
+    co, kh, kw = w_shape
+    cip = qk.round_up(ci, qk.CONV_ALIGN)
+    xq = torch.randint(-127, 128, (b, h, w, cip), generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (co, kh, kw, cip), generator=g,
+                       dtype=torch.int8)
+    xq[..., ci:] = 0
+    wq[..., ci:] = 0
+    scale = torch.rand(co, generator=g) * 1e-4 + 1e-6
+    bias = torch.randn(co, generator=g)
+    return tuple(t.to(device) for t in (xq, wq, scale, bias))
+
+
+def max_abs_diff(got, want) -> float:
+    """The largest |got - want| (0.0 for empty tensors), in float64, so
+    int32 sums and int8 values subtract exactly; a NaN against a NaN
+    counts as 0."""
+    import torch
+    if got.numel() == 0:
+        return 0.0
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    d = torch.where(torch.isnan(g) & torch.isnan(w), 0.0, (g - w).abs())
+    return float(d.max())
+
+
+def k3_agrees(qk, xq, wq, scale, bias, what: str) -> float:
+    """K3 bit-equal to its plain version: the int32 sums and the bf16 and
+    float32 dequantized outputs; returns the largest |difference| over
+    the dequantized outputs (the int32 sums' must be 0 too)."""
+    import torch
+    errs = []
+    for out_dtype in (torch.int32, torch.bfloat16, torch.float32):
+        args = (xq, wq) + ((None, None) if out_dtype == torch.int32
+                           else (scale, bias))
+        got = qk.quant_conv_cuda(*args, out_dtype)
+        torch.cuda.synchronize()
+        want = qk.quant_conv_plain(*args, out_dtype)
+        require(got.dtype == out_dtype and torch.equal(got, want),
+                f"K3 {what} {out_dtype}: "
+                f"{int((got != want).sum())} outputs differ")
+        errs.append(max_abs_diff(got, want))
+    return max(errs)
+
+
+def time_k3(qk, xq, wq, scale, bias, x_shape, w_shape) -> dict:
+    """Device times of K3 (bf16 out), its plain version and the yardstick:
+    cuDNN's bf16 convolution of the same shape, channels-last (not the
+    same function: the time int8 has to beat), beside K3's bound."""
+    import torch
+    import torch.nn.functional as F
+    b, h, w, ci = x_shape
+    co, kh, kw = w_shape
+    cip = xq.shape[-1]
+    sets = input_sets((xq, wq, scale, bias), xq.numel() + wq.numel())
+    xb = torch.randn(b, ci, h, w, device=xq.device, dtype=torch.bfloat16
+                     ).contiguous(memory_format=torch.channels_last)
+    wb = torch.randn(co, ci, kh, kw, device=xq.device, dtype=torch.bfloat16
+                     ).contiguous(memory_format=torch.channels_last)
+    bb = torch.randn(co, device=xq.device, dtype=torch.bfloat16)
+    lib_sets = input_sets((xb, wb, bb), 2 * (xb.numel() + wb.numel()))
+    ops = 2 * b * h * w * co * kh * kw * ci
+    nbytes = b * h * w * (cip + 2 * co) + co * kh * kw * cip + 8 * co
+    bms, by = bound(nbytes, ops, H100_INT8_OPS_PER_S)
+    return dict(ms=device_ms(qk.quant_conv_cuda, sets),
+                plain_ms=device_ms(qk.quant_conv_plain, sets),
+                library_ms=None,
+                bf16_conv_ms=device_ms(lambda x_, w_, b_: F.conv2d(
+                    x_, w_, b_, padding=(kh // 2, kw // 2)), lib_sets),
+                bound_ms=bms, bound_by=by, tops=ops)
+
+
+def same(a, b) -> bool:
+    """Bit-equal values, a NaN equal to a NaN (the plain version's NaN
+    and the kernel's may differ in payload)."""
+    import torch
+    return a.shape == b.shape and bool(torch.all(
+        (a == b) | (torch.isnan(a) & torch.isnan(b))))
+
+
+def k4_agrees(qk, x, a_scale, multiple, what: str) -> tuple:
+    """K4 bit-equal to its plain version (int8 values, pad, scale, and
+    the abs-max when dynamic); returns the variant launched and the
+    largest |difference| of the int8 values and of the scale."""
+    import torch
+    (q, s, amax), variant = variant_of(qk.k4, qk.quantize_cuda, x, a_scale,
+                                       multiple)
+    torch.cuda.synchronize()
+    qp, sp, ap = qk.quantize_plain(x, a_scale, multiple)
+    require(q.shape == qp.shape and torch.equal(q, qp),
+            f"K4 {what} ({variant}): {int((q != qp).sum())} of "
+            f"{q.numel()} int8 values differ")
+    require(same(s, sp), f"K4 {what} ({variant}): scale "
+            f"{float(s)} vs {float(sp)}")
+    require((amax is None) == (ap is None)
+            and (amax is None or same(amax, ap)),
+            f"K4 {what} ({variant}): abs-max {amax} vs {ap}")
+    return variant, max(max_abs_diff(q, qp), max_abs_diff(s, sp))
+
+
+def time_k4(qk, x, a_scale, multiple) -> dict:
+    """Device times of K4 (the abs-max and the quantize when dynamic) and
+    its plain version, beside its byte bound (x read once, q written
+    once)."""
+    rows, cols = x.shape
+    sets = input_sets((x,), x.numel() * x.element_size())
+    nbytes = rows * cols * x.element_size() + rows * qk.round_up(
+        cols, multiple) + 4
+    bms, by = bound(nbytes, 3 * rows * cols, H100_F32_FLOP_PER_S)
+    return dict(ms=device_ms(lambda a: qk.quantize_cuda(a, a_scale,
+                                                        multiple), sets),
+                plain_ms=device_ms(lambda a: qk.quantize_plain(
+                    a, a_scale, multiple), sets),
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def k4_tie_inputs(device):
+    """bf16 rows holding every half-way value (k + 1/2) * 2^-3 for k in
+    -127..126 and the abs-max 127 * 2^-3, so the dynamic scale is 2^-3
+    exactly and each x / s is a tie that rounds to even; and the same rows
+    with an outlier of 40, which saturates at the static scale 2^-3."""
+    import torch
+    ties = (torch.arange(-127, 127, dtype=torch.float32) + 0.5) * 0.125
+    row = torch.cat([ties, torch.tensor([127 * 0.125]),
+                     torch.zeros(970 - 255)])
+    x = row.repeat(256, 1)[:, torch.randperm(970, generator=torch.Generator(
+        ).manual_seed(5))]
+    outlier = x.clone()
+    outlier[7, 3] = 40.0
+    return x.to(device, torch.bfloat16), outlier.to(device, torch.bfloat16)
+
+
+def check_int8_kernels(device) -> dict:
+    """K3 and K4 against their plain versions at every main-path int8
+    shape and at edge shapes, timed; the C entry points' refusals.
+    Returns {name: [row per main-path shape]}."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import _build
+    from tera_mind_tpu_torch.ops import quant_kernel as qk
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    rows = {"quant_conv": [], "quantize": []}
+    for x_shape, w_shape in K3_SHAPES:
+        xq, wq, scale, bias = k3_inputs(g, x_shape, w_shape, device)
+        err = k3_agrees(qk, xq, wq, scale, bias, f"{x_shape} {w_shape}")
+        t = time_k3(qk, xq, wq, scale, bias, x_shape, w_shape)
+        tops = t.pop("tops") / t["ms"] / 1e9
+        log(f"K3 quant_conv x {x_shape} w {w_shape}: bit-equal (int32, "
+            f"bf16, f32); kernel {t['ms']:.4f} ms ({tops:.0f} TOPS), plain "
+            f"{t['plain_ms']:.4f} ms, cuDNN bf16 {t['bf16_conv_ms']:.4f} ms"
+            f", bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f} % of it)")
+        rows["quant_conv"].append(dict(shape=[list(x_shape), list(w_shape)],
+                                       max_abs_err=err, tops=tops, **t))
+    for x_shape, w_shape in K3_EDGE:
+        k3_agrees(qk, *k3_inputs(g, x_shape, w_shape, device),
+                  f"edge {x_shape} {w_shape}")
+    log(f"K3 edge shapes bit-equal: {K3_EDGE}")
+
+    # the C entry point refuses a misaligned x, a ragged Ci_pad or Co, an
+    # even kernel, a sum that could overflow and a wrong dtype code
+    lib, stream = _build.lib(), torch.cuda.current_stream().cuda_stream
+    xq, wq, scale, bias = k3_inputs(g, (2, 8, 8, 32), (16, 3, 3), device)
+    base = torch.zeros(xq.numel() + 16, dtype=torch.int8, device=device)
+    y = torch.empty(2, 8, 8, 16, dtype=torch.bfloat16, device=device)
+
+    def k3_call(x=xq, ci=32, co=16, kh=3, out=1, variant=0):
+        return lib.tmt_quant_conv(x.data_ptr(), wq.data_ptr(),
+                                  scale.data_ptr(), bias.data_ptr(),
+                                  y.data_ptr(), 2, 8, 8, ci, co, kh, kh, out,
+                                  variant, stream)
+    require(k3_call() == 0, "K3 entry refused a call it takes")
+    refused = {"misaligned x": k3_call(x=base[1:1 + xq.numel()]),
+               "Ci_pad 24": k3_call(ci=24), "Co 12": k3_call(co=12),
+               "2x2 kernel": k3_call(kh=2), "overflow": k3_call(ci=16_000),
+               "out dtype 2 for dequant": k3_call(out=2),
+               "variant 5": k3_call(variant=5)}
+    refused["K4 multiple 4"] = lib.tmt_quantize(
+        bias.data_ptr(), base.data_ptr(), scale.data_ptr(), None, 4, 4, 4,
+        0, 1, stream)
+    torch.cuda.synchronize()
+    require(all(err != 0 for err in refused.values()),
+            f"K3/K4 entry points took calls they cannot: {refused}")
+    log(f"K3 and K4 entry points refuse (error codes): {refused}")
+    raised = None
+    try:
+        qk.quant_conv_cuda(base[1:1 + xq.numel()].view(xq.shape), wq, scale,
+                           bias)
+    except RuntimeError as err:
+        raised = str(err)
+    require(raised is not None, "K3 wrapper ran a misaligned input")
+
+    for r, c, m in K4_SHAPES:
+        x = torch.randn(r, c, generator=g).to(device, torch.bfloat16)
+        a_scale = (x.float().abs().amax() / 100).reshape(())
+        seen, errs = zip(*[k4_agrees(qk, x, a, m, f"({r}, {c}, {m})")
+                           for a in (None, a_scale)])
+        t = {v: time_k4(qk, x, a, m) for v, a in (("dynamic", None),
+                                                   ("static", a_scale))}
+        log(f"K4 quantize ({r}, {c}) bf16 -> multiple {m}: bit-equal "
+            f"({', '.join(seen)}); dynamic {t['dynamic']['ms']:.4f} ms "
+            f"(plain {t['dynamic']['plain_ms']:.4f}), static "
+            f"{t['static']['ms']:.4f} ms (plain "
+            f"{t['static']['plain_ms']:.4f}), bound "
+            f"{t['dynamic']['bound_ms']:.4f} ms ({t['dynamic']['bound_by']}"
+            f", {100 * t['dynamic']['bound_ms'] / t['dynamic']['ms']:.1f} "
+            f"% of it dynamic)")
+        rows["quantize"].append(dict(shape=[r, c, m], max_abs_err=max(errs),
+                                     **t["dynamic"],
+                                     static_ms=t["static"]["ms"],
+                                     static_plain_ms=t["static"]["plain_ms"]
+                                     ))
+    ties, outlier = k4_tie_inputs(device)
+    for x, what in ((ties, "ties"), (outlier, "ties + outlier")):
+        for a in (None, torch.tensor(0.125, device=device)):
+            for m in (8, 16):
+                k4_agrees(qk, x, a, m, what)
+    q, s, _ = qk.quantize_cuda(ties, None, 16)
+    require(float(s) == 0.125 and int(q[..., :970].abs().max()) == 127,
+            f"K4 ties: scale {float(s)}")
+    q, _, _ = qk.quantize_cuda(outlier, torch.tensor(0.125, device=device))
+    require(int(q[7, 3]) == 127, "K4 static outlier did not saturate")
+    f32 = torch.randn(999, 229, generator=g).to(device)
+    for a in (None, torch.tensor(0.01, device=device)):
+        k4_agrees(qk, f32, a, 8, "(999, 229) f32")
+    nan = torch.randn(64, 229, generator=g).to(device, torch.bfloat16)
+    nan[5, 17] = float("nan")
+    for a in (None, torch.tensor(0.01, device=device)):
+        k4_agrees(qk, nan, a, 8, "(64, 229) bf16 with a NaN")
+    q, s, amax = qk.quantize_cuda(nan, None, 8)
+    require(bool(torch.isnan(s)) and bool(torch.isnan(amax))
+            and not q.any(), f"K4 NaN: scale {float(s)}, abs-max "
+            f"{float(amax)}, {int(q.count_nonzero())} nonzero int8 values")
+    q, _, _ = qk.quantize_cuda(nan, torch.tensor(0.01, device=device), 8)
+    require(int(q[5, 17]) == 0 and q.any(), "K4 static NaN: not 0")
+    log("K4 bit-equal on ties (round half to even), a saturating outlier "
+        "(static), 8 and 16 multiples, f32 (999, 229), and a NaN (dynamic: "
+        "NaN scale and abs-max, q = 0; static: q = 0 where x is NaN)")
+    return rows
+
+
+def chain_gate_stats(a, b) -> dict:
+    """tests/test_quant.py's chain statistics of b against a."""
+    import numpy as np
+    return {"mean": float(np.abs(a - b).mean()),
+            "max": float(np.abs(a - b).max()),
+            "corr": float(np.corrcoef(a.ravel(), b.ravel())[0, 1]),
+            "mean_shift": float(abs(a.mean() - b.mean())),
+            "std_rel": float(abs(a.std() - b.std()) / a.std())}
+
+
+def require_chain_gates(a, b, what: str) -> dict:
+    st = chain_gate_stats(a, b)
+    require(st["mean"] < CHAIN_GATES["mean"]
+            and st["corr"] > CHAIN_GATES["corr"]
+            and st["mean_shift"] < CHAIN_GATES["mean_shift"]
+            and st["std_rel"] < CHAIN_GATES["std_rel"],
+            f"{what}: {st} outside the chain gates {CHAIN_GATES}")
+    log(f"{what}: mean |d| {st['mean']:.4g} (max {st['max']:.4g}), corr "
+        f"{st['corr']:.5f}, mean shift {st['mean_shift']:.4g}, std shift "
+        f"{st['std_rel']:.4g} (gates {CHAIN_GATES})")
+    return st
+
+
+def check_small_int8(device) -> dict:
+    """The small chain in int8 (prequantized, DiT denses too) on the card
+    against the same chain on the CPU (plain versions) and against the
+    card's f32 chain; prequant bit-equal to dynamic on one UNet call on
+    the card; int8_static calibrated on the card within the gates."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.convert import export_params, load_jax_params
+    from tera_mind_tpu_torch.models.nn import channels_last_, init_weights
+    from tera_mind_tpu_torch.models.unet_packed import (make_packed_model,
+                                                        pack_unet_params)
+    from tera_mind_tpu_torch.ops import quant_kernel as qk
+    from tera_mind_tpu_torch.ops.quant import (calibrate_generator,
+                                               prequantize_params)
+
+    mconf, gconf, gene = small_setup()
+    tree = pack_unet_params(export_params(init_weights(
+        mconf.make_model(), seed=3)), mconf)
+    qtree = prequantize_params(tree, attn=True)
+
+    def packed(t, **kw):
+        return load_jax_params(make_packed_model(mconf, **kw), t).eval()
+
+    exact = packed(tree)
+    dyn = packed(tree, quant="int8", quant_attn=True)
+    pre = packed(qtree, quant="int8", prequant=True, quant_attn=True)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((9, 32, 32, 2), np.float32))
+    rna = torch.from_numpy(rng.integers(0, 3, (9, 2, 2, 24)).astype(
+        np.float32))
+    args = [a.to(device) for a in (x, torch.tensor([700]), rna)]
+    before = qk.k3.launches
+    with torch.inference_mode():
+        a, _ = copy.deepcopy(dyn).to(device)(*args, 3, 3)
+        b, _ = copy.deepcopy(pre).to(device)(*args, 3, 3)
+    torch.cuda.synchronize()
+    require(qk.k3.launches > before, "the small int8 model launched no K3")
+    require(torch.equal(a, b), "prequant differs from dynamic on the card: "
+            f"max |d| {float((a - b).abs().max())}")
+    log("small int8 UNet call on the card: prequant bit-equal to dynamic")
+
+    out = {"f32": small_chain(exact, device, gconf, gene),
+           "int8": small_chain(pre, device, gconf, gene),
+           "int8_cpu": small_chain(pre, torch.device("cpu"), gconf, gene)}
+    card = channels_last_(copy.deepcopy(pre).to(device))
+    gen = small_gen(card, device, gconf)
+    stree = calibrate_generator(gen, card, qtree, gene, steps=3, row0=1,
+                                col0=1, grid_w=16)
+    static = packed(stree, quant="int8", prequant=True, static_act=True,
+                    quant_attn=True)
+    out["int8_static"] = small_chain(static, device, gconf, gene)
+    return {"int8 card vs CPU": require_chain_gates(
+                out["int8_cpu"], out["int8"], "small int8 chain, card vs CPU"),
+            "int8 vs f32": require_chain_gates(
+                out["f32"], out["int8"], "small int8 chain vs f32, card"),
+            "int8_static vs f32": require_chain_gates(
+                out["f32"], out["int8_static"],
+                "small int8_static chain vs f32, card")}
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the port on a small input, card against CPU, and resume
 # ---------------------------------------------------------------------------
 
 SMALL_ATOL = 2e-3  # f32 on both sides (cuDNN TF32 off); conv algorithms
@@ -796,8 +1219,8 @@ def small_setup():
 
 
 def small_gen(model, device, gconf):
-    """A generator of ``model`` on ``device`` (a copy on the card) with the
-    small chain's 3-step schedule."""
+    """A generator of ``model`` on ``device`` (a copy on the card unless
+    it is there already) with the small chain's 3-step schedule."""
     import copy
 
     from tera_mind_tpu_torch.diffusion.sampler import (DiffusionSampler,
@@ -806,7 +1229,7 @@ def small_gen(model, device, gconf):
     from tera_mind_tpu_torch.models.nn import channels_last_
     from tera_mind_tpu_torch.parallel.generator import TeraGenerator
 
-    if device.type == "cuda":
+    if device.type == "cuda" and next(model.parameters()).device != device:
         model = channels_last_(copy.deepcopy(model).to(device))
     sampler = DiffusionSampler(spaced_schedule("linear", 1000, "ddim3"),
                                SamplerConfig(patch_size=32, gn_sz=2))
@@ -906,7 +1329,7 @@ def check_resume(device, packed, want) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: streaming and the tile-major step, small, on the card
+# phase 8: streaming and the tile-major step, small, on the card
 # ---------------------------------------------------------------------------
 
 STREAM_BF16_MAX = 0.05    # bf16 transfers against f32, the JAX package's
@@ -1047,7 +1470,7 @@ def toy_bf16_gap(device):
 
 
 # ---------------------------------------------------------------------------
-# phases 8 to 10: the main path
+# phases 9 to 11: the main path
 # ---------------------------------------------------------------------------
 
 def start_card_sampler() -> subprocess.Popen:
@@ -1089,6 +1512,8 @@ STEPS = 15        # DDIM steps (eta 0)
 # windows at window_chunk 5: 4 windows x 5 calls x 15 steps = 300.
 CHAIN_LAUNCHES = {
     "packed": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
+    "int8": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
+    "int8_static": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
     "5d": {"rmsnorm": 83 * 375, "window_attention": 6 * 375},
     "tile_major": {"rmsnorm": 26 * 300, "window_attention": 6 * 300},
     "stream": {"rmsnorm": 26 * 300, "window_attention": 6 * 300}}
@@ -1127,9 +1552,19 @@ def read_launches() -> tuple:
 
 def reset_launches() -> None:
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import quant_kernel as qk
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     k1.reset_launches()
     k2.reset_launches()
+    qk.reset_launches()
+
+
+def read_quant_launches() -> dict:
+    """K3's launches, K4's by variant and K4's abs-max launches."""
+    from tera_mind_tpu_torch.ops import quant_kernel as qk
+    return {"quant_conv": dict(qk.k3.launches_by_variant),
+            "quantize": dict(qk.k4.launches_by_variant),
+            "absmax": qk.k4_absmax.launches}
 
 
 def require_output(out, shape) -> None:
@@ -1144,17 +1579,19 @@ def require_output(out, shape) -> None:
 
 def run_main_path(device, path: str = "packed") -> dict:
     """``cli.generate.build`` with its defaults (path "packed"),
-    ``--no_packed`` ("5d") or ``--tile_major`` ("tile_major"), one
-    warm-up step (which plans the block-major step's memory), then the
-    timed chain with the launch counters set to 0 just before it and read
-    just after it."""
+    ``--no_packed`` ("5d"), ``--tile_major`` ("tile_major"), ``--quant
+    int8`` or ``--quant int8_static`` (its build calibrates), one warm-up
+    step (which plans the block-major step's memory), then the timed chain
+    with the launch counters set to 0 just before it and read just after
+    it."""
     import torch
 
     from tera_mind_tpu_torch.cli import generate
 
     tile_major = path == "tile_major"
     flags = {"packed": [], "5d": ["--no_packed"],
-             "tile_major": ["--tile_major"]}[path]
+             "tile_major": ["--tile_major"], "int8": ["--quant", "int8"],
+             "int8_static": ["--quant", "int8_static"]}[path]
     args = generate.parse_args(["--synthetic", "--hnm", str(GRID),
                                 "--wnm", str(GRID), "--tot_epoch",
                                 str(STEPS), "--device", str(device)] + flags)
@@ -1186,9 +1623,11 @@ def run_main_path(device, path: str = "packed") -> dict:
     calls = gen.conf.n_win // gen._wchunk() * STEPS * (
         GRID * GRID if tile_major else 1)
     want, want_variants = expected_launches(counts, calls)
+    n_buf = sum(b.numel() for b in model.buffers())
     log(f"main path [{path}]: 638850 {type(model).__name__} "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params "
-        f"bf16, {counts[0]} K1 RMSNorm ({counts[1]} with C % 8 == 0) + "
+        f"bf16 + {n_buf / 1e6:.1f}M int8 weights and f32 scales, "
+        f"{counts[0]} K1 RMSNorm ({counts[1]} with C % 8 == 0) + "
         f"{counts[2]} CrossAttention per UNet call, {calls} UNet calls per "
         f"chain; built in {build_s:.1f} s")
 
@@ -1205,6 +1644,7 @@ def run_main_path(device, path: str = "packed") -> dict:
     finally:
         card = stop_card_sampler(smi_proc)
     got, got_variants = read_launches()
+    quant = read_quant_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"chain [{path}]: {GRID}x{GRID} tiles x {STEPS} steps in "
         f"{secs:.2f} s = {GRID * GRID / secs:.5f} tiles/s; peak device "
@@ -1219,9 +1659,16 @@ def run_main_path(device, path: str = "packed") -> dict:
             f"model's {CHAIN_LAUNCHES[path]}")
     require(got_variants == want_variants,
             f"launches by variant {got_variants}, expected {want_variants}")
+    want_quant = QUANT_LAUNCHES.get(path, {
+        "quant_conv": {"dequant": 0, "int32": 0},
+        "quantize": {"dynamic": 0, "static": 0}, "absmax": 0})
+    log(f"int8 launches [{path}]: {quant} (expected {want_quant})")
+    require(quant == want_quant,
+            f"K3/K4 launches {quant}, expected {want_quant}")
     return dict(launches=got, variants=got_variants, seconds=secs,
                 tiles_per_s=GRID * GRID / secs, peak_gib=peak, out=out,
-                gen=gen, counts=counts)
+                gen=gen, counts=counts, quant_launches=quant,
+                build_s=build_s)
 
 
 def check_planner(gen) -> list:
@@ -1351,7 +1798,7 @@ def run_stream_path(device, counts: tuple) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 11 and 12: training
+# phases 12 and 13: training
 # ---------------------------------------------------------------------------
 
 TRAIN_LOSS_ATOL = 1e-4   # the small f32 train step, card vs CPU: the loss,
@@ -1577,6 +2024,8 @@ def main() -> int:
     rows.update(check_backward_kernels(device))
     check_variant_refusal(device)
     check_autograd_guard(device)
+    rows.update(check_int8_kernels(device))
+    small_int8 = check_small_int8(device)
     small = check_small_chain(device)
     for name, err in small["errs"].items():
         log(f"small chain {name}: max_abs_err {err:.3g} (tol {SMALL_ATOL})")
@@ -1587,7 +2036,7 @@ def main() -> int:
     for name, err in small_stream.items():
         log(f"small {name}: max_abs_err {err:.3g}")
     chains, plans = {}, None
-    for path in ("packed", "5d", "tile_major"):
+    for path in ("packed", "int8", "int8_static", "5d", "tile_major"):
         chains[path] = run_main_path(device, path)
         gen = chains[path].pop("gen")
         if path == "tile_major":
@@ -1595,6 +2044,18 @@ def main() -> int:
         del gen
         torch.cuda.empty_cache()
     outs = {p: c.pop("out") for p, c in chains.items()}
+    int8_vs_bf16 = {}
+    for path in ("int8", "int8_static"):
+        int8_vs_bf16[path] = st = chain_gate_stats(outs["packed"],
+                                                   outs[path])
+        log(f"full-width {path} chain: {chains[path]['tiles_per_s']:.5f} "
+            f"tiles/s against the bf16 packed chain's "
+            f"{chains['packed']['tiles_per_s']:.5f} in this run (build "
+            f"{chains[path]['build_s']:.1f} s, calibration included); "
+            f"output against bf16: mean |d| {st['mean']:.4g}, max "
+            f"{st['max']:.4g}, corr {st['corr']:.5f}, mean shift "
+            f"{st['mean_shift']:.4g}, std shift {st['std_rel']:.4g} "
+            "(informative)")
     for other in ("5d", "tile_major"):
         diff = np.abs(outs["packed"] - outs[other])
         log(f"full-width bf16 outputs, packed vs {other} on the same "
@@ -1658,17 +2119,48 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         "shapes": rows[name]})
+    quant_sources = {
+        "quant_conv": ("tera_mind_tpu_torch/csrc/quant_conv.cu",
+                       "tera_mind_tpu/ops/quant.py:58 (quant_conv2d; "
+                       "not a Pallas kernel)"),
+        "quantize": ("tera_mind_tpu_torch/csrc/quantize.cu",
+                     "tera_mind_tpu/ops/quant.py:41 (quantize_tensor and "
+                     "the a_scale branch :84-87; not a Pallas kernel)")}
+    for name, (src, replaces) in quant_sources.items():
+        r = max(rows[name], key=lambda x: x["bound_ms"])  # the largest
+        by_path = {path: chains[path]["quant_launches"]
+                   for path in ("int8", "int8_static")}
+        main_q = by_path["int8"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(main_q[name].values()),
+            "launches_by_variant": (
+                main_q[name] if name == "quant_conv" else
+                {**main_q["quantize"], "absmax": main_q["absmax"]}),
+            "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"], "shapes": rows[name],
+            **({"bf16_conv_ms": r["bf16_conv_ms"],
+                "bf16_conv": "cuDNN bf16 conv2d of the same shape: not the "
+                             "same function, the path int8 has to beat"}
+               if name == "quant_conv" else {})})
     print(json.dumps({"kernels": kernels, "train": train,
                       "small_train": small_train, "chain_seconds":
                       main_path["seconds"], "tiles_per_s":
                       main_path["tiles_per_s"],
                       "chains": {p: {k: c[k] for k in (
-                          "seconds", "tiles_per_s", "peak_gib",
+                          "seconds", "tiles_per_s", "peak_gib", "build_s",
+                          "quant_launches",
                           "host_rss_gib", "host_rss_before_gib",
                           "window_chunk", "timing")
                           if k in c}
                           for p, c in chains.items()},
-                      "planner": plans, "small_stream": small_stream}),
+                      "planner": plans, "small_stream": small_stream,
+                      "small_int8": small_int8,
+                      "int8_vs_bf16": int8_vs_bf16}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

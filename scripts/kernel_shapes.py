@@ -23,6 +23,16 @@ in scripts/profile_torch_step.py.
     tile-major 2x2 (chunk 5):      --patches 25 --chunk 5 --visits 4
     streamed 4x4 in 2x2 windows:   --patches 81 --chunk 5 --visits 4
 
+    python scripts/kernel_shapes.py --quant int8|int8_static [--no_quant_attn]
+        [--patches N --chunk W --visits V]
+
+``--quant`` runs the prequantized int8 packed model (``cli.generate
+--quant``; with ``int8_static`` its static-activation form) instead and
+lists, per UNet call and per chain, K3's (x (B, H, W, Ci), w (Co, kh,
+kw)) shapes, K4's (rows, C, multiple) by variant (``dynamic``: an
+abs-max launch too; ``static``: none) and ``torch._int_mm``'s (M, K_pad,
+N), with the int8 operations and the bytes K3 and K4 move a step.
+
     python scripts/kernel_shapes.py --train [--packed]
 
 ``--train`` runs one training forward of the preset instead: the 5D
@@ -55,6 +65,7 @@ from tera_mind_tpu_torch.models import attention as attention_mod  # noqa: E402
 from tera_mind_tpu_torch.models import nn as nn_mod  # noqa: E402
 from tera_mind_tpu_torch.models.unet_packed import (  # noqa: E402
     make_packed_model)
+from tera_mind_tpu_torch.ops import quant_kernel as qk  # noqa: E402
 from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
     VARIANTS as K2_VARIANTS, attention_bwd_variant, attention_variant)
 from tera_mind_tpu_torch.ops.rmsnorm_kernel import (  # noqa: E402
@@ -63,6 +74,7 @@ from tera_mind_tpu_torch.ops.rmsnorm_kernel import (  # noqa: E402
 PATCHES = 81       # 9x9 patches of one z-window's padded 2x2-tile block
 WINDOWS = 25       # z-windows of the 638850 preset, one UNet call each
 H100_BYTES_PER_S = 3.35e12
+H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak
 BF16 = 2           # bytes an element
 
 
@@ -104,6 +116,98 @@ def per_call_shapes(packed: bool = True, patches: int = PATCHES,
         model(x, torch.zeros(chunk, dtype=torch.long), rna, side, side,
               decode_original=False)
     return k1, k2
+
+
+@contextmanager
+def quant_recording(k3: Counter, k4: Counter, mm: Counter):
+    """Stand-ins for K3, K4 and ``torch._int_mm`` that record their
+    shapes: K3 ((B, H, W, Ci), (Co, kh, kw)), K4 (rows, C, multiple,
+    variant), the product (M, K_pad, N)."""
+    true_ci = {}   # id of a quantized activation -> its unpadded C
+
+    def quantize(x, a_scale=None, multiple=qk.CONV_ALIGN):
+        cols = x.shape[-1]
+        k4[(x.numel() // cols, cols, multiple,
+            qk.quantize_variant(a_scale))] += 1
+        q = torch.empty(*x.shape[:-1], qk.round_up(cols, multiple),
+                        dtype=torch.int8)
+        true_ci[id(q)] = cols
+        s = torch.empty((), dtype=torch.float32)
+        return q, s, (s if a_scale is None else None)
+
+    def quant_conv(xq, wq, scale=None, bias=None, out_dtype=torch.bfloat16):
+        co, kh, kw, _ = wq.shape
+        k3[(tuple(xq.shape[:3]) + (true_ci[id(xq)],), (co, kh, kw))] += 1
+        return torch.empty(*xq.shape[:3], co, dtype=out_dtype)
+
+    def int8_mm(a, b):
+        mm[(a.shape[0], a.shape[1], b.shape[0])] += 1
+        return torch.empty(a.shape[0], b.shape[0], dtype=torch.int32)
+
+    saved = qk.quantize, qk.quant_conv, qk.int8_mm
+    qk.quantize, qk.quant_conv, qk.int8_mm = quantize, quant_conv, int8_mm
+    try:
+        yield
+    finally:
+        qk.quantize, qk.quant_conv, qk.int8_mm = saved
+
+
+def quant_shapes(quant: str = "int8", attn: bool = True,
+                 patches: int = PATCHES, chunk: int = 1
+                 ) -> tuple[Counter, Counter, Counter]:
+    """(K3, K4, ``_int_mm``) shapes -> launches of one UNet call of the
+    prequantized int8 packed model (``cli.generate --quant``), as
+    :func:`quant_recording` keys them."""
+    side = math.isqrt(patches)
+    if side * side != patches:
+        raise ValueError(f"{patches} patches a z-window is not a square grid")
+    conf = prep_config("638850").make_model_conf()
+    k3, k4, mm = Counter(), Counter(), Counter()
+    with quant_recording(k3, k4, mm), recording(Counter(), Counter()), \
+            torch.device("meta"):
+        model = make_packed_model(conf, quant="int8", prequant=True,
+                                  static_act=quant == "int8_static",
+                                  quant_attn=attn).to(torch.bfloat16)
+        p = conf.image_size
+        x = torch.empty(chunk * patches, p, p, conf.in_channels)
+        rna = torch.empty(chunk * patches, conf.gn_sz, conf.gn_sz,
+                          len(conf.rna_tpl) * conf.rna_num)
+        model(x, torch.zeros(chunk, dtype=torch.long), rna, side, side,
+              decode_original=False)
+    return k3, k4, mm
+
+
+def main_quant(quant: str, attn: bool, patches: int, chunk: int,
+               visits: int) -> None:
+    per_step = WINDOWS // chunk * visits
+    calls = STEPS * per_step
+    k3, k4, mm = quant_shapes(quant, attn, patches, chunk)
+    print(f"PackedTeraUNet --quant {quant}"
+          + ("" if attn else " --no_quant_attn"))
+    ops = sum(2 * b * h * w * co * kh * kw * ci * n
+              for ((b, h, w, ci), (co, kh, kw)), n in k3.items())
+    nbytes = sum((b * h * w * (qk.round_up(ci, qk.CONV_ALIGN) + BF16 * co)
+                  + co * kh * kw * qk.round_up(ci, qk.CONV_ALIGN) + 8 * co)
+                 * n for ((b, h, w, ci), (co, kh, kw)), n in k3.items())
+    for name, counts in (("K3 quant_conv (x (B, H, W, Ci), w (Co, kh, kw))",
+                          k3),
+                         ("K4 quantize (rows, C, multiple, variant)", k4),
+                         ("torch._int_mm (M, K_pad, N)", mm)):
+        print(f"{name}: {sum(counts.values())} per UNet call, "
+              f"{sum(counts.values()) * calls} per chain of {calls} calls")
+        for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
+            print(f"  {shape}: {n} per call, {n * calls} per chain")
+    # the function's bytes: x read once, q written once (the dynamic
+    # kernel reads x a second time for the abs-max)
+    k4_bytes = sum(rows * (BF16 * c + qk.round_up(c, m)) * n
+                   for (rows, c, m, _), n in k4.items())
+    print(f"K3: {ops / 1e12:.3f} T int8 operations a call, "
+          f"{ops * per_step / 1e12:.1f} T a step: "
+          f"{ops * per_step / H100_INT8_OPS * 1e3:.1f} ms a step at the "
+          f"H100's {H100_INT8_OPS / 1e12:.0f} TOPS; "
+          f"{nbytes * per_step / 1e9:.3f} GB a step")
+    print(f"K4: {k4_bytes * per_step / 1e9:.3f} GB a step, byte bound "
+          f"{k4_bytes * per_step / H100_BYTES_PER_S * 1e3:.2f} ms a step")
 
 
 TRAIN_BATCH = 32    # cli.train's default --batch: samples a microbatch
@@ -176,9 +280,19 @@ def main() -> None:
                     help="one training step of cli.train's defaults")
     ap.add_argument("--packed", action="store_true",
                     help="with --train: the packed model")
+    ap.add_argument("--quant", default="", choices=("", "int8",
+                                                   "int8_static"),
+                    help="the prequantized int8 packed model's K3, K4 "
+                    "and _int_mm shapes")
+    ap.add_argument("--no_quant_attn", action="store_true",
+                    help="with --quant: the DiT denses stay bf16")
     args = ap.parse_args()
     if args.train:
         main_train(args.packed)
+        return
+    if args.quant:
+        main_quant(args.quant, not args.no_quant_attn, args.patches,
+                   args.chunk, args.visits)
         return
     per_step = WINDOWS // args.chunk * args.visits
     calls = STEPS * per_step

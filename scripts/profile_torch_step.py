@@ -4,6 +4,7 @@ one CUDA card.
     python scripts/profile_torch_step.py [--no_packed]
         [--path block_major|tile_major|stream] [--json PATH]
     python scripts/profile_torch_step.py --path train [--packed] [--json PATH]
+    python scripts/profile_torch_step.py --quant int8|int8_static [--json PATH]
 
 Builds the ``cli.generate`` path (638850 preset, bf16; the packed model,
 or the 5D one with ``--no_packed``): ``block_major`` (the default, 2x2
@@ -27,7 +28,11 @@ compute, f32 params, dropout 0.1; the 5D model, ``--packed`` the packed
 one) after a warm-up step.  ``--steps N`` first times N untraced steps
 after the warm-up, each ending in ``torch.cuda.synchronize``, and prints
 them and their median.  Every line names the card and its power limit.
-``--json PATH`` also writes the per-kernel table there.
+``--json PATH`` also writes the per-kernel table there.  ``--quant
+int8|int8_static`` builds the generation path with ``cli.generate
+--quant`` (int8_static calibrates first); K3 (``quant_conv``), K4
+(``quantize`` and its abs-max) and ``torch._int_mm``'s cuBLASLt int8
+products are then categories of their own.
 """
 
 from __future__ import annotations
@@ -54,6 +59,11 @@ from tera_mind_tpu_torch.training import harness  # noqa: E402
 TILES = {"block_major": 2, "tile_major": 2, "stream": 4}  # grid side
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
+    ("K3 quant_conv", ("quant_conv_kernel",)),
+    ("K4 quantize", ("quantize_kernel",)),
+    ("K4 absmax", ("absmax_kernel",)),
+    ("int8 matmul (_int_mm)", ("imma", "s8s8", "i8i8", "int8", "_s8",
+                               "igemm", "s32_")),
     ("K1b rmsnorm_bwd vector", ("rmsnorm_bwd_vec",)),
     ("K1b rmsnorm_bwd dw sum", ("rmsnorm_bwd_dw",)),
     ("K1b rmsnorm_bwd strided", ("rmsnorm_bwd_",)),
@@ -124,13 +134,14 @@ def make_train_step(packed: bool, logdir: str):
     return step, trainer.device
 
 
-def make_step(path: str, no_packed: bool):
+def make_step(path: str, no_packed: bool, quant: str = ""):
     """(one step of ``path`` as a callable, the CUDA device)."""
     n = TILES[path]
     flags = {"block_major": [], "tile_major": ["--tile_major"],
              "stream": ["--stream"]}[path]
     args = generate.parse_args(["--synthetic", "--hnm", str(n), "--wnm",
-                                str(n)] + flags + ["--no_packed"] * no_packed)
+                                str(n)] + flags + ["--no_packed"] * no_packed
+                               + (["--quant", quant] if quant else []))
     gen, _, gene, (row0, col0) = generate.build(args)
     dev = gen.device
     state0 = gen.init_state(n, n, row0=row0, col0=col0)
@@ -157,6 +168,9 @@ def main() -> None:
                     choices=("block_major", "tile_major", "stream", "train"))
     ap.add_argument("--packed", action="store_true",
                     help="with --path train: the packed model")
+    ap.add_argument("--quant", default="", choices=("", "int8",
+                                                   "int8_static"),
+                    help="generation with cli.generate --quant")
     ap.add_argument("--steps", type=int, default=0,
                     help="untraced steps to time before the traced one")
     ap.add_argument("--json", type=Path, default=None)
@@ -171,7 +185,7 @@ def main() -> None:
     trace_ranges()
     tmp = tempfile.TemporaryDirectory()
     step, dev = (make_train_step(a.packed, tmp.name) if a.path == "train"
-                 else make_step(a.path, a.no_packed))
+                 else make_step(a.path, a.no_packed, a.quant))
     step()                                         # warm-up
     torch.cuda.synchronize(dev)
     untraced = []
@@ -243,7 +257,7 @@ def main() -> None:
         return
     a.json.parent.mkdir(parents=True, exist_ok=True)
     a.json.write_text(json.dumps({
-        "card": card, "path": a.path,
+        "card": card, "path": a.path, "quant": a.quant,
         "packed": a.packed if a.path == "train" else not a.no_packed,
         "wall_s": wall, "kernel_us": total_us, "busy_us": union_us,
         "untraced_s": untraced,

@@ -10,6 +10,8 @@
     python -m tera_mind_tpu_torch.cli.generate --synthetic --stream \
         --hnm 4 --wnm 4
 
+    python -m tera_mind_tpu_torch.cli.generate --synthetic --quant int8
+
 Port of ``tera_mind_tpu/cli/generate.py`` for one device: the z-packed
 ``PackedTeraUNet`` by default (``--no_packed``: the 5D ``TeraUNet``,
 ``--packed_attn``: DiT blocks on the packed tokens), in bf16, DDIM steps
@@ -31,9 +33,15 @@ written to ``--out_dir`` as float16 ``.npy`` files named
 a reference ``.ckpt`` or the port trainer's checkpoint directory
 (``{logdir}/ckpt``, its newest step, EMA params when it has them); the
 ``config.json`` beside either is preferred over the run directory's
-name.  Not ported yet: the JAX trainer's orbax directories, multi-process
-runs (``--coordinator``, ``--num_processes``, ``--process_id``) and int8
-(``--quant*``).
+name.  ``--quant int8`` runs the packed model's ResBlock convs (and,
+unless ``--no_quant_attn``, its DiT denses) in int8 with weights
+quantized once (``ops/quant.py``: K4 and K3 on the card); ``--quant
+int8_static`` first calibrates static activation scales on one dynamic
+chain over the grid's first (up to) 2x2 block, then swaps in the static
+model.  JAX ignores ``--quant`` with ``--no_packed``; the port refuses
+that combination.  Not ported yet: the JAX trainer's orbax directories
+and multi-process runs (``--coordinator``, ``--num_processes``,
+``--process_id``).
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from ..data.tilestore import StateCheckpoint, TileStore, tile_name
 from ..models.nn import channels_last_, init_weights
 from ..models.unet import TeraUNetConfig
 from ..models.unet_packed import make_packed_model, pack_unet_params
+from ..ops.quant import calibrate_generator, prequantize_params
 from ..parallel.generator import GeneratorConfig, TeraGenerator, grid_to_image
 from ..parallel.streaming import StreamConfig, StreamingGenerator
 from ..training.harness import read_checkpoint
@@ -204,6 +213,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     "layout); default is block-major: one patch grid over "
                     "the block, ~36%% fewer patches at scale, the same "
                     "result")
+    ap.add_argument("--quant", default="",
+                    choices=("", "int8", "int8_static"),
+                    help="int8: the ResBlock convs in int8 (ops/quant.py: "
+                    "the K4 quantize and K3 int8 conv kernels on the card; "
+                    "quality bound in tests/test_torch_quant.py; requires "
+                    "the packed model). int8_static additionally "
+                    "calibrates static activation scales on the grid's "
+                    "first block, quality gated by the same tests")
+    ap.add_argument("--no_quant_attn", action="store_true",
+                    help="with --quant: keep the DiT blocks' dense "
+                    "projections (adaLN/qkv/proj/MLP) in bf16 instead of "
+                    "int8 (ops/quant.py QuantDense)")
     ap.add_argument("--no_packed", action="store_true",
                     help="run the 5D TeraUNet instead of its z-packed "
                     "re-parameterization (models/unet_packed.py)")
@@ -220,12 +241,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def make_model(mconf: TeraUNetConfig, params5: Optional[dict] = None, *,
-               seed: int = 0, packed: bool = True,
-               packed_attn: bool = False) -> torch.nn.Module:
+               seed: int = 0, packed: bool = True, packed_attn: bool = False,
+               quant: str = "", quant_attn: bool = True) -> torch.nn.Module:
     """The model in the compute dtype on the CPU, from a 5D flax-named
     tree ``params5`` or, without one, from ``init_weights(seed)`` of the
     5D model.  ``packed``: the tree is packed (``pack_unet_params``) into
-    a ``PackedTeraUNet``, as the JAX CLI does."""
+    a ``PackedTeraUNet``, as the JAX CLI does; with ``quant`` (``int8``,
+    ``int8_static``) it is also pre-quantized (``prequantize_params``,
+    the DiT denses too with ``quant_attn``) into the DYNAMIC prequantized
+    int8 model: ``int8_static`` calibrates from there
+    (:func:`calibrate_static`)."""
     if params5 is None:
         model5 = init_weights(mconf.make_model(), seed)
         if not packed:
@@ -233,8 +258,52 @@ def make_model(mconf: TeraUNetConfig, params5: Optional[dict] = None, *,
         params5 = export_params(model5)
     if not packed:
         return load_jax_params(mconf.make_model(), params5)
-    return load_jax_params(make_packed_model(mconf, packed_attn=packed_attn),
-                           pack_unet_params(params5, mconf))
+    tree = pack_unet_params(params5, mconf)
+    if not quant:
+        return load_jax_params(
+            make_packed_model(mconf, packed_attn=packed_attn), tree)
+    return load_jax_params(quant_model(mconf, packed_attn, quant_attn),
+                           prequantize_params(tree, attn=quant_attn))
+
+
+def quant_model(mconf: TeraUNetConfig, packed_attn: bool, quant_attn: bool,
+                static_act: bool = False) -> torch.nn.Module:
+    """The prequantized int8 ``PackedTeraUNet`` (dynamic activations, or
+    ``static_act``), in the compute dtype with float32 scales."""
+    return make_packed_model(mconf, packed_attn=packed_attn, quant="int8",
+                             prequant=True, quant_attn=quant_attn,
+                             static_act=static_act)
+
+
+def calibrate_static(args: argparse.Namespace, gen: TeraGenerator,
+                     model: torch.nn.Module, gene, origin: tuple,
+                     model_fn: Callable) -> tuple:
+    """``--quant int8_static``: one dynamic int8 chain of ``model`` over
+    the grid's first min(2, rows) x min(2, cols) block with the
+    activation abs-maxes recorded (``calibrate_generator``), then the
+    static model with the baked scales, on ``model``'s device.  Returns
+    (generator, static model); ``model_fn(m)`` makes a generator's model
+    function of a model."""
+    crows, ccols = min(2, args.hnm), min(2, args.wnm)
+    if callable(gene):
+        cgene = np.stack([np.stack([gene(r, c) for c in range(ccols)])
+                          for r in range(crows)])
+    else:
+        cgene = gene[:crows, :ccols]
+    t0 = time.perf_counter()
+    cgen = TeraGenerator(gen.sampler, model_fn(model), gen.conf,
+                         device=gen.device)
+    tree = calibrate_generator(cgen, model, export_params(model), cgene,
+                               steps=args.tot_epoch, row0=origin[0],
+                               col0=origin[1])
+    static = quant_model(model.conf, args.packed_attn,
+                         not args.no_quant_attn, static_act=True)
+    static = channels_last_(load_jax_params(static, tree).to(
+        gen.device)).eval()
+    print(f"calibrated int8 static activation scales on a {crows}x{ccols} "
+          f"block in {time.perf_counter() - t0:.2f} s", flush=True)
+    return (TeraGenerator(gen.sampler, model_fn(static), gen.conf,
+                          device=gen.device), static)
 
 
 def run_config(args: argparse.Namespace):
@@ -258,6 +327,9 @@ def run_config(args: argparse.Namespace):
 def build(args: argparse.Namespace):
     """(generator, model, gene grid or provider, grid origin) for
     ``args``, the model on the device."""
+    if args.quant and args.no_packed:
+        raise SystemExit("--quant requires the packed model: drop "
+                         "--no_packed")
     device = torch.device(args.device)
     conf = run_config(args)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -278,7 +350,8 @@ def build(args: argparse.Namespace):
         print("WARNING: random init (no checkpoint)", flush=True)
     model = make_model(mconf, params5, seed=conf.seed,
                        packed=not args.no_packed,
-                       packed_attn=args.packed_attn)
+                       packed_attn=args.packed_attn, quant=args.quant,
+                       quant_attn=not args.no_quant_attn)
     model = channels_last_(model.to(device)).eval()
 
     gconf = GeneratorConfig(tile=TILE, patch=conf.image_size, gn_blk=16,
@@ -289,12 +362,13 @@ def build(args: argparse.Namespace):
                                           and args.window_chunk < 0
                                           else args.window_chunk))
 
-    def model_fn(xp, tm, rp, p1, p2):
+    def model_fn(m):
         # sampling reads only the collage decode
-        return model(xp, tm, rp, p1, p2, decode_original=False)
+        return lambda xp, tm, rp, p1, p2: m(xp, tm, rp, p1, p2,
+                                            decode_original=False)
 
     sampler = conf.make_eval_sampler(T=args.tot_epoch)
-    gen = TeraGenerator(sampler, model_fn, gconf, device=device)
+    gen = TeraGenerator(sampler, model_fn(model), gconf, device=device)
     if args.synthetic:
         gene = synthetic_gene_grid(args.hnm, args.wnm, gconf.gsz,
                                    gconf.z_pad, gconf.gdim)
@@ -303,7 +377,11 @@ def build(args: argparse.Namespace):
         gene = functools.lru_cache(maxsize=4 * (args.stream_block + 2) ** 2)(
             gene_provider(gdir, args.hst, args.wst, gdim=gconf.gdim,
                           spad=gconf.spad))
-    return gen, model, gene, (args.hst // TILE, args.wst // TILE)
+    origin = (args.hst // TILE, args.wst // TILE)
+    if args.quant == "int8_static":
+        gen, model = calibrate_static(args, gen, model, gene, origin,
+                                      model_fn)
+    return gen, model, gene, origin
 
 
 def make_streamer(args: argparse.Namespace,

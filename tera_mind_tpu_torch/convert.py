@@ -10,7 +10,12 @@ parameter names are the flax names, with ``kernel`` -> ``weight``:
 - 3D conv kernels ``(kz, kh, kw, in, out)`` become ``(out, in, kz, kh, kw)``.
 
 The match is strict both ways: a flax leaf with no port parameter, a port
-parameter with no flax leaf, or a shape mismatch raises.
+parameter with no flax leaf, or a shape mismatch raises.  The int8
+models' buffers take part as their parameters do (``ops/quant.py``):
+``kernel_q`` int8 (HWIO -> ``(out, kh, kw, in)``, ``(in, out)`` -> ``(out,
+in)``, zero-padded to the buffer's input channels on load and stripped
+to the module's ``in_channels`` on export), ``w_scale`` and ``a_scale``
+float32 as they are.
 
 ``jax_tree_to_named`` and ``export_tensors`` do the same for any tree
 shaped like the parameters (the optimizer's moments), and
@@ -50,6 +55,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def jax_to_torch_array(leaf: str, arr: np.ndarray) -> np.ndarray:
     """Re-layout one flax leaf for the port (``leaf`` is its last key)."""
+    if leaf == "kernel_q":      # int8: HWIO -> (out, kh, kw, in) for K3
+        return arr.T if arr.ndim == 2 else arr.transpose(3, 0, 1, 2)
     if leaf != "kernel":
         return arr
     if arr.ndim == 2:
@@ -76,16 +83,32 @@ def torch_to_jax_array(arr: np.ndarray) -> tuple[str, np.ndarray]:
     raise ValueError(f"unexpected weight rank {arr.ndim}")
 
 
+def named_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s parameters and persistent buffers by name, each as the
+    flax tree holds it: a ``kernel_q`` without the zero input channels it
+    is padded with (beyond its module's ``in_channels``)."""
+    out = {}
+    for mname, mod in model.named_modules():
+        own = list(mod.named_parameters(recurse=False)) + [
+            (n, b) for n, b in mod.named_buffers(recurse=False)
+            if n not in mod._non_persistent_buffers_set]
+        for name, t in own:
+            if name == "kernel_q":
+                t = t[..., :mod.in_channels]
+            out[f"{mname}.{name}" if mname else name] = t
+    return out
+
+
 def jax_tree_to_named(model: nn.Module,
                       tree: Mapping) -> Dict[str, np.ndarray]:
     """A flax-named tree shaped like ``model``'s parameters (the params,
-    or an optimizer moment of them) as float32 arrays in the port's
-    layout, keyed by ``model``'s parameter names.  Strict both ways: a
-    leaf with no parameter, a parameter with no leaf, or a shape mismatch
-    raises."""
+    or an optimizer moment of them) as arrays in the port's layout (float32;
+    ``kernel_q`` int8), keyed by ``model``'s parameter and buffer names
+    (:func:`named_state`).  Strict both ways: a leaf with no parameter, a
+    parameter with no leaf, or a shape mismatch raises."""
     if set(tree) == {"params"}:
         tree = tree["params"]
-    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    shapes = {n: tuple(p.shape) for n, p in named_state(model).items()}
     out = {}
     for path, arr in _flatten(tree).items():
         prefix, _, leaf = path.rpartition(".")
@@ -93,8 +116,8 @@ def jax_tree_to_named(model: nn.Module,
         name = f"{prefix}.{name}" if prefix else name
         if name not in shapes:
             raise KeyError(f"flax leaf {path} has no port parameter {name}")
-        val = np.ascontiguousarray(jax_to_torch_array(leaf, arr),
-                                   dtype=np.float32)
+        val = np.asarray(jax_to_torch_array(leaf, arr), order="C",
+                         dtype=np.int8 if leaf == "kernel_q" else np.float32)
         if shapes[name] != val.shape:
             raise ValueError(f"{path}: flax {val.shape} vs port "
                              f"{shapes[name]}")
@@ -108,9 +131,10 @@ def jax_tree_to_named(model: nn.Module,
 @torch.no_grad()
 def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy a flax param tree into ``model`` in place (each tensor keeps
-    its device, dtype and memory format); returns ``model``."""
+    its device, dtype and memory format; a ``kernel_q``'s pad stays 0);
+    returns ``model``."""
     named = jax_tree_to_named(model, params)
-    for name, dst in model.named_parameters():
+    for name, dst in named_state(model).items():
         dst.copy_(torch.from_numpy(named[name]))
     return model
 
@@ -119,25 +143,29 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
 def export_tensors(named: Mapping[str, torch.Tensor]) -> Dict:
     """The flax-named tree ``{"params": {...}}`` of port-named tensors
     (a model's parameters, or an optimizer moment of them) as float32
-    numpy arrays: the exact inverse of :func:`jax_tree_to_named` (bf16
-    values widen to float32 without change)."""
+    numpy arrays (``kernel_q`` int8): the exact inverse of
+    :func:`jax_tree_to_named` (bf16 values widen to float32 without
+    change)."""
     out: Dict = {}
     for name, p in named.items():
         *path, leaf = name.split(".")
-        arr = p.detach().float().cpu().numpy()
+        p = p.detach()
+        arr = (p if leaf == "kernel_q" else p.float()).cpu().numpy()
         if leaf == "weight":
             leaf, arr = torch_to_jax_array(arr)
+        elif leaf == "kernel_q":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(1, 2, 3, 0)
         node = out
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.asarray(arr, order="C")
     return {"params": out}
 
 
 def export_params(model: nn.Module) -> Dict:
-    """The flax-named tree ``{"params": {...}}`` of ``model``'s parameters:
-    the exact inverse of :func:`load_jax_params`."""
-    return export_tensors(dict(model.named_parameters()))
+    """The flax-named tree ``{"params": {...}}`` of ``model``'s parameters
+    (and persistent buffers): the exact inverse of :func:`load_jax_params`."""
+    return export_tensors(named_state(model))
 
 
 def train_state_tree(state) -> Dict:

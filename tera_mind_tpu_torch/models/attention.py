@@ -59,15 +59,18 @@ class CrossAttention(nn.Module):
     z-packed layout, 'hwz'; see :func:`_window_fold`)."""
 
     def __init__(self, dim: int, num_heads: int = 1,
-                 n_win: Optional[int] = None, token_order: str = "zhw"):
+                 n_win: Optional[int] = None, token_order: str = "zhw", *,
+                 quant: Optional[str] = None, prequant: bool = False,
+                 static_act: bool = False):
         super().__init__()
+        from ..ops.quant import dense
         if token_order not in ("zhw", "hwz"):
             raise ValueError(f"token_order {token_order!r}")
         self.dim, self.num_heads, self.n_win = dim, num_heads, n_win
         self.token_order = token_order
         hd = dim // num_heads
-        self.q, self.k, self.v, self.proj = (Dense(dim, dim)
-                                             for _ in range(4))
+        self.q, self.k, self.v, self.proj = (
+            dense(dim, dim, quant, prequant, static_act) for _ in range(4))
         self.q_norm = RMSNorm(hd)
         self.k_norm = RMSNorm(hd)
 
@@ -106,21 +109,29 @@ class DiTBlock(nn.Module):
     ``packed_tokens``: x and cond are z-major packed ``(B, H, W, Z*C)``
     (``ops/zpack.py``) and ``z_size`` is given; tokens then flatten in
     (h, w, z) order by a reshape alone.  Same parameters; outputs equal the
-    5D order's up to float reassociation in the attention sums."""
+    5D order's up to float reassociation in the attention sums.
+
+    ``quant='int8'`` runs adaLN, q, k, v, proj, fc1 and fc2 as
+    ``QuantDense`` (``prequant``, ``static_act`` as there); the logits,
+    the value product and the norms stay in the compute dtype."""
 
     def __init__(self, hidden_size: int, cond_channels: int,
                  num_heads: int = 1, n_win: Optional[int] = 2,
-                 mlp_ratio: float = 4.0, packed_tokens: bool = False):
+                 mlp_ratio: float = 4.0, packed_tokens: bool = False, *,
+                 quant: Optional[str] = None, prequant: bool = False,
+                 static_act: bool = False):
         super().__init__()
+        from ..ops.quant import dense
         c = hidden_size
+        q = dict(quant=quant, prequant=prequant, static_act=static_act)
         self.hidden_size = c
         self.packed_tokens = packed_tokens
-        self.adaLN = Dense(cond_channels, 7 * c)
+        self.adaLN = dense(cond_channels, 7 * c, **q)
         self.norm1 = RMSNorm(c)
         self.norm2 = RMSNorm(c)
         self.attn = CrossAttention(c, num_heads, n_win,
-                                   "hwz" if packed_tokens else "zhw")
-        self.mlp = Mlp(c, int(c * mlp_ratio))
+                                   "hwz" if packed_tokens else "zhw", **q)
+        self.mlp = Mlp(c, int(c * mlp_ratio), **q)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 z_size: Optional[int] = None) -> torch.Tensor:

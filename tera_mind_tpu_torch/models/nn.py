@@ -98,13 +98,19 @@ class TimeEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """dense -> GELU(tanh) -> dense."""
+    """dense -> GELU(tanh) -> dense.  ``quant='int8'``: both denses are
+    ``QuantDense`` (``ops/quant.py``; same parameter names and shapes), the
+    packed model's opt-in int8 inference."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: Optional[int] = None):
+                 out_features: Optional[int] = None, *,
+                 quant: Optional[str] = None, prequant: bool = False,
+                 static_act: bool = False):
         super().__init__()
-        self.fc1 = Dense(in_features, hidden_features)
-        self.fc2 = Dense(hidden_features, out_features or in_features)
+        from ..ops.quant import dense
+        q = dict(quant=quant, prequant=prequant, static_act=static_act)
+        self.fc1 = dense(in_features, hidden_features, **q)
+        self.fc2 = dense(hidden_features, out_features or in_features, **q)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -193,10 +199,13 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     "truncated_normal")`` draws them (a standard normal cut to [-2, 2],
     times ``sqrt(1 / fan_in) / TRUNC_STD``), zero biases, unit norm
     weights, and zero ``zero_init`` convs.  Drawn on a CPU generator, so
-    the weights do not depend on the device."""
+    the weights do not depend on the device.  The int8 modules with a
+    float weight draw as their float counterparts; prequantized ones
+    (``kernel_q``) keep their buffers."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, Conv3d)):   # and Conv3d's subclasses
+        if isinstance(mod, (nn.Linear, CastsWeights)) and isinstance(
+                getattr(mod, "weight", None), nn.Parameter):
             w = mod.weight
             fan_in = w[0].numel()
             val = torch.zeros(w.shape)

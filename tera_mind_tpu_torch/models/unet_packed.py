@@ -1,7 +1,6 @@
 """z-packed TeraUNet: the 5D model with z folded into channels.
 
-Port of ``tera_mind_tpu/models/unet_packed.py`` (without its int8 options,
-which come with ``ops/quant``).  Same architecture and parameters as
+Port of ``tera_mind_tpu/models/unet_packed.py``.  Same architecture and parameters as
 :class:`~.unet.TeraUNet`, but every voxel map ``(B, Z, H, W, C)`` is
 carried as ``(B, H, W, Z*C)``, z-major, so the ResBlock convs are 2D
 convs over twice the channels (``ops/zpack.py``).
@@ -22,6 +21,14 @@ forward (:class:`Conv3DAsPacked`), so a 5D tree loads as it is; with
 ``from_5d=False`` the tree comes packed from :func:`pack_unet_params`.
 Module and parameter names follow the flax ones, so
 ``convert.load_jax_params`` maps either tree one for one.
+
+int8 inference (``quant='int8'``, ``ops/quant.py``), as in JAX: the
+ResBlock convs become :class:`QuantConv2p` (or, ``from_5d``, the quant
+branch of :class:`Conv3DAsPacked`), with ``prequant`` (``kernel_q`` and
+``w_scale`` buffers from ``prequantize_params``) and ``static_act``
+(calibrated ``a_scale`` buffers); ``quant_attn`` also makes the DiT
+blocks' denses ``QuantDense``.  The stem and the output conv stay in the
+compute dtype (they touch raw pixels).  Inference-only.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.collage import to_collage
+from ..ops.quant import QuantModule, quant_conv2d
+from ..ops.quant_kernel import CONV_ALIGN, round_up
 from ..ops.zpack import (pack_channel_param, pack_conv3d_bias,
                          pack_conv3d_kernel, pack_conv3d_kernel_t,
                          pack_features, packed_to_pixel, pixel_to_packed,
@@ -105,29 +114,73 @@ def _down2(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2p(in_channels: int, out_channels: int, kernel: Sequence[int], *,
-           zero_init: bool = False) -> Conv2d:
+           zero_init: bool = False, quant: Optional[str] = None,
+           prequant: bool = False, static_act: bool = False) -> nn.Module:
     """The packed model's 2D conv (JAX ``conv2p``): symmetric padding,
     bias, NHWC activations; cuDNN runs it channels-last once
-    ``models.nn.channels_last_`` has stored the kernel so."""
+    ``models.nn.channels_last_`` has stored the kernel so.  With
+    ``quant='int8'`` a :class:`QuantConv2p`."""
+    if quant == "int8":
+        return QuantConv2p(in_channels, out_channels, kernel,
+                           zero_init=zero_init, prequant=prequant,
+                           static_act=static_act)
+    if quant is not None:
+        raise ValueError(f"quant {quant!r}: only 'int8'")
     return Conv2d(in_channels, out_channels, kernel, zero_init=zero_init)
+
+
+class QuantConv2p(QuantModule, nn.Module):
+    """Drop-in int8 replacement for conv2p's ``Conv2d`` (JAX
+    ``QuantConv2p``): the same ``weight`` (co, ci, kh, kw) and ``bias``,
+    so packed trees load unchanged, run through ``quant_conv2d`` (K4 and
+    K3 on the card).  ``prequant``: buffers ``kernel_q`` (co, kh, kw,
+    round_up(ci, 16)) int8 and ``w_scale`` (co,) instead of the weight;
+    ``static_act``: a calibrated ``a_scale`` () buffer instead of the
+    dynamic abs-max.  Inference-only."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Sequence[int], *, zero_init: bool = False,
+                 prequant: bool = False, static_act: bool = False):
+        super().__init__()
+        kh, kw = kernel
+        self.padding = ((kh - 1) // 2, (kw - 1) // 2)
+        self.zero_init = zero_init
+        self._init_quant(in_channels, out_channels,
+                         (out_channels, in_channels, kh, kw),
+                         (out_channels, kh, kw,
+                          round_up(in_channels, CONV_ALIGN)),
+                         prequant, static_act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant_conv2d(x, getattr(self, "weight", None), self.bias,
+                            self.padding, **self.quant_args())
 
 
 class Conv3DAsPacked(Conv3d):
     """Packed 2D conv whose parameter is the 5D model's 3D kernel
     ``(co, ci, kz, kh, kw)`` with bias ``(co,)``: a 5D tree loads as it
     is, and the packed kernel ``(z*co, z*ci, kh, kw)`` is built per call
-    (:func:`~..ops.zpack.pack_conv3d_kernel_t`)."""
+    (:func:`~..ops.zpack.pack_conv3d_kernel_t`).  ``quant='int8'``: the
+    float32 kernel is packed, then quantized at each call (dynamic only,
+    as in JAX) and the bias tiled z times."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel: Sequence[int], z: int, *,
                  segments: Optional[Sequence[int]] = None,
-                 zero_init: bool = False):
+                 zero_init: bool = False, quant: Optional[str] = None):
         super().__init__(in_channels, out_channels, kernel,
                          zero_init=zero_init)
-        self.z = z
+        if quant not in (None, "int8"):
+            raise ValueError(f"quant {quant!r}: only 'int8'")
+        self.z, self.quant = z, quant
         self.segments = None if segments is None else tuple(segments)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant == "int8":
+            w2 = pack_conv3d_kernel_t(self.weight.float(), self.z,
+                                      self.segments)
+            return quant_conv2d(x, w2, self.bias.float().repeat(self.z),
+                                self.padding[1:], out_dtype=self.dtype)
         w2 = pack_conv3d_kernel_t(self.cast(self.weight), self.z,
                                   self.segments)
         x = self.cast(x).permute(0, 3, 1, 2)
@@ -148,7 +201,8 @@ class PackedResBlock(nn.Module):
                  in_segments: Optional[Sequence[int]] = None,
                  up: bool = False, down: bool = False,
                  use_zero_module: bool = True, from_5d: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, quant: Optional[str] = None,
+                 prequant: bool = False, static_act: bool = False):
         super().__init__()
         segs = tuple(in_segments or (in_channels,))
         assert sum(segs) == in_channels, (segs, in_channels)
@@ -158,8 +212,11 @@ class PackedResBlock(nn.Module):
         def conv(cin, cout, k, segments=None, zero_init=False):
             if from_5d:
                 return Conv3DAsPacked(cin, cout, (k, k, k), z,
-                                      segments=segments, zero_init=zero_init)
-            return conv2p(z * cin, z * cout, (k, k), zero_init=zero_init)
+                                      segments=segments, zero_init=zero_init,
+                                      quant=quant)
+            return conv2p(z * cin, z * cout, (k, k), zero_init=zero_init,
+                          quant=quant, prequant=prequant,
+                          static_act=static_act)
 
         self.in_norm = GroupedRMSNorm(z, segs, from_5d=from_5d)
         self.in_conv = conv(in_channels, out_channels, 3, segs)
@@ -207,24 +264,35 @@ class PackedTeraUNet(nn.Module):
     """See the module docstring; called as :class:`~.unet.TeraUNet`."""
 
     def __init__(self, conf: TeraUNetConfig, *, from_5d: bool = False,
-                 packed_attn: bool = False):
+                 packed_attn: bool = False, quant: Optional[str] = None,
+                 prequant: bool = False, static_act: bool = False,
+                 quant_attn: bool = False):
         super().__init__()
         self.conf = conf
         self.from_5d, self.packed_attn = from_5d, packed_attn
+        self.quant, self.prequant, self.static_act = quant, prequant, \
+            static_act
         z = conf.z_size
         mc, nrb = conf.model_channels, conf.num_res_blocks
         nlvl = len(conf.channel_mult)
         rna_och = _rna_channels(conf.rna_num)
         emb = conf.embed_channels
+        # JAX's routing: the ResBlock convs take quant, prequant and
+        # static_act; the DiT blocks only with quant_attn
+        qa = quant if (quant_attn and quant) else None
+        self.quant_attn = qa is not None
 
         def res(name, cin, cout, **kw):
             self.add_module(name, PackedResBlock(
                 cin, cout, z, emb, use_zero_module=conf.use_zero_module,
-                from_5d=from_5d, dropout=conf.dropout, **kw))
+                from_5d=from_5d, dropout=conf.dropout, quant=quant,
+                prequant=prequant, static_act=static_act, **kw))
 
         def dit(name, c, cond):
-            self.add_module(name, DiTBlock(c, cond, conf.num_heads, n_win=2,
-                                           packed_tokens=packed_attn))
+            self.add_module(name, DiTBlock(
+                c, cond, conf.num_heads, n_win=2, packed_tokens=packed_attn,
+                quant=qa, prequant=qa is not None and prequant,
+                static_act=qa is not None and static_act))
 
         def pixel_conv(cin, cout):        # the (1, 3, 3) stem and out_conv
             if from_5d:
@@ -380,7 +448,8 @@ def make_packed_model(conf: TeraUNetConfig,
     """:class:`PackedTeraUNet` computing in the compute dtype on the CPU,
     its parameters in ``param_dtype`` and its ``time_embed`` float32, as
     ``TeraUNetConfig.make_model`` does for the 5D model; ``kw``:
-    ``from_5d``, ``packed_attn``."""
+    ``from_5d``, ``packed_attn``, ``quant``, ``prequant``, ``static_act``,
+    ``quant_attn``.  The quant modules' scales stay float32."""
     return set_compute_dtype(PackedTeraUNet(conf, **kw), conf.dtype,
                              param_dtype=param_dtype)
 

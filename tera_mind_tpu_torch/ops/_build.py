@@ -46,6 +46,11 @@ SIGNATURES = {
     "tmt_window_attention_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                  _ptr, _int, _int, _int, _f32, _int, _int,
                                  _ptr],
+    "tmt_quant_conv": [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
+                       _int, _int, _int, _int, _int, _ptr],
+    "tmt_absmax": [_ptr, _i64, _int, _ptr, _ptr],
+    "tmt_quantize": [_ptr, _ptr, _ptr, _ptr, _i64, _int, _int, _int, _int,
+                     _ptr],
 }
 
 _lib = None
@@ -184,14 +189,17 @@ def autograd_required(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+NO_BACKWARD = ("this raw CUDA launcher records no backward; call the "
+               "dispatcher (rmsnorm or window_attention), whose "
+               "autograd.Function launches the backward kernels K1b and "
+               "K2b, or call it under torch.no_grad() or "
+               "torch.inference_mode()")
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor,
+                    why: str = NO_BACKWARD) -> None:
     if autograd_required(*tensors):
-        raise RuntimeError(
-            f"{name}: an input requires grad, but this raw CUDA launcher "
-            "records no backward; call the dispatcher (rmsnorm or "
-            "window_attention), whose autograd.Function launches the "
-            "backward kernels K1b and K2b, or call it under "
-            "torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError(f"{name}: an input requires grad, but {why}")
 
 
 def dtype_code(t: torch.Tensor, name: str) -> int:

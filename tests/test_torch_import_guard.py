@@ -35,7 +35,7 @@ def test_port_modules_import_without_jax():
     assert "tera_mind_tpu_torch.parallel.streaming" in names
     assert names >= {f"tera_mind_tpu_torch.{m}" for m in (
         "training.harness", "training.tb", "data.dataset", "data.manifest",
-        "diffusion.resample", "cli.train")}
+        "diffusion.resample", "cli.train", "ops.quant", "ops.quant_kernel")}
     n_modules = len(names)
     assert int(n_loaded) >= n_modules > 15
     assert bad == "[]", bad

@@ -524,3 +524,38 @@ def test_chip_smoke_checks_the_training_shapes_and_counts():
             assert set(k1_shapes) == set(cs.TRAIN_K1_SHAPES)
             assert len(cs.TRAIN_K1_SHAPES) == len(k1_shapes)
     assert max(c for _, c in cs.TRAIN_K1_SHAPES) <= k1.BWD_MAX_C
+
+
+def test_chip_smoke_checks_the_int8_shapes_and_counts():
+    """chip_smoke.py's K3 and K4 shapes are exactly the shapes one UNet
+    call of ``cli.generate --quant int8`` gives them (scripts/kernel_shapes.py
+    --quant, the same with int8_static), and its int8 chain counts are
+    those launches times 375 calls: 75 K3, 117 K4 (and as many abs-max
+    launches when dynamic, none when static), 42 torch._int_mm."""
+    import importlib.util
+
+    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "kernel_shapes", _build.PKG.parent / "scripts" / "kernel_shapes.py")
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    for quant, variant in (("int8", "dynamic"), ("int8_static", "static")):
+        k3, k4, mm = ks.quant_shapes(quant)
+        assert set(cs.K3_SHAPES) == set(k3)
+        assert {(r, c, m) for r, c, m, _ in k4} == set(cs.K4_SHAPES)
+        assert {v for *_, v in k4} == {variant}
+        want = cs.QUANT_LAUNCHES[quant]
+        assert want["quant_conv"] == {"dequant": sum(k3.values()) * 375,
+                                      "int32": 0}
+        assert sum(k3.values()) == 75
+        assert want["quantize"][variant] == sum(k4.values()) * 375
+        assert sum(want["quantize"].values()) == 117 * 375
+        assert want["absmax"] == (sum(k4.values()) * 375
+                                  if variant == "dynamic" else 0)
+        assert sum(mm.values()) == 42
+    # K3's 16-channel multiple: the deep concats are padded, the others not
+    assert {ci for (_, ci), _ in [((x[:3], x[3]), w) for x, w in
+                                  cs.K3_SHAPES] if ci % 16} == {
+        970, 1482, 1994, 2506}
+    # no torch._int_mm shape needs padding beyond K's (M > 16, N % 8 == 0)
+    assert all(m > 16 and k % 8 == 0 and n % 8 == 0 for m, k, n in mm)

@@ -11,6 +11,7 @@ Phases, each printed on its own line with elapsed seconds:
      kernel, the plain version and one PyTorch library call doing the
      same function (a yardstick only: the port never calls it) on the
      device (CUDA graph replay), beside the card's bound for the work;
+     K1 also at the extraction's (3,664, 64) in float32;
   4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
      ``strided``, K2b ``tensor_core`` and ``cuda_core``) against its plain
      version at every shape of a training step (``scripts/kernel_shapes.py
@@ -82,7 +83,20 @@ Phases, each printed on its own line with elapsed seconds:
      step (K1b and K2b by variant), samples/s, data wait, peak memory;
      save -> restore bit-equal;
      ``cli.generate`` (1x1 grid, 2 steps) from the 5D run's checkpoint;
- 14. a ``{"kernels": [...]}`` line, then the card line, then the result.
+ 14. gene-gene attention extraction: ``cli.attn --calc_attn --synthetic
+     --pathway ROI --roi 0`` (16x16 tiles) from the 5D training run's
+     checkpoint, with the counters set to 0 just before it: 256 float16
+     tiles, exactly 1,024 K1 launches (4 a tile, all ``vector``), the
+     ensemble's rows summing to 1; two tiles recomputed on the CPU
+     (attention 1e-5, stored tiles within one float16 spacing); tiles/s;
+ 15. evaluation: the full-width bf16 packed and int8 chains' 2x2 outputs as
+     two tile stores, ``python -m tera_mind_tpu_torch.cli.evaluate`` as a
+     subprocess (PyTorch's default TF32 flags) with ``--features pool``,
+     card against ``--device cpu`` (psnr / ssim / ms_ssim 1e-5 relative,
+     pool_fid and statistics equal), then ``--features inception`` and
+     ``--features torchscript`` on a traced random-weight InceptionV3,
+     card and CPU (d_fid 1e-4 relative); int8's PSNR/SSIM against bf16;
+ 16. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
 nothing of JAX.
@@ -213,6 +227,10 @@ PATH_SHAPES = {
                 (92_745, 64)],
                [(1_280, 128, 256), (1_620, 128, 256), (1_620, 32, 512)]),
 }
+# The (rows, C) that cli.attn's extraction gives K1 in float32: the gene
+# block's q-norm on 16 patches x 229 gene tokens of 64 features, 4 launches
+# a tile (scripts/kernel_shapes.py --attn)
+ATTN_K1_SHAPE = (3_664, 64)
 # shapes off the main path that the wrappers accept: ragged rows and
 # channels, ragged query tiles and key chunks, the largest shared-memory
 # footprint (N = D = 512), the vector variant at one 16-byte vector a row
@@ -271,7 +289,8 @@ def require_k2(out, ref, what: str):
 def time_k1(k1, x, w, n, c) -> dict:
     import torch.nn.functional as F
     sets = input_sets((x, w), 2 * x.numel() * x.element_size())
-    bms, by = bound(2 * (2 * n * c + c), 4 * n * c, H100_F32_FLOP_PER_S)
+    bms, by = bound(x.element_size() * (2 * n * c + c), 4 * n * c,
+                    H100_F32_FLOP_PER_S)
     return dict(ms=device_ms(k1.rmsnorm_cuda, sets),
                 plain_ms=device_ms(k1.rmsnorm_plain, sets),
                 library_ms=device_ms(
@@ -413,6 +432,17 @@ def check_kernels(device) -> dict:
             k1_shape(n, c, path)
         for b, n, d in k2_shapes:
             k2_shape(b, n, d, path)
+    # the extraction's q-norm, float32 (its only dtype there)
+    n, c = ATTN_K1_SHAPE
+    x = torch.randn(n, c, generator=g).to(device)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(device)
+    _, _, err, variant = k1_agrees(x, w, f"{n}x{c}")
+    require(variant == "vector", f"K1 {n}x{c} f32 took {variant}")
+    t = time_k1(k1, x, w, n, c)
+    log(f"K1 rmsnorm ({n}, {c}) f32 [{variant}, attn]: max_abs_err {err:.3g}"
+        " (tol 1e-05); " + timing_text(t, "F.rms_norm"))
+    rows["rmsnorm"].append(dict(shape=[n, c], path="attn", dtype="float32",
+                                variant=variant, max_abs_err=err, **t))
     return rows
 
 
@@ -1983,6 +2013,7 @@ def run_training(device, path: str, tmp: Path) -> dict:
     del trainer, again, state, before
     torch.cuda.empty_cache()
     if path == "5d":
+        out["ckpt"] = Path(conf.logdir) / "ckpt"
         gen_out = generate.main([
             "--ckpt_pth", str(Path(conf.logdir) / "ckpt"), "--hnm", "1",
             "--wnm", "1", "--tot_epoch", "2", "--synthetic", "--device",
@@ -1990,6 +2021,229 @@ def run_training(device, path: str, tmp: Path) -> dict:
         require_output(gen_out, (256, 256, 100))
         log("cli.generate from the trained checkpoint: 1x1 grid, 2 steps")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: gene-gene attention extraction and tile evaluation
+# ---------------------------------------------------------------------------
+
+ATTN_ROI_SIDE = 16       # ROI 0 of the 638850 preset: 16 x 16 tiles
+ATTN_K1_PER_TILE = 4     # one q-norm per z-group: 3 sliding pairs + all z
+ATTN_TILE_SHAPE = (4, 16, 16, 8)   # z-groups, bins, bins, 2 x 4 genes
+ATTN_TOL = 1e-5          # attention stacks, card vs CPU (float32)
+EVAL_REL_TOL = 1e-5      # psnr / ssim / ms_ssim, card vs CPU
+EVAL_DFID_REL_TOL = 1e-4  # Inception d-FID: card vs CPU, port vs export
+
+
+def run_attn(device, ckpt: Path, tmp: Path) -> dict:
+    """``cli.attn --calc_attn --synthetic --pathway ROI --roi 0`` on the
+    card from the 5D training phase's checkpoint, with the launch counters
+    set to 0 just before it: 256 float16 tiles, exactly 4 K1 launches a
+    tile (all ``vector``), the ensemble's rows summing to 1; then two of
+    the tiles recomputed with the CLI's own loader and tile function on
+    the CPU (``--device cpu``) against the card's."""
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.cli import attn as attn_cli
+    from tera_mind_tpu_torch.data.tilestore import TileStore
+
+    out_dir = tmp / "attn"
+    argv = ["--calc_attn", "--synthetic", "--mouse", "638850", "--pathway",
+            "ROI", "--roi", "0", "--ckpt_pth", str(ckpt), "--out_dir",
+            str(out_dir)]
+    reset_launches()
+    t0 = time.perf_counter()
+    rec = attn_cli.main(argv + ["--device", str(device)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got, got_variants = read_launches()
+    n_tiles = ATTN_ROI_SIDE ** 2
+    want = {"rmsnorm": n_tiles * ATTN_K1_PER_TILE, "window_attention": 0}
+    log(f"attn [ROI 0, {n_tiles} tiles]: {secs:.2f} s = {n_tiles / secs:.3f}"
+        f" tiles/s ({rec['seconds']:.2f} s in the tile loop = "
+        f"{n_tiles / rec['seconds']:.3f} tiles/s; the rest builds the "
+        f"synthetic gene field and loads the weights); launches {got} "
+        f"(expected {want}), by variant {got_variants}")
+    require(got == want, f"attn launches {got}, expected {want}")
+    require(got_variants["rmsnorm"] == {"strided": 0,
+                                        "vector": want["rmsnorm"]},
+            f"attn K1 variants {got_variants['rmsnorm']}")
+
+    store = TileStore(out_dir)
+    names = [n for n in store.names() if n[0].isdigit()]
+    require(len(names) == n_tiles and names == sorted(rec["names"]),
+            f"attn store holds {len(names)} tiles, expected {n_tiles}")
+    for n in names:
+        tile = store.read(n)
+        require(tile.dtype == np.float16 and tile.shape == ATTN_TILE_SHAPE
+                and bool(np.isfinite(tile).all()),
+                f"attn tile {n}: {tile.dtype} {tile.shape}")
+    ens = np.load(out_dir / "attn_ensemble.npy")
+    row_err = float(np.abs(ens.sum(-1) - 1).max())
+    require(ens.shape == (229, 229) and row_err <= 1e-5,
+            f"attn_ensemble {ens.shape}, rows off 1 by {row_err}")
+
+    conf, glst, gene = rec["conf"], rec["glst"], rec["gene"]
+    cpu = torch.device("cpu")
+    ext_cpu = attn_cli.load_extractor(
+        attn_cli.parse_args(argv + ["--device", "cpu"]), conf, cpu)
+    errs = []
+    for r, c in ((0, 0), (ATTN_ROI_SIDE - 1, ATTN_ROI_SIDE - 2)):
+        stack = gene[r, c]
+        tile_cpu, attn_cpu = attn_cli.attn_tile(ext_cpu, stack, conf, glst,
+                                                cpu)
+        _, attn_card = attn_cli.attn_tile(rec["extractor"], stack, conf,
+                                          glst, device)
+        err = float(np.abs(attn_card - attn_cpu).max())
+        stored = store.read(rec["names"][r * ATTN_ROI_SIDE + c])
+        gap = np.abs(stored.astype(np.float32) - tile_cpu.astype(np.float32))
+        spacings = float((gap / np.spacing(np.abs(tile_cpu))
+                          .astype(np.float32)).max())
+        errs.append(dict(tile=[r, c], attn_max_abs_err=err,
+                         tile_f16_spacings=spacings))
+        require(err <= ATTN_TOL, f"attn tile ({r}, {c}): attention card vs "
+                f"CPU {err} > {ATTN_TOL}")
+        require(spacings <= 1.0, f"attn tile ({r}, {c}): stored tile "
+                f"{spacings} float16 spacings from the CPU's")
+    log(f"attn: {names[0]} .. {names[-1]} tiles {ATTN_TILE_SHAPE} float16, "
+        f"genes {glst.tolist()}; ensemble rows sum to 1 within {row_err:.2g};"
+        f" card vs CPU: {errs}")
+    return dict(seconds=secs, loop_seconds=rec["seconds"],
+                tiles=n_tiles, tiles_per_s=n_tiles / secs,
+                launches=got, variants=got_variants, cpu_check=errs,
+                ensemble_row_err=row_err)
+
+
+def write_tiles(out, root: Path) -> Path:
+    """A (GRID*256, GRID*256, channels) chain output as float16 tiles in a
+    ``TileStore``, named as ``cli.generate`` names them."""
+    import numpy as np
+
+    from tera_mind_tpu_torch.data.tilestore import TileStore, tile_name
+    store = TileStore(root).create()
+    for r in range(GRID):
+        for c in range(GRID):
+            h0, w0 = 256 + 256 * r, 256 + 256 * c
+            store.write(tile_name(h0, h0 + 256, w0, w0 + 256),
+                        out[256 * r:256 * (r + 1), 256 * c:256 * (c + 1)]
+                        .astype(np.float16))
+    return root
+
+
+def random_inception(path: Path) -> None:
+    """The port's InceptionV3 (FID variant) with seeded random weights and
+    non-trivial BatchNorm statistics, traced to ``path`` (torchscript)."""
+    import torch
+
+    from tera_mind_tpu_torch.metrics.inception import InceptionV3Features
+    torch.manual_seed(0)
+    m = InceptionV3Features()
+    with torch.no_grad():
+        for mod in m.modules():
+            # He-normal convs keep the activations' scale through the 94
+            # layers (PyTorch's default init shrinks them until every
+            # input gives the same features)
+            if isinstance(mod, torch.nn.Conv2d):
+                torch.nn.init.kaiming_normal_(mod.weight,
+                                              nonlinearity="relu")
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                torch.nn.init.normal_(mod.weight, 1.0, 0.1)
+                torch.nn.init.normal_(mod.bias, 0.0, 0.05)
+                mod.running_mean.normal_(0.0, 0.05)
+                mod.running_var.uniform_(0.6, 1.4)
+    torch.jit.trace(m.eval(), torch.zeros(1, 3, 299, 299)).save(str(path))
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def run_evaluate(device, outs: dict, tmp: Path, int8_stats: dict) -> dict:
+    """``python -m tera_mind_tpu_torch.cli.evaluate`` as a subprocess (so
+    PyTorch's default TF32 flags apply) on the full-width int8 chain's 2x2
+    tiles against the bf16 packed chain's: ``--features pool`` on the card
+    and on the CPU (psnr / ssim / ms_ssim within 1e-5 relative, pool_fid
+    and the intensity statistics equal), then ``--features inception`` and
+    ``--features torchscript`` on a traced random-weight InceptionV3, card
+    and CPU (every d_fid within 1e-4 relative of the card's inception
+    one)."""
+    gen_dir = write_tiles(outs["int8"], tmp / "eval_int8")
+    real_dir = write_tiles(outs["packed"], tmp / "eval_bf16")
+    root = Path(__file__).resolve().parent
+
+    def evaluate(*flags) -> dict:
+        """The CLI on the card and with ``--device cpu`` at once (two
+        processes): {device: report}."""
+        runs = {}
+        for dev in (str(device), "cpu"):
+            report = tmp / f"eval_report_{dev.replace(':', '')}.json"
+            cmd = [sys.executable, "-m", "tera_mind_tpu_torch.cli.evaluate",
+                   "--gen_dir", str(gen_dir), "--real_dir", str(real_dir),
+                   "--report", str(report), "--device", dev, *flags]
+            runs[dev] = (report, subprocess.Popen(
+                cmd, cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        t0 = time.perf_counter()
+        errs = {}
+        try:
+            for dev, (_, proc) in runs.items():
+                errs[dev] = proc.communicate(timeout=600)[1]
+        finally:
+            for _, proc in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        secs = time.perf_counter() - t0
+        reps = {}
+        for dev, (report, proc) in runs.items():
+            require(proc.returncode == 0, f"cli.evaluate {flags} --device "
+                    f"{dev}: exit {proc.returncode}: {errs[dev][-3000:]}")
+            reps[dev] = rep = json.loads(report.read_text())
+            log(f"cli.evaluate {' '.join(flags)} --device {dev} (the pair "
+                f"in {secs:.1f} s): " + json.dumps(
+                    {k: v for k, v in rep.items()
+                     if k not in ("gen_dir", "pool_fid_note")}))
+        return reps
+
+    card = str(device)
+    reports = {"pool": evaluate("--features", "pool")}
+    a, b = reports["pool"][card], reports["pool"]["cpu"]
+    require(set(a) == set(b) and {"psnr", "ssim", "ms_ssim"} <= set(a),
+            f"evaluate keys {sorted(a)} vs {sorted(b)}")
+    errs = {k: rel(a[k], b[k]) for k in ("psnr", "ssim", "ms_ssim")}
+    require(all(e <= EVAL_REL_TOL for e in errs.values()),
+            f"evaluate card vs CPU: relative errors {errs}")
+    for k in ("pool_fid", "gen_mean", "gen_std", "n_tiles", "n_paired"):
+        require(a[k] == b[k], f"evaluate {k}: card {a[k]} vs CPU {b[k]}")
+
+    weights = tmp / "inception_random.pt"
+    t0 = time.perf_counter()
+    random_inception(weights)
+    log(f"traced a random-weight InceptionV3 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dfid = {}
+    for feat in ("inception", "torchscript"):
+        reports[feat] = evaluate("--features", feat, "--feature_weights",
+                                 str(weights))
+        for d, rep in reports[feat].items():
+            dfid[f"{feat}/{d}"] = rep["d_fid"]
+    ref = dfid[f"inception/{card}"]
+    dfid_errs = {k: rel(v, ref) for k, v in dfid.items()}
+    require(all(e <= EVAL_DFID_REL_TOL for e in dfid_errs.values()),
+            f"Inception d_fid {dfid}: relative to the card's inception run "
+            f"{dfid_errs} > {EVAL_DFID_REL_TOL}")
+    log(f"evaluate card vs CPU: psnr/ssim/ms_ssim relative errors {errs} "
+        f"(tol {EVAL_REL_TOL}), pool_fid and statistics equal; d_fid "
+        f"{dfid}, relative to inception/{card} {dfid_errs} (tol "
+        f"{EVAL_DFID_REL_TOL})")
+    log(f"int8 vs bf16 (channel 0 of the full-width 2x2 chains, "
+        f"informative): PSNR {a['psnr']:.4f} dB, SSIM {a['ssim']:.5f}, "
+        f"MS-SSIM {a['ms_ssim']:.5f}; mean |d| over all channels "
+        f"{int8_stats['mean']:.4g}")
+    return dict(card=a, cpu=b, rel_errs=errs, d_fid=dfid,
+                d_fid_rel_errs=dfid_errs,
+                int8_vs_bf16={k: a[k] for k in ("psnr", "ssim", "ms_ssim")})
 
 
 def main() -> int:
@@ -2062,6 +2316,7 @@ def main() -> int:
             f"weights and noise: max |d| {diff.max():.4g}, mean |d| "
             f"{diff.mean():.4g} (informative; the small f32 chains are the "
             "gate)")
+    eval_outs = {p: outs[p] for p in ("packed", "int8")}
     del outs
     chains["stream"] = run_stream_path(device, chains["packed"]["counts"])
     chains["stream"].pop("out")
@@ -2072,6 +2327,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train = {path: run_training(device, path, Path(tmp))
                  for path in ("5d", "packed")}
+        phase_s = {}
+        t0 = time.perf_counter()
+        attn = run_attn(device, train["5d"].pop("ckpt"), Path(tmp))
+        phase_s["attn"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        evaluate = run_evaluate(device, eval_outs, Path(tmp),
+                                int8_vs_bf16["int8"])
+        phase_s["evaluate"] = time.perf_counter() - t0
+        log(f"phase seconds: attn {phase_s['attn']:.1f}, evaluate "
+            f"{phase_s['evaluate']:.1f}")
+    del eval_outs
+    attn["phase_seconds"], evaluate["phase_seconds"] = (phase_s["attn"],
+                                                        phase_s["evaluate"])
 
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
                            "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
@@ -2085,9 +2354,11 @@ def main() -> int:
                         "launches": main_path["launches"][name],
                         "launches_by_variant": main_path["variants"][name],
                         "launches_by_path": {
-                            path: {"launches": c["launches"][name],
-                                   "by_variant": c["variants"][name]}
-                            for path, c in chains.items()},
+                            **{path: {"launches": c["launches"][name],
+                                      "by_variant": c["variants"][name]}
+                               for path, c in chains.items()},
+                            "attn": {"launches": attn["launches"][name],
+                                     "by_variant": attn["variants"][name]}},
                         "max_abs_err": max(x["max_abs_err"]
                                            for x in rows[name]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2160,7 +2431,8 @@ def main() -> int:
                           for p, c in chains.items()},
                       "planner": plans, "small_stream": small_stream,
                       "small_int8": small_int8,
-                      "int8_vs_bf16": int8_vs_bf16}),
+                      "int8_vs_bf16": int8_vs_bf16, "attn": attn,
+                      "evaluate": evaluate}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

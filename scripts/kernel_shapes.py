@@ -44,6 +44,15 @@ microbatches (2).  In training every K1 and K2 input requires grad, so
 each launch records one backward launch: K1b takes K1's (rows, C) and K2b
 K2's (B, N, D), as often; it also prints the launches a step of each
 K1b and K2b variant (bf16, aligned tensors).
+
+    python scripts/kernel_shapes.py --attn
+
+``--attn`` runs ``cli.attn``'s extractor (``models/unet_attn.py``, float32)
+on one tile of the preset instead: its 16 patches of 4x4 gene bins
+(``--patches`` does not apply), and lists K1's (rows, C) with its launches
+a tile and a 16x16-tile ROI (``--pathway ROI``), its variant, and the
+bytes one launch moves with their bound on the H100.  K1 is the
+extraction's only kernel: the G x G product stays ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -264,6 +273,39 @@ def main_train(packed: bool) -> None:
         print(f"{name} launches a step by variant: {by}")
 
 
+ATTN_ROI_TILES = 16 * 16   # --pathway ROI: MROI size 128 // 8 tiles a side
+F32 = 4
+
+
+def attn_shapes() -> tuple[Counter, int]:
+    """(K1 (rows, C) -> launches, patches) of ``cli.attn``'s extractor on
+    one tile of the preset (float32): the tile's interior 16 x 16 gene
+    bins split into patches of gn_sz x gn_sz bins."""
+    from tera_mind_tpu_torch.cli.attn import GDIM, GSZ
+    from tera_mind_tpu_torch.models.unet_attn import GeneAttnExtractor
+    conf = prep_config("638850")
+    side = (GSZ - 4) // conf.gn_sz
+    k1 = Counter()
+    with recording(k1, Counter()), torch.device("meta"):
+        ext = GeneAttnExtractor(conf.rna_num, conf.rna_slices, conf.gn_sz)
+        ext(torch.empty(side * side, conf.gn_sz, conf.gn_sz,
+                        conf.rna_slices * GDIM))
+    return k1, side * side
+
+
+def main_attn() -> None:
+    k1, patches = attn_shapes()
+    print(f"GeneAttnExtractor (cli.attn, float32), {patches} patches a tile")
+    print(f"K1 rmsnorm (rows, C): {sum(k1.values())} per tile, "
+          f"{sum(k1.values()) * ATTN_ROI_TILES} per {ATTN_ROI_TILES}-tile "
+          "ROI")
+    for (rows, c), n in sorted(k1.items(), key=lambda kv: -kv[1]):
+        nbytes = F32 * (2 * rows * c + c)
+        print(f"  ({rows}, {c}): {n} per tile, {n * ATTN_ROI_TILES} per ROI;"
+              f" {rmsnorm_variant(c, F32, True)}; {nbytes / 1e6:.3f} MB a "
+              f"launch, byte bound {nbytes / H100_BYTES_PER_S * 1e6:.3f} us")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no_packed", action="store_true",
@@ -286,7 +328,12 @@ def main() -> None:
                     "and _int_mm shapes")
     ap.add_argument("--no_quant_attn", action="store_true",
                     help="with --quant: the DiT denses stay bf16")
+    ap.add_argument("--attn", action="store_true",
+                    help="cli.attn's gene-gene extraction, one tile")
     args = ap.parse_args()
+    if args.attn:
+        main_attn()
+        return
     if args.train:
         main_train(args.packed)
         return

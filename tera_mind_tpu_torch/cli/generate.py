@@ -373,7 +373,7 @@ def build(args: argparse.Namespace):
         gene = synthetic_gene_grid(args.hnm, args.wnm, gconf.gsz,
                                    gconf.z_pad, gconf.gdim)
     else:
-        gdir = Path(args.data_path or f"Data/MERFISH_50/gene_{conf.mouse}")
+        gdir = Path(args.data_path or f"Data/MERFISH_50/gene_{args.mouse}")
         gene = functools.lru_cache(maxsize=4 * (args.stream_block + 2) ** 2)(
             gene_provider(gdir, args.hst, args.wst, gdim=gconf.gdim,
                           spad=gconf.spad))

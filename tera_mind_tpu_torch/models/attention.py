@@ -183,17 +183,28 @@ class GeneGeneBlock(nn.Module):
         ker = DOWN_Z_KERNEL[z_size]
         self.down_z = Conv3d(genes, genes, (ker, 3, 3), padding=(0, 1, 1))
 
-    def forward(self, rna: torch.Tensor, *, return_attn: bool = False
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _tokens(self, rna: torch.Tensor) -> torch.Tensor:
+        """(B, Z, H, W, G) -> the (B, G, D) gene tokens."""
         b, z, h, w, g = rna.shape
         d = z * h * w
         assert d == self.hidden_size, (d, self.hidden_size)
-        x = rna.reshape(b, d, g).transpose(1, 2)          # (B, G, D)
-        q = self.q(x)
-        v = self.v(x)
-        qn = self.q_norm(q[:, None]).float()              # (B, 1, G, D)
-        logits = torch.matmul(qn, qn.transpose(-1, -2)) / d
-        attn = torch.softmax(logits, dim=-1)
+        return rna.reshape(b, d, g).transpose(1, 2)
+
+    def attention(self, rna: torch.Tensor) -> torch.Tensor:
+        """The (B, 1, G, G) float32 attention alone: ``q`` -> ``q_norm``
+        (K1 on a CUDA tensor) -> ``qn qn^T / D`` -> softmax.  What the
+        gene-gene extraction (``models/unet_attn.py``) reads; the JAX
+        extractor's jit drops the rest of the block as dead code."""
+        x = self._tokens(rna)
+        qn = self.q_norm(self.q(x)[:, None]).float()      # (B, 1, G, D)
+        logits = torch.matmul(qn, qn.transpose(-1, -2)) / x.shape[-1]
+        return torch.softmax(logits, dim=-1)
+
+    def forward(self, rna: torch.Tensor, *, return_attn: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        b, z, h, w, g = rna.shape
+        attn = self.attention(rna)
+        v = self.v(self._tokens(rna))
         out = torch.matmul(attn.to(v.dtype), v[:, None])[:, 0]
         out = self.mlp(self.norm2(self.proj(out)))
         out = out.transpose(1, 2).reshape(b, z, h, w, g)

@@ -2,7 +2,8 @@
 
 All sources under ``tera_mind_tpu_torch/csrc/`` compile into ONE shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds).  The library lands in ``tera_mind_tpu_torch/_build/`` (listed in
+seconds): each ``.cu`` in its own ``nvcc`` process, all started together,
+then one link.  The library lands in ``tera_mind_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, and is built at
 first use.  Each ``extern "C"`` entry point takes device pointers and the
 stream as ``void*`` and the variant the wrapper chose as an ``int``,
@@ -31,8 +32,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh codes
 
 _ptr, _int, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -85,25 +85,45 @@ def lib_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed .so (no-op if it exists)."""
+    """Compile each csrc/*.cu in its own ``nvcc`` process, all started
+    together, and link the objects into the hashed .so (no-op if it
+    exists)."""
     global build_seconds, build_log
     out = lib_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS,
-           "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    nvcc = nvcc_path()
+    cus = [s for s in sources() if s.suffix == ".cu"]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        work = Path(work)
+        jobs = []
+        for src in cus:
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                   "-o", str(work / f"{src.stem}.o"), str(src)]
+            with open(work / f"{src.stem}.log", "w") as log:
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+        for _, proc in jobs:
+            proc.wait()
+        logs = [(work / f"{src.stem}.log").read_text() for src in cus]
+        build_log = "".join(logs)
+        for (cmd, proc), log in zip(jobs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *[str(work / f"{src.stem}.o") for src in cus]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent build sees a whole file
     return out
 

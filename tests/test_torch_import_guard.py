@@ -35,7 +35,10 @@ def test_port_modules_import_without_jax():
     assert "tera_mind_tpu_torch.parallel.streaming" in names
     assert names >= {f"tera_mind_tpu_torch.{m}" for m in (
         "training.harness", "training.tb", "data.dataset", "data.manifest",
-        "diffusion.resample", "cli.train", "ops.quant", "ops.quant_kernel")}
+        "diffusion.resample", "cli.train", "ops.quant", "ops.quant_kernel",
+        "models.unet_attn", "cli.attn", "cli.evaluate", "metrics",
+        "metrics.stats", "metrics.fid", "metrics.ssim", "metrics.features",
+        "metrics.inception", "metrics.gene_stats", "metrics.morphology")}
     n_modules = len(names)
     assert int(n_loaded) >= n_modules > 15
     assert bad == "[]", bad

@@ -559,3 +559,23 @@ def test_chip_smoke_checks_the_int8_shapes_and_counts():
         970, 1482, 1994, 2506}
     # no torch._int_mm shape needs padding beyond K's (M > 16, N % 8 == 0)
     assert all(m > 16 and k % 8 == 0 and n % 8 == 0 for m, k, n in mm)
+
+
+def test_chip_smoke_checks_the_extraction_shape_and_count():
+    """chip_smoke.py's K1 shape of ``cli.attn`` and its launches a tile are
+    what the extractor gives K1 (scripts/kernel_shapes.py --attn): one
+    (3,664, 64) float32 q-norm per z-group, 4 a tile, the vector
+    variant; 1,024 over the 16x16-tile ROI."""
+    import importlib.util
+
+    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "kernel_shapes", _build.PKG.parent / "scripts" / "kernel_shapes.py")
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    k1_shapes, patches = ks.attn_shapes()
+    assert patches == 16
+    assert dict(k1_shapes) == {cs.ATTN_K1_SHAPE: cs.ATTN_K1_PER_TILE}
+    assert cs.ATTN_ROI_SIDE ** 2 == ks.ATTN_ROI_TILES
+    assert cs.ATTN_ROI_SIDE ** 2 * cs.ATTN_K1_PER_TILE == 1024
+    assert k1.rmsnorm_variant(cs.ATTN_K1_SHAPE[1], 4, True) == "vector"

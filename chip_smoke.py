@@ -96,7 +96,18 @@ Phases, each printed on its own line with elapsed seconds:
      pool_fid and statistics equal), then ``--features inception`` and
      ``--features torchscript`` on a traced random-weight InceptionV3,
      card and CPU (d_fid 1e-4 relative); int8's PSNR/SSIM against bf16;
- 16. a ``{"kernels": [...]}`` line, then the card line, then the result.
+ 16. the baselines: for patch-dm and sinf, a narrow f32 model's forward
+     (1e-4 of the output's max) and one accumulated train step (phase
+     12's gates) on the card against the CPU; then ``cli.train``'s
+     builder at full width with ``--method patch-dm`` and ``--method
+     sinf`` (float32 compute outside the RNA tower, as JAX's promotions
+     give), 8 steps each with the counters set to 0 just before ``fit``:
+     finite losses, changed parameters, exactly 4 K1 and 4 K1b launches a
+     step (the RNA tower's gene block) and no K2 or K2b, save -> restore
+     bit-equal; ``cli.generate --no_packed`` (1x1 grid, 2 steps) from the
+     patch-dm checkpoint; the refusals where the JAX package fails (sinf
+     generation, a packed baseline);
+ 17. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
 nothing of JAX.
@@ -466,15 +477,22 @@ TRAIN_K1_SHAPES = [
     (1_048_576, 224)]
 TRAIN_K2_SHAPES = [(512, 128, 256), (128, 128, 256), (512, 32, 512)]
 # K1 (and K1b) and K2 (and K2b) launches a training step
+# (the baselines: K1 in the RNA tower's gene block only, its q_norm and
+# norm2 at (29,312, 64), two a microbatch; no K2)
 TRAIN_LAUNCHES = {"5d": {"rmsnorm": 252, "window_attention": 18},
-                  "packed": {"rmsnorm": 76, "window_attention": 18}}
+                  "packed": {"rmsnorm": 76, "window_attention": 18},
+                  "patch-dm": {"rmsnorm": 4, "window_attention": 0},
+                  "sinf": {"rmsnorm": 4, "window_attention": 0}}
 # K1b and K2b launches a training step by variant (scripts/kernel_shapes.py
 # --train): the odd C of the gene concats take K1b strided
 TRAIN_BWD_VARIANTS = {
     "5d": {"rmsnorm_bwd": {"strided": 18, "vector": 234},
            "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18}},
     "packed": {"rmsnorm_bwd": {"strided": 0, "vector": 76},
-               "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18}}}
+               "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18}},
+    **{m: {"rmsnorm_bwd": {"strided": 0, "vector": 4},
+           "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0}}
+       for m in ("patch-dm", "sinf")}}
 # edge shapes: ragged and odd C, odd row counts, C = 741 and 1,253 (K1b
 # strided), C = 8, 264 and 1,024 (vector with one 16-byte vector a row,
 # unequal lanes, 32 lanes a row; 1,024 is strided in f32) and 2,050 (a row
@@ -1849,19 +1867,23 @@ def small_train_config(**kw):
                        train_crop=64, dropout=0.0, **kw)
 
 
-def check_small_train_step(device) -> dict:
-    """One accumulated f32 train step of the narrow config on the card and
-    on the CPU from the same weights (every leaf perturbed, so all get a
-    gradient), batch and draws (noise, t, block origin): the loss within
-    TRAIN_LOSS_ATOL and every gradient leaf within TRAIN_GRAD_TOL of its
-    max |CPU grad|; returns the largest differences."""
+def check_small_train_step(device, method: str = "ours") -> dict:
+    """One accumulated f32 train step of the narrow config of ``method``'s
+    model on the card and on the CPU from the same weights (every leaf
+    perturbed, so all get a gradient), batch and draws (noise, t, block
+    origin): the loss within TRAIN_LOSS_ATOL and every gradient leaf
+    within TRAIN_GRAD_TOL of its max |CPU grad|; returns the largest
+    differences.  A baseline's conv biases whose channels reach only a
+    GroupNorm of one channel a group have a gradient of 0 but for
+    rounding: where the CPU's leaf is below 1e-6 of the largest gradient,
+    the card's must be too (tests/test_torch_baselines.py's rule)."""
     import numpy as np
     import torch
 
     from tera_mind_tpu_torch.convert import export_params, load_jax_params
     from tera_mind_tpu_torch.training.harness import Trainer
 
-    conf = small_train_config()
+    conf = small_train_config(method=method)
     cpu = Trainer(conf, device="cpu")
     cpu.init_state()
     rng = np.random.default_rng(5)
@@ -1888,20 +1910,33 @@ def check_small_train_step(device) -> dict:
 
     loss_c, grads_c = cpu.loss_and_grads(cpu.shape_batch(batch), on(cpu))
     loss_g, grads_g = card.loss_and_grads(card.shape_batch(batch), on(card))
-    out = {"loss": abs(float(loss_g) - float(loss_c)), "grad": 0.0}
+    out = {"loss": abs(float(loss_g) - float(loss_c)), "grad": 0.0,
+           "vanishing": []}
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads_c.values())
     for name, gc in grads_c.items():
         top = float(gc.abs().max())
         d = float((grads_g[name].cpu() - gc).abs().max())
+        if method != "ours" and top <= floor:
+            require(name.endswith("_conv.bias")
+                    and float(grads_g[name].abs().max()) <= floor,
+                    f"small train step [{method}] grad {name}: CPU {top}, "
+                    f"card {float(grads_g[name].abs().max())}, floor "
+                    f"{floor}")
+            out["vanishing"].append(name)
+            continue
         require(d <= TRAIN_GRAD_TOL * max(top, 1e-12),
                 f"small train step grad {name}: {d} of max {top}")
         out["grad"] = max(out["grad"], d / max(top, 1e-12))
     require(out["loss"] <= TRAIN_LOSS_ATOL,
             f"small train step loss: card {float(loss_g)}, CPU "
             f"{float(loss_c)}")
-    log(f"small f32 train step, card vs CPU: loss {float(loss_g):.6f} vs "
-        f"{float(loss_c):.6f} (|d| {out['loss']:.3g}, tol "
-        f"{TRAIN_LOSS_ATOL}); gradients within {out['grad']:.3g} of each "
-        f"leaf's max (tol {TRAIN_GRAD_TOL}), {len(grads_c)} leaves")
+    log(f"small f32 train step [{method}], card vs CPU: loss "
+        f"{float(loss_g):.6f} vs {float(loss_c):.6f} (|d| "
+        f"{out['loss']:.3g}, tol {TRAIN_LOSS_ATOL}); gradients within "
+        f"{out['grad']:.3g} of each leaf's max (tol {TRAIN_GRAD_TOL}), "
+        f"{len(grads_c)} leaves"
+        + (f", {len(out['vanishing'])} vanishing below {floor:.3g} on both"
+           if method != "ours" else ""))
     return out
 
 
@@ -1916,14 +1951,18 @@ def read_train_launches() -> tuple:
              "window_attention_bwd": dict(k2.bwd.launches_by_variant)})
 
 
-def run_training(device, path: str, tmp: Path) -> dict:
+def run_training(device, path: str, tmp: Path,
+                 steps: int = TRAIN_STEPS) -> dict:
     """``cli.train``'s own builder on the 638850 preset at full width
     (``--synthetic --batch 32``: accum 2, 128 patches of 64^2 a
     microbatch; bf16 compute, f32 params, dropout 0.1, lr 2e-5, grad clip
-    1), the 5D model or ``--packed``, for TRAIN_STEPS steps with the
-    launch counters set to 0 just before ``fit``; then save -> restore on
-    the card (bit-equal) and, for the 5D model, ``cli.generate`` on a 1x1
-    grid for 2 steps from the checkpoint the trainer wrote."""
+    1), the 5D model, ``--packed``, or a baseline (``--method patch-dm``
+    or ``sinf``: float32 compute but in the RNA tower, as JAX's modules
+    without ``dtype=`` promote to their float32 params), for ``steps``
+    steps with the launch counters set to 0 just before ``fit``; then save
+    -> restore on the card (bit-equal) and, for the 5D model and
+    patch-dm, ``cli.generate`` on a 1x1 grid for 2 steps from the
+    checkpoint the trainer wrote (patch-dm with ``--no_packed``)."""
     import numpy as np
     import torch
 
@@ -1931,9 +1970,10 @@ def run_training(device, path: str, tmp: Path) -> dict:
     from tera_mind_tpu_torch.cli import train as train_cli
     from tera_mind_tpu_torch.training.harness import Trainer
 
+    extra = {"5d": [], "packed": ["--packed"]}.get(path, ["--method", path])
     args = train_cli.parse_args(
-        ["--synthetic", "--batch", "32", "--max_steps", str(TRAIN_STEPS),
-         "--device", str(device)] + (["--packed"] if path == "packed" else []))
+        ["--synthetic", "--batch", "32", "--max_steps", str(steps),
+         "--device", str(device)] + extra)
     t0 = time.perf_counter()
     conf, ds, trainer, _ = train_cli.build(args)
     conf.base_dir = str(tmp / path)
@@ -1955,7 +1995,7 @@ def run_training(device, path: str, tmp: Path) -> dict:
         reset_launches()
         t0 = time.perf_counter()
         state = trainer.fit(train_cli.epoch_batches(
-            ds, conf.batch_size_effective), max_steps=TRAIN_STEPS,
+            ds, conf.batch_size_effective), max_steps=steps,
             state=state, log_every=1, metrics=False)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1965,8 +2005,8 @@ def run_training(device, path: str, tmp: Path) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rss = peak_rss_gib()
     want_step = TRAIN_LAUNCHES[path]
-    want = {k: want_step[k.removesuffix("_bwd")] * TRAIN_STEPS for k in got}
-    want_variants = {k: {v: n * TRAIN_STEPS for v, n in by.items()}
+    want = {k: want_step[k.removesuffix("_bwd")] * steps for k in got}
+    want_variants = {k: {v: n * steps for v, n in by.items()}
                      for k, by in TRAIN_BWD_VARIANTS[path].items()}
     timed = trainer.log[TRAIN_TIMED_FROM - 1:]
     data_s = sum(r["data_s"] for r in timed)
@@ -1976,15 +2016,15 @@ def run_training(device, path: str, tmp: Path) -> dict:
     changed = max(float((state.params[n].detach() - p).abs().max())
                   for n, p in before.items())
     log(f"training [{path}]: {n_params / 1e6:.1f}M f32 params, built in "
-        f"{build_s:.1f} s; {TRAIN_STEPS} steps of 64 samples in {secs:.2f} "
-        f"s; steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS}: {rate:.2f} samples/s, "
+        f"{build_s:.1f} s; {steps} steps of 64 samples in {secs:.2f} "
+        f"s; steps {TRAIN_TIMED_FROM}-{steps}: {rate:.2f} samples/s, "
         f"{step_s / len(timed):.3f} s a step on the device, data wait "
         f"{100 * data_s / (data_s + step_s):.1f} %; losses "
         f"{[round(v, 4) for v in losses]}; peak device memory {peak:.2f} "
         f"GiB, the process's peak host RSS {rss:.2f} GiB ({rss_before:.2f} "
         f"before); launches {got} (expected {want}), backward by variant "
         f"{got_variants} (expected {want_variants}); {card}")
-    require(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+    require(all(np.isfinite(losses)) and len(losses) == steps,
             f"training losses {losses}")
     require(changed > 0, "training left the parameters unchanged")
     require(got == want, f"training launches {got}, expected {want}")
@@ -2012,14 +2052,18 @@ def run_training(device, path: str, tmp: Path) -> dict:
                params_m=n_params / 1e6)
     del trainer, again, state, before
     torch.cuda.empty_cache()
-    if path == "5d":
-        out["ckpt"] = Path(conf.logdir) / "ckpt"
+    out["ckpt"] = Path(conf.logdir) / "ckpt"
+    if path in ("5d", "patch-dm"):
+        t0 = time.perf_counter()
         gen_out = generate.main([
-            "--ckpt_pth", str(Path(conf.logdir) / "ckpt"), "--hnm", "1",
-            "--wnm", "1", "--tot_epoch", "2", "--synthetic", "--device",
-            str(device), "--out_dir", str(tmp / "gen_tiles")])
+            "--ckpt_pth", str(out["ckpt"]), "--hnm", "1", "--wnm", "1",
+            "--tot_epoch", "2", "--synthetic", "--device", str(device),
+            "--out_dir", str(tmp / f"gen_tiles_{path}")]
+            + (["--no_packed"] if path == "patch-dm" else []))
         require_output(gen_out, (256, 256, 100))
-        log("cli.generate from the trained checkpoint: 1x1 grid, 2 steps")
+        out["generate_s"] = time.perf_counter() - t0
+        log(f"cli.generate from the trained {path} checkpoint: 1x1 grid, 2 "
+            f"steps in {out['generate_s']:.1f} s")
     return out
 
 
@@ -2246,6 +2290,86 @@ def run_evaluate(device, outs: dict, tmp: Path, int8_stats: dict) -> dict:
                 int8_vs_bf16={k: a[k] for k in ("psnr", "ssim", "ms_ssim")})
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the baselines (patch-dm, sinf) on the card
+# ---------------------------------------------------------------------------
+
+BASELINE_FWD_TOL = 1e-4   # small f32 forward, card vs CPU, of |CPU out| max
+BASELINES = ("patch-dm", "sinf")
+
+
+def check_small_baseline(device, method: str) -> dict:
+    """``method``'s narrow model (small_train_config, float32) with
+    perturbed random weights: both outputs of one forward (2 blocks of
+    2x2 patches) on the card against the CPU within BASELINE_FWD_TOL of
+    the output's max, then one accumulated train step at phase 12's
+    gates."""
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.convert import export_params, load_jax_params
+    from tera_mind_tpu_torch.models.nn import init_weights
+
+    mconf = small_train_config(method=method).make_model_conf()
+    cpu = init_weights(mconf.make_model(torch.float32), 3).eval()
+    rng = np.random.default_rng(7)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.from_numpy(0.05 * rng.standard_normal(
+                tuple(p.shape)).astype(np.float32)))
+    card = load_jax_params(mconf.make_model(torch.float32),
+                           export_params(cpu)).to(device).eval()
+    x = rng.standard_normal((8, 32, 32, 4)).astype(np.float32)
+    t = rng.integers(0, 1000, 2)
+    rna = rng.integers(0, 3, (8, 2, 2, 64)).astype(np.float32)
+    errs = {}
+    with torch.no_grad():
+        want = cpu(*(torch.as_tensor(a) for a in (x, t, rna)), 2, 2)
+        got = card(*(torch.as_tensor(a, device=device)
+                     for a in (x, t, rna)), 2, 2)
+    for name, g, w in zip(("collage", "patches"), got, want):
+        top = float(w.abs().max())
+        errs[name] = float((g.cpu() - w).abs().max()) / top
+        require(bool(torch.isfinite(g).all())
+                and errs[name] <= BASELINE_FWD_TOL,
+                f"small {method} forward {name}: {errs[name]} of max {top}")
+    log(f"small f32 {method} forward, card vs CPU: {errs} of the output's "
+        f"max (tol {BASELINE_FWD_TOL})")
+    return {"forward": errs, "train_step": check_small_train_step(
+        device, method)}
+
+
+def check_baseline_refusals(device, ckpts: dict) -> None:
+    """Where the JAX package fails for a baseline, the port refuses on the
+    card too: ``cli.generate`` from the sinf checkpoint (SinfNet takes no
+    ``decode_original``), from the patch-dm one without ``--no_packed``
+    (no packed layout), and ``cli.train --method patch-dm --packed``."""
+    from tera_mind_tpu_torch.cli import generate
+    from tera_mind_tpu_torch.cli import train as train_cli
+
+    def refused(fn, exc, words: str) -> str:
+        try:
+            fn()
+        except exc as e:
+            require(words in str(e), f"refusal without {words!r}: {e}")
+            return str(e).splitlines()[0]
+        raise SmokeFailure(f"no refusal ({words})")
+
+    base = ["--hnm", "1", "--wnm", "1", "--synthetic", "--device",
+            str(device)]
+    msgs = [
+        refused(lambda: generate.build(generate.parse_args(
+            ["--ckpt_pth", str(ckpts["sinf"]), "--no_packed", *base])),
+            SystemExit, "decode_original"),
+        refused(lambda: generate.build(generate.parse_args(
+            ["--ckpt_pth", str(ckpts["patch-dm"]), *base])),
+            SystemExit, "--no_packed"),
+        refused(lambda: train_cli.build(train_cli.parse_args(
+            ["--synthetic", "--method", "patch-dm", "--packed", "--device",
+             str(device)])), ValueError, "packed layout")]
+    log(f"baseline refusals on the card, as JAX fails: {msgs}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2327,20 +2451,31 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train = {path: run_training(device, path, Path(tmp))
                  for path in ("5d", "packed")}
+        ckpts = {path: t.pop("ckpt") for path, t in train.items()}
         phase_s = {}
         t0 = time.perf_counter()
-        attn = run_attn(device, train["5d"].pop("ckpt"), Path(tmp))
+        attn = run_attn(device, ckpts["5d"], Path(tmp))
         phase_s["attn"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         evaluate = run_evaluate(device, eval_outs, Path(tmp),
                                 int8_vs_bf16["int8"])
         phase_s["evaluate"] = time.perf_counter() - t0
-        log(f"phase seconds: attn {phase_s['attn']:.1f}, evaluate "
-            f"{phase_s['evaluate']:.1f}")
-    del eval_outs
-    attn["phase_seconds"], evaluate["phase_seconds"] = (phase_s["attn"],
-                                                        phase_s["evaluate"])
+        del eval_outs
+        t0 = time.perf_counter()
+        baselines = {"small": {m: check_small_baseline(device, m)
+                               for m in BASELINES}}
+        for m in BASELINES:
+            train[m] = run_training(device, m, Path(tmp))
+            ckpts[m] = train[m].pop("ckpt")
+            torch.cuda.empty_cache()
+        check_baseline_refusals(device, ckpts)
+        phase_s["baselines"] = time.perf_counter() - t0
+        log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in phase_s.items()))
+    for name, out in (("attn", attn), ("evaluate", evaluate),
+                      ("baselines", baselines)):
+        out["phase_seconds"] = phase_s[name]
 
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
                            "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
@@ -2432,7 +2567,7 @@ def main() -> int:
                       "planner": plans, "small_stream": small_stream,
                       "small_int8": small_int8,
                       "int8_vs_bf16": int8_vs_bf16, "attn": attn,
-                      "evaluate": evaluate}),
+                      "evaluate": evaluate, "baselines": baselines}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,10 +33,12 @@ kw)) shapes, K4's (rows, C, multiple) by variant (``dynamic``: an
 abs-max launch too; ``static``: none) and ``torch._int_mm``'s (M, K_pad,
 N), with the int8 operations and the bytes K3 and K4 move a step.
 
-    python scripts/kernel_shapes.py --train [--packed]
+    python scripts/kernel_shapes.py --train [--packed | --method M]
 
 ``--train`` runs one training forward of the preset instead: the 5D
-``TeraUNet`` (``--packed``: ``PackedTeraUNet(from_5d=True)``) with
+``TeraUNet`` (``--packed``: ``PackedTeraUNet(from_5d=True)``; ``--method
+patch-dm`` or ``sinf``: that baseline, whose only kernel is K1 in the RNA
+tower's gene block) with
 float32 parameters and bf16 compute, on one microbatch of ``cli.train``'s
 defaults (batch 32: 32 samples, each a 2x2 block of 64^2 patches, so 128
 patches, both decoders), and counts it for one step of ``accum``
@@ -223,12 +225,13 @@ TRAIN_BATCH = 32    # cli.train's default --batch: samples a microbatch
 TRAIN_ACCUM = 2     # 64 // batch microbatches a step
 
 
-def train_shapes(packed: bool = False, batch: int = TRAIN_BATCH
-                 ) -> tuple[Counter, Counter]:
+def train_shapes(packed: bool = False, batch: int = TRAIN_BATCH,
+                 method: str = "ours") -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one
     training forward on a microbatch of ``batch`` samples (2x2 blocks of
-    patches, both decoders); K1b and K2b get the same."""
-    conf = prep_config("638850").make_model_conf()
+    patches, both decoders) of ``method``'s model; K1b and K2b get the
+    same."""
+    conf = prep_config("638850", method=method).make_model_conf()
     k1, k2 = Counter(), Counter()
     with recording(k1, k2), torch.device("meta"):
         model = (make_packed_model(conf, torch.float32, from_5d=True)
@@ -241,11 +244,11 @@ def train_shapes(packed: bool = False, batch: int = TRAIN_BATCH
     return k1, k2
 
 
-def train_bwd_variants(packed: bool = False) -> dict:
+def train_bwd_variants(packed: bool = False, method: str = "ours") -> dict:
     """K1b's and K2b's launches a training step by variant: the shapes of
     ``train_shapes`` in bf16 with aligned tensors, ``TRAIN_ACCUM``
     microbatches."""
-    k1, k2 = train_shapes(packed)
+    k1, k2 = train_shapes(packed, method=method)
     out = {"rmsnorm_bwd": dict.fromkeys(K1_VARIANTS, 0),
            "window_attention_bwd": dict.fromkeys(K2_VARIANTS, 0)}
     for (_, c), n in k1.items():
@@ -257,10 +260,11 @@ def train_bwd_variants(packed: bool = False) -> dict:
     return out
 
 
-def main_train(packed: bool) -> None:
-    k1, k2 = train_shapes(packed)
-    print(("PackedTeraUNet(from_5d)" if packed else "TeraUNet (5D)")
-          + f" training, {TRAIN_ACCUM} microbatches of {TRAIN_BATCH} "
+def main_train(packed: bool, method: str = "ours") -> None:
+    k1, k2 = train_shapes(packed, method=method)
+    name = ("PackedTeraUNet(from_5d)" if packed else "TeraUNet (5D)") \
+        if method == "ours" else f"the {method} baseline"
+    print(f"{name} training, {TRAIN_ACCUM} microbatches of {TRAIN_BATCH} "
           "samples a step")
     for name, counts in (("K1 rmsnorm and K1b (rows, C)", k1),
                          ("K2 window_attention and K2b (B, N, D)", k2)):
@@ -269,7 +273,7 @@ def main_train(packed: bool) -> None:
         for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
             print(f"  {shape}: {n} per microbatch, {n * TRAIN_ACCUM} per "
                   "step")
-    for name, by in train_bwd_variants(packed).items():
+    for name, by in train_bwd_variants(packed, method).items():
         print(f"{name} launches a step by variant: {by}")
 
 
@@ -322,6 +326,9 @@ def main() -> None:
                     help="one training step of cli.train's defaults")
     ap.add_argument("--packed", action="store_true",
                     help="with --train: the packed model")
+    ap.add_argument("--method", default="ours",
+                    choices=("ours", "patch-dm", "sinf"),
+                    help="with --train: the model of this method")
     ap.add_argument("--quant", default="", choices=("", "int8",
                                                    "int8_static"),
                     help="the prequantized int8 packed model's K3, K4 "
@@ -335,7 +342,7 @@ def main() -> None:
         main_attn()
         return
     if args.train:
-        main_train(args.packed)
+        main_train(args.packed, args.method)
         return
     if args.quant:
         main_quant(args.quant, not args.no_quant_attn, args.patches,

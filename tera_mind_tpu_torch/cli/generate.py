@@ -39,9 +39,14 @@ quantized once (``ops/quant.py``: K4 and K3 on the card); ``--quant
 int8_static`` first calibrates static activation scales on one dynamic
 chain over the grid's first (up to) 2x2 block, then swaps in the static
 model.  JAX ignores ``--quant`` with ``--no_packed``; the port refuses
-that combination.  Not ported yet: the JAX trainer's orbax directories
-and multi-process runs (``--coordinator``, ``--num_processes``,
-``--process_id``).
+that combination.  A baseline's checkpoint (``patch-dm``, by its
+``config.json`` or run name) generates with ``--no_packed``, through its
+5D model; the port refuses where the JAX CLI fails: a baseline without
+``--no_packed`` (no packed layout), ``sinf`` (its model takes no
+``decode_original``) and a reference ``.ckpt`` of a baseline (the
+conversion knows the ``ours`` model only, ``convert_unet_params``).
+Not ported yet: the JAX trainer's orbax directories and multi-process
+runs (``--coordinator``, ``--num_processes``, ``--process_id``).
 """
 
 from __future__ import annotations
@@ -240,13 +245,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def make_model(mconf: TeraUNetConfig, params5: Optional[dict] = None, *,
+def make_model(mconf, params5: Optional[dict] = None, *,
                seed: int = 0, packed: bool = True, packed_attn: bool = False,
                quant: str = "", quant_attn: bool = True) -> torch.nn.Module:
-    """The model in the compute dtype on the CPU, from a 5D flax-named
-    tree ``params5`` or, without one, from ``init_weights(seed)`` of the
-    5D model.  ``packed``: the tree is packed (``pack_unet_params``) into
-    a ``PackedTeraUNet``, as the JAX CLI does; with ``quant`` (``int8``,
+    """The model of ``mconf`` (``TeraUNetConfig`` or a baseline's config,
+    whose ``make_model`` builds it) in the compute dtype on the CPU, from
+    a 5D flax-named tree ``params5`` or, without one, from
+    ``init_weights(seed)`` of the 5D model.  ``packed``: the tree is
+    packed (``pack_unet_params``) into a ``PackedTeraUNet``, as the JAX
+    CLI does; with ``quant`` (``int8``,
     ``int8_static``) it is also pre-quantized (``prequantize_params``,
     the DiT denses too with ``quant_attn``) into the DYNAMIC prequantized
     int8 model: ``int8_static`` calibrates from there
@@ -324,6 +331,25 @@ def run_config(args: argparse.Namespace):
     return conf
 
 
+def refuse_baseline(args: argparse.Namespace, method: str, mconf) -> None:
+    """Exit where the JAX CLI fails for a baseline's config: without
+    ``--no_packed`` (``pack_unet_params`` and ``PackedTeraUNet`` take the
+    flagship model only) and for ``sinf`` (``SinfNet`` takes no
+    ``decode_original``, which the sampling model function passes: a
+    TypeError in JAX).  A reference ``.ckpt`` of a baseline is refused
+    by ``convert_unet_params``."""
+    if isinstance(mconf, TeraUNetConfig):
+        return
+    if method == "sinf":
+        raise SystemExit("method 'sinf': SinfNet takes no decode_original, "
+                         "which generation passes (the JAX CLI fails there "
+                         "with a TypeError)")
+    if not args.no_packed:
+        raise SystemExit(f"method {method!r}: the packed layout "
+                         "re-parameterizes the 'ours' model only (the JAX "
+                         "CLI fails there too); pass --no_packed")
+
+
 def build(args: argparse.Namespace):
     """(generator, model, gene grid or provider, grid origin) for
     ``args``, the model on the device."""
@@ -336,6 +362,7 @@ def build(args: argparse.Namespace):
         raise SystemExit("no CUDA device: run on the card, or pass "
                          "--device cpu")
     mconf = conf.make_model_conf()
+    refuse_baseline(args, conf.method, mconf)
     params5 = None
     if args.ckpt_pth is not None and args.ckpt_pth.suffix == ".ckpt":
         params5 = convert_unet_params(load_torch_state_dict(args.ckpt_pth),

@@ -5,8 +5,9 @@ dataclass's fields (a ``config.json`` written by either package loads
 in the other: each ignores the other's extra fields), the canonical
 preset ``prep_config`` (reference config_parm.py:5-59) with the run-name
 convention ``{mouse}_{size}_{nrna}_{stain}_{srna}_{method}``,
-``config_from_name`` and the model / sampler factories.  Only the
-``ours`` model is ported, with deterministic DDIM sampling; the JAX
+``config_from_name`` and the model / sampler factories: ``make_model_conf``
+gives the model of ``method`` (``patch-dm``, ``sinf``, else the flagship
+``TeraUNet``, as JAX's), with deterministic DDIM sampling; the JAX
 package's fields for the TPU mesh and prefetching and its sampler choice
 (``mesh_shape``, ``prefetch_depth``, ``gen_type``) are not kept.
 """
@@ -29,7 +30,7 @@ from .models.unet import TeraUNetConfig
 class TrainConfig:
     # identity
     name: str = "test"
-    method: str = "ours"              # only 'ours' is ported
+    method: str = "ours"      # 'ours' | 'ours_vis' | 'patch-dm' | 'sinf'
     seed: int = 0
 
     # data
@@ -110,14 +111,40 @@ class TrainConfig:
         return self.batch_size * self.accum_batches
 
     # ---- factories -----------------------------------------------------
-    def make_model_conf(self) -> TeraUNetConfig:
-        if self.method not in ("ours", "ours_vis"):
-            raise NotImplementedError(f"method {self.method!r}: only 'ours' "
-                                      "is ported (the baselines are not)")
-        if self.use_pos:
-            raise NotImplementedError("use_pos: the position embedding "
-                                      "serves the patch-dm baseline, not "
-                                      "ported")
+    def make_model_conf(self):
+        """Model config by ``method`` (reference config.py:281-291):
+        'patch-dm' -> PatchDMUNet (with ``use_pos``), 'sinf' -> SinfNet,
+        anything else -> TeraUNet, as in the JAX package."""
+        if self.method == "patch-dm":
+            from .models.unet_patch_dm import PatchDMUNetConfig
+            return PatchDMUNetConfig(
+                image_size=self.image_size,
+                in_channels=self.in_channels,
+                out_channels=self.in_channels,
+                model_channels=self.net_ch,
+                num_res_blocks=self.net_num_res_blocks,
+                embed_channels=self.embed_channels,
+                attention_resolutions=tuple(self.net_attn),
+                dropout=self.dropout,
+                channel_mult=tuple(self.net_ch_mult),
+                rna_tpl=self.rna_tpl,
+                rna_num=self.rna_num,
+                gn_sz=self.gn_sz,
+                use_pos=True,
+                dtype_name=self.compute_dtype,
+            )
+        if self.method == "sinf":
+            from .models.unet_sinf import SinfNetConfig
+            return SinfNetConfig(
+                image_size=self.image_size,
+                in_channels=self.in_channels,
+                out_channels=self.in_channels,
+                model_channels=self.net_ch,
+                rna_tpl=self.rna_tpl,
+                rna_num=self.rna_num,
+                gn_sz=self.gn_sz,
+                dtype_name=self.compute_dtype,
+            )
         return TeraUNetConfig(
             image_size=self.image_size,
             in_channels=self.in_channels,
@@ -131,6 +158,7 @@ class TrainConfig:
             rna_tpl=self.rna_tpl,
             rna_num=self.rna_num,
             gn_sz=self.gn_sz,
+            use_pos=self.use_pos,
             dtype_name=self.compute_dtype,
         )
 
@@ -201,15 +229,12 @@ def prep_config(mouse: str, *, batch: int = 32, size: int = 64,
 def config_from_name(name: str) -> TrainConfig:
     """Re-derive a config from a run or checkpoint directory name,
     ``{mouse}_{size}_{nrna}_{stain}_{srna}[_{method}]`` (reference
-    test_brn.py:337-344).  Only the ``ours`` method is ported."""
+    test_brn.py:337-344); the method defaults to ``ours``."""
     parts = name.split("_")
     if len(parts) < 5:
         raise ValueError(f"run name {name!r} is not "
                          "mouse_size_nrna_stain_srna[_method]")
     mouse, size, nrna, stain, srna = parts[:5]
     method = parts[5] if len(parts) > 5 else "ours"
-    if method != "ours":
-        raise NotImplementedError(f"method {method!r}: only 'ours' is "
-                                  "ported (the baselines are not)")
     return prep_config(mouse, size=int(size), stain=stain, nrna=int(nrna),
-                       srna=int(srna))
+                       srna=int(srna), method=method)

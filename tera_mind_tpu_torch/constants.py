@@ -9,8 +9,60 @@ MOUSE = {
     "638850": [49, []],
 }
 
+# Slices excluded from training for quality reasons (reference utils/__init__.py:1-7).
+MOUSE_EXL = {
+    "609882": [59, [0, 3, 6, 21, 29, 30, 35, 39, 54, 57]],
+    "609889": [58, [12, 20, 21, 33, 34, 39, 41, 57, 58]],
+    "638850": [57, [6, 7, 8, 9, 16, 20, 31, 53]],
+}
+
 # z-slices per stain in the training image arrays.
 NUM_Z_SLICES = 50
+
+# 307-gene human-brain panel (reference utils/__init__.py:15-47).
+HBR = [
+    "ABCC9", "ADAM17", "ADAMTS12", "ADAMTS16", "ADAMTS3", "ADRA1A", "ADRA1B",
+    "AIF1", "ALK", "ALOX5AP", "ANGPT1", "ANK1", "ANKRD18A", "ANO3", "ANXA1",
+    "APH1A", "APOD", "APOE", "APP", "AQP4", "ARHGAP24", "ATP10A", "ATP2C2",
+    "B4GALNT1", "BACE1", "BCAN", "BEX1", "BRINP3", "BTBD11", "C1QL3",
+    "C1orf162", "C3", "CABP1", "CALCRL", "CAPG", "CAPN3", "CAV1", "CCK",
+    "CCL4", "CCL5", "CCN2", "CCNA1", "CCNB2", "CD14", "CD163", "CD2", "CD36",
+    "CD3G", "CD4", "CD48", "CD52", "CD68", "CD74", "CD83", "CD86", "CD8A",
+    "CDH1", "CDH12", "CDH4", "CDH6", "CDK1", "CEMIP", "CEMIP2", "CENPF",
+    "CH25H", "CHI3L1", "CHODL", "CLDN11", "CNDP1", "CNTN2", "CNTNAP3",
+    "CNTNAP3B", "COL12A1", "COL1A2", "COL25A1", "CORO1A", "CRHBP", "CRYM",
+    "CSPG4", "CTNNA3", "CTSH", "CTSS", "CUX2", "CX3CR1", "CXCL14", "CXCR4",
+    "CYTIP", "DCN", "DDR2", "DNER", "DUSP1", "EFHD1", "EGFR", "ELOVL2",
+    "ENC1", "EPHA4", "ERBB3", "ERMN", "EYA4", "FASLG", "FBLN1", "FCER1G",
+    "FCGBP", "FCGR1A", "FCGR3A", "FGFR2", "FGFR3", "FILIP1", "FLT1", "FSTL4",
+    "GAD1", "GAD2", "GAS2L3", "GJA1", "GNLY", "GPNMB", "GPR183", "GPR34",
+    "GULP1", "GZMA", "HES1", "HHATL", "HILPDA", "HLA-DMB", "HLA-DQA1",
+    "HMOX1", "HPCA", "HS3ST2", "HS3ST4", "HTR2A", "HTR2C", "IDH1", "IDH2",
+    "IDO1", "IFITM3", "IGFBP3", "IGFBP4", "IGFBP5", "IGFBP7", "IL7R",
+    "IPCEF1", "ITGA8", "ITGAM", "ITGAX", "ITGB2", "KCNAB1", "KCNH5", "KIT",
+    "KLF2", "KLF4", "KLK6", "KLRB1", "LAMA2", "LAMP5", "LHX6", "LINGO1",
+    "LMO4", "LOX", "LRRK1", "LRRK2", "LY86", "LYPD6", "LYPD6B", "LYVE1",
+    "MAF", "MAG", "MAL", "MCTP2", "MEIS2", "MEPE", "MEST", "MGST1", "MKI67",
+    "MMD", "MOBP", "MOG", "MS4A6A", "MYO16", "MYO5B", "MYRF", "NCSTN",
+    "NDST4", "NES", "NGEF", "NKG7", "NNAT", "NOTCH1", "NPFFR2", "NPNT",
+    "NPTX1", "NPTXR", "NPY1R", "NR2F2", "NR4A2", "NRGN", "NRN1", "NRP1",
+    "NTNG1", "NTNG2", "NWD2", "NXPH2", "OLIG1", "OLIG2", "OPALIN", "OTOGL",
+    "P2RY12", "P2RY13", "PARK7", "PAX6", "PCNA", "PCSK1", "PCSK6", "PDGFD",
+    "PDGFRA", "PECAM1", "PHLDB2", "PLCE1", "PLCH1", "PLCXD3", "PLD5",
+    "POSTN", "POU6F2", "PRNP", "PROX1", "PSEN1", "PSEN2", "PSENEN", "PTCHD4",
+    "PTEN", "PTPRC", "PTPRZ1", "PVALB", "RAPGEF5", "RASGRP1", "RELN",
+    "RFTN1", "RGS10", "RGS16", "RGS4", "RGS6", "RIT2", "RNASET2", "RNF144B",
+    "RORB", "ROS1", "RSPO2", "RXFP1", "RYR3", "S100A4", "SAMD5", "SDK1",
+    "SEMA5A", "SERPINA3", "SFRP2", "SLC11A1", "SLC17A6", "SLC17A7",
+    "SLC24A3", "SLC26A4", "SLC6A1", "SLIT3", "SMYD2", "SNCA", "SNCG",
+    "SNTB2", "SORCS1", "SOX10", "SOX11", "SOX2", "SOX4", "SOX9", "SPHKAP",
+    "SPI1", "SPOCK3", "SPON1", "SST", "ST18", "STAT3", "STK32B", "STXBP2",
+    "SULF1", "SV2B", "SYNPR", "SYTL5", "TAC1", "TACR1", "TENM1", "TESPA1",
+    "TGFB1", "TGFB2", "TGFBI", "THBS1", "THEMIS", "THSD4", "THSD7B",
+    "TMEM132C", "TMIGD3", "TOP2A", "TP53", "TPH2", "TRAC", "TREM2", "TRHDE",
+    "TRIL", "TRPC5", "TRPC6", "TSHZ2", "TTYH1", "UGT8", "UNC5B", "VCAN",
+    "VIP", "VSIG4", "VWC2", "VWC2L", "WIF1", "WIPF3", "ZBBX", "ZDHHC23",
+]
 
 # Mouse->human 81-gene index map into the 500-plex panel
 # (reference utils/__init__.py:49-57).
@@ -59,3 +111,18 @@ MALL = {
     "DOPA": ["Nr4a2", "Th"],
     "BLOD": ["Cldn5", "Aqp4"],
 }
+
+# Pathway colormaps (reference utils/__init__.py:93-95).
+CM = {
+    "GLUT": [(0, 1, 0.82), (0.69, 1, 0), (0.89, 0, 1)],
+    "DOPA": [(1, 0, 0.4), (1, 0.4, 0), (1, 1, 0.4)],
+    "BLOD": [(1, 0.43, 1), (1, 0.2, 0.49)],
+}
+
+# Whole-brain tile-grid geometry (reference dataset_util.py:21-23,
+# test_brn.py:321-328): 256 px tiles; full atlas 288x416 tiles incl. border,
+# generation grid 286x414 starting at tile (1, 1).
+TILE_SIZE = 256
+BRAIN_GRID_FULL = (288, 416)
+BRAIN_GRID_GEN = (286, 414)
+BRAIN_GRID_START = (256, 256)  # hst, wst in pixels

@@ -7,7 +7,10 @@ parameter names are the flax names, with ``kernel`` -> ``weight``:
 
 - Dense kernels ``(in, out)`` become ``(out, in)``;
 - 2D conv kernels ``(kh, kw, in, out)`` become ``(out, in, kh, kw)``;
-- 3D conv kernels ``(kz, kh, kw, in, out)`` become ``(out, in, kz, kh, kw)``.
+- 3D conv kernels ``(kz, kh, kw, in, out)`` become ``(out, in, kz, kh, kw)``;
+- a depthwise 2D kernel ``(kh, kw, 1, C)`` becomes ``(C, 1, kh, kw)``, and
+  the baselines' norm leaves (GroupNorm ``scale`` and ``bias``, the
+  channel LayerNorm's ``g`` and ``b``) keep their names.
 
 The match is strict both ways: a flax leaf with no port parameter, a port
 parameter with no flax leaf, or a shape mismatch raises.  The int8
@@ -296,7 +299,15 @@ def load_torch_state_dict(path: str | Path) -> Dict[str, np.ndarray]:
 
 def convert_unet_params(sd: Dict[str, np.ndarray], conf) -> Dict:
     """The 5D TeraUNet flax-named tree of a reference state dict;
-    ``conf`` is the model's ``TeraUNetConfig``."""
+    ``conf`` is the model's ``TeraUNetConfig``.  A baseline's config is
+    refused: the conversion knows the ``ours`` model only (the JAX
+    package's builds a TeraUNet tree that the baseline cannot apply)."""
+    from .models.unet import TeraUNetConfig
+    if not isinstance(conf, TeraUNetConfig):
+        raise ValueError(
+            f"convert_unet_params: reference .ckpt conversion knows the "
+            f"'ours' model only, not {type(conf).__name__}; train the "
+            "baseline with cli.train and pass its checkpoint directory")
     nrb = conf.num_res_blocks
     nlvl = len(conf.channel_mult)
     p: Dict = {}

@@ -81,20 +81,48 @@ class Dense(CastsWeights, nn.Linear):
 
 
 class TimeEmbed(nn.Module):
-    """Time MLP: linear-SiLU-linear (the position half of the JAX module,
-    ``use_pos``, serves the patch-dm baseline, not ported yet).
+    """Time(+position) MLP: linear-SiLU-linear.
+
+    With ``use_pos`` (the patch-dm baseline) the output is ``[time_half |
+    pos_half]``: the time MLP and a second MLP (``pos_0``, ``pos_2``) of
+    the ``pos_channels``-wide position embedding, each ``out_channels //
+    2`` wide.  ``use_pos`` without ``pos_channels`` is refused: the JAX
+    module asserts at its first call that a position embedding was passed,
+    and ``TeraUNet`` and ``PackedTeraUNet`` pass none, so JAX fails there
+    for the ``ours`` model with ``use_pos``.
 
     Computes in float32 whatever the model's compute dtype
     (:func:`set_compute_dtype` leaves it out), as the JAX module (no
     ``dtype=``) computes in float32 on float32 params."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, *,
+                 use_pos: bool = False, pos_channels: Optional[int] = None):
         super().__init__()
-        self.time_0 = Dense(in_channels, out_channels)
-        self.time_2 = Dense(out_channels, out_channels)
+        if use_pos and pos_channels is None:
+            raise ValueError(
+                "TimeEmbed(use_pos=True) needs the position embedding's "
+                "width (pos_channels): the JAX TimeEmbed asserts at its "
+                "first call that a position embedding was passed, and no "
+                "caller of TeraUNet or PackedTeraUNet passes one, so "
+                "use_pos serves the patch-dm baseline only")
+        self.use_pos = use_pos
+        out = out_channels // 2 if use_pos else out_channels
+        self.time_0 = Dense(in_channels, out)
+        self.time_2 = Dense(out, out)
+        if use_pos:
+            self.pos_0 = Dense(pos_channels, out)
+            self.pos_2 = Dense(out, out)
 
-    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
-        return self.time_2(F.silu(self.time_0(t_emb)))
+    def forward(self, t_emb: torch.Tensor,
+                pos_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.time_2(F.silu(self.time_0(t_emb)))
+        if not self.use_pos:
+            return h
+        if pos_emb is None:
+            raise ValueError("TimeEmbed(use_pos=True) needs a position "
+                             "embedding (the JAX module asserts the same)")
+        p = self.pos_2(F.silu(self.pos_0(pos_emb)))
+        return torch.cat([h, p], dim=-1)
 
 
 class Mlp(nn.Module):
@@ -139,16 +167,21 @@ class Conv3d(CastsWeights, nn.Module):
     ``conv3d``).  The input is handed to ``F.conv3d`` as an NCDHW view of
     the channels-last storage (``channels_last_3d`` strides, no copy) and
     the result is viewed back.  ``zero_init`` marks the residual out-convs
-    that :func:`init_weights` zeroes (``use_zero_module``)."""
+    that :func:`init_weights` zeroes (``use_zero_module``); ``groups`` is
+    flax's ``feature_group_count`` (the weight is ``(out, in // groups,
+    ...)``, as flax's kernel ``(..., in // groups, out)``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel: Sequence[int], *, padding: Optional[Sequence[int]]
-                 = None, use_bias: bool = True, zero_init: bool = False):
+                 = None, use_bias: bool = True, zero_init: bool = False,
+                 groups: int = 1):
         super().__init__()
         self.padding = tuple(padding if padding is not None
                              else [(k - 1) // 2 for k in kernel])
         self.zero_init = zero_init
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_channels,
+                                               in_channels // groups,
                                                *kernel))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias \
             else None
@@ -156,7 +189,7 @@ class Conv3d(CastsWeights, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cast(x).permute(0, 4, 1, 2, 3)
         y = F.conv3d(x, self.cast(self.weight), self.cast(self.bias),
-                     padding=self.padding)
+                     padding=self.padding, groups=self.groups)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -170,8 +203,65 @@ class Conv2d(Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cast(x).permute(0, 3, 1, 2)
         y = F.conv2d(x, self.cast(self.weight), self.cast(self.bias),
-                     padding=self.padding)
+                     padding=self.padding, groups=self.groups)
         return y.permute(0, 2, 3, 1)
+
+
+class EquiGroupNorm(nn.Module):
+    """Sliding-window shift-equivariant GroupNorm (reference model/nn.py:
+    26-86, present but disabled there; kept for capability parity).
+
+    ``ksize`` None: plain GroupNorm (two-pass variance over H, W and the
+    group's channels).  Else each pixel is normalized by the mean and
+    variance (E[x^2] - E[x]^2, clipped at 0) of its group's channels over
+    the ``ksize`` x ``ksize`` window centred on it, after zero-padding H
+    and W by ``pad``.  Input ``(..., H, W, C)`` channels-last; statistics
+    in float32, the result in the input's dtype."""
+
+    def __init__(self, channels: int, num_groups: int,
+                 ksize: Optional[int] = None, pad: int = 0,
+                 eps: float = 1e-5, affine: bool = True):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{channels} channels in {num_groups} groups")
+        self.num_groups, self.ksize, self.pad, self.eps = (
+            num_groups, ksize, pad, eps)
+        if affine:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+
+    def _win_mean(self, a: torch.Tensor) -> torch.Tensor:
+        """Mean of (B, H', W', g, cg) over k x k windows (stride 1, no
+        padding) and the group's channels: (B, H'-k+1, W'-k+1, g, 1)."""
+        k, cg = self.ksize, a.shape[-1]
+        s = a.sum(-1).permute(0, 3, 1, 2)
+        s = F.avg_pool2d(s, k, stride=1, divisor_override=1)
+        return (s / (k * k * cg)).permute(0, 2, 3, 1)[..., None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        *lead, h, w, c = x.shape
+        g = self.num_groups
+        xf = x.float().reshape(-1, h, w, g, c // g)
+        if self.ksize is None:
+            mean = xf.mean(dim=(1, 2, 4), keepdim=True)
+            var = xf.var(dim=(1, 2, 4), unbiased=False, keepdim=True)
+            y = (xf - mean) * torch.rsqrt(var + self.eps)
+        else:
+            p, exl = self.pad, (self.ksize - 1) // 2
+            xp = F.pad(xf, (0, 0, 0, 0, p, p, p, p))
+            mean = self._win_mean(xp)
+            var = self._win_mean(xp * xp) - mean * mean
+            xc = xp[:, exl:-exl, exl:-exl] if exl else xp
+            y = (xc - mean) * torch.rsqrt(var.clamp(min=0.0) + self.eps)
+        y = y.reshape(*lead, *y.shape[1:3], c)
+        if hasattr(self, "weight"):
+            y = y * self.weight + self.bias
+        return y.to(x.dtype)
+
+    def reset_affine(self) -> None:
+        if hasattr(self, "weight"):
+            self.weight.data.fill_(1.0)
+            self.bias.data.zero_()
 
 
 def upsample_2x(x: torch.Tensor) -> torch.Tensor:
@@ -198,8 +288,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     kernels as flax's ``variance_scaling(1.0, "fan_in",
     "truncated_normal")`` draws them (a standard normal cut to [-2, 2],
     times ``sqrt(1 / fan_in) / TRUNC_STD``), zero biases, unit norm
-    weights, and zero ``zero_init`` convs.  Drawn on a CPU generator, so
-    the weights do not depend on the device.  The int8 modules with a
+    weights (and zero norm biases), and zero ``zero_init`` convs and
+    denses.  Drawn on a CPU generator, so the weights do not depend on
+    the device.  The int8 modules with a
     float weight draw as their float counterparts; prequantized ones
     (``kernel_q``) keep their buffers."""
     g = torch.Generator().manual_seed(seed)
@@ -217,6 +308,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 mod.bias.zero_()
         elif isinstance(mod, RMSNorm):
             mod.weight.fill_(1.0)
+        elif hasattr(mod, "reset_affine"):
+            mod.reset_affine()
     return model
 
 

@@ -29,8 +29,10 @@ from .rna import RNA_CHANNELS, RNATower, rna_grid_from_dense
 
 @dataclasses.dataclass(frozen=True)
 class TeraUNetConfig:
-    """Structural hyperparameters (the JAX package's TeraUNetConfig,
-    without the patch-dm baseline's ``use_pos``)."""
+    """Structural hyperparameters (the JAX package's TeraUNetConfig).
+    ``use_pos`` is refused when the model is built (``TimeEmbed``): the
+    JAX model asserts at its first call that a position embedding was
+    passed, and no caller passes one."""
 
     image_size: int = 64          # patch size the UNet operates on
     in_channels: int = 4          # pixel channels = stains * z_size
@@ -46,6 +48,7 @@ class TeraUNetConfig:
     gn_sz: int = 4                # gene bins per patch side
     use_zero_module: bool = True  # zero-init residual out-convs
     dropout: float = 0.1          # ResBlock dropout (training mode only)
+    use_pos: bool = False         # position half of the time embedding
     dtype_name: str = "float32"   # compute dtype: float32 | bfloat16
 
     @property
@@ -112,7 +115,7 @@ class TeraUNet(nn.Module):
         def dit(name, c, cond):
             self.add_module(name, DiTBlock(c, cond, conf.num_heads, n_win=2))
 
-        self.time_embed = TimeEmbed(mc, emb)
+        self.time_embed = TimeEmbed(mc, emb, use_pos=conf.use_pos)
         self.rna_tower = RNATower(conf.rna_num, len(conf.rna_tpl),
                                   conf.gn_sz)
         self.stem = Conv3d(conf.stains, mc, (1, 3, 3))

@@ -268,6 +268,7 @@ class PackedTeraUNet(nn.Module):
                  prequant: bool = False, static_act: bool = False,
                  quant_attn: bool = False):
         super().__init__()
+        require_unet_config(conf, "PackedTeraUNet")
         self.conf = conf
         self.from_5d, self.packed_attn = from_5d, packed_attn
         self.quant, self.prequant, self.static_act = quant, prequant, \
@@ -299,7 +300,7 @@ class PackedTeraUNet(nn.Module):
                 return Conv3DAsPacked(cin, cout, (1, 3, 3), z)
             return conv2p(z * cin, z * cout, (3, 3))
 
-        self.time_embed = TimeEmbed(mc, emb)
+        self.time_embed = TimeEmbed(mc, emb, use_pos=conf.use_pos)
         self.rna_tower = RNATower(conf.rna_num, len(conf.rna_tpl),
                                   conf.gn_sz)
         self.stem = pixel_conv(conf.stains, mc)
@@ -442,6 +443,20 @@ class PackedTeraUNet(nn.Module):
         return preds[0], (preds[1] if decode_original else None)
 
 
+def require_unet_config(conf, what: str) -> None:
+    """Refuse a baseline's config: the packed layout re-parameterizes
+    TeraUNet only.  The JAX package fails on the baselines there too
+    (``pack_unet_params``: a GroupNorm has no ``weight``, a SinfNet config
+    no ``num_res_blocks``; ``PackedTeraUNet``: patch-dm's ``use_pos``
+    assertion)."""
+    if not isinstance(conf, TeraUNetConfig):
+        raise ValueError(
+            f"{what}: the packed layout re-parameterizes TeraUNet ('ours') "
+            f"only, not {type(conf).__name__} (the JAX package fails there "
+            "too); run the baseline as its 5D model (cli.generate "
+            "--no_packed, cli.train without --packed)")
+
+
 def make_packed_model(conf: TeraUNetConfig,
                       param_dtype: Optional[torch.dtype] = None,
                       **kw) -> PackedTeraUNet:
@@ -500,6 +515,7 @@ def pack_unet_params(params5: Dict, conf: TeraUNetConfig) -> Dict:
     permuted to the segment-major runtime layout; norm weights tile over
     z (segment-aware for concat inputs); the attention, RNA tower and
     time-embed subtrees pass through."""
+    require_unet_config(conf, "pack_unet_params")
     z = conf.z_size
     segmap = _block_segments(conf)
     p5 = params5["params"] if "params" in params5 else params5

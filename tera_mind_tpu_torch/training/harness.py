@@ -21,6 +21,14 @@ reference's Lightning DDP stack, experiment.py:25-491):
   naming of ``convert.export_tensors`` (``.npz``) and the step
   (``state.json``); ``fit`` writes ``{logdir}/config.json`` beside them.
 
+The model is ``conf.method``'s (``TrainConfig.make_model_conf``): the
+flagship ``TeraUNet`` (or, with ``packed_compute``, its packed layout),
+or a baseline, ``PatchDMUNet`` or ``SinfNet``, which the loss calls as
+the flagship model (p1 = p2 = 2, dropout from the trainer's generator).
+A baseline has no packed layout, and ``SinfNet`` no ``decode_original``,
+which the preview passes: both are refused, as the JAX package fails
+there.
+
 Randomness comes from two ``torch.Generator``s seeded from ``conf.seed``:
 one on the device (timesteps, noise, dropout masks) and one on the host
 (the 2x2-block origin, a Python int the crop needs).  The JAX package
@@ -473,7 +481,14 @@ class Trainer:
         [blank|PolyT|DAPI] composite, generated|real side by side."""
         from PIL import Image
 
+        from ..models.unet_sinf import SinfNet
         conf = self.conf
+        if isinstance(self.model, SinfNet):
+            raise ValueError(
+                "preview: SinfNet takes no decode_original, which the "
+                "preview's sampler passes (the JAX Trainer.sample fails "
+                "there with a TypeError); the sinf baseline trains "
+                "without previews")
         img, rna = decode_batch(
             torch.as_tensor(batch["image"][:conf.sample_size]).to(self.device),
             torch.as_tensor(batch["rna"][:conf.sample_size]).to(self.device))

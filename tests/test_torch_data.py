@@ -187,10 +187,17 @@ def test_config_json_round_trips_both_ways(tmp_path, kw):
 
 
 def test_config_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tconfig.TrainConfig(method="patch-dm").make_model_conf()
-    with pytest.raises(NotImplementedError):
-        tconfig.TrainConfig(use_pos=True).make_model_conf()
+    """The baselines are ported: ``make_model_conf`` gives their configs,
+    as JAX's does.  What JAX cannot run, the flagship model with
+    ``use_pos`` (its TimeEmbed asserts a position embedding that no caller
+    passes), is accepted as a config and refused when the model is built
+    (tests/test_torch_baselines.py shows JAX's failure)."""
+    mc = tconfig.TrainConfig(method="patch-dm").make_model_conf()
+    assert type(mc).__name__ == "PatchDMUNetConfig" and mc.use_pos
+    assert type(tconfig.TrainConfig(method="sinf").make_model_conf()
+                ).__name__ == "SinfNetConfig"
+    with pytest.raises(ValueError, match="use_pos"):
+        tconfig.TrainConfig(use_pos=True).make_model_conf().make_model()
     assert tconfig.prep_config("638850", batch=100).accum_batches == 1
 
 

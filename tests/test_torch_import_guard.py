@@ -38,7 +38,9 @@ def test_port_modules_import_without_jax():
         "diffusion.resample", "cli.train", "ops.quant", "ops.quant_kernel",
         "models.unet_attn", "cli.attn", "cli.evaluate", "metrics",
         "metrics.stats", "metrics.fid", "metrics.ssim", "metrics.features",
-        "metrics.inception", "metrics.gene_stats", "metrics.morphology")}
+        "metrics.inception", "metrics.gene_stats", "metrics.morphology",
+        "assembly", "assembly.wsi", "assembly.vis", "cli.assemble",
+        "models.legacy_blocks", "models.unet_patch_dm", "models.unet_sinf")}
     n_modules = len(names)
     assert int(n_loaded) >= n_modules > 15
     assert bad == "[]", bad

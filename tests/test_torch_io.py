@@ -129,8 +129,10 @@ def test_config_from_name_matches_jax(name):
 
 
 def test_config_from_name_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tconfig.config_from_name("638850_64_229_all_4_sinf")
+    """The baselines' run names now parse (as in JAX); a name that is not
+    mouse_size_nrna_stain_srna[_method] is refused."""
+    assert tconfig.config_from_name("638850_64_229_all_4_sinf").method \
+        == "sinf"
     with pytest.raises(ValueError):
         tconfig.config_from_name("last")
 

@@ -86,6 +86,23 @@ def test_chip_smoke_requires_the_training_counts_by_variant(packed, path):
         "tensor_core": cs.TRAIN_LAUNCHES[path]["window_attention"]}
 
 
+@pytest.mark.parametrize("method", ["patch-dm", "sinf"])
+def test_chip_smoke_requires_the_baseline_training_counts(method):
+    """A baseline's training step launches K1 and K1b only in the RNA
+    tower's gene block (q_norm, norm2; vector, at a shape phase 4 checks)
+    and no K2 or K2b: chip_smoke.py's counts are scripts/kernel_shapes.py
+    --train --method's."""
+    ks = _kernel_shapes()
+    k1_shapes, k2_shapes = ks.train_shapes(method=method)
+    assert not k2_shapes
+    assert set(k1_shapes) <= set(cs.TRAIN_K1_SHAPES)
+    assert cs.TRAIN_LAUNCHES[method] == {
+        "rmsnorm": sum(k1_shapes.values()) * ks.TRAIN_ACCUM,
+        "window_attention": 0} == {"rmsnorm": 4, "window_attention": 0}
+    assert ks.train_bwd_variants(method=method) == \
+        cs.TRAIN_BWD_VARIANTS[method]
+
+
 # ------------------------------------------------------------------ #
 # the mirrors of the kernels' layouts and grids                       #
 # ------------------------------------------------------------------ #

@@ -63,7 +63,8 @@ Phases, each printed on its own line with elapsed seconds:
      the abs-max 117 dynamic, 0 static), tiles/s beside the bf16 chain's
      and its output against bf16's (informative); then the 5D model
      (``--no_packed``) on the same weights and the tile-major step
-     (``--tile_major``, window_chunk 5);
+     (``--tile_major``, window_chunk 5; 5 steps since PR 13, its tiles/s
+     a 15-step equivalent);
  10. the planner at full width: its plan, the measured peak of its probe
      and the budget for 2x2, 4x4, 8x8 and 16x16 grids;
  11. whole-brain streaming: ``cli.generate.main`` with ``--stream`` at
@@ -107,10 +108,32 @@ Phases, each printed on its own line with elapsed seconds:
      bit-equal; ``cli.generate --no_packed`` (1x1 grid, 2 steps) from the
      patch-dm checkpoint; the refusals where the JAX package fails (sinf
      generation, a packed baseline);
- 17. a ``{"kernels": [...]}`` line, then the card line, then the result.
+ 17. generation over several ranks (``torch.distributed``, one rank a
+     process): 2 ranks sharing the card over gloo (strips staged through
+     pinned host memory), or with more cards up to 4 ranks over NCCL,
+     one card each, the backend required to be the one
+     ``parallel/mesh.py``'s rule gives; each rank's planner budget
+     (``TMT_HBM_BYTES``) the card's memory over the ranks sharing it.
+     Small f32 checks on the card, each rank against the same work in
+     one process (``SMALL_ATOL``): the halo exchange of position-encoding
+     blocks bit-equal, one sharded block-major step of the small packed
+     model on an (N, 1) mesh, band streaming K = 1 and K = 2; then
+     ``mp_demo --device cuda --band`` over 2 ranks.  Full width:
+     ``cli.generate.main`` over 2 ranks in memory (2x2 tiles, 15 steps,
+     the weights, noise and genes of phase 9's packed chain), the union
+     of the rank blocks against phase 9's output by ``CHAIN_GATES``, each
+     rank's K1 and K2 launches required (``scripts/kernel_shapes.py
+     --ranks 2``), tiles/s per rank and in all, the halo's bytes and
+     seconds an exchange, each rank's peak device memory; then
+     ``--stream`` over 2 ranks on the 4x4 grid, 2 steps, against phase
+     11's 2-step one-process run; with two cards or more, ``--stream``
+     through every card in one process (``devices=``);
+ 18. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
-nothing of JAX.
+nothing of JAX.  ``python3 chip_smoke.py --ranks`` runs phase 17 alone,
+with the phase 9 and 11 runs it is held against, for a machine of
+several cards.
 """
 
 from __future__ import annotations
@@ -229,7 +252,10 @@ K2_SHAPES = [(324, 128, 256), (256, 128, 256), (324, 32, 512)]
 # (scripts/kernel_shapes.py --patches P --chunk 5): the tile-major step
 # (one tile's 5x5 patches, 5 z-windows a call) and the streamed 2x2-tile
 # windows (9x9 patches, 5 z-windows a call: the main path's rows and
-# batches x 5, up to 1,620 K2 blocks)
+# batches x 5, up to 1,620 K2 blocks); a rank's 1x2-tile block of the 2x2
+# grid in memory over 2 ranks (5x9 patches, one z-window a call;
+# scripts/kernel_shapes.py --ranks 2; its band-parallel windows are the
+# streamed ones)
 PATH_SHAPES = {
     "tile_major": ([(40_960, 256), (64_000, 256), (16_000, 512),
                     (28_625, 64)],
@@ -237,6 +263,8 @@ PATH_SHAPES = {
     "stream": ([(163_840, 256), (207_360, 256), (51_840, 512),
                 (92_745, 64)],
                [(1_280, 128, 256), (1_620, 128, 256), (1_620, 32, 512)]),
+    "rank": ([(16_384, 256), (23_040, 256), (5_760, 512), (10_305, 64)],
+             [(128, 128, 256), (180, 128, 256), (180, 32, 512)]),
 }
 # The (rows, C) that cli.attn's extraction gives K1 in float32: the gene
 # block's q-norm on 16 patches x 229 gene tokens of 64 features, 4 launches
@@ -1549,6 +1577,8 @@ def stop_card_sampler(proc: subprocess.Popen) -> str:
 
 GRID = 2          # 2x2 tiles of 256^2 px x 100 channels
 STEPS = 15        # DDIM steps (eta 0)
+TILE_MAJOR_STEPS = 5   # the tile-major chain's depth, cut to keep the
+                       # whole run near 850 s (PR 13)
 
 
 # launches per chain: K1 norms and K2 attentions per UNet call x UNet
@@ -1556,14 +1586,14 @@ STEPS = 15        # DDIM steps (eta 0)
 # GroupedRMSNorm (plain PyTorch), so K1 runs only in the 6 DiT blocks
 # (norm1, norm2, q_norm, k_norm) and the gene-gene block (q_norm, norm2).
 # Block-major 2x2: 25 z-windows x 15 steps = 375 calls; tile-major 2x2 at
-# window_chunk 5: 4 tiles x 5 calls x 15 steps = 300; streamed 4x4 in 2x2
+# window_chunk 5: 4 tiles x 5 calls x 5 steps = 100; streamed 4x4 in 2x2
 # windows at window_chunk 5: 4 windows x 5 calls x 15 steps = 300.
 CHAIN_LAUNCHES = {
     "packed": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
     "int8": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
     "int8_static": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
     "5d": {"rmsnorm": 83 * 375, "window_attention": 6 * 375},
-    "tile_major": {"rmsnorm": 26 * 300, "window_attention": 6 * 300},
+    "tile_major": {"rmsnorm": 26 * 100, "window_attention": 6 * 100},
     "stream": {"rmsnorm": 26 * 300, "window_attention": 6 * 300}}
 STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
 
@@ -1637,12 +1667,13 @@ def run_main_path(device, path: str = "packed") -> dict:
     from tera_mind_tpu_torch.cli import generate
 
     tile_major = path == "tile_major"
+    steps = TILE_MAJOR_STEPS if tile_major else STEPS
     flags = {"packed": [], "5d": ["--no_packed"],
              "tile_major": ["--tile_major"], "int8": ["--quant", "int8"],
              "int8_static": ["--quant", "int8_static"]}[path]
     args = generate.parse_args(["--synthetic", "--hnm", str(GRID),
                                 "--wnm", str(GRID), "--tot_epoch",
-                                str(STEPS), "--device", str(device)] + flags)
+                                str(steps), "--device", str(device)] + flags)
     t0 = time.perf_counter()
     gen, model, gene, (row0, col0) = generate.build(args)
     build_s = time.perf_counter() - t0
@@ -1651,7 +1682,7 @@ def run_main_path(device, path: str = "packed") -> dict:
                                             col0=col0), device=device)
     t0 = time.perf_counter()
     gen.compile_step(GRID, GRID, block_major=not tile_major)(
-        state0, torch.as_tensor(gene, device=device), STEPS - 1)
+        state0, torch.as_tensor(gene, device=device), steps - 1)
     torch.cuda.synchronize()
     log(f"warm-up step: {time.perf_counter() - t0:.2f} s")
     if tile_major:
@@ -1668,7 +1699,7 @@ def run_main_path(device, path: str = "packed") -> dict:
             f"{probe['need'] / 2 ** 30:.2f} GiB of a "
             f"{probe['budget'] / 2 ** 30:.2f} GiB budget")
     counts = per_call_counts(model)
-    calls = gen.conf.n_win // gen._wchunk() * STEPS * (
+    calls = gen.conf.n_win // gen._wchunk() * steps * (
         GRID * GRID if tile_major else 1)
     want, want_variants = expected_launches(counts, calls)
     n_buf = sum(b.numel() for b in model.buffers())
@@ -1694,10 +1725,11 @@ def run_main_path(device, path: str = "packed") -> dict:
     got, got_variants = read_launches()
     quant = read_quant_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"chain [{path}]: {GRID}x{GRID} tiles x {STEPS} steps in "
-        f"{secs:.2f} s = {GRID * GRID / secs:.5f} tiles/s; peak device "
-        f"memory {peak:.2f} GiB ({before:.2f} GiB allocated before the "
-        f"chain); launches {got} (expected {want}), by "
+    rate = GRID * GRID * steps / STEPS / secs
+    log(f"chain [{path}]: {GRID}x{GRID} tiles x {steps} steps in "
+        f"{secs:.2f} s = {rate:.5f} tiles/s (a tile {STEPS} steps); peak "
+        f"device memory {peak:.2f} GiB ({before:.2f} GiB allocated before "
+        f"the chain); launches {got} (expected {want}), by "
         f"variant {got_variants} (expected {want_variants}); {card}")
 
     require_output(out, (GRID * 256, GRID * 256, 100))
@@ -1714,7 +1746,7 @@ def run_main_path(device, path: str = "packed") -> dict:
     require(quant == want_quant,
             f"K3/K4 launches {quant}, expected {want_quant}")
     return dict(launches=got, variants=got_variants, seconds=secs,
-                tiles_per_s=GRID * GRID / secs, peak_gib=peak, out=out,
+                tiles_per_s=rate, peak_gib=peak, out=out,
                 gen=gen, counts=counts, quant_launches=quant,
                 build_s=build_s)
 
@@ -1771,7 +1803,6 @@ def run_stream_path(device, counts: tuple) -> dict:
     steps, with the launch counters set to 0 just before it, then a 2-step
     run of the same grid under ``TMT_STREAM_TIMING``."""
     import contextlib
-    import os
     import re
     import tempfile
 
@@ -1823,26 +1854,41 @@ def run_stream_path(device, counts: tuple) -> dict:
     require(got_variants == want_variants,
             f"launches by variant {got_variants}, expected {want_variants}")
 
-    # the per-phase breakdown: one sequential sweep, 2 steps
-    args = generate.parse_args(argv[:6] + ["--tot_epoch", "2", "--device",
-                                           str(device)])
+    timing, out2 = stream_timing_run(device)
+    return dict(launches=got, variants=got_variants, seconds=secs,
+                tiles_per_s=g * g / secs, peak_gib=peak, host_rss_gib=rss,
+                host_rss_before_gib=rss_before, window_chunk=wc,
+                timing=timing, out=out, out2=out2)
+
+
+def stream_timing_run(device) -> tuple:
+    """The per-phase breakdown of ``--stream`` on the 4x4 grid: one
+    sequential sweep, 2 steps, under ``TMT_STREAM_TIMING``; returns (the
+    phase seconds, the output), the output being phase 17's reference
+    for the band-parallel run."""
+    import os
+
+    from tera_mind_tpu_torch.cli import generate
+
+    g = STREAM_GRID
+    args = generate.parse_args(["--synthetic", "--stream", "--hnm", str(g),
+                                "--wnm", str(g), "--tot_epoch",
+                                str(RANK_STREAM_STEPS), "--device",
+                                str(device)])
     gen, _, gene, (row0, col0) = generate.build(args)
     sgen = generate.make_streamer(args, gen)
     os.environ["TMT_STREAM_TIMING"] = "1"
     try:
         t0 = time.perf_counter()
-        sgen.run(g, g, gene, row0=row0, col0=col0, grid_w=416)
+        out = sgen.run(g, g, gene, row0=row0, col0=col0, grid_w=416)
         timed_s = time.perf_counter() - t0
     finally:
         del os.environ["TMT_STREAM_TIMING"]
     timing = dict(sgen.timing, seconds=timed_s)
-    log(f"stream timing, {g}x{g} x 2 steps, one worker: " + ", ".join(
-        f"{k} {v:.3f} s" if k != "n" else f"{v} windows"
-        for k, v in timing.items()))
-    return dict(launches=got, variants=got_variants, seconds=secs,
-                tiles_per_s=g * g / secs, peak_gib=peak, host_rss_gib=rss,
-                host_rss_before_gib=rss_before, window_chunk=wc,
-                timing=timing, out=out)
+    log(f"stream timing, {g}x{g} x {RANK_STREAM_STEPS} steps, one worker: "
+        + ", ".join(f"{k} {v:.3f} s" if k != "n" else f"{v} windows"
+                    for k, v in timing.items()))
+    return timing, out.read.float().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -2370,6 +2416,379 @@ def check_baseline_refusals(device, ckpts: dict) -> None:
     log(f"baseline refusals on the card, as JAX fails: {msgs}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: generation over several ranks on the card
+# ---------------------------------------------------------------------------
+
+RANK_GRID = 2             # in memory: 2x2 tiles over a (2, 1) mesh
+RANK_STREAM_STEPS = 2     # depth of the band-parallel 4x4 chain
+RANK_TIMEOUT_S = 600      # a rank process's wall clock
+RANK_GROUP_TIMEOUT_S = 300   # a wait on another rank
+# each rank's launches (scripts/kernel_shapes.py --ranks 2 [--stream
+# --steps 2]): in memory a 1x2-tile block, 45 patches a z-window, 375 UNet
+# calls + the planner's probe; streamed a 2x4-tile band, two 2x2 windows
+# of 5 z-windows a call, 2 steps
+RANK_LAUNCHES = {
+    "memory": {"rmsnorm": 26 * 376, "window_attention": 6 * 376},
+    "stream": {"rmsnorm": 26 * 20, "window_attention": 6 * 20}}
+
+
+def rank_count() -> tuple:
+    """(ranks of the band-parallel and small runs, cards): 2 ranks on a
+    single card, else one a card, at most 4."""
+    import torch
+    cards = torch.cuda.device_count()
+    return (2 if cards == 1 else min(4, cards)), cards
+
+
+def rank_worker(kind: str, rank: str, n: str, port: str, tmp: str,
+                *argv) -> None:
+    """What one rank process of phase 17 runs (``python -c``, see
+    :func:`spawn_ranks`); its results go to ``{tmp}/{kind}_{rank}.json``
+    (and ``.npy``)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    rank, n = int(rank), int(n)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from tera_mind_tpu_torch.parallel import band, halo, mesh
+    res = {"rank": rank, "pid": os.getpid()}
+    if kind == "small":
+        device = mesh.multihost_init(f"127.0.0.1:{port}", n, rank,
+                                     device="cuda",
+                                     timeout_s=RANK_GROUP_TIMEOUT_S)
+        try:
+            res.update(small_rank_checks(device, n))
+        except BaseException:
+            mesh.shutdown(barrier=False)
+            raise
+        mesh.shutdown()
+    else:                      # cli.generate.main as a user runs it
+        from tera_mind_tpu_torch.cli import generate
+        device = mesh.rank_device("cuda", rank)
+        torch.cuda.set_device(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        halo.reset_stats()
+        band.reset_stats()
+        tee = Tee()
+        import contextlib
+        with contextlib.redirect_stdout(tee):
+            out = generate.main(list(argv) + [
+                "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+                str(n), "--process_id", str(rank), "--device", "cuda",
+                "--dist_timeout", str(RANK_GROUP_TIMEOUT_S)])
+        import re
+        done = re.search(r"in ([0-9.]+) s;", tee.copy.getvalue())
+        got, variants = read_launches()
+        np.save(Path(tmp) / f"{kind}_{rank}.npy", out)
+        res.update(launches=got, variants=variants, device=str(device),
+                   seconds=float(done.group(1)), shape=list(out.shape),
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+                   halo=dict(halo.stats), strips=dict(band.stats))
+    Path(tmp, f"{kind}_{rank}.json").write_text(json.dumps(res))
+
+
+def small_rank_checks(device, n: int) -> dict:
+    """A rank's small f32 checks on the card, each against the same
+    computation in one process on this rank's device: the halo exchange
+    of position-encoding blocks (bit-equal), one sharded block-major step
+    of the small packed model on an (n, 1) mesh and band streaming K = 1
+    and K = 2 (``SMALL_ATOL``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tera_mind_tpu_torch.convert import export_params, load_jax_params
+    from tera_mind_tpu_torch.models.nn import init_weights
+    from tera_mind_tpu_torch.models.unet_packed import (make_packed_model,
+                                                        pack_unet_params)
+    from tera_mind_tpu_torch.parallel import band, halo, mesh
+    from tera_mind_tpu_torch.parallel.generator import TeraGenerator
+    from tera_mind_tpu_torch.parallel.streaming import (StreamConfig,
+                                                        StreamingGenerator)
+
+    rank = dist.get_rank()
+    cards = torch.cuda.device_count()
+    want_backend = mesh.choose_backend("cuda", n, cards)
+    require(dist.get_backend() == want_backend,
+            f"backend {dist.get_backend()}, the rule gives {want_backend}")
+    route = ("nccl" if want_backend == "nccl" else
+             "gloo_staged" if device.type == "cuda" else "gloo")
+    out = {"backend": dist.get_backend(), "device": str(device), "errs": {}}
+    # the halo: every value encodes its position in the whole image
+    h, w, ch, pad = 40, 24, 6, 8
+    shapes = [(2, 2)] if n == 4 else [(n, 1), (1, n)]
+    for shape in shapes:
+        m = mesh.make_mesh(("gr", "gc"), shape, device=device)
+        r, c = m.coords
+        for dt in (torch.float32, torch.bfloat16):
+            y, x, z = torch.meshgrid(torch.arange(shape[0] * h),
+                                     torch.arange(shape[1] * w),
+                                     torch.arange(ch), indexing="ij")
+            img = ((y * 64 + x + z / 8) / 64).to(device, dt)
+            halo.reset_stats()
+            got = halo.exchange_halo_2d(
+                img[r * h:(r + 1) * h, c * w:(c + 1) * w].contiguous(), pad,
+                m)
+            want = halo.pad_halo_single(img, pad)[
+                r * h:(r + 1) * h + 2 * pad, c * w:(c + 1) * w + 2 * pad]
+            require(torch.equal(got, want), f"rank {rank}: halo {shape} "
+                    f"{dt} differs from the whole image's pad")
+            require(halo.stats["by_route"][route] == 1,
+                    f"halo route {halo.stats['by_route']}, expected {route}")
+            require(halo.stats["bytes"] == halo.exchange_bytes(
+                (h, w, ch), pad, dt.itemsize, m.coords, shape),
+                f"halo bytes {halo.stats['bytes']}")
+    out["halo"] = {"shapes": [list(s) for s in shapes], "route": route}
+    # the small packed model of phase 6, f32
+    mconf, gconf, _ = small_setup()
+    model5 = init_weights(mconf.make_model(), seed=3).eval()
+    packed = load_jax_params(make_packed_model(mconf), pack_unet_params(
+        export_params(model5), mconf)).eval()
+    one = small_gen(packed, device, gconf)
+    # one sharded block-major step on an (n, 1) mesh of n x 2 tiles
+    rows, cols = n, 2
+    gene = small_field_gene(gconf, rows, cols)
+    state = one.init_state(rows, cols, row0=1, col0=1, grid_w=16)
+    want = one.compile_step(rows, cols, block_major=True)(
+        torch.as_tensor(state, device=device),
+        torch.as_tensor(gene, device=device), 2).cpu().numpy()
+    m = mesh.make_mesh(("gr", "gc"), (n, 1), device=device)
+    sh = TeraGenerator(one.sampler, one.model_fn, gconf, mesh=m)
+    r0, c0, lr, lc = sh.local_block(rows, cols)
+    t = gconf.tile
+    got = sh.compile_step(rows, cols, block_major=True)(
+        torch.as_tensor(state[r0 * t:(r0 + lr) * t], device=device),
+        torch.as_tensor(gene[r0:r0 + lr], device=device), 2).cpu().numpy()
+    out["errs"]["sharded block-major step vs one process"] = err = float(
+        np.abs(got - want[r0 * t:(r0 + lr) * t]).max())
+    require(err <= SMALL_ATOL, f"rank {rank}: sharded step {err}")
+    # band streaming over n bands of an (n + 1) x 3 grid, K = 1 and 2
+    rows, cols = n + 1, 3
+    gene = small_field_gene(gconf, rows, cols)
+    b0, nb = band.band_partition(rows, n, rank)
+    for k in (1, 2):
+        sc = StreamConfig(progress=False, block_major=True,
+                          steps_per_window=k)
+        whole = StreamingGenerator(one, sc).run(
+            rows, cols, gene, row0=1, col0=1, grid_w=16).read.float().numpy()
+        ex = band.StripExchange(gconf.pad + gconf.patch * (k - 1),
+                                cols * t, gconf.channels, device=device)
+        got = StreamingGenerator(one, sc).run(
+            nb, cols, lambda r, c: gene[b0 + r, c], row0=1 + b0, col0=1,
+            grid_w=16, strip_exchange=ex, rows_above=b0,
+            rows_below=rows - b0 - nb).read.float().numpy()
+        key = f"band streaming K={k} vs one process"
+        out["errs"][key] = err = float(
+            np.abs(got - whole[b0 * t:(b0 + nb) * t]).max())
+        require(err <= SMALL_ATOL, f"rank {rank}: {key} {err}")
+    return out
+
+
+def spawn_ranks(n: int, kind: str, tmp, *argv, module: str = None,
+                env: dict = None) -> list:
+    """Start ``n`` rank processes at once (``rank_worker`` of this script,
+    or ``python -m module`` with ``argv`` and the rank's flags), wait for
+    all of them and return their outputs; a rank that fails or outlives
+    ``RANK_TIMEOUT_S`` fails the phase, and every rank still running is
+    killed."""
+    import os
+
+    from tera_mind_tpu_torch.parallel.mesh import free_port
+
+    port = free_port()
+    here = str(Path(__file__).resolve().parent)
+    procs = []
+    for r in range(n):
+        if module is None:
+            cmd = [sys.executable, "-c",
+                   f"import sys; sys.path.insert(0, {here!r}); "
+                   "import chip_smoke; "
+                   "chip_smoke.rank_worker(*sys.argv[1:])",
+                   kind, str(r), str(n), str(port), str(tmp), *argv]
+        else:
+            cmd = [sys.executable, "-m", module, *argv, "--coordinator",
+                   f"127.0.0.1:{port}", "--num_processes", str(n),
+                   "--process_id", str(r)]
+        log_file = open(Path(tmp, f"{kind}_{r}.log"), "w+")
+        procs.append((subprocess.Popen(
+            cmd, cwd=here, env={**os.environ, **(env or {})},
+            stdout=log_file, stderr=subprocess.STDOUT, text=True), log_file))
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            failed = [r for r, (p, _) in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            require(not failed and time.perf_counter() < deadline,
+                    f"{kind}: rank {failed[0]} of {n} exited "
+                    f"{procs[failed[0]][0].returncode}" if failed else
+                    f"{kind}: a rank outlived {RANK_TIMEOUT_S} s")
+            time.sleep(0.2)
+        outs = []
+        for r, (p, f) in enumerate(procs):
+            f.seek(0)
+            outs.append(f.read())
+            require(p.returncode == 0, f"{kind}: rank {r} of {n} exited "
+                    f"{p.returncode}:\n{outs[-1][-4000:]}")
+        return outs
+    except SmokeFailure as e:
+        tails = []
+        for r, (p, f) in enumerate(procs):
+            f.seek(0)
+            tails.append(f"--- rank {r}:\n{f.read()[-3000:]}")
+        raise SmokeFailure(f"{e}\n" + "\n".join(tails)) from None
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+
+
+def run_ranks(device, packed_out, stream_ref, counts) -> dict:
+    """Phase 17: the backend and devices, the small f32 checks and
+    ``mp_demo --band`` over ranks on the card, then ``cli.generate`` over
+    2 ranks at full width in memory (against phase 9's chain) and with
+    ``--stream`` on the 4x4 grid (against the one-process run of the same
+    depth), per-rank launches required, and ``--stream`` through every
+    card in one process where there are two."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.cli import generate
+    from tera_mind_tpu_torch.parallel.mesh import choose_backend
+
+    t_phase = time.perf_counter()
+    n, cards = rank_count()
+    backend = choose_backend("cuda", n, cards)
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_card = -(-n // cards)      # ranks sharing one card
+    env = {"TMT_HBM_BYTES": str(total // per_card)}
+    log(f"phase 17: {n} ranks on {cards} card(s), backend {backend} by the "
+        f"rule; rank i on cuda:{{i % {cards}}}; each rank's planner budget "
+        f"TMT_HBM_BYTES {total // per_card / 2 ** 30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"ranks": n, "cards": cards, "backend": backend}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(n, "small", tmp, env=env)
+        small = [json.loads(Path(tmp, f"small_{r}.json").read_text())
+                 for r in range(n)]
+        for s in small:
+            require(s["backend"] == backend, f"rank {s['rank']} backend "
+                    f"{s['backend']}")
+            log(f"phase 17 small, rank {s['rank']} on {s['device']} "
+                f"({s['backend']}): halo bit-equal on meshes "
+                f"{s['halo']['shapes']} via {s['halo']['route']}; " +
+                ", ".join(f"{k} {v:.3g}" for k, v in s["errs"].items()) +
+                f" (tol {SMALL_ATOL})")
+        res["small"] = small
+        outs = spawn_ranks(2, "mp_demo", tmp, "--device", "cuda", "--band",
+                           "--dist_timeout", str(RANK_GROUP_TIMEOUT_S),
+                           module="tera_mind_tpu_torch.parallel.mp_demo",
+                           env=env)
+        for r, out in enumerate(outs):
+            for tag in (f"process {r}/2 ok", f"process {r} band-streaming "
+                        "ok", f"process {r} band-streaming K2 ok"):
+                require(f"[mp_demo] {tag}" in out,
+                        f"mp_demo rank {r}: no '{tag}':\n{out[-3000:]}")
+        log("phase 17 mp_demo --device cuda --band over 2 ranks: " +
+            " | ".join(line for out in outs for line in out.splitlines()
+                       if line.startswith(("[mp_demo]", "[mesh]"))))
+        res["small_seconds"] = time.perf_counter() - t0
+
+        runs = {
+            "memory": (2, ["--synthetic", "--hnm", str(RANK_GRID), "--wnm",
+                           str(RANK_GRID), "--tot_epoch", str(STEPS)]),
+            "stream": (2, ["--synthetic", "--stream", "--hnm",
+                           str(STREAM_GRID), "--wnm", str(STREAM_GRID),
+                           "--tot_epoch", str(RANK_STREAM_STEPS)])}
+        refs = {"memory": packed_out, "stream": stream_ref}
+        for kind, (nr, argv) in runs.items():
+            t0 = time.perf_counter()
+            spawn_ranks(nr, kind, tmp, *argv, "--out_dir",
+                        f"{tmp}/{kind}_tiles", env=env)
+            wall = time.perf_counter() - t0
+            ranks = [json.loads(Path(tmp, f"{kind}_{r}.json").read_text())
+                     for r in range(nr)]
+            union = np.concatenate([np.load(Path(tmp, f"{kind}_{r}.npy"))
+                                    for r in range(nr)])
+            want, want_var = expected_launches(
+                counts, RANK_LAUNCHES[kind]["window_attention"] // counts[2])
+            g = RANK_GRID if kind == "memory" else STREAM_GRID
+            require_output(union, (g * 256, g * 256, 100))
+            steps = STEPS if kind == "memory" else RANK_STREAM_STEPS
+            for rk in ranks:
+                tiles = rk["shape"][0] * rk["shape"][1] // 256 ** 2
+                ex = rk["halo"] if kind == "memory" else rk["strips"]
+                rk["tiles_per_s"] = tiles * steps / STEPS / rk["seconds"]
+                log(f"phase 17 {kind}, rank {rk['rank']} on {rk['device']}: "
+                    f"{tiles} tiles x {steps} steps in {rk['seconds']:.2f} s"
+                    f" = {rk['tiles_per_s']:.5f} tiles/s (a tile {STEPS} "
+                    "steps); "
+                    f"{'halo' if kind == 'memory' else 'band strips'} "
+                    f"{ex['calls']} exchanges, "
+                    f"{ex['bytes'] / max(1, ex['calls']) / 2 ** 20:.3f} MiB "
+                    f"sent and {ex['seconds'] / max(1, ex['calls']) * 1e3:.2f}"
+                    " ms an exchange, waiting for the neighbour included "
+                    f"({ex.get('by_route', backend)}); peak device"
+                    f" memory {rk['peak_gib']:.2f} GiB; launches "
+                    f"{rk['launches']} (expected {want}), by variant "
+                    f"{rk['variants']}")
+                require(rk["launches"] == want == RANK_LAUNCHES[kind],
+                        f"{kind} rank {rk['rank']}: launches "
+                        f"{rk['launches']}, expected {want} / "
+                        f"{RANK_LAUNCHES[kind]}")
+                require(rk["variants"] == want_var,
+                        f"{kind} rank {rk['rank']}: variants "
+                        f"{rk['variants']}, expected {want_var}")
+                require(ex["calls"] == (steps if kind == "memory"
+                                        else steps + 1),
+                        f"{kind} rank {rk['rank']}: {ex['calls']} exchanges")
+            secs = max(rk["seconds"] for rk in ranks)
+            rate = g * g * steps / STEPS / secs
+            log(f"phase 17 {kind}: {g * g} tiles x {steps} steps over "
+                f"{nr} ranks in {secs:.2f} s (slowest rank) = {rate:.5f} "
+                f"tiles/s in all (a tile {STEPS} steps); {wall:.1f} s wall "
+                "with the ranks' start and build")
+            res[kind] = dict(ranks=ranks, seconds=secs, wall=wall,
+                             tiles_per_s=rate,
+                             gates=require_chain_gates(
+                                 refs[kind], union,
+                                 f"phase 17 {kind} union of {nr} ranks vs "
+                                 "one process"))
+        if cards >= 2:
+            t0 = time.perf_counter()
+            argv = runs["stream"][1] + ["--out_dir", f"{tmp}/devices",
+                                        "--device", "cuda"]
+            reset_launches()
+            out = generate.main(argv)
+            got = read_launches()[0]
+            log(f"phase 17 --stream through {cards} cards in one process "
+                f"(devices=): {time.perf_counter() - t0:.2f} s, launches "
+                f"{got}")
+            require(got == {k: 2 * v for k, v in
+                            RANK_LAUNCHES["stream"].items()},
+                    f"devices= launches {got}")
+            res["devices"] = require_chain_gates(
+                stream_ref, out, "phase 17 devices= vs one card")
+        else:
+            log("phase 17: --stream through several cards in one process "
+                "(devices=) needs a second card; this machine has one")
+            res["devices"] = None
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17 seconds: {res['phase_seconds']:.1f}")
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2397,6 +2816,12 @@ def main() -> int:
         f"(nvcc {_build.build_seconds or 0:.1f} s) -> {path.name}")
     for line in _build.ptxas_report(_build.build_log):
         log(f"ptxas: {line}")
+    if sys.argv[1:] == ["--ranks"]:
+        return ranks_only(device, smi)
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
+              "--ranks)", file=sys.stderr, flush=True)
+        return 2
 
     rows = check_kernels(device)
     rows.update(check_backward_kernels(device))
@@ -2422,6 +2847,7 @@ def main() -> int:
         del gen
         torch.cuda.empty_cache()
     outs = {p: c.pop("out") for p, c in chains.items()}
+    packed_out = outs["packed"]     # phase 17's reference
     int8_vs_bf16 = {}
     for path in ("int8", "int8_static"):
         int8_vs_bf16[path] = st = chain_gate_stats(outs["packed"],
@@ -2434,7 +2860,7 @@ def main() -> int:
             f"{st['max']:.4g}, corr {st['corr']:.5f}, mean shift "
             f"{st['mean_shift']:.4g}, std shift {st['std_rel']:.4g} "
             "(informative)")
-    for other in ("5d", "tile_major"):
+    for other in ("5d",):     # (the tile-major chain is shallower)
         diff = np.abs(outs["packed"] - outs[other])
         log(f"full-width bf16 outputs, packed vs {other} on the same "
             f"weights and noise: max |d| {diff.max():.4g}, mean |d| "
@@ -2444,6 +2870,7 @@ def main() -> int:
     del outs
     chains["stream"] = run_stream_path(device, chains["packed"]["counts"])
     chains["stream"].pop("out")
+    stream_ref = chains["stream"].pop("out2")
     main_path = chains["packed"]
 
     small_train = check_small_train_step(device)
@@ -2476,6 +2903,9 @@ def main() -> int:
     for name, out in (("attn", attn), ("evaluate", evaluate),
                       ("baselines", baselines)):
         out["phase_seconds"] = phase_s[name]
+    ranks = run_ranks(device, packed_out, stream_ref,
+                      chains["packed"]["counts"])
+    del packed_out, stream_ref
 
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
                            "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
@@ -2493,7 +2923,12 @@ def main() -> int:
                                       "by_variant": c["variants"][name]}
                                for path, c in chains.items()},
                             "attn": {"launches": attn["launches"][name],
-                                     "by_variant": attn["variants"][name]}},
+                                     "by_variant": attn["variants"][name]},
+                            **{f"ranks_{kind}": [
+                                {"launches": rk["launches"][name],
+                                 "by_variant": rk["variants"][name]}
+                                for rk in ranks[kind]["ranks"]]
+                               for kind in ("memory", "stream")}},
                         "max_abs_err": max(x["max_abs_err"]
                                            for x in rows[name]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2567,10 +3002,32 @@ def main() -> int:
                       "planner": plans, "small_stream": small_stream,
                       "small_int8": small_int8,
                       "int8_vs_bf16": int8_vs_bf16, "attn": attn,
-                      "evaluate": evaluate, "baselines": baselines}),
+                      "evaluate": evaluate, "baselines": baselines,
+                      "ranks": ranks}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def ranks_only(device, smi: str) -> int:
+    """``--ranks``: phase 17 alone, with the two runs it is held against
+    (phase 9's packed chain, the 2-step one-process stream), for a call
+    on a machine of several cards; prints its JSON, the card line and a
+    result line naming the part it ran."""
+    import torch
+    chain = run_main_path(device, "packed")
+    chain.pop("gen")
+    torch.cuda.empty_cache()
+    _, stream_ref = stream_timing_run(device)
+    ranks = run_ranks(device, chain.pop("out"), stream_ref, chain["counts"])
+    print(json.dumps({"ranks": ranks, "chain": {
+        k: chain[k] for k in ("seconds", "tiles_per_s", "peak_gib")}}),
+        flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "only": "phase 17", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

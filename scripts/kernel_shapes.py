@@ -23,6 +23,17 @@ in scripts/profile_torch_step.py.
     tile-major 2x2 (chunk 5):      --patches 25 --chunk 5 --visits 4
     streamed 4x4 in 2x2 windows:   --patches 81 --chunk 5 --visits 4
 
+    python scripts/kernel_shapes.py --ranks N [--grid G] [--stream]
+        [--steps S]
+
+``--ranks`` lists the shapes and launches of each rank of ``cli.generate``
+over N processes on a G x G grid (``--grid``, default 2): in memory, rank
+i's block of an (N, 1) mesh, planned as the card plans it (the first of
+``plan_candidates``: for a 1 x 2 block, 5 x 9 = 45 patches a z-window,
+one z-window a call) with the planner's one probe call at that batch;
+with ``--stream`` (G 4), rank i's row band (``band_partition``) in 2x2
+windows at streaming's window_chunk (5), over ``--steps`` (default 15).
+
     python scripts/kernel_shapes.py --quant int8|int8_static [--no_quant_attn]
         [--patches N --chunk W --visits V]
 
@@ -81,6 +92,9 @@ from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
     VARIANTS as K2_VARIANTS, attention_bwd_variant, attention_variant)
 from tera_mind_tpu_torch.ops.rmsnorm_kernel import (  # noqa: E402
     VARIANTS as K1_VARIANTS, rmsnorm_bwd_variant, rmsnorm_variant)
+from tera_mind_tpu_torch.parallel.band import band_partition  # noqa: E402
+from tera_mind_tpu_torch.parallel.generator import (  # noqa: E402
+    GeneratorConfig, plan_candidates)
 
 PATCHES = 81       # 9x9 patches of one z-window's padded 2x2-tile block
 WINDOWS = 25       # z-windows of the 638850 preset, one UNet call each
@@ -108,13 +122,19 @@ def recording(k1: Counter, k2: Counter):
 
 
 def per_call_shapes(packed: bool = True, patches: int = PATCHES,
-                    chunk: int = 1) -> tuple[Counter, Counter]:
+                    chunk: int = 1, grid: tuple = None
+                    ) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one UNet
-    call on ``chunk`` z-windows of ``patches`` patches each (a square),
-    for the packed model or the 5D one."""
-    side = math.isqrt(patches)
-    if side * side != patches:
-        raise ValueError(f"{patches} patches a z-window is not a square grid")
+    call on ``chunk`` z-windows of ``patches`` patches each (a square, or
+    a ``grid`` of p1 x p2 patches), for the packed model or the 5D one."""
+    if grid is None:
+        side = math.isqrt(patches)
+        if side * side != patches:
+            raise ValueError(f"{patches} patches a z-window is not a "
+                             "square grid")
+        grid = (side, side)
+    p1, p2 = grid
+    patches = p1 * p2
     conf = prep_config("638850").make_model_conf()
     k1, k2 = Counter(), Counter()
     with recording(k1, k2), torch.device("meta"):
@@ -124,9 +144,77 @@ def per_call_shapes(packed: bool = True, patches: int = PATCHES,
         x = torch.empty(chunk * patches, p, p, conf.in_channels)
         rna = torch.empty(chunk * patches, conf.gn_sz, conf.gn_sz,
                           len(conf.rna_tpl) * conf.rna_num)
-        model(x, torch.zeros(chunk, dtype=torch.long), rna, side, side,
+        model(x, torch.zeros(chunk, dtype=torch.long), rna, p1, p2,
               decode_original=False)
     return k1, k2
+
+
+TILE_PATCHES = 4        # 256 px tiles of 64 px patches a side
+STREAM_BLOCK = 2        # cli.generate's --stream_block
+MAX_PATCHES = 600       # TMT_MAX_PATCHES, streaming's window_chunk bound
+
+
+def rank_runs(ranks: int, grid: int, stream: bool = False) -> list:
+    """What each rank of ``cli.generate`` over ``ranks`` processes runs on
+    a grid x grid tile grid: [{rank, block (r0, rows, cols), patches
+    (p1, p2) a z-window, chunk (z-windows a call), visits (patch grids a
+    step), probes (planner calls)}].  In memory: an (N, 1) mesh's block,
+    block-major, planned (the first candidate; one probe call); streamed:
+    the band of ``band_partition`` in 2x2-tile windows."""
+    conf = GeneratorConfig()
+    out = []
+    for rank in range(ranks):
+        if stream:
+            r0, rows = band_partition(grid, ranks, rank)
+            br, bc = min(STREAM_BLOCK, rows), min(STREAM_BLOCK, grid)
+            n_r = len({min(r, rows - br) for r in range(0, rows, br)})
+            n_c = len({min(c, grid - bc) for c in range(0, grid, bc)})
+            p1, p2 = br * TILE_PATCHES + 1, bc * TILE_PATCHES + 1
+            chunk = max(d for d in range(1, WINDOWS + 1)
+                        if WINDOWS % d == 0 and d * p1 * p2 <= MAX_PATCHES)
+            out.append(dict(rank=rank, block=(r0, rows, grid),
+                            patches=(p1, p2), chunk=chunk,
+                            visits=n_r * n_c, probes=0))
+            continue
+        if grid % ranks:
+            raise ValueError(f"{grid} tile rows over {ranks} ranks")
+        rows = grid // ranks
+        tm, sr, wc = plan_candidates(rows, grid, conf)[0]
+        if tm:
+            raise ValueError(f"a {rows}x{grid} block plans tile-major")
+        p1 = (sr or rows) * TILE_PATCHES + 1
+        out.append(dict(rank=rank, block=(rank * rows, rows, grid),
+                        patches=(p1, grid * TILE_PATCHES + 1), chunk=wc,
+                        visits=rows // (sr or rows), probes=1))
+    return out
+
+
+def rank_launches(run: dict, steps: int = STEPS) -> tuple:
+    """(K1 launches, K2 launches, UNet calls) of one rank's ``run`` over
+    ``steps`` steps, the planner's probe calls included."""
+    k1, k2 = per_call_shapes(grid=run["patches"], chunk=run["chunk"])
+    calls = WINDOWS // run["chunk"] * run["visits"] * steps + run["probes"]
+    return sum(k1.values()) * calls, sum(k2.values()) * calls, calls
+
+
+def main_ranks(ranks: int, grid: int, stream: bool, steps: int) -> None:
+    print(f"cli.generate over {ranks} ranks, {grid}x{grid} tiles, "
+          f"{'band-parallel --stream' if stream else 'in memory'}, "
+          f"{steps} steps")
+    for run in rank_runs(ranks, grid, stream):
+        k1, k2 = per_call_shapes(grid=run["patches"], chunk=run["chunk"])
+        n1, n2, calls = rank_launches(run, steps)
+        r0, rows, cols = run["block"]
+        print(f"rank {run['rank']}: tile rows {r0}..{r0 + rows} x {cols} "
+              f"cols, {run['patches'][0]}x{run['patches'][1]} patches a "
+              f"z-window, {run['chunk']} z-windows a call, {run['visits']} "
+              f"patch grids a step, {calls} UNet calls "
+              f"({run['probes']} planner probe): K1 {n1}, K2 {n2}")
+        for name, counts in (("  K1 (rows, C)", k1),
+                             ("  K2 (B, N, D)", k2)):
+            for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
+                print(f"{name} {shape}: {n} per call, {n * calls} per "
+                      "chain")
 
 
 @contextmanager
@@ -337,7 +425,20 @@ def main() -> None:
                     help="with --quant: the DiT denses stay bf16")
     ap.add_argument("--attn", action="store_true",
                     help="cli.attn's gene-gene extraction, one tile")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="each rank of cli.generate over this many "
+                    "processes")
+    ap.add_argument("--grid", type=int, default=None,
+                    help="with --ranks: tiles a side (2; 4 with --stream)")
+    ap.add_argument("--stream", action="store_true",
+                    help="with --ranks: band-parallel --stream")
+    ap.add_argument("--steps", type=int, default=STEPS,
+                    help="with --ranks: DDIM steps")
     args = ap.parse_args()
+    if args.ranks:
+        main_ranks(args.ranks, args.grid or (4 if args.stream else 2),
+                   args.stream, args.steps)
+        return
     if args.attn:
         main_attn()
         return

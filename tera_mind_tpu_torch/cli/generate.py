@@ -12,7 +12,11 @@
 
     python -m tera_mind_tpu_torch.cli.generate --synthetic --quant int8
 
-Port of ``tera_mind_tpu/cli/generate.py`` for one device: the z-packed
+    python -m tera_mind_tpu_torch.cli.generate --synthetic --hnm 4 \
+        --wnm 4 --coordinator 127.0.0.1:29531 --num_processes 2 \
+        --process_id 0          # and --process_id 1, one command a rank
+
+Port of ``tera_mind_tpu/cli/generate.py``: the z-packed
 ``PackedTeraUNet`` by default (``--no_packed``: the 5D ``TeraUNet``,
 ``--packed_attn``: DiT blocks on the packed tokens), in bf16, DDIM steps
 (eta 0), block-major by default (``--tile_major``: per-tile windows),
@@ -45,8 +49,22 @@ that combination.  A baseline's checkpoint (``patch-dm``, by its
 ``--no_packed`` (no packed layout), ``sinf`` (its model takes no
 ``decode_original``) and a reference ``.ckpt`` of a baseline (the
 conversion knows the ``ours`` model only, ``convert_unet_params``).
-Not ported yet: the JAX trainer's orbax directories and multi-process
-runs (``--coordinator``, ``--num_processes``, ``--process_id``).
+``--seed_backend jax`` draws the initial noise as JAX's threefry normal
+(``data/noise.py``) instead of the reference's LCG-seeded ``randn``.
+
+Several ranks (``--coordinator host:port --num_processes N --process_id
+i``, one command a rank): ``parallel/mesh.py`` joins the process group
+(NCCL with a card a rank, gloo on the CPU or where ranks share a card;
+rank i runs on ``cuda:{i % cards}``).  In memory the grid is split over
+an (N, 1) mesh of ranks, each rank's block its halo exchanged every
+step; with ``--stream`` each rank streams a row band
+(``band_partition``), trading ``pad + patch*(stream_k-1)`` px edge strips
+in the host state's dtype with the neighbouring bands every visit.  Each
+rank spills to ``{out_dir}_state_p{rank}``, resumes from its own spill
+and exports its own band's tiles; previews are written in one process
+only, as in JAX.  In one process ``--stream`` sweeps its windows over
+every card of the host when there is more than one.
+Not ported yet: the JAX trainer's orbax directories.
 """
 
 from __future__ import annotations
@@ -69,8 +87,13 @@ from ..models.nn import channels_last_, init_weights
 from ..models.unet import TeraUNetConfig
 from ..models.unet_packed import make_packed_model, pack_unet_params
 from ..ops.quant import calibrate_generator, prequantize_params
-from ..parallel.generator import GeneratorConfig, TeraGenerator, grid_to_image
-from ..parallel.streaming import StreamConfig, StreamingGenerator
+from ..data.noise import BACKENDS
+from ..parallel.band import StripExchange, band_partition
+from ..parallel.generator import (GeneratorConfig, ModuleFn, TeraGenerator,
+                                  grid_to_image)
+from ..parallel.mesh import (DEFAULT_TIMEOUT_S, make_mesh, multihost_init,
+                             shutdown, world)
+from ..parallel.streaming import DTYPES, StreamConfig, StreamingGenerator
 from ..training.harness import read_checkpoint
 
 TILE = 256          # px per tile side, the reference's grid unit
@@ -241,7 +264,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="cuda (the default) or cpu")
     ap.add_argument("--out", type=str, default=None,
                     help="also save the final (H, W, channels) state here "
-                    "as .npy")
+                    "as .npy (a rank's block to {stem}_p{rank}.npy)")
+    ap.add_argument("--seed_backend", default="torch", choices=BACKENDS,
+                    help="initial noise: the reference's LCG-seeded "
+                    "torch.randn, or JAX's threefry normal")
+    ap.add_argument("--coordinator", type=str, default=None,
+                    help="host:port of rank 0's rendezvous for a run over "
+                    "several processes (reference ddp_setup, "
+                    "test_brn.py:26-35); with --stream each rank streams a "
+                    "row band of the grid")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--dist_timeout", type=float, default=DEFAULT_TIMEOUT_S,
+                    help="seconds before a wait on another rank fails")
     return ap.parse_args(argv)
 
 
@@ -384,18 +419,13 @@ def build(args: argparse.Namespace):
     gconf = GeneratorConfig(tile=TILE, patch=conf.image_size, gn_blk=16,
                             snum=conf.rna_slices, n_slices=50,
                             stains=2 if conf.stain == "all" else 1,
-                            gdim=500,
+                            gdim=500, noise_backend=args.seed_backend,
                             window_chunk=(5 if args.tile_major
                                           and args.window_chunk < 0
                                           else args.window_chunk))
 
-    def model_fn(m):
-        # sampling reads only the collage decode
-        return lambda xp, tm, rp, p1, p2: m(xp, tm, rp, p1, p2,
-                                            decode_original=False)
-
     sampler = conf.make_eval_sampler(T=args.tot_epoch)
-    gen = TeraGenerator(sampler, model_fn(model), gconf, device=device)
+    gen = TeraGenerator(sampler, ModuleFn(model), gconf, device=device)
     if args.synthetic:
         gene = synthetic_gene_grid(args.hnm, args.wnm, gconf.gsz,
                                    gconf.z_pad, gconf.gdim)
@@ -407,13 +437,14 @@ def build(args: argparse.Namespace):
     origin = (args.hst // TILE, args.wst // TILE)
     if args.quant == "int8_static":
         gen, model = calibrate_static(args, gen, model, gene, origin,
-                                      model_fn)
+                                      ModuleFn)
     return gen, model, gene, origin
 
 
-def make_streamer(args: argparse.Namespace,
-                  gen: TeraGenerator) -> StreamingGenerator:
-    """The ``--stream*`` options' streaming generator around ``gen``."""
+def make_streamer(args: argparse.Namespace, gen: TeraGenerator,
+                  devices: Optional[list] = None) -> StreamingGenerator:
+    """The ``--stream*`` options' streaming generator around ``gen``,
+    sweeping its windows over ``devices`` (default: ``gen``'s)."""
     return StreamingGenerator(gen, StreamConfig(
         block_rows=args.stream_block, block_cols=args.stream_block,
         checkpoint_every=args.ckpt_every, memmap_dir=args.stream_memmap,
@@ -421,36 +452,86 @@ def make_streamer(args: argparse.Namespace,
         inflight=args.stream_inflight,
         gene_device_cache_gb=args.stream_gene_gb,
         transfer_dtype=args.stream_dtype,
-        state_dtype=args.stream_state_dtype))
+        state_dtype=args.stream_state_dtype), devices=devices)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
+    """Run the CLI; returns the final state (this rank's block or band
+    over several processes)."""
     args = parse_args(argv)
+    device = multihost_init(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device,
+                            timeout_s=args.dist_timeout)
+    args.device = str(device)
+    try:
+        out = generate(args)
+    except BaseException:
+        shutdown(barrier=False)
+        raise
+    shutdown()
+    return out
+
+
+def generate(args: argparse.Namespace) -> np.ndarray:
+    """``main`` after the process group is up (``args.device`` is the
+    rank's device)."""
     gen, _, gene, (row0, col0) = build(args)
     c = gen.conf
     rows, cols = args.hnm, args.wnm
-    ck = StateCheckpoint(f"{args.out_dir}_state", fmt="grid")
+    rank, nproc = world()
+    if nproc > 1 and not args.stream:
+        # in memory over ranks: an (N, 1) mesh, rank i owns row block i
+        gen = TeraGenerator(gen.sampler, gen.model_fn, c, mesh=make_mesh(
+            ("gr", "gc"), (nproc, 1), device=gen.device))
+    ck = StateCheckpoint(f"{args.out_dir}_state"
+                         + (f"_p{rank}" if nproc > 1 else ""), fmt="grid")
+    if args.stream:
+        band_r0, band_rows = band_partition(rows, nproc, rank)
+        blk = (band_r0, 0, band_rows, cols)
+    else:
+        blk = gen.local_block(rows, cols)
     state0 = start_t = None
     if args.cur_epoch is not None:
         grid, meta = ck.load_grid(args.cur_epoch)
         got = (meta["rows"], meta["cols"], meta["size"], meta["channels"])
-        if got != (rows, cols, c.tile, c.channels):
+        want = (blk[2], blk[3], c.tile, c.channels)
+        if got != want:
             raise SystemExit(f"spill of epoch {args.cur_epoch} holds (rows, "
-                             f"cols, size, channels) {got}, not "
-                             f"{(rows, cols, c.tile, c.channels)}")
+                             f"cols, size, channels) {got}, not {want}")
         state0 = grid_to_image(grid)
         start_t = args.tot_epoch - args.cur_epoch
 
     t0 = time.perf_counter()
     if args.stream:
-        sgen = make_streamer(args, gen)
+        band_r0, _, band_rows, _ = blk
+        strips = None
+        if nproc > 1:
+            # K-step visits need strips of pad + patch*(K-1) px; they move
+            # in the host state's dtype (bf16 state: half the bytes)
+            strips = StripExchange(
+                c.pad + c.patch * (args.stream_k - 1), cols * c.tile,
+                c.channels, dtype=DTYPES[args.stream_state_dtype
+                                         or args.stream_dtype],
+                device=gen.device if gen.device.type == "cuda" else None)
+        tile_gene = gene if callable(gene) else (lambda r, cc: gene[r, cc])
+
+        def band_gene(r: int, cc: int) -> np.ndarray:
+            return tile_gene(band_r0 + r, cc)
+        devices = None
+        if nproc == 1 and gen.device.type == "cuda" \
+                and torch.cuda.device_count() > 1:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        sgen = make_streamer(args, gen, devices)
         hstate = None
         if state0 is not None:
-            hstate = sgen.make_state(rows, cols)
+            hstate = sgen.make_state(band_rows, cols)
             hstate.read[:] = torch.from_numpy(state0)
-        hstate = sgen.run(rows, cols, gene, row0=row0, col0=col0,
-                          grid_w=416, checkpoint=ck, state=hstate,
-                          start_t=start_t)
+        hstate = sgen.run(band_rows, cols, band_gene, row0=row0 + band_r0,
+                          col0=col0, grid_w=416, checkpoint=ck, state=hstate,
+                          start_t=start_t, strip_exchange=strips,
+                          rows_above=band_r0,
+                          rows_below=rows - band_r0 - band_rows)
         out = hstate.read.float().numpy()
     else:
         out = gen.run(gene, rows=rows, cols=cols, row0=row0, col0=col0,
@@ -459,20 +540,26 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
                       block_major=not args.tile_major)
     dt = time.perf_counter() - t0
 
+    # each rank exports its own block's tiles (the reference's per-worker
+    # writes, test_brn.py:219-226)
+    r0, c0, n_rows, n_cols = blk
     store = TileStore(args.out_dir).create()
     size = c.tile
-    for r in range(rows):
-        for cc in range(cols):
-            h0, w0 = args.hst + r * size, args.wst + cc * size
+    for r in range(n_rows):
+        for cc in range(n_cols):
+            h0 = args.hst + (r0 + r) * size
+            w0 = args.wst + (c0 + cc) * size
             store.write(tile_name(h0, h0 + size, w0, w0 + size),
                         out[r * size:(r + 1) * size,
                             cc * size:(cc + 1) * size].astype(np.float16))
-    if rows <= 32 and cols <= 32:
+    if rows <= 32 and cols <= 32 and nproc == 1:
         save_preview(out, Path(args.out_dir) / "preview",
                      run_config(args).stain, c.stains, c.n_win, c.zi)
     if args.out:
-        np.save(args.out, out)
-    print(f"done: {rows}x{cols} tiles, {args.tot_epoch} steps in {dt:.2f} s;"
+        np.save(args.out if nproc == 1 else
+                f"{Path(args.out).with_suffix('')}_p{rank}.npy", out)
+    print(f"done: rows {r0}..{r0 + n_rows} cols {c0}..{c0 + n_cols} of "
+          f"{rows}x{cols} tiles, {args.tot_epoch} steps in {dt:.2f} s;"
           f" state {out.shape} in [{out.min():.3f}, {out.max():.3f}] -> "
           f"{args.out_dir}", flush=True)
     return out

@@ -23,12 +23,20 @@ z-padded gene stack.
 
 ``run`` resumes from a given state or from the latest spill of a
 ``StateCheckpoint`` and spills every ``checkpoint_every`` steps.  Host
-streaming of grids larger than the device is ``parallel/streaming.py``;
-meshes and multi-process runs are not ported yet.
+streaming of grids larger than the device is ``parallel/streaming.py``.
+
+With a ``mesh`` of ranks (``parallel/mesh.py``, one rank per device) the
+grid is split into equal tile blocks, rank (r, c) of an (R, C) mesh owning
+block (r, c): each rank builds only its block's genes and initial noise,
+every step pads its block with its neighbours' edge strips
+(``exchange_halo_2d``) where one device pads with -1, and ``run`` returns
+the rank's block, its pixel offset in ``_local_offset``.  A grid that the
+mesh does not divide is refused, as JAX's sharding refuses it.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -41,7 +49,7 @@ from ..data.noise import tile_init_noise
 from ..data.tilestore import StateCheckpoint
 from ..diffusion.sampler import DiffusionSampler
 from ..ops.collage import patchify
-from .halo import pad_halo_single
+from .halo import exchange_halo_2d, pad_halo_single
 
 
 def assemble_bins(tiles: torch.Tensor, nb: int, hb: int) -> torch.Tensor:
@@ -98,6 +106,9 @@ class GeneratorConfig:
     n_slices: int = 50         # total z slices
     stains: int = 2
     gdim: int = 500            # gene panel carried in the gene stack
+    noise_backend: str = "torch"  # initial noise: 'torch' (the
+                               # reference's LCG-seeded randn) or 'jax'
+                               # (JAX's threefry normal, data/noise.py)
     window_chunk: int = 0      # z-windows per model call (0 = all at
                                # once, -1 = planned by auto_plan);
                                # bounds activation memory
@@ -207,21 +218,78 @@ def walk_plans(cands: Sequence[Plan], need: Callable[[Plan], int],
     return cands[-1], -1
 
 
+class ModuleFn:
+    """The generator's ``model_fn`` of a generation model: its collage
+    decode, ``module(xp, tm, rp, p1, p2, decode_original=False)``.
+    ``to(device)`` makes a replica of the model on another device."""
+
+    def __init__(self, module: torch.nn.Module):
+        self.module = module
+
+    def __call__(self, xp, tm, rp, p1, p2):
+        return self.module(xp, tm, rp, p1, p2, decode_original=False)
+
+    def to(self, device) -> "ModuleFn":
+        return ModuleFn(copy.deepcopy(self.module).to(device))
+
+
+def replicate(gen: "TeraGenerator", device) -> "TeraGenerator":
+    """``gen`` on another device: its model function's ``to(device)``
+    replica (a function without ``to``, holding no weights, as it is)."""
+    fn = gen.model_fn
+    return TeraGenerator(gen.sampler, fn.to(device) if hasattr(fn, "to")
+                         else fn, gen.conf, device=device)
+
+
 class TeraGenerator:
-    """Runs the tile-grid reverse diffusion on one device.
+    """Runs the tile-grid reverse diffusion on one device, or on this
+    rank's block of a grid split over a mesh of ranks.
 
     model_fn(x_patches, t_model, rna_patches, p1, p2) -> (pred_col, _)
     gene grids are (R, C, gsz, gsz, z_pad, G) per-tile dense gene z-stacks.
     """
 
     def __init__(self, sampler: DiffusionSampler, model_fn: Callable,
-                 conf: GeneratorConfig, *, device="cuda"):
+                 conf: GeneratorConfig, *, device=None, mesh=None):
+        """``device``: default the mesh's device, else ``cuda``.  ``mesh``
+        (``parallel/mesh.py``): every rank of it builds a generator and
+        calls ``run`` with the same grid."""
+        if device is None:
+            device = mesh.device if mesh is not None else "cuda"
         self.device = torch.device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"device {self.device} is not the mesh's "
+                             f"{mesh.device}")
         self.sampler = sampler.to(self.device)
         self.model_fn = model_fn
         self.conf = conf
+        self.mesh = mesh
         self.plan_probe = None   # {"need", "budget"} bytes of the last
                                  # auto_plan on the card
+        self._local_offset = (0, 0)   # px origin of run's result
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def local_block(self, rows: int, cols: int) -> tuple:
+        """(first tile row, first tile col, rows, cols) of this rank's
+        block of a (rows x cols) grid; the whole grid without a mesh."""
+        if not self.sharded:
+            return 0, 0, rows, cols
+        (mr, mc), (r, c) = self.mesh.shape, self.mesh.coords
+        if rows % mr or cols % mc:
+            raise ValueError(f"a {rows}x{cols}-tile grid does not split "
+                             f"into equal blocks over a {mr}x{mc} mesh "
+                             "of ranks")
+        lr, lc = rows // mr, cols // mc
+        return r * lr, c * lc, lr, lc
+
+    def _pad(self, state: torch.Tensor) -> torch.Tensor:
+        c = self.conf
+        if self.sharded:
+            return exchange_halo_2d(state, c.pad, self.mesh, fill=-1.0)
+        return pad_halo_single(state, c.pad, fill=-1.0)
 
     def init_state(self, rows: int, cols: int, *, row0: int = 1,
                    col0: int = 1, grid_w: int = 416) -> np.ndarray:
@@ -236,7 +304,8 @@ class TeraGenerator:
                 out[r * c.tile:(r + 1) * c.tile,
                     cc * c.tile:(cc + 1) * c.tile] = tile_init_noise(
                         row0 + r, col0 + cc, grid_w,
-                        (c.tile, c.tile, c.channels))
+                        (c.tile, c.tile, c.channels),
+                        backend=c.noise_backend)
         return out
 
     def _wchunk(self) -> int:
@@ -327,7 +396,7 @@ class TeraGenerator:
         previous-step padded state: equal results, activation memory
         scaling with strip_rows."""
         c = self.conf
-        padded = pad_halo_single(state, c.pad, fill=-1.0)
+        padded = self._pad(state)
         rows = gene.shape[0]
         sr = c.strip_rows or rows
         if sr >= rows:
@@ -353,7 +422,7 @@ class TeraGenerator:
         """One tile-major timestep over the (R*tile, C*tile, chn) state:
         each tile denoised from its own halo window (``_tile_update``)."""
         c = self.conf
-        padded = pad_halo_single(state, c.pad, fill=-1.0)
+        padded = self._pad(state)
         rows, cols = gene.shape[:2]
         out = torch.cat([
             torch.cat([self._tile_update(padded, gene[r, cc], r, cc, t)
@@ -377,8 +446,11 @@ class TeraGenerator:
         Off the card the first candidate of ``plan_candidates`` is taken.
         On the card each candidate's peak memory is measured
         (``_plan_bytes``) against 92 % of the card's memory
-        (``TMT_HBM_BYTES`` overrides the card's total), best first."""
+        (``TMT_HBM_BYTES`` overrides the card's total), best first.
+        With a mesh the plan is for this rank's block (``rows`` and
+        ``cols`` are the whole grid's)."""
         c = self.conf
+        rows, cols = self.local_block(rows, cols)[2:]
         cands = plan_candidates(rows, cols, c)
         if self.device.type != "cuda":
             (tm, sr, wc), self.plan_probe = cands[0], None
@@ -443,7 +515,9 @@ class TeraGenerator:
         is compiled).  ``block_major``: one patch grid over the block
         instead of the per-tile windows, the same result with fewer
         patches.  With ``conf.window_chunk`` -1 the block-major step is
-        planned first (``auto_plan``), which may fall back to tile-major."""
+        planned first (``auto_plan``), which may fall back to tile-major.
+        With a mesh the step takes this rank's block of the (rows x cols)
+        grid and exchanges its halo with the neighbouring ranks."""
         if block_major and self.conf.window_chunk < 0:
             plan = self.auto_plan(rows, cols, state_dtype=state_dtype,
                                   gene_dtype=gene_dtype)
@@ -451,25 +525,29 @@ class TeraGenerator:
         return self._block_major_step if block_major else self._block_step
 
     def _device_gene(self, gene: Union[np.ndarray, Callable], rows: int,
-                     cols: int) -> torch.Tensor:
-        """The (R, C, gsz, gsz, z_pad, G) gene grid on the device.  A
-        provider ``(r, c) -> (gsz, gsz, z_pad, G)`` is read one tile row at
-        a time into the device buffer, so the host holds one row."""
+                     cols: int, r0: int = 0, c0: int = 0) -> torch.Tensor:
+        """The (rows, cols, gsz, gsz, z_pad, G) gene block at tile (r0, c0)
+        of the grid on the device.  A provider ``(r, c) -> (gsz, gsz,
+        z_pad, G)`` (grid indices) is read one tile row at a time into the
+        device buffer, so the host holds one row."""
         if not callable(gene):
-            return torch.as_tensor(gene, device=self.device)
+            return torch.as_tensor(
+                np.ascontiguousarray(gene[r0:r0 + rows, c0:c0 + cols]),
+                device=self.device)
         c = self.conf
-        band = np.stack([gene(0, cc) for cc in range(cols)])
+
+        def band(r):
+            return np.stack([gene(r0 + r, c0 + cc) for cc in range(cols)])
+        row = band(0)
         want = (c.gsz, c.gsz, c.z_pad)
-        if band.shape[1:4] != want:
-            raise ValueError(f"gene tiles {band.shape[1:]}, expected "
+        if row.shape[1:4] != want:
+            raise ValueError(f"gene tiles {row.shape[1:]}, expected "
                              f"{want} + (genes,)")
-        dev = torch.empty((rows,) + band.shape,
-                          dtype=torch.from_numpy(band).dtype,
+        dev = torch.empty((rows,) + row.shape,
+                          dtype=torch.from_numpy(row).dtype,
                           device=self.device)
         for r in range(rows):
-            if r:
-                band = np.stack([gene(r, cc) for cc in range(cols)])
-            dev[r] = torch.from_numpy(band)
+            dev[r] = torch.from_numpy(row if r == 0 else band(r))
         return dev
 
     def run(self, gene_grid: Union[np.ndarray, Callable], *,
@@ -480,24 +558,31 @@ class TeraGenerator:
             checkpoint: Optional[StateCheckpoint] = None,
             checkpoint_every: int = 0, fused: bool = True,
             block_major: bool = False, progress: bool = True) -> np.ndarray:
-        """Generate the (rows x cols) tile grid; returns the final image.
+        """Generate the (rows x cols) tile grid; returns the final image,
+        or with a mesh this rank's block of it (``_local_offset`` its px
+        origin in the grid).
 
         ``gene_grid``: a host array (R, C, gsz, gsz, z_pad, G), or a
         provider ``(r, c) -> (gsz, gsz, z_pad, G)`` (grid-local indices)
-        with ``rows`` and ``cols`` given.  The grid starts from its LCG
-        noise, or resumes: from ``state`` (R*tile, C*tile, channels) at
+        with ``rows`` and ``cols`` given; with a mesh each rank reads only
+        its block's tiles.  The grid starts from its initial noise, or
+        resumes: from ``state`` (the rank's block with a mesh) at
         ``start_t`` steps left, or else from the latest spill of
-        ``checkpoint``.  With ``checkpoint_every`` the state is spilled to
-        ``checkpoint`` after every that many steps (not after the last)
-        and older spills are pruned.  ``block_major`` and ``fused`` choose
-        the step as in JAX: ``compile_step(block_major=...)``, or with
-        ``fused=False`` the tile-major ``compile_pieces``."""
+        ``checkpoint`` (each rank spills and reads its own block, with its
+        own ``hst``/``wst``).  With ``checkpoint_every`` the state is
+        spilled to ``checkpoint`` after every that many steps (not after
+        the last) and older spills are pruned.  ``block_major`` and
+        ``fused`` choose the step as in JAX: ``compile_step(block_major=
+        ...)``, or with ``fused=False`` the tile-major
+        ``compile_pieces``."""
         c = self.conf
         if callable(gene_grid):
             if rows is None or cols is None:
                 raise ValueError("a gene provider needs rows and cols")
         else:
             rows, cols = gene_grid.shape[:2]
+        r0, c0, lr, lc = self.local_block(rows, cols)
+        self._local_offset = (r0 * c.tile, c0 * c.tile)
         T = self.sampler.schedule.num_timesteps
         if state is None and checkpoint is not None:
             latest = checkpoint.latest()
@@ -506,22 +591,27 @@ class TeraGenerator:
                 # the state-protocol guard (reference test_brn.py:178)
                 got = (meta["rows"], meta["cols"], meta["size"],
                        meta["channels"])
-                if got != (rows, cols, c.tile, c.channels):
+                if got != (lr, lc, c.tile, c.channels):
                     raise ValueError(f"spill at t={latest} holds (rows, "
                                      f"cols, size, channels) {got}, not "
-                                     f"{(rows, cols, c.tile, c.channels)}")
+                                     f"{(lr, lc, c.tile, c.channels)}")
                 state = grid_to_image(grid)
                 start_t = T - latest          # epochs done = latest
         if start_t is None:
             start_t = T
+        if state is not None and tuple(np.shape(state)) != (
+                lr * c.tile, lc * c.tile, c.channels):
+            raise ValueError(f"state {tuple(np.shape(state))}, expected the "
+                             f"{lr}x{lc}-tile block "
+                             f"{(lr * c.tile, lc * c.tile, c.channels)}")
         step = (self.compile_step(
                     rows, cols, block_major=block_major,
                     state_dtype=(torch.as_tensor(state).dtype
                                  if state is not None else torch.float32))
                 if fused else self.compile_pieces())
-        dev_gene = self._device_gene(gene_grid, rows, cols)
+        dev_gene = self._device_gene(gene_grid, lr, lc, r0, c0)
         if state is None:
-            state = self.init_state(rows, cols, row0=row0, col0=col0,
+            state = self.init_state(lr, lc, row0=row0 + r0, col0=col0 + c0,
                                     grid_w=grid_w)
         dev_state = torch.as_tensor(state, device=self.device)
         t_start = None
@@ -535,15 +625,16 @@ class TeraGenerator:
                 if t_start is None:   # first step includes warm-up
                     t_start, e_start, rate = now, epoch, ""
                 else:
-                    rate = (f"  {(epoch - e_start) * rows * cols / (now - t_start):.4f}"
-                            " tile-steps/s")
+                    done = (epoch - e_start) * lr * lc
+                    rate = f"  {done / (now - t_start):.4f} tile-steps/s"
                 print(f"[tera] step t={t} done ({epoch}/{T}){rate}",
                       flush=True)
             if checkpoint is not None and checkpoint_every and t > 0 \
                     and epoch % checkpoint_every == 0:
                 checkpoint.save_grid(
                     epoch, image_to_grid(dev_state.cpu().numpy(), c.tile),
-                    hst=row0 * c.tile, wst=col0 * c.tile, size=c.tile)
+                    hst=row0 * c.tile + self._local_offset[0],
+                    wst=col0 * c.tile + self._local_offset[1], size=c.tile)
                 checkpoint.prune(keep_t=epoch)
-        assert dev_state.shape == (rows * c.tile, cols * c.tile, c.channels)
+        assert dev_state.shape == (lr * c.tile, lc * c.tile, c.channels)
         return dev_state.cpu().numpy()

@@ -1,6 +1,6 @@
 """Host-streaming whole-brain generation: state larger than the device.
 
-Port of ``tera_mind_tpu/parallel/streaming.py`` for one device.  The
+Port of ``tera_mind_tpu/parallel/streaming.py``.  The
 in-memory :class:`~.generator.TeraGenerator` keeps the whole tile-grid
 state on the card, which holds a few thousand tiles; a brain is 286 x 414.
 Here the state stays on the host and windows of tiles stream through the
@@ -25,10 +25,13 @@ card:
   worker's pinned staging buffers, so one window's assembly and
   transfers overlap another's compute.
 - Resume and spills through :class:`StateCheckpoint`.
-
-Several devices and band-parallel runs (``strip_exchange``,
-``rows_above``/``rows_below``) raise ``NotImplementedError``: they come
-with ROADMAP item 6.
+- ``devices``: one replica of the model on each device; the windows of a
+  sweep go round-robin over them, each device with its own streams and
+  gene cache (the several-cards-per-host mode).
+- Band-parallel runs over ranks (``parallel/band.py``): ``rows`` is the
+  rank's band, ``strip_exchange`` trades the band's edge rows with the
+  neighbouring bands after every visit, and they feed the halos of the
+  windows at the band's edge.
 """
 
 from __future__ import annotations
@@ -48,14 +51,13 @@ import torch
 
 from ..data.noise import tile_init_noise
 from ..data.tilestore import StateCheckpoint
-from .generator import TeraGenerator
+from .generator import TeraGenerator, replicate
 
 GeneProvider = Callable[[int, int], np.ndarray]  # (row, col) -> per-tile gene
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # numpy types of the memmap files: bfloat16 is stored as its 16 bits
 _STORAGE = {torch.float32: np.float32, torch.bfloat16: np.uint16}
-MULTI_GPU = "several devices come with ROADMAP item 6 (multi-GPU)"
 
 
 _streams: dict = {}   # device -> idle CUDA streams of the window workers
@@ -86,6 +88,14 @@ def _as_provider(gene: Union[np.ndarray, GeneProvider]) -> GeneProvider:
     if callable(gene):
         return gene
     return lambda r, c: gene[r, c]
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -235,18 +245,15 @@ class StreamingGenerator:
 
     def __init__(self, gen: TeraGenerator, sconf: StreamConfig,
                  devices: Optional[list] = None):
-        """``devices``: at most one, the generator's device (the JAX
-        package streams through several; that is ROADMAP item 6)."""
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(f"streaming through {len(devices)} "
-                                      f"devices: {MULTI_GPU}")
-        if devices and torch.device(devices[0]) != gen.device:
-            raise ValueError(f"device {devices[0]} is not the generator's "
-                             f"{gen.device}")
+        """``devices``: the devices that sweep the windows (default: the
+        generator's); each gets a replica of the generator's model
+        (``generator.replicate``), and all of them sweep disjoint windows
+        of the same double-buffered host state."""
         self.gen = gen
         self.sconf = sconf
-        self.devices = devices
-        self.device = gen.device
+        self.devices = ([_indexed(d) for d in devices] if devices
+                        else [gen.device])
+        self.device = self.devices[0]
         self.timing = None   # TMT_STREAM_TIMING's phase seconds, last run
         c = gen.conf
         if c.window_chunk < 0:
@@ -272,6 +279,9 @@ class StreamingGenerator:
                 f"{c.pad + c.patch * (k - 1)} px; one neighbor-tile ring "
                 f"provides at most {c.tile + c.pad} px (max K = "
                 f"tile//patch + 1)")
+        # one generator (model replica, sampler) per entry of devices
+        self._gens = [gen if d == _indexed(gen.device)
+                      else replicate(gen, d) for d in self.devices]
 
     def _halo_px(self, k: int) -> int:
         """Input halo (px) a k-step window visit needs."""
@@ -289,22 +299,23 @@ class StreamingGenerator:
                          and s.memmap_dir is None)
 
     # ---- device step over one halo-padded window ----------------------
-    def _window_step(self, padded: torch.Tensor, gene_blk: torch.Tensor,
-                     t: int) -> torch.Tensor:
+    def _window_step(self, gen: TeraGenerator, padded: torch.Tensor,
+                     gene_blk: torch.Tensor, t: int) -> torch.Tensor:
         """padded: (br*tile+2p, bc*tile+2p, ch); gene_blk: (br, bc, ...).
-        Returns (br*tile, bc*tile, ch) in the transfer dtype."""
+        Returns (br*tile, bc*tile, ch) in the transfer dtype.  ``gen``:
+        the replica of the device the window runs on."""
         br, bc = gene_blk.shape[:2]
         padded = padded.float()
         out_dt = DTYPES[self.sconf.transfer_dtype]
         if self.sconf.block_major:
-            return self.gen._window_update(padded, gene_blk, t).to(out_dt)
+            return gen._window_update(padded, gene_blk, t).to(out_dt)
         return torch.cat([
-            torch.cat([self.gen._tile_update(padded, gene_blk[r, cc], r, cc,
-                                             t) for cc in range(bc)], dim=1)
+            torch.cat([gen._tile_update(padded, gene_blk[r, cc], r, cc, t)
+                       for cc in range(bc)], dim=1)
             for r in range(br)]).to(out_dt)
 
     # ---- temporal halo blocking: k steps per window visit ---------------
-    def _multistep_window(self, padded: torch.Tensor,
+    def _multistep_window(self, gen: TeraGenerator, padded: torch.Tensor,
                           bin_grid: torch.Tensor, t0: int, oy: int, ox: int,
                           *, k: int, bounds: tuple) -> torch.Tensor:
         """Advance ``k`` DDIM steps on one window (trapezoid time-tiling).
@@ -315,7 +326,9 @@ class StreamingGenerator:
         oy/ox:    grid px origin of ``padded`` (negative at the border);
                   pixels outside ``bounds`` (ylo, yhi, xlo, xhi) are
                   re-pinned to -1 before EVERY inner step, as the
-                  reference refills the halo each epoch.
+                  reference refills the halo each epoch; in a
+                  band-parallel run they reach into the neighbouring
+                  bands.  ``gen``: the replica of the window's device.
 
         Exact: a step's output pixel depends only on inputs inside its
         patch and the neighbour patch of its collage patch, so each inner
@@ -335,7 +348,7 @@ class StreamingGenerator:
             x = x.masked_fill(outside[:, :, None], -1.0)
             bins_j = bin_grid[j * bshift:n0 - j * bshift,
                               j * bshift:m0 - j * bshift]
-            core = self.gen._window_update_bins(x, bins_j, t0 - j)
+            core = gen._window_update_bins(x, bins_j, t0 - j)
             x = core if j == k - 1 else core[pad:-pad, pad:-pad]
         return x.to(DTYPES[self.sconf.transfer_dtype])
 
@@ -349,7 +362,8 @@ class StreamingGenerator:
                 state.read[r * c.tile:(r + 1) * c.tile,
                            cc * c.tile:(cc + 1) * c.tile] = torch.from_numpy(
                     tile_init_noise(row0 + r, col0 + cc, grid_w,
-                                    (c.tile, c.tile, c.channels)))
+                                    (c.tile, c.tile, c.channels),
+                                    backend=c.noise_backend))
 
     # ---- the outer loop -------------------------------------------------
     def run(self, rows: int, cols: int,
@@ -364,20 +378,30 @@ class StreamingGenerator:
         (result in ``.read``).  ``state`` + ``start_t`` resume from an
         explicit timestep (the reference's --cur_epoch); otherwise from
         the latest spill of ``checkpoint``, if any.  A worker's exception
-        propagates.  ``strip_exchange``, ``rows_above`` and
-        ``rows_below`` (band-parallel runs) are ROADMAP item 6."""
-        if strip_exchange is not None or rows_above or rows_below:
-            raise NotImplementedError(f"band-parallel streaming: "
-                                      f"{MULTI_GPU}")
+        propagates.
+
+        Band-parallel runs: ``rows`` is this rank's band of the grid
+        (``row0`` its absolute first tile row) and ``strip_exchange`` a
+        :class:`~.band.StripExchange` of ``pad + patch*(K-1)`` px: the
+        band's top and bottom edge rows are traded with the neighbouring
+        bands for the initial state and after every visit, and feed the
+        halos of the windows at the band's edge.  ``rows_above`` and
+        ``rows_below`` count the tile rows of the grid beyond the band:
+        the K > 1 border mask then pins only pixels outside the grid, and
+        the provider is asked for the neighbouring bands' ring tiles (it
+        must accept r in [-1, rows] there)."""
         c = self.gen.conf
         s = self.sconf
-        dev = self.device
-        cuda = dev.type == "cuda"
         br = min(s.block_rows, rows)
         bc = min(s.block_cols, cols)
         provider = _as_provider(gene)
         T = self.gen.sampler.schedule.num_timesteps
         K = s.steps_per_window
+        if strip_exchange is not None and self._halo_px(K) > rows * c.tile:
+            raise ValueError(
+                f"band of {rows} tile rows is shorter than the "
+                f"{self._halo_px(K)}-px ghost strip steps_per_window={K} "
+                f"needs")
         if state is not None and start_t is None:
             # an explicit state with no timestep would restart the whole
             # reverse process from T on top of it
@@ -473,9 +497,11 @@ class StreamingGenerator:
             core = [(i, j) for i in range(br) for j in range(bc)]
             ring = [(i, j) for i in range(-1, br + 1)
                     for j in range(-1, bc + 1) if (i, j) not in core]
+            r_lo = -1 if rows_above else 0
+            r_hi = rows + (1 if rows_below else 0)
             for i, j in ring + core:
                 ti, tj = r0 + i, c0 + j
-                if not (0 <= ti < rows and 0 <= tj < cols):
+                if not (r_lo <= ti < r_hi and 0 <= tj < cols):
                     continue
                 arr = np.asarray(provider(ti, tj))
                 if canvas is None:
@@ -490,15 +516,16 @@ class StreamingGenerator:
                     arr[sy0:sy1, sx0:sx1]
             return _cache_put(key, canvas)
 
-        # device gene cache, pin-first under the budget.  A block uploaded
-        # on one worker's stream is read on others' streams, so the upload
-        # is synchronised before the block enters the cache.
+        # device gene cache, pin-first under the budget of each device.  A
+        # block uploaded on one worker's stream is read on others' streams,
+        # so the upload is synchronised before the block enters the cache.
         dev_gene: dict = {}
-        dev_used = [0]
+        dev_used = dict.fromkeys(self.devices, 0)   # bytes a device
         dev_budget = int(s.gene_device_cache_gb * 1e9)
 
-        def gene_on_device(r0: int, c0: int, k: int) -> torch.Tensor:
-            key = (r0, c0, k)
+        def gene_on_device(r0: int, c0: int, k: int,
+                           dev: torch.device) -> torch.Tensor:
+            key = (r0, c0, k, dev)
             with cache_lock:
                 arr = dev_gene.get(key)
             if arr is not None:
@@ -507,17 +534,34 @@ class StreamingGenerator:
             arr = torch.from_numpy(np.ascontiguousarray(blk)).to(
                 dev, non_blocking=True)
             nbytes = arr.numel() * arr.element_size()
-            if dev_budget and dev_used[0] + nbytes <= dev_budget:
-                if cuda:
+            if dev_budget and dev_used[dev] + nbytes <= dev_budget:
+                if dev.type == "cuda":
                     torch.cuda.current_stream(dev).synchronize()
                 with cache_lock:
-                    if dev_used[0] + nbytes <= dev_budget:
+                    if dev_used[dev] + nbytes <= dev_budget:
                         dev_gene[key] = arr
-                        dev_used[0] += nbytes
+                        dev_used[dev] += nbytes
             return arr
 
+        # band-parallel: the neighbouring bands' edge rows of the state in
+        # the read buffer (exchanged for the initial state, then after
+        # every swap)
+        ghosts = [None, None]
+
+        def exchange_ghosts() -> None:
+            if strip_exchange is None:
+                return
+            p = self._halo_px(K)
+            ghosts[0], ghosts[1] = strip_exchange(state.read[:p],
+                                                  state.read[-p:])
+
+        exchange_ghosts()
+
         tdt = DTYPES[s.transfer_dtype]
+        cuda = any(d.type == "cuda" for d in self.devices)
         cur = {"t": start_t - 1, "k": 1}   # the visit the workers run
+        bounds = (-rows_above * c.tile, (rows + rows_below) * c.tile,
+                  0, cols * c.tile)        # the grid's px, band-relative
 
         # each worker thread: reusable pinned staging buffers (a worker
         # finishes a window before it starts the next)
@@ -540,24 +584,26 @@ class StreamingGenerator:
                if os.environ.get("TMT_STREAM_TIMING") else None)
 
         def _wait(stream):
-            if cuda:
+            if stream is not None:
                 ev = torch.cuda.Event()
                 ev.record(stream)
                 ev.synchronize()
 
-        def do_window(r0: int, c0: int) -> None:
-            """Assemble, upload, denoise, fetch and write back one window
-            on a stream of its own."""
+        def do_window(r0: int, c0: int, slot: int) -> None:
+            """Assemble, upload, denoise on ``devices[slot]``, fetch and
+            write back one window on a stream of its own."""
             t0, k = cur["t"], cur["k"]
             halo = self._halo_px(k)
+            dev, gen = self.devices[slot], self._gens[slot]
             tw = time.perf_counter()
             with torch.inference_mode(), _side_stream(dev) as stream:
                 padded = state.padded_window(
-                    r0, c0, br, bc, halo,
+                    r0, c0, br, bc, halo, ghost_top=ghosts[0],
+                    ghost_bot=ghosts[1],
                     out=_staging("in", (br * c.tile + 2 * halo,
                                         bc * c.tile + 2 * halo,
                                         c.channels)))
-                gblk = gene_on_device(r0, c0, k)
+                gblk = gene_on_device(r0, c0, k, dev)
                 if tim is not None:
                     tim["asm"] += time.perf_counter() - tw
                     tw = time.perf_counter()
@@ -568,12 +614,11 @@ class StreamingGenerator:
                     tim["n"] += 1
                     tw = time.perf_counter()
                 if k == 1:
-                    out = self._window_step(dpad, gblk, t0)
+                    out = self._window_step(gen, dpad, gblk, t0)
                 else:
                     out = self._multistep_window(
-                        dpad, gblk, t0, r0 * c.tile - halo,
-                        c0 * c.tile - halo, k=k,
-                        bounds=(0, rows * c.tile, 0, cols * c.tile))
+                        gen, dpad, gblk, t0, r0 * c.tile - halo,
+                        c0 * c.tile - halo, k=k, bounds=bounds)
                 if tim is not None:
                     tim["disp"] += time.perf_counter() - tw
                     tw = time.perf_counter()
@@ -582,7 +627,7 @@ class StreamingGenerator:
                     tw = time.perf_counter()
                 host = _staging("out", tuple(out.shape))
                 host.copy_(out, non_blocking=True)
-                if cuda:
+                if stream is not None:
                     stream.synchronize()
                 if tim is not None:
                     tim["d2h"] += time.perf_counter() - tw
@@ -592,8 +637,12 @@ class StreamingGenerator:
                     host[(ra - r0) * ts:(rb - r0) * ts,
                          (ca - c0) * ts:(cb - c0) * ts]
 
-        n_workers = (max(1, s.inflight) if s.pipeline and tim is None
-                     else 1)
+        # `inflight` workers a device; windows go round-robin over the
+        # devices (they write disjoint tiles and read the immutable read
+        # buffer, so the assignment cannot change a bit of the result)
+        ndev = len(self.devices)
+        n_workers = (max(1, s.inflight) * ndev
+                     if s.pipeline and tim is None else 1)
         pool = ThreadPoolExecutor(n_workers) if n_workers > 1 else None
         t = start_t - 1
         prev_epoch = T - start_t  # epochs completed before this run
@@ -602,14 +651,15 @@ class StreamingGenerator:
                 k = min(K, t + 1)
                 cur["t"], cur["k"] = t, k
                 if pool is None:
-                    for r0, c0 in windows:
-                        do_window(r0, c0)
+                    for i, (r0, c0) in enumerate(windows):
+                        do_window(r0, c0, i % ndev)
                 else:
-                    futs = [pool.submit(do_window, r0, c0)
-                            for r0, c0 in windows]
+                    futs = [pool.submit(do_window, r0, c0, i % ndev)
+                            for i, (r0, c0) in enumerate(windows)]
                     for f in futs:
                         f.result()
                 state.swap()
+                exchange_ghosts()
                 t_last = t - k + 1        # deepest timestep just completed
                 epoch = T - t_last        # epochs completed
                 if s.progress:

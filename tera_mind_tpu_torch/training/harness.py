@@ -34,7 +34,8 @@ one on the device (timesteps, noise, dropout masks) and one on the host
 (the 2x2-block origin, a Python int the crop needs).  The JAX package
 draws from PRNG keys, so the bits differ; the parity tests inject the
 JAX draws (``draws=``).  A mesh or more than one device raises
-``NotImplementedError`` (ROADMAP item 6).
+``NotImplementedError``: data-parallel training is the port's slice 11
+(ROADMAP item 4).
 """
 
 from __future__ import annotations
@@ -270,7 +271,8 @@ class Trainer:
         if mesh not in (None, False) or isinstance(device, (list, tuple)):
             raise NotImplementedError(
                 "data-parallel training over a mesh or several devices is "
-                "not ported yet (ROADMAP item 6); train on one device")
+                "not ported yet (slice 11 of the port, ROADMAP item 4); "
+                "train on one device")
         self.conf = conf
         self.device = torch.device(device)
         mconf = conf.make_model_conf()

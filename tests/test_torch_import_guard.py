@@ -40,7 +40,9 @@ def test_port_modules_import_without_jax():
         "metrics.stats", "metrics.fid", "metrics.ssim", "metrics.features",
         "metrics.inception", "metrics.gene_stats", "metrics.morphology",
         "assembly", "assembly.wsi", "assembly.vis", "cli.assemble",
-        "models.legacy_blocks", "models.unet_patch_dm", "models.unet_sinf")}
+        "models.legacy_blocks", "models.unet_patch_dm", "models.unet_sinf",
+        "parallel.mesh", "parallel.halo", "parallel.band",
+        "parallel.mp_demo", "data.noise")}
     n_modules = len(names)
     assert int(n_loaded) >= n_modules > 15
     assert bad == "[]", bad

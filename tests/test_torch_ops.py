@@ -336,7 +336,8 @@ def test_chip_smoke_times_tile_major_and_stream_shapes():
     (9x9 patches, 5 z-windows a call) are exactly the packed model's
     shapes there (scripts/kernel_shapes.py --patches P --chunk 5), each
     launching the main path's variants, and chip_smoke's chain counts are
-    26 K1 and 6 K2 a call times 300 calls."""
+    26 K1 and 6 K2 a call times its calls (tile-major 100: 4 tiles x 5
+    calls x 5 steps; streamed 300)."""
     import importlib.util
 
     import chip_smoke as cs
@@ -353,9 +354,11 @@ def test_chip_smoke_times_tile_major_and_stream_shapes():
                    for _, c in want_k1)
         assert all(k2.attention_variant(n, d, torch.bfloat16, True)
                    == "tensor_core" for _, n, d in want_k2)
+        calls = {"tile_major": 4 * 5 * cs.TILE_MAJOR_STEPS,
+                 "stream": 4 * 5 * cs.STEPS}[path]
         assert cs.CHAIN_LAUNCHES[path] == {
-            "rmsnorm": sum(k1_shapes.values()) * 300,
-            "window_attention": sum(k2_shapes.values()) * 300}
+            "rmsnorm": sum(k1_shapes.values()) * calls,
+            "window_attention": sum(k2_shapes.values()) * calls}
     # the streamed window's rows and batches are the main path's x 5
     main_k1, main_k2 = ks.per_call_shapes()
     assert {(5 * n, c) for n, c in main_k1} == set(cs.PATH_SHAPES["stream"][0])

@@ -12,6 +12,7 @@ side draws the LCG ``'torch'`` noise, the only one the port has.
 """
 
 import dataclasses
+import queue
 import sys
 import threading
 from pathlib import Path
@@ -377,8 +378,7 @@ def test_bf16_transfer_gap_of_the_small_unet_equals_jax():
                  JSamplerConfig(patch_size=32, gn_sz=2)),
         lambda p, xp, tm, rp, p1, p2: jm.apply(p, xp, tm, rp, p1, p2,
                                                decode_original=False),
-        jgen.GeneratorConfig(**dataclasses.asdict(gconf),
-                             noise_backend="torch"),
+        jgen.GeneratorConfig(**dataclasses.asdict(gconf)),
         params=jpk.pack_unet_params(p5, jconf))
     packed = tconvert.load_jax_params(make_packed_model(mconf),
                                       pack_unet_params(p5, mconf)).eval()
@@ -502,10 +502,58 @@ def test_pipeline_off_equals_on_and_worker_errors_propagate():
     assert threading.main_thread().name not in workers
 
 
+def thread_strips(n):
+    """StripExchange stand-ins for ``n`` bands run in threads of one
+    process: band r's top edge goes to band r - 1, its bottom edge to
+    band r + 1, through queues."""
+    q = {(a, b): queue.Queue() for a in range(n) for b in (a - 1, a + 1)}
+
+    def make(r):
+        def ex(top, bot):
+            if r > 0:
+                q[(r, r - 1)].put(torch.as_tensor(top).clone())
+            if r < n - 1:
+                q[(r, r + 1)].put(torch.as_tensor(bot).clone())
+            return (q[(r - 1, r)].get(timeout=60) if r > 0 else None,
+                    q[(r + 1, r)].get(timeout=60) if r < n - 1 else None)
+        return ex
+    return [make(r) for r in range(n)]
+
+
+def run_bands(tg, gene, bands, rows=3, cols=3, **sc):
+    """The (rows x cols) grid streamed as row bands ``bands`` ((first row,
+    rows) each), one thread a band exchanging strips through queues;
+    returns the bands' results stacked."""
+    k = sc.get("steps_per_window", 1)
+    pad = tg.conf.pad + tg.conf.patch * (k - 1)
+    strips = thread_strips(len(bands))
+    out = [None] * len(bands)
+
+    def band(i):
+        r0, n = bands[i]
+        sgen = tstream.StreamingGenerator(tg, tstream.StreamConfig(
+            block_rows=2, block_cols=2, progress=False, **sc))
+        out[i] = as_f32(sgen.run(
+            n, cols, lambda r, c: gene[r0 + r, c], row0=1 + r0, col0=1,
+            strip_exchange=strips[i], rows_above=r0,
+            rows_below=rows - r0 - n).read)
+    threads = [threading.Thread(target=band, args=(i,))
+               for i in range(len(bands))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert pad <= min(n for _, n in bands) * tg.conf.tile
+    return np.concatenate(out)
+
+
 def test_timing_breakdown_and_guards(monkeypatch):
     """TMT_STREAM_TIMING keeps a per-phase breakdown of one sequential
-    sweep with the same result; an explicit state needs start_t; several
-    devices and band-parallel runs are not ported (ROADMAP item 6)."""
+    sweep with the same result; an explicit state needs start_t; windows
+    swept round-robin over two devices (two CPU replicas) and the grid
+    streamed as two bands exchanging edge strips each give the one-device
+    result; a band shorter than its ghost strip is refused, as in JAX."""
     _, tg = toy_pair()
     gene = field_gene(tg.conf, 3, 3, seed=2)
     want = as_f32(trun(tg, gene).read)
@@ -519,13 +567,16 @@ def test_timing_breakdown_and_guards(monkeypatch):
     monkeypatch.delenv("TMT_STREAM_TIMING")
     with pytest.raises(ValueError, match="start_t"):
         sgen.run(3, 3, gene, state=sgen.make_state(3, 3))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tstream.StreamingGenerator(tg, tstream.StreamConfig(),
-                                   devices=["cpu", "cpu"])
-    for kw in (dict(strip_exchange=lambda a, b: (a, b)),
-               dict(rows_above=1), dict(rows_below=2)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            sgen.run(3, 3, gene, **kw)
+    two = tstream.StreamingGenerator(tg, tstream.StreamConfig(
+        block_rows=2, block_cols=2, progress=False), devices=["cpu", "cpu"])
+    np.testing.assert_array_equal(
+        as_f32(two.run(3, 3, gene, row0=1, col0=1).read), want)
+    np.testing.assert_allclose(run_bands(tg, gene, [(0, 2), (2, 1)]), want,
+                               atol=TOY_ATOL)
+    with pytest.raises(ValueError, match="ghost strip"):
+        tstream.StreamingGenerator(tg, tstream.StreamConfig(
+            progress=False, steps_per_window=3)).run(
+            1, 3, gene, strip_exchange=thread_strips(1)[0])
 
 
 def test_explicit_start_t_resumes_mid_chain():

@@ -386,9 +386,9 @@ def test_remat_gives_the_same_gradients_with_dropout():
 
 
 def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(NotImplementedError, match="slice 11"):
         th.Trainer(TConf(**CONF_KW), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(NotImplementedError, match="slice 11"):
         th.Trainer(TConf(**CONF_KW), device=["cpu", "cpu"])
 
 

@@ -24,15 +24,20 @@ Phases, each printed on its own line with elapsed seconds:
      mode and runs under ``torch.no_grad()``, and each dispatcher records
      its backward (one forward and one backward launch, finite
      gradients);
-  5. int8: K3 (``quant_conv``) bit-equal to its plain version in int32,
-     bf16 and f32 and K4 (``quantize``) bit-equal (int8 values, scale,
+  5. int8: K3 (``quant_conv``) in both variants (``wgmma``, the one
+     every main-path shape takes, and PR 10's ``mma_sync``) bit-equal to
+     its plain version in int32, bf16 and f32, with each shape's plan
+     (``ops/quant_kernel.py::k3_plan``: TMA box, BN, grid) logged,
+     and K4 (``quantize``, one launch) bit-equal (int8 values, scale,
      abs-max) dynamic and static, at every int8 shape of the main path
      (``scripts/kernel_shapes.py --quant int8``) and at edge shapes (a
      deep concat at B = 2, Ci = 18 with Co = 24 in 3x3 and 1x1, 105
-     rows; K4: ties that round to even, a saturating outlier, f32),
-     each timed against its bound and its plain version (K3 beside
-     cuDNN's bf16 convolution of the same shape, the time int8 has to
-     beat); the C entry points' refusals; then the small chain in int8
+     rows of a 5x7 image, which only ``mma_sync`` takes; K4: ties that
+     round to even, a saturating outlier, f32, a NaN, a tensor at a
+     2-byte offset), each timed against its bound and its plain version
+     (K3's two variants beside cuDNN's bf16 convolution of the same
+     shape, the time int8 has to beat; each kernel's sum over a 2x2
+     step); the C entry points' refusals; then the small chain in int8
      (prequantized, DiT denses too) on the card against the CPU and
      against the card's f32 chain, and int8_static calibrated on the
      card, at tests/test_quant.py's chain gates; prequant bit-equal to
@@ -59,8 +64,8 @@ Phases, each printed on its own line with elapsed seconds:
      with the kernels' launch counters (total and per variant) set to 0
      just before it; then the same with ``--quant int8`` and ``--quant
      int8_static`` (its build calibrates on the 2x2 block, timed with the
-     build), each with exact K3 and K4 launches (75 and 117 a UNet call;
-     the abs-max 117 dynamic, 0 static), tiles/s beside the bf16 chain's
+     build), each with exact K3 and K4 launches by variant (75 wgmma
+     and 117 dynamic or static a UNet call), tiles/s beside the bf16 chain's
      and its output against bf16's (informative); then the 5D model
      (``--no_packed``) on the same weights and the tile-major step
      (``--tile_major``, window_chunk 5; 5 steps since PR 13, its tiles/s
@@ -133,7 +138,9 @@ Phases, each printed on its own line with elapsed seconds:
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
 nothing of JAX.  ``python3 chip_smoke.py --ranks`` runs phase 17 alone,
 with the phase 9 and 11 runs it is held against, for a machine of
-several cards.
+several cards; ``python3 chip_smoke.py --int8`` runs phase 5 and phase
+9's int8 and int8_static chains with the bf16 packed chain they are
+compared with, for a call that tunes the int8 kernels.
 """
 
 from __future__ import annotations
@@ -204,11 +211,11 @@ def input_sets(tensors: tuple, nbytes: int) -> list:
                         for _ in range(k - 1)]
 
 
-def variant_of(mod, fn, *args):
-    """(fn(*args), the variant of ``mod``'s kernel that the call launched;
-    ``mod`` a wrapper module or its ``bwd`` counters)."""
+def variant_of(mod, fn, *args, **kwargs):
+    """(fn(*args, **kwargs), the variant of ``mod``'s kernel that the call
+    launched; ``mod`` a wrapper module or its ``bwd`` counters)."""
     before = dict(mod.launches_by_variant)
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     moved = [k for k, v in mod.launches_by_variant.items() if v != before[k]]
     require(len(moved) == 1, f"{getattr(mod, '__name__', mod)}: launches "
             f"{moved}")
@@ -896,22 +903,21 @@ K4_SHAPES = [
     (32768, 1024, 8), (20736, 256, 16), (20736, 512, 16), (20736, 768, 16),
     (16384, 512, 16), (16384, 1024, 16), (16384, 1280, 16),
     (16384, 1792, 16), (10368, 229, 8), (10368, 512, 8), (10368, 2048, 8),
-    (5184, 512, 16), (5184, 970, 16), (5184, 1024, 16), (5184, 1482, 16),
-    (4096, 1024, 16), (4096, 1994, 16), (4096, 2506, 16)]
+    (5184, 512, 16), (5184, 970, 128), (5184, 1024, 16), (5184, 1482, 128),
+    (4096, 1024, 16), (4096, 1994, 128), (4096, 2506, 128)]
 # shapes off the main path: a deep concat input at B = 2, a ragged Ci
 # (18, padded to 32) with Co = 24 at B = 1, 3x3 and 1x1, and 105 output
 # rows (not a multiple of the 128-row tile) with H != W
 K3_EDGE = [((2, 8, 8, 970), (1024, 3, 3)), ((1, 8, 8, 18), (24, 3, 3)),
            ((1, 8, 8, 18), (24, 1, 1)), ((3, 5, 7, 40), (16, 3, 3))]
-# launches of K3, K4 (by variant) and K4's abs-max in a 2x2 chain of 375
-# UNet calls (scripts/kernel_shapes.py --quant)
+# launches of K3 and K4, by variant, in a 2x2 chain of 375 UNet calls
+# (scripts/kernel_shapes.py --quant: every K3 shape takes wgmma; K4 is one
+# launch a quantize, the dynamic abs-max included)
 QUANT_LAUNCHES = {
-    "int8": {"quant_conv": {"dequant": 75 * 375, "int32": 0},
-             "quantize": {"dynamic": 117 * 375, "static": 0},
-             "absmax": 117 * 375},
-    "int8_static": {"quant_conv": {"dequant": 75 * 375, "int32": 0},
-                    "quantize": {"dynamic": 0, "static": 117 * 375},
-                    "absmax": 0}}
+    "int8": {"quant_conv": {"wgmma": 75 * 375, "mma_sync": 0},
+             "quantize": {"dynamic": 117 * 375, "static": 0}},
+    "int8_static": {"quant_conv": {"wgmma": 75 * 375, "mma_sync": 0},
+                    "quantize": {"dynamic": 0, "static": 117 * 375}}}
 # tests/test_quant.py's chain gates (mean |d|, correlation, mean shift,
 # relative std shift), here for int8 against f32 chains and, set before the
 # first chip run of them, for the card's int8 chain against the CPU's: the
@@ -924,16 +930,17 @@ CHAIN_GATES = {"mean": 0.03, "corr": 0.99, "mean_shift": 0.01,
                "std_rel": 0.02}
 
 
-def k3_inputs(g, x_shape, w_shape, device):
-    """Random int8 x and w with their channels zero-padded to 16, as K4
-    writes them and prequantize_params stores them, and a positive f32
-    scale and an f32 bias."""
+def k3_inputs(g, x_shape, w_shape, device, align=None):
+    """Random int8 x and w with their channels zero-padded as K4 writes
+    them and prequantize_params stores them (``conv_align``, or
+    ``align``), positive f32 weight scales, an f32 bias and a positive
+    activation scale (a scalar)."""
     import torch
 
     from tera_mind_tpu_torch.ops import quant_kernel as qk
     b, h, w, ci = x_shape
     co, kh, kw = w_shape
-    cip = qk.round_up(ci, qk.CONV_ALIGN)
+    cip = qk.round_up(ci, align or qk.conv_align(ci))
     xq = torch.randint(-127, 128, (b, h, w, cip), generator=g,
                        dtype=torch.int8)
     wq = torch.randint(-127, 128, (co, kh, kw, cip), generator=g,
@@ -942,7 +949,8 @@ def k3_inputs(g, x_shape, w_shape, device):
     wq[..., ci:] = 0
     scale = torch.rand(co, generator=g) * 1e-4 + 1e-6
     bias = torch.randn(co, generator=g)
-    return tuple(t.to(device) for t in (xq, wq, scale, bias))
+    sx = torch.rand((), generator=g) * 1e-2 + 1e-4
+    return tuple(t.to(device) for t in (xq, wq, scale, bias, sx))
 
 
 def max_abs_diff(got, want) -> float:
@@ -957,35 +965,42 @@ def max_abs_diff(got, want) -> float:
     return float(d.max())
 
 
-def k3_agrees(qk, xq, wq, scale, bias, what: str) -> float:
-    """K3 bit-equal to its plain version: the int32 sums and the bf16 and
-    float32 dequantized outputs; returns the largest |difference| over
-    the dequantized outputs (the int32 sums' must be 0 too)."""
+def k3_agrees(qk, xq, wq, scale, bias, what: str, variant: str,
+              sx=None) -> float:
+    """K3's ``variant`` bit-equal to its plain version: the int32 sums and
+    the bf16 and float32 dequantized outputs (``sx`` the activation scale,
+    None for 1); returns the largest |difference| over the outputs (0)."""
     import torch
     errs = []
     for out_dtype in (torch.int32, torch.bfloat16, torch.float32):
         args = (xq, wq) + ((None, None) if out_dtype == torch.int32
                            else (scale, bias))
-        got = qk.quant_conv_cuda(*args, out_dtype)
+        kw = {} if out_dtype == torch.int32 else {"x_scale": sx}
+        (got, seen) = variant_of(qk.k3, qk.quant_conv_cuda, *args,
+                                 out_dtype, variant=variant, **kw)
         torch.cuda.synchronize()
-        want = qk.quant_conv_plain(*args, out_dtype)
+        want = qk.quant_conv_plain(*args, out_dtype, **kw)
+        require(seen == variant, f"K3 {what}: launched {seen}, not "
+                f"{variant}")
         require(got.dtype == out_dtype and torch.equal(got, want),
-                f"K3 {what} {out_dtype}: "
+                f"K3 {variant} {what} {out_dtype}: "
                 f"{int((got != want).sum())} outputs differ")
         errs.append(max_abs_diff(got, want))
     return max(errs)
 
 
-def time_k3(qk, xq, wq, scale, bias, x_shape, w_shape) -> dict:
-    """Device times of K3 (bf16 out), its plain version and the yardstick:
-    cuDNN's bf16 convolution of the same shape, channels-last (not the
-    same function: the time int8 has to beat), beside K3's bound."""
+def time_k3(qk, xq, wq, scale, bias, sx, x_shape, w_shape) -> dict:
+    """Device times of K3 (bf16 out) in each variant that takes the shape
+    (``ms``: the variant the plan picks), its plain version and the
+    yardstick: cuDNN's bf16 convolution of the same shape, channels-last
+    (not the same function: the time int8 has to beat), beside K3's
+    bound."""
     import torch
     import torch.nn.functional as F
     b, h, w, ci = x_shape
     co, kh, kw = w_shape
     cip = xq.shape[-1]
-    sets = input_sets((xq, wq, scale, bias), xq.numel() + wq.numel())
+    sets = input_sets((xq, wq, scale, bias, sx), xq.numel() + wq.numel())
     xb = torch.randn(b, ci, h, w, device=xq.device, dtype=torch.bfloat16
                      ).contiguous(memory_format=torch.channels_last)
     wb = torch.randn(co, ci, kh, kw, device=xq.device, dtype=torch.bfloat16
@@ -993,10 +1008,19 @@ def time_k3(qk, xq, wq, scale, bias, x_shape, w_shape) -> dict:
     bb = torch.randn(co, device=xq.device, dtype=torch.bfloat16)
     lib_sets = input_sets((xb, wb, bb), 2 * (xb.numel() + wb.numel()))
     ops = 2 * b * h * w * co * kh * kw * ci
-    nbytes = b * h * w * (cip + 2 * co) + co * kh * kw * cip + 8 * co
+    nbytes = b * h * w * (cip + 2 * co) + co * kh * kw * cip + 8 * co + 4
     bms, by = bound(nbytes, ops, H100_INT8_OPS_PER_S)
-    return dict(ms=device_ms(qk.quant_conv_cuda, sets),
-                plain_ms=device_ms(qk.quant_conv_plain, sets),
+    variants = [v for v in qk.CONV_VARIANTS
+                if v == "mma_sync" or qk.conv_variant(h, w) == v]
+    by_variant = {v: device_ms(lambda x_, w_, s_, b_, sx_, v=v:
+                               qk.quant_conv_cuda(x_, w_, s_, b_,
+                                                  x_scale=sx_, variant=v),
+                               sets) for v in variants}
+    return dict(ms=by_variant[qk.conv_variant(h, w)],
+                variant_ms=by_variant,
+                plain_ms=device_ms(lambda x_, w_, s_, b_, sx_:
+                                   qk.quant_conv_plain(x_, w_, s_, b_,
+                                                       x_scale=sx_), sets),
                 library_ms=None,
                 bf16_conv_ms=device_ms(lambda x_, w_, b_: F.conv2d(
                     x_, w_, b_, padding=(kh // 2, kw // 2)), lib_sets),
@@ -1074,44 +1098,77 @@ def check_int8_kernels(device) -> dict:
 
     g = torch.Generator(device="cpu").manual_seed(3)
     rows = {"quant_conv": [], "quantize": []}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for x_shape, w_shape in K3_SHAPES:
-        xq, wq, scale, bias = k3_inputs(g, x_shape, w_shape, device)
-        err = k3_agrees(qk, xq, wq, scale, bias, f"{x_shape} {w_shape}")
-        t = time_k3(qk, xq, wq, scale, bias, x_shape, w_shape)
+        xq, wq, scale, bias, sx = k3_inputs(g, x_shape, w_shape, device)
+        plan = qk.k3_plan(x_shape, w_shape, sms)
+        require(plan.variant == "wgmma", f"K3 {x_shape} {w_shape}: the "
+                f"plan takes {plan.variant}, not wgmma")
+        err = max(k3_agrees(qk, xq, wq, scale, bias, f"{x_shape} {w_shape}",
+                            v, sx) for v in qk.CONV_VARIANTS)
+        t = time_k3(qk, xq, wq, scale, bias, sx, x_shape, w_shape)
         tops = t.pop("tops") / t["ms"] / 1e9
-        log(f"K3 quant_conv x {x_shape} w {w_shape}: bit-equal (int32, "
-            f"bf16, f32); kernel {t['ms']:.4f} ms ({tops:.0f} TOPS), plain "
+        vms = t["variant_ms"]
+        log(f"K3 quant_conv x {x_shape} w {w_shape}: plan {plan.variant} "
+            f"box {plan.box} BN {plan.bn} grid {plan.grid}; bit-equal (int32, bf16, f32; wgmma and "
+            f"mma_sync); wgmma {vms['wgmma']:.4f} ms ({tops:.0f} TOPS), "
+            f"mma_sync {vms['mma_sync']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, cuDNN bf16 {t['bf16_conv_ms']:.4f} ms"
             f", bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{100 * t['bound_ms'] / t['ms']:.1f} % of it)")
         rows["quant_conv"].append(dict(shape=[list(x_shape), list(w_shape)],
-                                       max_abs_err=err, tops=tops, **t))
-    for x_shape, w_shape in K3_EDGE:
-        k3_agrees(qk, *k3_inputs(g, x_shape, w_shape, device),
-                  f"edge {x_shape} {w_shape}")
-    log(f"K3 edge shapes bit-equal: {K3_EDGE}")
+                                       plan=plan._asdict(), max_abs_err=err,
+                                       tops=tops, **t))
+    # the edge shapes, and the deep concat once more with its channels
+    # padded to 16 only (976: rows off the 128-byte lines)
+    for x_shape, w_shape, align in ([(x, w, None) for x, w in K3_EDGE]
+                                    + [(K3_EDGE[0][0], K3_EDGE[0][1], 16)]):
+        xq, wq, scale, bias, sx = k3_inputs(g, x_shape, w_shape, device,
+                                            align)
+        takes = [v for v in qk.CONV_VARIANTS if v == "mma_sync"
+                 or qk.conv_variant(*x_shape[1:3]) == v]
+        for v in takes:
+            k3_agrees(qk, xq, wq, scale, bias, f"edge {x_shape} {w_shape} "
+                      f"Ci_pad {xq.shape[-1]}", v, sx)
+        log(f"K3 edge x {x_shape} w {w_shape} Ci_pad {xq.shape[-1]} "
+            f"bit-equal in {takes} (plan "
+            f"{qk.k3_plan(xq.shape, wq.shape, sms)})")
 
     # the C entry point refuses a misaligned x, a ragged Ci_pad or Co, an
-    # even kernel, a sum that could overflow and a wrong dtype code
+    # even kernel, a sum that could overflow, a wrong dtype code or
+    # variant, a wgmma plan that does not fit the shape, a scale where the
+    # int32 output takes none
     lib, stream = _build.lib(), torch.cuda.current_stream().cuda_stream
-    xq, wq, scale, bias = k3_inputs(g, (2, 8, 8, 32), (16, 3, 3), device)
+    xq, wq, scale, bias, sx = k3_inputs(g, (2, 8, 8, 32), (16, 3, 3),
+                                        device)
     base = torch.zeros(xq.numel() + 16, dtype=torch.int8, device=device)
     y = torch.empty(2, 8, 8, 16, dtype=torch.bfloat16, device=device)
+    plan = qk.k3_plan(xq.shape, wq.shape, sms)
 
-    def k3_call(x=xq, ci=32, co=16, kh=3, out=1, variant=0):
-        return lib.tmt_quant_conv(x.data_ptr(), wq.data_ptr(),
-                                  scale.data_ptr(), bias.data_ptr(),
-                                  y.data_ptr(), 2, 8, 8, ci, co, kh, kh, out,
-                                  variant, stream)
-    require(k3_call() == 0, "K3 entry refused a call it takes")
+    def k3_call(x=xq, ci=32, co=16, kh=3, wd=8, out=1, variant=0,
+                box=plan.box, bn=plan.bn, grid=1, sw=scale):
+        return lib.tmt_quant_conv(
+            x.data_ptr(), wq.data_ptr(), sx.data_ptr(),
+            None if sw is None else sw.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), 2, 8, wd, ci, co, kh, kh, out, variant, *box, bn,
+            grid, stream)
+    require(k3_call() == 0 and k3_call(variant=1) == 0,
+            "K3 entry refused a call it takes")
     refused = {"misaligned x": k3_call(x=base[1:1 + xq.numel()]),
                "Ci_pad 24": k3_call(ci=24), "Co 12": k3_call(co=12),
                "2x2 kernel": k3_call(kh=2), "overflow": k3_call(ci=16_000),
-               "out dtype 2 for dequant": k3_call(out=2),
-               "variant 5": k3_call(variant=5)}
+               "out dtype 3": k3_call(out=3),
+               "int32 with a scale": k3_call(out=2),
+               "no scale": k3_call(sw=None), "variant 5": k3_call(variant=5),
+               "wgmma on W 7": k3_call(wd=7), "BN 64": k3_call(bn=64),
+               "box (8, 4, 4)": k3_call(box=(8, 4, 4)),
+               "grid 0": k3_call(grid=0)}
     refused["K4 multiple 4"] = lib.tmt_quantize(
-        bias.data_ptr(), base.data_ptr(), scale.data_ptr(), None, 4, 4, 4,
-        0, 1, stream)
+        bias.data_ptr(), base.data_ptr(), scale.data_ptr(), None, None,
+        None, 0, 4, 4, 4, 0, 1, stream)
+    refused["K4 dynamic without partials"] = lib.tmt_quantize(
+        bias.data_ptr(), base.data_ptr(), None, scale.data_ptr(),
+        scale.data_ptr(), None, 0, 4, 4, 8, 0, 0, stream)
     torch.cuda.synchronize()
     require(all(err != 0 for err in refused.values()),
             f"K3/K4 entry points took calls they cannot: {refused}")
@@ -1123,6 +1180,13 @@ def check_int8_kernels(device) -> dict:
     except RuntimeError as err:
         raised = str(err)
     require(raised is not None, "K3 wrapper ran a misaligned input")
+    raised = None
+    try:
+        qk.quant_conv_cuda(*k3_inputs(g, (3, 5, 7, 40), (16, 3, 3),
+                                      device)[:4], variant="wgmma")
+    except ValueError as err:
+        raised = str(err)
+    require(raised is not None, "K3 wrapper ran wgmma on a 5x7 image")
 
     for r, c, m in K4_SHAPES:
         x = torch.randn(r, c, generator=g).to(device, torch.bfloat16)
@@ -1167,9 +1231,17 @@ def check_int8_kernels(device) -> dict:
             f"{float(amax)}, {int(q.count_nonzero())} nonzero int8 values")
     q, _, _ = qk.quantize_cuda(nan, torch.tensor(0.01, device=device), 8)
     require(int(q[5, 17]) == 0 and q.any(), "K4 static NaN: not 0")
+    # a tensor whose first element is off the 16-byte boundary: pass 1
+    # reads it element by element, pass 2 realigns every row
+    odd = torch.randn(1 + 333 * 70, generator=g).to(device, torch.bfloat16)
+    for a in (None, torch.tensor(0.01, device=device)):
+        for m in (8, 16):
+            k4_agrees(qk, odd[1:].view(333, 70), a, m,
+                      "(333, 70) bf16 at a 2-byte offset")
     log("K4 bit-equal on ties (round half to even), a saturating outlier "
-        "(static), 8 and 16 multiples, f32 (999, 229), and a NaN (dynamic: "
-        "NaN scale and abs-max, q = 0; static: q = 0 where x is NaN)")
+        "(static), 8 and 16 multiples, f32 (999, 229), a NaN (dynamic: "
+        "NaN scale and abs-max, q = 0; static: q = 0 where x is NaN) and a "
+        "tensor at a 2-byte offset")
     return rows
 
 
@@ -1638,11 +1710,10 @@ def reset_launches() -> None:
 
 
 def read_quant_launches() -> dict:
-    """K3's launches, K4's by variant and K4's abs-max launches."""
+    """K3's and K4's launches by variant."""
     from tera_mind_tpu_torch.ops import quant_kernel as qk
     return {"quant_conv": dict(qk.k3.launches_by_variant),
-            "quantize": dict(qk.k4.launches_by_variant),
-            "absmax": qk.k4_absmax.launches}
+            "quantize": dict(qk.k4.launches_by_variant)}
 
 
 def require_output(out, shape) -> None:
@@ -1740,8 +1811,8 @@ def run_main_path(device, path: str = "packed") -> dict:
     require(got_variants == want_variants,
             f"launches by variant {got_variants}, expected {want_variants}")
     want_quant = QUANT_LAUNCHES.get(path, {
-        "quant_conv": {"dequant": 0, "int32": 0},
-        "quantize": {"dynamic": 0, "static": 0}, "absmax": 0})
+        "quant_conv": {"wgmma": 0, "mma_sync": 0},
+        "quantize": {"dynamic": 0, "static": 0}})
     log(f"int8 launches [{path}]: {quant} (expected {want_quant})")
     require(quant == want_quant,
             f"K3/K4 launches {quant}, expected {want_quant}")
@@ -2789,6 +2860,90 @@ def run_ranks(device, packed_out, stream_ref, counts) -> dict:
     return res
 
 
+def compare_int8(chains: dict, outs: dict) -> dict:
+    """The full-width int8 and int8_static chains against the bf16 packed
+    chain of the same run: tiles/s and the output statistics
+    (informative)."""
+    int8_vs_bf16 = {}
+    for path in ("int8", "int8_static"):
+        int8_vs_bf16[path] = st = chain_gate_stats(outs["packed"],
+                                                   outs[path])
+        log(f"full-width {path} chain: {chains[path]['tiles_per_s']:.5f} "
+            f"tiles/s against the bf16 packed chain's "
+            f"{chains['packed']['tiles_per_s']:.5f} in this run (build "
+            f"{chains[path]['build_s']:.1f} s, calibration included); "
+            f"output against bf16: mean |d| {st['mean']:.4g}, max "
+            f"{st['max']:.4g}, corr {st['corr']:.5f}, mean shift "
+            f"{st['mean_shift']:.4g}, std shift {st['std_rel']:.4g} "
+            "(informative)")
+    return int8_vs_bf16
+
+
+def quant_kernel_entries(rows: dict, chains: dict) -> list:
+    """K3's and K4's entries of the kernel line: the largest shape's
+    times, every shape's rows, the main path's launches by variant."""
+    quant_sources = {
+        "quant_conv": ("tera_mind_tpu_torch/csrc/quant_conv_wgmma.cu",
+                       "tera_mind_tpu/ops/quant.py:58 (quant_conv2d; "
+                       "not a Pallas kernel)"),
+        "quantize": ("tera_mind_tpu_torch/csrc/quantize.cu",
+                     "tera_mind_tpu/ops/quant.py:41 (quantize_tensor and "
+                     "the a_scale branch :84-87; not a Pallas kernel)")}
+    kernels = []
+    for name, (src, replaces) in quant_sources.items():
+        r = max(rows[name], key=lambda x: x["bound_ms"])  # the largest
+        by_path = {path: chains[path]["quant_launches"]
+                   for path in ("int8", "int8_static")}
+        main_q = by_path["int8"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(main_q[name].values()),
+            "launches_by_variant": main_q[name],
+            "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"], "shapes": rows[name],
+            **({"variant_ms": r["variant_ms"],
+                "bf16_conv_ms": r["bf16_conv_ms"],
+                "bf16_conv": "cuDNN bf16 conv2d of the same shape: not the "
+                             "same function, the path int8 has to beat",
+                "step_ms": step_sums(rows[name])}
+               if name == "quant_conv" else
+               {"step_ms": step_sums(rows[name])})})
+        log(f"{name} a 2x2 step (ms): {kernels[-1]['step_ms']}")
+    return kernels
+
+
+def step_sums(rows: list) -> dict:
+    """A 2x2 step's device ms of K3 (by variant, plain, cuDNN bf16,
+    bound) or K4 (dynamic, static, bound): each shape's time times its
+    launches a step (scripts/kernel_shapes.py --quant int8, 25 UNet calls
+    a step)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "kernel_shapes", Path(__file__).resolve().parent / "scripts"
+        / "kernel_shapes.py")
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    k3, k4, _ = ks.quant_shapes("int8")
+    calls = 25
+    if "variant_ms" in rows[0]:
+        n = {(tuple(x), tuple(w)): c for (x, w), c in k3.items()}
+        keyed = [(n[tuple(r["shape"][0]), tuple(r["shape"][1])], r)
+                 for r in rows]
+        out = {v: sum(c * r["variant_ms"][v] for c, r in keyed) * calls
+               for v in rows[0]["variant_ms"]}
+        for key in ("plain_ms", "bf16_conv_ms", "bound_ms"):
+            out[key] = sum(c * r[key] for c, r in keyed) * calls
+        return out
+    n = {(r_, c_, m_): c for (r_, c_, m_, _), c in k4.items()}
+    keyed = [(n[tuple(r["shape"])], r) for r in rows]
+    return {key: sum(c * r[key] for c, r in keyed) * calls
+            for key in ("ms", "static_ms", "plain_ms", "bound_ms")}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2818,9 +2973,11 @@ def main() -> int:
         log(f"ptxas: {line}")
     if sys.argv[1:] == ["--ranks"]:
         return ranks_only(device, smi)
+    if sys.argv[1:] == ["--int8"]:
+        return int8_only(device, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
-              "--ranks)", file=sys.stderr, flush=True)
+              "--ranks or --int8)", file=sys.stderr, flush=True)
         return 2
 
     rows = check_kernels(device)
@@ -2848,18 +3005,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     outs = {p: c.pop("out") for p, c in chains.items()}
     packed_out = outs["packed"]     # phase 17's reference
-    int8_vs_bf16 = {}
-    for path in ("int8", "int8_static"):
-        int8_vs_bf16[path] = st = chain_gate_stats(outs["packed"],
-                                                   outs[path])
-        log(f"full-width {path} chain: {chains[path]['tiles_per_s']:.5f} "
-            f"tiles/s against the bf16 packed chain's "
-            f"{chains['packed']['tiles_per_s']:.5f} in this run (build "
-            f"{chains[path]['build_s']:.1f} s, calibration included); "
-            f"output against bf16: mean |d| {st['mean']:.4g}, max "
-            f"{st['max']:.4g}, corr {st['corr']:.5f}, mean shift "
-            f"{st['mean_shift']:.4g}, std shift {st['std_rel']:.4g} "
-            "(informative)")
+    int8_vs_bf16 = compare_int8(chains, outs)
     for other in ("5d",):     # (the tile-major chain is shallower)
         diff = np.abs(outs["packed"] - outs[other])
         log(f"full-width bf16 outputs, packed vs {other} on the same "
@@ -2960,34 +3106,7 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         "shapes": rows[name]})
-    quant_sources = {
-        "quant_conv": ("tera_mind_tpu_torch/csrc/quant_conv.cu",
-                       "tera_mind_tpu/ops/quant.py:58 (quant_conv2d; "
-                       "not a Pallas kernel)"),
-        "quantize": ("tera_mind_tpu_torch/csrc/quantize.cu",
-                     "tera_mind_tpu/ops/quant.py:41 (quantize_tensor and "
-                     "the a_scale branch :84-87; not a Pallas kernel)")}
-    for name, (src, replaces) in quant_sources.items():
-        r = max(rows[name], key=lambda x: x["bound_ms"])  # the largest
-        by_path = {path: chains[path]["quant_launches"]
-                   for path in ("int8", "int8_static")}
-        main_q = by_path["int8"]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": sum(main_q[name].values()),
-            "launches_by_variant": (
-                main_q[name] if name == "quant_conv" else
-                {**main_q["quantize"], "absmax": main_q["absmax"]}),
-            "launches_by_path": by_path,
-            "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": r["shape"], "shapes": rows[name],
-            **({"bf16_conv_ms": r["bf16_conv_ms"],
-                "bf16_conv": "cuDNN bf16 conv2d of the same shape: not the "
-                             "same function, the path int8 has to beat"}
-               if name == "quant_conv" else {})})
+    kernels += quant_kernel_entries(rows, chains)
     print(json.dumps({"kernels": kernels, "train": train,
                       "small_train": small_train, "chain_seconds":
                       main_path["seconds"], "tiles_per_s":
@@ -3009,6 +3128,40 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def int8_only(device, smi: str) -> int:
+    """``--int8``: phase 5 (K3 in both variants and K4 against their plain
+    versions at every shape, timed; the refusals; the small int8 chains)
+    and phase 9's int8 and int8_static chains with the bf16 packed chain
+    they are compared with, for a call that tunes the int8 kernels;
+    prints its JSON, the card line and a result line naming the part it
+    ran."""
+    import torch
+    rows = check_int8_kernels(device)
+    small_int8 = check_small_int8(device)
+    chains = {}
+    for path in ("packed", "int8", "int8_static"):
+        chains[path] = run_main_path(device, path)
+        chains[path].pop("gen")
+        torch.cuda.empty_cache()
+    outs = {p: c.pop("out") for p, c in chains.items()}
+    int8_vs_bf16 = compare_int8(chains, outs)
+    kernels = quant_kernel_entries(rows, chains)
+    print(json.dumps({"kernels": kernels, "small_int8": small_int8,
+                      "int8_vs_bf16": int8_vs_bf16, "chains": {
+                          p: {k: c[k] for k in (
+                              "seconds", "tiles_per_s", "peak_gib",
+                              "build_s", "quant_launches")}
+                          for p, c in chains.items()}}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "only": "phase 5 and phase 9's int8 "
+                      "chains", "device": {
+                          "platform": "gpu",
+                          "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()}}),
+          flush=True)
     return 0
 
 

@@ -40,9 +40,11 @@ windows at streaming's window_chunk (5), over ``--steps`` (default 15).
 ``--quant`` runs the prequantized int8 packed model (``cli.generate
 --quant``; with ``int8_static`` its static-activation form) instead and
 lists, per UNet call and per chain, K3's (x (B, H, W, Ci), w (Co, kh,
-kw)) shapes, K4's (rows, C, multiple) by variant (``dynamic``: an
-abs-max launch too; ``static``: none) and ``torch._int_mm``'s (M, K_pad,
-N), with the int8 operations and the bytes K3 and K4 move a step.
+kw)) shapes with the plan ``ops/quant_kernel.py::k3_plan`` gives each
+(its variant, TMA box, BN and grid) and K3's launches by variant,
+K4's (rows, C, multiple) by variant (``dynamic`` or ``static``, one
+launch either way) and ``torch._int_mm``'s (M, K_pad, N), with the int8
+operations and the bytes K3 and K4 move a step.
 
     python scripts/kernel_shapes.py --train [--packed | --method M]
 
@@ -234,7 +236,8 @@ def quant_recording(k3: Counter, k4: Counter, mm: Counter):
         s = torch.empty((), dtype=torch.float32)
         return q, s, (s if a_scale is None else None)
 
-    def quant_conv(xq, wq, scale=None, bias=None, out_dtype=torch.bfloat16):
+    def quant_conv(xq, wq, w_scale=None, bias=None,
+                   out_dtype=torch.bfloat16, x_scale=None):
         co, kh, kw, _ = wq.shape
         k3[(tuple(xq.shape[:3]) + (true_ci[id(xq)],), (co, kh, kw))] += 1
         return torch.empty(*xq.shape[:3], co, dtype=out_dtype)
@@ -249,6 +252,15 @@ def quant_recording(k3: Counter, k4: Counter, mm: Counter):
         yield
     finally:
         qk.quantize, qk.quant_conv, qk.int8_mm = saved
+
+
+def k3_variants(k3: Counter) -> dict:
+    """K3's launches by variant for its shapes -> launches (``k3_plan``'s
+    rule; every variant named, 0 where none launches)."""
+    out = dict.fromkeys(qk.CONV_VARIANTS, 0)
+    for (x_shape, w_shape), n in k3.items():
+        out[qk.k3_plan(x_shape, w_shape).variant] += n
+    return out
 
 
 def quant_shapes(quant: str = "int8", attn: bool = True,
@@ -296,8 +308,14 @@ def main_quant(quant: str, attn: bool, patches: int, chunk: int,
               f"{sum(counts.values()) * calls} per chain of {calls} calls")
         for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
             print(f"  {shape}: {n} per call, {n * calls} per chain")
+    for (x_shape, w_shape), n in sorted(k3.items()):
+        p = qk.k3_plan(x_shape, w_shape)
+        print(f"  K3 plan x {x_shape} w {w_shape}: {p.variant}, box "
+              f"{p.box}, BN {p.bn}, {p.stages} stages, "
+              f"{p.units} units on a grid of {p.grid}")
+    print(f"K3 launches by variant: {k3_variants(k3)} per call")
     # the function's bytes: x read once, q written once (the dynamic
-    # kernel reads x a second time for the abs-max)
+    # kernel reads x a second time for the abs-max where x passes the L2)
     k4_bytes = sum(rows * (BF16 * c + qk.round_up(c, m)) * n
                    for (rows, c, m, _), n in k4.items())
     print(f"K3: {ops / 1e12:.3f} T int8 operations a call, "

@@ -30,9 +30,10 @@ after the warm-up, each ending in ``torch.cuda.synchronize``, and prints
 them and their median.  Every line names the card and its power limit.
 ``--json PATH`` also writes the per-kernel table there.  ``--quant
 int8|int8_static`` builds the generation path with ``cli.generate
---quant`` (int8_static calibrates first); K3 (``quant_conv``), K4
-(``quantize`` and its abs-max) and ``torch._int_mm``'s cuBLASLt int8
-products are then categories of their own.
+--quant`` (int8_static calibrates first); K3 (``quant_conv``, by
+variant), K4 (``quantize``, one launch with its abs-max) and
+``torch._int_mm``'s cuBLASLt int8 products are then categories of their
+own.
 """
 
 from __future__ import annotations
@@ -59,9 +60,9 @@ from tera_mind_tpu_torch.training import harness  # noqa: E402
 TILES = {"block_major": 2, "tile_major": 2, "stream": 4}  # grid side
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("K3 quant_conv", ("quant_conv_kernel",)),
+    ("K3 quant_conv wgmma", ("quant_conv_wgmma",)),
+    ("K3 quant_conv mma_sync", ("quant_conv_kernel",)),
     ("K4 quantize", ("quantize_kernel",)),
-    ("K4 absmax", ("absmax_kernel",)),
     ("int8 matmul (_int_mm)", ("imma", "s8s8", "i8i8", "int8", "_s8",
                                "igemm", "s32_")),
     ("K1b rmsnorm_bwd vector", ("rmsnorm_bwd_vec",)),

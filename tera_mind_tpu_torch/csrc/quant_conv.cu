@@ -6,8 +6,10 @@
 // taps outside the image read 0.  x is the NHWC int8 activation that K4
 // (csrc/quantize.cu) writes, with its channels zero-padded to a multiple
 // of 16; w is the int8 weight (Co, kh, kw, Ci_pad), K-contiguous, padded
-// the same way; scale = s_x * s_w (f32, per output channel) and bias are
-// f32.  This is tera_mind_tpu/ops/quant.py::quant_conv2d (:58), whose
+// the same way; scale[co] = __fmul_rn(s_x, s_w[co]) is formed here from
+// the activation scale s_x (a device scalar) and the weight scales s_w,
+// the one f32 product JAX's dequantize rounds; bias is f32.  This is
+// tera_mind_tpu/ops/quant.py::quant_conv2d (:58), whose
 // lax.conv_general_dilated int8 x int8 -> int32 product and dequantize
 // (:94-101) XLA runs on the TPU; PyTorch has no int8 convolution.  Zero
 // padding is exact because quantization maps 0 to 0.  The dequantize uses
@@ -20,24 +22,27 @@
 // Bound: at the main path's shapes it does 2 * M * Co * kh * kw * Ci
 // operations on M * Ci + Co * kh * kw * Ci bytes in and 2 * M * Co out,
 // hundreds of operations a byte, so the int8 tensor cores (1,979 TOPS on
-// an H100 SXM) bound it.  This first version is simple: mma.sync
-// m16n8k32 s8 (the Ampere-style warp instruction, not Hopper's wgmma),
-// a 128 x 128 output tile a block of 8 warps (each 64 x 32), k tiles of
-// 64 bytes (one tap, 64 input channels) in a 3-stage cp.async ring with
-// an XOR swizzle, so the ldmatrix reads of a 64-byte row hit 8 distinct
-// 16-byte bank groups.  The epilogue writes each thread's two adjacent
-// outputs straight to device memory.
+// an H100 SXM) bound it.
 //
-// Two variants, chosen by the caller (ops/quant_kernel.py
-// quant_conv_variant): dequant (bf16 or float32 out) and int32 (the raw
-// sums, for the checks).
+// Two variants, chosen by ops/quant_kernel.py::k3_plan's shape rule and
+// passed in with the plan (csrc/quant_conv.cuh):
+// - wgmma (csrc/quant_conv_wgmma.cu): Hopper's wgmma s8 fed by TMA,
+//   where a 128-pixel M tile is whole image rows (every main-path
+//   shape);
+// - mma_sync (this file, PR 10's kernel): mma.sync m16n8k32 s8 (the
+//   Ampere-style warp instruction), a 128 x 128 output tile a block of 8
+//   warps (each 64 x 32), k tiles of 64 bytes (one tap, 64 input
+//   channels) in a 3-stage cp.async ring with an XOR swizzle, so the
+//   ldmatrix reads of a 64-byte row hit 8 distinct 16-byte bank groups;
+//   the epilogue writes each thread's two adjacent outputs straight to
+//   device memory.  It takes any shape.
+// Each writes bf16 or float32 (dequantized) or int32 (the raw sums, for
+// the checks).
 
 #include "common.cuh"
+#include "quant_conv.cuh"
 
 namespace {
-
-enum : int { kDequant = 0, kInt32 = 1 };              // CONV_VARIANTS
-enum : int { kOutF32 = 0, kOutBF16 = 1, kOutI32 = 2 };  // CONV_OUT_CODES
 
 constexpr int kBM = 128;        // output pixels a block
 constexpr int kBN = 128;        // output channels a block
@@ -52,10 +57,6 @@ constexpr long long kMaxSum = 2147483647LL;
 static_assert(kBM == kBN && kThreads == 2 * kBM,
               "each thread copies two rows of A and two of B a stage");
 static_assert(kSmem == 49152, "48 KB: no opt-in above the default limit");
-
-struct Shape {
-  int b, h, w, ci, co, kh, kw;   // ci: padded input channels
-};
 
 // byte offset of 16-byte chunk c (0..3) of row r of a 64-byte-row tile
 __device__ __forceinline__ int swz(int r, int c) {
@@ -114,9 +115,9 @@ template <> struct Store<int> {
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 2)
 quant_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale,
+                  const float* __restrict__ sx, const float* __restrict__ sw,
                   const float* __restrict__ bias, OutT* __restrict__ y,
-                  Shape s) {
+                  ConvShape s) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c4 = lane & 3;
@@ -219,11 +220,13 @@ quant_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   cp_async_wait<0>();
 
   // epilogue: rows g and g + 8 of each 16 x 8 tile, two channels each
+  const float sxv = sx ? *sx : 1.f;
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int n = n0 + wn + 8 * ni + 2 * c4;
     if (n >= s.co) continue;   // Co % 8 == 0: n + 1 < Co as well
-    const float sa = scale ? scale[n] : 0.f, sb = scale ? scale[n + 1] : 0.f;
+    const float sa = sw ? __fmul_rn(sxv, sw[n]) : 0.f;
+    const float sb = sw ? __fmul_rn(sxv, sw[n + 1]) : 0.f;
     // without a bias add -0.f, which leaves every float as it is
     const float ba = bias ? bias[n] : -0.f, bb = bias ? bias[n + 1] : -0.f;
 #pragma unroll
@@ -240,15 +243,15 @@ quant_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 template <typename OutT>
-int launch(const void* x, const void* w, const void* scale, const void* bias,
-           void* y, const Shape& s, cudaStream_t stream) {
+int launch(const void* x, const void* w, const float* sx, const float* sw,
+           const float* bias, void* y, const ConvShape& s,
+           cudaStream_t stream) {
   const long long m = (long long)s.b * s.h * s.w;
   const dim3 grid((unsigned)((m + kBM - 1) / kBM),
                   (unsigned)((s.co + kBN - 1) / kBN));
   quant_conv_kernel<OutT><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<OutT*>(y), s);
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), sx, sw,
+      bias, static_cast<OutT*>(y), s);
   return (int)cudaGetLastError();
 }
 
@@ -257,33 +260,42 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
 // x: (b, h, w, ci) int8, w: (co, kh, kw, ci) int8, both contiguous and
 // 16-byte aligned with ci % 16 == 0 (zero-padded channels); y: (b, h, w,
 // co), contiguous, 16-byte aligned, co % 8 == 0; kh and kw odd, padding
-// (kh - 1) / 2 and (kw - 1) / 2 (SAME).  variant 0 (dequant): scale (co,)
-// f32 required, bias (co,) f32 or null, out_dtype 0 (f32) or 1 (bf16);
-// variant 1 (int32): the raw sums, out_dtype 2, scale and bias null.
-// A call outside these limits is an error, never a fallback.  Returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int tmt_quant_conv(const void* x, const void* w, const void* scale,
-                              const void* bias, void* y, int b, int h,
-                              int wd, int ci, int co, int kh, int kw,
-                              int out_dtype, int variant, void* stream) {
+// (kh - 1) / 2 and (kw - 1) / 2 (SAME).  out_dtype 0 (f32) or 1 (bf16):
+// sw (co,) f32 required, sx one f32 or null (1), bias (co,) f32 or null;
+// out_dtype 2 (int32): the raw sums, sx, sw and bias null.  variant 0
+// (wgmma) runs the plan (box_w, box_h, box_b, bn, grid) of
+// ops/quant_kernel.py::k3_plan and refuses one that does not fit the
+// shape; variant 1 (mma_sync) takes any shape
+// and ignores the plan.  A call outside these limits is an error, never
+// a fallback.  Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int tmt_quant_conv(const void* x, const void* w, const void* sx,
+                              const void* sw, const void* bias, void* y,
+                              int b, int h, int wd, int ci, int co, int kh,
+                              int kw, int out_dtype, int variant, int box_w,
+                              int box_h, int box_b, int bn, int grid,
+                              void* stream) {
   if (b <= 0 || h <= 0 || wd <= 0 || ci <= 0 || co <= 0 ||
       ci % kCiAlign != 0 || co % 8 != 0 || kh <= 0 || kw <= 0 ||
       kh % 2 == 0 || kw % 2 == 0 || (long long)b * h * wd > 2147483647LL ||
       127LL * 127LL * kh * kw * ci > kMaxSum || !aligned16(x) ||
-      !aligned16(w) || !aligned16(y))
+      !aligned16(w) || !aligned16(y) || out_dtype < kOutF32 ||
+      out_dtype > kOutI32 ||
+      (out_dtype == kOutI32 ? sx || sw || bias : !sw))
     return (int)cudaErrorInvalidValue;
-  const Shape s{b, h, wd, ci, co, kh, kw};
+  const ConvShape s{b, h, wd, ci, co, kh, kw};
   auto st = static_cast<cudaStream_t>(stream);
-  if (variant == kInt32) {
-    if (out_dtype != kOutI32 || scale || bias)
-      return (int)cudaErrorInvalidValue;
-    return launch<int>(x, w, nullptr, nullptr, y, s, st);
-  }
-  if (variant != kDequant || !scale) return (int)cudaErrorInvalidValue;
+  const auto* fx = static_cast<const float*>(sx);
+  const auto* fw = static_cast<const float*>(sw);
+  const auto* fb = static_cast<const float*>(bias);
+  if (variant == kWgmma)
+    return quant_conv_wgmma(x, w, fx, fw, fb, y, s,
+                            ConvPlan{box_w, box_h, box_b, bn, grid},
+                            out_dtype, st);
+  if (variant != kMmaSync) return (int)cudaErrorInvalidValue;
   switch (out_dtype) {
-    case kOutF32: return launch<float>(x, w, scale, bias, y, s, st);
+    case kOutF32: return launch<float>(x, w, fx, fw, fb, y, s, st);
     case kOutBF16:
-      return launch<__nv_bfloat16>(x, w, scale, bias, y, s, st);
-    default: return (int)cudaErrorInvalidValue;
+      return launch<__nv_bfloat16>(x, w, fx, fw, fb, y, s, st);
+    default: return launch<int>(x, w, nullptr, nullptr, nullptr, y, s, st);
   }
 }

@@ -42,7 +42,7 @@ from torch import nn
 
 from ..ops.collage import to_collage
 from ..ops.quant import QuantModule, quant_conv2d
-from ..ops.quant_kernel import CONV_ALIGN, round_up
+from ..ops.quant_kernel import conv_align, round_up
 from ..ops.zpack import (pack_channel_param, pack_conv3d_bias,
                          pack_conv3d_kernel, pack_conv3d_kernel_t,
                          pack_features, packed_to_pixel, pixel_to_packed,
@@ -134,7 +134,8 @@ class QuantConv2p(QuantModule, nn.Module):
     ``QuantConv2p``): the same ``weight`` (co, ci, kh, kw) and ``bias``,
     so packed trees load unchanged, run through ``quant_conv2d`` (K4 and
     K3 on the card).  ``prequant``: buffers ``kernel_q`` (co, kh, kw,
-    round_up(ci, 16)) int8 and ``w_scale`` (co,) instead of the weight;
+    round_up(ci, conv_align(ci))) int8 and ``w_scale`` (co,) instead of
+    the weight;
     ``static_act``: a calibrated ``a_scale`` () buffer instead of the
     dynamic abs-max.  Inference-only."""
 
@@ -148,7 +149,7 @@ class QuantConv2p(QuantModule, nn.Module):
         self._init_quant(in_channels, out_channels,
                          (out_channels, in_channels, kh, kw),
                          (out_channels, kh, kw,
-                          round_up(in_channels, CONV_ALIGN)),
+                          round_up(in_channels, conv_align(in_channels))),
                          prequant, static_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -46,11 +46,8 @@ SIGNATURES = {
     "tmt_window_attention_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                  _ptr, _int, _int, _int, _f32, _int, _int,
                                  _ptr],
-    "tmt_quant_conv": [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
-                       _int, _int, _int, _int, _int, _ptr],
-    "tmt_absmax": [_ptr, _i64, _int, _ptr, _ptr],
-    "tmt_quantize": [_ptr, _ptr, _ptr, _ptr, _i64, _int, _int, _int, _int,
-                     _ptr],
+    "tmt_quant_conv": [_ptr] * 6 + [_int] * 14 + [_ptr],
+    "tmt_quantize": [_ptr] * 6 + [_int, _i64, _int, _int, _int, _int, _ptr],
 }
 
 _lib = None

@@ -11,7 +11,7 @@ arithmetic order.  Opt-in through ``PackedTeraUNet(conf, quant='int8')``
   from a calibrated ``a_scale`` (``static_act``; :func:`calibrate_generator`
   and :func:`bake_act_scales`);
 - int32 sums, then ``f32(acc) * (s_x * s_w)``, ``+ f32(bias)`` and the
-  cast to the compute dtype.
+  cast to the compute dtype (K3 forms ``s_x * s_w`` in its epilogue).
 
 On the card the activation quantize is K4 and the convolution K3
 (``ops/quant_kernel.py``); the dense product is ``torch._int_mm``
@@ -21,7 +21,8 @@ plain PyTorch in JAX's order.  Inference-only.
 Layouts: the port's float weights are ``(co, ci, kh, kw)`` and ``(co,
 ci)``; its ``kernel_q`` buffers are ``(co, kh, kw, ci_pad)`` (K3's
 K-contiguous layout) and ``(co, ci_pad)``, the input channels zero-padded
-to ``CONV_ALIGN`` (16) and ``MM_ALIGN`` (8), which the kernels and
+to ``conv_align(ci)`` (16, or 128 for the deep concats) and
+``MM_ALIGN`` (8), which the kernels and
 ``torch._int_mm`` need and which add nothing to the sums.
 ``convert.load_jax_params`` pads JAX's ``kernel_q`` (HWIO, ``(ci, co)``)
 into them and ``export_params`` strips the pad again.  The scales stay
@@ -49,7 +50,7 @@ from torch import nn
 from ..convert import jax_to_torch_array, torch_to_jax_array
 from ..models.nn import CastsWeights, set_compute_dtype
 from . import quant_kernel as qk
-from .quant_kernel import CONV_ALIGN, MM_ALIGN
+from .quant_kernel import MM_ALIGN
 
 _EPS = qk.EPS   # 1e-8
 SCALES = ("w_scale", "a_scale")   # float32 whatever the model's dtype
@@ -98,7 +99,7 @@ def quant_conv2d(x: torch.Tensor, w: Optional[torch.Tensor],
     added after the dequantize in float32.  ``observe(amax)`` receives the
     dynamic abs-max (calibration).  Returns (N, H, W, Co) in
     ``out_dtype``."""
-    xq, sx, amax = qk.quantize(x, a_scale, CONV_ALIGN)
+    xq, sx, amax = qk.quantize(x, a_scale, qk.conv_align(x.shape[-1]))
     if observe is not None and amax is not None:
         observe(amax)
     if w_q is None:
@@ -107,9 +108,9 @@ def quant_conv2d(x: torch.Tensor, w: Optional[torch.Tensor],
     else:
         wq, sw = w_q, w_scale
     _same_padding(padding, wq.shape[1], wq.shape[2])
-    wq = qk.pad_last(wq, CONV_ALIGN).contiguous()
+    wq = qk.pad_last(wq, qk.conv_align(x.shape[-1])).contiguous()
     b = None if bias is None else bias.float()
-    return qk.quant_conv(xq, wq, sx * sw.float(), b, out_dtype)
+    return qk.quant_conv(xq, wq, sw, b, out_dtype, x_scale=sx)
 
 
 def quant_dense(x: torch.Tensor, w: Optional[torch.Tensor],

@@ -628,10 +628,17 @@ CLI_ARGV = ["--synthetic", "--hnm", "2", "--wnm", "2", "--hst", "64",
             "--device", "cpu"]
 
 
-def cli_gen(out_dir):
+def cli_gen(out_dir, monkeypatch=None):
+    """Point ``cli.generate.build`` at the tiny packed generator: through
+    ``monkeypatch`` in the test process, which restores it after the
+    test; a rank subprocess, which exits, rebinds it plainly."""
     gen = tiny_packed_gen(out_dir)
     gene = np.load(Path(out_dir) / "gene.npy")
-    tcli.build = lambda args: (gen, None, gene, (1, 1))
+    fake = lambda args: (gen, None, gene, (1, 1))  # noqa: E731
+    if monkeypatch is None:
+        tcli.build = fake
+    else:
+        monkeypatch.setattr(tcli, "build", fake)
 
 
 def child_cli(rank, n, port, out_dir, mode, port2):
@@ -652,7 +659,8 @@ def child_cli(rank, n, port, out_dir, mode, port2):
 
 
 @pytest.mark.parametrize("mode", ["memory", "stream"])
-def test_cli_over_two_ranks_equals_one_process(packed_inputs, mode):
+def test_cli_over_two_ranks_equals_one_process(packed_inputs, mode,
+                                               monkeypatch):
     """cli.generate.main over 2 ranks (tiny packed generator): each rank
     writes its band's tiles and its own _p{rank} spill, --cur_epoch
     resumes from it, and the union of the bands equals the one-process
@@ -661,7 +669,7 @@ def test_cli_over_two_ranks_equals_one_process(packed_inputs, mode):
     (tmp / mode).mkdir()
     outs = spawn(2, "child_cli", tmp, mode, tmesh.free_port())
     assert any("backend gloo" in o for o in outs)
-    cli_gen(tmp)
+    cli_gen(tmp, monkeypatch)
     extra = ["--stream"] if mode == "stream" else []
     argv = CLI_ARGV + extra + ["--out_dir", str(tmp / mode / "one")]
     want = tcli.main(argv)

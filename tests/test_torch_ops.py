@@ -533,8 +533,9 @@ def test_chip_smoke_checks_the_int8_shapes_and_counts():
     """chip_smoke.py's K3 and K4 shapes are exactly the shapes one UNet
     call of ``cli.generate --quant int8`` gives them (scripts/kernel_shapes.py
     --quant, the same with int8_static), and its int8 chain counts are
-    those launches times 375 calls: 75 K3, 117 K4 (and as many abs-max
-    launches when dynamic, none when static), 42 torch._int_mm."""
+    those launches times 375 calls: 75 K3, all in the variant k3_plan's
+    rule picks (wgmma), 117 K4 (one launch each, dynamic or static), 42
+    torch._int_mm."""
     import importlib.util
 
     import chip_smoke as cs
@@ -548,13 +549,13 @@ def test_chip_smoke_checks_the_int8_shapes_and_counts():
         assert {(r, c, m) for r, c, m, _ in k4} == set(cs.K4_SHAPES)
         assert {v for *_, v in k4} == {variant}
         want = cs.QUANT_LAUNCHES[quant]
-        assert want["quant_conv"] == {"dequant": sum(k3.values()) * 375,
-                                      "int32": 0}
+        assert want["quant_conv"] == {
+            v: n * 375 for v, n in ks.k3_variants(k3).items()}
+        assert want["quant_conv"] == {"wgmma": 75 * 375, "mma_sync": 0}
         assert sum(k3.values()) == 75
         assert want["quantize"][variant] == sum(k4.values()) * 375
         assert sum(want["quantize"].values()) == 117 * 375
-        assert want["absmax"] == (sum(k4.values()) * 375
-                                  if variant == "dynamic" else 0)
+        assert set(want) == {"quant_conv", "quantize"}
         assert sum(mm.values()) == 42
     # K3's 16-channel multiple: the deep concats are padded, the others not
     assert {ci for (_, ci), _ in [((x[:3], x[3]), w) for x, w in

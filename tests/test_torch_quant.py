@@ -334,8 +334,9 @@ def test_prequantize_params_matches_jax(quant_case, attn):
 def test_convert_carries_jax_int8_trees(quant_case, static):
     """JAX's prequantized tree (and its static tree with a_scale leaves)
     loads into the port's quant model and exports back bit for bit; the
-    K3 kernel_q buffers hold the input channels zero-padded to 16, the
-    dense ones to 8, and the scales stay float32."""
+    K3 kernel_q buffers hold the input channels zero-padded to K3's
+    multiple (``conv_align``: 16 at these widths), the dense ones to 8,
+    and the scales stay float32."""
     _, _, _, _, _, pq, _, stree = quant_case
     tree = stree if static else pq[True]
     model = port_model(tree, quant="int8", prequant=True, quant_attn=True,
@@ -344,7 +345,8 @@ def test_convert_carries_jax_int8_trees(quant_case, static):
     for m in model.modules():
         if isinstance(m, tq.QuantModule):
             ci = m.in_channels
-            align = 16 if isinstance(m, tpk.QuantConv2p) else 8
+            align = (qk.conv_align(ci) if isinstance(m, tpk.QuantConv2p)
+                     else 8)
             assert m.kernel_q.shape[-1] == qk.round_up(ci, align)
             assert not m.kernel_q[..., ci:].any()
             assert m.w_scale.dtype == torch.float32
@@ -694,9 +696,8 @@ def test_int8_chains_quality():
 # ops/quant_kernel.py: variants, layouts, counters, refusals             #
 # --------------------------------------------------------------------- #
 def test_variants_padding_and_kernel_constants():
-    assert qk.conv_variant(torch.int32) == "int32"
-    assert qk.conv_variant(torch.bfloat16) == qk.conv_variant(
-        torch.float32) == "dequant"
+    assert qk.conv_variant(64, 64) == qk.conv_variant(8, 8) == "wgmma"
+    assert qk.conv_variant(5, 7) == "mma_sync"
     assert qk.quantize_variant(None) == "dynamic"
     assert qk.quantize_variant(torch.ones(())) == "static"
     assert [qk.round_up(n, 16) for n in (970, 1482, 1994, 2506, 128)] == \
@@ -711,27 +712,34 @@ def test_variants_padding_and_kernel_constants():
     assert qk.conv_sum_bound(3, 3, qk.round_up(2506, 16)) < qk.MAX_SUM
     assert qk.conv_sum_bound(3, 3, 16_000) > qk.MAX_SUM
     conv = (_build.CSRC / "quant_conv.cu").read_text()
+    wgmma = (_build.CSRC / "quant_conv_wgmma.cu").read_text()
+    shared = (_build.CSRC / "quant_conv.cuh").read_text()
     quant = (_build.CSRC / "quantize.cu").read_text()
-    assert "enum : int { kDequant = 0, kInt32 = 1 };" in conv
-    assert "kOutF32 = 0, kOutBF16 = 1, kOutI32 = 2" in conv
-    assert qk.CONV_VARIANTS == ("dequant", "int32")
+    assert "enum : int { kWgmma = 0, kMmaSync = 1 };" in shared
+    assert "kOutF32 = 0, kOutBF16 = 1, kOutI32 = 2" in shared
+    assert qk.CONV_VARIANTS == ("wgmma", "mma_sync")
     assert [qk.CONV_OUT_CODES[d] for d in (torch.float32, torch.bfloat16,
                                             torch.int32)] == [0, 1, 2]
     assert f"constexpr int kCiAlign = {qk.CONV_ALIGN};" in conv
     assert "enum : int { kDynamic = 0, kStatic = 1 };" in quant
     assert qk.QUANT_VARIANTS == ("dynamic", "static")
-    # no contraction into an FMA: the explicit intrinsics
+    # no contraction into an FMA: the explicit intrinsics, in both K3
+    # variants, on the scale both form as one float32 product
     assert "__fadd_rn(__fmul_rn(__int2float_rn(a), sa), ba)" in conv
-    assert "rintf(__fdiv_rn(f[o + j], s))" in quant
-    assert "const float d = __fdiv_rn(amax, 127.f);" in quant
+    assert "sw ? __fmul_rn(sxv, sw[n]) : 0.f" in conv
+    assert "__fadd_rn(__fmul_rn(__int2float_rn(v), s), b)" in wgmma
+    # x / s in IEEE division, rounded half to even (__float2int_rn)
+    assert "const float q = __fdiv_rn(x, s);" in quant
+    assert "min(max(__float2int_rn(q), -127), 127)" in quant
+    assert "const float d = __fdiv_rn(__uint_as_float(m), 127.f);" in quant
     # a NaN stays NaN in the abs-max and the scale, and quantizes to 0
     assert "isnan(d) ? d : fmaxf(d, 1e-8f)" in quant
-    assert "isnan(n) ? 0.f : fminf(fmaxf(n, -127.f), 127.f)" in quant
+    assert "return isnan(q) ? 0 :" in quant
     assert "__float_as_uint(v) & 0x7fffffffu" in quant
-    for name, argtypes in (("tmt_quant_conv", 15), ("tmt_absmax", 5),
-                           ("tmt_quantize", 10)):
+    for name, argtypes in (("tmt_quant_conv", 21), ("tmt_quantize", 13)):
         assert len(_build.SIGNATURES[name]) == argtypes
         assert f'extern "C" int {name}(' in conv + quant
+    assert "tmt_absmax" not in _build.SIGNATURES
 
 
 def test_plain_conv_is_exact_where_f32_is_not():
@@ -751,14 +759,14 @@ def test_counters_count_every_launch_across_threads():
     qk.reset_launches()
     threads = [threading.Thread(target=lambda: [
         _build.count_launch(c, v) for _ in range(1000)
-        for c, v in ((qk.k3, "dequant"), (qk.k4, "static"),
-                     (qk.k4_absmax, "absmax"))]) for _ in range(8)]
+        for c, v in ((qk.k3, "wgmma"), (qk.k4, "static"))])
+        for _ in range(8)]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
-    assert (qk.k3.launches, qk.k4.launches, qk.k4_absmax.launches) == \
-        (8000, 8000, 8000)
+    assert (qk.k3.launches, qk.k4.launches) == (8000, 8000)
+    assert qk.k3.launches_by_variant == {"wgmma": 8000, "mma_sync": 0}
     assert qk.k4.launches_by_variant == {"dynamic": 0, "static": 8000}
     qk.reset_launches()
     assert qk.k3.launches == qk.k4.launches_by_variant["static"] == 0
@@ -771,8 +779,8 @@ def test_cpu_takes_the_plain_versions_and_nothing_else_runs():
     x = torch.randn(4, 8, 8, 24)
     xq, s, amax = qk.quantize(x)
     qk.quant_conv(xq, torch.zeros(8, 3, 3, 32, dtype=torch.int8),
-                  s * torch.ones(8))
-    assert qk.k3.launches == qk.k4.launches == qk.k4_absmax.launches == 0
+                  torch.ones(8), x_scale=s)
+    assert qk.k3.launches == qk.k4.launches == 0
     with pytest.raises(RuntimeError, match="no path"):
         qk.quantize(x.to("meta"))
     with pytest.raises(RuntimeError, match="no path"):

@@ -133,14 +133,34 @@ Phases, each printed on its own line with elapsed seconds:
      ``--stream`` over 2 ranks on the 4x4 grid, 2 steps, against phase
      11's 2-step one-process run; with two cards or more, ``--stream``
      through every card in one process (``devices=``);
- 18. a ``{"kernels": [...]}`` line, then the card line, then the result.
+ 18. data-parallel training over ranks (``cli.train`` and ``Trainer``
+     with a ``('dp',)`` mesh of ranks; 2 ranks sharing the card over gloo,
+     or a card a rank over NCCL, the backend required to be the rule's):
+     K1, K1b, K2 and K2b against their plain versions at a rank's
+     training shapes (``scripts/kernel_shapes.py --train --ranks N``),
+     each variant required and timed beside its bound; ``mp_demo
+     --train_only`` (the tiny f32 model, 3 steps, the clip by global
+     norm triggering) over the ranks against ``train_ref`` in one
+     process on the card (2e-5), the replicas' parameters and Adam
+     moments bit-equal after every step; the 5D model at full width
+     (global batch 32 in 2 microbatches, dropout 0) for 3 steps over the
+     ranks against one process on the same weights, batches and draws
+     (``DP_LOSS_ATOL``), the parameters bit-equal across ranks after
+     every step, each rank's K1 / K1b / K2 / K2b launches (and K1b's and
+     K2b's by variant) the one-process step's, samples/s in all and a
+     rank, the all-reduce's bytes and seconds a step, each rank's peak
+     memory; ``cli.train.main --synthetic --max_steps 2`` over the ranks
+     with the preset's dropout: one checkpoint, written by rank 0, a
+     finite loss, the parameters equal across ranks;
+ 19. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
-nothing of JAX.  ``python3 chip_smoke.py --ranks`` runs phase 17 alone,
-with the phase 9 and 11 runs it is held against, for a machine of
-several cards; ``python3 chip_smoke.py --int8`` runs phase 5 and phase
-9's int8 and int8_static chains with the bf16 packed chain they are
-compared with, for a call that tunes the int8 kernels.
+nothing of JAX.  ``python3 chip_smoke.py --ranks`` runs phases 17 and
+18 alone, with the phase 9 and 11 runs phase 17 is held against, for a
+machine of several cards; ``--dp`` runs phase 18 alone;
+``python3 chip_smoke.py --int8`` runs phase 5 and phase 9's int8 and
+int8_static chains with the bf16 packed chain they are compared with,
+for a call that tunes the int8 kernels.
 """
 
 from __future__ import annotations
@@ -227,6 +247,23 @@ def bound(nbytes: float, flops: float, flop_rate: float):
     tb = nbytes / H100_BYTES_PER_S * 1e3
     to = flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def kernel_work(kernel: str, shape, itemsize: int = 2) -> tuple:
+    """(bytes, operations, the peak rate of their type) of one launch of
+    K1, K1b, K2 or K2b at ``shape``: each input read once and each output
+    written once (K1b's dw and weight in float32)."""
+    if kernel in ("K1", "K1b"):
+        n, c = shape
+        if kernel == "K1":
+            return itemsize * (2 * n * c + c), 4 * n * c, H100_F32_FLOP_PER_S
+        return 3 * n * c * itemsize + 2 * 4 * c, 10 * n * c, \
+            H100_F32_FLOP_PER_S
+    b, n, d = shape
+    rate = H100_BF16_FLOP_PER_S if itemsize == 2 else H100_F32_FLOP_PER_S
+    if kernel == "K2":
+        return 4 * b * n * d * itemsize, 4 * b * n * n * d, rate
+    return 7 * b * n * d * itemsize, 10 * b * n * n * d, rate
 
 
 def ulp_err(out, ref) -> float:
@@ -333,22 +370,25 @@ def require_k2(out, ref, what: str):
 
 
 def time_k1(k1, x, w, n, c) -> dict:
+    """Device times of K1 and its plain version with ``w`` as the path
+    passes it (bf16 in generation, the float32 master weight in
+    training), and of ``F.rms_norm`` with the weight in x's dtype (its
+    fused kernel takes one dtype)."""
     import torch.nn.functional as F
     sets = input_sets((x, w), 2 * x.numel() * x.element_size())
-    bms, by = bound(x.element_size() * (2 * n * c + c), 4 * n * c,
-                    H100_F32_FLOP_PER_S)
+    lib_sets = [(a, b.to(a.dtype)) for a, b in sets]
+    bms, by = bound(*kernel_work("K1", (n, c), x.element_size()))
     return dict(ms=device_ms(k1.rmsnorm_cuda, sets),
                 plain_ms=device_ms(k1.rmsnorm_plain, sets),
                 library_ms=device_ms(
-                    lambda a, b: F.rms_norm(a, (c,), b, 1e-6), sets),
+                    lambda a, b: F.rms_norm(a, (c,), b, 1e-6), lib_sets),
                 bound_ms=bms, bound_by=by)
 
 
 def time_k2(k2, q, k, v, scale, b, n, d) -> dict:
     import torch.nn.functional as F
     sets = input_sets((q, k, v), 4 * q.numel() * q.element_size())
-    bms, by = bound(2 * 4 * b * n * d, 4 * b * n * n * d,
-                    H100_BF16_FLOP_PER_S)
+    bms, by = bound(*kernel_work("K2", (b, n, d), q.element_size()))
     return dict(ms=device_ms(lambda *a: k2.attention_cuda(*a, scale), sets),
                 plain_ms=device_ms(lambda *a: k2.attention_plain(*a, scale),
                                    sets),
@@ -363,6 +403,85 @@ def timing_text(t: dict, lib: str) -> str:
             f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f} % of it)")
 
 
+def k1_agrees(x, w, what):
+    """K1 against its plain version: (out, ref, error, variant), the error
+    in bf16 ulps for a bf16 x (gate K1_MAX_ULP), else absolute (1e-5)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    out, variant = variant_of(k1, k1.rmsnorm_cuda, x, w)
+    ref = k1.rmsnorm_plain(x, w)
+    require(bool(torch.isfinite(out.float()).all()),
+            f"K1 {what}: output not finite")
+    bf = x.dtype == torch.bfloat16
+    err = ulp_err(out, ref) if bf else float((out - ref).abs().max())
+    require(err <= (K1_MAX_ULP if bf else 1e-5),
+            f"K1 {what} {x.dtype} ({variant}): {err}")
+    return out, ref, err, variant
+
+
+def k1_row(g, device, n, c, path, w_dtype=None) -> dict:
+    """K1 at (n, c): bf16 against its plain version, the variant the shape
+    rule names required, and float32 on 4,096 of the rows; timed.  The
+    weight in bf16, as generation casts it, or in ``w_dtype`` (training's
+    float32 master weight)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    bf16 = torch.bfloat16
+    x = torch.randn(n, c, generator=g).to(device, bf16)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, w_dtype or bf16)
+    out, ref, err_ulp, variant = k1_agrees(x, w, f"{n}x{c}")
+    err = float((out.float() - ref.float()).abs().max())
+    want = k1.rmsnorm_variant(c, x.element_size(), True)
+    require(variant == want, f"K1 {n}x{c} took {variant}, not {want}")
+    # f32 input: the same variant's float instantiation
+    _, _, errf, _ = k1_agrees(x[:4096].float(), w.float(), f"{n}x{c}")
+    t = time_k1(k1, x, w, n, c)
+    wt = "" if w.dtype == bf16 else f", weight {str(w.dtype)[6:]}"
+    log(f"K1 rmsnorm ({n}, {c}) bf16{wt} [{variant}, {path}]: max_abs_err "
+        f"{err:.3g} ({err_ulp:.2f} bf16 ulp, tol {K1_MAX_ULP}), f32 err "
+        f"{errf:.3g}; " + timing_text(t, "F.rms_norm"))
+    return dict(shape=[n, c], path=path, variant=variant, max_abs_err=err,
+                max_ulp=err_ulp, weight=str(w.dtype)[6:], **t)
+
+
+def k2_row(g, device, b, n, d, path) -> dict:
+    """K2 at (b, n, d): bf16 against its plain version on randn and on
+    peaked inputs (``tensor_core`` required), float32 on 8 of the batch;
+    timed."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    bf16 = torch.bfloat16
+    scale = 1.0 / d
+    errs = []
+    for peaked in (False, True):
+        q, k, v = k2_inputs(g, b, n, d, bf16, device, peaked)
+        out, variant = variant_of(k2, k2.attention_cuda, q, k, v, scale)
+        torch.cuda.synchronize()
+        ref = k2.attention_plain(q, k, v, scale)
+        errs.append(require_k2(out, ref, f"{b}x{n}x{d} "
+                               f"{'peaked' if peaked else 'randn'}"))
+        require(variant == "tensor_core",
+                f"K2 {b}x{n}x{d} bf16 took {variant}")
+    err = max(e[0] for e in errs)
+    qf, kf, vf = (t[:8].float() for t in (q, k, v))
+    outf, variant_f = variant_of(k2, k2.attention_cuda, qf, kf, vf, scale)
+    errf = float((outf - k2.attention_plain(qf, kf, vf, scale)).abs().max())
+    require(errf <= 1e-5, f"K2 {b}x{n}x{d} f32 ({variant_f}): {errf}")
+    q, k, v = k2_inputs(g, b, n, d, bf16, device, False)
+    t = time_k2(k2, q, k, v, scale, b, n, d)
+    agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
+                      f"spacings, {sh:.2e} differ"
+                      for kind, (e, sp, sh) in zip(("randn", "peaked"), errs))
+    log(f"K2 window_attention ({b}, {n}, {d}) bf16 [{variant}, {path}]: "
+        f"{agree} (tol {K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}); f32 "
+        f"[{variant_f}] err {errf:.3g}; " + timing_text(t, "SDPA"))
+    return dict(shape=[b, n, d], path=path, variant=variant,
+                max_abs_err=err, **t)
+
+
 def check_kernels(device) -> dict:
     """Each kernel against its plain version at every shape of the main
     path and of the tile-major and streaming paths (bf16 and f32) and at
@@ -375,37 +494,8 @@ def check_kernels(device) -> dict:
 
     g = torch.Generator(device="cpu").manual_seed(0)
     bf16 = torch.bfloat16
-    rows = {"rmsnorm": [], "window_attention": []}
-
-    def k1_agrees(x, w, what):
-        out, variant = variant_of(k1, k1.rmsnorm_cuda, x, w)
-        ref = k1.rmsnorm_plain(x, w)
-        require(bool(torch.isfinite(out.float()).all()),
-                f"K1 {what}: output not finite")
-        err = (ulp_err(out, ref) if x.dtype == bf16
-               else float((out - ref).abs().max()))
-        require(err <= (K1_MAX_ULP if x.dtype == bf16 else 1e-5),
-                f"K1 {what} {x.dtype} ({variant}): {err}")
-        return out, ref, err, variant
-
-    def k1_shape(n, c, path):
-        x = torch.randn(n, c, generator=g).to(device, bf16)
-        w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, bf16)
-        out, ref, err_ulp, variant = k1_agrees(x, w, f"{n}x{c}")
-        err = float((out.float() - ref.float()).abs().max())
-        want = "vector" if c % 8 == 0 else "strided"
-        require(variant == want, f"K1 {n}x{c} took {variant}, not {want}")
-        # f32 input: the same variant's float instantiation
-        _, _, errf, _ = k1_agrees(x[:4096].float(), w.float(), f"{n}x{c}")
-        t = time_k1(k1, x, w, n, c)
-        log(f"K1 rmsnorm ({n}, {c}) bf16 [{variant}, {path}]: max_abs_err "
-            f"{err:.3g} ({err_ulp:.2f} bf16 ulp, tol {K1_MAX_ULP}), f32 err "
-            f"{errf:.3g}; " + timing_text(t, "F.rms_norm"))
-        rows["rmsnorm"].append(dict(shape=[n, c], path=path, variant=variant,
-                                    max_abs_err=err, **t))
-
-    for n, c in K1_SHAPES:
-        k1_shape(n, c, "block_major")
+    rows = {"rmsnorm": [k1_row(g, device, n, c, "block_major")
+                        for n, c in K1_SHAPES]}
     seen = []
     for n, c in K1_EDGE:
         for dt in (bf16, torch.float32):
@@ -425,39 +515,8 @@ def check_kernels(device) -> dict:
         seen.append(f"(4096, 96) {str(dt)[6:]} misaligned {variant}")
     log(f"K1 edge shapes agree: {'; '.join(seen)}")
 
-    def k2_shape(b, n, d, path):
-        scale = 1.0 / d
-        errs = []
-        for peaked in (False, True):
-            q, k, v = k2_inputs(g, b, n, d, bf16, device, peaked)
-            out, variant = variant_of(k2, k2.attention_cuda, q, k, v, scale)
-            torch.cuda.synchronize()
-            ref = k2.attention_plain(q, k, v, scale)
-            errs.append(require_k2(out, ref, f"{b}x{n}x{d} "
-                                   f"{'peaked' if peaked else 'randn'}"))
-            require(variant == "tensor_core",
-                    f"K2 {b}x{n}x{d} bf16 took {variant}")
-        err = max(e[0] for e in errs)
-        qf, kf, vf = (t[:8].float() for t in (q, k, v))
-        outf, variant_f = variant_of(k2, k2.attention_cuda, qf, kf, vf, scale)
-        errf = float((outf - k2.attention_plain(qf, kf, vf, scale))
-                     .abs().max())
-        require(errf <= 1e-5, f"K2 {b}x{n}x{d} f32 ({variant_f}): {errf}")
-        q, k, v = k2_inputs(g, b, n, d, bf16, device, False)
-        t = time_k2(k2, q, k, v, scale, b, n, d)
-        agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
-                          f"spacings, {sh:.2e} differ"
-                          for kind, (e, sp, sh) in zip(("randn", "peaked"),
-                                                       errs))
-        log(f"K2 window_attention ({b}, {n}, {d}) bf16 [{variant}, {path}]: "
-            f"{agree} (tol {K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}); f32 "
-            f"[{variant_f}] err {errf:.3g}; " + timing_text(t, "SDPA"))
-        rows["window_attention"].append(dict(shape=[b, n, d], path=path,
-                                             variant=variant,
-                                             max_abs_err=err, **t))
-
-    for b, n, d in K2_SHAPES:
-        k2_shape(b, n, d, "block_major")
+    rows["window_attention"] = [k2_row(g, device, b, n, d, "block_major")
+                                for b, n, d in K2_SHAPES]
     seen = []
     for b, n, d in K2_EDGE:
         for peaked in (False, True):
@@ -474,10 +533,10 @@ def check_kernels(device) -> dict:
         seen.append(f"({b}, {n}, {d}) bf16 {variant}, f32 {variant_f}")
     log(f"K2 edge shapes agree (randn and peaked): {'; '.join(seen)}")
     for path, (k1_shapes, k2_shapes) in PATH_SHAPES.items():
-        for n, c in k1_shapes:
-            k1_shape(n, c, path)
-        for b, n, d in k2_shapes:
-            k2_shape(b, n, d, path)
+        rows["rmsnorm"] += [k1_row(g, device, n, c, path)
+                            for n, c in k1_shapes]
+        rows["window_attention"] += [k2_row(g, device, b, n, d, path)
+                                     for b, n, d in k2_shapes]
     # the extraction's q-norm, float32 (its only dtype there)
     n, c = ATTN_K1_SHAPE
     x = torch.randn(n, c, generator=g).to(device)
@@ -591,8 +650,7 @@ def time_k1b(k1, x, g, w) -> dict:
 
     lib = (device_ms(lib_fwd_bwd, lib_sets) - device_ms(
         lambda a, b, cw: F.rms_norm(a, (c,), cw, 1e-6), lib_sets))
-    nbytes = 3 * n * c * x.element_size() + 2 * 4 * c
-    bms, by = bound(nbytes, 10 * n * c, H100_F32_FLOP_PER_S)
+    bms, by = bound(*kernel_work("K1b", (n, c), x.element_size()))
     return dict(ms=device_ms(k1.rmsnorm_bwd_cuda, sets),
                 plain_ms=device_ms(k1.rmsnorm_bwd_plain, sets),
                 library_ms=lib, bound_ms=bms, bound_by=by)
@@ -615,14 +673,115 @@ def time_k2b(k2, q, k, v, g, scale) -> dict:
     lib = (device_ms(lambda a, b_, c, gg: torch.autograd.grad(
         sdpa(a, b_, c), (a, b_, c), gg), lib_sets)
         - device_ms(lambda a, b_, c, gg: sdpa(a, b_, c), lib_sets))
-    bms, by = bound(7 * b * n * d * q.element_size(), 10 * b * n * n * d,
-                    H100_BF16_FLOP_PER_S if q.dtype == torch.bfloat16
-                    else H100_F32_FLOP_PER_S)
+    bms, by = bound(*kernel_work("K2b", (b, n, d), q.element_size()))
     return dict(ms=device_ms(lambda *a: k2.attention_bwd_cuda(*a, scale),
                              sets),
                 plain_ms=device_ms(
                     lambda *a: k2.attention_bwd_plain(*a, scale), sets),
                 library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def k1b_inputs(gen, device, n, c, dt):
+    """x, g in ``dt`` and the float32 weight that training passes."""
+    import torch
+    x = torch.randn(n, c, generator=gen).to(device, dt)
+    g = torch.randn(n, c, generator=gen).to(device, dt)
+    w = (1 + 0.1 * torch.randn(c, generator=gen)).to(device)
+    return x, g, w
+
+
+def k1b_agrees(x, g, w, what, want=None):
+    """K1b against its plain version, run twice for bit-equal outputs, the
+    variant (the shape rule's, or ``want``) required: ((max |dx error|,
+    spacings, share), dw's error over max |ref|, variant)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    (dx, dw), variant = variant_of(k1.bwd, k1.rmsnorm_bwd_cuda, x, g, w)
+    dx2, dw2 = k1.rmsnorm_bwd_cuda(x, g, w)
+    torch.cuda.synchronize()
+    if want is None:
+        want = k1.rmsnorm_bwd_variant(x.shape[-1], x.element_size(), True)
+    require(variant == want,
+            f"K1b {what} {x.dtype} took {variant}, not {want}")
+    require(torch.equal(dw, dw2) and torch.equal(dx, dx2),
+            f"K1b {what} ({variant}): two runs differ")
+    rx, rw = k1.rmsnorm_bwd_plain(x, g, w)
+    err = require_bwd(dx, rx, f"K1b {what} ({variant}) dx {x.dtype}")
+    dw_err = rel_err(dw, rw)
+    require(dw.dtype == torch.float32 and dw_err <= BWD_DW_TOL,
+            f"K1b {what} ({variant}) dw: {dw_err} of max |ref|")
+    return err, dw_err, variant
+
+
+def k1b_row(gen, device, n, c, path) -> dict:
+    """K1b at (n, c): bf16, and float32 on 4,096 of the rows, each by
+    :func:`k1b_agrees`; timed."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    x, g, w = k1b_inputs(gen, device, n, c, torch.bfloat16)
+    (err, sp, sh), dw_err, variant = k1b_agrees(x, g, w, f"{n}x{c}")
+    xf, gf = x[:4096].float(), g[:4096].float()
+    (errf, _, _), dwf, variant_f = k1b_agrees(xf, gf, w, f"{n}x{c}")
+    t = time_k1b(k1, x, g, w)
+    log(f"K1b rmsnorm_bwd ({n}, {c}) bf16 [{variant}, {path}]: dx "
+        f"max_abs_err {err:.3g} = {sp:.2f} spacings, {sh:.2e} differ, dw "
+        f"{dw_err:.2e} of max; f32 [{variant_f}] dx {errf:.3g}, dw "
+        f"{dwf:.2e}; deterministic; " + timing_text(t, "F.rms_norm bwd"))
+    return dict(shape=[n, c], path=path, variant=variant, max_abs_err=err,
+                dw_rel_err=dw_err, **t)
+
+
+def k2b_agrees(gen, device, b, n, d, dt, peaked, what):
+    """K2b against its plain version on fresh inputs, run twice for
+    bit-equal outputs, the shape rule's variant required: (the worst of
+    dq, dk, dv's (max |error|, spacings, share), variant)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    q, k, v = k2_inputs(gen, b, n, d, dt, device, peaked)
+    g = torch.randn(b, n, d, generator=gen).to(device, dt)
+    out, variant = variant_of(k2.bwd, k2.attention_bwd_cuda, q, k, v, g,
+                              1.0 / d)
+    out2 = k2.attention_bwd_cuda(q, k, v, g, 1.0 / d)
+    torch.cuda.synchronize()
+    want = k2.attention_bwd_variant(n, d, dt, True)
+    require(variant == want, f"K2b {what} {dt} took {variant}, not {want}")
+    require(all(torch.equal(a, c) for a, c in zip(out, out2)),
+            f"K2b {what} ({variant}): two runs differ")
+    ref = k2.attention_bwd_plain(q, k, v, g, 1.0 / d)
+    gates = [require_bwd(o, r, f"K2b {what} ({variant}) {name} {dt}")
+             for o, r, name in zip(out, ref, ("dq", "dk", "dv"))]
+    return tuple(max(e) for e in zip(*gates)), variant
+
+
+def k2b_row(gen, device, b, n, d, path) -> dict:
+    """K2b at (b, n, d): bf16 on randn and on peaked inputs, float32 on 8
+    of the batch, each by :func:`k2b_agrees`; timed."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    bf16 = torch.bfloat16
+    errs = [k2b_agrees(gen, device, b, n, d, bf16, peaked, f"{b}x{n}x{d}")
+            for peaked in (False, True)]
+    variant = errs[0][1]
+    (errf, _, _), variant_f = k2b_agrees(gen, device, 8, n, d, torch.float32,
+                                         False, f"8x{n}x{d}")
+    q, k, v = k2_inputs(gen, b, n, d, bf16, device, False)
+    g = torch.randn(b, n, d, generator=gen).to(device, bf16)
+    t = time_k2b(k2, q, k, v, g, 1.0 / d)
+    agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
+                      f"spacings, {sh:.2e} differ"
+                      for kind, ((e, sp, sh), _) in zip(
+                          ("randn", "peaked"), errs))
+    log(f"K2b window_attention_bwd ({b}, {n}, {d}) bf16 [{variant}, {path}]:"
+        f" dq, dk, dv {agree} (tol {K2_MAX_SPACINGS} spacings, "
+        f"{K2_MAX_SHARE}); f32 [{variant_f}] {errf:.3g}; "
+        "deterministic; " + timing_text(t, "SDPA bwd"))
+    return dict(shape=[b, n, d], path=path, variant=variant,
+                max_abs_err=max(e[0][0] for e in errs),
+                max_share=max(e[0][2] for e in errs), **t)
 
 
 def check_backward_kernels(device) -> dict:
@@ -634,53 +793,14 @@ def check_backward_kernels(device) -> dict:
     training shapes.  Returns {name: [row per training shape]}."""
     import torch
 
-    from tera_mind_tpu_torch.ops import attention_kernel as k2
-    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
-
     gen = torch.Generator(device="cpu").manual_seed(2)
     bf16 = torch.bfloat16
-    rows = {"rmsnorm_bwd": [], "window_attention_bwd": []}
-
-    def k1b_agrees(x, g, w, what, want=None):
-        (dx, dw), variant = variant_of(k1.bwd, k1.rmsnorm_bwd_cuda, x, g, w)
-        dx2, dw2 = k1.rmsnorm_bwd_cuda(x, g, w)
-        torch.cuda.synchronize()
-        if want is None:
-            want = k1.rmsnorm_bwd_variant(x.shape[-1], x.element_size(),
-                                          True)
-        require(variant == want,
-                f"K1b {what} {x.dtype} took {variant}, not {want}")
-        require(torch.equal(dw, dw2) and torch.equal(dx, dx2),
-                f"K1b {what} ({variant}): two runs differ")
-        rx, rw = k1.rmsnorm_bwd_plain(x, g, w)
-        err = require_bwd(dx, rx, f"K1b {what} ({variant}) dx {x.dtype}")
-        dw_err = rel_err(dw, rw)
-        require(dw.dtype == torch.float32 and dw_err <= BWD_DW_TOL,
-                f"K1b {what} ({variant}) dw: {dw_err} of max |ref|")
-        return err, dw_err, variant
-
-    def k1b_inputs(n, c, dt):
-        x = torch.randn(n, c, generator=gen).to(device, dt)
-        g = torch.randn(n, c, generator=gen).to(device, dt)
-        w = (1 + 0.1 * torch.randn(c, generator=gen)).to(device)
-        return x, g, w
-
-    for n, c in TRAIN_K1_SHAPES:
-        x, g, w = k1b_inputs(n, c, bf16)
-        (err, sp, sh), dw_err, variant = k1b_agrees(x, g, w, f"{n}x{c}")
-        xf, gf = x[:4096].float(), g[:4096].float()
-        (errf, _, _), dwf, variant_f = k1b_agrees(xf, gf, w, f"{n}x{c}")
-        t = time_k1b(k1, x, g, w)
-        log(f"K1b rmsnorm_bwd ({n}, {c}) bf16 [{variant}]: dx max_abs_err "
-            f"{err:.3g} = {sp:.2f} spacings, {sh:.2e} differ, dw "
-            f"{dw_err:.2e} of max; f32 [{variant_f}] dx {errf:.3g}, dw "
-            f"{dwf:.2e}; deterministic; " + timing_text(t, "F.rms_norm bwd"))
-        rows["rmsnorm_bwd"].append(dict(shape=[n, c], variant=variant,
-                                        max_abs_err=err, dw_rel_err=dw_err,
-                                        **t))
+    rows = {"rmsnorm_bwd": [k1b_row(gen, device, n, c, "train")
+                            for n, c in TRAIN_K1_SHAPES]}
     seen = []
     for n, c in K1B_EDGE:
-        got = [k1b_agrees(*k1b_inputs(n, c, dt), f"edge {n}x{c}")[2]
+        got = [k1b_agrees(*k1b_inputs(gen, device, n, c, dt),
+                          f"edge {n}x{c}")[2]
                for dt in (bf16, torch.float32)]
         seen.append(f"({n}, {c}) bf16 {got[0]}, f32 {got[1]}")
     for dt in (bf16, torch.float32):
@@ -688,54 +808,19 @@ def check_backward_kernels(device) -> dict:
         x = base[1:].view(4096, 96)
         require(x.is_contiguous() and x.data_ptr() % 16 != 0,
                 "K1b misaligned input is not misaligned")
-        _, g, w = k1b_inputs(4096, 96, dt)
+        _, g, w = k1b_inputs(gen, device, 4096, 96, dt)
         k1b_agrees(x, g, w, "misaligned 4096x96", want="strided")
     log(f"K1b edge shapes agree, bf16 and f32, deterministic: "
         f"{'; '.join(seen)}; (4096, 96) misaligned strided")
 
-    def k2b_agrees(b, n, d, dt, peaked, what):
-        q, k, v = k2_inputs(gen, b, n, d, dt, device, peaked)
-        g = torch.randn(b, n, d, generator=gen).to(device, dt)
-        out, variant = variant_of(k2.bwd, k2.attention_bwd_cuda, q, k, v, g,
-                                  1.0 / d)
-        out2 = k2.attention_bwd_cuda(q, k, v, g, 1.0 / d)
-        torch.cuda.synchronize()
-        want = k2.attention_bwd_variant(n, d, dt, True)
-        require(variant == want, f"K2b {what} {dt} took {variant}, not {want}")
-        require(all(torch.equal(a, c) for a, c in zip(out, out2)),
-                f"K2b {what} ({variant}): two runs differ")
-        ref = k2.attention_bwd_plain(q, k, v, g, 1.0 / d)
-        gates = [require_bwd(o, r, f"K2b {what} ({variant}) {name} {dt}")
-                 for o, r, name in zip(out, ref, ("dq", "dk", "dv"))]
-        return tuple(max(e) for e in zip(*gates)), variant
-
-    for b, n, d in TRAIN_K2_SHAPES:
-        errs = [k2b_agrees(b, n, d, bf16, peaked, f"{b}x{n}x{d}")
-                for peaked in (False, True)]
-        variant = errs[0][1]
-        (errf, _, _), variant_f = k2b_agrees(8, n, d, torch.float32, False,
-                                             f"8x{n}x{d}")
-        q, k, v = k2_inputs(gen, b, n, d, bf16, device, False)
-        g = torch.randn(b, n, d, generator=gen).to(device, bf16)
-        t = time_k2b(k2, q, k, v, g, 1.0 / d)
-        agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
-                          f"spacings, {sh:.2e} differ"
-                          for kind, ((e, sp, sh), _) in zip(
-                              ("randn", "peaked"), errs))
-        log(f"K2b window_attention_bwd ({b}, {n}, {d}) bf16 [{variant}]: "
-            f"dq, dk, dv {agree} (tol {K2_MAX_SPACINGS} spacings, "
-            f"{K2_MAX_SHARE}); f32 [{variant_f}] {errf:.3g}; "
-            "deterministic; " + timing_text(t, "SDPA bwd"))
-        rows["window_attention_bwd"].append(dict(
-            shape=[b, n, d], variant=variant,
-            max_abs_err=max(e[0][0] for e in errs),
-            max_share=max(e[0][2] for e in errs), **t))
+    rows["window_attention_bwd"] = [k2b_row(gen, device, b, n, d, "train")
+                                    for b, n, d in TRAIN_K2_SHAPES]
     seen = []
     for b, n, d in K2B_EDGE:
         got = {}
         for dt in (bf16, torch.float32):
             for peaked in (False, True):
-                got[dt] = k2b_agrees(b, n, d, dt, peaked,
+                got[dt] = k2b_agrees(gen, device, b, n, d, dt, peaked,
                                      f"edge {b}x{n}x{d}")[1]
         seen.append(f"({b}, {n}, {d}) bf16 {got[bf16]}, f32 "
                     f"{got[torch.float32]}")
@@ -2527,7 +2612,9 @@ def rank_worker(kind: str, rank: str, n: str, port: str, tmp: str,
     torch.backends.cuda.matmul.allow_tf32 = False
     from tera_mind_tpu_torch.parallel import band, halo, mesh
     res = {"rank": rank, "pid": os.getpid()}
-    if kind == "small":
+    if kind in ("dp", "dp_cli"):
+        res.update(dp_rank_worker(kind, rank, n, port, tmp, argv))
+    elif kind == "small":
         device = mesh.multihost_init(f"127.0.0.1:{port}", n, rank,
                                      device="cuda",
                                      timeout_s=RANK_GROUP_TIMEOUT_S)
@@ -2860,6 +2947,360 @@ def run_ranks(device, packed_out, stream_ref, counts) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 18: data-parallel training over ranks on the card
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3              # full-width steps, one process and over ranks
+DP_TIMED_FROM = 2         # samples/s and step seconds over steps 2..3
+DP_DEMO_TOL = 2e-5        # mp_demo's f32 loss history against --train_ref
+                          # (JAX's tests/test_multiprocess.py gate)
+# Set before the first chip run.  Over ranks the same samples, draws and
+# bf16 kernels run at half the batch, so a loss moves only where a conv or
+# matmul algorithm for the smaller batch rounds otherwise (bf16 noise of
+# ~4e-3 on an output averages to ~1e-5 over the 2 M terms of the mean) and
+# where the all-reduced gradient's float32 sums reorder (Adam steps of at
+# most 2 lr = 4e-5 a parameter).  Rows or draws out of place, or a loss not
+# reduced over the ranks, move it by the batch's spread (~1e-2 or more).
+DP_LOSS_ATOL = 1e-3
+
+
+def train_rank_shapes(n: int) -> tuple:
+    """(K1 and K1b (rows, C), K2 and K2b (B, N, D)) of one rank's
+    microbatch of ``cli.train --batch 32`` over ``n`` ranks: the
+    one-process shapes with 32 / n samples (scripts/kernel_shapes.py
+    --train --ranks n)."""
+    return ([(r // n, c) for r, c in TRAIN_K1_SHAPES],
+            [(b // n, m, d) for b, m, d in TRAIN_K2_SHAPES])
+
+
+def check_rank_train_kernels(device, n: int) -> dict:
+    """K1, K1b, K2 and K2b at one rank's training shapes over ``n`` ranks
+    by phases 3 and 4's checks and timings (:func:`k1_row` with the
+    float32 master weight that training passes, :func:`k1b_row`,
+    :func:`k2_row`, :func:`k2b_row`: every gate of theirs), each row
+    tagged with the ranks and its launches a step; a step's sums logged.
+    Returns {name: [row]}."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(18)
+    path = f"dp rank of {n}"
+    k1_shapes, k2_shapes = train_rank_shapes(n)
+    rows = {"rmsnorm": [k1_row(g, device, r, c, path, torch.float32)
+                        for r, c in k1_shapes],
+            "rmsnorm_bwd": [k1b_row(g, device, r, c, path)
+                            for r, c in k1_shapes],
+            "window_attention": [k2_row(g, device, b, m, d, path)
+                                 for b, m, d in k2_shapes],
+            "window_attention_bwd": [k2b_row(g, device, b, m, d, path)
+                                     for b, m, d in k2_shapes]}
+    counts = dp_step_counts(n)
+    for name, rs in rows.items():
+        c = counts["rmsnorm" if name.startswith("rmsnorm") else
+                   "window_attention"]
+        step = {k: sum(r[k] * m for r, m in zip(rs, c))
+                for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        for r, m in zip(rs, c):
+            r.update(ranks=n, launches_per_step=m)
+        log(f"{name} at a rank's training shapes ({n} ranks), a step: "
+            f"kernel {step['ms']:.3f} ms, bound {step['bound_ms']:.3f} ms, "
+            f"plain {step['plain_ms']:.3f} ms, library "
+            f"{step['library_ms']:.3f} ms ({sum(c)} launches)")
+    return rows
+
+
+def dp_step_counts(n: int) -> dict:
+    """Launches a step of each shape of :func:`train_rank_shapes`, by
+    kernel (scripts/kernel_shapes.py --train --ranks n)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "kernel_shapes", Path(__file__).resolve().parent / "scripts"
+        / "kernel_shapes.py")
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    k1, k2 = ks.train_rank_shapes(n)
+    k1_shapes, k2_shapes = train_rank_shapes(n)
+    return {"rmsnorm": [k1[s] * ks.TRAIN_ACCUM for s in k1_shapes],
+            "window_attention": [k2[s] * ks.TRAIN_ACCUM for s in k2_shapes]}
+
+
+def dp_config():
+    """``cli.train --synthetic --batch 32``'s preset (the 5D model, accum
+    2), dropout 0 for the comparison with one process."""
+    from tera_mind_tpu_torch.config import prep_config
+    conf = prep_config("638850", batch=32)
+    conf.dropout = 0.0
+    return conf
+
+
+def dp_steps(trainer, rank: int, ranks: int) -> dict:
+    """DP_STEPS steps of ``trainer`` on its rows of the synthetic global
+    batches of ``cli.train --synthetic`` (every process draws the same),
+    the launch counters and the all-reduce's statistics set to 0 just
+    before them: losses, step seconds, launches, the all-reduce's
+    statistics, the parameters' digest after each step and the peak
+    device memory."""
+    import torch
+
+    from tera_mind_tpu_torch.cli import train as train_cli
+    from tera_mind_tpu_torch.data.dataset import SyntheticDataset
+    from tera_mind_tpu_torch.parallel import mesh
+    from tera_mind_tpu_torch.training.harness import state_digest
+
+    conf = trainer.conf
+    ds = SyntheticDataset(n=max(conf.batch_size * 8, 64),
+                          crop=4 * conf.image_size,
+                          gdim=conf.rna_num, snum=conf.rna_slices,
+                          stain=conf.stain, pad_bins=conf.gn_sz // 2)
+    it = train_cli.epoch_batches(ds, conf.batch_size_effective,
+                                 accum=conf.accum_batches, rank=rank,
+                                 ranks=ranks)
+    state = trainer.init_state()
+    dev = trainer.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "step_s": [], "digests": []}
+    reset_launches()
+    mesh.reset_reduce_stats()
+    for _ in range(DP_STEPS):
+        batch = trainer.shape_batch(next(it))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        out["losses"].append(float(loss))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["digests"].append(state_digest(state, moments=False))
+    out["launches"], out["variants"] = read_train_launches()
+    out["reduce"] = dict(mesh.reduce_stats)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def dp_rank_worker(kind: str, rank: int, n: int, port: str, tmp: str,
+                   argv: tuple) -> dict:
+    """Phase 18's rank process: ``dp`` the full-width steps over a
+    ``('dp',)`` mesh of the ranks (the parameters' digests all-gathered
+    and compared after each step), ``dp_cli`` ``cli.train.main`` as a
+    user runs it, in ``{tmp}/dp_cli``."""
+    import os
+
+    import torch
+
+    from tera_mind_tpu_torch.parallel import mesh
+    from tera_mind_tpu_torch.training import harness
+    if kind == "dp":
+        device = mesh.multihost_init(f"127.0.0.1:{port}", n, rank,
+                                     device="cuda",
+                                     timeout_s=RANK_GROUP_TIMEOUT_S)
+        try:
+            from tera_mind_tpu_torch.training.harness import Trainer
+            trainer = Trainer(dp_config(), device=device)
+            require(trainer.ndp == n and trainer.rank == rank,
+                    f"rank {rank}: mesh {trainer.ndp}, rank {trainer.rank}")
+            res = dp_steps(trainer, rank, n)
+            for s, d in enumerate(res["digests"]):
+                got = mesh.host_all_gather(d)
+                require(len(set(got)) == 1, f"rank {rank}: parameters "
+                        f"differ across ranks after step {s + 1}")
+            res.update(backend=torch.distributed.get_backend(),
+                       device=str(device))
+        except BaseException:
+            mesh.shutdown(barrier=False)
+            raise
+        mesh.shutdown()
+        return res
+    device = mesh.rank_device("cuda", rank)
+    torch.cuda.set_device(device)
+    written = []
+    real = harness.write_checkpoint
+
+    def spy(root, tree):
+        written.append(int(tree["step"]))
+        return real(root, tree)
+
+    harness.write_checkpoint = spy
+    from tera_mind_tpu_torch.cli import train as train_cli
+    work = Path(tmp, "dp_cli")
+    work.mkdir(exist_ok=True)
+    os.chdir(work)
+    reset_launches()
+    state = train_cli.main(list(argv) + [
+        "--coordinator", f"127.0.0.1:{port}", "--num_processes", str(n),
+        "--process_id", str(rank), "--device", "cuda", "--dist_timeout",
+        str(RANK_GROUP_TIMEOUT_S)])
+    return dict(step=state.step, written=written, device=str(device),
+                digest=harness.state_digest(state, moments=False),
+                launches=read_train_launches()[0],
+                peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+
+
+def run_dp(device, n: int = None) -> dict:
+    """Phase 18: data-parallel training over ``n`` ranks (2 sharing the
+    card over gloo; with more cards one a card over NCCL): K1, K1b, K2
+    and K2b at a rank's training shapes; mp_demo's f32 training over the
+    ranks against one process on the card; the 5D model at full width
+    over the ranks against one process on the same weights, batches and
+    draws; ``cli.train`` over the ranks."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.parallel import mp_demo
+    from tera_mind_tpu_torch.parallel.mesh import choose_backend
+    from tera_mind_tpu_torch.training.harness import Trainer
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    n = n or rank_count()[0]
+    backend = choose_backend("cuda", n, cards)
+    log(f"phase 18: data-parallel training over {n} ranks on {cards} "
+        f"card(s), backend {backend} by the rule")
+    res = {"ranks": n, "cards": cards, "backend": backend}
+    t0 = time.perf_counter()
+    res["kernels"] = check_rank_train_kernels(device, n)
+    res["kernel_seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # small: mp_demo's f32 config, the ranks against one process
+        t0 = time.perf_counter()
+        outs = spawn_ranks(n, "dp_demo", tmp, "--device", "cuda",
+                           "--train_only", "--dist_timeout",
+                           str(RANK_GROUP_TIMEOUT_S),
+                           module="tera_mind_tpu_torch.parallel.mp_demo")
+        want = mp_demo.train_ref(n, device)
+        for r, out in enumerate(outs):
+            require(f"[mp_demo] process {r} train replicas bit-equal after "
+                    f"each of {mp_demo.TRAIN_STEPS} steps" in out,
+                    f"mp_demo rank {r}:\n{out[-3000:]}")
+        line = [ln for ln in outs[0].splitlines() if "train losses:" in ln]
+        require(len(line) == 1, f"mp_demo: no loss line:\n{outs[0][-3000:]}")
+        got = [float(v) for v in line[0].split(":")[1].split()]
+        err = max(abs(a - b) for a, b in zip(got, want))
+        require(len(got) == len(want) and err <= DP_DEMO_TOL,
+                f"mp_demo train losses {got}, train_ref {want}")
+        log(f"phase 18 small: mp_demo --train_only over {n} ranks, losses "
+            f"{got} against one process {want} (max |d| {err:.3g}, tol "
+            f"{DP_DEMO_TOL}); the replicas' parameters and Adam moments "
+            "bit-equal after every step (clip by global norm triggers at "
+            f"each step); {time.perf_counter() - t0:.1f} s")
+        res["small"] = dict(losses=got, ref=want, max_abs_err=err)
+
+        # full width: one process, then the ranks, on the same everything
+        conf = dp_config()
+        one = Trainer(conf, device=device)
+        one_run = dp_steps(one, 0, 1)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn_ranks(n, "dp", tmp)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"dp_{r}.json").read_text())
+                 for r in range(n)]
+        per_step = TRAIN_LAUNCHES["5d"]
+        want_l = {k: per_step[k.removesuffix("_bwd")] * DP_STEPS
+                  for k in ("rmsnorm", "rmsnorm_bwd", "window_attention",
+                            "window_attention_bwd")}
+        want_v = {k: {v: c * DP_STEPS for v, c in by.items()}
+                  for k, by in TRAIN_BWD_VARIANTS["5d"].items()}
+
+        def rate(run, samples):
+            timed = run["step_s"][DP_TIMED_FROM - 1:]
+            return samples * len(timed) / sum(timed), sum(timed) / len(timed)
+
+        one_rate, one_s = rate(one_run, conf.batch_size_effective)
+        res["one"] = dict(losses=one_run["losses"], step_s=one_s,
+                          samples_per_s=one_rate,
+                          peak_gib=one_run["peak_gib"])
+        log(f"phase 18 full width, one process: losses "
+            f"{one_run['losses']}, {one_s:.3f} s a step, {one_rate:.2f} "
+            f"samples/s, peak {one_run['peak_gib']:.2f} GiB")
+        for rk in ranks:
+            rk["samples_per_s"], rk["step_mean_s"] = rate(
+                rk, conf.batch_size_effective // n)
+            red = rk["reduce"]
+            rk["reduce_per_step"] = dict(
+                bytes=red["bytes"] / DP_STEPS,
+                seconds=red["seconds"] / DP_STEPS,
+                buckets=red["buckets"] / DP_STEPS)
+            log(f"phase 18 full width, rank {rk['rank']} on {rk['device']} "
+                f"({rk['backend']}): losses {rk['losses']}, "
+                f"{rk['step_mean_s']:.3f} s a step, {rk['samples_per_s']:.2f}"
+                f" samples/s; all-reduce {red['bytes'] / DP_STEPS / 1e6:.1f}"
+                f" MB in {red['buckets'] / DP_STEPS:.0f} buckets and "
+                f"{red['seconds'] / DP_STEPS:.3f} s a step "
+                f"({red['by_route']}); peak device memory "
+                f"{rk['peak_gib']:.2f} GiB; launches {rk['launches']} "
+                f"(expected {want_l}), backward by variant {rk['variants']}")
+            require(rk["backend"] == backend,
+                    f"rank {rk['rank']} backend {rk['backend']}")
+            require(rk["launches"] == want_l,
+                    f"rank {rk['rank']} launches {rk['launches']}, "
+                    f"expected {want_l}")
+            require({k: rk["variants"][k] for k in want_v} == want_v,
+                    f"rank {rk['rank']} variants {rk['variants']}, "
+                    f"expected {want_v}")
+            require(red["calls"] == DP_STEPS,
+                    f"rank {rk['rank']}: {red['calls']} all-reduces")
+            require(rk["losses"] == ranks[0]["losses"],
+                    f"rank losses differ: {rk['losses']}")
+            require(rk["digests"] == ranks[0]["digests"],
+                    "rank parameters differ")
+            d = max(abs(a - b) for a, b in zip(rk["losses"],
+                                               one_run["losses"]))
+            require(all(np.isfinite(rk["losses"])) and d <= DP_LOSS_ATOL,
+                    f"rank {rk['rank']} losses {rk['losses']} against one "
+                    f"process {one_run['losses']}: {d} > {DP_LOSS_ATOL}")
+            rk["loss_err"] = d
+        slowest = max(rk["step_mean_s"] for rk in ranks)
+        total = conf.batch_size_effective / slowest
+        log(f"phase 18 full width: {n} ranks {total:.2f} samples/s in all "
+            f"(slowest rank {slowest:.3f} s a step) against {one_rate:.2f} "
+            f"in one process; losses within "
+            f"{max(rk['loss_err'] for rk in ranks):.3g} of one process's "
+            f"(tol {DP_LOSS_ATOL}); parameters bit-equal across ranks "
+            f"after every step; {wall:.1f} s wall with the ranks' start")
+        res["full"] = dict(ranks=ranks, samples_per_s=total, wall=wall)
+
+        # the CLI as a user runs it, over the ranks, with the preset's
+        # dropout
+        t0 = time.perf_counter()
+        spawn_ranks(n, "dp_cli", tmp, "--synthetic", "--max_steps", "2")
+        cli = [json.loads(Path(tmp, f"dp_cli_{r}.json").read_text())
+               for r in range(n)]
+        runs = list(Path(tmp, "dp_cli", "checkpoints").iterdir())
+        require(len(runs) == 1, f"cli.train runs {runs}")
+        from tera_mind_tpu_torch.training.harness import checkpoint_steps
+        steps = checkpoint_steps(runs[0] / "ckpt")
+        losses = [json.loads(ln).get("loss") for ln in
+                  (runs[0] / "metrics.jsonl").read_text().splitlines()]
+        losses = [v for v in losses if v is not None]
+        require(steps == [2] and (runs[0] / "config.json").exists(),
+                f"cli.train checkpoints {steps}")
+        require(cli[0]["written"] == [2]
+                and all(c["written"] == [] for c in cli[1:]),
+                f"checkpoints written by rank: {[c['written'] for c in cli]}")
+        require(losses and all(np.isfinite(losses)),
+                f"cli.train losses {losses}")
+        require(len({c["digest"] for c in cli}) == 1
+                and all(c["step"] == 2 for c in cli),
+                "cli.train ranks' parameters differ")
+        log(f"phase 18 cli.train --synthetic --max_steps 2 over {n} ranks "
+            "(the preset's dropout 0.1): one checkpoint at step "
+            f"{steps} written by rank 0, logged losses {losses}, parameters "
+            f"equal across ranks; peak device memory "
+            f"{[round(c['peak_gib'], 2) for c in cli]} GiB; "
+            f"{time.perf_counter() - t0:.1f} s")
+        res["cli"] = dict(losses=losses, peak_gib=[c["peak_gib"]
+                                                   for c in cli])
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18 seconds: {res['phase_seconds']:.1f}")
+    return res
+
+
 def compare_int8(chains: dict, outs: dict) -> dict:
     """The full-width int8 and int8_static chains against the bf16 packed
     chain of the same run: tiles/s and the output statistics
@@ -2975,9 +3416,11 @@ def main() -> int:
         return ranks_only(device, smi)
     if sys.argv[1:] == ["--int8"]:
         return int8_only(device, smi)
+    if sys.argv[1:] == ["--dp"]:
+        return dp_only(device, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
-              "--ranks or --int8)", file=sys.stderr, flush=True)
+              "--ranks, --int8 or --dp)", file=sys.stderr, flush=True)
         return 2
 
     rows = check_kernels(device)
@@ -3052,6 +3495,7 @@ def main() -> int:
     ranks = run_ranks(device, packed_out, stream_ref,
                       chains["packed"]["counts"])
     del packed_out, stream_ref
+    dp = run_dp(device)
 
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
                            "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
@@ -3074,7 +3518,11 @@ def main() -> int:
                                 {"launches": rk["launches"][name],
                                  "by_variant": rk["variants"][name]}
                                 for rk in ranks[kind]["ranks"]]
-                               for kind in ("memory", "stream")}},
+                               for kind in ("memory", "stream")},
+                            "dp_train_ranks": [
+                                rk["launches"][name]
+                                for rk in dp["full"]["ranks"]]},
+                        "dp_shapes": dp["kernels"][name],
                         "max_abs_err": max(x["max_abs_err"]
                                            for x in rows[name]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3100,6 +3548,9 @@ def main() -> int:
                         "launches_per_step_by_variant": {
                             path: TRAIN_BWD_VARIANTS[path][name]
                             for path in train},
+                        "dp_train_ranks": [rk["launches"][name]
+                                           for rk in dp["full"]["ranks"]],
+                        "dp_shapes": dp["kernels"][name],
                         "max_abs_err": max(x["max_abs_err"]
                                            for x in rows[name]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3122,7 +3573,7 @@ def main() -> int:
                       "small_int8": small_int8,
                       "int8_vs_bf16": int8_vs_bf16, "attn": attn,
                       "evaluate": evaluate, "baselines": baselines,
-                      "ranks": ranks}),
+                      "ranks": ranks, "dp": dp}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3166,21 +3617,36 @@ def int8_only(device, smi: str) -> int:
 
 
 def ranks_only(device, smi: str) -> int:
-    """``--ranks``: phase 17 alone, with the two runs it is held against
-    (phase 9's packed chain, the 2-step one-process stream), for a call
-    on a machine of several cards; prints its JSON, the card line and a
-    result line naming the part it ran."""
+    """``--ranks``: phases 17 and 18 alone, with the two runs phase 17 is
+    held against (phase 9's packed chain, the 2-step one-process stream),
+    for a call on a machine of several cards; prints its JSON, the card
+    line and a result line naming the part it ran."""
     import torch
     chain = run_main_path(device, "packed")
     chain.pop("gen")
     torch.cuda.empty_cache()
     _, stream_ref = stream_timing_run(device)
     ranks = run_ranks(device, chain.pop("out"), stream_ref, chain["counts"])
-    print(json.dumps({"ranks": ranks, "chain": {
+    dp = run_dp(device)
+    print(json.dumps({"ranks": ranks, "dp": dp, "chain": {
         k: chain[k] for k in ("seconds", "tiles_per_s", "peak_gib")}}),
         flush=True)
     print(smi, flush=True)
-    print(json.dumps({"ok": True, "only": "phase 17", "device": {
+    print(json.dumps({"ok": True, "only": "phases 17 and 18", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def dp_only(device, smi: str) -> int:
+    """``--dp``: phase 18 alone (data-parallel training over the ranks),
+    for a call that checks it; prints its JSON, the card line and a
+    result line naming the part it ran."""
+    import torch
+    dp = run_dp(device)
+    print(json.dumps({"dp": dp}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "only": "phase 18", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

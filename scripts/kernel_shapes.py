@@ -47,6 +47,7 @@ launch either way) and ``torch._int_mm``'s (M, K_pad, N), with the int8
 operations and the bytes K3 and K4 move a step.
 
     python scripts/kernel_shapes.py --train [--packed | --method M]
+        [--ranks N]
 
 ``--train`` runs one training forward of the preset instead: the 5D
 ``TeraUNet`` (``--packed``: ``PackedTeraUNet(from_5d=True)``; ``--method
@@ -58,7 +59,11 @@ patches, both decoders), and counts it for one step of ``accum``
 microbatches (2).  In training every K1 and K2 input requires grad, so
 each launch records one backward launch: K1b takes K1's (rows, C) and K2b
 K2's (B, N, D), as often; it also prints the launches a step of each
-K1b and K2b variant (bf16, aligned tensors).
+K1b and K2b variant (bf16, aligned tensors).  With ``--ranks N`` it runs
+one rank of ``cli.train`` over N processes instead (data parallel: each
+rank's microbatch is 32 / N samples, ``accum`` microbatches a step, so
+its launches a step are one process's), and prints each shape's bound on
+the H100 for K1, K1b, K2 and K2b (``--method`` ours only).
 
     python scripts/kernel_shapes.py --attn
 
@@ -83,7 +88,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import STEPS  # noqa: E402
+from chip_smoke import STEPS, bound, kernel_work  # noqa: E402
 from tera_mind_tpu_torch.config import prep_config  # noqa: E402
 from tera_mind_tpu_torch.models import attention as attention_mod  # noqa: E402
 from tera_mind_tpu_torch.models import nn as nn_mod  # noqa: E402
@@ -350,11 +355,12 @@ def train_shapes(packed: bool = False, batch: int = TRAIN_BATCH,
     return k1, k2
 
 
-def train_bwd_variants(packed: bool = False, method: str = "ours") -> dict:
+def train_bwd_variants(packed: bool = False, method: str = "ours",
+                       batch: int = TRAIN_BATCH) -> dict:
     """K1b's and K2b's launches a training step by variant: the shapes of
-    ``train_shapes`` in bf16 with aligned tensors, ``TRAIN_ACCUM``
-    microbatches."""
-    k1, k2 = train_shapes(packed, method=method)
+    ``train_shapes`` (a microbatch of ``batch`` samples) in bf16 with
+    aligned tensors, ``TRAIN_ACCUM`` microbatches."""
+    k1, k2 = train_shapes(packed, batch=batch, method=method)
     out = {"rmsnorm_bwd": dict.fromkeys(K1_VARIANTS, 0),
            "window_attention_bwd": dict.fromkeys(K2_VARIANTS, 0)}
     for (_, c), n in k1.items():
@@ -380,6 +386,51 @@ def main_train(packed: bool, method: str = "ours") -> None:
             print(f"  {shape}: {n} per microbatch, {n * TRAIN_ACCUM} per "
                   "step")
     for name, by in train_bwd_variants(packed, method).items():
+        print(f"{name} launches a step by variant: {by}")
+
+
+def bound_ms(kernel: str, shape: tuple, itemsize: int = BF16) -> tuple:
+    """(least ms on the H100, 'bytes' or 'operations') for one launch of
+    ``kernel`` (K1, K1b, K2, K2b) at ``shape``: the larger of the bytes it
+    must move over 3.35 TB/s and its operations over the peak rate of
+    their type (``chip_smoke.py``'s ``kernel_work``, as its timings
+    count them)."""
+    return bound(*kernel_work(kernel, shape, itemsize))
+
+
+def train_rank_shapes(ranks: int, packed: bool = False
+                      ) -> tuple[Counter, Counter]:
+    """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one
+    microbatch of one rank of a data-parallel ``cli.train`` over
+    ``ranks`` processes (the global microbatch split evenly)."""
+    if TRAIN_BATCH % ranks:
+        raise ValueError(f"a batch of {TRAIN_BATCH} over {ranks} ranks")
+    return train_shapes(packed, batch=TRAIN_BATCH // ranks)
+
+
+def main_train_ranks(ranks: int, packed: bool) -> None:
+    k1, k2 = train_rank_shapes(ranks, packed)
+    one = [sum(c.values()) for c in train_shapes(packed)]
+    got = [sum(c.values()) for c in (k1, k2)]
+    print(f"{'PackedTeraUNet(from_5d)' if packed else 'TeraUNet (5D)'} "
+          f"training over {ranks} ranks: {TRAIN_BATCH // ranks} samples a "
+          f"rank's microbatch, {TRAIN_ACCUM} microbatches a step")
+    print(f"launches a step a rank: K1 and K1b {got[0] * TRAIN_ACCUM}, K2 "
+          f"and K2b {got[1] * TRAIN_ACCUM} (one process: "
+          f"{one[0] * TRAIN_ACCUM}, {one[1] * TRAIN_ACCUM}: "
+          f"{'equal' if got == one else 'NOT equal'})")
+    for name, counts, fwd, bwd in (("(rows, C)", k1, "K1", "K1b"),
+                                   ("(B, N, D)", k2, "K2", "K2b")):
+        for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
+            (fb, fby), (bb, bby) = (bound_ms(k, shape) for k in (fwd, bwd))
+            variant = (rmsnorm_bwd_variant(shape[1], BF16, True)
+                       if fwd == "K1" else attention_bwd_variant(
+                           shape[1], shape[2], torch.bfloat16, True))
+            print(f"  {fwd} {name} {shape}: {n * TRAIN_ACCUM} a step; bound "
+                  f"{fb:.4f} ms ({fby}); {bwd} {variant} bound {bb:.4f} ms "
+                  f"({bby})")
+    for name, by in train_bwd_variants(packed, batch=TRAIN_BATCH // ranks
+                                       ).items():
         print(f"{name} launches a step by variant: {by}")
 
 
@@ -445,7 +496,7 @@ def main() -> None:
                     help="cli.attn's gene-gene extraction, one tile")
     ap.add_argument("--ranks", type=int, default=0,
                     help="each rank of cli.generate over this many "
-                    "processes")
+                    "processes (with --train: of cli.train)")
     ap.add_argument("--grid", type=int, default=None,
                     help="with --ranks: tiles a side (2; 4 with --stream)")
     ap.add_argument("--stream", action="store_true",
@@ -453,6 +504,9 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=STEPS,
                     help="with --ranks: DDIM steps")
     args = ap.parse_args()
+    if args.train and args.ranks:
+        main_train_ranks(args.ranks, args.packed)
+        return
     if args.ranks:
         main_ranks(args.ranks, args.grid or (4 if args.stream else 2),
                    args.stream, args.steps)

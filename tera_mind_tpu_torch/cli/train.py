@@ -1,7 +1,11 @@
-"""Training CLI on one device (reference train.py:7-45 argument surface).
+"""Training CLI (reference train.py:7-45 argument surface), on one
+device or data-parallel over ranks.
 
     python -m tera_mind_tpu_torch.cli.train --mouse 638850 --batch 32 \
         --patch 64 --stain all --rna_slc 4 [--synthetic]
+    # data parallel, one command a rank (a card each, or sharing one):
+    python -m tera_mind_tpu_torch.cli.train --synthetic \
+        --coordinator 127.0.0.1:29531 --num_processes 2 --process_id 0
 
 Port of ``tera_mind_tpu/cli/train.py`` with every JAX flag, plus
 ``--device`` (``cuda`` by default; without a card it refuses and names
@@ -9,6 +13,16 @@ Port of ``tera_mind_tpu/cli/train.py`` with every JAX flag, plus
 z-packed layout on the same 5D parameters; bf16 compute on float32
 parameters.  Checkpoints go to ``checkpoints/{run name}/ckpt`` (see
 ``training/harness.py``), which ``cli.generate --ckpt_pth`` reads.
+
+JAX's trainer spreads the batch over every device of its host by
+itself; PyTorch runs a rank per device, so ``--coordinator
+--num_processes --process_id`` (as ``cli.generate``'s) start one rank a
+device (``cuda:{rank % cards}``; NCCL with a card a rank, else gloo).
+``--batch`` stays the global batch: each rank decodes only its rows of
+every microbatch of the global effective batch (with the one-process
+loader's random draws, ``--workers`` or not) and trains on them, the
+gradients all-reduced once a step; rank 0 writes the one checkpoint
+directory.
 """
 
 from __future__ import annotations
@@ -17,20 +31,41 @@ import argparse
 from pathlib import Path
 from typing import Optional, Sequence
 
+from ..parallel.mesh import DEFAULT_TIMEOUT_S
 
-def epoch_batches(ds, eff_batch: int, *, workers: int = 0):
+
+def rank_positions(eff_batch: int, accum: int, rank: int,
+                   ranks: int) -> Optional[list]:
+    """Rank ``rank``'s positions in a global effective batch of ``accum``
+    microbatches (None: all of them, one rank): block ``rank`` of each
+    microbatch, accum row-major, the layout JAX's dp sharding gives each
+    process (its ``parallel/mp_demo.py``), so the union over the ranks of
+    a microbatch is the one-process microbatch."""
+    if ranks == 1:
+        return None
+    micro = eff_batch // accum
+    m = micro // ranks
+    return [a * micro + rank * m + j for a in range(accum) for j in range(m)]
+
+
+def epoch_batches(ds, eff_batch: int, *, workers: int = 0,
+                  accum: int = 1, rank: int = 0, ranks: int = 1):
     """Endless effective-batch iterator over dataset passes.
 
     The loader yields EFFECTIVE batches (batch * accum samples); the
     trainer splits them into accum microbatches of `batch` samples each
     (reference accumulate_grad_batches semantics, config.py:172-174).
-    A pass shorter than one effective batch raises instead of spinning
-    forever decoding and dropping (drop_last).
+    Over ``ranks`` ranks each rank decodes only its rows of the global
+    effective batch (:func:`rank_positions`) and skips the others with
+    their random draws, so its rows are the one-process run's.  A pass
+    shorter than one effective batch raises instead of spinning forever
+    decoding and dropping (drop_last).
     """
     from ..data.dataset import batches
+    keep = rank_positions(eff_batch, accum, rank, ranks)
     while True:
         n = 0
-        for b in batches(ds, eff_batch, workers=workers):
+        for b in batches(ds, eff_batch, workers=workers, keep=keep):
             n += 1
             yield b
         if n == 0:
@@ -79,23 +114,36 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     "packed layout (reassociation-equivalent; same "
                     "weight class)")
     ap.add_argument("--device", type=str, default="cuda",
-                    help="cuda (the default) or cpu")
+                    help="cuda (the default; over ranks cuda:{rank %% "
+                    "cards}) or cpu")
+    ap.add_argument("--coordinator", type=str, default=None,
+                    help="host:port of rank 0's rendezvous for data "
+                    "parallel training over several processes, one a "
+                    "device")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--dist_timeout", type=float, default=DEFAULT_TIMEOUT_S,
+                    help="seconds before a wait on another rank fails")
     return ap.parse_args(argv)
 
 
-def build(args: argparse.Namespace):
-    """(config, dataset, trainer, initial state or None) for ``args``."""
+def check_card(device: str) -> None:
     import torch
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: run on the card, or pass "
+                         "--device cpu")
 
+
+def build(args: argparse.Namespace):
+    """(config, dataset, trainer, initial state or None) for ``args``
+    (``args.device``: this rank's device once the process group is
+    up)."""
     from ..config import prep_config
     from ..constants import M2H
     from ..data.dataset import MerfishTrainDataset, SyntheticDataset
     from ..training.harness import Trainer
 
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: run on the card, or pass "
-                         "--device cpu")
+    check_card(args.device)
     nrna = len(M2H) if args.to_hbr else (229 if args.mouse == "638850"
                                          else 500)
     conf = prep_config(args.mouse, batch=args.batch, size=args.patch,
@@ -134,12 +182,32 @@ def build(args: argparse.Namespace):
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    """Run the CLI; returns the final train state (this rank's replica
+    over several processes)."""
+    from ..parallel.mesh import multihost_init, shutdown
     args = parse_args(argv)
+    check_card(args.device)
+    device = multihost_init(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device,
+                            timeout_s=args.dist_timeout)
+    args.device = str(device)
+    try:
+        state = train(args)
+    except BaseException:
+        shutdown(barrier=False)
+        raise
+    shutdown()
+    return state
+
+
+def train(args: argparse.Namespace):
+    """``main`` after the process group is up."""
     conf, ds, trainer, state = build(args)
     max_steps = args.max_steps or conf.total_samples
-    return trainer.fit(epoch_batches(ds, conf.batch_size_effective,
-                                     workers=args.workers),
-                       max_steps=max_steps, state=state)
+    return trainer.fit(epoch_batches(
+        ds, conf.batch_size_effective, workers=args.workers,
+        accum=conf.accum_batches, rank=trainer.rank, ranks=trainer.ndp),
+        max_steps=max_steps, state=state)
 
 
 if __name__ == "__main__":

@@ -7,9 +7,11 @@ preset ``prep_config`` (reference config_parm.py:5-59) with the run-name
 convention ``{mouse}_{size}_{nrna}_{stain}_{srna}_{method}``,
 ``config_from_name`` and the model / sampler factories: ``make_model_conf``
 gives the model of ``method`` (``patch-dm``, ``sinf``, else the flagship
-``TeraUNet``, as JAX's), with deterministic DDIM sampling; the JAX
-package's fields for the TPU mesh and prefetching and its sampler choice
-(``mesh_shape``, ``prefetch_depth``, ``gen_type``) are not kept.
+``TeraUNet``, as JAX's), ``make_eval_sampler`` DDIM or DDPM.
+``mesh_shape`` is kept for the config's round trip: the port's data
+parallel mesh is one axis over the process group's ranks
+(``training/harness.py``).  The JAX package's host ``prefetch_depth`` is
+not kept (the port's loader has its own prefetch).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ class TrainConfig:
     T: int = 1000
     T_eval: int = 15
     beta_scheduler: str = "linear"
+    gen_type: str = "ddim"
     loss_type: str = "mse"
 
     # model
@@ -78,6 +81,7 @@ class TrainConfig:
     packed_compute: bool = False      # the z-packed layout on 5D params
     packed_attn: bool = False         # with packed_compute: DiT blocks on
                                       # the packed (h, w, z) tokens
+    mesh_shape: Tuple[int, ...] = (-1,)   # dp over every rank
     sample_every_steps: int = 2500
     save_every_steps: int = 10_000
     sample_size: int = 4
@@ -109,6 +113,14 @@ class TrainConfig:
     @property
     def batch_size_effective(self) -> int:
         return self.batch_size * self.accum_batches
+
+    def scale_up_gpus(self, num_devices: int, num_nodes: int = 1
+                      ) -> "TrainConfig":
+        """Scale the global batch by the world size (reference
+        config.py:164-170); the cadences are in steps, so they keep their
+        meaning as the samples a step grow."""
+        self.batch_size *= num_devices * num_nodes
+        return self
 
     # ---- factories -----------------------------------------------------
     def make_model_conf(self):
@@ -168,13 +180,16 @@ class TrainConfig:
             SamplerConfig(patch_size=self.image_size, gn_sz=self.gn_sz,
                           loss_type=self.loss_type))
 
-    def make_eval_sampler(self, T: Optional[int] = None) -> DiffusionSampler:
-        """Deterministic DDIM over T (default ``T_eval``) respaced steps."""
+    def make_eval_sampler(self, T: Optional[int] = None,
+                          gen_type: str = "ddim") -> DiffusionSampler:
+        """DDIM over T (default ``T_eval``) respaced steps, or with
+        ``gen_type='ddpm'`` ancestral DDPM over T evenly spaced ones."""
+        T = T or self.T_eval
         sched = spaced_schedule(self.beta_scheduler, self.T,
-                                f"ddim{T or self.T_eval}")
+                                f"ddim{T}" if gen_type == "ddim" else [T])
         return DiffusionSampler(
             sched, SamplerConfig(patch_size=self.image_size, gn_sz=self.gn_sz,
-                                 loss_type=self.loss_type))
+                                 loss_type=self.loss_type, gen_type=gen_type))
 
     # ---- serde ---------------------------------------------------------
     def as_dict(self) -> dict:
@@ -192,7 +207,7 @@ class TrainConfig:
     def from_dict(cls, d: dict) -> "TrainConfig":
         fields = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in fields}
-        for k in ("net_ch_mult", "net_attn"):
+        for k in ("net_ch_mult", "net_attn", "mesh_shape"):
             if k in kw:
                 kw[k] = tuple(kw[k])
         return cls(**kw)

@@ -75,6 +75,27 @@ M2H = [
     492, 493, 494, 496,
 ]
 
+# Gene names of the M2H panel, by index into the 500-plex panel.
+M2H_NAMES = {
+    1: "Tmem132c", 4: "Rorb", 5: "Nr4a2", 11: "Nrn1", 21: "Tshz2",
+    22: "Pax6", 23: "Crym", 24: "Vip", 25: "Hs3st4", 27: "Rxfp1",
+    35: "Vcan", 38: "Pou6f2", 40: "Rgs6", 55: "Cxcl14", 56: "Nr2f2",
+    57: "Rasgrp1", 61: "Igfbp4", 67: "C1ql3", 69: "Gad2", 70: "Rspo2",
+    75: "Slc17a6", 84: "Npnt", 90: "Ctss", 91: "Nxph2", 96: "Spock3",
+    108: "Chodl", 111: "Rgs4", 113: "Sox10", 118: "Mog", 130: "Trhde",
+    134: "Lamp5", 137: "Lypd6", 139: "Ndst4", 145: "Aqp4", 152: "Sema5a",
+    155: "Nrp1", 158: "Reln", 165: "Pvalb", 170: "Synpr", 171: "Crhbp",
+    179: "Vwc2l", 180: "Gja1", 189: "Cd36", 191: "Slc17a7", 206: "St18",
+    215: "Dcn", 223: "Hs3st2", 229: "Mal", 230: "Nnat", 235: "Rgs16",
+    241: "Slc26a4", 243: "Pld5", 253: "Cd83", 288: "Fbln1", 297: "Cemip",
+    301: "Gad1", 309: "Prox1", 329: "Npy1r", 337: "Cux2", 344: "Egfr",
+    346: "Col25a1", 370: "Pcsk1", 372: "Unc5b", 378: "Ank1", 380: "Slc6a1",
+    395: "Thsd7b", 410: "Brinp3", 436: "Lypd6b", 441: "Cspg4",
+    442: "Adamts3", 443: "Sytl5", 458: "Tac1", 465: "Arhgap24", 467: "Lhx6",
+    472: "Alk", 478: "Htr2c", 487: "Ptprc", 492: "Ano3", 493: "Sulf1",
+    494: "Cdh12", 496: "Wipf3",
+}
+
 # Per-mouse region-of-interest definitions for visualization
 # (reference utils/__init__.py:73-85).
 MROI = {

@@ -24,6 +24,8 @@ float32 as they are.
 shaped like the parameters (the optimizer's moments), and
 ``train_state_tree`` carries a JAX ``TrainState`` (numpy leaves) across
 into the port checkpoint's format, which the trainer loads.
+``check_against_model`` checks a flax-named tree's leaves and shapes
+against a port model (``flax_shapes``) with the JAX package's errors.
 
 ``load_torch_state_dict`` and ``convert_unet_params`` (port of
 ``tera_mind_tpu/convert.py``) turn the reference's Lightning ``.ckpt``
@@ -169,6 +171,46 @@ def export_params(model: nn.Module) -> Dict:
     """The flax-named tree ``{"params": {...}}`` of ``model``'s parameters
     (and persistent buffers): the exact inverse of :func:`load_jax_params`."""
     return export_tensors(named_state(model))
+
+
+def flax_shapes(model: nn.Module) -> Dict[str, tuple]:
+    """The shape of each leaf of ``model``'s flax-named tree, keyed by its
+    ``/``-joined path under ``params`` (what :func:`export_params` would
+    give, without copying a weight)."""
+    out = {}
+    for name, p in named_state(model).items():
+        *path, leaf = name.split(".")
+        arr = np.lib.stride_tricks.as_strided(
+            np.zeros(1, np.float32), tuple(p.shape), (0,) * p.dim())
+        if leaf == "weight":
+            leaf, arr = torch_to_jax_array(arr)
+        elif leaf == "kernel_q":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(1, 2, 3, 0)
+        out["/".join(["params", *path, leaf])] = tuple(arr.shape)
+    return out
+
+
+def check_against_model(params: Mapping, model: nn.Module) -> None:
+    """Check a flax-named param tree (``{"params": {...}}`` or the inner
+    dict, e.g. a converted reference checkpoint) against ``model``'s names
+    and shapes: missing or extra leaves, then a leaf of another shape,
+    raise ``ValueError`` (the JAX package's check against a fresh init,
+    whose shapes the port's modules know without one)."""
+    if set(params) != {"params"}:
+        params = {"params": params}
+    ref = flax_shapes(model)
+    got = {"/".join(k.split(".")): tuple(np.shape(v))
+           for k, v in _flatten(params).items()}
+    missing = set(ref) - set(got)
+    extra = set(got) - set(ref)
+    if missing or extra:
+        raise ValueError(
+            f"param tree mismatch:\nmissing={sorted(missing)}\n"
+            f"extra={sorted(extra)}")
+    for key, shape in ref.items():
+        if got[key] != shape:
+            raise ValueError(f"shape mismatch at {key}: ckpt {got[key]} vs "
+                             f"model {shape}")
 
 
 def train_state_tree(state) -> Dict:

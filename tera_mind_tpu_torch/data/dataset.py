@@ -10,7 +10,10 @@ Port of ``tera_mind_tpu/data/dataset.py``, numpy only as there: the gene
 grid is densified host-side (a 20x20xZ*G dense array per sample is tiny)
 and batches are plain numpy arrays, channels-last, copied to the card by
 the trainer.  A background thread, or spawned worker processes, pipeline
-decoding with the device's steps.  Images are read from ``.npy`` only:
+decoding with the device's steps; either yields the samples in the
+order of the dataset's pass.  ``keep`` decodes only some positions of
+each batch and skips the rest with the same random draws, which is how a
+data-parallel rank loads only its rows of the global batch.  Images are read from ``.npy`` only:
 the reference's zarr ``.zip`` and plain zarr directories need
 ``tensorstore``, which the port's machine does not have, and raise
 ``NotImplementedError``.
@@ -91,6 +94,7 @@ class MerfishTrainDataset:
         self.rng = np.random.default_rng(seed)
         self.zmax = NUM_Z_SLICES
         self.compact = compact
+        self._hw: dict = {}     # path -> the gene grid's (H, W)
 
     def __len__(self) -> int:
         return len(self.paths)
@@ -105,15 +109,34 @@ class MerfishTrainDataset:
                 return p
         return Path(base.replace(".npz", ".npy"))
 
-    def sample(self, idx: int) -> Sample:
+    def _draw(self, gh: int, gw: int) -> tuple:
+        """One sample's random crop origin, z window start (over the
+        z-padded range, MBADataset.py:133-136), rot90 count and flip, drawn
+        from ``self.rng`` in the reference's order."""
         rng = self.rng
-        gene = COO.load_npz(self.paths[idx])
-        gh, gw = gene.shape[:2]
         top = int(rng.integers(0, gh - self.crop + 1))
         left = int(rng.integers(0, gw - self.crop + 1))
-
-        # random z window start over the z-padded range (MBADataset.py:133-136)
         snm = int(rng.integers(0, self.zmax + 2 * self.spad - self.snum + 1))
+        rot, flip = 0, False
+        if self.augment:
+            rot = int(rng.integers(0, 4))
+            flip = rng.random() < 0.5
+        return top, left, snm, rot, flip
+
+    def skip(self, idx: int) -> None:
+        """Take sample ``idx``'s random draws without decoding it (the
+        gene grid's size is read from the file's header once a path)."""
+        path = self.paths[idx]
+        if path not in self._hw:
+            with np.load(path, allow_pickle=False) as f:
+                self._hw[path] = tuple(int(v) for v in f["shape"][:2])
+        self._draw(*self._hw[path])
+
+    def sample(self, idx: int) -> Sample:
+        gene = COO.load_npz(self.paths[idx])
+        gh, gw = gene.shape[:2]
+        self._hw[self.paths[idx]] = (gh, gw)
+        top, left, snm, rot, flip = self._draw(gh, gw)
 
         gn = gene.crop2d(top, left, self.crop, self.crop)
         gn = gn.block_sum(self.gblk)
@@ -140,14 +163,12 @@ class MerfishTrainDataset:
             img = np.concatenate([pad, img, pad], axis=1)
         img = img[:, snm + shf: snm + self.snum - shf]
 
-        if self.augment:
-            rot = int(rng.integers(0, 4))
-            for _ in range(rot):
-                img = np.rot90(img, 1, axes=(2, 3))
-                gn = gn.rot90()
-            if rng.random() < 0.5:
-                img = img[..., ::-1]
-                gn = gn.flip_w()
+        for _ in range(rot):
+            img = np.rot90(img, 1, axes=(2, 3))
+            gn = gn.rot90()
+        if flip:
+            img = img[..., ::-1]
+            gn = gn.flip_w()
 
         # (S, Zimg, H, W) -> (H, W, S*Zimg), stain-major channels
         s, zi = img.shape[:2]
@@ -172,9 +193,12 @@ class MerfishTrainDataset:
         return Sample(image=img.astype(np.float32),
                       rna=gn.todense(np.float32))
 
+    def order(self) -> np.ndarray:
+        """The sample indices of one pass, shuffled."""
+        return self.rng.permutation(len(self.paths))
+
     def __iter__(self) -> Iterator[Sample]:
-        order = self.rng.permutation(len(self.paths))
-        for idx in order:
+        for idx in self.order():
             yield self.sample(int(idx))
 
 
@@ -221,14 +245,22 @@ class SyntheticDataset:
                                (0, 0)))
         return Sample(image=img, rna=rna)
 
+    def order(self) -> range:
+        return range(self.n)
+
+    def skip(self, idx: int) -> None:
+        """Nothing to draw: a sample's randomness is its own."""
+
     def __iter__(self) -> Iterator[Sample]:
-        for i in range(self.n):
+        for i in self.order():
             yield self.sample(i)
 
 
 def batches(dataset, batch_size: int, *, drop_last: bool = True,
-            prefetch: int = 2, workers: int = 0) -> Iterator[dict]:
-    """Prefetching batch iterator -> dict of stacked numpy arrays.
+            prefetch: int = 2, workers: int = 0,
+            keep: Sequence[int] | None = None) -> Iterator[dict]:
+    """Prefetching batch iterator -> dict of stacked numpy arrays, the
+    samples in the order of the dataset's pass (``dataset.order()``).
 
     ``workers=0``: one background IO thread (enough when samples are cheap
     or the filesystem is fast).  ``workers>0``: that many worker PROCESSES
@@ -236,25 +268,42 @@ def batches(dataset, batch_size: int, *, drop_last: bool = True,
     config.py:253-278) — zarr decompression + COO block-sum are CPU-bound,
     so scale workers to keep the device fed (scripts/bench_loader.py
     measures samples/s per worker count).
+
+    ``keep``: the positions within each batch of ``batch_size`` to decode;
+    the others are skipped (``dataset.skip`` takes the random draws their
+    decoding would have taken), so each batch holds the kept rows of the
+    batch that ``keep=None`` yields, in their order.
     """
+    keep = None if keep is None else frozenset(keep)
     if workers > 0:
         yield from _mp_batches(dataset, batch_size, workers=workers,
-                               drop_last=drop_last, prefetch=prefetch)
+                               drop_last=drop_last, prefetch=prefetch,
+                               keep=keep)
         return
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = object()
 
     def producer():
-        buf_img, buf_rna = [], []
-        for s in dataset:
-            buf_img.append(s.image)
-            buf_rna.append(s.rna)
-            if len(buf_img) == batch_size:
+        try:
+            buf_img, buf_rna = [], []
+            for pos, idx in enumerate(dataset.order()):
+                p = pos % batch_size
+                if keep is None or p in keep:
+                    s = dataset.sample(int(idx))
+                    buf_img.append(s.image)
+                    buf_rna.append(s.rna)
+                else:
+                    dataset.skip(int(idx))
+                if p == batch_size - 1:
+                    if buf_img:
+                        q.put({"image": np.stack(buf_img),
+                               "rna": np.stack(buf_rna)})
+                    buf_img, buf_rna = [], []
+            if buf_img and not drop_last:
                 q.put({"image": np.stack(buf_img), "rna": np.stack(buf_rna)})
-                buf_img, buf_rna = [], []
-        if buf_img and not drop_last:
-            q.put({"image": np.stack(buf_img), "rna": np.stack(buf_rna)})
-        q.put(stop)
+            q.put(stop)
+        except BaseException as e:  # surface decode errors to the consumer
+            q.put(e)
 
     th = threading.Thread(target=producer, daemon=True)
     th.start()
@@ -262,11 +311,14 @@ def batches(dataset, batch_size: int, *, drop_last: bool = True,
         item = q.get()
         if item is stop:
             break
+        if isinstance(item, BaseException):
+            raise item
         yield item
 
 
-def _mp_worker(dataset, wid: int, nw: int, q) -> None:
-    """Worker process: decode every nw-th sample and ship it back.
+def _mp_worker(dataset, wid: int, nw: int, batch_size: int, keep, q) -> None:
+    """Worker process: decode every nw-th sample (in order, skipping the
+    positions ``keep`` leaves out) and ship it back on its own queue.
 
     Runs in a spawned process, numpy only.
     Each worker reseeds its RNG so augmentations/crops are independent
@@ -276,40 +328,60 @@ def _mp_worker(dataset, wid: int, nw: int, q) -> None:
             np.random.SeedSequence([wid, len(dataset)]))
     try:
         for i in range(wid, len(dataset), nw):
-            s = dataset.sample(i)
-            q.put((s.image, s.rna))
+            if keep is None or i % batch_size in keep:
+                s = dataset.sample(i)
+                q.put((s.image, s.rna))
+            else:
+                dataset.skip(i)
         q.put(None)
     except Exception as e:  # surface worker crashes to the consumer
         q.put(e)
 
 
 def _mp_batches(dataset, batch_size: int, *, workers: int,
-                drop_last: bool = True, prefetch: int = 4) -> Iterator[dict]:
+                drop_last: bool = True, prefetch: int = 4,
+                keep: frozenset | None = None) -> Iterator[dict]:
+    """Sample ``i`` comes from worker ``i % workers``, whose queue holds
+    its samples in order, so reading the queues round-robin yields the
+    pass in index order whichever worker is ahead."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
-    q = ctx.Queue(maxsize=max(prefetch * batch_size, 2 * workers))
-    procs = [ctx.Process(target=_mp_worker, args=(dataset, w, workers, q),
+    depth = max(2, prefetch * batch_size // workers)
+    qs = [ctx.Queue(maxsize=depth) for _ in range(workers)]
+    procs = [ctx.Process(target=_mp_worker,
+                         args=(dataset, w, workers, batch_size, keep, qs[w]),
                          daemon=True) for w in range(workers)]
     for p in procs:
         p.start()
-    done = 0
+
+    def get(w: int):
+        while True:
+            try:
+                item = qs[w].get(timeout=5)
+                break
+            except queue.Empty:
+                if not procs[w].is_alive():
+                    raise RuntimeError(f"loader worker {w} died (exit "
+                                       f"{procs[w].exitcode})") from None
+        if item is None:
+            raise RuntimeError(f"loader worker {w} ended early")
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    n = len(dataset)
+    end = n - n % batch_size if drop_last else n
     buf_img, buf_rna = [], []
     try:
-        while done < workers:
-            item = q.get()
-            if item is None:
-                done += 1
-                continue
-            if isinstance(item, Exception):
-                raise item
-            img, rna = item
-            buf_img.append(img)
-            buf_rna.append(rna)
-            if len(buf_img) == batch_size:
+        for i in range(end):
+            p = i % batch_size
+            if keep is None or p in keep:
+                img, rna = get(i % workers)
+                buf_img.append(img)
+                buf_rna.append(rna)
+            if (p == batch_size - 1 or i == end - 1) and buf_img:
                 yield {"image": np.stack(buf_img), "rna": np.stack(buf_rna)}
                 buf_img, buf_rna = [], []
-        if buf_img and not drop_last:
-            yield {"image": np.stack(buf_img), "rna": np.stack(buf_rna)}
     finally:
         for p in procs:
             if p.is_alive():

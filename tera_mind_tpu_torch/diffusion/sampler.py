@@ -2,9 +2,13 @@
 denoise that the tera-scale generator runs, and the full sampling loop.
 
 Port of ``tera_mind_tpu/diffusion/sampler.py`` (``SamplerConfig``,
-``_assemble_eps``, ``denoise_step``, ``sample``, ``training_loss``), with
-deterministic DDIM (eta 0) for sampling; the JAX config's DDPM and
-eta > 0 options are not ported.
+``_assemble_eps``, ``denoise_step``, ``sample``, ``training_loss``).
+Sampling is deterministic DDIM (eta 0) by default, or stochastic:
+DDIM with eta != 0 or ancestral DDPM (``gen_type``).  A stochastic step
+takes its Gaussian noise as given, or draws it from a ``torch.Generator``;
+JAX draws it from a PRNG key folded with the step, so the bits differ
+and the parity tests inject JAX's noise.  The tera-scale generator runs
+deterministic DDIM only, as JAX's (``parallel/generator.py``).
 
 Parity reference (CTPLab/Tera-MIND):
 - training loss w/ random 2x2 patch-block crop + dual-decoder loss:
@@ -30,12 +34,18 @@ ModelFn = Callable[..., tuple]
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
-    """Geometry of the sampler and the training loss's type; sampling is
-    deterministic DDIM (eta 0)."""
+    """Geometry of the sampler, the training loss's type and the
+    sampling rule (deterministic DDIM at ``eta`` 0 by default)."""
 
     patch_size: int = 64
     gn_sz: int = 4            # gene bins per patch side
     loss_type: str = "mse"    # 'mse' | 'l1'
+    gen_type: str = "ddim"    # 'ddim' | 'ddpm'
+    eta: float = 0.0
+
+    @property
+    def stochastic(self) -> bool:
+        return self.gen_type != "ddim" or self.eta != 0.0
 
 
 class DiffusionSampler:
@@ -60,12 +70,17 @@ class DiffusionSampler:
         return patchify(img, ps)
 
     def denoise_step(self, model: ModelFn, x_pad: torch.Tensor,
-                     rna_pat: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """One reverse DDIM (eta 0) step.
+                     rna_pat: torch.Tensor, t: torch.Tensor, *,
+                     noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """One reverse step.
 
         x_pad:   (B, H+ps, W+ps, C) half-patch-padded state (halo included)
         rna_pat: (B*p1*p2, gn_sz, gn_sz, Zrna*G) dense per-patch gene grids
         t:       (B,) integer spaced timestep indices
+        noise:   a stochastic step's Gaussian noise, of the patches' shape
+                 (B*p1*p2, ps, ps, C); else drawn from ``generator``
         Returns the updated unpadded interior (B, H, W, C).
         """
         ps = self.conf.patch_size
@@ -77,30 +92,61 @@ class DiffusionSampler:
         pred_col, _ = model(x_patches, self.schedule.model_t(t), rna_pat,
                             p1, p2)
         eps = self._assemble_eps(pred_col, p1, p2)
-        sample, _ = self.schedule.ddim_step(
-            x_patches, t.repeat_interleave(p1 * p2), eps)
+        t_rep = t.repeat_interleave(p1 * p2)
+        conf = self.conf
+        if not conf.stochastic:
+            sample, _ = self.schedule.ddim_step(x_patches, t_rep, eps)
+        else:
+            if noise is None:
+                if generator is None:
+                    raise ValueError(
+                        f"a stochastic step ({conf.gen_type}, eta "
+                        f"{conf.eta}) needs noise or a generator")
+                noise = torch.randn(x_patches.shape, generator=generator,
+                                    device=x_patches.device,
+                                    dtype=x_patches.dtype)
+            if conf.gen_type == "ddim":
+                sample, _ = self.schedule.ddim_step(
+                    x_patches, t_rep, eps, eta=conf.eta, noise=noise)
+            elif conf.gen_type == "ddpm":
+                sample, _ = self.schedule.ddpm_step(x_patches, t_rep, eps,
+                                                    noise)
+            else:
+                raise ValueError(f"gen_type {conf.gen_type!r}")
         img = unpatchify(sample, p1, p2)
         return img[:, half:-half, half:-half, :]
 
     def sample(self, model: ModelFn, noise: torch.Tensor,
                rna_pat: torch.Tensor, *,
+               generator: Optional[torch.Generator] = None,
+               step_noise: Optional[Callable[[int], torch.Tensor]] = None,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Generate from pure noise with deterministic DDIM.
+        """Generate from pure noise.
 
         noise:   (B, H, W, C) initial x_T for the unpadded region
         rna_pat: per-patch gene grids covering the PADDED (H+ps, W+ps) grid
+        generator / step_noise: a stochastic sampler's per-step noise,
+                 ``step_noise(step)`` (the patches' shape) where given,
+                 else drawn from ``generator`` (default: seeded 0, as
+                 JAX's default key)
         mask:    optional (B, H, W, 1|C) 0/1 gene-coverage mask; after every
                  reverse step masked-out pixels are pinned to -1 (background),
                  the reference's ``rna_msk`` path (base.py:592, 629-630)
         Returns (B, H, W, C).
         """
         half = self.conf.patch_size // 2
+        if (self.conf.stochastic and step_noise is None
+                and generator is None):
+            generator = torch.Generator(noise.device).manual_seed(0)
         img = noise
         for step in range(self.schedule.num_timesteps - 1, -1, -1):
             t = torch.full((noise.shape[0],), step, dtype=torch.long,
                            device=noise.device)
             x_pad = F.pad(img, (0, 0, half, half, half, half))
-            img = self.denoise_step(model, x_pad, rna_pat, t)
+            img = self.denoise_step(
+                model, x_pad, rna_pat, t, generator=generator,
+                noise=(step_noise(step) if step_noise is not None
+                       and self.conf.stochastic else None))
             if mask is not None:
                 img = img * mask + mask - 1.0
         return img

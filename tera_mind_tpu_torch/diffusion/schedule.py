@@ -177,14 +177,45 @@ class Schedule:
                  - x0)
                 / self._at(self.sqrt_recipm1_alphas_cumprod, t, x_t.ndim))
 
-    def ddim_step(self, x_t, t, eps):
-        """One deterministic (eta 0) DDIM update x_t -> x_{t-1} given
-        model eps.  Clips pred_xstart to [-1, 1] and re-derives eps from
-        it first.  Returns (sample, pred_xstart)."""
+    def q_posterior_mean(self, x0, x_t, t):
+        """The mean of q(x_{t-1} | x_t, x_0)."""
+        return (self._at(self.posterior_mean_coef1, t, x_t.ndim) * x0
+                + self._at(self.posterior_mean_coef2, t, x_t.ndim) * x_t)
+
+    def _nonzero(self, t, x_t):
+        """1 where t > 0, else 0, broadcast over x_t's trailing axes."""
+        nz = (t != 0).to(x_t.dtype)
+        return nz.reshape(nz.shape + (1,) * (x_t.ndim - 1))
+
+    def ddim_step(self, x_t, t, eps, *, eta: float = 0.0, noise=None):
+        """One DDIM update x_t -> x_{t-1} given model eps.  Clips
+        pred_xstart to [-1, 1] and re-derives eps from it first
+        (reference base.py:423-497); with ``eta`` > 0 adds sigma_t
+        ``noise`` where t > 0.  Returns (sample, pred_xstart)."""
         x0 = torch.clamp(self.predict_xstart_from_eps(x_t, t, eps), -1.0, 1.0)
         eps = self.predict_eps_from_xstart(x_t, t, x0)
         abar_prev = self._at(self.alphas_cumprod_prev, t, x_t.ndim)
-        return x0 * torch.sqrt(abar_prev) + torch.sqrt(1 - abar_prev) * eps, x0
+        if eta == 0:
+            return (x0 * torch.sqrt(abar_prev)
+                    + torch.sqrt(1 - abar_prev) * eps, x0)
+        if noise is None:
+            raise ValueError("DDIM with eta != 0 needs noise")
+        abar = self._at(self.alphas_cumprod, t, x_t.ndim)
+        sigma = (eta * torch.sqrt((1 - abar_prev) / (1 - abar))
+                 * torch.sqrt(1 - abar / abar_prev))
+        sample = (x0 * torch.sqrt(abar_prev)
+                  + torch.sqrt(1 - abar_prev - sigma ** 2) * eps)
+        return sample + self._nonzero(t, x_t) * sigma * noise, x0
+
+    def ddpm_step(self, x_t, t, eps, noise):
+        """One ancestral DDPM update with the fixed-large variance
+        (reference base.py:403-427, 477-480).  Returns (sample,
+        pred_xstart)."""
+        x0 = torch.clamp(self.predict_xstart_from_eps(x_t, t, eps), -1.0, 1.0)
+        mean = self.q_posterior_mean(x0, x_t, t)
+        logvar = self._at(self.fixed_large_log_variance, t, x_t.ndim)
+        return (mean + self._nonzero(t, x_t) * torch.exp(0.5 * logvar)
+                * noise, x0)
 
 
 def spaced_schedule(beta_name: str, num_train_timesteps: int,

@@ -253,7 +253,16 @@ class TeraGenerator:
                  conf: GeneratorConfig, *, device=None, mesh=None):
         """``device``: default the mesh's device, else ``cuda``.  ``mesh``
         (``parallel/mesh.py``): every rank of it builds a generator and
-        calls ``run`` with the same grid."""
+        calls ``run`` with the same grid.  The sampler must be
+        deterministic DDIM (eta 0), as JAX's generator requires: its
+        steps take no noise (``DiffusionSampler.sample`` samples
+        stochastically)."""
+        sc = sampler.conf
+        if sc.stochastic:
+            raise ValueError(
+                f"TeraGenerator supports eta=0 DDIM only, got "
+                f"gen_type={sc.gen_type!r} eta={sc.eta}; stochastic "
+                "sampling is available via DiffusionSampler.sample")
         if device is None:
             device = mesh.device if mesh is not None else "cuda"
         self.device = torch.device(device)

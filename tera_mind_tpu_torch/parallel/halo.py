@@ -31,7 +31,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-ROUTES = ("nccl", "gloo", "gloo_staged")
+from .mesh import ROUTES, route
+
 stats = {"calls": 0, "bytes": 0, "seconds": 0.0,
          "by_route": dict.fromkeys(ROUTES, 0)}
 _stats_lock = threading.Lock()
@@ -47,17 +48,6 @@ def pad_halo_single(block: torch.Tensor, pad: int,
                     fill: float = -1.0) -> torch.Tensor:
     """(H, W, C) -> (H+2p, W+2p, C), constant ``fill`` border."""
     return F.pad(block, (0, 0, pad, pad, pad, pad), value=fill)
-
-
-def route(block: torch.Tensor, mesh) -> str:
-    backend = mesh.backend
-    if backend == "nccl":
-        if not block.is_cuda:
-            raise ValueError("an NCCL mesh exchanges CUDA strips only")
-        return "nccl"
-    if backend != "gloo":
-        raise ValueError(f"halo exchange over backend {backend!r}")
-    return "gloo_staged" if block.is_cuda else "gloo"
 
 
 def wire(t: torch.Tensor, backend: str) -> torch.Tensor:
@@ -116,7 +106,7 @@ def exchange_halo_2d(block: torch.Tensor, pad: int, mesh, *,
     it, in the same order as the others."""
     if mesh is None or mesh.size == 1:
         return pad_halo_single(block, pad, fill)
-    how = route(block, mesh)
+    how = route(mesh.backend, block.is_cuda)
     if block.is_cuda:
         torch.cuda.synchronize(block.device)
     t0 = time.perf_counter()

@@ -13,7 +13,13 @@ device, so the mesh here is a grid of ranks:
   rank r*C + c owns tile block (r, c) of the grid, each rank knows its
   neighbour on each side of each axis.
 - :func:`is_primary`, :func:`host_barrier` and :func:`host_broadcast`
-  are no-ops in one process, as in JAX.
+  are no-ops in one process, as in JAX;
+- :func:`all_reduce_mean_` and :func:`broadcast_` are data-parallel
+  training's collectives (the JAX trainer's compiled psum and its
+  replicated state): tensors flattened into float32 buckets of
+  ``BUCKET_BYTES``, each bucket one collective.  With gloo a bucket of
+  CUDA tensors is staged through pinned host memory, as the halo
+  exchange's strips are; NCCL takes it on the card.
 """
 
 from __future__ import annotations
@@ -21,12 +27,14 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import socket
-from typing import Optional, Sequence, Tuple
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 1800   # a band's sweep of a brain takes minutes
+BUCKET_BYTES = 32 * 2 ** 20   # float32 bytes a collective of the trainer
 
 
 def choose_backend(device_type: str, ranks_on_host: int,
@@ -128,15 +136,20 @@ class Mesh:
 
 
 def make_mesh(axis_names: Sequence[str] = ("gr", "gc"),
-              shape: Optional[Sequence[int]] = None, *, device="cpu",
+              shape: Optional[Sequence[int]] = None, *, device=None,
               group=None) -> Mesh:
     """The mesh of the process group's ranks (``group``: the default
     group), row-major: rank ``sum(coord_i * stride_i)``.  ``shape``
     entries of -1 are inferred (at most one); without a shape, one axis
-    over every rank.  Without a process group the mesh has one rank."""
+    over every rank.  Without a process group the mesh has one rank.
+    ``device``: this rank's card (``rank_device('cuda', rank)``) unless
+    given; the CPU only when asked for."""
     rank, n = world()
     if group is not None:
         rank, n = dist.get_rank(group), dist.get_world_size(group)
+    if device is None:
+        device = (rank_device("cuda", rank) if torch.cuda.is_available()
+                  else torch.device("cuda"))
     names = tuple(axis_names)
     if shape is None:
         if len(names) != 1:
@@ -213,3 +226,126 @@ def shutdown(barrier: bool = True) -> None:
         if barrier:
             host_barrier("shutdown")
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ #
+# data-parallel training's collectives                                 #
+# ------------------------------------------------------------------ #
+ROUTES = ("nccl", "gloo", "gloo_staged")
+# the all-reduces (not the broadcasts): calls, buckets, bytes reduced
+# (float32), seconds (the device synchronised before and after)
+reduce_stats = {"calls": 0, "buckets": 0, "bytes": 0, "seconds": 0.0,
+                "by_route": dict.fromkeys(ROUTES, 0)}
+
+
+def reset_reduce_stats() -> None:
+    reduce_stats.update(calls=0, buckets=0, bytes=0, seconds=0.0,
+                        by_route=dict.fromkeys(ROUTES, 0))
+
+
+def route(backend: str, is_cuda: bool) -> str:
+    """How ``backend`` moves a tensor (``ROUTES``): NCCL on the card (CUDA
+    tensors only), gloo a CPU tensor as it is and a CUDA tensor through
+    pinned host memory (gloo's ops read and write host memory)."""
+    if backend == "nccl":
+        if not is_cuda:
+            raise ValueError("NCCL moves CUDA tensors only")
+        return "nccl"
+    if backend != "gloo":
+        raise ValueError(f"no route over backend {backend!r}")
+    return "gloo_staged" if is_cuda else "gloo"
+
+
+def buckets(tensors: Sequence[torch.Tensor],
+            bucket_bytes: int = BUCKET_BYTES) -> List[List[int]]:
+    """The indices of ``tensors`` in collective order, cut into runs of
+    at most ``bucket_bytes`` float32 bytes (a larger tensor alone)."""
+    out, cur, size = [], [], 0
+    for i, t in enumerate(tensors):
+        n = 4 * t.numel()
+        if cur and size + n > bucket_bytes:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += n
+    if cur:
+        out.append(cur)
+    return out
+
+
+def _collective(tensors: Sequence[torch.Tensor], group, op, *,
+                mean: bool, bucket_bytes: int) -> None:
+    """Run ``op(flat float32 bucket)`` over ``tensors``' buckets and copy
+    each result back (divided by the group's size where ``mean``, and
+    counted in ``reduce_stats``)."""
+    if not tensors:
+        return
+    group = group or dist.group.WORLD
+    n = dist.get_world_size(group)
+    device = tensors[0].device
+    how = route(dist.get_backend(group), device.type == "cuda")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    nbytes = 0
+    runs = buckets(tensors, bucket_bytes)
+    for run in runs:
+        flat = torch.cat([tensors[i].detach().reshape(-1).float()
+                          for i in run])
+        if how == "gloo_staged":
+            host = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+            host.copy_(flat)            # a synchronous device -> host copy
+            op(host, group)
+            flat.copy_(host)
+        else:
+            op(flat, group)
+        if mean:
+            flat.div_(n)
+        nbytes += flat.numel() * 4
+        o = 0
+        for i in run:
+            t = tensors[i]
+            t.copy_(flat[o:o + t.numel()].view(t.shape))
+            o += t.numel()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if not mean:
+        return
+    reduce_stats["calls"] += 1
+    reduce_stats["buckets"] += len(runs)
+    reduce_stats["bytes"] += nbytes
+    reduce_stats["seconds"] += time.perf_counter() - t0
+    reduce_stats["by_route"][how] += 1
+
+
+@torch.no_grad()
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None, *,
+                     bucket_bytes: int = BUCKET_BYTES) -> None:
+    """Replace each tensor by its mean over the group's ranks, in place:
+    summed in float32 buckets, then divided by the group's size.  Every
+    rank gets the same bits.  Every rank of the group must call it with
+    tensors of the same shapes, in the same order."""
+    _collective(tensors, group,
+                lambda t, g: dist.all_reduce(t, dist.ReduceOp.SUM, group=g),
+                mean=True, bucket_bytes=bucket_bytes)
+
+
+@torch.no_grad()
+def broadcast_(tensors: Sequence[torch.Tensor], group=None, src: int = 0, *,
+               bucket_bytes: int = BUCKET_BYTES) -> None:
+    """Give each tensor, in place, rank ``src``'s values (float32 tensors
+    keep their bits).  Every rank of the group must call it alike."""
+    _collective(tensors, group,
+                lambda t, g: dist.broadcast(t, src, group=g),
+                mean=False, bucket_bytes=bucket_bytes)
+
+
+def host_all_gather(value) -> list:
+    """Every rank's ``value`` (all_gather_object), in rank order; a
+    one-item list in one process."""
+    if world()[1] == 1:
+        return [value]
+    out = [None] * world()[1]
+    dist.all_gather_object(out, value)
+    return out

@@ -1,8 +1,9 @@
-"""Multi-process tera-generation demo and self-check.
+"""Multi-process tera-generation and data-parallel training demo and
+self-check.
 
-Port of the generation half of ``tera_mind_tpu/parallel/mp_demo.py`` (the
-reference's mp.spawn + NCCL lock-step generation, test_brn.py:26-48,
-232-273), one rank per device:
+Port of ``tera_mind_tpu/parallel/mp_demo.py`` (the reference's mp.spawn +
+NCCL lock-step generation, test_brn.py:26-48, 232-273, and its Lightning
+DDP training, experiment.py:485), one rank per device:
 
 - :func:`~.mesh.multihost_init` joins the process group (NCCL with a card
   a rank, gloo on the CPU or where ranks share a card);
@@ -16,15 +17,25 @@ Each rank then recomputes the whole grid on its own device in one
 process and checks its block against it, and (without ``--fast``, or
 with ``--band``) streams its row band of the grid with band edge strips
 exchanged every visit (``parallel/band.py``), K = 1 and (without
-``--fast``) K = 2.  The data-parallel training check of the JAX demo
-(``--train_ref``) is not ported yet.
+``--fast``) K = 2.  Then (without ``--fast``, or alone with
+``--train_only``) the ranks train the tiny f32 config of ``_train_conf``
+data-parallel for 3 steps, each rank on its rows of a fixed global batch,
+check after every step that every rank holds the same parameters and
+Adam moments (a digest of their bits), and rank 0 prints the loss
+history.  ``--train_ref`` trains the same global batches in one process
+(``_interleave_for_single``) and prints its losses, which the ranks' must
+match (2e-5, JAX's tests/test_multiprocess.py gate).
 
 Usage (one command per rank):
 
     python -m tera_mind_tpu_torch.parallel.mp_demo \\
         --coordinator 127.0.0.1:29531 --num_processes 2 --process_id 0
 
-``--device cpu`` runs the ranks on the CPU over gloo.
+``--device cpu`` runs the ranks on the CPU over gloo.  The reference
+for the training check, in one process:
+
+    python -m tera_mind_tpu_torch.parallel.mp_demo --train_ref \
+        --num_processes 2
 """
 
 from __future__ import annotations
@@ -87,10 +98,122 @@ def _make_gen(mesh, device=None):
                          device=device)
 
 
+TRAIN_STEPS = 3
+TRAIN_BATCH = 16     # the global effective batch
+
+
+def _float32() -> None:
+    """The f32 check's convs and matmuls in float32 on a card (no TF32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _train_conf(**kw):
+    """The tiny f32 training config of JAX's demo."""
+    from ..config import TrainConfig
+    return TrainConfig(**{**dict(
+        image_size=32, net_ch=8, embed_channels=32, rna_num=16,
+        rna_slices=4, stain="all", batch_size=8, accum_batches=2, lr=1e-3,
+        compute_dtype="float32", train_crop=64, dropout=0.0,
+        save_every_steps=10 ** 9), **kw})
+
+
+def _train_batch(conf, step: int, lo: int = 0, hi: int = TRAIN_BATCH
+                 ) -> dict:
+    """Deterministic global effective batch (16 samples), sliced [lo:hi].
+
+    Rank r holds [r per, (r + 1) per): the global sample order is accum
+    row-major with per-rank blocks, [r0 s0-3, r1 s0-3, r0 s4-7, r1 s4-7]
+    for 2 ranks x accum 2 (JAX's dp layout over processes)."""
+    rng = np.random.default_rng(1000 + step)
+    crop = conf.train_crop
+    gh = crop // 16 + conf.gn_sz
+    b = {"image": rng.standard_normal(
+            (TRAIN_BATCH, crop, crop, conf.in_channels)).clip(-1, 1).astype(
+                np.float32),
+         "rna": rng.integers(0, 3, (TRAIN_BATCH, gh, gh, 4 * conf.rna_num)
+                             ).astype(np.float32)}
+    return {k: v[lo:hi] for k, v in b.items()}
+
+
+def _interleave_for_single(conf, step: int, nproc: int, per: int) -> dict:
+    """Reorder the global batch so a single-process run forms the same
+    (accum, micro) grid as the multi-rank assembly."""
+    b = _train_batch(conf, step)
+    a = conf.accum_batches
+    loc_micro = per // a
+    out = {}
+    for k, v in b.items():
+        rows = []
+        for ai in range(a):
+            for p in range(nproc):
+                s = p * per + ai * loc_micro
+                rows.append(v[s:s + loc_micro])
+        out[k] = np.concatenate(rows)
+    return out
+
+
+def train_ref(nproc: int = 2, device="cpu", steps: int = TRAIN_STEPS,
+              **conf_kw) -> list:
+    """One-process reference: the global batches of an ``nproc``-rank
+    run, one device; prints and returns the loss history."""
+    from ..training.harness import Trainer
+    _float32()
+    conf = _train_conf(**conf_kw)
+    tr = Trainer(conf, device=device, mesh=False)
+    state = tr.init_state()
+    losses = []
+    for s in range(steps):
+        b = _interleave_for_single(conf, s, nproc, TRAIN_BATCH // nproc)
+        state, loss = tr.train_step(state, tr.shape_batch(b))
+        losses.append(float(loss))
+    print("[mp_demo] train_ref losses: " +
+          " ".join(f"{v:.6f}" for v in losses), flush=True)
+    return losses
+
+
+def train_ranks(device, steps: int = TRAIN_STEPS, **conf_kw) -> list:
+    """The data-parallel training check of one rank: ``steps`` steps on
+    its rows of the global batches over a ``('dp',)`` mesh of every rank,
+    the replicas' digests compared after every step; rank 0 prints the
+    loss history.  Returns it."""
+    from ..training.harness import Trainer, state_digest
+    from .mesh import host_all_gather, make_mesh, world
+    rank, nproc = world()
+    _float32()
+    conf = _train_conf(**conf_kw)
+    tr = Trainer(conf, mesh=make_mesh(("dp",), device=device))
+    per = TRAIN_BATCH // nproc
+    state = tr.init_state()
+    losses = []
+    for s in range(steps):
+        loc = _train_batch(conf, s, lo=rank * per, hi=(rank + 1) * per)
+        state, loss = tr.train_step(state, tr.shape_batch(loc))
+        losses.append(float(loss))
+        digests = host_all_gather(state_digest(state))
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"rank {rank}: the replicas differ after "
+                               f"step {s + 1}: {digests}")
+    print(f"[mp_demo] process {rank} train replicas bit-equal after each "
+          f"of {steps} steps", flush=True)
+    if rank == 0:
+        print("[mp_demo] train losses: " +
+              " ".join(f"{v:.6f}" for v in losses), flush=True)
+    return losses
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     from .mesh import DEFAULT_TIMEOUT_S
     ap = argparse.ArgumentParser(description="multi-process generation "
-                                 "check (PyTorch port)")
+                                 "and data-parallel training check "
+                                 "(PyTorch port)")
+    ap.add_argument("--train_ref", action="store_true",
+                    help="one-process training reference (no process "
+                    "group) of a --num_processes run; prints the loss "
+                    "history")
+    ap.add_argument("--train_only", action="store_true",
+                    help="over ranks: only the data-parallel training "
+                    "check")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of rank 0's rendezvous")
     ap.add_argument("--num_processes", type=int, default=None)
@@ -114,11 +237,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     from .mesh import multihost_init, shutdown
     args = parse_args(argv)
+    if args.train_ref:
+        train_ref(args.num_processes or 2, args.device)
+        return
     device = multihost_init(args.coordinator, args.num_processes,
                             args.process_id, device=args.device,
                             timeout_s=args.dist_timeout)
     try:
-        check(args, device)
+        if not args.train_only:
+            check(args, device)
+        if args.train_only or not args.fast:
+            train_ranks(device)
     except BaseException:
         shutdown(barrier=False)
         raise

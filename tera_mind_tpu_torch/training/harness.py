@@ -1,5 +1,6 @@
 """Training harness: the train step with gradient accumulation, the
-optimizer, EMA, checkpoints and in-training sampling, on one device.
+optimizer, EMA, checkpoints and in-training sampling, on one device or
+data-parallel over ranks.
 
 Port of ``tera_mind_tpu/training/harness.py`` (which replaces the
 reference's Lightning DDP stack, experiment.py:25-491):
@@ -29,13 +30,30 @@ A baseline has no packed layout, and ``SinfNet`` no ``decode_original``,
 which the preview passes: both are refused, as the JAX package fails
 there.
 
-Randomness comes from two ``torch.Generator``s seeded from ``conf.seed``:
-one on the device (timesteps, noise, dropout masks) and one on the host
-(the 2x2-block origin, a Python int the crop needs).  The JAX package
-draws from PRNG keys, so the bits differ; the parity tests inject the
-JAX draws (``draws=``).  A mesh or more than one device raises
-``NotImplementedError``: data-parallel training is the port's slice 11
-(ROADMAP item 4).
+Randomness: the timesteps and noise come from a device
+``torch.Generator`` and the 2x2-block origin (a Python int the crop
+needs) from a host one, both seeded from ``conf.seed``; dropout masks
+from a device generator of their own, seeded from ``conf.seed`` and the
+rank.  ``fit`` reseeds all three before each step from the seed and the
+step (``reseed``), so a resumed run draws what the uninterrupted one
+would.  The JAX package draws from PRNG keys, so the bits differ; the
+parity tests inject the JAX draws (``draws=``).
+
+Data parallel (JAX: ``jit`` over a ``('dp',)`` mesh, the gradients
+summed by a compiled psum).  PyTorch runs a rank per device, so the mesh
+is ``parallel/mesh.py``'s one axis over the process group's ranks: with
+``mesh=None`` and a process group of several ranks the trainer builds it
+(``mesh=False`` trains each rank alone).  The global batch splits evenly
+over the ranks (``shape_batch``, JAX's rule); each rank gets its rows of
+every microbatch.  Every rank draws the global microbatch's timesteps,
+noise and block origin from the identically seeded generators and keeps
+its rows, as JAX draws the global array from one key; dropout masks
+differ by rank.  After the microbatches' gradients are accumulated, one
+all-reduce (float32 buckets, ``all_reduce_mean_``) averages them and the
+loss over the ranks, and only then does every rank clip by the global
+norm and take the same Adam step, so the replicas stay bit-equal.  The
+state is broadcast from rank 0 whenever it is made or restored; rank 0
+writes checkpoints, config, logs and previews.
 """
 
 from __future__ import annotations
@@ -60,6 +78,7 @@ from ..convert import (export_tensors, jax_tree_to_named, load_jax_params,
 from ..models.nn import channels_last_, init_weights
 from ..models.unet_packed import make_packed_model
 from ..ops.collage import patchify
+from ..parallel import mesh as pmesh
 
 KEEP_CHECKPOINTS = 3
 IMAGE_SCALE = float(np.float32(1.0 / 127.5))   # x * (1/127.5) - 1
@@ -176,6 +195,57 @@ def make_optimizer(conf: TrainConfig) -> Optimizer:
                      weight_decay=conf.weight_decay, grad_clip=conf.grad_clip)
 
 
+STREAMS = ("draws", "block", "dropout")
+
+
+def stream_seed(seed: int, stream: str, rank: int = 0,
+                step: Optional[int] = None) -> int:
+    """The seed of one of the trainer's generators (``STREAMS``): the
+    timesteps and noise, the block origin, or rank ``rank``'s dropout
+    masks; with ``step``, for the step after ``step`` (``fit``)."""
+    key = [seed, STREAMS.index(stream), rank] + ([] if step is None
+                                                  else [step])
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
+               >> 1)
+
+
+def split_batch(n_local: int, accum: int, ndp: int = 1) -> tuple:
+    """JAX's ``shape_batch`` rule (training/harness.py) for ``ndp`` ranks,
+    each holding ``n_local`` rows of the global batch: (microbatches,
+    global rows a microbatch).  The global microbatch rounds down to a
+    multiple of ``ndp``; a global batch smaller than ``ndp`` raises."""
+    glob = n_local * ndp
+    a = max(1, min(accum, glob))
+    micro = glob // a
+    if ndp > 1:
+        if glob < ndp:
+            raise ValueError(f"batch {glob} < dp devices {ndp}")
+        micro = micro // ndp * ndp
+        if micro == 0:
+            micro = ndp
+            a = max(1, glob // micro)
+    return a, micro
+
+
+def state_digest(state: "TrainState", moments: bool = True) -> str:
+    """A SHA-256 of the state's parameters' bits, and (``moments``) of its
+    Adam moments and EMA: the replicas of a data-parallel run must agree
+    on it."""
+    import hashlib
+    h = hashlib.sha256()
+    trees = [state.params]
+    if moments:
+        trees += [state.opt_state.mu, state.opt_state.nu]
+    if moments and state.ema_params is not None:
+        trees.append(state.ema_params)
+    for tree in trees:
+        for name in sorted(tree):
+            h.update(name.encode())
+            h.update(tree[name].detach().contiguous().cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
 # ------------------------------------------------------------------ #
 # checkpoint format                                                   #
 # ------------------------------------------------------------------ #
@@ -264,17 +334,41 @@ def read_checkpoint(root: str | Path, step: Optional[int] = None) -> Dict:
 # ------------------------------------------------------------------ #
 class Trainer:
     """Orchestrates init/resume, the step loop, checkpoints and sampling
-    on one device (``cuda`` by default; the CPU for the tests)."""
+    on one device (``cuda`` by default; the CPU for the tests), or on
+    this rank's device of a data-parallel mesh of ranks."""
 
-    def __init__(self, conf: TrainConfig, *, device="cuda", ema: bool = False,
+    def __init__(self, conf: TrainConfig, *, device=None, ema: bool = False,
                  mesh=None):
-        if mesh not in (None, False) or isinstance(device, (list, tuple)):
+        """``mesh``: a ``('dp',)`` mesh of ranks (``parallel/mesh.py``) to
+        train over, ``None`` to build one over the process group's ranks
+        when it has several, or ``False`` to train this rank alone.
+        ``device``: default the mesh's device, else ``cuda``."""
+        if isinstance(device, (list, tuple)):
             raise NotImplementedError(
-                "data-parallel training over a mesh or several devices is "
-                "not ported yet (slice 11 of the port, ROADMAP item 4); "
-                "train on one device")
+                "a list of devices in one process: the port trains data "
+                "parallel with one rank per device (torch.distributed; "
+                "cli.train --coordinator/--num_processes/--process_id), "
+                "each rank on its own device")
+        if mesh is False:
+            mesh = None
+        elif mesh is None and pmesh.world()[1] > 1:
+            mesh = self.default_mesh(conf, device)
+        if mesh is not None:
+            if tuple(mesh.axis_names) != ("dp",):
+                raise ValueError(f"a data-parallel mesh has the one axis "
+                                 f"'dp', not {mesh.axis_names}")
+            if device is None:
+                device = mesh.device
+            elif torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            if mesh.size == 1:
+                mesh = None
+        self.mesh = mesh
+        self.rank, self.ndp = (mesh.coords[0], mesh.size) if mesh else (0, 1)
+        self.primary = self.rank == 0
         self.conf = conf
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         mconf = conf.make_model_conf()
         if conf.packed_compute:
             # the packed layout on the 5D parameters: the same weights and
@@ -293,7 +387,28 @@ class Trainer:
         self.ema = ema
         self.gen = torch.Generator(self.device).manual_seed(conf.seed)
         self.host_gen = torch.Generator().manual_seed(conf.seed)
+        self.dropout_gen = torch.Generator(self.device).manual_seed(
+            stream_seed(conf.seed, "dropout", self.rank))
         self.log: List[dict] = []     # per step: loss, data_s, step_s
+
+    @staticmethod
+    def default_mesh(conf: TrainConfig, device=None):
+        """The ``('dp',)`` mesh over every rank of the process group.  JAX
+        trains on the largest device count that divides the global batch;
+        ranks cannot sit out, so a batch that does not split over every
+        rank is refused."""
+        n = pmesh.world()[1]
+        ndp = min(n, max(1, conf.batch_size))
+        while conf.batch_size % ndp:
+            ndp -= 1
+        if ndp < n:
+            raise ValueError(
+                f"a global batch of {conf.batch_size} does not split evenly "
+                f"over the {n} ranks of the process group (at most {ndp} "
+                "would take it, and a rank cannot sit out): make the batch "
+                f"a multiple of {n}, or pass mesh=False to train each rank "
+                "alone")
+        return pmesh.make_mesh(("dp",), device=device)
 
     @property
     def ckpt_dir(self) -> Path:
@@ -303,8 +418,14 @@ class Trainer:
     def _params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
 
+    def _replicate(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Rank 0's values of ``tensors`` on every rank of the mesh."""
+        if self.mesh is not None:
+            pmesh.broadcast_(list(tensors), self.mesh.group)
+
     def _fresh_state(self) -> TrainState:
         params = self._params()
+        self._replicate(params.values())
         ema = ({n: p.detach().clone() for n, p in params.items()}
                if self.ema else None)
         return TrainState(step=0, params=params,
@@ -318,7 +439,8 @@ class Trainer:
         modules know)."""
         init_weights(self.model, self.conf.seed if seed is None else seed)
         n = sum(p.numel() for p in self.model.parameters())
-        print(f"Model params: {n / 1e6:.2f} M", flush=True)
+        if self.primary:
+            print(f"Model params: {n / 1e6:.2f} M", flush=True)
         return self._fresh_state()
 
     def state_from_params(self, params: Dict) -> TrainState:
@@ -327,7 +449,9 @@ class Trainer:
         init, as opposed to :meth:`restore`."""
         load_jax_params(self.model, params)
         n = sum(p.numel() for p in self.model.parameters())
-        print(f"Model params: {n / 1e6:.2f} M (pretrained init)", flush=True)
+        if self.primary:
+            print(f"Model params: {n / 1e6:.2f} M (pretrained init)",
+                  flush=True)
         return self._fresh_state()
 
     def state_from_tree(self, tree) -> TrainState:
@@ -341,12 +465,17 @@ class Trainer:
             return {n: torch.from_numpy(a).to(self.device)
                     for n, a in jax_tree_to_named(self.model, t).items()}
         ema = tree.get("ema_params")
-        return TrainState(
+        state = TrainState(
             step=int(tree["step"]), params=self._params(),
             opt_state=AdamState(count=int(tree["count"]),
                                 mu=tensors(tree["mu"]),
                                 nu=tensors(tree["nu"])),
             ema_params=tensors(ema) if ema is not None else None)
+        self._replicate([*state.params.values(),
+                         *state.opt_state.mu.values(),
+                         *state.opt_state.nu.values(),
+                         *(state.ema_params or {}).values()])
+        return state
 
     def state_tree(self, state: TrainState) -> Dict:
         """``state`` in the checkpoint format (numpy, flax naming)."""
@@ -359,58 +488,98 @@ class Trainer:
 
     # ---------------- checkpointing ----------------
     def save(self, state: TrainState) -> Path:
-        return write_checkpoint(self.ckpt_dir, self.state_tree(state))
+        """Write ``state``'s checkpoint (rank 0 of a mesh writes, then
+        every rank waits for it)."""
+        path = self.ckpt_dir / str(state.step)
+        if self.primary:
+            path = write_checkpoint(self.ckpt_dir, self.state_tree(state))
+        if self.mesh is not None:
+            pmesh.host_barrier("checkpoint")
+        return path
 
     def restore(self) -> Optional[TrainState]:
         """Auto-resume from the newest checkpoint if there is one
-        (reference experiment.py:464-473)."""
-        if not checkpoint_steps(self.ckpt_dir):
+        (reference experiment.py:464-473); over a mesh, the step rank 0
+        finds, read by every rank."""
+        steps = checkpoint_steps(self.ckpt_dir)
+        if self.mesh is not None:
+            steps = pmesh.host_broadcast(steps)
+        if not steps:
             return None
-        return self.state_from_tree(read_checkpoint(self.ckpt_dir))
+        return self.state_from_tree(read_checkpoint(self.ckpt_dir,
+                                                    steps[-1]))
 
     # ---------------- the step ----------------
     def shape_batch(self, b: dict) -> dict:
-        """Split the loader's (effective) batch into ``accum`` microbatches
-        on the device; clamp so a batch smaller than ``accum_batches``
-        still trains (one sample a microbatch), and warn about a tail that
-        does not tile (the reference asserts divisibility instead,
-        experiment.py:98-105)."""
+        """Split the loader's (effective) batch, this rank's rows of it
+        over a mesh, into ``accum`` microbatches on the device, by JAX's
+        rule (:func:`split_batch`): clamp so a batch smaller than
+        ``accum_batches`` still trains (one sample a microbatch), round the
+        global microbatch down to a multiple of the ranks, and warn about
+        a tail that does not tile (the reference asserts divisibility
+        instead, experiment.py:98-105)."""
         img, rna = b["image"], b["rna"]
         n = img.shape[0]
-        a = max(1, min(self.conf.accum_batches, n))
-        micro = n // a
-        if a * micro < n:
+        a, micro = split_batch(n, self.conf.accum_batches, self.ndp)
+        loc = a * micro // self.ndp
+        if loc < n:
             warnings.warn(
-                f"train batch of {n} samples does not tile accum({a}); "
-                f"dropping {n - a * micro} sample(s) this step — size the "
-                "loader batch to a multiple of accum", stacklevel=2)
+                f"train batch of {n} local samples does not tile accum({a})"
+                f" x dp; dropping {n - loc} sample(s) this step — size the "
+                "loader batch to a multiple of accum x dp devices",
+                stacklevel=2)
         return {k: torch.as_tensor(np.ascontiguousarray(
-                    v[:a * micro].reshape(a, micro, *v.shape[1:])))
+                    v[:loc].reshape(a, micro // self.ndp, *v.shape[1:])))
                 .to(self.device)
                 for k, v in (("image", img), ("rna", rna))}
 
     def draw(self, image: torch.Tensor) -> tuple:
-        """(t, noise, block origin) of one microbatch of padded images
-        ``image`` (B, H+ps, W+ps, C), from the trainer's generators."""
+        """(t, noise, block origin) of one global microbatch, from the
+        trainer's generators: ``image`` (B, H+ps, W+ps, C) is this rank's
+        padded microbatch, and the draws cover B x ranks samples, drawn
+        alike on every rank (:meth:`local_draw` keeps this rank's)."""
         ps = self.conf.image_size
-        b, hp, wp, _ = image.shape
-        t = torch.randint(0, self.sampler.schedule.num_timesteps, (b,),
+        b, hp, wp, c = image.shape
+        bg = b * self.ndp
+        t = torch.randint(0, self.sampler.schedule.num_timesteps, (bg,),
                           generator=self.gen, device=self.device)
-        noise = torch.randn(image.shape, generator=self.gen,
+        noise = torch.randn((bg, hp, wp, c), generator=self.gen,
                             device=self.device)
         ix, iy = (int(torch.randint(0, n, (), generator=self.host_gen))
                   for n in (hp // ps - 1, wp // ps - 1))
         return t, noise, (ix, iy)
 
+    def reseed(self, step: int) -> None:
+        """Seed the generators for the step after ``step`` from
+        (``conf.seed``, ``step``), and the rank for dropout: a fit resumed
+        at ``step`` draws what the uninterrupted one would."""
+        seed = self.conf.seed
+        self.gen.manual_seed(stream_seed(seed, "draws", step=step))
+        self.host_gen.manual_seed(stream_seed(seed, "block", step=step))
+        self.dropout_gen.manual_seed(stream_seed(seed, "dropout", self.rank,
+                                                 step))
+
+    def local_draw(self, draw: tuple, b: int) -> tuple:
+        """This rank's rows of a global microbatch's draws (rank r holds
+        rows [r b, (r + 1) b) of each microbatch)."""
+        t, noise, block = draw
+        if t.shape[0] != b * self.ndp:
+            raise ValueError(f"draws of {t.shape[0]} samples for a global "
+                             f"microbatch of {b} x {self.ndp}")
+        lo = self.rank * b
+        return t[lo:lo + b], noise[lo:lo + b], block
+
     def loss(self, image: torch.Tensor, rna: torch.Tensor,
              draw: Optional[tuple] = None) -> torch.Tensor:
-        """The dual-decoder loss of one microbatch of unpadded (possibly
-        uint8) images, with the draws given or drawn."""
+        """The dual-decoder loss of this rank's rows of one microbatch of
+        unpadded (possibly uint8) images, with the global microbatch's
+        draws given or drawn."""
         half = self.conf.image_size // 2
         image, rna = decode_batch(image, rna)
         x_pad = F.pad(image, (0, 0, half, half, half, half))
-        t, noise, block = draw if draw is not None else self.draw(x_pad)
-        gen = self.gen if self.conf.dropout > 0 else None
+        t, noise, block = self.local_draw(
+            draw if draw is not None else self.draw(x_pad), image.shape[0])
+        gen = self.dropout_gen if self.conf.dropout > 0 else None
         model = self.model
 
         def apply(xp, tm, rp, gen_state=None):
@@ -434,9 +603,10 @@ class Trainer:
     def loss_and_grads(self, batch: dict,
                        draws: Optional[Sequence[tuple]] = None):
         """(mean loss, mean gradient by parameter name) over the
-        microbatches of a ``shape_batch`` batch; ``draws``: one
-        (t, noise, block origin) a microbatch, else drawn.  Leaves the
-        parameters' ``.grad`` empty."""
+        microbatches of a ``shape_batch`` batch, and over the ranks of the
+        mesh (one all-reduce after the accumulation); ``draws``: one
+        global (t, noise, block origin) a microbatch, else drawn.  Leaves
+        the parameters' ``.grad`` empty."""
         params = self._params()
         for p in params.values():
             p.grad = None
@@ -453,7 +623,10 @@ class Trainer:
              else torch.zeros_like(params[n]) for n in names], n_acc)
         for p in params.values():
             p.grad = None
-        return total / n_acc, dict(zip(names, grads))
+        total = total / n_acc
+        if self.mesh is not None:
+            pmesh.all_reduce_mean_([*grads, total], self.mesh.group)
+        return total, dict(zip(names, grads))
 
     def train_step(self, state: TrainState, batch: dict,
                    draws: Optional[Sequence[tuple]] = None):
@@ -543,21 +716,25 @@ class Trainer:
             metrics: bool = True) -> TrainState:
         """Train until ``state.step`` reaches ``max_steps`` (auto-resuming
         from the newest checkpoint when no ``state`` is given), logging
-        the loss, samples/s and the share of wall time spent waiting for
-        data (next batch + decode + host-to-device copy), and leaving a
-        checkpoint behind."""
+        the loss, samples/s of the global batch and the share of wall
+        time spent waiting for data (next batch + decode + host-to-device
+        copy), and leaving a checkpoint behind.  Over a mesh, every rank
+        runs it on its rows; rank 0 writes the config, metrics, logs and
+        previews."""
         conf = self.conf
         writer = None
-        if metrics:
+        if metrics and self.primary:
             from .tb import MetricWriter
             writer = MetricWriter(conf.logdir)
         Path(conf.logdir).mkdir(parents=True, exist_ok=True)
-        conf.save(Path(conf.logdir) / "config.json")
+        if self.primary:
+            conf.save(Path(conf.logdir) / "config.json")
         first = next(batch_iter)
         if state is None:
             state = self.restore()
             if state is not None:
-                print(f"resumed from step {state.step}", flush=True)
+                if self.primary:
+                    print(f"resumed from step {state.step}", flush=True)
             else:
                 state = self.init_state()
 
@@ -574,6 +751,7 @@ class Trainer:
                 dev_batch = self.shape_batch(batch)
                 data_s = time.time() - td
                 ts = time.time()
+                self.reseed(state.step)
                 state, loss = self.train_step(state, dev_batch)
                 lv = float(loss)            # waits for the device step
                 step_s = time.time() - ts
@@ -583,7 +761,7 @@ class Trainer:
                 self.log.append(dict(step=state.step, loss=lv,
                                      data_s=data_s, step_s=step_s))
                 step = state.step
-                if step % log_every == 0 or step == 1:
+                if self.primary and (step % log_every == 0 or step == 1):
                     mean = float(np.mean(losses))
                     dt = time.time() - t0
                     rate = conf.batch_size_effective * len(losses) / max(
@@ -600,8 +778,8 @@ class Trainer:
                     t_data = t_step = 0.0
                 if step % conf.save_every_steps == 0:
                     self.save(state)
-                if sample_dir and (step == 1
-                                   or step % conf.sample_every_steps == 0):
+                if sample_dir and self.primary and (
+                        step == 1 or step % conf.sample_every_steps == 0):
                     p = self.preview(state, batch, sample_dir, step)
                     print(f"sample grid -> {p}", flush=True)
                     if writer is not None:

@@ -129,11 +129,11 @@ def test_backend_rule_and_rank_devices():
     assert tmesh.world() == (0, 1) and tmesh.is_primary()
     assert tmesh.host_broadcast({"a": 1}) == {"a": 1}
     tmesh.host_barrier("alone")
-    m = tmesh.make_mesh(("gr", "gc"), (1, -1))
+    m = tmesh.make_mesh(("gr", "gc"), (1, -1), device="cpu")
     assert (m.shape, m.coords, m.neighbors, m.group) == (
         (1, 1), (0, 0), ((None, None), (None, None)), None)
     with pytest.raises(ValueError, match="holds 4 ranks"):
-        tmesh.make_mesh(("gr", "gc"), (2, 2))
+        tmesh.make_mesh(("gr", "gc"), (2, 2), device="cpu")
 
 
 def child_backend(rank, n, port, out_dir):

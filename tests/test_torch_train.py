@@ -363,7 +363,7 @@ def test_loss_decreases_on_a_repeated_batch():
     draws = [tr.draw(torch.zeros(2, 96, 96, 4)) for _ in range(2)]
     losses = []
     for _ in range(8):
-        tr.gen.manual_seed(2)
+        tr.dropout_gen.manual_seed(2)
         state, loss = tr.train_step(state, batch, draws)
         losses.append(float(loss))
     assert losses[-1] < losses[0], losses
@@ -386,9 +386,9 @@ def test_remat_gives_the_same_gradients_with_dropout():
 
 
 def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        th.Trainer(TConf(**CONF_KW), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    """A list of devices in one process is refused: the port trains data
+    parallel with a rank per device (tests/test_torch_train_dp.py)."""
+    with pytest.raises(NotImplementedError, match="one rank per device"):
         th.Trainer(TConf(**CONF_KW), device=["cpu", "cpu"])
 
 

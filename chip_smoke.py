@@ -64,12 +64,13 @@ Phases, each printed on its own line with elapsed seconds:
      with the kernels' launch counters (total and per variant) set to 0
      just before it; then the same with ``--quant int8`` and ``--quant
      int8_static`` (its build calibrates on the 2x2 block, timed with the
-     build), each with exact K3 and K4 launches by variant (75 wgmma
-     and 117 dynamic or static a UNet call), tiles/s beside the bf16 chain's
-     and its output against bf16's (informative); then the 5D model
-     (``--no_packed``) on the same weights and the tile-major step
-     (``--tile_major``, window_chunk 5; 5 steps since PR 13, its tiles/s
-     a 15-step equivalent);
+     build; 5 steps since PR 16), each with exact K3 and K4 launches by
+     variant (75 wgmma and 117 dynamic or static a UNet call), tiles/s
+     beside the bf16 chain's and int8's output against bf16's
+     (informative); then the 5D model (``--no_packed``, 5 steps since PR
+     16) on the same weights and the tile-major step (``--tile_major``,
+     window_chunk 5; 5 steps since PR 13); a shallower chain's tiles/s
+     is a 15-step equivalent;
  10. the planner at full width: its plan, the measured peak of its probe
      and the budget for 2x2, 4x4, 8x8 and 16x16 grids;
  11. whole-brain streaming: ``cli.generate.main`` with ``--stream`` at
@@ -107,7 +108,8 @@ Phases, each printed on its own line with elapsed seconds:
      12's gates) on the card against the CPU; then ``cli.train``'s
      builder at full width with ``--method patch-dm`` and ``--method
      sinf`` (float32 compute outside the RNA tower, as JAX's promotions
-     give), 8 steps each with the counters set to 0 just before ``fit``:
+     give), 4 steps each (8 until PR 16) with the counters set to 0 just
+     before ``fit``:
      finite losses, changed parameters, exactly 4 K1 and 4 K1b launches a
      step (the RNA tower's gene block) and no K2 or K2b, save -> restore
      bit-equal; ``cli.generate --no_packed`` (1x1 grid, 2 steps) from the
@@ -152,12 +154,32 @@ Phases, each printed on its own line with elapsed seconds:
      memory; ``cli.train.main --synthetic --max_steps 2`` over the ranks
      with the preset's dropout: one checkpoint, written by rank 0, a
      finite loss, the parameters equal across ranks;
- 19. a ``{"kernels": [...]}`` line, then the card line, then the result.
+ 19. the other published presets (``PRESETS``: 609882's 500 genes;
+     609889 with the 81-gene M2H panel at patch 128; patch 32, one stain
+     and 16 RNA slices): K1, K1b, K2, K2b, K3 and K4 at every shape of
+     this phase's runs that phases 3-5 do not check
+     (``scripts/kernel_shapes.py``'s predictions), by their per-shape
+     checks and timings, the variant each shape's rule names required
+     (K2 and K2b ``cuda_core`` at (B, 128, 512) and (B, 512, 128));
+     each preset's small f32 chain (5D card vs CPU, packed vs 5D,
+     ``SMALL_ATOL``); then at full width, each with the counters set to
+     0 just before it and its launches by kernel and variant required to
+     be kernel_shapes.py's prediction: the 609882 packed bf16 chain over
+     2x2 tiles (15 steps) and its int8 chain (2 steps); ``cli.train``'s
+     builder with ``--synthetic`` for 3 steps on 609882 (5D, batch 32),
+     on 609889 at patch 128 with ``--to_hbr`` (5D, batch 8: 8
+     microbatches, peak memory under 40 GiB) and on
+     ``609889_32_81_DAPI_16`` (``--packed``), the last two followed by
+     ``cli.generate --ckpt_pth`` from their checkpoints over 2x2 tiles for
+     2 steps (the 16-slice one ``--no_packed``); tiles/s or samples/s,
+     peak device memory, finite outputs;
+ 20. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
 Any failure raises and exits non-zero.  Needs one CUDA card; imports
 nothing of JAX.  ``python3 chip_smoke.py --ranks`` runs phases 17 and
 18 alone, with the phase 9 and 11 runs phase 17 is held against, for a
-machine of several cards; ``--dp`` runs phase 18 alone;
+machine of several cards; ``--dp`` runs phase 18 alone; ``--presets``
+phase 19 alone;
 ``python3 chip_smoke.py --int8`` runs phase 5 and phase 9's int8 and
 int8_static chains with the bf16 packed chain they are compared with,
 for a call that tunes the int8 kernels.
@@ -200,11 +222,22 @@ def device_ms(fn, arg_sets, calls: int = 20, reps: int = 5) -> float:
     graph, and its ``reps`` replays are timed between two CUDA events.
     The host's cost per call (wrapper, ctypes, allocator) is spent at
     capture, so it cannot bound the time; the device-side gap between
-    two graph nodes (about a microsecond) stays in it."""
+    two graph nodes (about a microsecond) stays in it.  A call of more
+    than a millisecond (a second pass over the sets, timed) is timed over
+    one pass of the sets and 2 replays: a graph of 100 such calls takes
+    seconds and gains no precision."""
     import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     for args in arg_sets:
         fn(*args)
-    torch.cuda.synchronize()
+    start.record()
+    for args in arg_sets:
+        fn(*args)
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) > len(arg_sets):
+        calls, reps = 1, 2
     n = max(calls, len(arg_sets))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -212,8 +245,6 @@ def device_ms(fn, arg_sets, calls: int = 20, reps: int = 5) -> float:
             fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         graph.replay()
@@ -264,6 +295,20 @@ def kernel_work(kernel: str, shape, itemsize: int = 2) -> tuple:
     if kernel == "K2":
         return 4 * b * n * d * itemsize, 4 * b * n * n * d, rate
     return 7 * b * n * d * itemsize, 10 * b * n * n * d, rate
+
+
+def kernel_shapes():
+    """``scripts/kernel_shapes.py`` as a module (loaded once)."""
+    import importlib.util
+    mod = sys.modules.get("kernel_shapes")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "kernel_shapes", Path(__file__).resolve().parent / "scripts"
+            / "kernel_shapes.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["kernel_shapes"] = mod
+        spec.loader.exec_module(mod)
+    return mod
 
 
 def ulp_err(out, ref) -> float:
@@ -448,7 +493,8 @@ def k1_row(g, device, n, c, path, w_dtype=None) -> dict:
 
 def k2_row(g, device, b, n, d, path) -> dict:
     """K2 at (b, n, d): bf16 against its plain version on randn and on
-    peaked inputs (``tensor_core`` required), float32 on 8 of the batch;
+    peaked inputs (the variant the shape rule names required:
+    ``tensor_core`` at every 638850 shape), float32 on 8 of the batch;
     timed."""
     import torch
 
@@ -463,8 +509,9 @@ def k2_row(g, device, b, n, d, path) -> dict:
         ref = k2.attention_plain(q, k, v, scale)
         errs.append(require_k2(out, ref, f"{b}x{n}x{d} "
                                f"{'peaked' if peaked else 'randn'}"))
-        require(variant == "tensor_core",
-                f"K2 {b}x{n}x{d} bf16 took {variant}")
+        want = k2.attention_variant(n, d, bf16, True)
+        require(variant == want, f"K2 {b}x{n}x{d} bf16 took {variant}, "
+                f"not {want}")
     err = max(e[0] for e in errs)
     qf, kf, vf = (t[:8].float() for t in (q, k, v))
     outf, variant_f = variant_of(k2, k2.attention_cuda, qf, kf, vf, scale)
@@ -996,13 +1043,14 @@ K4_SHAPES = [
 K3_EDGE = [((2, 8, 8, 970), (1024, 3, 3)), ((1, 8, 8, 18), (24, 3, 3)),
            ((1, 8, 8, 18), (24, 1, 1)), ((3, 5, 7, 40), (16, 3, 3))]
 # launches of K3 and K4, by variant, in a 2x2 chain of 375 UNet calls
+# (int8_static: 125, 5 steps)
 # (scripts/kernel_shapes.py --quant: every K3 shape takes wgmma; K4 is one
 # launch a quantize, the dynamic abs-max included)
 QUANT_LAUNCHES = {
     "int8": {"quant_conv": {"wgmma": 75 * 375, "mma_sync": 0},
              "quantize": {"dynamic": 117 * 375, "static": 0}},
-    "int8_static": {"quant_conv": {"wgmma": 75 * 375, "mma_sync": 0},
-                    "quantize": {"dynamic": 0, "static": 117 * 375}}}
+    "int8_static": {"quant_conv": {"wgmma": 75 * 125, "mma_sync": 0},
+                    "quantize": {"dynamic": 0, "static": 117 * 125}}}
 # tests/test_quant.py's chain gates (mean |d|, correlation, mean shift,
 # relative std shift), here for int8 against f32 chains and, set before the
 # first chip run of them, for the card's int8 chain against the CPU's: the
@@ -1172,6 +1220,57 @@ def k4_tie_inputs(device):
     return x.to(device, torch.bfloat16), outlier.to(device, torch.bfloat16)
 
 
+def k3_row(g, device, x_shape, w_shape, sms: int,
+           path: str = "int8") -> dict:
+    """K3 at one shape: the plan (``wgmma`` required, the rule of every
+    generation shape), both variants bit-equal to the plain version, and
+    timed beside cuDNN's bf16 conv of the shape and the bound."""
+    from tera_mind_tpu_torch.ops import quant_kernel as qk
+    xq, wq, scale, bias, sx = k3_inputs(g, x_shape, w_shape, device)
+    plan = qk.k3_plan(x_shape, w_shape, sms)
+    require(plan.variant == "wgmma", f"K3 {x_shape} {w_shape}: the "
+            f"plan takes {plan.variant}, not wgmma")
+    err = max(k3_agrees(qk, xq, wq, scale, bias, f"{x_shape} {w_shape}",
+                        v, sx) for v in qk.CONV_VARIANTS)
+    t = time_k3(qk, xq, wq, scale, bias, sx, x_shape, w_shape)
+    tops = t.pop("tops") / t["ms"] / 1e9
+    vms = t["variant_ms"]
+    log(f"K3 quant_conv x {x_shape} w {w_shape} [{path}]: plan "
+        f"{plan.variant} box {plan.box} BN {plan.bn} grid {plan.grid}; "
+        f"bit-equal (int32, bf16, f32; wgmma and mma_sync); wgmma "
+        f"{vms['wgmma']:.4f} ms ({tops:.0f} TOPS), mma_sync "
+        f"{vms['mma_sync']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN "
+        f"bf16 {t['bf16_conv_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f} % of it)")
+    return dict(shape=[list(x_shape), list(w_shape)], path=path,
+                plan=plan._asdict(), max_abs_err=err, tops=tops, **t)
+
+
+def k4_row(g, device, r: int, c: int, m: int, path: str = "int8") -> dict:
+    """K4 at (r, c) -> multiple m, bf16: bit-equal to its plain version
+    dynamic and static, both timed beside the bound."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import quant_kernel as qk
+    x = torch.randn(r, c, generator=g).to(device, torch.bfloat16)
+    a_scale = (x.float().abs().amax() / 100).reshape(())
+    seen, errs = zip(*[k4_agrees(qk, x, a, m, f"({r}, {c}, {m})")
+                       for a in (None, a_scale)])
+    t = {v: time_k4(qk, x, a, m) for v, a in (("dynamic", None),
+                                               ("static", a_scale))}
+    log(f"K4 quantize ({r}, {c}) bf16 -> multiple {m} [{path}]: bit-equal "
+        f"({', '.join(seen)}); dynamic {t['dynamic']['ms']:.4f} ms "
+        f"(plain {t['dynamic']['plain_ms']:.4f}), static "
+        f"{t['static']['ms']:.4f} ms (plain "
+        f"{t['static']['plain_ms']:.4f}), bound "
+        f"{t['dynamic']['bound_ms']:.4f} ms ({t['dynamic']['bound_by']}"
+        f", {100 * t['dynamic']['bound_ms'] / t['dynamic']['ms']:.1f} "
+        f"% of it dynamic)")
+    return dict(shape=[r, c, m], path=path, max_abs_err=max(errs),
+                **t["dynamic"], static_ms=t["static"]["ms"],
+                static_plain_ms=t["static"]["plain_ms"])
+
+
 def check_int8_kernels(device) -> dict:
     """K3 and K4 against their plain versions at every main-path int8
     shape and at edge shapes, timed; the C entry points' refusals.
@@ -1185,25 +1284,7 @@ def check_int8_kernels(device) -> dict:
     rows = {"quant_conv": [], "quantize": []}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for x_shape, w_shape in K3_SHAPES:
-        xq, wq, scale, bias, sx = k3_inputs(g, x_shape, w_shape, device)
-        plan = qk.k3_plan(x_shape, w_shape, sms)
-        require(plan.variant == "wgmma", f"K3 {x_shape} {w_shape}: the "
-                f"plan takes {plan.variant}, not wgmma")
-        err = max(k3_agrees(qk, xq, wq, scale, bias, f"{x_shape} {w_shape}",
-                            v, sx) for v in qk.CONV_VARIANTS)
-        t = time_k3(qk, xq, wq, scale, bias, sx, x_shape, w_shape)
-        tops = t.pop("tops") / t["ms"] / 1e9
-        vms = t["variant_ms"]
-        log(f"K3 quant_conv x {x_shape} w {w_shape}: plan {plan.variant} "
-            f"box {plan.box} BN {plan.bn} grid {plan.grid}; bit-equal (int32, bf16, f32; wgmma and "
-            f"mma_sync); wgmma {vms['wgmma']:.4f} ms ({tops:.0f} TOPS), "
-            f"mma_sync {vms['mma_sync']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, cuDNN bf16 {t['bf16_conv_ms']:.4f} ms"
-            f", bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-            f"{100 * t['bound_ms'] / t['ms']:.1f} % of it)")
-        rows["quant_conv"].append(dict(shape=[list(x_shape), list(w_shape)],
-                                       plan=plan._asdict(), max_abs_err=err,
-                                       tops=tops, **t))
+        rows["quant_conv"].append(k3_row(g, device, x_shape, w_shape, sms))
     # the edge shapes, and the deep concat once more with its channels
     # padded to 16 only (976: rows off the 128-byte lines)
     for x_shape, w_shape, align in ([(x, w, None) for x, w in K3_EDGE]
@@ -1273,26 +1354,7 @@ def check_int8_kernels(device) -> dict:
         raised = str(err)
     require(raised is not None, "K3 wrapper ran wgmma on a 5x7 image")
 
-    for r, c, m in K4_SHAPES:
-        x = torch.randn(r, c, generator=g).to(device, torch.bfloat16)
-        a_scale = (x.float().abs().amax() / 100).reshape(())
-        seen, errs = zip(*[k4_agrees(qk, x, a, m, f"({r}, {c}, {m})")
-                           for a in (None, a_scale)])
-        t = {v: time_k4(qk, x, a, m) for v, a in (("dynamic", None),
-                                                   ("static", a_scale))}
-        log(f"K4 quantize ({r}, {c}) bf16 -> multiple {m}: bit-equal "
-            f"({', '.join(seen)}); dynamic {t['dynamic']['ms']:.4f} ms "
-            f"(plain {t['dynamic']['plain_ms']:.4f}), static "
-            f"{t['static']['ms']:.4f} ms (plain "
-            f"{t['static']['plain_ms']:.4f}), bound "
-            f"{t['dynamic']['bound_ms']:.4f} ms ({t['dynamic']['bound_by']}"
-            f", {100 * t['dynamic']['bound_ms'] / t['dynamic']['ms']:.1f} "
-            f"% of it dynamic)")
-        rows["quantize"].append(dict(shape=[r, c, m], max_abs_err=max(errs),
-                                     **t["dynamic"],
-                                     static_ms=t["static"]["ms"],
-                                     static_plain_ms=t["static"]["plain_ms"]
-                                     ))
+    rows["quantize"] = [k4_row(g, device, r, c, m) for r, c, m in K4_SHAPES]
     ties, outlier = k4_tie_inputs(device)
     for x, what in ((ties, "ties"), (outlier, "ties + outlier")):
         for a in (None, torch.tensor(0.125, device=device)):
@@ -1736,20 +1798,27 @@ GRID = 2          # 2x2 tiles of 256^2 px x 100 channels
 STEPS = 15        # DDIM steps (eta 0)
 TILE_MAJOR_STEPS = 5   # the tile-major chain's depth, cut to keep the
                        # whole run near 850 s (PR 13)
+# DDIM steps of each full-width chain of phase 9: the 5D and int8_static
+# chains were cut from 15 to 5 steps to make room for phase 19 (their
+# tiles/s stay a 15-step equivalent; their outputs are checked by
+# require_output, and int8_static's calibration runs over its 5 steps)
+CHAIN_STEPS = {"packed": STEPS, "int8": STEPS, "int8_static": 5, "5d": 5,
+               "tile_major": TILE_MAJOR_STEPS, "stream": STEPS}
 
 
 # launches per chain: K1 norms and K2 attentions per UNet call x UNet
 # calls.  The packed model's 46 ResBlock and output norms are
 # GroupedRMSNorm (plain PyTorch), so K1 runs only in the 6 DiT blocks
 # (norm1, norm2, q_norm, k_norm) and the gene-gene block (q_norm, norm2).
-# Block-major 2x2: 25 z-windows x 15 steps = 375 calls; tile-major 2x2 at
+# Block-major 2x2: 25 z-windows x 15 steps = 375 calls (5 steps: 125);
+# tile-major 2x2 at
 # window_chunk 5: 4 tiles x 5 calls x 5 steps = 100; streamed 4x4 in 2x2
 # windows at window_chunk 5: 4 windows x 5 calls x 15 steps = 300.
 CHAIN_LAUNCHES = {
     "packed": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
     "int8": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
-    "int8_static": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
-    "5d": {"rmsnorm": 83 * 375, "window_attention": 6 * 375},
+    "int8_static": {"rmsnorm": 26 * 125, "window_attention": 6 * 125},
+    "5d": {"rmsnorm": 83 * 125, "window_attention": 6 * 125},
     "tile_major": {"rmsnorm": 26 * 100, "window_attention": 6 * 100},
     "stream": {"rmsnorm": 26 * 300, "window_attention": 6 * 300}}
 STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
@@ -1823,7 +1892,7 @@ def run_main_path(device, path: str = "packed") -> dict:
     from tera_mind_tpu_torch.cli import generate
 
     tile_major = path == "tile_major"
-    steps = TILE_MAJOR_STEPS if tile_major else STEPS
+    steps = CHAIN_STEPS[path]
     flags = {"packed": [], "5d": ["--no_packed"],
              "tile_major": ["--tile_major"], "int8": ["--quant", "int8"],
              "int8_static": ["--quant", "int8_static"]}[path]
@@ -2498,6 +2567,8 @@ def run_evaluate(device, outs: dict, tmp: Path, int8_stats: dict) -> dict:
 
 BASELINE_FWD_TOL = 1e-4   # small f32 forward, card vs CPU, of |CPU out| max
 BASELINES = ("patch-dm", "sinf")
+BASELINE_STEPS = 4        # each baseline's full-width fit (8 until PR 16,
+                          # cut to make room for phase 19)
 
 
 def check_small_baseline(device, method: str) -> dict:
@@ -3012,12 +3083,7 @@ def check_rank_train_kernels(device, n: int) -> dict:
 def dp_step_counts(n: int) -> dict:
     """Launches a step of each shape of :func:`train_rank_shapes`, by
     kernel (scripts/kernel_shapes.py --train --ranks n)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "kernel_shapes", Path(__file__).resolve().parent / "scripts"
-        / "kernel_shapes.py")
-    ks = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ks)
+    ks = kernel_shapes()
     k1, k2 = ks.train_rank_shapes(n)
     k1_shapes, k2_shapes = train_rank_shapes(n)
     return {"rmsnorm": [k1[s] * ks.TRAIN_ACCUM for s in k1_shapes],
@@ -3301,12 +3367,451 @@ def run_dp(device, n: int = None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the other published presets on the card
+# ---------------------------------------------------------------------------
+
+# cli.train flags of the presets phase 19 runs (cli.generate takes the
+# first one's --mouse, the others' from their checkpoints): 609882's
+# 500-gene panel at patch 64; 609889 with the 81-gene M2H panel
+# (--to_hbr) at patch 128; and the remaining axes in one run, patch 32,
+# one stain and 16 RNA slices (z 8, 6 z-windows of 48 slices)
+PRESETS = {
+    "609882_64_500_all_4": ["--mouse", "609882"],
+    "609889_128_81_all_4": ["--mouse", "609889", "--patch", "128",
+                            "--to_hbr"],
+    "609889_32_81_DAPI_16": ["--mouse", "609889", "--patch", "32",
+                             "--to_hbr", "--stain", "DAPI",
+                             "--rna_slc", "16"]}
+PRESET_INT8_STEPS = 2      # the 609882 int8 chain
+PRESET_TRAIN_STEPS = 3     # full-width training steps a preset
+PRESET_TIMED_FROM = 2      # samples/s over steps 2..3
+PRESET_GEN_STEPS = 2       # cli.generate from a preset's checkpoint
+PRESET_SMALL_STEPS = 2     # the small f32 chains (DDIM steps)
+# the patch-128 training's peak device memory: 8 microbatches of 8
+# samples hold the pixels of a patch-64 microbatch of 32, whose one-process
+# step peaked at 30.4-30.7 GiB (PR 15); batch 32 would need ~110 GiB
+PRESET_PEAK_GIB = 40.0
+# full-width training runs: (preset, cli.train flags beyond the preset's,
+# cli.generate's flags beyond --ckpt_pth from its checkpoint, or None for
+# no generation).  At 16 RNA slices (z 8) the packed layout's
+# block-structured kernels hold 4.04 G parameters against the 5D model's
+# 0.2 G (a minute and a half of host-side packing and loading on the
+# card's machine, call 1 of PR 16), so that run generates with the 5D
+# model; the packed generation shapes are checked one by one
+PRESET_TRAIN = {
+    "609882_64_500_all_4 5d": ("609882_64_500_all_4", ["--batch", "32"],
+                               None),
+    "609889_128_81_all_4 5d": ("609889_128_81_all_4", ["--batch", "8"],
+                               []),
+    "609889_32_81_DAPI_16 packed": ("609889_32_81_DAPI_16",
+                                    ["--packed"], ["--no_packed"])}
+
+
+def preset_conf(ks, flags: list):
+    """``cli.train``'s ``TrainConfig`` for a preset's flags."""
+    from tera_mind_tpu_torch.cli import train as train_cli
+    a = train_cli.parse_args(flags)
+    return ks.preset_conf(a.mouse, a.patch, a.to_hbr, a.stain, a.rna_slc,
+                          a.batch)
+
+
+def launches_now() -> dict:
+    """Every kernel's launches and launches by variant since the last
+    reset: {name: {"launches": n, "by_variant": {...}}}."""
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import quant_kernel as qk
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    out = {}
+    for name, c in (("rmsnorm", k1), ("rmsnorm_bwd", k1.bwd),
+                    ("window_attention", k2),
+                    ("window_attention_bwd", k2.bwd),
+                    ("quant_conv", qk.k3), ("quantize", qk.k4)):
+        by = dict(c.launches_by_variant)
+        out[name] = {"launches": sum(by.values()), "by_variant": by}
+    return out
+
+
+def require_launches(got: dict, want: dict, what: str) -> None:
+    """Each kernel's launches and launches by variant as
+    ``scripts/kernel_shapes.py`` predicts them (``want``; a kernel it
+    does not name launches no time)."""
+    for name, g in got.items():
+        w = want.get(name, {"launches": 0, "by_variant": {
+            v: 0 for v in g["by_variant"]}})
+        require(g["launches"] == w["launches"]
+                and g["by_variant"] == w["by_variant"],
+                f"{what}: {name} launches {g}, kernel_shapes.py predicts "
+                f"{ {k: w[k] for k in ('launches', 'by_variant')} }")
+
+
+def preset_kernel_shapes(ks) -> dict:
+    """{kernel: [(shape, path)]} of phase 19's full-width runs that
+    phases 3-5 do not check (K1 in generation with the bf16 weight, in
+    training with the float32 one), from ``scripts/kernel_shapes.py``'s
+    predictions, each shape once."""
+    seen = {"K1": set(K1_SHAPES) | {s for k1s, _ in PATH_SHAPES.values()
+                                    for s in k1s},
+            "K1 train": set(TRAIN_K1_SHAPES), "K1b": set(TRAIN_K1_SHAPES),
+            "K2": set(K2_SHAPES) | {s for _, k2s in PATH_SHAPES.values()
+                                    for s in k2s},
+            "K2b": set(TRAIN_K2_SHAPES), "K3": set(K3_SHAPES),
+            "K4": set(K4_SHAPES)}
+    out = {k: [] for k in seen}
+
+    def add(kernel, pred, path):
+        for shape, _ in pred["shapes"]:
+            shape = tuple(tuple(x) if isinstance(x, list) else x
+                          for x in shape)
+            if kernel == "K4":
+                shape = shape[:3]
+            if shape not in seen[kernel]:
+                seen[kernel].add(shape)
+                out[kernel].append((shape, path))
+
+    first = preset_conf(ks, PRESETS["609882_64_500_all_4"])
+    chain = ks.chain_prediction(first)
+    add("K1", chain["rmsnorm"], "609882 chain")
+    add("K2", chain["window_attention"], "609882 chain")
+    int8 = ks.chain_prediction(first, quant="int8")
+    add("K3", int8["quant_conv"], "609882 int8")
+    add("K4", int8["quantize"], "609882 int8")
+    for run, (preset, flags, gen) in PRESET_TRAIN.items():
+        conf = preset_conf(ks, PRESETS[preset] + flags)
+        conf.packed_compute = "--packed" in flags
+        train = ks.train_prediction(conf)
+        for kernel, name in (("K1 train", "rmsnorm"), ("K1b", "rmsnorm_bwd"),
+                             ("K2", "window_attention"),
+                             ("K2b", "window_attention_bwd")):
+            add(kernel, train[name], f"{run} training")
+        if gen is not None:
+            for packed in (True, "--no_packed" not in gen):
+                chain = ks.chain_prediction(conf, probes=1, packed=packed)
+                add("K1", chain["rmsnorm"], f"{preset} generation")
+                add("K2", chain["window_attention"], f"{preset} generation")
+    return out
+
+
+def check_preset_kernels(device, ks) -> dict:
+    """Every kernel at each shape of :func:`preset_kernel_shapes` by
+    phases 3-5's per-shape checks and timings (every gate of theirs; the
+    variant each shape's rule names required).  Returns {name: [row]}."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(19)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shapes = preset_kernel_shapes(ks)
+    log("phase 19 kernel shapes new to this run: " + "; ".join(
+        f"{k} {[s for s, _ in v]}" for k, v in shapes.items()))
+    return {
+        "rmsnorm": [k1_row(g, device, n, c, path)
+                    for (n, c), path in shapes["K1"]]
+        + [k1_row(g, device, n, c, path, torch.float32)
+           for (n, c), path in shapes["K1 train"]],
+        "rmsnorm_bwd": [k1b_row(g, device, n, c, path)
+                        for (n, c), path in shapes["K1b"]],
+        "window_attention": [k2_row(g, device, b, n, d, path)
+                             for (b, n, d), path in shapes["K2"]],
+        "window_attention_bwd": [k2b_row(g, device, b, n, d, path)
+                                 for (b, n, d), path in shapes["K2b"]],
+        "quant_conv": [k3_row(g, device, x, w, sms, path)
+                       for (x, w), path in shapes["K3"]],
+        "quantize": [k4_row(g, device, r, c, m, path)
+                     for (r, c, m), path in shapes["K4"]]}
+
+
+def check_small_presets(device, ks) -> dict:
+    """For each preset of :data:`PRESETS`, its model at a small width
+    (``net_ch`` 8, one ResBlock a level, f32, random weights, no zero
+    init) in a 2x2-tile block-major chain of ``PRESET_SMALL_STEPS`` steps
+    (tiles of one patch, the preset's RNA slices, stains and 500 genes
+    carried): the 5D model on the card against the CPU and the packed
+    model against the 5D one on the card, each within ``SMALL_ATOL``.
+    Returns {preset: {check: max |d|}}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.convert import export_params, load_jax_params
+    from tera_mind_tpu_torch.diffusion.sampler import (DiffusionSampler,
+                                                       SamplerConfig)
+    from tera_mind_tpu_torch.diffusion.schedule import spaced_schedule
+    from tera_mind_tpu_torch.models.nn import channels_last_, init_weights
+    from tera_mind_tpu_torch.models.unet_packed import (make_packed_model,
+                                                        pack_unet_params)
+    from tera_mind_tpu_torch.parallel.generator import (GeneratorConfig,
+                                                        TeraGenerator)
+
+    out = {}
+    for preset, flags in PRESETS.items():
+        t0 = time.perf_counter()
+        conf = preset_conf(ks, flags)
+        conf.net_ch, conf.embed_channels = 8, 32
+        conf.net_num_res_blocks, conf.compute_dtype = 1, "float32"
+        mconf = dataclasses.replace(conf.make_model_conf(),
+                                    use_zero_module=False)
+        p = conf.image_size
+        gconf = GeneratorConfig(
+            tile=p, patch=p, gn_blk=16, snum=conf.rna_slices,
+            n_slices=4 if conf.rna_slices in (1, 4) else 50,
+            stains=2 if conf.stain == "all" else 1, gdim=500,
+            window_chunk=1)
+        gene = np.random.default_rng(19).integers(
+            0, 3, (2, 2, gconf.gsz, gconf.gsz, gconf.z_pad, gconf.gdim)
+        ).astype(np.uint8)
+        model5 = init_weights(mconf.make_model(), seed=19).eval()
+        packed = load_jax_params(make_packed_model(mconf), pack_unet_params(
+            export_params(model5), mconf)).eval()
+
+        def chain(model, dev):
+            if dev.type == "cuda":
+                model = channels_last_(model.to(dev))
+            sampler = DiffusionSampler(
+                spaced_schedule("linear", 1000, f"ddim{PRESET_SMALL_STEPS}"),
+                SamplerConfig(patch_size=p, gn_sz=conf.gn_sz))
+            gen = TeraGenerator(sampler, lambda xp, tm, rp, p1, p2: model(
+                xp, tm, rp, p1, p2, decode_original=False), gconf,
+                device=dev)
+            res = gen.run(gene, row0=1, col0=1, grid_w=16, progress=False,
+                          block_major=True)
+            require(res.shape == (2 * p, 2 * p, gconf.channels)
+                    and bool(np.isfinite(res).all()),
+                    f"small {preset} chain output {res.shape} not finite "
+                    "or misshapen")
+            return res
+        cpu = chain(model5, torch.device("cpu"))
+        card = chain(model5, device)
+        card_packed = chain(packed, device)
+        errs = {"5d card vs CPU": float(np.abs(card - cpu).max()),
+                "packed vs 5d on the card": float(np.abs(card_packed
+                                                         - card).max())}
+        for name, err in errs.items():
+            require(err <= SMALL_ATOL, f"small {preset} chain {name}: {err}"
+                    f" > {SMALL_ATOL}")
+        log(f"phase 19 small f32 chain {preset} (2x2 tiles of {p} px, "
+            f"{gconf.n_win} z-windows, {gconf.channels} channels, "
+            f"{PRESET_SMALL_STEPS} steps): " + ", ".join(
+                f"{k} max_abs_err {v:.3g}" for k, v in errs.items())
+            + f" (tol {SMALL_ATOL}); {time.perf_counter() - t0:.1f} s")
+        out[preset] = errs
+    return out
+
+
+def run_preset_chain(device, ks, quant: str, steps: int) -> dict:
+    """``cli.generate.build --mouse 609882`` (500 genes) over 2x2 tiles,
+    the packed bf16 model or ``--quant``: one warm-up step that plans,
+    then ``steps`` steps with the counters set to 0 just before; launches
+    by kernel and variant as kernel_shapes.py predicts them."""
+    import torch
+
+    from tera_mind_tpu_torch.cli import generate
+
+    args = generate.parse_args(
+        ["--synthetic", "--hnm", str(GRID), "--wnm", str(GRID),
+         "--tot_epoch", str(steps), "--device", str(device)]
+        + PRESETS["609882_64_500_all_4"][:2]
+        + (["--quant", quant] if quant else []))
+    t0 = time.perf_counter()
+    gen, model, gene, (row0, col0) = generate.build(args)
+    build_s = time.perf_counter() - t0
+    conf = generate.run_config(args)
+    plan = ks.gen_plan(conf)
+    state0 = torch.as_tensor(gen.init_state(GRID, GRID, row0=row0,
+                                            col0=col0), device=device)
+    gene_t = torch.as_tensor(gene, device=device)
+    gen.compile_step(GRID, GRID, block_major=True)(state0, gene_t,
+                                                   steps - 1)
+    torch.cuda.synchronize()
+    want_strip = 0 if plan["visits"] == 1 else GRID // plan["visits"]
+    require((gen.conf.strip_rows, gen.conf.window_chunk)
+            == (want_strip, plan["chunk"]),
+            f"planned {gen.conf.strip_rows}, {gen.conf.window_chunk}; "
+            f"kernel_shapes.py plans {plan}")
+    del state0, gene_t
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = gen.run(gene, row0=row0, col0=col0, grid_w=416, block_major=True,
+                  progress=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launches_now()
+    want = ks.chain_prediction(conf, quant, steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = GRID * GRID * steps / STEPS / secs
+    path = f"609882 {quant or 'bf16'} chain"
+    log(f"phase 19 {path}: {conf.name}, {GRID}x{GRID} tiles x {steps} "
+        f"steps in {secs:.2f} s = {rate:.5f} tiles/s (a tile {STEPS} "
+        f"steps); peak device memory {peak:.2f} GiB; built in "
+        f"{build_s:.1f} s; launches " + ", ".join(
+            f"{k} {v['launches']} {v['by_variant']}" for k, v in got.items()
+            if v["launches"]))
+    require_output(out, (GRID * 256, GRID * 256, gen.conf.channels))
+    require_launches(got, want, path)
+    del gen, model
+    torch.cuda.empty_cache()
+    return dict(seconds=secs, tiles_per_s=rate, peak_gib=peak,
+                build_s=build_s, launches=got, steps=steps)
+
+
+def run_preset_training(device, ks, run: str, tmp: Path) -> dict:
+    """``cli.train``'s builder on a preset at full width with
+    ``--synthetic``, ``PRESET_TRAIN_STEPS`` steps with the counters set to
+    0 just before ``fit``: finite losses, launches by kernel and variant
+    as kernel_shapes.py predicts them, samples/s and peak memory; then,
+    where :data:`PRESET_TRAIN` says so, ``cli.generate --ckpt_pth`` from
+    its checkpoint over 2x2 tiles for ``PRESET_GEN_STEPS`` steps (the
+    counters set to 0 just before; the planner's one probe call
+    counted)."""
+    import numpy as np
+    import torch
+
+    from tera_mind_tpu_torch.cli import generate
+    from tera_mind_tpu_torch.cli import train as train_cli
+
+    preset, flags, gen = PRESET_TRAIN[run]
+    steps = PRESET_TRAIN_STEPS
+    args = train_cli.parse_args(
+        ["--synthetic", "--max_steps", str(steps), "--device", str(device)]
+        + PRESETS[preset] + flags)
+    t0 = time.perf_counter()
+    conf, ds, trainer, _ = train_cli.build(args)
+    conf.base_dir = str(tmp / run.replace(" ", "_"))
+    require(conf.name.startswith(preset), f"preset {conf.name}, not "
+            f"{preset}")
+    state = trainer.init_state()
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.fit(train_cli.epoch_batches(
+        ds, conf.batch_size_effective), max_steps=steps, state=state,
+        log_every=1, metrics=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launches_now()
+    want = ks.train_prediction(conf, steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = trainer.log[PRESET_TIMED_FROM - 1:]
+    data_s = sum(r["data_s"] for r in timed)
+    step_s = sum(r["step_s"] for r in timed)
+    rate = conf.batch_size_effective * len(timed) / (data_s + step_s)
+    losses = [r["loss"] for r in trainer.log]
+    log(f"phase 19 training {run}: {conf.name}, {conf.accum_batches} "
+        f"microbatches of {conf.batch_size} samples, built in "
+        f"{build_s:.1f} s; {steps} steps in {secs:.2f} s; steps "
+        f"{PRESET_TIMED_FROM}-{steps}: {rate:.2f} samples/s, "
+        f"{step_s / len(timed):.3f} s a step on the device, data wait "
+        f"{100 * data_s / (data_s + step_s):.1f} %; losses "
+        f"{[round(v, 4) for v in losses]}; peak device memory {peak:.2f} "
+        "GiB; launches " + ", ".join(
+            f"{k} {v['launches']} {v['by_variant']}" for k, v in got.items()
+            if v["launches"]))
+    require(all(np.isfinite(losses)) and len(losses) == steps,
+            f"{run} training losses {losses}")
+    require_launches(got, want, f"{run} training")
+    if conf.image_size == 128:
+        require(peak < PRESET_PEAK_GIB, f"{run}: peak {peak:.2f} GiB, not "
+                f"under {PRESET_PEAK_GIB}")
+    out = dict(samples_per_s=rate, step_s=step_s / len(timed),
+               data_wait_pct=100 * data_s / (data_s + step_s),
+               seconds=secs, peak_gib=peak, launches=got, losses=losses,
+               name=conf.name)
+    if gen is None:
+        del trainer, state
+        torch.cuda.empty_cache()
+        return out
+    trainer.save(state)
+    ckpt = Path(conf.logdir) / "ckpt"
+    del trainer, state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = generate.main(["--ckpt_pth", str(ckpt), "--hnm", str(GRID),
+                         "--wnm", str(GRID), "--tot_epoch",
+                         str(PRESET_GEN_STEPS), "--synthetic", "--device",
+                         str(device), "--out_dir",
+                         str(tmp / f"gen_{run.replace(' ', '_')}")] + gen)
+    torch.cuda.synchronize()
+    gsecs = time.perf_counter() - t0
+    ggot = launches_now()
+    gwant = ks.chain_prediction(conf, steps=PRESET_GEN_STEPS, probes=1,
+                                packed="--no_packed" not in gen)
+    gpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    channels = (2 if conf.stain == "all" else 1) * ks.gen_config(conf).z_use
+    grate = GRID * GRID * PRESET_GEN_STEPS / STEPS / gsecs
+    log(f"phase 19 cli.generate {' '.join(gen)} from the {run} checkpoint:"
+        f" {GRID}x{GRID} "
+        f"tiles x {PRESET_GEN_STEPS} steps in {gsecs:.2f} s (build and "
+        f"plan included) = {grate:.5f} tiles/s (a tile {STEPS} steps); "
+        f"peak device memory {gpeak:.2f} GiB; launches " + ", ".join(
+            f"{k} {v['launches']} {v['by_variant']}"
+            for k, v in ggot.items() if v["launches"]))
+    require_output(res, (GRID * 256, GRID * 256, channels))
+    require_launches(ggot, gwant, f"cli.generate from {run}")
+    out.update(generate_s=gsecs, generate_tiles_per_s=grate,
+               generate_peak_gib=gpeak, generate_launches=ggot)
+    return out
+
+
+def run_presets(device) -> dict:
+    """Phase 19: the presets' new kernel shapes, their small f32 chains,
+    then at full width the 609882 bf16 chain (15 steps) and int8 chain
+    (2 steps) and the training runs of :data:`PRESET_TRAIN` (two with
+    generation from their checkpoints)."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    ks = kernel_shapes()
+    res = {"kernels": check_preset_kernels(device, ks)}
+    res["kernel_seconds"] = time.perf_counter() - t0
+    res["small"] = check_small_presets(device, ks)
+    res["chains"] = {"609882 bf16": run_preset_chain(device, ks, "", STEPS),
+                     "609882 int8": run_preset_chain(device, ks, "int8",
+                                                     PRESET_INT8_STEPS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["train"] = {}
+        for run in PRESET_TRAIN:
+            res["train"][run] = run_preset_training(device, ks, run,
+                                                    Path(tmp))
+            torch.cuda.empty_cache()
+    res["launches_by_path"] = {
+        **{f"preset {k}": c["launches"] for k, c in res["chains"].items()},
+        **{f"preset {k} training": t["launches"]
+           for k, t in res["train"].items()},
+        **{f"preset {PRESET_TRAIN[k][0]} generation "
+           + ("5d" if "--no_packed" in PRESET_TRAIN[k][2] else "packed"):
+           t["generate_launches"]
+           for k, t in res["train"].items() if "generate_launches" in t}}
+    res["phase_seconds"] = time.perf_counter() - t0
+    log(f"phase 19 seconds: {res['phase_seconds']:.1f} (kernels "
+        f"{res['kernel_seconds']:.1f})")
+    return res
+
+
+def preset_entries(kernels: list, presets: dict) -> None:
+    """Phase 19's launches by path and its per-shape rows in each
+    kernel's entry of the kernel line."""
+    for k in kernels:
+        name = k["name"]
+        k.setdefault("launches_by_path", {}).update(
+            {path: got[name] for path, got in
+             presets["launches_by_path"].items()})
+        k["preset_shapes"] = presets["kernels"][name]
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r["max_abs_err"] for r in presets["kernels"][name]])
+
+
 def compare_int8(chains: dict, outs: dict) -> dict:
-    """The full-width int8 and int8_static chains against the bf16 packed
-    chain of the same run: tiles/s and the output statistics
-    (informative)."""
+    """The full-width int8 chain (and int8_static where it runs as many
+    steps) against the bf16 packed chain of the same run: tiles/s and
+    the output statistics (informative)."""
     int8_vs_bf16 = {}
-    for path in ("int8", "int8_static"):
+    for path in (p for p in ("int8", "int8_static")
+                 if CHAIN_STEPS[p] == CHAIN_STEPS["packed"]):
         int8_vs_bf16[path] = st = chain_gate_stats(outs["packed"],
                                                    outs[path])
         log(f"full-width {path} chain: {chains[path]['tiles_per_s']:.5f} "
@@ -3362,13 +3867,7 @@ def step_sums(rows: list) -> dict:
     bound) or K4 (dynamic, static, bound): each shape's time times its
     launches a step (scripts/kernel_shapes.py --quant int8, 25 UNet calls
     a step)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "kernel_shapes", Path(__file__).resolve().parent / "scripts"
-        / "kernel_shapes.py")
-    ks = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ks)
-    k3, k4, _ = ks.quant_shapes("int8")
+    k3, k4, _ = kernel_shapes().quant_shapes("int8")
     calls = 25
     if "variant_ms" in rows[0]:
         n = {(tuple(x), tuple(w)): c for (x, w), c in k3.items()}
@@ -3386,7 +3885,6 @@ def step_sums(rows: list) -> dict:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -3418,9 +3916,12 @@ def main() -> int:
         return int8_only(device, smi)
     if sys.argv[1:] == ["--dp"]:
         return dp_only(device, smi)
+    if sys.argv[1:] == ["--presets"]:
+        return presets_only(device, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
-              "--ranks, --int8 or --dp)", file=sys.stderr, flush=True)
+              "--ranks, --int8, --dp or --presets)", file=sys.stderr,
+              flush=True)
         return 2
 
     rows = check_kernels(device)
@@ -3449,12 +3950,6 @@ def main() -> int:
     outs = {p: c.pop("out") for p, c in chains.items()}
     packed_out = outs["packed"]     # phase 17's reference
     int8_vs_bf16 = compare_int8(chains, outs)
-    for other in ("5d",):     # (the tile-major chain is shallower)
-        diff = np.abs(outs["packed"] - outs[other])
-        log(f"full-width bf16 outputs, packed vs {other} on the same "
-            f"weights and noise: max |d| {diff.max():.4g}, mean |d| "
-            f"{diff.mean():.4g} (informative; the small f32 chains are the "
-            "gate)")
     eval_outs = {p: outs[p] for p in ("packed", "int8")}
     del outs
     chains["stream"] = run_stream_path(device, chains["packed"]["counts"])
@@ -3482,7 +3977,7 @@ def main() -> int:
         baselines = {"small": {m: check_small_baseline(device, m)
                                for m in BASELINES}}
         for m in BASELINES:
-            train[m] = run_training(device, m, Path(tmp))
+            train[m] = run_training(device, m, Path(tmp), BASELINE_STEPS)
             ckpts[m] = train[m].pop("ckpt")
             torch.cuda.empty_cache()
         check_baseline_refusals(device, ckpts)
@@ -3496,6 +3991,7 @@ def main() -> int:
                       chains["packed"]["counts"])
     del packed_out, stream_ref
     dp = run_dp(device)
+    presets = run_presets(device)
 
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
                            "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
@@ -3558,6 +4054,7 @@ def main() -> int:
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         "shapes": rows[name]})
     kernels += quant_kernel_entries(rows, chains)
+    preset_entries(kernels, presets)
     print(json.dumps({"kernels": kernels, "train": train,
                       "small_train": small_train, "chain_seconds":
                       main_path["seconds"], "tiles_per_s":
@@ -3573,7 +4070,9 @@ def main() -> int:
                       "small_int8": small_int8,
                       "int8_vs_bf16": int8_vs_bf16, "attn": attn,
                       "evaluate": evaluate, "baselines": baselines,
-                      "ranks": ranks, "dp": dp}),
+                      "ranks": ranks, "dp": dp,
+                      "presets": {k: v for k, v in presets.items()
+                                  if k != "kernels"}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3633,6 +4132,20 @@ def ranks_only(device, smi: str) -> int:
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "only": "phases 17 and 18", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def presets_only(device, smi: str) -> int:
+    """``--presets``: phase 19 alone (the other published presets), for a
+    call that checks it; prints its JSON, the card line and a result line
+    naming the part it ran."""
+    import torch
+    presets = run_presets(device)
+    print(json.dumps({"presets": presets}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "only": "phase 19", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -73,6 +73,24 @@ on one tile of the preset instead: its 16 patches of 4x4 gene bins
 a tile and a 16x16-tile ROI (``--pathway ROI``), its variant, and the
 bytes one launch moves with their bound on the H100.  K1 is the
 extraction's only kernel: the G x G product stays ``torch.matmul``.
+
+    python scripts/kernel_shapes.py --mouse 609882 [--patch 32|64|128]
+        [--to_hbr] [--stain DAPI|PolyT|all] [--rna_slc 1|4|8|16]
+        [--batch B] [--train [--packed] | --quant int8 | ...]
+
+``--mouse``, ``--patch``, ``--to_hbr``, ``--stain`` and ``--rna_slc`` pick
+the preset as ``cli.train`` does (500 genes for 609882 and 609889, 229
+for 638850, the 81-gene M2H panel with ``--to_hbr``; ``in_channels`` =
+stains x ceil(rna_slc / 2)), and ``--batch`` its global batch (``accum``
+= 64 // batch microbatches of ``batch`` samples); every listing above
+then runs that preset.  Generation is planned as ``cli.generate`` plans
+a 2x2-tile block on the card when its first candidate fits
+(``plan_candidates``): patch 64 the whole block, 9x9 patches a z-window;
+patch 32 two strips of 9x17; patch 128 the whole block, 5x5; one
+z-window a call, ``n_win`` z-windows (25 at 4 RNA slices, 12 at 8, 6 at
+16).  ``chain_prediction`` and ``train_prediction`` give a path's
+launches by shape and by variant, which ``chip_smoke.py``'s preset
+phase requires.
 """
 
 from __future__ import annotations
@@ -90,6 +108,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import STEPS, bound, kernel_work  # noqa: E402
 from tera_mind_tpu_torch.config import prep_config  # noqa: E402
+from tera_mind_tpu_torch.constants import M2H  # noqa: E402
 from tera_mind_tpu_torch.models import attention as attention_mod  # noqa: E402
 from tera_mind_tpu_torch.models import nn as nn_mod  # noqa: E402
 from tera_mind_tpu_torch.models.unet_packed import (  # noqa: E402
@@ -108,6 +127,42 @@ WINDOWS = 25       # z-windows of the 638850 preset, one UNet call each
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak
 BF16 = 2           # bytes an element
+TRAIN_BATCH = 32    # cli.train's default --batch: samples a microbatch
+TRAIN_ACCUM = 2     # 64 // batch microbatches a step
+
+
+def preset_conf(mouse: str = "638850", patch: int = 64,
+                to_hbr: bool = False, stain: str = "all", rna_slc: int = 4,
+                batch: int = TRAIN_BATCH, method: str = "ours"):
+    """``cli.train``'s ``TrainConfig`` for these flags (its rule for the
+    gene panel: 81 M2H genes with ``to_hbr``, else 229 for 638850 and
+    500 for the other mice)."""
+    nrna = len(M2H) if to_hbr else (229 if mouse == "638850" else 500)
+    return prep_config(mouse, batch=batch, size=patch, stain=stain,
+                       nrna=nrna, srna=rna_slc, method=method)
+
+
+def gen_config(conf) -> GeneratorConfig:
+    """``cli.generate``'s ``GeneratorConfig`` for ``conf`` (256 px tiles,
+    50 z-slices, 500 genes carried)."""
+    return GeneratorConfig(patch=conf.image_size, snum=conf.rna_slices,
+                           stains=2 if conf.stain == "all" else 1)
+
+
+def gen_plan(conf, grid: int = 2) -> dict:
+    """The block-major plan of a grid x grid block for ``conf``'s preset
+    when the planner's first candidate fits: the patch grid (p1, p2) of a
+    strip's z-window, the z-windows a call (chunk), the strips a step
+    (visits), the z-windows and the UNet calls a step."""
+    gc = gen_config(conf)
+    tm, sr, wc = plan_candidates(grid, grid, gc)[0]
+    if tm:
+        raise ValueError(f"a {grid}x{grid} block plans tile-major")
+    tpp = gc.tile // gc.patch
+    rows = sr or grid
+    return dict(patches=(rows * tpp + 1, grid * tpp + 1), chunk=wc,
+                visits=grid // rows, windows=gc.n_win,
+                calls=gc.n_win // wc * (grid // rows))
 
 
 @contextmanager
@@ -128,21 +183,30 @@ def recording(k1: Counter, k2: Counter):
         nn_mod.rmsnorm, attention_mod.window_attention = saved
 
 
-def per_call_shapes(packed: bool = True, patches: int = PATCHES,
-                    chunk: int = 1, grid: tuple = None
+def patch_grid(conf, patches: int = None, grid: tuple = None) -> tuple:
+    """(p1, p2): ``grid``, else a square of ``patches``, else the plan's
+    (:func:`gen_plan`)."""
+    if grid is not None:
+        return tuple(grid)
+    if patches is None:
+        return gen_plan(conf)["patches"]
+    side = math.isqrt(patches)
+    if side * side != patches:
+        raise ValueError(f"{patches} patches a z-window is not a square grid")
+    return side, side
+
+
+def per_call_shapes(packed: bool = True, patches: int = None,
+                    chunk: int = 1, grid: tuple = None, conf=None
                     ) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one UNet
     call on ``chunk`` z-windows of ``patches`` patches each (a square, or
-    a ``grid`` of p1 x p2 patches), for the packed model or the 5D one."""
-    if grid is None:
-        side = math.isqrt(patches)
-        if side * side != patches:
-            raise ValueError(f"{patches} patches a z-window is not a "
-                             "square grid")
-        grid = (side, side)
-    p1, p2 = grid
+    a ``grid`` of p1 x p2 patches; default the preset's plan), for the
+    packed model or the 5D one, of ``conf``'s preset (default 638850)."""
+    conf = conf or preset_conf()
+    p1, p2 = patch_grid(conf, patches, grid)
     patches = p1 * p2
-    conf = prep_config("638850").make_model_conf()
+    conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
     with recording(k1, k2), torch.device("meta"):
         model = make_packed_model(conf) if packed else conf.make_model()
@@ -269,35 +333,41 @@ def k3_variants(k3: Counter) -> dict:
 
 
 def quant_shapes(quant: str = "int8", attn: bool = True,
-                 patches: int = PATCHES, chunk: int = 1
+                 patches: int = None, chunk: int = 1, conf=None,
+                 grid: tuple = None, k12: tuple = None
                  ) -> tuple[Counter, Counter, Counter]:
     """(K3, K4, ``_int_mm``) shapes -> launches of one UNet call of the
-    prequantized int8 packed model (``cli.generate --quant``), as
-    :func:`quant_recording` keys them."""
-    side = math.isqrt(patches)
-    if side * side != patches:
-        raise ValueError(f"{patches} patches a z-window is not a square grid")
-    conf = prep_config("638850").make_model_conf()
+    prequantized int8 packed model (``cli.generate --quant``) of
+    ``conf``'s preset (default 638850; the patch grid as
+    :func:`per_call_shapes` takes it), as :func:`quant_recording` keys
+    them; ``k12``: two Counters that get its K1 and K2 shapes."""
+    conf = conf or preset_conf()
+    p1, p2 = patch_grid(conf, patches, grid)
+    conf = conf.make_model_conf()
     k3, k4, mm = Counter(), Counter(), Counter()
-    with quant_recording(k3, k4, mm), recording(Counter(), Counter()), \
-            torch.device("meta"):
+    with quant_recording(k3, k4, mm), recording(
+            *(k12 or (Counter(), Counter()))), torch.device("meta"):
         model = make_packed_model(conf, quant="int8", prequant=True,
                                   static_act=quant == "int8_static",
                                   quant_attn=attn).to(torch.bfloat16)
         p = conf.image_size
-        x = torch.empty(chunk * patches, p, p, conf.in_channels)
-        rna = torch.empty(chunk * patches, conf.gn_sz, conf.gn_sz,
+        x = torch.empty(chunk * p1 * p2, p, p, conf.in_channels)
+        rna = torch.empty(chunk * p1 * p2, conf.gn_sz, conf.gn_sz,
                           len(conf.rna_tpl) * conf.rna_num)
-        model(x, torch.zeros(chunk, dtype=torch.long), rna, side, side,
+        model(x, torch.zeros(chunk, dtype=torch.long), rna, p1, p2,
               decode_original=False)
     return k3, k4, mm
 
 
 def main_quant(quant: str, attn: bool, patches: int, chunk: int,
-               visits: int) -> None:
-    per_step = WINDOWS // chunk * visits
+               visits: int, conf=None) -> None:
+    conf = conf or preset_conf()
+    windows = gen_config(conf).n_win
+    if patches is None:
+        visits = gen_plan(conf)["visits"] * visits
+    per_step = windows // chunk * visits
     calls = STEPS * per_step
-    k3, k4, mm = quant_shapes(quant, attn, patches, chunk)
+    k3, k4, mm = quant_shapes(quant, attn, patches, chunk, conf)
     print(f"PackedTeraUNet --quant {quant}"
           + ("" if attn else " --no_quant_attn"))
     ops = sum(2 * b * h * w * co * kh * kw * ci * n
@@ -332,17 +402,17 @@ def main_quant(quant: str, attn: bool, patches: int, chunk: int,
           f"{k4_bytes * per_step / H100_BYTES_PER_S * 1e3:.2f} ms a step")
 
 
-TRAIN_BATCH = 32    # cli.train's default --batch: samples a microbatch
-TRAIN_ACCUM = 2     # 64 // batch microbatches a step
-
-
-def train_shapes(packed: bool = False, batch: int = TRAIN_BATCH,
-                 method: str = "ours") -> tuple[Counter, Counter]:
+def train_shapes(packed: bool = False, batch: int = None,
+                 method: str = "ours", conf=None
+                 ) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one
-    training forward on a microbatch of ``batch`` samples (2x2 blocks of
-    patches, both decoders) of ``method``'s model; K1b and K2b get the
-    same."""
-    conf = prep_config("638850", method=method).make_model_conf()
+    training forward on a microbatch of ``batch`` samples (default the
+    preset's, ``conf.batch_size``; 2x2 blocks of patches, both decoders)
+    of ``method``'s model on ``conf``'s preset (default 638850); K1b and
+    K2b get the same."""
+    conf = conf or preset_conf(method=method)
+    batch = batch or conf.batch_size
+    conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
     with recording(k1, k2), torch.device("meta"):
         model = (make_packed_model(conf, torch.float32, from_5d=True)
@@ -356,36 +426,101 @@ def train_shapes(packed: bool = False, batch: int = TRAIN_BATCH,
 
 
 def train_bwd_variants(packed: bool = False, method: str = "ours",
-                       batch: int = TRAIN_BATCH) -> dict:
+                       batch: int = None, conf=None) -> dict:
     """K1b's and K2b's launches a training step by variant: the shapes of
     ``train_shapes`` (a microbatch of ``batch`` samples) in bf16 with
-    aligned tensors, ``TRAIN_ACCUM`` microbatches."""
-    k1, k2 = train_shapes(packed, batch=batch, method=method)
-    out = {"rmsnorm_bwd": dict.fromkeys(K1_VARIANTS, 0),
-           "window_attention_bwd": dict.fromkeys(K2_VARIANTS, 0)}
-    for (_, c), n in k1.items():
-        out["rmsnorm_bwd"][rmsnorm_bwd_variant(c, BF16, True)] += (
-            n * TRAIN_ACCUM)
-    for (_, n_, d), n in k2.items():
-        out["window_attention_bwd"][attention_bwd_variant(
-            n_, d, torch.bfloat16, True)] += n * TRAIN_ACCUM
+    aligned tensors, the preset's ``accum`` microbatches."""
+    conf = conf or preset_conf(method=method)
+    k1, k2 = train_shapes(packed, batch=batch, method=method, conf=conf)
+    return {"rmsnorm_bwd": by_variant("K1b", k1, conf.accum_batches),
+            "window_attention_bwd": by_variant("K2b", k2,
+                                               conf.accum_batches)}
+
+
+def variant(kernel: str, shape: tuple) -> str:
+    """The variant of K1, K1b, K2 or K2b that a bf16 call with aligned
+    tensors at ``shape`` launches."""
+    if kernel in ("K1", "K1b"):
+        return rmsnorm_variant(shape[-1], BF16, True)
+    rule = attention_variant if kernel == "K2" else attention_bwd_variant
+    return rule(shape[1], shape[2], torch.bfloat16, True)
+
+
+def by_variant(kernel: str, counts: Counter, times: int = 1) -> dict:
+    """Launches by variant (every variant named) of ``counts`` (shape ->
+    launches) times ``times``."""
+    out = dict.fromkeys(K1_VARIANTS if kernel in ("K1", "K1b")
+                        else K2_VARIANTS, 0)
+    for shape, n in counts.items():
+        out[variant(kernel, shape)] += n * times
     return out
 
 
-def main_train(packed: bool, method: str = "ours") -> None:
-    k1, k2 = train_shapes(packed, method=method)
+def prediction(counts: dict, times: int) -> dict:
+    """{name: {launches, by_variant, shapes}} of {name: (kernel, shape ->
+    launches a call)} over ``times`` calls (``chip_smoke.py``'s launch
+    counters' names; shapes as lists, for JSON)."""
+    out = {}
+    for name, (kernel, c) in counts.items():
+        if kernel in ("K3", "K4"):
+            by = (k3_variants(c) if kernel == "K3" else
+                  {v: sum(n for s, n in c.items() if s[-1] == v)
+                   for v in qk.QUANT_VARIANTS})
+            by = {v: n * times for v, n in by.items()}
+        else:
+            by = by_variant(kernel, c, times)
+        out[name] = dict(launches=sum(c.values()) * times, by_variant=by,
+                         shapes=[[list(s), n * times] for s, n in
+                                 sorted(c.items(), key=lambda kv: -kv[1])])
+    return out
+
+
+def chain_prediction(conf, quant: str = "", steps: int = STEPS,
+                     probes: int = 0, packed: bool = True) -> dict:
+    """The launches of ``cli.generate``'s block-major chain of ``steps``
+    steps over 2x2 tiles of ``conf``'s preset (:func:`gen_plan`), plus
+    ``probes`` planner calls: K1 and K2 (the packed model, ``packed``
+    False the 5D one), and with ``quant`` K3 and K4, as
+    :func:`prediction` gives them."""
+    calls = gen_plan(conf)["calls"] * steps + probes
+    k1, k2 = Counter(), Counter()
+    counts = {}
+    if quant:
+        k3, k4, _ = quant_shapes(quant, conf=conf, k12=(k1, k2))
+        counts = {"quant_conv": ("K3", k3), "quantize": ("K4", k4)}
+    else:
+        k1, k2 = per_call_shapes(packed, conf=conf)
+    return prediction({"rmsnorm": ("K1", k1),
+                       "window_attention": ("K2", k2), **counts}, calls)
+
+
+def train_prediction(conf, steps: int = 1) -> dict:
+    """The launches of ``steps`` training steps of ``cli.train`` on
+    ``conf``'s preset (the packed model where ``conf.packed_compute``):
+    K1, K1b, K2 and K2b, as :func:`prediction` gives them."""
+    k1, k2 = train_shapes(conf.packed_compute, conf=conf)
+    times = conf.accum_batches * steps
+    return prediction({"rmsnorm": ("K1", k1), "rmsnorm_bwd": ("K1b", k1),
+                       "window_attention": ("K2", k2),
+                       "window_attention_bwd": ("K2b", k2)}, times)
+
+
+def main_train(packed: bool, method: str = "ours", conf=None) -> None:
+    conf = conf or preset_conf(method=method)
+    accum = conf.accum_batches
+    k1, k2 = train_shapes(packed, method=method, conf=conf)
     name = ("PackedTeraUNet(from_5d)" if packed else "TeraUNet (5D)") \
         if method == "ours" else f"the {method} baseline"
-    print(f"{name} training, {TRAIN_ACCUM} microbatches of {TRAIN_BATCH} "
-          "samples a step")
+    print(f"{name} training on {conf.name}, {accum} microbatches of "
+          f"{conf.batch_size} samples a step")
     for name, counts in (("K1 rmsnorm and K1b (rows, C)", k1),
                          ("K2 window_attention and K2b (B, N, D)", k2)):
         print(f"{name}: {sum(counts.values())} per microbatch, "
-              f"{sum(counts.values()) * TRAIN_ACCUM} per step, each")
+              f"{sum(counts.values()) * accum} per step, each")
         for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
-            print(f"  {shape}: {n} per microbatch, {n * TRAIN_ACCUM} per "
+            print(f"  {shape}: {n} per microbatch, {n * accum} per "
                   "step")
-    for name, by in train_bwd_variants(packed, method).items():
+    for name, by in train_bwd_variants(packed, method, conf=conf).items():
         print(f"{name} launches a step by variant: {by}")
 
 
@@ -471,9 +606,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no_packed", action="store_true",
                     help="the 5D TeraUNet instead of the packed model")
-    ap.add_argument("--patches", type=int, default=PATCHES,
+    ap.add_argument("--patches", type=int, default=None,
                     help="patches of one z-window (a square; 81 for a 2x2 "
-                    "block, 25 for one tile)")
+                    "block, 25 for one tile; default the preset's plan)")
     ap.add_argument("--chunk", type=int, default=1,
                     help="z-windows per UNet call (window_chunk)")
     ap.add_argument("--visits", type=int, default=1,
@@ -503,7 +638,22 @@ def main() -> None:
                     help="with --ranks: band-parallel --stream")
     ap.add_argument("--steps", type=int, default=STEPS,
                     help="with --ranks: DDIM steps")
+    ap.add_argument("--mouse", default="638850",
+                    choices=("609882", "609889", "638850"))
+    ap.add_argument("--patch", type=int, default=64, choices=(32, 64, 128))
+    ap.add_argument("--to_hbr", action="store_true",
+                    help="the 81-gene M2H panel")
+    ap.add_argument("--stain", default="all",
+                    choices=("DAPI", "PolyT", "all"))
+    ap.add_argument("--rna_slc", type=int, default=4, choices=(1, 4, 8, 16))
+    ap.add_argument("--batch", type=int, default=TRAIN_BATCH,
+                    help="with --train: cli.train's global batch")
     args = ap.parse_args()
+    conf = preset_conf(args.mouse, args.patch, args.to_hbr, args.stain,
+                       args.rna_slc, args.batch, args.method)
+    if (conf.name.split("_")[:5] != "638850_64_229_all_4".split("_")
+            and (args.ranks or args.attn)):
+        ap.error("--ranks and --attn list the 638850 preset only")
     if args.train and args.ranks:
         main_train_ranks(args.ranks, args.packed)
         return
@@ -515,23 +665,31 @@ def main() -> None:
         main_attn()
         return
     if args.train:
-        main_train(args.packed, args.method)
+        main_train(args.packed, args.method, conf)
         return
     if args.quant:
         main_quant(args.quant, not args.no_quant_attn, args.patches,
-                   args.chunk, args.visits)
+                   args.chunk, args.visits, conf)
         return
-    per_step = WINDOWS // args.chunk * args.visits
+    plan = gen_plan(conf)
+    visits = args.visits * (plan["visits"] if args.patches is None else 1)
+    per_step = plan["windows"] // args.chunk * visits
     calls = STEPS * per_step
     k1, k2 = per_call_shapes(packed=not args.no_packed,
-                             patches=args.patches, chunk=args.chunk)
-    print("PackedTeraUNet" if not args.no_packed else "TeraUNet (5D)")
+                             patches=args.patches, chunk=args.chunk,
+                             conf=conf)
+    print(("PackedTeraUNet" if not args.no_packed else "TeraUNet (5D)")
+          + f" on {conf.name}: {plan['windows']} z-windows, "
+          f"{per_step} UNet calls a step")
     for name, counts in (("K1 rmsnorm (rows, C)", k1),
                          ("K2 window_attention (B, N, D)", k2)):
         print(f"{name}: {sum(counts.values())} per UNet call, "
               f"{sum(counts.values()) * calls} per chain of {calls} calls")
         for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
             print(f"  {shape}: {n} per call, {n * calls} per chain")
+    for kernel, counts in (("K1", k1), ("K2", k2)):
+        print(f"{kernel} launches a chain by variant: "
+              f"{by_variant(kernel, counts, calls)}")
     step = Counter()
     for (rows, c), n in k1.items():
         step["K1 " + rmsnorm_variant(c, BF16, True)] += (

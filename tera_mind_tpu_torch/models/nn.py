@@ -169,7 +169,11 @@ class Conv3d(CastsWeights, nn.Module):
     the result is viewed back.  ``zero_init`` marks the residual out-convs
     that :func:`init_weights` zeroes (``use_zero_module``); ``groups`` is
     flax's ``feature_group_count`` (the weight is ``(out, in // groups,
-    ...)``, as flax's kernel ``(..., in // groups, out)``)."""
+    ...)``, as flax's kernel ``(..., in // groups, out)``).  A bf16 conv
+    on the CPU runs on its operands widened to float32 and rounds the
+    result to bf16, as XLA's bf16 conv does (float32 sums): PyTorch's CPU
+    bf16 ``conv3d`` gets the weight gradient wrong by up to 0.9 of its
+    max, and non-finite in training."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel: Sequence[int], *, padding: Optional[Sequence[int]]
@@ -188,8 +192,14 @@ class Conv3d(CastsWeights, nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cast(x).permute(0, 4, 1, 2, 3)
-        y = F.conv3d(x, self.cast(self.weight), self.cast(self.bias),
-                     padding=self.padding, groups=self.groups)
+        w, b = self.cast(self.weight), self.cast(self.bias)
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            y = F.conv3d(x.float(), w.float(),
+                         None if b is None else b.float(),
+                         padding=self.padding, groups=self.groups
+                         ).to(x.dtype)
+        else:
+            y = F.conv3d(x, w, b, padding=self.padding, groups=self.groups)
         return y.permute(0, 2, 3, 4, 1)
 
 

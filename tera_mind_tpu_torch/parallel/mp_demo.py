@@ -153,10 +153,11 @@ def _interleave_for_single(conf, step: int, nproc: int, per: int) -> dict:
     return out
 
 
-def train_ref(nproc: int = 2, device="cpu", steps: int = TRAIN_STEPS,
+def train_ref(nproc: int = 2, device="cuda", steps: int = TRAIN_STEPS,
               **conf_kw) -> list:
     """One-process reference: the global batches of an ``nproc``-rank
-    run, one device; prints and returns the loss history."""
+    run, on one device (the card unless the caller passes ``"cpu"``);
+    prints and returns the loss history."""
     from ..training.harness import Trainer
     _float32()
     conf = _train_conf(**conf_kw)

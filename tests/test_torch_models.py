@@ -101,6 +101,36 @@ def test_conv3d_matches_jax(kernel):
     close(load_jax_params(tnn.Conv3d(5, 7, kernel), p)(t(x)), jm.apply(p, x))
 
 
+def test_conv3d_bf16_on_the_cpu_matches_jax_gradients():
+    """A bf16 ``Conv3d`` on float32 master weights (training's compute) on
+    the CPU: its output and its weight and input gradients against
+    ``jax.grad`` of the flax conv at bf16 (XLA sums in float32), within
+    2e-2 of each one's max (a few bf16 roundings).  PyTorch's own CPU bf16
+    conv3d put the weight gradient 0.4-0.9 of its max away."""
+    rng = np.random.default_rng(16)
+    x = randn(rng, 8, 2, 64, 64, 96, scale=3.0)
+    g = randn(rng, 8, 2, 64, 64, 64)
+    jm = jnn.conv3d(64, (3, 3, 3), dtype=jnp.bfloat16)
+    p = seeded_params(jm, x, seed=17)
+
+    def f(params, xx):
+        return (jm.apply(params, xx).astype(jnp.float32) * g).sum()
+    jy = np.asarray(jm.apply(p, x).astype(jnp.float32))
+    jdp, jdx = jax.grad(f, argnums=(0, 1))(p, x)
+    m = tnn.set_compute_dtype(load_jax_params(tnn.Conv3d(96, 64, (3, 3, 3)),
+                                              p), torch.bfloat16,
+                              param_dtype=torch.float32)
+    xx = t(x).requires_grad_()
+    y = m(xx)
+    assert y.dtype == torch.bfloat16
+    y.float().mul(t(g)).sum().backward()
+    dw = np.asarray(jdp["params"]["kernel"]).transpose(4, 3, 0, 1, 2)
+    for got, want in ((y.detach().float().numpy(), jy),
+                      (m.weight.grad.numpy(), dw),
+                      (xx.grad.numpy(), np.asarray(jdx))):
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
 def test_window_fold_matches_jax():
     x = randn(np.random.default_rng(8), 2, 3, 2 * 8 * 8, 5)
     folded = tattn._window_fold(t(x), 2, 2)

@@ -533,7 +533,8 @@ def test_chip_smoke_checks_the_int8_shapes_and_counts():
     """chip_smoke.py's K3 and K4 shapes are exactly the shapes one UNet
     call of ``cli.generate --quant int8`` gives them (scripts/kernel_shapes.py
     --quant, the same with int8_static), and its int8 chain counts are
-    those launches times 375 calls: 75 K3, all in the variant k3_plan's
+    those launches times the chain's calls (25 z-windows a step, 15 steps
+    for int8, 5 for int8_static): 75 K3, all in the variant k3_plan's
     rule picks (wgmma), 117 K4 (one launch each, dynamic or static), 42
     torch._int_mm."""
     import importlib.util
@@ -549,12 +550,14 @@ def test_chip_smoke_checks_the_int8_shapes_and_counts():
         assert {(r, c, m) for r, c, m, _ in k4} == set(cs.K4_SHAPES)
         assert {v for *_, v in k4} == {variant}
         want = cs.QUANT_LAUNCHES[quant]
+        calls = 25 * cs.CHAIN_STEPS[quant]
+        assert calls == {"int8": 375, "int8_static": 125}[quant]
         assert want["quant_conv"] == {
-            v: n * 375 for v, n in ks.k3_variants(k3).items()}
-        assert want["quant_conv"] == {"wgmma": 75 * 375, "mma_sync": 0}
+            v: n * calls for v, n in ks.k3_variants(k3).items()}
+        assert want["quant_conv"] == {"wgmma": 75 * calls, "mma_sync": 0}
         assert sum(k3.values()) == 75
-        assert want["quantize"][variant] == sum(k4.values()) * 375
-        assert sum(want["quantize"].values()) == 117 * 375
+        assert want["quantize"][variant] == sum(k4.values()) * calls
+        assert sum(want["quantize"].values()) == 117 * calls
         assert set(want) == {"quant_conv", "quantize"}
         assert sum(mm.values()) == 42
     # K3's 16-channel multiple: the deep concats are padded, the others not

@@ -402,6 +402,15 @@ def test_a_batch_that_does_not_split_over_the_ranks_is_refused(dp_run):
 # mp_demo's training tail
 # --------------------------------------------------------------------------
 
+def test_mp_demo_train_ref_defaults_to_the_card():
+    """``train_ref``, an entry point of the port, runs on the card unless
+    the caller asks for the CPU, as the CLI beside it does."""
+    import inspect
+    assert inspect.signature(tdemo.train_ref).parameters[
+        "device"].default == "cuda"
+    assert tdemo.parse_args([]).device == "cuda"
+
+
 def test_mp_demo_train_matches_train_ref():
     """``mp_demo --train_only`` over 2 ranks: the replicas bit-equal after
     every step and the loss history within 2e-5 of the one-process

@@ -13,7 +13,8 @@ Phases, each printed on its own line with elapsed seconds:
      device (CUDA graph replay), beside the card's bound for the work;
      K1 also at the extraction's (3,664, 64) in float32;
   4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
-     ``strided``, K2b ``tensor_core`` and ``cuda_core``) against its plain
+     ``strided``, K2b ``tensor_core``, ``tensor_core_tiled`` and
+     ``cuda_core``) against its plain
      version at every shape of a training step (``scripts/kernel_shapes.py
      --train``) in bf16 and f32 and at edge shapes, randn and peaked for
      K2b, each run twice for bit-equal results, and timed against their
@@ -160,7 +161,10 @@ Phases, each printed on its own line with elapsed seconds:
      this phase's runs that phases 3-5 do not check
      (``scripts/kernel_shapes.py``'s predictions), by their per-shape
      checks and timings, the variant each shape's rule names required
-     (K2 and K2b ``cuda_core`` at (B, 128, 512) and (B, 512, 128));
+     (K2 and K2b ``tensor_core_tiled`` at (B, 128, 512), (B, 512, 128)
+     and, from the 8-RNA-slice preset of ``PRESET_KERNELS_ONLY``, (B,
+     256, 256), each also timed in the ``cuda_core`` variant it took
+     before);
      each preset's small f32 chain (5D card vs CPU, packed vs 5D,
      ``SMALL_ATOL``); then at full width, each with the counters set to
      0 just before it and its launches by kernel and variant required to
@@ -171,7 +175,8 @@ Phases, each printed on its own line with elapsed seconds:
      microbatches, peak memory under 40 GiB) and on
      ``609889_32_81_DAPI_16`` (``--packed``), the last two followed by
      ``cli.generate --ckpt_pth`` from their checkpoints over 2x2 tiles for
-     2 steps (the 16-slice one ``--no_packed``); tiles/s or samples/s,
+     2 steps (the 16-slice one ``--no_packed``), none of whose K2 or K2b
+     launches may be ``cuda_core``; tiles/s or samples/s,
      peak device memory, finite outputs;
  20. a ``{"kernels": [...]}`` line, then the card line, then the result.
 
@@ -182,7 +187,9 @@ machine of several cards; ``--dp`` runs phase 18 alone; ``--presets``
 phase 19 alone;
 ``python3 chip_smoke.py --int8`` runs phase 5 and phase 9's int8 and
 int8_static chains with the bf16 packed chain they are compared with,
-for a call that tunes the int8 kernels.
+for a call that tunes the int8 kernels; ``--attention`` runs K2 and K2b
+at phase 3's and 4's shapes, the refusals and phase 19's K2 and K2b
+shapes, for a call that tunes the attention kernels.
 """
 
 from __future__ import annotations
@@ -430,11 +437,25 @@ def time_k1(k1, x, w, n, c) -> dict:
                 bound_ms=bms, bound_by=by)
 
 
+def before_ms(fn, sets, variant: str) -> dict:
+    """``{"cuda_core_ms": t}``: at a shape that takes the
+    ``tensor_core_tiled`` variant, the device time of ``fn`` forced onto
+    ``cuda_core``, the variant such shapes took before it (the row's first
+    time); else {}."""
+    if variant != "tensor_core_tiled":
+        return {}
+    return {"cuda_core_ms": device_ms(
+        lambda *a: fn(*a, variant="cuda_core"), sets)}
+
+
 def time_k2(k2, q, k, v, scale, b, n, d) -> dict:
     import torch.nn.functional as F
     sets = input_sets((q, k, v), 4 * q.numel() * q.element_size())
     bms, by = bound(*kernel_work("K2", (b, n, d), q.element_size()))
+    variant = k2.attention_variant(n, d, q.dtype, True)
     return dict(ms=device_ms(lambda *a: k2.attention_cuda(*a, scale), sets),
+                **before_ms(lambda *a, variant: k2.attention_cuda(
+                    *a, scale, variant=variant), sets, variant),
                 plain_ms=device_ms(lambda *a: k2.attention_plain(*a, scale),
                                    sets),
                 library_ms=device_ms(lambda *a: F.scaled_dot_product_attention(
@@ -443,8 +464,10 @@ def time_k2(k2, q, k, v, scale, b, n, d) -> dict:
 
 
 def timing_text(t: dict, lib: str) -> str:
-    return (f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, {lib} "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+    before = (f" (cuda_core {t['cuda_core_ms']:.4f} ms)"
+              if "cuda_core_ms" in t else "")
+    return (f"kernel {t['ms']:.4f} ms{before}, plain {t['plain_ms']:.4f} ms,"
+            f" {lib} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f} % of it)")
 
 
@@ -494,8 +517,9 @@ def k1_row(g, device, n, c, path, w_dtype=None) -> dict:
 def k2_row(g, device, b, n, d, path) -> dict:
     """K2 at (b, n, d): bf16 against its plain version on randn and on
     peaked inputs (the variant the shape rule names required:
-    ``tensor_core`` at every 638850 shape), float32 on 8 of the batch;
-    timed."""
+    ``tensor_core`` at every 638850 shape, ``tensor_core_tiled`` at N >
+    128 or D = 512 with N = 128), float32 on 8 of the batch; timed (a
+    ``tensor_core_tiled`` shape also in ``cuda_core``)."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
@@ -628,18 +652,22 @@ TRAIN_LAUNCHES = {"5d": {"rmsnorm": 252, "window_attention": 18},
 # --train): the odd C of the gene concats take K1b strided
 TRAIN_BWD_VARIANTS = {
     "5d": {"rmsnorm_bwd": {"strided": 18, "vector": 234},
-           "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18}},
+           "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18,
+                                    "tensor_core_tiled": 0}},
     "packed": {"rmsnorm_bwd": {"strided": 0, "vector": 76},
-               "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18}},
+               "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18,
+                                        "tensor_core_tiled": 0}},
     **{m: {"rmsnorm_bwd": {"strided": 0, "vector": 4},
-           "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0}}
+           "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0,
+                                    "tensor_core_tiled": 0}}
        for m in ("patch-dm", "sinf")}}
 # edge shapes: ragged and odd C, odd row counts, C = 741 and 1,253 (K1b
 # strided), C = 8, 264 and 1,024 (vector with one 16-byte vector a row,
 # unequal lanes, 32 lanes a row; 1,024 is strided in f32) and 2,050 (a row
 # wider than the strided variant's registers); N = 17, 100, 512 and D =
 # 48, 130, 512 (K2b tensor_core at (5, 100, 48), with N not a multiple of
-# 16; cuda_core at D = 130 and at N = D = 512, the largest shared memory)
+# 16; cuda_core at D = 130; tensor_core_tiled at N = D = 512, the largest
+# shared memory)
 K1B_EDGE = [(7, 33), (13, 100), (1029, 741), (517, 1253), (3, 8),
             (517, 264), (1000, 1024), (33, 2050)]
 K2B_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512)]
@@ -721,8 +749,11 @@ def time_k2b(k2, q, k, v, g, scale) -> dict:
         sdpa(a, b_, c), (a, b_, c), gg), lib_sets)
         - device_ms(lambda a, b_, c, gg: sdpa(a, b_, c), lib_sets))
     bms, by = bound(*kernel_work("K2b", (b, n, d), q.element_size()))
+    variant = k2.attention_bwd_variant(n, d, q.dtype, True)
     return dict(ms=device_ms(lambda *a: k2.attention_bwd_cuda(*a, scale),
                              sets),
+                **before_ms(lambda *a, variant: k2.attention_bwd_cuda(
+                    *a, scale, variant=variant), sets, variant),
                 plain_ms=device_ms(
                     lambda *a: k2.attention_bwd_plain(*a, scale), sets),
                 library_ms=lib, bound_ms=bms, bound_by=by)
@@ -877,10 +908,12 @@ def check_backward_kernels(device) -> dict:
 
 
 def check_variant_refusal(device) -> None:
-    """The backward kernels' C entry points refuse a variant that cannot
-    take the call (an error code, no launch): K2b ``tensor_core`` on
-    float32, on N = 256 and on a misaligned gradient, an unknown variant;
-    K1b ``vector`` on C = 741 and on a misaligned x."""
+    """The attention kernels' and the backward kernels' C entry points
+    refuse a variant that cannot take the call (an error code, no
+    launch): K2b ``tensor_core`` on float32, on N = 256 and on a
+    misaligned gradient, an unknown variant; K2 and K2b
+    ``tensor_core_tiled`` on float32, at D = 72 and on a misaligned
+    tensor; K1b ``vector`` on C = 741 and on a misaligned x."""
     import torch
 
     from tera_mind_tpu_torch.ops import _build
@@ -890,22 +923,38 @@ def check_variant_refusal(device) -> None:
     lib = _build.lib()
     stream = torch.cuda.current_stream().cuda_stream
     tc, cc = k2.VARIANTS.index("tensor_core"), k2.VARIANTS.index("cuda_core")
+    tiled = k2.VARIANTS.index("tensor_core_tiled")
 
-    def k2b(dtype, n, variant, offset=0):
-        t = torch.zeros(4 * n * 64 + 8, device=device, dtype=dtype)
-        a = t[offset:offset + 4 * n * 64]
+    def k2b(dtype, n, variant, offset=0, d=64):
+        t = torch.zeros(4 * n * d + 8, device=device, dtype=dtype)
+        a = t[offset:offset + 4 * n * d]
         stats = torch.empty(4 * n * 3, device=device)
         return lib.tmt_window_attention_bwd(
-            *(a.data_ptr(),) * 7, stats.data_ptr(), 4, n, 64, 1 / 64,
+            *(a.data_ptr(),) * 7, stats.data_ptr(), 4, n, d, 1 / d,
+            _build.DTYPES[dtype], variant, stream)
+
+    def k2(dtype, n, variant, offset=0, d=64):
+        t = torch.zeros(4 * n * d + 8, device=device, dtype=dtype)
+        a = t[offset:offset + 4 * n * d]
+        o = torch.empty(4 * n * d, device=device, dtype=dtype)
+        return lib.tmt_window_attention(
+            *(a.data_ptr(),) * 3, o.data_ptr(), 4, n, d, 1 / d,
             _build.DTYPES[dtype], variant, stream)
 
     bf16 = torch.bfloat16
-    require(k2b(bf16, 32, tc) == 0 and k2b(torch.float32, 32, cc) == 0,
-            "K2b entry refused calls its variants take")
+    require(k2b(bf16, 32, tc) == 0 and k2b(torch.float32, 32, cc) == 0
+            and k2b(bf16, 256, tiled) == 0 and k2(bf16, 256, tiled) == 0,
+            "K2 / K2b entry refused calls its variants take")
     refused = {"tensor_core on float32": k2b(torch.float32, 32, tc),
                "tensor_core at N = 256": k2b(bf16, 256, tc),
                "tensor_core misaligned": k2b(bf16, 32, tc, offset=1),
-               "variant 7": k2b(bf16, 32, 7)}
+               "variant 7": k2b(bf16, 32, 7),
+               **{f"{name} tensor_core_tiled {why}": fn(*args)
+                  for name, fn in (("K2", k2), ("K2b", k2b))
+                  for why, args in (
+                      ("on float32", (torch.float32, 256, tiled)),
+                      ("at D = 72", (bf16, 256, tiled, 0, 72)),
+                      ("misaligned", (bf16, 256, tiled, 1)))}}
     vec, strided = k1.VARIANTS.index("vector"), k1.VARIANTS.index("strided")
 
     def k1b(c, variant, offset=0):
@@ -924,9 +973,8 @@ def check_variant_refusal(device) -> None:
                     "K1b vector misaligned": k1b(96, vec, offset=1)})
     torch.cuda.synchronize()
     require(all(err != 0 for err in refused.values()),
-            f"backward entry points took calls their variant cannot: "
-            f"{refused}")
-    log(f"K1b and K2b entry points refuse (error codes): {refused}")
+            f"entry points took calls their variant cannot: {refused}")
+    log(f"K2, K1b and K2b entry points refuse (error codes): {refused}")
 
 
 # ---------------------------------------------------------------------------
@@ -1843,7 +1891,8 @@ def expected_launches(counts: tuple, calls: int) -> tuple:
             {"rmsnorm": {"strided": (n_norm - n_vec) * calls,
                          "vector": n_vec * calls},
              "window_attention": {"cuda_core": 0,
-                                  "tensor_core": n_attn * calls}})
+                                  "tensor_core": n_attn * calls,
+                                  "tensor_core_tiled": 0}})
 
 
 def read_launches() -> tuple:
@@ -3383,6 +3432,15 @@ PRESETS = {
     "609889_32_81_DAPI_16": ["--mouse", "609889", "--patch", "32",
                              "--to_hbr", "--stain", "DAPI",
                              "--rna_slc", "16"]}
+# presets whose K2 and K2b shapes phase 19 checks and times one by one,
+# with no full-width run: 638850 at 8 RNA slices (12 z-windows), whose
+# (B, 256, 256) take K2 / K2b tensor_core_tiled, and patch 128 at
+# cli.train's default batch of 32 (K2b at (512, 128, 512); phase 19's run
+# takes batch 8 to fit the card)
+PRESET_KERNELS_ONLY = {
+    "638850_64_229_all_8": ["--rna_slc", "8"],
+    "609889_128_81_all_4 batch 32": ["--mouse", "609889", "--patch", "128",
+                                     "--to_hbr", "--batch", "32"]}
 PRESET_INT8_STEPS = 2      # the 609882 int8 chain
 PRESET_TRAIN_STEPS = 3     # full-width training steps a preset
 PRESET_TIMED_FROM = 2      # samples/s over steps 2..3
@@ -3445,11 +3503,21 @@ def require_launches(got: dict, want: dict, what: str) -> None:
                 f"{ {k: w[k] for k in ('launches', 'by_variant')} }")
 
 
+def require_no_cuda_core_attention(got: dict, what: str) -> None:
+    """No K2 or K2b launch of a bf16 run took ``cuda_core``: since
+    ``tensor_core_tiled`` every preset's attention shape has tensor
+    cores."""
+    for name in ("window_attention", "window_attention_bwd"):
+        n = got[name]["by_variant"]["cuda_core"]
+        require(n == 0, f"{what}: {n} {name} launches on cuda_core")
+
+
 def preset_kernel_shapes(ks) -> dict:
     """{kernel: [(shape, path)]} of phase 19's full-width runs that
     phases 3-5 do not check (K1 in generation with the bf16 weight, in
-    training with the float32 one), from ``scripts/kernel_shapes.py``'s
-    predictions, each shape once."""
+    training with the float32 one), and the K2 and K2b shapes of
+    :data:`PRESET_KERNELS_ONLY`'s chains and training steps, from
+    ``scripts/kernel_shapes.py``'s predictions, each shape once."""
     seen = {"K1": set(K1_SHAPES) | {s for k1s, _ in PATH_SHAPES.values()
                                     for s in k1s},
             "K1 train": set(TRAIN_K1_SHAPES), "K1b": set(TRAIN_K1_SHAPES),
@@ -3489,6 +3557,12 @@ def preset_kernel_shapes(ks) -> dict:
                 chain = ks.chain_prediction(conf, probes=1, packed=packed)
                 add("K1", chain["rmsnorm"], f"{preset} generation")
                 add("K2", chain["window_attention"], f"{preset} generation")
+    for preset, flags in PRESET_KERNELS_ONLY.items():
+        conf = preset_conf(ks, flags)
+        add("K2", ks.chain_prediction(conf)["window_attention"],
+            f"{preset} chain")
+        add("K2b", ks.train_prediction(conf)["window_attention_bwd"],
+            f"{preset} training")
     return out
 
 
@@ -3711,6 +3785,7 @@ def run_preset_training(device, ks, run: str, tmp: Path) -> dict:
     require(all(np.isfinite(losses)) and len(losses) == steps,
             f"{run} training losses {losses}")
     require_launches(got, want, f"{run} training")
+    require_no_cuda_core_attention(got, f"{run} training")
     if conf.image_size == 128:
         require(peak < PRESET_PEAK_GIB, f"{run}: peak {peak:.2f} GiB, not "
                 f"under {PRESET_PEAK_GIB}")
@@ -3751,6 +3826,7 @@ def run_preset_training(device, ks, run: str, tmp: Path) -> dict:
             for k, v in ggot.items() if v["launches"]))
     require_output(res, (GRID * 256, GRID * 256, channels))
     require_launches(ggot, gwant, f"cli.generate from {run}")
+    require_no_cuda_core_attention(ggot, f"cli.generate from {run}")
     out.update(generate_s=gsecs, generate_tiles_per_s=grate,
                generate_peak_gib=gpeak, generate_launches=ggot)
     return out
@@ -3918,10 +3994,12 @@ def main() -> int:
         return dp_only(device, smi)
     if sys.argv[1:] == ["--presets"]:
         return presets_only(device, smi)
+    if sys.argv[1:] == ["--attention"]:
+        return attention_only(device, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
-              "--ranks, --int8, --dp or --presets)", file=sys.stderr,
-              flush=True)
+              "--ranks, --int8, --dp, --presets or --attention)",
+              file=sys.stderr, flush=True)
         return 2
 
     rows = check_kernels(device)
@@ -4146,6 +4224,38 @@ def presets_only(device, smi: str) -> int:
     print(json.dumps({"presets": presets}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "only": "phase 19", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def attention_only(device, smi: str) -> int:
+    """``--attention``: K2 at phase 3's shapes and edge shapes, K2b at
+    phase 4's, the entry points' refusals, and K2 and K2b at phase 19's
+    shapes, for a call that tunes the attention kernels; prints its JSON,
+    the card line and a result line naming the part it ran."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    g = torch.Generator(device="cpu").manual_seed(0)
+    rows = {"window_attention": [k2_row(g, device, b, n, d, "block_major")
+                                 for b, n, d in K2_SHAPES + K2_EDGE]}
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    rows["window_attention_bwd"] = [k2b_row(gen, device, b, n, d, "train")
+                                    for b, n, d in TRAIN_K2_SHAPES + K2B_EDGE]
+    check_variant_refusal(device)
+    shapes = preset_kernel_shapes(kernel_shapes())
+    g = torch.Generator(device="cpu").manual_seed(19)
+    rows["window_attention"] += [k2_row(g, device, b, n, d, path)
+                                 for (b, n, d), path in shapes["K2"]]
+    rows["window_attention_bwd"] += [k2b_row(g, device, b, n, d, path)
+                                     for (b, n, d), path in shapes["K2b"]]
+    print(json.dumps({"shapes": rows, "launches_by_variant": {
+        "window_attention": dict(k2.launches_by_variant),
+        "window_attention_bwd": dict(k2.bwd.launches_by_variant)}}),
+        flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "only": "K2 and K2b", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

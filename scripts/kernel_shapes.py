@@ -59,7 +59,8 @@ patches, both decoders), and counts it for one step of ``accum``
 microbatches (2).  In training every K1 and K2 input requires grad, so
 each launch records one backward launch: K1b takes K1's (rows, C) and K2b
 K2's (B, N, D), as often; it also prints the launches a step of each
-K1b and K2b variant (bf16, aligned tensors).  With ``--ranks N`` it runs
+K1b and K2b variant (bf16, aligned tensors) and the bytes a step of each
+K2 and K2b variant with their byte bound.  With ``--ranks N`` it runs
 one rank of ``cli.train`` over N processes instead (data parallel: each
 rank's microbatch is 32 / N samples, ``accum`` microbatches a step, so
 its launches a step are one process's), and prints each shape's bound on
@@ -522,6 +523,24 @@ def main_train(packed: bool, method: str = "ours", conf=None) -> None:
                   "step")
     for name, by in train_bwd_variants(packed, method, conf=conf).items():
         print(f"{name} launches a step by variant: {by}")
+    for kernel, nbytes in sorted(attention_step_bytes(k2, accum).items()):
+        print(f"{kernel}: {nbytes / 1e9:.3f} GB a step, byte bound "
+              f"{nbytes / H100_BYTES_PER_S * 1e3:.3f} ms a step")
+
+
+def attention_step_bytes(k2: Counter, times: int) -> Counter:
+    """{"K2 <variant>" / "K2b <variant>": bytes} that ``times`` rounds of
+    the K2 launches ``k2`` (shape -> launches) and their K2b launches move
+    in bf16 with aligned tensors (inputs read once, outputs written once,
+    as ``chip_smoke.py``'s ``kernel_work`` counts them), by variant."""
+    out = Counter()
+    for (b, n, d), c in k2.items():
+        for kernel, rule in (("K2", attention_variant),
+                             ("K2b", attention_bwd_variant)):
+            nbytes = kernel_work(kernel, (b, n, d))[0]
+            out[f"{kernel} {rule(n, d, torch.bfloat16, True)}"] += (
+                c * times * nbytes)
+    return out
 
 
 def bound_ms(kernel: str, shape: tuple, itemsize: int = BF16) -> tuple:
@@ -694,9 +713,8 @@ def main() -> None:
     for (rows, c), n in k1.items():
         step["K1 " + rmsnorm_variant(c, BF16, True)] += (
             n * per_step * BF16 * (2 * rows * c + c))
-    for (b, n_, d), n in k2.items():
-        step["K2 " + attention_variant(n_, d, torch.bfloat16, True)] += (
-            n * per_step * BF16 * 4 * b * n_ * d)
+    step.update({k: v for k, v in attention_step_bytes(k2, per_step).items()
+                 if k.startswith("K2 ")})
     for name, nbytes in sorted(step.items()):
         print(f"{name}: {nbytes / 1e9:.3f} GB a step, byte bound "
               f"{nbytes / H100_BYTES_PER_S * 1e3:.2f} ms a step")

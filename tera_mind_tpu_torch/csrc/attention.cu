@@ -8,7 +8,7 @@
 // divide by the row sum), p rounded to the input type after it is
 // normalised, f32 accumulation of p.v and one rounding of the output.
 //
-// Two variants, chosen by the caller from dtype, shape and alignment
+// Three variants, chosen by the caller from dtype, shape and alignment
 // before the launch (ops/attention_kernel.py attention_variant):
 //
 // tensor_core (bf16; D % 16 == 0, N <= 128, 16-byte aligned pointers,
@@ -33,8 +33,36 @@
 //   At (324, 128, 256) a block holds 198 KB (one block an SM, 2.5 waves
 //   over 132 SMs); at (324, 32, 512) 97.5 KB (two blocks an SM).
 //
-// cuda_core (float32, and bf16 shapes the tensor-core variant does not
-//   take): one block takes one batch index and a tile of kQT query rows;
+// tensor_core_tiled (bf16; D % 16 == 0, N <= 512, D <= 512, 16-byte
+//   aligned pointers: every such call that tensor_core refuses because
+//   N > 128 or its shared memory would pass 227 KB, such as (B, 128, 512)
+//   at patch 128, (B, 512, 128) at 16 RNA slices, (B, 256, 256) at 8).  At
+//   (512, 512, 128) the work is 128 operations a byte, under the 295 of
+//   the H100's bf16 peak: bound by bytes on paper, by the tensor cores'
+//   mma.sync rate in practice.  A block of 16 warps takes one batch index
+//   and r query rows (64 for D <= 256, 32 above: at most one 16-row tile
+//   of the output a warp); K and V are streamed through a ring of kt-row
+//   tiles (csrc/attention_tiled.cuh), so neither has to fit whole:
+//   1. the q tile (bf16) and K tile by tile by 16-byte cp.async, the next
+//      tile in flight while one is used (two stages where they fit); each
+//      warp takes 16 rows x 8 nt keys of a tile on mma.sync m16n8k16 and
+//      writes s = (q.k^T) * scale to the block's r x N f32 logits in
+//      shared memory (-inf past N), so q.k^T runs once;
+//   2. the exact softmax, one warp a row, over the whole row: the max of
+//      all N logits, the sum of exp(s - m), p = exp(s - m) / l rounded
+//      once to bf16 and written over the row's logits in place (no
+//      online rescaling, which would round an unnormalised p);
+//   3. V tile by tile: warp w keeps one 16 x 64 tile of o in f32
+//      registers across the tiles, p.v by mma.sync with V through
+//      ldmatrix.trans; one rounding of o, stored from the registers.
+//   Shared memory (tiled_layout): r x (round(N, kt) + 4) floats of logits,
+//   r x (D + 8) bf16 of q and `stages` x kt x (D + 8) bf16 of K or V, the
+//   largest kt of 128, 64, 32 that fits twice, else once: 219,136 bytes at
+//   (512, 128) (kt 128), 199,680 at (512, 256) (kt 32), 232,448 at (512,
+//   512) (r 32, kt 64), one block an SM.
+//
+// cuda_core (float32, and bf16 with D % 16 != 0 or misaligned pointers):
+//   one block takes one batch index and a tile of kQT query rows;
 //   the q tile goes to shared memory (float), K and V are staged in
 //   chunks of kKC rows (float, rows padded by one word), the block's full
 //   rows of f32 logits stay in shared memory for the softmax, and p.v is
@@ -42,11 +70,12 @@
 
 #include <math.h>
 
-#include "common.cuh"
+#include "attention_tiled.cuh"
 
 namespace {
 
-enum : int { kCudaCore = 0, kTensorCore = 1 };  // ops/attention_kernel.py
+enum : int { kCudaCore = 0, kTensorCore = 1, kTensorCoreTiled = 2 };
+// (ops/attention_kernel.py VARIANTS)
 
 constexpr int kMaxN = 512;
 constexpr int kMaxD = 512;
@@ -426,11 +455,166 @@ int launch_tensor_core(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tensor_core_tiled variant (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kTlMaxNt = 4;   // 8-key mma tiles of a warp's logit unit
+
+// Shared-memory layout, byte offsets: the f32 logits of the block's r
+// query rows (ns = N rounded up to kt columns, rows of lds = ns + 4
+// floats; p overwrites them in place as bf16, rows of 2 lds), the q tile
+// (r rows of ldq = D + 8 bf16) at q, and `stages` K or V tiles of kt
+// rows of ldq from ring on.  nt: the 8-key mma tiles of a warp's unit of
+// 16 query rows in the logit pass (16 units a K tile).
+struct TiledLayout {
+  int r, kt, stages, ns, lds, ldq, nt;
+  size_t q, ring, tile, bytes;
+};
+
+__host__ __device__ constexpr TiledLayout tiled_make(int n, int d, int r,
+                                                     int kt, int stages) {
+  const int ns = (n + kt - 1) / kt * kt;
+  const int lds = ns + tl::kSPad, ldq = d + tl::kPad;
+  const size_t q = (size_t)4 * r * lds;
+  const size_t ring = q + (size_t)2 * r * ldq;
+  const size_t tile = (size_t)2 * kt * ldq;
+  const int nt0 = (r / 16) * (kt / 8) / tl::kWarps;
+  const int nt = nt0 < 1 ? 1 : nt0 > kTlMaxNt ? kTlMaxNt : nt0;
+  return TiledLayout{r, kt, stages, ns, lds, ldq, nt,
+                     q, ring, tile, ring + stages * tile};
+}
+
+// r = 64 query rows a block for D <= 256, 32 above (the p.v pass's 16 x 64
+// output tiles, r / 16 x ceil(D / 64) of them, one a warp); the largest
+// K / V tile that fits twice, else once.
+__host__ __device__ constexpr TiledLayout tiled_layout(int n, int d) {
+  const int r = d <= 256 ? 64 : 32;
+  for (int stages = 2; stages >= 1; --stages)
+    for (int kt = 128; kt >= 32; kt /= 2) {
+      const TiledLayout L = tiled_make(n, d, r, kt, stages);
+      if (L.bytes <= (size_t)kMaxBlockSmem) return L;
+    }
+  return tiled_make(n, d, r, 32, 1);
+}
+
+constexpr bool tiled_takes(int n, int d) {
+  return n >= 1 && n <= kMaxN && d >= 16 && d % 16 == 0 && d <= kMaxD &&
+         tiled_layout(n, d).bytes <= (size_t)kMaxBlockSmem;
+}
+
+static_assert(tiled_takes(512, 128) && tiled_takes(128, 512) &&
+                  tiled_takes(256, 256) && tiled_takes(512, 512) &&
+                  tiled_layout(512, 128).bytes == 219136 &&
+                  tiled_layout(512, 512).bytes == 232448 &&
+                  tiled_layout(512, 256).kt == 32,
+              "every N <= 512, D <= 512 must fit (see the header)");
+
+__global__ void __launch_bounds__(tl::kThreads, 1)
+attention_kernel_tiled(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       int n, int d, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TiledLayout L = tiled_layout(n, d);
+  float* ss = reinterpret_cast<float*>(smem_raw);
+  bf16* ps = reinterpret_cast<bf16*>(smem_raw);   // rows of 2 lds
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw + L.q);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + L.ring);
+  const int tile_el = L.kt * L.ldq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rtiles = (n + L.r - 1) / L.r;
+  const int bi = blockIdx.x / rtiles;                // the batch index
+  const int i0 = (blockIdx.x - bi * rtiles) * L.r;   // its first query row
+  const size_t base = (size_t)bi * n * d;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+  const int tiles = L.ns / L.kt;
+
+  // 1. logits q k^T * scale of the r rows, K streamed tile by tile; a
+  //    warp takes 16 rows x 8 nt keys of a tile
+  tl::stage(qs, q + base, i0, L.r, n, d, L.ldq);
+  tl::stage(ring, kb, 0, L.kt, n, d, L.ldq);
+  cp_async_commit();
+  const int cu = L.kt / (8 * L.nt);
+  const int units = (L.r / 16) * cu;
+  tl::stream_tiles(
+      tiles, L.stages,
+      [&](int t, int buf) {
+        tl::stage(ring + buf * tile_el, kb, t * L.kt, L.kt, n, d, L.ldq);
+      },
+      [&](int t, int buf) {
+        for (int u = warp; u < units; u += tl::kWarps) {
+          const int rg = u / cu, c0 = (u - rg * cu) * 8 * L.nt;
+          float s[kTlMaxNt][4];
+          tl::zero(s);
+          tl::mma_abt(s, qs + rg * 16 * L.ldq, L.ldq,
+                      ring + buf * tile_el + c0 * L.ldq, L.ldq, d, L.nt,
+                      lane);
+          tl::store_logits(ss, L.lds, rg * 16, t * L.kt + c0, s, L.nt, n,
+                           scale, lane);
+        }
+      });
+
+  // 2. V's first tile in flight; the exact softmax of each row (one warp
+  //    a row): max over all N keys, sum of exp(s - m), p = exp(s - m) / l
+  //    rounded once to bf16, written over the row's logits
+  tl::stage(ring, vb, 0, L.kt, n, d, L.ldq);
+  cp_async_commit();
+  for (int i = warp; i < L.r; i += tl::kWarps) {
+    float x[tl::kMaxPer], m, l;
+    tl::row_exp(ss + (size_t)i * L.lds, L.ns, lane, x, m, l);
+    __syncwarp();   // the whole row is read before bf16 p overwrites it
+    bf16* pr = ps + (size_t)i * 2 * L.lds;
+#pragma unroll
+    for (int c = 0; c < tl::kMaxPer; ++c) {
+      const int j = lane + 32 * c;
+      if (j < L.ns) pr[j] = __float2bfloat16_rn(x[c] / l);
+    }
+  }
+
+  // 3. o = p v, V streamed tile by tile; warp w keeps one 16 x 64 output
+  //    tile in f32 registers across the tiles (at D = 128 half the warps:
+  //    narrower tiles, one a warp, were slower, as each reloads p)
+  const int nct = (d + 63) / 64;
+  const bool owns = warp < (L.r / 16) * nct;
+  const int rb = (warp / nct) * 16, cb = (warp % nct) * 64;
+  float acc[8][4];
+  tl::zero(acc);
+  tl::stream_tiles(
+      tiles, L.stages,
+      [&](int t, int buf) {
+        tl::stage(ring + buf * tile_el, vb, t * L.kt, L.kt, n, d, L.ldq);
+      },
+      [&](int t, int buf) {
+        if (owns)
+          tl::mma_ab<false>(acc, ps + (size_t)rb * 2 * L.lds + t * L.kt,
+                            nullptr, 2 * L.lds, ring + buf * tile_el + cb,
+                            L.ldq, L.kt, d - cb, lane);
+      });
+  if (owns)
+    tl::store_rows(acc, o + base + (size_t)i0 * d, rb, cb, n - i0, d, 1.f,
+                   lane);
+}
+
+int launch_tiled(const void* q, const void* k, const void* v, void* o, int b,
+                 int n, int d, float scale, cudaStream_t stream) {
+  static std::atomic<int> opted_in[kMaxDevices];
+  const cudaError_t attr =
+      smem_opt_in(attention_kernel_tiled, kMaxBlockSmem, opted_in);
+  if (attr != cudaSuccess) return (int)attr;
+  const TiledLayout L = tiled_layout(n, d);
+  attention_kernel_tiled<<<b * ((n + L.r - 1) / L.r), tl::kThreads, L.bytes,
+                           stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), n, d, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: device pointers to contiguous (b, n, d) arrays of one dtype;
-// variant: 0 cuda_core, 1 tensor_core (bf16 only, within the limits in
-// the header of this file).  A variant that cannot take the call is an
+// variant: 0 cuda_core, 1 tensor_core, 2 tensor_core_tiled (the last two
+// bf16 only, within the limits in the header of this file).  A variant that cannot take the call is an
 // error, never a fallback.  Returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int tmt_window_attention(const void* q, const void* k,
@@ -440,11 +624,15 @@ extern "C" int tmt_window_attention(const void* q, const void* k,
   if (b <= 0 || n <= 0 || d <= 0 || n > kMaxN || d > kMaxD)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (variant == kTensorCore) {
-    if (dtype != kBFloat16 || !tc_takes(n, d) || !aligned16(q) ||
-        !aligned16(k) || !aligned16(v) || !aligned16(o))
+  if (variant == kTensorCore || variant == kTensorCoreTiled) {
+    const bool takes = variant == kTensorCore ? tc_takes(n, d)
+                                              : tiled_takes(n, d);
+    if (dtype != kBFloat16 || !takes || !aligned16(q) || !aligned16(k) ||
+        !aligned16(v) || !aligned16(o))
       return (int)cudaErrorInvalidValue;
-    return launch_tensor_core(q, k, v, o, b, n, d, scale, s);
+    return variant == kTensorCore
+               ? launch_tensor_core(q, k, v, o, b, n, d, scale, s)
+               : launch_tiled(q, k, v, o, b, n, d, scale, s);
   }
   if (variant != kCudaCore) return (int)cudaErrorInvalidValue;
   switch (dtype) {

@@ -20,7 +20,7 @@
 // max m, sum l and D = rowsum(dp * p) to `stats` (B x N x 3 floats,
 // allocated by the caller), then a dk/dv pass over key tiles that reads
 // them.  Each dq, dk and dv row is summed inside one block in a fixed
-// order, with no float atomics: two runs give the same bits.  Two
+// order, with no float atomics: two runs give the same bits.  Three
 // variants, chosen by the caller from dtype, shape and alignment before
 // the launch (ops/attention_kernel.py attention_bwd_variant):
 //
@@ -71,8 +71,39 @@
 //   pass recomputes q k^T and g v^T: 20 N^2 D in all, 43 us at (512,
 //   128, 256) at the bf16 peak, under the 70 us byte bound.
 //
-// cuda_core (float32, and bf16 shapes the tensor-core variant does not
-//   take), f32 fmaf chains on CUDA cores:
+// tensor_core_tiled (bf16; D % 16 == 0, N <= 512, D <= 512, all seven
+//   pointers 16-byte aligned: every such call that tensor_core refuses
+//   because N > 128 or its shared memory would pass 227 KB).  The same
+//   two passes and the same split pairs as tensor_core, with q, k, v and
+//   g streamed through a ring of row tiles (csrc/attention_tiled.cuh)
+//   instead of held whole; blocks of 16 warps.
+//   dq pass (attention_bwd_tiled_dq_kernel): r query rows of one batch
+//     index (64 for D <= 256 where they fit, else 32).  The q tile and K
+//     tile by tile give the rows' f32 logits s = (q k^T) * scale, then the
+//     g tile and V tile by tile their dp = g v^T, both r x N in shared
+//     memory (each warp 16 rows x 8 nt keys of a tile on mma.sync); then
+//     one warp a row: the exact softmax p = exp(s - m) / l in f32, D =
+//     rowsum(dp * p), ds = p (dp - D) written over the row's logits as the
+//     split pair (hi in the first N bf16 of the row, lo in the next N), m,
+//     l and D to `stats`; then dq = ds k * scale over K streamed again,
+//     each warp one 16 x 64 tile of dq in f32 registers.  Shared
+//     memory (dq_tiled_layout): 2 x r x (round(N, kt) + 4) floats, r x (D +
+//     8) bf16 and `stages` K / V tiles of kt rows, kt the largest of 128,
+//     64, 32 that fits twice, else once: 210,432 bytes at (512, 128) (r
+//     32), 200,704 at (256, 256) (r 64, kt 32), 231,936 at (512, 512).
+//   dk/dv pass (attention_bwd_tiled_dkdv_kernel): kr key rows of k and v
+//     (kr = 64 at D = 128 and 256, 32 at 512), q and g streamed in query
+//     tiles of qt rows with the tile's m, l, D from `stats`: s^T = k q^T
+//     and dp^T = v g^T of 16 keys x 8 nt queries a warp, p^T and ds^T
+//     recomputed as the dq pass computes them (zero past N) and written to
+//     shared memory as split pairs, then dv += p^T g and dk += ds^T q with
+//     q and g through ldmatrix.trans, each warp up to two 16 x 64 tiles
+//     of dv and dk in f32 registers across the query tiles.  Shared memory
+//     (kv_tiled_layout): 156,416 bytes at D = 256 (qt 32, two stages).
+//   Each dq, dk, dv row is summed inside one block in a fixed order.
+//
+// cuda_core (float32, and bf16 with D % 16 != 0 or misaligned pointers),
+//   f32 fmaf chains on CUDA cores:
 // attention_bwd_dq_kernel, one block per batch index and kQT query rows:
 //   q and g rows in shared memory (float); K, then V, staged in chunks
 //   of kKC rows; the rows' logits and dp = g v^T kept whole in shared
@@ -89,11 +120,12 @@
 
 #include <math.h>
 
-#include "common.cuh"
+#include "attention_tiled.cuh"
 
 namespace {
 
-enum : int { kCudaCore = 0, kTensorCore = 1 };  // ops/attention_kernel.py
+enum : int { kCudaCore = 0, kTensorCore = 1, kTensorCoreTiled = 2 };
+// (ops/attention_kernel.py VARIANTS)
 
 constexpr int kMaxN = 512;
 constexpr int kMaxD = 512;
@@ -919,13 +951,378 @@ int launch_tensor_core(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tensor_core_tiled variant (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kTlMaxNt = 2;     // 8-column mma tiles of a warp's logit unit
+constexpr int kTlSlots = 2;     // dv / dk tiles a warp keeps (dk/dv pass)
+
+// dq pass, byte offsets: the f32 logits of the block's r query rows at 0
+// and their dp = g v^T at dp (ns = N rounded up to kt columns, rows
+// of lds = ns + 4 floats; ds overwrites the logits in place as the split
+// pair, hi in the first ns bf16 of a row and lo in the next ns, rows of 2
+// lds), the q tile, later the g tile (rows of ldq = D + 8 bf16) at a, and
+// `stages` K or V tiles of kt rows from ring on.  nt: 8-key mma tiles of
+// a warp's unit of 16 rows (16 units a tile).
+struct DqTiledLayout {
+  int r, kt, stages, ns, lds, ldq, nt;
+  size_t dp, a, ring, tile, bytes;
+};
+
+__host__ __device__ constexpr DqTiledLayout dq_tiled_make(int n, int d, int r,
+                                                         int kt, int stages) {
+  const int ns = (n + kt - 1) / kt * kt;
+  const int lds = ns + tl::kSPad, ldq = d + tl::kPad;
+  const size_t dp = (size_t)4 * r * lds;
+  const size_t a = 2 * dp;
+  const size_t ring = a + (size_t)2 * r * ldq;
+  const size_t tile = (size_t)2 * kt * ldq;
+  const int nt0 = (r / 16) * (kt / 8) / tl::kWarps;
+  const int nt = nt0 < 1 ? 1 : nt0 > kTlMaxNt ? kTlMaxNt : nt0;
+  return DqTiledLayout{r, kt, stages, ns, lds, ldq, nt,
+                       dp, a, ring, tile, ring + stages * tile};
+}
+
+// r = 64 query rows where D <= 256 and they fit, else 32 (the dq pass's
+// 16 x 64 tiles, r / 16 x ceil(D / 64) of them, one a warp); then the
+// largest K / V tile that fits twice, else once.
+__host__ __device__ constexpr DqTiledLayout dq_tiled_layout(int n, int d) {
+  for (int r = d <= 256 ? 64 : 32; r >= 32; r /= 2)
+    for (int stages = 2; stages >= 1; --stages)
+      for (int kt = 128; kt >= 32; kt /= 2) {
+        const DqTiledLayout L = dq_tiled_make(n, d, r, kt, stages);
+        if (L.bytes <= (size_t)kMaxBlockSmem) return L;
+      }
+  return dq_tiled_make(n, d, 32, 32, 1);
+}
+
+// dk/dv pass, byte offsets: the block's kr key rows of k at 0 and of v at
+// v (rows of ldq), `stages` stages from ring on, each a q tile and a g
+// tile of qt rows and the m, l, D of those qt queries (f32, at stats
+// within the stage), then p^T and ds^T of the key tile, hi and lo each
+// (kr rows of ldp = qt + 8 bf16), from split on.  kr = 16 x (16 / ceil(D
+// / 64)), at most 64: the block's 16 x 64 tiles of dv and dk, at most 32,
+// kTlSlots to a warp, stay in f32 registers (at most 64 a thread) across
+// the query tiles.
+struct KvTiledLayout {
+  int kr, qt, stages, ldq, ldp, nt;
+  size_t v, ring, stage, stats, split, bytes;
+};
+
+__host__ __device__ constexpr KvTiledLayout kv_tiled_make(int d, int qt,
+                                                         int stages) {
+  const int kr0 = 16 * (tl::kWarps / ((d + 63) / 64));
+  const int kr = kr0 > 64 ? 64 : kr0;
+  const int ldq = d + tl::kPad, ldp = qt + tl::kPad;
+  const size_t v = (size_t)2 * kr * ldq;
+  const size_t ring = 2 * v;
+  const size_t stats = (size_t)4 * qt * ldq;
+  const size_t stage = stats + (size_t)4 * 3 * qt;
+  const size_t split = ring + stages * stage;
+  const int nt0 = (kr / 16) * (qt / 8) / tl::kWarps;
+  const int nt = nt0 < 1 ? 1 : nt0 > kTlMaxNt ? kTlMaxNt : nt0;
+  return KvTiledLayout{kr, qt, stages, ldq, ldp, nt, v, ring, stage, stats,
+                       split, split + (size_t)2 * 4 * kr * ldp};
+}
+
+__host__ __device__ constexpr KvTiledLayout kv_tiled_layout(int d) {
+  for (int stages = 2; stages >= 1; --stages)
+    for (int qt = 64; qt >= 32; qt /= 2) {
+      const KvTiledLayout L = kv_tiled_make(d, qt, stages);
+      if (L.bytes <= (size_t)kMaxBlockSmem) return L;
+    }
+  return kv_tiled_make(d, 32, 1);
+}
+
+constexpr bool tiled_takes(int n, int d) {
+  return n >= 1 && n <= kMaxN && d >= 16 && d % 16 == 0 && d <= kMaxD &&
+         dq_tiled_layout(n, d).bytes <= (size_t)kMaxBlockSmem &&
+         kv_tiled_layout(d).bytes <= (size_t)kMaxBlockSmem;
+}
+
+static_assert(tiled_takes(512, 128) && tiled_takes(128, 512) &&
+                  tiled_takes(256, 256) && tiled_takes(512, 512) &&
+                  dq_tiled_layout(512, 128).bytes == 210432 &&
+                  dq_tiled_layout(512, 512).bytes == 231936 &&
+                  dq_tiled_layout(256, 256).r == 64 &&
+                  dq_tiled_layout(256, 256).bytes == 200704 &&
+                  kv_tiled_layout(256).bytes == 156416 &&
+                  kv_tiled_layout(512).kr == 32 &&
+                  kv_tiled_layout(512).qt == 32,
+              "every N <= 512, D <= 512 must fit (see the header)");
+
+__global__ void __launch_bounds__(tl::kThreads, 1)
+attention_bwd_tiled_dq_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ g,
+                              bf16* __restrict__ dq,
+                              float* __restrict__ stats, int n, int d,
+                              float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const DqTiledLayout L = dq_tiled_layout(n, d);
+  float* ss = reinterpret_cast<float*>(smem_raw);
+  float* dps = reinterpret_cast<float*>(smem_raw + L.dp);
+  bf16* dsh = reinterpret_cast<bf16*>(smem_raw);   // rows of 2 lds
+  bf16* dsl = dsh + L.ns;
+  bf16* as = reinterpret_cast<bf16*>(smem_raw + L.a);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + L.ring);
+  const int tile_el = L.kt * L.ldq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rtiles = (n + L.r - 1) / L.r;
+  const int bi = blockIdx.x / rtiles;                  // the batch index
+  const int i0 = (blockIdx.x - bi * rtiles) * L.r;   // its first row
+  const size_t base = (size_t)bi * n * d;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+  const int tiles = L.ns / L.kt;
+  const int cu = L.kt / (8 * L.nt);
+  const int units = (L.r / 16) * cu;
+  auto issue_k = [&](int t, int buf) {
+    tl::stage(ring + buf * tile_el, kb, t * L.kt, L.kt, n, d, L.ldq);
+  };
+  auto issue_v = [&](int t, int buf) {
+    tl::stage(ring + buf * tile_el, vb, t * L.kt, L.kt, n, d, L.ldq);
+  };
+
+  // 1. logits q k^T * scale (-inf past N), then dp = g v^T, each over its
+  //    stream of tiles; a warp takes 16 rows x 8 nt keys of a tile
+  for (int pass = 0; pass < 2; ++pass) {
+    tl::stage(as, (pass ? g : q) + base, i0, L.r, n, d, L.ldq);
+    tl::stage(ring, pass ? vb : kb, 0, L.kt, n, d, L.ldq);
+    cp_async_commit();
+    auto body = [&](int t, int buf) {
+      for (int u = warp; u < units; u += tl::kWarps) {
+        const int rg = u / cu, c0 = (u - rg * cu) * 8 * L.nt;
+        float x[kTlMaxNt][4];
+        tl::zero(x);
+        tl::mma_abt(x, as + rg * 16 * L.ldq, L.ldq,
+                    ring + buf * tile_el + c0 * L.ldq, L.ldq, d, L.nt, lane);
+        if (pass)
+          tl::store_logits(dps, L.lds, rg * 16, t * L.kt + c0, x, L.nt,
+                           L.ns, 1.f, lane);
+        else
+          tl::store_logits(ss, L.lds, rg * 16, t * L.kt + c0, x, L.nt, n,
+                           scale, lane);
+      }
+    };
+    if (pass)
+      tl::stream_tiles(tiles, L.stages, issue_v, body);
+    else
+      tl::stream_tiles(tiles, L.stages, issue_k, body);
+  }
+
+  // 2. K's first tile in flight; per row (one warp a row): the exact
+  //    softmax p = exp(s - m) / l in f32 (never rounded), D = rowsum(dp *
+  //    p), ds = p * (dp - D) over the logits as the split pair; m, l, D to
+  //    stats for the dk/dv pass
+  tl::stage(ring, kb, 0, L.kt, n, d, L.ldq);
+  cp_async_commit();
+  for (int i = warp; i < L.r; i += tl::kWarps) {
+    float x[tl::kMaxPer], y[tl::kMaxPer], m, l;
+    tl::row_exp(ss + (size_t)i * L.lds, L.ns, lane, x, m, l);
+    const float* dr = dps + (size_t)i * L.lds;
+    float dsum = 0.f;
+#pragma unroll
+    for (int c = 0; c < tl::kMaxPer; ++c) {
+      const int j = lane + 32 * c;
+      y[c] = j < L.ns ? dr[j] : 0.f;
+      x[c] /= l;
+      dsum = fmaf(y[c], x[c], dsum);
+    }
+    dsum = warp_sum(dsum);
+    __syncwarp();   // the whole row is read before ds overwrites it
+    bf16* hi = dsh + (size_t)i * 2 * L.lds;
+    bf16* lo = dsl + (size_t)i * 2 * L.lds;
+#pragma unroll
+    for (int c = 0; c < tl::kMaxPer; ++c) {
+      const int j = lane + 32 * c;
+      if (j < L.ns) {
+        const float ds = x[c] * (y[c] - dsum);
+        const bf16 h = __float2bfloat16_rn(ds);
+        hi[j] = h;
+        lo[j] = __float2bfloat16_rn(ds - __bfloat162float(h));
+      }
+    }
+    if (lane == 0 && i0 + i < n) {
+      float* st = stats + ((size_t)bi * n + i0 + i) * 3;
+      st[0] = m;
+      st[1] = l;
+      st[2] = dsum;
+    }
+  }
+
+  // 3. dq = ds k * scale, K streamed again; warp w keeps one 16 x 64 tile
+  //    of dq in f32 registers across the tiles
+  const int nct = (d + 63) / 64;
+  const bool owns = warp < (L.r / 16) * nct;
+  const int rb = (warp / nct) * 16, cb = (warp % nct) * 64;
+  float acc[8][4];
+  tl::zero(acc);
+  tl::stream_tiles(tiles, L.stages, issue_k, [&](int t, int buf) {
+    if (owns) {
+      const size_t at = (size_t)rb * 2 * L.lds + t * L.kt;
+      tl::mma_ab<true>(acc, dsh + at, dsl + at, 2 * L.lds,
+                       ring + buf * tile_el + cb, L.ldq, L.kt, d - cb, lane);
+    }
+  });
+  if (owns)
+    tl::store_rows(acc, dq + base + (size_t)i0 * d, rb, cb, n - i0, d, scale,
+                   lane);
+}
+
+__global__ void __launch_bounds__(tl::kThreads, 1)
+attention_bwd_tiled_dkdv_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const bf16* __restrict__ g,
+                                const float* __restrict__ stats,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int n, int d, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const KvTiledLayout L = kv_tiled_layout(d);
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = reinterpret_cast<bf16*>(smem_raw + L.v);
+  unsigned char* ring = smem_raw + L.ring;
+  const int pe = L.kr * L.ldp;
+  bf16* pth = reinterpret_cast<bf16*>(smem_raw + L.split);
+  bf16* ptl = pth + pe;
+  bf16* dsh = ptl + pe;
+  bf16* dsl = dsh + pe;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ktiles = (n + L.kr - 1) / L.kr;
+  const int bi = blockIdx.x / ktiles;                 // the batch index
+  const int j0 = (blockIdx.x - bi * ktiles) * L.kr;   // its first key row
+  const size_t base = (size_t)bi * n * d;
+  const int tiles = (n + L.qt - 1) / L.qt;
+  const int qtile_el = L.qt * L.ldq;
+
+  // the q and g tiles of query tile t and its m, l, D (0, 1, 0 past N)
+  auto issue = [&](int t, int buf) {
+    unsigned char* st = ring + buf * L.stage;
+    bf16* qs = reinterpret_cast<bf16*>(st);
+    tl::stage(qs, q + base, t * L.qt, L.qt, n, d, L.ldq);
+    tl::stage(qs + qtile_el, g + base, t * L.qt, L.qt, n, d, L.ldq);
+    float* sm = reinterpret_cast<float*>(st + L.stats);
+    for (int i = threadIdx.x; i < L.qt; i += tl::kThreads) {
+      const int qi = t * L.qt + i;
+      const bool in = qi < n;
+      const float* src = stats + ((size_t)bi * n + (in ? qi : 0)) * 3;
+      sm[i] = in ? src[0] : 0.f;
+      sm[L.qt + i] = in ? src[1] : 1.f;
+      sm[2 * L.qt + i] = in ? src[2] : 0.f;
+    }
+  };
+  tl::stage(ks, k + base, j0, L.kr, n, d, L.ldq);
+  tl::stage(vs, v + base, j0, L.kr, n, d, L.ldq);
+  issue(0, 0);
+  cp_async_commit();
+
+  const int cu = L.qt / (8 * L.nt);
+  const int units = (L.kr / 16) * cu;     // logit units of a query tile
+  const int nct = (d + 63) / 64;
+  const int per = (L.kr / 16) * nct;      // 16 x 64 tiles of dv (and dk)
+  float acc[kTlSlots][8][4];              // tiles warp, warp + 16
+#pragma unroll
+  for (int w = 0; w < kTlSlots; ++w) tl::zero(acc[w]);
+  tl::stream_tiles(tiles, L.stages, issue, [&](int t, int buf) {
+    unsigned char* st = ring + buf * L.stage;
+    const bf16* qs = reinterpret_cast<const bf16*>(st);
+    const bf16* gs = qs + qtile_el;
+    const float* sm = reinterpret_cast<const float*>(st + L.stats);
+    // s^T = k q^T and dp^T = v g^T of 16 keys x 8 nt queries a unit;
+    // p^T = exp(s^T * scale - m) / l and ds^T = p^T (dp^T - D) with the dq
+    // pass's statistics, zero past N, as split pairs into shared memory
+    for (int u = warp; u < units; u += tl::kWarps) {
+      const int rg = u / cu, c0 = (u - rg * cu) * 8 * L.nt;
+      float s[kTlMaxNt][4], dp[kTlMaxNt][4];
+      tl::zero(s);
+      tl::zero(dp);
+      tl::mma_abt(s, ks + rg * 16 * L.ldq, L.ldq, qs + c0 * L.ldq, L.ldq, d,
+                  L.nt, lane);
+      tl::mma_abt(dp, vs + rg * 16 * L.ldq, L.ldq, gs + c0 * L.ldq, L.ldq,
+                  d, L.nt, lane);
+      const int key = j0 + rg * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < kTlMaxNt; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = c0 + 8 * j + 2 * (lane & 3) + (e & 1);
+          float p = 0.f, ds = 0.f;
+          if (j < L.nt && t * L.qt + qi < n && key + 8 * (e >> 1) < n) {
+            p = expf(__fmul_rn(s[j][e], scale) - sm[qi]) / sm[L.qt + qi];
+            ds = p * (dp[j][e] - sm[2 * L.qt + qi]);
+          }
+          s[j][e] = p;
+          dp[j][e] = ds;
+        }
+      }
+      tl::store_split(pth, ptl, L.ldp, rg * 16, c0, s, L.nt, lane);
+      tl::store_split(dsh, dsl, L.ldp, rg * 16, c0, dp, L.nt, lane);
+    }
+    __syncthreads();
+    // dv += p^T g and dk += ds^T q over the tile's queries
+#pragma unroll
+    for (int w = 0; w < kTlSlots; ++w) {
+      const int u = warp + tl::kWarps * w;
+      if (u < 2 * per) {
+        const bool is_dk = u >= per;
+        const int uu = is_dk ? u - per : u;
+        const int at = (uu / nct) * 16 * L.ldp, cb = (uu % nct) * 64;
+        tl::mma_ab<true>(acc[w], (is_dk ? dsh : pth) + at,
+                         (is_dk ? dsl : ptl) + at, L.ldp,
+                         (is_dk ? qs : gs) + cb, L.ldq, L.qt, d - cb, lane);
+      }
+    }
+  });
+#pragma unroll
+  for (int w = 0; w < kTlSlots; ++w) {
+    const int u = warp + tl::kWarps * w;
+    if (u < 2 * per) {
+      const bool is_dk = u >= per;
+      const int uu = is_dk ? u - per : u;
+      tl::store_rows(acc[w], (is_dk ? dk : dv) + base + (size_t)j0 * d,
+                     (uu / nct) * 16, (uu % nct) * 64, n - j0, d,
+                     is_dk ? scale : 1.f, lane);
+    }
+  }
+}
+
+int launch_tiled(const void* q, const void* k, const void* v, const void* g,
+                 void* dq, void* dk, void* dv, float* stats, int b, int n,
+                 int d, float scale, cudaStream_t stream) {
+  static std::atomic<int> dq_opt[kMaxDevices], dkdv_opt[kMaxDevices];
+  cudaError_t err =
+      smem_opt_in(attention_bwd_tiled_dq_kernel, kMaxBlockSmem, dq_opt);
+  if (err != cudaSuccess) return (int)err;
+  err = smem_opt_in(attention_bwd_tiled_dkdv_kernel, kMaxBlockSmem, dkdv_opt);
+  if (err != cudaSuccess) return (int)err;
+  const DqTiledLayout Lq = dq_tiled_layout(n, d);
+  const KvTiledLayout Lk = kv_tiled_layout(d);
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(g);
+  attention_bwd_tiled_dq_kernel<<<b * ((n + Lq.r - 1) / Lq.r), tl::kThreads,
+                                  Lq.bytes, stream>>>(
+      qt, kt, vt, gt, static_cast<bf16*>(dq), stats, n, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_tiled_dkdv_kernel<<<b * ((n + Lk.kr - 1) / Lk.kr),
+                                    tl::kThreads, Lk.bytes, stream>>>(
+      qt, kt, vt, gt, stats, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      n, d, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, g, dq, dk, dv: device pointers to contiguous (b, n, d) arrays of
 // one dtype; stats: float32 scratch of b x n x 3 (row max, row sum, D)
 // that the dq pass writes and the dk/dv pass reads; variant: 0 cuda_core,
-// 1 tensor_core (bf16 only, within the limits in the header of this
-// file).  A variant that cannot take the call is an error, never a
+// 1 tensor_core, 2 tensor_core_tiled (the last two bf16 only, within the
+// limits in the header of this file).  A variant that cannot take the call is an error, never a
 // fallback.  Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int tmt_window_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* g,
@@ -937,12 +1334,17 @@ extern "C" int tmt_window_attention_bwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto st = static_cast<float*>(stats);
-  if (variant == kTensorCore) {
-    if (dtype != kBFloat16 || !tc_takes(n, d) || !aligned16(q) ||
-        !aligned16(k) || !aligned16(v) || !aligned16(g) || !aligned16(dq) ||
-        !aligned16(dk) || !aligned16(dv))
+  if (variant == kTensorCore || variant == kTensorCoreTiled) {
+    const bool takes = variant == kTensorCore ? tc_takes(n, d)
+                                              : tiled_takes(n, d);
+    if (dtype != kBFloat16 || !takes || !aligned16(q) || !aligned16(k) ||
+        !aligned16(v) || !aligned16(g) || !aligned16(dq) || !aligned16(dk) ||
+        !aligned16(dv))
       return (int)cudaErrorInvalidValue;
-    return launch_tensor_core(q, k, v, g, dq, dk, dv, st, b, n, d, scale, s);
+    return variant == kTensorCore
+               ? launch_tensor_core(q, k, v, g, dq, dk, dv, st, b, n, d,
+                                    scale, s)
+               : launch_tiled(q, k, v, g, dq, dk, dv, st, b, n, d, scale, s);
   }
   if (variant != kCudaCore) return (int)cudaErrorInvalidValue;
   switch (dtype) {

@@ -17,9 +17,17 @@ alignment before the launch (``csrc/attention.cu`` holds the designs):
   per batch index keeps q, k, v in shared memory as bf16, computes q.k^T
   and p.v with ``mma.sync`` on the tensor cores and the softmax in
   registers.  All three main-path shapes take it.
-- ``cuda_core``: everything else (float32; bf16 with N > 128, D not a
-  multiple of 16, or too large for shared memory).  Float arithmetic on
-  CUDA cores, 16 query rows per block, logits in shared memory.
+- ``tensor_core_tiled``: every other bf16 call with D % 16 == 0, N <= 512,
+  D <= 512 and aligned q, k, v: N > 128, or N <= 128 with q, k, v over
+  227 KB (``tiled_smem_bytes`` always fits).  The presets' (B, 128, 512)
+  at patch 128, (B, 512, 128) at 16 RNA slices and (B, 256, 256) at 8
+  take it.  A block takes 64 query rows (32 for D > 256), streams K and
+  then V through shared memory in row tiles, computes q.k^T and p.v with
+  ``mma.sync`` and keeps the rows' f32 logits in shared memory for an
+  exact softmax over all N keys, p written back over them as bf16.
+- ``cuda_core``: float32, and bf16 with D not a multiple of 16 or
+  misaligned pointers.  Float arithmetic on CUDA cores, 16 query rows per
+  block, logits in shared memory.
 
 K2b, the backward (``csrc/attention_bwd.cu``), replaces the TPU kernel's
 ``custom_vjp`` rule ``_bwd``: p recomputed in float32 and never rounded,
@@ -35,7 +43,14 @@ key tiles, each dq, dk and dv row summed inside one block
   the split pair hi = bf16(x), lo = bf16(x - hi) into one f32
   accumulator, which keeps the f32 rule's rounding (a single bf16 operand
   changes 37-44 % of the outputs).  The three training shapes take it.
-- ``cuda_core``: everything else, f32 ``fmaf`` on CUDA cores.
+- ``tensor_core_tiled``: every other bf16 call with D % 16 == 0, N <= 512,
+  D <= 512 and the seven tensors aligned (``bwd_tiled_smem_bytes`` always
+  fits).  The same passes, statistics and split pairs, with q, k, v, g
+  streamed in row tiles: the dq pass holds 64 or 32 query rows' f32
+  logits and dp = g v^T in shared memory, the dk/dv pass a tile of key
+  rows and the query tiles of q and g in turn.
+- ``cuda_core``: float32, and bf16 with D not a multiple of 16 or
+  misaligned tensors; f32 ``fmaf`` on CUDA cores.
 ``window_attention`` dispatches as ``rmsnorm`` does: the raw K2 launch
 without a gradient to record, :class:`AttentionFunction` (K2 and K2b, or
 the plain versions on the CPU) with one.
@@ -53,7 +68,7 @@ MAX_N = 512
 MAX_D = 512
 TC_MAX_N = 128
 SMEM_LIMIT = 232_448       # bytes of shared memory a block may use (H100)
-VARIANTS = ("cuda_core", "tensor_core")   # csrc/attention.cu codes
+VARIANTS = ("cuda_core", "tensor_core", "tensor_core_tiled")  # .cu codes
 
 TC_ROWS = 64               # csrc/attention_bwd.cu kTcRows: a K2b block's rows
 
@@ -83,14 +98,44 @@ def tc_smem_bytes(n: int, d: int) -> int:
     return 2 * (3 * tile + (0 if p <= tile else p))
 
 
+def tiled_layout(n: int, d: int) -> tuple[int, int, int, int]:
+    """(query rows a block, K / V tile rows, stages, bytes) of K2's
+    tiled variant (``tiled_layout`` in csrc/attention.cu): r = 64 rows
+    (32 for D > 256) of f32 logits padded to round(N, kt) + 4, the q tile
+    and ``stages`` K or V tiles of kt rows, rows of D + 8 bf16; the largest
+    kt of 128, 64, 32 that fits twice, else once."""
+    r = 64 if d <= 256 else 32
+    for stages in (2, 1):
+        for kt in (128, 64, 32):
+            ns = -(-n // kt) * kt
+            nbytes = (4 * r * (ns + 4) + 2 * r * (d + 8)
+                      + stages * 2 * kt * (d + 8))
+            if nbytes <= SMEM_LIMIT:
+                return r, kt, stages, nbytes
+    return r, kt, stages, nbytes
+
+
+def tiled_smem_bytes(n: int, d: int) -> int:
+    """Shared memory of K2's tensor_core_tiled variant."""
+    return tiled_layout(n, d)[3]
+
+
+def _takes_tensor_cores(n: int, d: int, dtype: torch.dtype,
+                        aligned: bool) -> bool:
+    return (dtype == torch.bfloat16 and aligned and 1 <= n <= MAX_N
+            and d % 16 == 0 and 16 <= d <= MAX_D)
+
+
 def attention_variant(n: int, d: int, dtype: torch.dtype,
                       aligned: bool) -> str:
     """The variant a CUDA call with these N, D, dtype and pointer
     alignment (all 16-byte aligned or not) launches."""
-    if (dtype == torch.bfloat16 and aligned and n <= TC_MAX_N
-            and d % 16 == 0 and d <= MAX_D
-            and tc_smem_bytes(n, d) <= SMEM_LIMIT):
+    if not _takes_tensor_cores(n, d, dtype, aligned):
+        return "cuda_core"
+    if n <= TC_MAX_N and tc_smem_bytes(n, d) <= SMEM_LIMIT:
         return "tensor_core"
+    if tiled_smem_bytes(n, d) <= SMEM_LIMIT:
+        return "tensor_core_tiled"
     return "cuda_core"
 
 
@@ -111,15 +156,55 @@ def bwd_tc_smem_bytes(n: int, d: int) -> tuple[int, int]:
     return 2 * dq + 4 * 6 * TC_ROWS, 2 * kv + 4 * 3 * np_
 
 
+def dq_tiled_layout(n: int, d: int) -> tuple[int, int, int, int]:
+    """(query rows a block, K / V tile rows, stages, bytes) of K2b's tiled
+    dq pass (``dq_tiled_layout`` in csrc/attention_bwd.cu): the f32 logits
+    and dp of r query rows padded to round(N, kt) + 4, one q or g tile and
+    ``stages`` K or V tiles of kt rows, rows of D + 8 bf16; r = 64 for D
+    <= 256 where it fits, else 32."""
+    for r in ((64, 32) if d <= 256 else (32,)):
+        for stages in (2, 1):
+            for kt in (128, 64, 32):
+                ns = -(-n // kt) * kt
+                nbytes = (2 * 4 * r * (ns + 4) + 2 * r * (d + 8)
+                          + stages * 2 * kt * (d + 8))
+                if nbytes <= SMEM_LIMIT:
+                    return r, kt, stages, nbytes
+    return r, kt, stages, nbytes
+
+
+def kv_tiled_layout(d: int) -> tuple[int, int, int, int]:
+    """(key rows a block, query tile rows, stages, bytes) of K2b's tiled
+    dk/dv pass (``kv_tiled_layout``): kr = 16 x (16 // ceil(D / 64))
+    rows of k and v (at most 64), ``stages`` stages of a q and a g tile of
+    qt rows and their 3 x qt f32 statistics, and p^T, ds^T as split pairs
+    (kr rows of qt + 8 bf16 each, four arrays)."""
+    kr = min(64, 16 * (16 // -(-d // 64)))
+    for stages in (2, 1):
+        for qt in (64, 32):
+            nbytes = (4 * kr * (d + 8) + stages * (4 * qt * (d + 8) + 12 * qt)
+                      + 8 * kr * (qt + 8))
+            if nbytes <= SMEM_LIMIT:
+                return kr, qt, stages, nbytes
+    return kr, qt, stages, nbytes
+
+
+def bwd_tiled_smem_bytes(n: int, d: int) -> tuple[int, int]:
+    """Shared memory of K2b's tensor_core_tiled passes, (dq, dk/dv)."""
+    return dq_tiled_layout(n, d)[3], kv_tiled_layout(d)[3]
+
+
 def attention_bwd_variant(n: int, d: int, dtype: torch.dtype,
                           aligned: bool) -> str:
     """The K2b variant a CUDA call with these N, D, dtype and pointer
     alignment (q, k, v, g, dq, dk, dv all 16-byte aligned or not)
     launches."""
-    if (dtype == torch.bfloat16 and aligned and n <= TC_MAX_N
-            and d % 16 == 0 and d <= MAX_D
-            and max(bwd_tc_smem_bytes(n, d)) <= SMEM_LIMIT):
+    if not _takes_tensor_cores(n, d, dtype, aligned):
+        return "cuda_core"
+    if n <= TC_MAX_N and max(bwd_tc_smem_bytes(n, d)) <= SMEM_LIMIT:
         return "tensor_core"
+    if max(bwd_tiled_smem_bytes(n, d)) <= SMEM_LIMIT:
+        return "tensor_core_tiled"
     return "cuda_core"
 
 
@@ -163,10 +248,22 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
                          f"N<={MAX_N}, D<={MAX_D}")
 
 
+def _forced(variant: str | None, rule: str, name: str) -> str:
+    """The variant to launch: the shape rule's, or ``variant`` (the C
+    entry point refuses one that cannot take the call)."""
+    if variant is None:
+        return rule
+    if variant not in VARIANTS:
+        raise ValueError(f"{name}: no variant {variant!r}")
+    return variant
+
+
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   scale: float) -> torch.Tensor:
-    """Launch K2 on CUDA tensors of shape (B, N, D) and one dtype.  Raises
-    when autograd would need a backward (``_build.autograd_required``)."""
+                   scale: float, variant: str | None = None) -> torch.Tensor:
+    """Launch K2 on CUDA tensors of shape (B, N, D) and one dtype, in the
+    variant the shape rule names or in ``variant`` (a timing of the
+    variant a shape used to take).  Raises when autograd would need a
+    backward (``_build.autograd_required``)."""
     _build.refuse_autograd("window_attention", q, k, v)
     _check_qkv("window_attention", q, k, v)
     b, n, d = q.shape
@@ -175,8 +272,9 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0:
         return o
     code = _build.dtype_code(q, "window_attention")
-    variant = attention_variant(
-        n, d, q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v, o)))
+    variant = _forced(variant, attention_variant(
+        n, d, q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v, o))),
+        "window_attention")
     err = _build.lib().tmt_window_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, d,
         scale, code, VARIANTS.index(variant), _build.stream_ptr(q))
@@ -186,11 +284,13 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       g: torch.Tensor, scale: float
+                       g: torch.Tensor, scale: float,
+                       variant: str | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2b on CUDA tensors of shape (B, N, D) and one dtype:
-    (dq, dk, dv).  g, which reaches the backward through the window
-    fold's reshapes and transposes, is made contiguous first."""
+    (dq, dk, dv), in the shape rule's variant or in ``variant``.  g,
+    which reaches the backward through the window fold's reshapes and
+    transposes, is made contiguous first."""
     _check_qkv("window_attention_bwd", q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"window_attention_bwd: g {tuple(g.shape)} "
@@ -202,9 +302,10 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     stats = torch.empty(b, n, 3, device=q.device, dtype=torch.float32)
     code = _build.dtype_code(q, "window_attention_bwd")
-    variant = attention_bwd_variant(
+    variant = _forced(variant, attention_bwd_variant(
         n, d, q.dtype,
-        all(t.data_ptr() % 16 == 0 for t in (q, k, v, g, dq, dk, dv)))
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v, g, dq, dk, dv))),
+        "window_attention_bwd")
     err = _build.lib().tmt_window_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),

@@ -5,10 +5,11 @@ The CUDA kernels run only on the card (``chip_smoke.py`` holds each
 variant against its plain version there).  Here: which variant each shape
 of ``chip_smoke.py`` takes, the Python mirrors of the kernels' layouts
 and grids against the constants in the sources, the launch counters by
-variant, and the rounding decision of K2b's ``tensor_core`` variant: an
-emulation of its split-bf16 products stays inside ``chip_smoke.py``'s
+variant, and the rounding decisions of the tensor-core variants: an
+emulation of K2b's split-bf16 products stays inside ``chip_smoke.py``'s
 bf16 gate against the plain version and against the JAX rule ``_bwd``,
-where rounding p and ds once to bf16 does not.
+where rounding p and ds once to bf16 does not, and so does an emulation
+of K2's ``tensor_core_tiled`` sums against the plain forward and JAX's.
 """
 
 import functools
@@ -21,12 +22,24 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from tera_mind_tpu.ops.attention_kernel import _attention_xla
 from tera_mind_tpu.ops.attention_kernel import _bwd as jax_attention_bwd
 from tera_mind_tpu_torch.ops import _build
 from tera_mind_tpu_torch.ops import attention_kernel as k2
 from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
 
 BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the emulations' float64 chunk
+    products are small, and several test workers with full thread pools
+    would oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _kernel_shapes():
@@ -42,14 +55,14 @@ def _kernel_shapes():
 # ------------------------------------------------------------------ #
 K2B_WANT = {(512, 128, 256): "tensor_core", (128, 128, 256): "tensor_core",
             (512, 32, 512): "tensor_core", (5, 100, 48): "tensor_core",
-            (3, 17, 130): "cuda_core", (2, 512, 512): "cuda_core"}
+            (3, 17, 130): "cuda_core", (2, 512, 512): "tensor_core_tiled"}
 
 
 @pytest.mark.parametrize("b,n,d", cs.TRAIN_K2_SHAPES + cs.K2B_EDGE)
 def test_attention_bwd_variant_of_every_chip_smoke_shape(b, n, d):
-    """bf16 training shapes and (5, 100, 48) take the tensor cores; D =
-    130 (not a multiple of 16) and N = 512 (over 128) stay on CUDA cores;
-    so do float32 and misaligned tensors."""
+    """bf16 training shapes and (5, 100, 48) take the tensor cores, N =
+    512 (over 128) the tiled tensor cores; D = 130 (not a multiple of 16)
+    stays on CUDA cores, and so do float32 and misaligned tensors."""
     assert set(K2B_WANT) == set(cs.TRAIN_K2_SHAPES + cs.K2B_EDGE)
     assert k2.attention_bwd_variant(n, d, BF16, True) == K2B_WANT[(b, n, d)]
     assert k2.attention_bwd_variant(n, d, F32, True) == "cuda_core"
@@ -83,7 +96,8 @@ def test_chip_smoke_requires_the_training_counts_by_variant(packed, path):
         cs.TRAIN_LAUNCHES[path]["rmsnorm"]
     assert by["window_attention_bwd"] == {
         "cuda_core": 0,
-        "tensor_core": cs.TRAIN_LAUNCHES[path]["window_attention"]}
+        "tensor_core": cs.TRAIN_LAUNCHES[path]["window_attention"],
+        "tensor_core_tiled": 0}
 
 
 @pytest.mark.parametrize("method", ["patch-dm", "sinf"])
@@ -122,11 +136,52 @@ def test_tensor_core_bwd_smem_matches_the_kernels_layout():
     assert k2.bwd_tc_smem_bytes(100, 48) == (
         2 * (2 * 64 * 56 + 2 * 112 * 56 + 2 * 64 * 120) + 4 * 6 * 64,
         2 * (2 * 112 * 56 + 4 * 64 * 120) + 4 * 3 * 112)
-    # D = 512 at N = 128: k and v alone fill 266 KB
+    # D = 512 at N = 128: k and v alone fill 266 KB; the tiled variant
+    # takes it
     assert min(k2.bwd_tc_smem_bytes(128, 512)) > k2.SMEM_LIMIT
-    assert k2.attention_bwd_variant(128, 512, BF16, True) == "cuda_core"
-    assert k2.attention_bwd_variant(64, 512, BF16, True) == "cuda_core"
+    assert k2.attention_bwd_variant(128, 512, BF16, True) == \
+        "tensor_core_tiled"
+    assert k2.attention_bwd_variant(64, 512, BF16, True) == \
+        "tensor_core_tiled"
     assert k2.attention_bwd_variant(16, 16, BF16, True) == "tensor_core"
+
+
+def test_tiled_bwd_smem_matches_the_kernels_layout():
+    """K2b's tensor_core_tiled layout mirrors against the constants and
+    the static_assert of csrc/attention_bwd.cu, and both passes of every
+    N <= 512, D in 16 .. 512 (multiples of 16) within a block's shared
+    memory."""
+    src = (_build.CSRC / "attention_bwd.cu").read_text()
+    assert "for (int r = d <= 256 ? 64 : 32; r >= 32; r /= 2)" in src
+    assert "dq_tiled_layout(512, 128).bytes == 210432" in src
+    assert "dq_tiled_layout(512, 512).bytes == 231936" in src
+    assert "dq_tiled_layout(256, 256).r == 64" in src
+    assert "dq_tiled_layout(256, 256).bytes == 200704" in src
+    assert "kv_tiled_layout(256).bytes == 156416" in src
+    assert "kv_tiled_layout(512).kr == 32" in src
+    assert "kv_tiled_layout(512).qt == 32" in src
+    assert "const int kr0 = 16 * (tl::kWarps / ((d + 63) / 64));" in src
+    assert "const int kr = kr0 > 64 ? 64 : kr0;" in src
+    assert "constexpr int kTlSlots = 2;" in src
+    assert "constexpr int kWarps = 16;" in (
+        _build.CSRC / "attention_tiled.cuh").read_text()
+    # dq pass: 32 rows at N = 512 (64 rows' logits and dp alone are 264
+    # KB), 64 at (256, 256)
+    assert k2.dq_tiled_layout(512, 128) == (32, 128, 2, 210_432)
+    assert k2.dq_tiled_layout(512, 512) == (32, 32, 2, 231_936)
+    assert k2.dq_tiled_layout(256, 256) == (64, 32, 2, 200_704)
+    # the dk/dv pass: 64, 64, 32 key rows at D = 128, 256, 512 (a warp's
+    # up to two 16 x 64 tiles of dv and dk: 64 f32 a thread)
+    assert [k2.kv_tiled_layout(d)[:3] for d in (128, 256, 512)] == [
+        (64, 64, 2), (64, 32, 2), (32, 32, 2)]
+    assert k2.kv_tiled_layout(256)[3] == 156_416
+    for d in range(16, k2.MAX_D + 1, 16):
+        kr = k2.kv_tiled_layout(d)[0]
+        assert 2 * (kr // 16) * -(-d // 64) <= 2 * 16, d  # kTlSlots x warps
+    worst = max(max(k2.bwd_tiled_smem_bytes(n, d))
+                for n in range(1, k2.MAX_N + 1)
+                for d in range(16, k2.MAX_D + 1, 16))
+    assert worst <= k2.SMEM_LIMIT
 
 
 def test_bwd_entry_points_take_the_variant():
@@ -135,10 +190,11 @@ def test_bwd_entry_points_take_the_variant():
     attn = (_build.CSRC / "attention_bwd.cu").read_text()
     norm = (_build.CSRC / "rmsnorm_bwd.cu").read_text()
     assert "float scale, int dtype, int variant," in attn
-    assert "enum : int { kCudaCore = 0, kTensorCore = 1 };" in attn
+    assert ("enum : int { kCudaCore = 0, kTensorCore = 1, kTensorCoreTiled"
+            " = 2 };") in attn
     assert "int dtype, int variant, void* stream)" in norm
     assert "enum : int { kStrided = 0, kVector = 1 };" in norm
-    assert k2.VARIANTS == ("cuda_core", "tensor_core")
+    assert k2.VARIANTS == ("cuda_core", "tensor_core", "tensor_core_tiled")
     assert k1.VARIANTS == ("strided", "vector")
     assert len(_build.SIGNATURES["tmt_window_attention_bwd"]) == 15
     assert len(_build.SIGNATURES["tmt_rmsnorm_bwd"]) == 13
@@ -238,7 +294,8 @@ def _emulation(n, d, peaked):
 
 
 @pytest.mark.parametrize("peaked", [False, True])
-@pytest.mark.parametrize("n,d", [(128, 256), (32, 512)])
+@pytest.mark.parametrize("n,d", [(128, 256), (32, 512), (512, 128),
+                                 (128, 512), (256, 256)])
 def test_split_bf16_products_keep_the_jax_rounding(n, d, peaked):
     """The split pair hi = bf16(x), lo = bf16(x - hi), two products into
     one float32 accumulator, passes chip_smoke.py's bf16 gate (2 spacings
@@ -269,3 +326,70 @@ def test_one_bf16_rounding_of_p_and_ds_breaks_the_gate(n, d, peaked):
         assert cs.k2_agreement(out, ref)[2] > 0.3, name
         with pytest.raises(cs.SmokeFailure):
             cs.require_k2(out, ref, f"rounded {name}")
+
+
+# ------------------------------------------------------------------ #
+# the sums of K2 tensor_core_tiled                                    #
+# ------------------------------------------------------------------ #
+def _k2_tiled_emulated(q, k, v, scale):
+    """K2's tensor_core_tiled sums (csrc/attention.cu): each K tile's
+    logits q k^T, bf16 products summed in mma chunks of 16 along D, times
+    scale into the rows' f32 logits; the exact softmax over all N (row
+    max, exp, sum, divide); p rounded once to bf16; p v over the V tiles
+    in chunks of 16 keys into one f32 accumulator (the tiles' kt rows are
+    a multiple of 16, so the chunks run in key order), rounded once."""
+    n, d = q.shape[-2:]
+    kt = k2.tiled_layout(n, d)[1]
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    s = torch.cat([_mma_sum((qf,), kf[:, j0:j0 + kt].transpose(-1, -2))
+                   for j0 in range(0, n, kt)], -1) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(BF16).float()
+    return _mma_sum((p,), vf).to(BF16)
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("n,d", [(512, 128), (128, 512), (256, 256)])
+def test_tiled_forward_sums_keep_the_k2_gate(n, d, peaked):
+    """An emulation of K2 tensor_core_tiled's sums at the presets' shapes
+    that take it passes chip_smoke.py's bf16 gate (2 spacings at max
+    |ref|, at most 1 % not bit-equal) against the plain version and
+    against JAX's reference ``_attention_xla``."""
+    assert k2.attention_variant(n, d, BF16, True) == "tensor_core_tiled"
+    g_ = torch.Generator().manual_seed(300 * n + d + peaked)
+    q, k, v = cs.k2_inputs(g_, 8, n, d, BF16, "cpu", peaked)
+    got = _k2_tiled_emulated(q, k, v, 1.0 / d)
+    ref = k2.attention_plain(q, k, v, 1.0 / d)
+    as_jax = [jnp.asarray(t.float().numpy().astype(ml_dtypes.bfloat16))
+              for t in (q, k, v)]
+    jref = torch.from_numpy(np.asarray(_attention_xla(*as_jax, 1.0 / d))
+                            .astype(np.float32)).to(BF16)
+    for what, want in (("plain", ref), ("jax", jref)):
+        _, spacings, share = cs.require_k2(got, want, f"tiled {what}")
+        assert spacings <= 1.0 and share <= 5e-3, (what, spacings, share)
+
+
+@pytest.mark.parametrize("preset", list(cs.PRESETS) + list(
+    cs.PRESET_KERNELS_ONLY))
+def test_presets_launch_no_cuda_core_attention(preset):
+    """At full width, scripts/kernel_shapes.py predicts no K2 or K2b
+    launch on ``cuda_core`` for any preset phase 19 runs or checks: the
+    2x2 generation chain (packed and 5D) and a training step (5D and
+    packed) take the tensor cores, tiled where N > 128 or D = 512 at N =
+    128."""
+    ks = _kernel_shapes()
+    flags = cs.PRESETS.get(preset) or cs.PRESET_KERNELS_ONLY[preset]
+    conf = cs.preset_conf(ks, flags)
+    preds = [ks.chain_prediction(conf, packed=packed)
+             for packed in (True, False)]
+    for packed in (False, True):
+        conf.packed_compute = packed
+        preds.append(ks.train_prediction(conf))
+    tiled = 0
+    for pred in preds:
+        for name in ("window_attention", "window_attention_bwd"):
+            if name in pred:
+                by = pred[name]["by_variant"]
+                assert by["cuda_core"] == 0, (preset, name, by)
+                tiled += by["tensor_core_tiled"]
+    assert (tiled > 0) == (preset != "609882_64_500_all_4"), preset

@@ -189,7 +189,10 @@ phase 19 alone;
 int8_static chains with the bf16 packed chain they are compared with,
 for a call that tunes the int8 kernels; ``--attention`` runs K2 and K2b
 at phase 3's and 4's shapes, the refusals and phase 19's K2 and K2b
-shapes, for a call that tunes the attention kernels.
+shapes, for a call that tunes the attention kernels; ``--norms`` runs K1
+and K1b at phase 3's, 4's and 19's shapes (K1 also at phase 4's strided
+shapes with the float32 weight), their edge shapes and the refusals,
+for a call that tunes the norm kernels.
 """
 
 from __future__ import annotations
@@ -338,9 +341,11 @@ def ulp_err(out, ref) -> float:
 # path reaches and the shapes above miss (C = 96 is G = 4, C = 64 is
 # G = 2): the encoder's q_norm at head dim 256 (324 x 128 rows, G = 8),
 # the middle block's norms of 512 channels (G = 16) and dec_3_res.in_norm
-# (512 + 384, collage batch of 64 patches, G = 32).
+# (512 + 384, collage batch of 64 patches, G = 32); last the 5D chain's
+# other two strided shapes, the gene concats 256 + 229 and 768 + 229.
 K1_SHAPES = [(663_552, 96), (10_368, 741), (8_192, 1253), (18_549, 64),
-             (41_472, 256), (10_368, 512), (32_768, 896), (32_768, 256)]
+             (41_472, 256), (10_368, 512), (32_768, 896), (32_768, 256),
+             (10_368, 485), (8_192, 997)]
 # (B, N, D) that the main path gives K2: encoder and collage decoder at
 # resolution 16, and the middle block.
 K2_SHAPES = [(324, 128, 256), (256, 128, 256), (324, 32, 512)]
@@ -369,9 +374,13 @@ ATTN_K1_SHAPE = (3_664, 64)
 # shapes off the main path that the wrappers accept: ragged rows and
 # channels, ragged query tiles and key chunks, the largest shared-memory
 # footprint (N = D = 512), the vector variant at one 16-byte vector a row
-# (C = 8) and at a row that leaves lanes of its group unequal (C = 264);
-# correctness only
-K1_EDGE = [(7, 1), (13, 33), (1029, 2050), (1000, 8), (517, 264)]
+# (C = 8) and at a row that leaves lanes of its group unequal (C = 264),
+# the strided variant's rows at the register limit (C = 2,047 and 2,048
+# in bf16; in float32 they take the second read, as C = 2,050 does) and a
+# 500-gene row (C = 1,524) whose x starts one element past 16 bytes (the
+# third number: elements of offset); correctness only
+K1_EDGE = [(7, 1), (13, 33), (1029, 2050), (1000, 8), (517, 264),
+           (129, 1524, 1), (65, 2047), (65, 2048)]
 K2_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512)]
 K1_MAX_ULP = 4.0   # bf16 spacings at |ref|: the f32 sum of squares runs in
                    # another order, so bf16(inv) may round one step apart
@@ -553,6 +562,40 @@ def k2_row(g, device, b, n, d, path) -> dict:
                 max_abs_err=err, **t)
 
 
+def offset_rows(g, device, n, c, dt, offset=0):
+    """randn (n, c) in ``dt`` on ``device``, a contiguous tensor whose
+    storage starts ``offset`` elements past the allocation's start (16
+    bytes when offset is 0)."""
+    import torch
+    base = torch.randn(n * c + offset, generator=g).to(device, dt)
+    x = base[offset:].view(n, c)
+    require(x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset > 0),
+            f"({n}, {c}) at offset {offset}: not as placed")
+    return x
+
+
+def check_k1_edges(g, device) -> None:
+    """K1 against its plain version at the edge shapes, bf16 and float32,
+    and on a misaligned (4096, 96): the strided variant required."""
+    import torch
+    seen = []
+    for n, c, *off in K1_EDGE:
+        for dt in (torch.bfloat16, torch.float32):
+            x = offset_rows(g, device, n, c, dt, *off)
+            w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, dt)
+            where = f" at offset {off[0]}" if off else ""
+            seen.append(f"({n}, {c}){where} {str(dt)[6:]} "
+                        f"{k1_agrees(x, w, 'edge' + where)[3]}")
+    # a contiguous tensor whose storage starts one element off 16 bytes
+    for dt in (torch.bfloat16, torch.float32):
+        x = offset_rows(g, device, 4096, 96, dt, 1)
+        w = (1 + 0.1 * torch.randn(96, generator=g)).to(device, dt)
+        variant = k1_agrees(x, w, "misaligned")[3]
+        require(variant == "strided", f"K1 misaligned took {variant}")
+        seen.append(f"(4096, 96) {str(dt)[6:]} misaligned {variant}")
+    log(f"K1 edge shapes agree: {'; '.join(seen)}")
+
+
 def check_kernels(device) -> dict:
     """Each kernel against its plain version at every shape of the main
     path and of the tile-major and streaming paths (bf16 and f32) and at
@@ -567,24 +610,7 @@ def check_kernels(device) -> dict:
     bf16 = torch.bfloat16
     rows = {"rmsnorm": [k1_row(g, device, n, c, "block_major")
                         for n, c in K1_SHAPES]}
-    seen = []
-    for n, c in K1_EDGE:
-        for dt in (bf16, torch.float32):
-            x = torch.randn(n, c, generator=g).to(device, dt)
-            w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, dt)
-            seen.append(f"({n}, {c}) {str(dt)[6:]} {k1_agrees(x, w, 'edge')[3]}")
-    # a contiguous tensor whose storage starts one element off 16 bytes
-    for dt in (bf16, torch.float32):
-        c = 96
-        base = torch.randn(4096 * c + 1, generator=g).to(device, dt)
-        x = base[1:].view(4096, c)
-        w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, dt)
-        require(x.is_contiguous() and x.data_ptr() % 16 != 0,
-                "K1 misaligned input is not misaligned")
-        variant = k1_agrees(x, w, "misaligned")[3]
-        require(variant == "strided", f"K1 misaligned took {variant}")
-        seen.append(f"(4096, 96) {str(dt)[6:]} misaligned {variant}")
-    log(f"K1 edge shapes agree: {'; '.join(seen)}")
+    check_k1_edges(g, device)
 
     rows["window_attention"] = [k2_row(g, device, b, n, d, "block_major")
                                 for b, n, d in K2_SHAPES]
@@ -663,13 +689,16 @@ TRAIN_BWD_VARIANTS = {
        for m in ("patch-dm", "sinf")}}
 # edge shapes: ragged and odd C, odd row counts, C = 741 and 1,253 (K1b
 # strided), C = 8, 264 and 1,024 (vector with one 16-byte vector a row,
-# unequal lanes, 32 lanes a row; 1,024 is strided in f32) and 2,050 (a row
-# wider than the strided variant's registers); N = 17, 100, 512 and D =
-# 48, 130, 512 (K2b tensor_core at (5, 100, 48), with N not a multiple of
-# 16; cuda_core at D = 130; tensor_core_tiled at N = D = 512, the largest
-# shared memory)
+# unequal lanes, 32 lanes a row; 1,024 is strided in f32), 2,047 and
+# 2,048 (the strided variant's words at its register limit in bf16) and
+# 2,050 (a row wider than its registers), and C = 1,524 with x and g
+# starting one element past 16 bytes (the third number); N = 17, 100, 512
+# and D = 48, 130, 512 (K2b tensor_core at (5, 100, 48), with N not a
+# multiple of 16; cuda_core at D = 130; tensor_core_tiled at N = D = 512,
+# the largest shared memory)
 K1B_EDGE = [(7, 33), (13, 100), (1029, 741), (517, 1253), (3, 8),
-            (517, 264), (1000, 1024), (33, 2050)]
+            (517, 264), (1000, 1024), (33, 2050), (129, 1524, 1),
+            (65, 2047), (65, 2048)]
 K2B_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512)]
 # Tolerances, set before the first chip run.  Kernel and plain version
 # compute the same float32 formula from the same inputs and differ only
@@ -862,6 +891,32 @@ def k2b_row(gen, device, b, n, d, path) -> dict:
                 max_share=max(e[0][2] for e in errs), **t)
 
 
+def check_k1b_edges(gen, device) -> None:
+    """K1b against its plain version at the edge shapes, bf16 and
+    float32 (x and g placed at the shape's offset), and with only x
+    misaligned at (4096, 96) and (129, 1,524): the strided variant
+    required, each run twice for bit-equal outputs."""
+    import torch
+    seen = []
+    for n, c, *off in K1B_EDGE:
+        got = []
+        where = f" at offset {off[0]}" if off else ""
+        for dt in (torch.bfloat16, torch.float32):
+            x, g = (offset_rows(gen, device, n, c, dt, *off)
+                    for _ in range(2))
+            w = (1 + 0.1 * torch.randn(c, generator=gen)).to(device)
+            got.append(k1b_agrees(x, g, w, f"edge {n}x{c}{where}")[2])
+        seen.append(f"({n}, {c}){where} bf16 {got[0]}, f32 {got[1]}")
+    for n, c in ((4096, 96), (129, 1524)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = offset_rows(gen, device, n, c, dt, 1)
+            _, g, w = k1b_inputs(gen, device, n, c, dt)
+            k1b_agrees(x, g, w, f"misaligned x {n}x{c}", want="strided")
+    log(f"K1b edge shapes agree, bf16 and f32, deterministic: "
+        f"{'; '.join(seen)}; (4096, 96) and (129, 1524) with x alone "
+        "misaligned strided")
+
+
 def check_backward_kernels(device) -> dict:
     """Each variant of K1b and K2b against its plain version at every
     training-step shape (bf16, and float32 on a slice of the rows or
@@ -875,21 +930,7 @@ def check_backward_kernels(device) -> dict:
     bf16 = torch.bfloat16
     rows = {"rmsnorm_bwd": [k1b_row(gen, device, n, c, "train")
                             for n, c in TRAIN_K1_SHAPES]}
-    seen = []
-    for n, c in K1B_EDGE:
-        got = [k1b_agrees(*k1b_inputs(gen, device, n, c, dt),
-                          f"edge {n}x{c}")[2]
-               for dt in (bf16, torch.float32)]
-        seen.append(f"({n}, {c}) bf16 {got[0]}, f32 {got[1]}")
-    for dt in (bf16, torch.float32):
-        base = torch.randn(4096 * 96 + 1, generator=gen).to(device, dt)
-        x = base[1:].view(4096, 96)
-        require(x.is_contiguous() and x.data_ptr() % 16 != 0,
-                "K1b misaligned input is not misaligned")
-        _, g, w = k1b_inputs(gen, device, 4096, 96, dt)
-        k1b_agrees(x, g, w, "misaligned 4096x96", want="strided")
-    log(f"K1b edge shapes agree, bf16 and f32, deterministic: "
-        f"{'; '.join(seen)}; (4096, 96) misaligned strided")
+    check_k1b_edges(gen, device)
 
     rows["window_attention_bwd"] = [k2b_row(gen, device, b, n, d, "train")
                                     for b, n, d in TRAIN_K2_SHAPES]
@@ -913,7 +954,9 @@ def check_variant_refusal(device) -> None:
     launch): K2b ``tensor_core`` on float32, on N = 256 and on a
     misaligned gradient, an unknown variant; K2 and K2b
     ``tensor_core_tiled`` on float32, at D = 72 and on a misaligned
-    tensor; K1b ``vector`` on C = 741 and on a misaligned x."""
+    tensor; K1 and K1b ``vector`` on C = 741 and on a misaligned x, K1
+    ``vector`` with a float32 weight for a bf16 x and ``strided`` with a
+    bf16 weight for a float32 x, an unknown variant of each."""
     import torch
 
     from tera_mind_tpu_torch.ops import _build
@@ -967,14 +1010,37 @@ def check_variant_refusal(device) -> None:
             partial.data_ptr(), w.data_ptr(), 64, c, 8, 1e-6,
             _build.DTYPES[bf16], variant, stream)
 
-    require(k1b(96, vec) == 0 and k1b(741, strided) == 0,
+    def k1(c, variant, dtype=bf16, w_dtype=bf16, offset=0):
+        t = torch.zeros(64 * c + 8, device=device, dtype=dtype)
+        x = t[offset:offset + 64 * c]
+        w = torch.ones(c, device=device, dtype=w_dtype)
+        y = torch.empty(64 * c, device=device, dtype=dtype)
+        return lib.tmt_rmsnorm(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), 64, c, 1e-6,
+            _build.DTYPES[dtype], _build.DTYPES[w_dtype], variant, stream)
+
+    f32 = torch.float32
+    require(k1b(96, vec) == 0 and k1b(741, strided) == 0
+            and k1b(1524, strided) == 0,
             "K1b entry refused calls its variants take")
+    require(k1(96, vec) == 0 and k1(96, vec, f32, f32) == 0
+            and k1(741, strided) == 0 and k1(741, strided, w_dtype=f32) == 0
+            and k1(1524, strided, w_dtype=f32) == 0,
+            "K1 entry refused calls its variants take")
     refused.update({"K1b vector at C = 741": k1b(741, vec),
-                    "K1b vector misaligned": k1b(96, vec, offset=1)})
+                    "K1b vector misaligned": k1b(96, vec, offset=1),
+                    "K1b variant 7": k1b(96, 7),
+                    "K1 vector at C = 741": k1(741, vec),
+                    "K1 vector misaligned": k1(96, vec, offset=1),
+                    "K1 vector, float32 weight": k1(96, vec, w_dtype=f32),
+                    "K1 strided, float32 x, bf16 weight": k1(741, strided,
+                                                             f32),
+                    "K1 variant 7": k1(96, 7)})
     torch.cuda.synchronize()
     require(all(err != 0 for err in refused.values()),
             f"entry points took calls their variant cannot: {refused}")
-    log(f"K2, K1b and K2b entry points refuse (error codes): {refused}")
+    log(f"K1, K2, K1b and K2b entry points refuse (error codes): "
+        f"{refused}")
 
 
 # ---------------------------------------------------------------------------
@@ -1850,8 +1916,11 @@ TILE_MAJOR_STEPS = 5   # the tile-major chain's depth, cut to keep the
 # chains were cut from 15 to 5 steps to make room for phase 19 (their
 # tiles/s stay a 15-step equivalent; their outputs are checked by
 # require_output, and int8_static's calibration runs over its 5 steps)
+# The streamed 4x4 chain's depth, cut from 15 to 5 steps in turn to keep
+# the run well inside its cap (its tiles/s stays a 15-step equivalent)
+STREAM_STEPS = 5
 CHAIN_STEPS = {"packed": STEPS, "int8": STEPS, "int8_static": 5, "5d": 5,
-               "tile_major": TILE_MAJOR_STEPS, "stream": STEPS}
+               "tile_major": TILE_MAJOR_STEPS, "stream": STREAM_STEPS}
 
 
 # launches per chain: K1 norms and K2 attentions per UNet call x UNet
@@ -1861,14 +1930,14 @@ CHAIN_STEPS = {"packed": STEPS, "int8": STEPS, "int8_static": 5, "5d": 5,
 # Block-major 2x2: 25 z-windows x 15 steps = 375 calls (5 steps: 125);
 # tile-major 2x2 at
 # window_chunk 5: 4 tiles x 5 calls x 5 steps = 100; streamed 4x4 in 2x2
-# windows at window_chunk 5: 4 windows x 5 calls x 15 steps = 300.
+# windows at window_chunk 5: 4 windows x 5 calls x 5 steps = 100.
 CHAIN_LAUNCHES = {
     "packed": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
     "int8": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
     "int8_static": {"rmsnorm": 26 * 125, "window_attention": 6 * 125},
     "5d": {"rmsnorm": 83 * 125, "window_attention": 6 * 125},
     "tile_major": {"rmsnorm": 26 * 100, "window_attention": 6 * 100},
-    "stream": {"rmsnorm": 26 * 300, "window_attention": 6 * 300}}
+    "stream": {"rmsnorm": 26 * 100, "window_attention": 6 * 100}}
 STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
 
 
@@ -2073,9 +2142,9 @@ class Tee:
 
 
 def run_stream_path(device, counts: tuple) -> dict:
-    """``cli.generate.main --stream`` at its defaults on a 4x4 grid, 15
-    steps, with the launch counters set to 0 just before it, then a 2-step
-    run of the same grid under ``TMT_STREAM_TIMING``."""
+    """``cli.generate.main --stream`` at its defaults on a 4x4 grid,
+    ``STREAM_STEPS`` steps, with the launch counters set to 0 just before
+    it, then a 2-step run of the same grid under ``TMT_STREAM_TIMING``."""
     import contextlib
     import re
     import tempfile
@@ -2088,7 +2157,7 @@ def run_stream_path(device, counts: tuple) -> dict:
     rss_before = peak_rss_gib()
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--synthetic", "--stream", "--hnm", str(g), "--wnm", str(g),
-                "--tot_epoch", str(STEPS), "--device", str(device),
+                "--tot_epoch", str(STREAM_STEPS), "--device", str(device),
                 "--out_dir", f"{tmp}/tiles"]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2111,11 +2180,13 @@ def run_stream_path(device, counts: tuple) -> dict:
     require(done is not None and auto is not None,
             "the streamed run printed no run time or window_chunk")
     secs, wc = float(done.group(1)), int(auto.group(1))
-    calls = 25 // wc * (g // 2) ** 2 * STEPS
+    calls = 25 // wc * (g // 2) ** 2 * STREAM_STEPS
     want, want_variants = expected_launches(counts, calls)
-    log(f"chain [stream]: {g}x{g} tiles x {STEPS} steps in {secs:.2f} s = "
-        f"{g * g / secs:.5f} tiles/s (window_chunk {wc}, {calls} UNet "
-        f"calls); peak device memory {peak:.2f} GiB, the process's peak "
+    rate = g * g * STREAM_STEPS / STEPS / secs
+    log(f"chain [stream]: {g}x{g} tiles x {STREAM_STEPS} steps in {secs:.2f}"
+        f" s = {rate:.5f} tiles/s (a tile {STEPS} steps; window_chunk {wc}, "
+        f"{calls} UNet calls); peak device memory {peak:.2f} GiB, the "
+        "process's peak "
         f"host RSS {rss:.2f} GiB ({rss_before:.2f} GiB before the chain); "
         f"launches {got} (expected {want}), by variant "
         f"{got_variants} (expected {want_variants}); {card}")
@@ -2130,7 +2201,7 @@ def run_stream_path(device, counts: tuple) -> dict:
 
     timing, out2 = stream_timing_run(device)
     return dict(launches=got, variants=got_variants, seconds=secs,
-                tiles_per_s=g * g / secs, peak_gib=peak, host_rss_gib=rss,
+                tiles_per_s=rate, peak_gib=peak, host_rss_gib=rss,
                 host_rss_before_gib=rss_before, window_chunk=wc,
                 timing=timing, out=out, out2=out2)
 
@@ -3996,9 +4067,11 @@ def main() -> int:
         return presets_only(device, smi)
     if sys.argv[1:] == ["--attention"]:
         return attention_only(device, smi)
+    if sys.argv[1:] == ["--norms"]:
+        return norms_only(device, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
-              "--ranks, --int8, --dp, --presets or --attention)",
+              "--ranks, --int8, --dp, --presets, --attention or --norms)",
               file=sys.stderr, flush=True)
         return 2
 
@@ -4256,6 +4329,49 @@ def attention_only(device, smi: str) -> int:
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "only": "K2 and K2b", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def norms_only(device, smi: str) -> int:
+    """``--norms``: K1 at phase 3's shapes and edge shapes, K1b at phase
+    4's, K1 at phase 4's strided shapes with the float32 weight that
+    training passes, the entry points' refusals, and K1 and K1b at phase
+    19's shapes, for a call that tunes the norm kernels; prints its JSON,
+    the card line and a result line naming the part it ran."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    g = torch.Generator(device="cpu").manual_seed(0)
+    rows = {"rmsnorm": [k1_row(g, device, n, c, "block_major")
+                        for n, c in K1_SHAPES]}
+    check_k1_edges(g, device)
+    for path, (k1_shapes, _) in PATH_SHAPES.items():
+        rows["rmsnorm"] += [k1_row(g, device, n, c, path)
+                            for n, c in k1_shapes]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    rows["rmsnorm_bwd"] = [k1b_row(gen, device, n, c, "train")
+                           for n, c in TRAIN_K1_SHAPES]
+    check_k1b_edges(gen, device)
+    rows["rmsnorm"] += [
+        k1_row(gen, device, n, c, "train", torch.float32)
+        for n, c in TRAIN_K1_SHAPES
+        if k1.rmsnorm_variant(c, 2, True) == "strided"]
+    check_variant_refusal(device)
+    shapes = preset_kernel_shapes(kernel_shapes())
+    g = torch.Generator(device="cpu").manual_seed(19)
+    rows["rmsnorm"] += [k1_row(g, device, n, c, path)
+                        for (n, c), path in shapes["K1"]]
+    rows["rmsnorm"] += [k1_row(g, device, n, c, path, torch.float32)
+                        for (n, c), path in shapes["K1 train"]]
+    rows["rmsnorm_bwd"] += [k1b_row(g, device, n, c, path)
+                            for (n, c), path in shapes["K1b"]]
+    print(json.dumps({"shapes": rows, "launches_by_variant": {
+        "rmsnorm": dict(k1.launches_by_variant),
+        "rmsnorm_bwd": dict(k1.bwd.launches_by_variant)}}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "only": "K1 and K1b", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -60,7 +60,7 @@ microbatches (2).  In training every K1 and K2 input requires grad, so
 each launch records one backward launch: K1b takes K1's (rows, C) and K2b
 K2's (B, N, D), as often; it also prints the launches a step of each
 K1b and K2b variant (bf16, aligned tensors) and the bytes a step of each
-K2 and K2b variant with their byte bound.  With ``--ranks N`` it runs
+K1, K1b, K2 and K2b variant with their byte bound.  With ``--ranks N`` it runs
 one rank of ``cli.train`` over N processes instead (data parallel: each
 rank's microbatch is 32 / N samples, ``accum`` microbatches a step, so
 its launches a step are one process's), and prints each shape's bound on
@@ -523,9 +523,23 @@ def main_train(packed: bool, method: str = "ours", conf=None) -> None:
                   "step")
     for name, by in train_bwd_variants(packed, method, conf=conf).items():
         print(f"{name} launches a step by variant: {by}")
-    for kernel, nbytes in sorted(attention_step_bytes(k2, accum).items()):
+    step = norm_step_bytes(k1, accum) + attention_step_bytes(k2, accum)
+    for kernel, nbytes in sorted(step.items()):
         print(f"{kernel}: {nbytes / 1e9:.3f} GB a step, byte bound "
-              f"{nbytes / H100_BYTES_PER_S * 1e3:.3f} ms a step")
+              f"{nbytes / H100_BYTES_PER_S * 1e3:.4f} ms a step")
+
+
+def norm_step_bytes(k1: Counter, times: int) -> Counter:
+    """{"K1 <variant>" / "K1b <variant>": bytes} that ``times`` rounds of
+    the K1 launches ``k1`` (shape -> launches) and their K1b launches move
+    in bf16 with aligned tensors, by variant (``kernel_work``'s count, as
+    ``chip_smoke.py`` times them)."""
+    out = Counter()
+    for (rows, c), n in k1.items():
+        for kernel in ("K1", "K1b"):
+            out[f"{kernel} {rmsnorm_variant(c, BF16, True)}"] += (
+                n * times * kernel_work(kernel, (rows, c))[0])
+    return out
 
 
 def attention_step_bytes(k2: Counter, times: int) -> Counter:

@@ -37,6 +37,22 @@ cudaError_t smem_opt_in(Kernel kernel, int bytes,
   return (cudaError_t)(s - 1);
 }
 
+// The SMs of the current device (read once per device), or 0 on an error.
+inline int sm_count() {
+  static std::atomic<int> cache[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 0;
+  int n = cache[dev].load(std::memory_order_acquire);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 0;
+    cache[dev].store(n, std::memory_order_release);
+  }
+  return n;
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

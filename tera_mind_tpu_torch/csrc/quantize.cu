@@ -250,21 +250,6 @@ quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   }
 }
 
-int sm_count() {
-  static std::atomic<int> cache[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
-    return 0;
-  int n = cache[dev].load(std::memory_order_acquire);
-  if (n == 0) {
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-        cudaSuccess)
-      return 0;
-    cache[dev].store(n, std::memory_order_release);
-  }
-  return n;
-}
-
 template <typename T, int SEG>
 int launch(const T* x, int8_t* q, const float* a_scale, float* scale_out,
            unsigned* amax_out, unsigned* partials, int capacity,

@@ -10,14 +10,16 @@
 // operations an element.  Each row kernel reads a row of x and g once
 // into registers, recomputes the row's statistics in float32 from them
 // (sum of squares and sum of (g w) x), writes dx from the same registers
-// and adds its share of dw, g * x * inv, to per-lane float sums that
-// stay in registers over all the rows its lanes visit (a grid-stride
-// loop, so the grid has at most kMaxBlocks blocks).  At the end the block
-// sums its rows' dw in a fixed order into its row of `partial` (blocks x
-// C floats, allocated by the caller), and rmsnorm_bwd_dw_kernel sums
-// `partial` over the blocks: one block per 32 channels, 8 row groups each
-// taking every 8th block in order, then the 8 group sums in order.  No
-// float atomics: the same inputs give the same dw bit for bit.  Two
+// and adds its share of dw, g * x * inv, to float sums by channel that
+// stay in registers (or, where a lane's channels change from row to row,
+// in its warp's row of shared memory) over all the rows its lanes visit
+// (a grid-stride loop, so the grid has at most kMaxBlocks blocks).  At
+// the end the block sums its rows' dw in a fixed order into its row of
+// `partial` (blocks x C floats, allocated by the caller), and
+// rmsnorm_bwd_dw_kernel sums `partial` over the blocks: one block per 32
+// channels, 8 row groups each taking every 8th block in order, then the 8
+// group sums in order.  No float atomics: the same inputs give the same
+// dw bit for bit.  Two
 // variants, chosen by the caller from C, dtype and pointer alignment
 // before the launch (ops/rmsnorm_kernel.py rmsnorm_bwd_variant), as K1's:
 //
@@ -29,21 +31,43 @@
 //   __shfl_xor_sync and writes dx as 16-byte stores.  Its channels' w
 //   (float) are loaded once into registers, and its channels' dw sums
 //   stay there; the block's kVecThreads / G groups meet in shared memory.
-// strided (any other C or pointer: the odd C of the gene concats, 485,
-//   741, 997 and 1,253): one warp a row, lane i holding channels i, i +
-//   32, ... of x and g in registers (up to kStridedMaxPer = 40 a lane, C
-//   <= 1,280; bf16 two to a register, so that two blocks fit an SM), so
-//   the row leaves device memory once; w staged once a block in shared
-//   memory; dw summed in registers; 8 rows in flight a block.  Rows of
-//   more than 1,280 channels (none in this model) keep the first design:
-//   a second pass over the row for dx (from L1) and the warp's dw summed
-//   in its own row of shared memory.
+// strided (any other C or pointer: the odd C of the gene concats, 337 to
+//   1,253, and the 500-gene presets' rows over 2 KB, 1,012 to 1,524): one
+//   warp a row, 8 rows in flight a block, w staged once a block in shared
+//   memory, and the row read from device memory once, by one of two
+//   designs:
+//   - C <= 32 * kLaneRowMaxPer = 1,280: lane i holds channels i, i + 32,
+//     ... of x and g in registers (bf16 two to a register, so that two
+//     blocks fit an SM) and sums its channels' dw in registers.
+//   - bf16 rows of 1,281 to 32 * kStridedMaxPer = 2,048 channels: the word
+//     scheme of csrc/rmsnorm_words.cuh.  A lane holds words_per_lane(C)
+//     16-byte words of x and of g (C = 1,524: 6 each, 48 registers), all
+//     loaded before the first use (a warp's first row before the block
+//     builds its tables), and writes dx from them: 16-byte stores inside
+//     the row, the widest aligned pieces on the two words it shares with
+//     its neighbours.  A row's words start at another lane with every row
+//     (odd C, or C % 8 != 0), so a lane's channels change from row to row
+//     and its dw sums cannot stay in registers: each warp sums its rows'
+//     dw in its own row of shared memory, padded as the weight is (one
+//     float after every 8 channels, so the lanes' reads and read-add-
+//     writes hit 32 banks), with kSlack zero floats before and after: in
+//     the two shared words the neighbours' elements of x and g are set to
+//     0, so every word runs the same arithmetic with no test an element,
+//     those elements reading the slack's weight and adding 0 to the
+//     slack's sums.  9 rows of 7.0 KB a block at C = 1,524 (63 KB), 84 KB
+//     at 2,048, two blocks an SM.  x and g must share their phase within
+//     16 bytes (the wrappers' tensors do); else, and for wider rows or
+//     float32 rows over 1,280 channels (none on any path: the edge C =
+//     2,050), the first design stays: a second pass over the row for dx
+//     (from L1) and the warp's dw summed in its own row of shared memory.
 // The grid (ops/rmsnorm_kernel.py bwd_blocks) stops at two blocks an SM,
 // so a block's lanes visit many rows and `partial` stays small.
 
-#include "common.cuh"
+#include "rmsnorm_words.cuh"
 
 namespace {
+
+using namespace rmsnorm_words;
 
 enum : int { kStrided = 0, kVector = 1 };  // ops/rmsnorm_kernel.py
 
@@ -51,27 +75,11 @@ constexpr int kBwdWarps = 8;                  // rows in flight a block
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kMaxBlocks = 8 * 132;           // ops/rmsnorm_kernel.py
 constexpr int kMaxC = kMaxBlockSmem / (4 * kBwdWarps);   // 7,264
-constexpr int kStridedMaxPer = 40;            // channels a lane holds
+constexpr int kLaneRowMaxPer = 40;            // channels a lane holds
+constexpr int kStridedMaxPer = 64;            // bf16: in registers, words
 constexpr int kVecThreads = 256;
 constexpr int kVecMax = 4;                    // 16-byte vectors a lane holds
 constexpr int kVecMaxBytes = 32 * kVecMax * 16;   // one row, at most
-
-// The bf16 in the low or high half of a 32-bit word, as a float.  The asm
-// is volatile so that each use converts anew: otherwise the compiler keeps
-// a float copy of every element of the row alive from the reductions to
-// dx (198 registers at 40 channels a lane, one block an SM), where the
-// packed words take half as many.
-__device__ __forceinline__ float bf16_low(uint32_t u) {
-  uint32_t r;
-  asm volatile("shl.b32 %0, %1, 16;" : "=r"(r) : "r"(u));
-  return __uint_as_float(r);
-}
-
-__device__ __forceinline__ float bf16_high(uint32_t u) {
-  uint32_t r;
-  asm volatile("and.b32 %0, %1, 0xffff0000;" : "=r"(r) : "r"(u));
-  return __uint_as_float(r);
-}
 
 // ---------------------------------------------------------------------------
 // strided variant
@@ -171,7 +179,118 @@ rmsnorm_bwd_strided_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// rows of more than 32 * kStridedMaxPer channels
+// bf16 rows of 32 * kLaneRowMaxPer + 1 to 32 * kStridedMaxPer channels, KW
+// words of x and of g a lane (the word scheme of csrc/rmsnorm_words.cuh;
+// x, g and dx share their phase ph, or dx is written element by element).
+// The weight and each warp's dw sums lie in padded rows of shared memory
+// with kSlack floats before and after each: a word the row shares with a
+// neighbour has the neighbour's elements of x and g set to 0, so every
+// word runs the same arithmetic with no test an element, its outside
+// elements reading the slack's weight and adding 0 to the slack's dw.
+constexpr int kSlack = 16;
+
+template <typename T> __host__ __device__ constexpr int slack_row(int c) {
+  return (padded<T>(c) + 2 * kSlack + 3) / 4 * 4;   // whole float4s
+}
+
+template <typename T, int KW>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+rmsnorm_bwd_words_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         const float* __restrict__ w, T* __restrict__ dx,
+                         float* __restrict__ partial, long long rows, int c,
+                         float eps, int ph, int whole_stores) {
+  constexpr int E = kWordBytes / sizeof(T);
+  const int cp = slack_row<T>(c);     // floats of a padded row
+  extern __shared__ float smem[];
+  float* ws = smem + kSlack;          // (cp) the weight
+  float* sdw = smem + cp + kSlack;    // (kBwdWarps, cp) each warp's dw sums
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* xb = x - ph;   // the 16-byte boundaries below x, g and dx
+  const T* gb = g - ph;
+  T* db = dx - ph;
+  const long long end = ph + rows * (long long)c;
+  const long long stride = (long long)gridDim.x * kBwdWarps;
+  // a row's words of x and g (0 past the last row)
+  uint4 xv[KW], gv[KW];
+  auto load = [&](long long row) {
+    const Row<T> r(row < rows ? row : 0, c, ph);
+#pragma unroll
+    for (int i = 0; i < KW; ++i) {
+      const int k = lane + 32 * i;
+      xv[i] = gv[i] = make_uint4(0, 0, 0, 0);
+      if (row < rows && k < r.nw) {
+        xv[i] = load_word<T>(xb, r.k0 + k, r.ch(k, 0), c, ph, end);
+        gv[i] = load_word<T>(gb, r.k0 + k, r.ch(k, 0), c, ph, end);
+      }
+    }
+  };
+  long long row = (long long)blockIdx.x * kBwdWarps + warp;
+  load(row);   // before the tables: its latency hides theirs
+
+  float4* z = reinterpret_cast<float4*>(smem);
+  for (int i = threadIdx.x; i < (1 + kBwdWarps) * cp / 4; i += kBwdThreads)
+    z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  for (int i = threadIdx.x; i < c; i += kBwdThreads) ws[padded<T>(i)] = w[i];
+  __syncthreads();
+  float* mine = sdw + warp * cp;
+
+  for (; row < rows; row += stride) {
+    const Row<T> r(row, c, ph);
+    // channel ch0 + j of word k lies at ws[k + ch0 + j - (j < off)]
+    float ss = 0.f, gwx = 0.f;
+#pragma unroll
+    for (int i = 0; i < KW; ++i) {
+      const int k = lane + 32 * i, ch0 = r.ch(k, 0);
+      if (k >= r.nw) continue;
+      if (ch0 < 0 || ch0 + E > c) {
+        xv[i] = row_part<T>(xv[i], ch0, c);
+        gv[i] = row_part<T>(gv[i], ch0, c);
+      }
+      const float* wk = ws + k + ch0;
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float xf = word_elem<T>(xv[i], j);
+        ss = fmaf(xf, xf, ss);
+        gwx = fmaf(word_elem<T>(gv[i], j) * wk[j - (j < r.off ? 1 : 0)], xf,
+                   gwx);
+      }
+    }
+    ss = warp_sum(ss);
+    gwx = warp_sum(gwx);
+    const float inv = rsqrtf(ss / (float)c + eps);
+    const float inv3 = inv * inv * inv;
+    const float m = gwx / (float)c;
+#pragma unroll
+    for (int i = 0; i < KW; ++i) {
+      const int k = lane + 32 * i, ch0 = r.ch(k, 0);
+      if (k < r.nw) {
+        const float* wk = ws + k + ch0;
+        float* dk = mine + k + ch0;
+        float out[E];
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const int at = j - (j < r.off ? 1 : 0);
+          const float xf = word_elem<T>(xv[i], j);
+          const float gf = word_elem<T>(gv[i], j);
+          out[j] = inv * (gf * wk[at]) - inv3 * xf * m;
+          dk[at] += gf * xf * inv;
+        }
+        store_word<T>(db, r.k0 + k, ch0, c, whole_stores != 0, pack<T>(out));
+      }
+    }
+    load(row + stride);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < c; i += kBwdThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kBwdWarps; ++wi) s += sdw[wi * cp + padded<T>(i)];
+    partial[(long long)blockIdx.x * c + i] = s;
+  }
+}
+
+// rows the register designs do not take (above)
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -378,6 +497,25 @@ int launch_strided_per(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int KW>
+int launch_words(const Args& a) {
+  constexpr int kMaxSmem = (int)sizeof(float) * (1 + kBwdWarps) *
+                           slack_row<T>(32 * kStridedMaxPer);
+  static std::atomic<int> opted_in[kMaxDevices];
+  const cudaError_t attr = smem_opt_in(rmsnorm_bwd_words_kernel<T, KW>,
+                                       kMaxSmem, opted_in);
+  if (attr != cudaSuccess) return (int)attr;
+  rmsnorm_bwd_words_kernel<T, KW><<<
+      a.blocks, kBwdThreads,
+      sizeof(float) * (1 + kBwdWarps) * slack_row<T>(a.c), a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.w,
+      static_cast<T*>(a.dx), a.partial, a.rows, a.c, a.eps,
+      phase<T>(a.x),
+      (reinterpret_cast<uintptr_t>(a.dx) - reinterpret_cast<uintptr_t>(a.x))
+              % kWordBytes == 0);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_strided(const Args& a) {
   const int per = (a.c + 31) / 32;
@@ -385,7 +523,20 @@ int launch_strided(const Args& a) {
   if (per <= 16) return launch_strided_per<T, 16>(a);
   if (per <= 24) return launch_strided_per<T, 24>(a);
   if (per <= 32) return launch_strided_per<T, 32>(a);
-  if (per <= kStridedMaxPer) return launch_strided_per<T, kStridedMaxPer>(a);
+  if (per <= kLaneRowMaxPer) return launch_strided_per<T, kLaneRowMaxPer>(a);
+  if constexpr (sizeof(T) == 2) {
+    const bool same_phase = (reinterpret_cast<uintptr_t>(a.g) -
+                             reinterpret_cast<uintptr_t>(a.x)) %
+                                kWordBytes == 0;
+    if (per <= kStridedMaxPer && same_phase) {
+      switch (words_per_lane<T>(a.c)) {
+        case 6: return launch_words<T, 6>(a);
+        case 7: return launch_words<T, 7>(a);
+        case 8: return launch_words<T, 8>(a);
+        default: return launch_words<T, kMaxWordsPerLane>(a);
+      }
+    }
+  }
   static std::atomic<int> opted_in[kMaxDevices];
   const cudaError_t attr = smem_opt_in(
       rmsnorm_bwd_wide_kernel<T>, (int)(sizeof(float) * kBwdWarps * kMaxC),

@@ -38,7 +38,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh codes
 _ptr, _int, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 SIGNATURES = {
-    "tmt_rmsnorm": [_ptr, _ptr, _ptr, _i64, _int, _f32, _int, _int, _ptr],
+    "tmt_rmsnorm": [_ptr, _ptr, _ptr, _i64, _int, _f32, _int, _int, _int,
+                    _ptr],
     "tmt_window_attention": [_ptr, _ptr, _ptr, _ptr, _int, _int, _int,
                              _f32, _int, _int, _ptr],
     "tmt_rmsnorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i64, _int,

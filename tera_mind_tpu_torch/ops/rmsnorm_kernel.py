@@ -10,8 +10,23 @@ alignment before the launch:
   512 in float32), and x, w, y 16-byte aligned.  A group of lanes sized to
   C holds the row in registers from 16-byte loads, reduces it with warp
   shuffles and writes y from the same registers.
-- ``strided``: any other C (741 and 1,253 on the main path) or pointer;
-  one warp per row with a strided loop.
+- ``strided``: any other C or pointer: the odd C of the gene concats
+  (485, 741, 997 and 1,253 in the 5D chain; 337, 593, 849 and 1,105 at
+  the 81-gene presets), the 500-gene presets' 756, 1,012, 1,268 and 1,524
+  (rows over 2 KB), float32 rows over 512 channels, misaligned tensors.
+  One warp a row, 16 warps a block, a grid-stride loop of two blocks an
+  SM.  Rows of up to ``REGISTER_MAX_ROW_BYTES`` (2,048 bf16 or 1,024
+  float32 channels) are held in registers from 16-byte loads of the
+  aligned words that cover them (``csrc/rmsnorm_words.cuh``: the
+  neighbours' elements of the two words a row shares set to 0, the words
+  at the tensor's ends read element by element), and y is written from
+  them: 16-byte stores inside the row, the widest aligned pieces on the
+  shared words.  w is staged once a block in shared memory as words in
+  x's layout, one copy for each offset a row can start at, so a word of y
+  is one read of w and, in bf16, eight ``bf16x2`` multiplies; a float32
+  weight of a bf16 x (the training's master weight) is passed as it is
+  and rounded to bf16 there, as the cast before a ``vector`` launch
+  rounds it.  Wider rows keep a second read of the row from L1.
 
 Any row count works, so the TPU kernel's fallback for rows that do not
 block has no counterpart: a CUDA tensor always goes through a kernel.
@@ -27,7 +42,12 @@ partial sums reduced in a second kernel (no atomics, so deterministic).
 ``rmsnorm_bwd_variant`` picks its variant by K1's rule: ``vector`` (a
 lane group sized to C, 16-byte loads, w and the dw sums in registers;
 x, g, w, dx 16-byte aligned) or ``strided`` (one warp a row holding it in
-registers, w in shared memory; any C and alignment).
+registers, w in shared memory; any C and alignment): up to
+``BWD_LANE_ROW_MAX_C`` channels lane i holds channels i, i + 32, ... and
+their dw sums; bf16 rows of up to ``BWD_REGISTER_MAX_C`` take K1's
+16-byte words, with each warp's dw sums in shared memory; wider rows,
+float32 rows over ``BWD_LANE_ROW_MAX_C`` and an x and g of different
+16-byte phases keep a second read of the row from L1.
 ``rmsnorm`` dispatches: without a gradient to record, the raw K1 launch
 (or the plain version on the CPU); with one, :class:`RMSNormFunction`,
 whose forward is K1 and backward K1b (on the CPU the plain forward and
@@ -50,6 +70,9 @@ BWD_MAX_BLOCKS = 8 * 132   # csrc/rmsnorm_bwd.cu kMaxBlocks
 BWD_MAX_C = 7264           # csrc/rmsnorm_bwd.cu kMaxC
 BWD_VEC_THREADS = 256      # csrc/rmsnorm_bwd.cu kVecThreads
 VEC_MAX = 4                # csrc/rmsnorm*.cu kVecMax: 16-byte vectors a lane
+REGISTER_MAX_ROW_BYTES = 4096   # csrc/rmsnorm_words.cuh kRegMaxBytes: K1
+BWD_LANE_ROW_MAX_C = 32 * 40    # csrc/rmsnorm_bwd.cu 32 * kLaneRowMaxPer
+BWD_REGISTER_MAX_C = 32 * 64    # csrc/rmsnorm_bwd.cu 32 * kStridedMaxPer
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
@@ -137,24 +160,33 @@ def rmsnorm_bwd_plain(x: torch.Tensor, g: torch.Tensor,
 
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
-    """Launch K1 on a CUDA tensor (weight is cast to x's dtype).  Raises
-    when autograd would need a backward (``_build.autograd_required``)."""
+    """Launch K1 on a CUDA tensor.  The weight is cast to x's dtype, but
+    for the strided variant a float32 weight of a bf16 x, which the kernel
+    rounds to bf16 itself.  Raises when autograd would need a backward
+    (``_build.autograd_required``)."""
     _build.refuse_autograd("rmsnorm", x, weight)
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
     if not x2.is_contiguous():
         x2 = x2.contiguous()
-    w = weight.to(device=x.device, dtype=x.dtype).contiguous()
+    w = weight.to(device=x.device).contiguous()
     if w.shape != (c,):
         raise ValueError(f"rmsnorm: weight {tuple(w.shape)} != ({c},)")
     y = torch.empty_like(x2)
     if x2.shape[0] == 0:
         return y.reshape(x.shape)
     code = _build.dtype_code(x, "rmsnorm")
+    # a cast makes a new tensor, which starts on 16 bytes
     variant = rmsnorm_variant(
-        c, x.element_size(), all(t.data_ptr() % 16 == 0 for t in (x2, w, y)))
+        c, x.element_size(), all(t.data_ptr() % 16 == 0 for t in (x2, y))
+        and (w.dtype != x.dtype or w.data_ptr() % 16 == 0))
+    if w.dtype != x.dtype and not (variant == "strided"
+                                   and x.dtype == torch.bfloat16
+                                   and w.dtype == torch.float32):
+        w = w.to(x.dtype)
     err = _build.lib().tmt_rmsnorm(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
                                    x2.shape[0], c, eps, code,
+                                   _build.dtype_code(w, "rmsnorm weight"),
                                    VARIANTS.index(variant),
                                    _build.stream_ptr(x))
     _build.check(err, f"tmt_rmsnorm ({variant})")

@@ -69,7 +69,8 @@ def test_attention_bwd_variant_of_every_chip_smoke_shape(b, n, d):
     assert k2.attention_bwd_variant(n, d, BF16, False) == "cuda_core"
 
 
-@pytest.mark.parametrize("n,c", cs.TRAIN_K1_SHAPES + cs.K1B_EDGE)
+@pytest.mark.parametrize("n,c", [s[:2] for s in cs.TRAIN_K1_SHAPES
+                                 + cs.K1B_EDGE])
 def test_rmsnorm_bwd_variant_of_every_chip_smoke_shape(n, c):
     """K1's rule: vector for C % 8 == 0 and a row of at most 2,048 bytes
     with x, g, w, dx aligned, else strided (the odd C of the gene
@@ -205,7 +206,9 @@ def test_k1b_grid_and_lane_groups_mirror_the_kernel():
     assert "while (g < 32 && g * kVecMax < nvec) g *= 2;" in src
     assert f"kVecThreads = {k1.BWD_VEC_THREADS};" in src
     assert f"kVecMax = {k1.VEC_MAX};" in src
-    assert "kStridedMaxPer = 40;" in src
+    assert "kLaneRowMaxPer = 40;" in src and "kStridedMaxPer = 64;" in src
+    assert k1.BWD_LANE_ROW_MAX_C == 32 * 40
+    assert k1.BWD_REGISTER_MAX_C == 32 * 64
     # C = 64 bf16: 8 vectors, 2 lanes a row; C = 1,024: 32 lanes
     assert [k1.vector_group(c, 2) for c in (8, 64, 96, 256, 512, 1024)] \
         == [1, 2, 4, 8, 16, 32]
@@ -236,6 +239,145 @@ def test_backward_counters_count_by_variant_and_reset():
     q = torch.randn(2, 8, 16, requires_grad=True)
     k2.window_attention(q, q, q, 0.25).sum().backward()
     assert (k1.bwd.launches, k2.bwd.launches) == (0, 0)
+
+
+def test_perf_md_norm_step_bounds_are_kernel_shapes():
+    """PERF.md's byte bounds a training step of K1 and K1b ``strided``
+    are scripts/kernel_shapes.py --train's (bf16, kernel_work's bytes over
+    the H100's 3.35 TB/s), for the 5D step of 638850, of 609882 and of
+    patch 128 at batch 8."""
+    ks = _kernel_shapes()
+    text = " ".join((_build.PKG.parent / "PERF.md").read_text().split())
+    for label, conf in (
+            ("638850", ks.preset_conf()),
+            ("609882", ks.preset_conf("609882")),
+            ("patch 128", ks.preset_conf("609889", 128, True, batch=8))):
+        k1_shapes, _ = ks.train_shapes(conf=conf)
+        step = ks.norm_step_bytes(k1_shapes, conf.accum_batches)
+        ms = {k: step[f"{k} strided"] / ks.H100_BYTES_PER_S * 1e3
+              for k in ("K1", "K1b")}
+        want = (f"{label}: K1 `strided` {ms['K1']:.4f} ms, K1b `strided` "
+                f"{ms['K1b']:.4f} ms")
+        assert want in text, want
+
+
+# ------------------------------------------------------------------ #
+# the sum order of K1's and K1b's strided variants                    #
+# ------------------------------------------------------------------ #
+H100_BLOCKS = 2 * 132     # rmsnorm_kernel._resident_blocks on an H100
+
+
+def _lane_order(rows, c, itemsize, lanes):
+    """(lane, place in the lane's sum) of each (row, channel) of a tensor
+    that starts on 16 bytes: by the word scheme on a row's ``lanes`` lanes
+    (csrc/rmsnorm_words.cuh: lane l holds the row's words l, l + lanes,
+    ... and sums its elements in word order), or, ``lanes`` 0, by channels
+    lane, lane + 32, ... (the lane rows and the second read)."""
+    ch = np.arange(c)[None, :].repeat(rows, 0)
+    if not lanes:
+        return ch % 32, ch // 32
+    e = 16 // itemsize     # csrc/rmsnorm_words.cuh kWordBytes
+    q = (np.arange(rows)[:, None] * c) % e + ch    # place from word k0
+    kk, j = np.divmod(q, e)
+    return kk % lanes, (kk // lanes) * e + j
+
+
+def _warp_fma_sums(a, b, lane, place, lanes=32):
+    """Each row's sum of a b as its lanes take it: each lane's fmaf in
+    its order (float32, one rounding), then the shuffle tree (xor
+    lanes / 2, ..., 2, 1)."""
+    rows, c = a.shape
+    A = np.zeros((rows, lanes, place.max() + 1), np.float32)
+    B = np.zeros_like(A)
+    r = np.arange(rows)[:, None].repeat(c, 1)
+    A[r, lane, place], B[r, lane, place] = a, b
+    acc = np.zeros((rows, lanes), np.float32)
+    for k in range(A.shape[-1]):
+        acc = (acc.astype(np.float64) + A[..., k].astype(np.float64)
+               * B[..., k]).astype(np.float32)
+    o = lanes // 2
+    while o:
+        acc = acc + acc[:, np.arange(lanes) ^ o]
+        o //= 2
+    return acc[:, :1]
+
+
+def _inv(ss, c, eps=1e-6):
+    return (1.0 / np.sqrt(ss / np.float32(c) + np.float32(eps))).astype(
+        np.float32)
+
+
+def _k1_emulated(x, w, lanes):
+    """K1 strided: the row's sum of squares in the kernel's order, then
+    the TPU kernel's roundings (csrc/rmsnorm.cu apply)."""
+    xf = x.float().numpy()
+    lane, place = _lane_order(*x.shape, x.element_size(), lanes)
+    inv = _inv(_warp_fma_sums(xf, xf, lane, place, lanes or 32), x.shape[1])
+    xt, it = x.float(), torch.from_numpy(inv)
+    if x.dtype == BF16:
+        return ((xt * it.to(BF16).float()).to(BF16).float()
+                * w.to(BF16).float()).to(BF16)
+    return w * (xt * it)
+
+
+def _k1b_emulated(x, g, w, words):
+    """K1b strided: the row's two sums in the kernel's order, dx and each
+    row's dw term in float32, dw summed over a warp's rows, the block's
+    warps, and the blocks by rmsnorm_bwd_dw_kernel's groups, in order."""
+    rows, c = x.shape
+    xf, gf, wf = x.float().numpy(), g.float().numpy(), w.numpy()
+    lane, place = _lane_order(rows, c, x.element_size(), 32 if words else 0)
+    gw = gf * wf
+    inv = _inv(_warp_fma_sums(xf, xf, lane, place), c)
+    m = _warp_fma_sums(gw, xf, lane, place) / np.float32(c)
+    dx = inv * gw - inv * inv * inv * xf * m
+    term = gf * xf * inv
+    blocks = k1.bwd_blocks(rows, k1.BWD_WARPS, H100_BLOCKS)
+    warp = np.zeros((blocks, k1.BWD_WARPS, c), np.float32)
+    for r in range(rows):   # grid-stride: row = b * warps + w + t * stride
+        b, w_ = divmod(r % (blocks * k1.BWD_WARPS), k1.BWD_WARPS)
+        warp[b, w_] += term[r]
+    partial = np.zeros((blocks, c), np.float32)
+    for w_ in range(k1.BWD_WARPS):
+        partial += warp[:, w_]
+    dw = np.zeros(c, np.float32)
+    for grp in range(8):     # rmsnorm_bwd_dw_kernel's kDwGroups
+        s = np.zeros(c, np.float32)
+        for b in range(grp, blocks, 8):
+            s += partial[b]
+        dw += s
+    return torch.from_numpy(dx).to(x.dtype), torch.from_numpy(dw)
+
+
+@pytest.mark.parametrize("dt", [BF16, F32])
+@pytest.mark.parametrize("c", [485, 741, 1012, 1524, 2047])
+def test_strided_sum_orders_keep_the_gates(c, dt):
+    """An emulation of the strided variants' sums, in the order of the
+    design each shape takes (the 16-byte words, or channels lane, lane +
+    32, ...), meets chip_smoke.py's gates against the plain versions: K1
+    4 bf16 spacings (float32 1e-5), K1b dx 2 spacings with at most 1 % not
+    bit-equal (float32 1e-5 of max), dw 1e-4 of max."""
+    gen = torch.Generator().manual_seed(c)
+    x, g = (torch.randn(64, c, generator=gen).to(dt) for _ in range(2))
+    w = 1 + 0.1 * torch.randn(c, generator=gen)
+    itemsize = x.element_size()
+    # K1's lanes a row (csrc/rmsnorm.cu launch_strided): 16 up to 2 words
+    # a lane of a warp, 32 up to the register limit, else the second read
+    span = -(-(16 - itemsize + c * itemsize) // 16)
+    lanes = (0 if c * itemsize > k1.REGISTER_MAX_ROW_BYTES else
+             16 if span <= 64 else 32)
+    y = _k1_emulated(x, w.to(dt), lanes)
+    ref = k1.rmsnorm_plain(x, w.to(dt))
+    if dt == BF16:
+        assert cs.ulp_err(y, ref) <= cs.K1_MAX_ULP
+    else:
+        assert float((y - ref).abs().max()) <= 1e-5
+    bwd_words = itemsize == 2 and k1.BWD_LANE_ROW_MAX_C < c <= \
+        k1.BWD_REGISTER_MAX_C
+    dx, dw = _k1b_emulated(x, g, w, bwd_words)
+    rdx, rdw = k1.rmsnorm_bwd_plain(x, g, w)
+    cs.require_bwd(dx, rdx, f"K1b emulated {c} {dt}")
+    assert cs.rel_err(dw, rdw) <= cs.BWD_DW_TOL
 
 
 # ------------------------------------------------------------------ #

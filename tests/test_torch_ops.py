@@ -54,7 +54,7 @@ def test_collage_ops_match_jax_exactly(name, args, shape):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("c", [64, 741])
+@pytest.mark.parametrize("c", [64, 741, 1012, 1524])
 def test_rmsnorm_plain_f32_matches_jax(c):
     x = 3.0 * randn(1, 37, c)                     # odd row count
     w = 1.0 + 0.2 * randn(2, c)
@@ -63,7 +63,7 @@ def test_rmsnorm_plain_f32_matches_jax(c):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("c", [64, 741])
+@pytest.mark.parametrize("c", [64, 741, 1012, 1524])
 def test_rmsnorm_plain_bf16_matches_jax(c):
     """Both round after each multiply; the f32 statistics may differ in
     the last place, so at most 1 bf16 ulp apart."""
@@ -216,6 +216,195 @@ def test_rmsnorm_routes_by_channels_and_alignment():
     assert k1.rmsnorm_variant(1032, 2, True) == "strided"     # > 2 KB a row
     assert k1.rmsnorm_variant(512, 4, True) == "vector"       # f32
     assert k1.rmsnorm_variant(520, 4, True) == "strided"
+
+
+def _cu_const(src: str, name: str) -> int:
+    """The value of ``constexpr int name = <int>;`` in a CUDA source."""
+    import re
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m, name
+    return int(m.group(1))
+
+
+def _strided_constants() -> dict:
+    """The word scheme's constants, read from the CUDA sources."""
+    words = (_build.CSRC / "rmsnorm_words.cuh").read_text()
+    fwd = (_build.CSRC / "rmsnorm.cu").read_text()
+    bwd = (_build.CSRC / "rmsnorm_bwd.cu").read_text()
+    return {"word": _cu_const(words, "kWordBytes"),
+            "reg_max_bytes": _cu_const(words, "kRegMaxBytes"),
+            "max_words": _cu_const(words, "kMaxWordsPerLane"),
+            "row_warps": _cu_const(fwd, "kRowWarps"),
+            "lane_row_max_per": _cu_const(bwd, "kLaneRowMaxPer"),
+            "strided_max_per": _cu_const(bwd, "kStridedMaxPer"),
+            "slack": _cu_const(bwd, "kSlack")}
+
+
+def _store_pieces(lo, hi, itemsize):
+    """csrc/rmsnorm_words.cuh store_word: the (byte, size) stores of
+    elements lo .. hi - 1 of a 16-byte word the row shares."""
+    out, p, end = [], lo * itemsize, hi * itemsize
+    while p < end:
+        size = (8 if p % 8 == 0 and p + 8 <= end else
+                4 if p % 4 == 0 and p + 4 <= end else 2)
+        out.append((p, size))
+        p += size
+    return out
+
+
+def _words_per_lane(c, itemsize, word, lanes=32):
+    """csrc/rmsnorm_words.cuh words_per_lane: the most words a row of c
+    elements touches at any phase, over the row's lanes."""
+    return -(-(-(-(word - itemsize + c * itemsize) // word)) // lanes)
+
+
+def _k1_lanes(c, itemsize, word):
+    """csrc/rmsnorm.cu launch_strided: the lanes a K1 row takes in
+    registers, half a warp for rows of up to 2 words a lane of a warp."""
+    return 16 if _words_per_lane(c, itemsize, word) <= 2 else 32
+
+
+def _k1_strided_design(c, itemsize, k):
+    """csrc/rmsnorm.cu launch_strided: 'registers' or 'second read'."""
+    return ("second read" if c * itemsize > k["reg_max_bytes"]
+            else "registers")
+
+
+def _k1b_strided_design(c, itemsize, k, same_phase=True):
+    """csrc/rmsnorm_bwd.cu launch_strided: 'lane rows', 'words' or
+    'second read' (x and g of different 16-byte phases: no words)."""
+    per = -(-c // 32)
+    if per <= k["lane_row_max_per"]:
+        return "lane rows"
+    if itemsize == 2 and per <= k["strided_max_per"] and same_phase:
+        return "words"
+    return "second read"
+
+
+def _word_rows(rows, c, itemsize, offset, k, lanes=32):
+    """The word scheme (csrc/rmsnorm_words.cuh) of a (rows, c) tensor whose
+    element 0 lies ``offset`` bytes past a 16-byte boundary, a row on
+    ``lanes`` lanes: for each row, each lane's words, each with its load
+    (``whole`` or element by element) and, for an output of the input's
+    phase, its store, and each element it holds with its channel.  Yields
+    (row, lane, word, load, store, [(j, channel, tensor element)])."""
+    e = k["word"] // itemsize
+    ph = offset // itemsize
+    end = ph + rows * c
+    kw = _words_per_lane(c, itemsize, k["word"], lanes)
+    for r in range(rows):
+        e0 = ph + r * c
+        k0, off = divmod(e0, e)
+        nw = -(-(off + c) // e)
+        assert nw <= lanes * kw       # every word of the row has a lane
+        for lane in range(lanes):
+            for i in range(kw):
+                kk = lane + lanes * i
+                if kk >= nw:
+                    continue
+                wd = k0 + kk
+                ch0 = kk * e - off
+                load = ("whole" if wd * e >= ph and wd * e + e <= end
+                        else "elements")
+                store = "whole" if ch0 >= 0 and ch0 + e <= c else "elements"
+                held = [(j, ch0 + j, wd * e + j - ph) for j in range(e)
+                        if 0 <= ch0 + j < c]
+                yield r, lane, wd, load, store, held
+
+
+@pytest.mark.parametrize("c", [1, 33, 337, 485, 593, 741, 849, 997, 1012,
+                               1105, 1253, 1268, 1524, 2047, 2048, 2050])
+def test_strided_word_scheme_mirror(c):
+    """A mirror of the strided variants' word scheme at every offset of a
+    16-byte word and a few row counts: every element of every row is read
+    once, by its own row's lanes, as its channel; no 16-byte load leaves
+    the tensor; no 16-byte store touches another row; rows above the
+    register limit take the second-read path (K1), and K1b's rows over
+    1,280 channels take the words up to 2,048 bf16 channels."""
+    k = _strided_constants()
+    assert k["word"] == 16 and k["row_warps"] == 16
+    assert k["reg_max_bytes"] == k1.REGISTER_MAX_ROW_BYTES
+    assert 32 * k["lane_row_max_per"] == k1.BWD_LANE_ROW_MAX_C
+    assert 32 * k["strided_max_per"] == k1.BWD_REGISTER_MAX_C
+    words = (_build.CSRC / "rmsnorm_words.cuh").read_text()
+    fwd = (_build.CSRC / "rmsnorm.cu").read_text()
+    bwd = (_build.CSRC / "rmsnorm_bwd.cu").read_text()
+    # the conditions and indices the mirror copies
+    assert "if (kw * E >= ph && kw * E + E <= end)" in words
+    assert "const int lo = max(0, -ch0), hi = min(E, c - ch0);" in words
+    assert "if (whole && lo == 0 && hi == E) {" in words
+    assert "if ((p & 7) == 0 && p + 8 <= end) {" in words
+    assert "} else if ((p & 3) == 0 && p + 4 <= end) {" in words
+    assert "k0 = e0 / E;" in words and "nw = (off + c + E - 1) / E;" in words
+    assert "const int lg = __ffs(g) - 1, o0 = ph & (g - 1);" in fwd
+    assert "const uint4* wr = wsh + ((r.off - o0) >> lg) * cw;" in fwd
+    assert "case 2:   // short rows: half a warp each" in fwd
+    assert "switch (words_per_lane<T>(a.c, 16)) {" in fwd
+    assert "const float* wk = ws + k + ch0;" in bwd
+    assert "wk[j - (j < r.off ? 1 : 0)]" in bwd
+    for itemsize in (2, 4):
+        e = k["word"] // itemsize
+        register = _k1_strided_design(c, itemsize, k) == "registers"
+        assert register == (c <= {2: 2048, 4: 1024}[itemsize])
+        if register:
+            assert _words_per_lane(c, itemsize, k["word"]) <= k["max_words"]
+            assert (_k1_lanes(c, itemsize, k["word"]) == 16) == (
+                c <= {2: 505, 4: 253}[itemsize])
+        bwd = _k1b_strided_design(c, itemsize, k)
+        assert bwd == ("lane rows" if c <= 1280 else
+                       "words" if itemsize == 2 and c <= 2048 else
+                       "second read")
+        if c > 1280:
+            assert _k1b_strided_design(c, itemsize, k, False) == \
+                "second read"
+        if not register:
+            continue
+        g = min(e, c & -c)      # rmsnorm.cu offset_step: gcd(C, E)
+        words_bwd = bwd == "words"
+        table = c + c // e + 2 * k["slack"]   # K1b's padded rows, slack
+        for rows in (1, 3, 8):
+            for offset in range(0, k["word"], itemsize):
+                for lanes in {_k1_lanes(c, itemsize, k["word"]),
+                              32 if words_bwd else 0} - {0}:
+                    seen = np.zeros(rows * c, np.int64)
+                    _check_word_rows(rows, c, itemsize, offset, k, lanes,
+                                     seen, g, words_bwd and lanes == 32,
+                                     table)
+                    assert (seen == 1).all(), (rows, offset, lanes)
+
+
+def _check_word_rows(rows, c, itemsize, offset, k, lanes, seen, g,
+                     words_bwd, table):
+    """test_strided_word_scheme_mirror's checks of one placement: 16-byte
+    loads inside the tensor, whole stores of a row's own words and aligned
+    pieces of its shared ones, the weight copy of each row's offset, each
+    element held once as its channel (counted in ``seen``), and K1b's
+    table index within the slack."""
+    e = k["word"] // itemsize
+    ph = offset // itemsize
+    for r, lane, wd, load, store, held in _word_rows(
+            rows, c, itemsize, offset, k, lanes):
+        if load == "whole":     # inside the tensor
+            assert offset <= wd * k["word"] and \
+                (wd + 1) * k["word"] <= offset + rows * c * itemsize
+        if store == "whole":    # this row's elements only
+            assert len(held) == e
+        else:                   # aligned pieces of them
+            js = [j for j, _, _ in held]
+            pieces = _store_pieces(js[0], js[-1] + 1, itemsize)
+            assert js == list(range(js[0], js[-1] + 1))
+            assert all(b % size == 0 for b, size in pieces)
+            assert sum(size for _, size in pieces) == len(js) * itemsize
+        off = (ph + r * c) % e  # w's copy for this row
+        assert (off - ph % g) % g == 0 and (off - ph % g) // g < e // g
+        for j, ch, el in held:
+            assert 0 <= ch < c and el == r * c + ch
+            seen[el] += 1
+        if words_bwd:           # K1b's table index, in slack
+            kk = wd - (ph + r * c) // e   # the row's word
+            for j in range(e):
+                at = kk + kk * e - off + j - (j < off)
+                assert -k["slack"] <= at < table - k["slack"]
 
 
 def test_main_path_norms_with_c_multiple_of_8_take_the_vector_variant():
@@ -387,7 +576,7 @@ def test_chip_smoke_times_tile_major_and_stream_shapes():
     shapes there (scripts/kernel_shapes.py --patches P --chunk 5), each
     launching the main path's variants, and chip_smoke's chain counts are
     26 K1 and 6 K2 a call times its calls (tile-major 100: 4 tiles x 5
-    calls x 5 steps; streamed 300)."""
+    calls x 5 steps; streamed 100: 4 windows x 5 calls x 5 steps)."""
     import importlib.util
 
     import chip_smoke as cs
@@ -405,7 +594,7 @@ def test_chip_smoke_times_tile_major_and_stream_shapes():
         assert all(k2.attention_variant(n, d, torch.bfloat16, True)
                    == "tensor_core" for _, n, d in want_k2)
         calls = {"tile_major": 4 * 5 * cs.TILE_MAJOR_STEPS,
-                 "stream": 4 * 5 * cs.STEPS}[path]
+                 "stream": 4 * 5 * cs.STREAM_STEPS}[path]
         assert cs.CHAIN_LAUNCHES[path] == {
             "rmsnorm": sum(k1_shapes.values()) * calls,
             "window_attention": sum(k2_shapes.values()) * calls}
@@ -434,7 +623,7 @@ def _bf16_spacings(got, want):
     return float((np.abs(np.asarray(got, np.float32) - want) / ulp).max())
 
 
-@pytest.mark.parametrize("c", [64, 741])
+@pytest.mark.parametrize("c", [64, 741, 1012, 1524])
 def test_rmsnorm_bwd_plain_matches_jax_bwd(c):
     """K1b's plain version is the JAX rule ``_bwd`` term for term: f32
     within 1e-5 of each output's max, bf16 dx within one bf16 spacing

@@ -11,7 +11,10 @@ Phases, each printed on its own line with elapsed seconds:
      kernel, the plain version and one PyTorch library call doing the
      same function (a yardstick only: the port never calls it) on the
      device (CUDA graph replay), beside the card's bound for the work;
-     K1 also at the extraction's (3,664, 64) in float32;
+     K1 also at the extraction's (3,664, 64) in float32; K2 takes
+     ``wgmma`` at every path shape, and each row also holds the
+     ``mma.sync`` variant the shape took before (forced) against the plain
+     version;
   4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
      ``strided``, K2b ``tensor_core``, ``tensor_core_tiled`` and
      ``cuda_core``) against its plain
@@ -169,7 +172,8 @@ Phases, each printed on its own line with elapsed seconds:
      ``SMALL_ATOL``); then at full width, each with the counters set to
      0 just before it and its launches by kernel and variant required to
      be kernel_shapes.py's prediction: the 609882 packed bf16 chain over
-     2x2 tiles (15 steps) and its int8 chain (2 steps); ``cli.train``'s
+     2x2 tiles (``PRESET_CHAIN_STEPS``, 5) and its int8 chain (2
+     steps); ``cli.train``'s
      builder with ``--synthetic`` for 3 steps on 609882 (5D, batch 32),
      on 609889 at patch 128 with ``--to_hbr`` (5D, batch 8: 8
      microbatches, peak memory under 40 GiB) and on
@@ -189,10 +193,13 @@ phase 19 alone;
 int8_static chains with the bf16 packed chain they are compared with,
 for a call that tunes the int8 kernels; ``--attention`` runs K2 and K2b
 at phase 3's and 4's shapes, the refusals and phase 19's K2 and K2b
-shapes, for a call that tunes the attention kernels; ``--norms`` runs K1
-and K1b at phase 3's, 4's and 19's shapes (K1 also at phase 4's strided
-shapes with the float32 weight), their edge shapes and the refusals,
-for a call that tunes the norm kernels.
+shapes, each row also timed in the variant its shape took before (K2
+``wgmma`` beside the forced ``tensor_core`` or ``tensor_core_tiled``),
+and K2's host cost a call, for a call that tunes the attention kernels;
+``--norms`` runs K1 and K1b at phase 3's, 4's and 19's shapes (K1 also
+at phase 4's strided shapes and at ``K1_F32_WEIGHT_SMALL`` with the
+float32 weight), their edge shapes and the refusals, for a call that
+tunes the norm kernels.
 """
 
 from __future__ import annotations
@@ -371,6 +378,13 @@ PATH_SHAPES = {
 # block's q-norm on 16 patches x 229 gene tokens of 64 features, 4 launches
 # a tile (scripts/kernel_shapes.py --attn)
 ATTN_K1_SHAPE = (3_664, 64)
+# K1 with training's float32 weight at the smallest path shapes, where a
+# cast before a vector launch was a second launch: a data-parallel rank's
+# (2,048, 512) (scripts/kernel_shapes.py --train --ranks 2, 16 samples a
+# microbatch) and patch-128 training's (2,592, 256) (--mouse 609889
+# --patch 128 --to_hbr --train --batch 8); timed by ``--norms``
+K1_F32_WEIGHT_SMALL = [((2048, 512), "dp rank train"),
+                       ((2592, 256), "patch 128 train")]
 # shapes off the main path that the wrappers accept: ragged rows and
 # channels, ragged query tiles and key chunks, the largest shared-memory
 # footprint (N = D = 512), the vector variant at one 16-byte vector a row
@@ -446,15 +460,29 @@ def time_k1(k1, x, w, n, c) -> dict:
                 bound_ms=bms, bound_by=by)
 
 
-def before_ms(fn, sets, variant: str) -> dict:
-    """``{"cuda_core_ms": t}``: at a shape that takes the
-    ``tensor_core_tiled`` variant, the device time of ``fn`` forced onto
-    ``cuda_core``, the variant such shapes took before it (the row's first
-    time); else {}."""
-    if variant != "tensor_core_tiled":
+# Time each K2 / K2b row also in the variant its shape took before the
+# rule's (``--attention`` only: the full smoke adds no timings for it)
+FORCED_TIMINGS = False
+
+
+def before_ms(fn, sets, replaced) -> dict:
+    """``{"before": v, "before_ms": t}``: with ``FORCED_TIMINGS``, at a
+    shape whose variant replaced an older one (``replaced``: for K2
+    ``wgmma`` the ``mma.sync`` variant ``replaced_variant`` names, for K2
+    and K2b ``tensor_core_tiled`` ``cuda_core``), the device time of
+    ``fn`` forced onto it; else {}."""
+    if not FORCED_TIMINGS or replaced is None:
         return {}
-    return {"cuda_core_ms": device_ms(
-        lambda *a: fn(*a, variant="cuda_core"), sets)}
+    return {"before": replaced, "before_ms": device_ms(
+        lambda *a: fn(*a, variant=replaced), sets)}
+
+
+def replaced_by(k2, variant: str, n: int, d: int):
+    """The K2 variant a bf16 shape that takes ``variant`` took before it,
+    or None."""
+    if variant == "wgmma":
+        return k2.replaced_variant(n, d)
+    return "cuda_core" if variant == "tensor_core_tiled" else None
 
 
 def time_k2(k2, q, k, v, scale, b, n, d) -> dict:
@@ -464,7 +492,8 @@ def time_k2(k2, q, k, v, scale, b, n, d) -> dict:
     variant = k2.attention_variant(n, d, q.dtype, True)
     return dict(ms=device_ms(lambda *a: k2.attention_cuda(*a, scale), sets),
                 **before_ms(lambda *a, variant: k2.attention_cuda(
-                    *a, scale, variant=variant), sets, variant),
+                    *a, scale, variant=variant), sets,
+                    replaced_by(k2, variant, n, d)),
                 plain_ms=device_ms(lambda *a: k2.attention_plain(*a, scale),
                                    sets),
                 library_ms=device_ms(lambda *a: F.scaled_dot_product_attention(
@@ -473,8 +502,8 @@ def time_k2(k2, q, k, v, scale, b, n, d) -> dict:
 
 
 def timing_text(t: dict, lib: str) -> str:
-    before = (f" (cuda_core {t['cuda_core_ms']:.4f} ms)"
-              if "cuda_core_ms" in t else "")
+    before = (f" ({t['before']} {t['before_ms']:.4f} ms)"
+              if "before_ms" in t else "")
     return (f"kernel {t['ms']:.4f} ms{before}, plain {t['plain_ms']:.4f} ms,"
             f" {lib} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f} % of it)")
@@ -525,16 +554,19 @@ def k1_row(g, device, n, c, path, w_dtype=None) -> dict:
 
 def k2_row(g, device, b, n, d, path) -> dict:
     """K2 at (b, n, d): bf16 against its plain version on randn and on
-    peaked inputs (the variant the shape rule names required:
-    ``tensor_core`` at every 638850 shape, ``tensor_core_tiled`` at N >
-    128 or D = 512 with N = 128), float32 on 8 of the batch; timed (a
-    ``tensor_core_tiled`` shape also in ``cuda_core``)."""
+    peaked inputs (the variant the shape rule names required: ``wgmma``
+    at every path shape, ``tensor_core_tiled`` at the edge (2, 512, 512)),
+    the variant a ``wgmma`` shape took before (``tensor_core`` or
+    ``tensor_core_tiled``, forced) against it too, float32 on 8 of the
+    batch; timed (with ``FORCED_TIMINGS`` also in the variant it
+    replaced)."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     bf16 = torch.bfloat16
     scale = 1.0 / d
     errs = []
+    want = k2.attention_variant(n, d, bf16, True)
     for peaked in (False, True):
         q, k, v = k2_inputs(g, b, n, d, bf16, device, peaked)
         out, variant = variant_of(k2, k2.attention_cuda, q, k, v, scale)
@@ -542,9 +574,13 @@ def k2_row(g, device, b, n, d, path) -> dict:
         ref = k2.attention_plain(q, k, v, scale)
         errs.append(require_k2(out, ref, f"{b}x{n}x{d} "
                                f"{'peaked' if peaked else 'randn'}"))
-        want = k2.attention_variant(n, d, bf16, True)
         require(variant == want, f"K2 {b}x{n}x{d} bf16 took {variant}, "
                 f"not {want}")
+    old = k2.replaced_variant(n, d) if want == "wgmma" else None
+    if old:
+        out, _ = variant_of(k2, k2.attention_cuda, q, k, v, scale,
+                            variant=old)
+        require_k2(out, ref, f"{b}x{n}x{d} peaked, forced {old}")
     err = max(e[0] for e in errs)
     qf, kf, vf = (t[:8].float() for t in (q, k, v))
     outf, variant_f = variant_of(k2, k2.attention_cuda, qf, kf, vf, scale)
@@ -555,9 +591,10 @@ def k2_row(g, device, b, n, d, path) -> dict:
     agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
                       f"spacings, {sh:.2e} differ"
                       for kind, (e, sp, sh) in zip(("randn", "peaked"), errs))
+    forced = f", forced {old} agrees" if old else ""
     log(f"K2 window_attention ({b}, {n}, {d}) bf16 [{variant}, {path}]: "
-        f"{agree} (tol {K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}); f32 "
-        f"[{variant_f}] err {errf:.3g}; " + timing_text(t, "SDPA"))
+        f"{agree} (tol {K2_MAX_SPACINGS} spacings, {K2_MAX_SHARE}){forced};"
+        f" f32 [{variant_f}] err {errf:.3g}; " + timing_text(t, "SDPA"))
     return dict(shape=[b, n, d], path=path, variant=variant,
                 max_abs_err=err, **t)
 
@@ -782,7 +819,8 @@ def time_k2b(k2, q, k, v, g, scale) -> dict:
     return dict(ms=device_ms(lambda *a: k2.attention_bwd_cuda(*a, scale),
                              sets),
                 **before_ms(lambda *a, variant: k2.attention_bwd_cuda(
-                    *a, scale, variant=variant), sets, variant),
+                    *a, scale, variant=variant), sets,
+                    "cuda_core" if variant == "tensor_core_tiled" else None),
                 plain_ms=device_ms(
                     lambda *a: k2.attention_bwd_plain(*a, scale), sets),
                 library_ms=lib, bound_ms=bms, bound_by=by)
@@ -954,9 +992,13 @@ def check_variant_refusal(device) -> None:
     launch): K2b ``tensor_core`` on float32, on N = 256 and on a
     misaligned gradient, an unknown variant; K2 and K2b
     ``tensor_core_tiled`` on float32, at D = 72 and on a misaligned
-    tensor; K1 and K1b ``vector`` on C = 741 and on a misaligned x, K1
-    ``vector`` with a float32 weight for a bf16 x and ``strided`` with a
-    bf16 weight for a float32 x, an unknown variant of each."""
+    tensor; K2 ``wgmma`` on float32, at D = 72, on a misaligned tensor,
+    at (512, 256) and (64, 384) (outside ``wgmma_takes``), and K2b
+    ``wgmma`` (K2b has no such variant); K1 and K1b ``vector`` on C = 741
+    and on a misaligned x, K1 ``vector`` and ``strided`` with a bf16
+    weight for a float32 x and ``vector`` with a float32 weight one
+    element off 16 bytes, an unknown variant of each.  K1 ``vector`` takes
+    a float32 weight of a bf16 x."""
     import torch
 
     from tera_mind_tpu_torch.ops import _build
@@ -967,6 +1009,7 @@ def check_variant_refusal(device) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     tc, cc = k2.VARIANTS.index("tensor_core"), k2.VARIANTS.index("cuda_core")
     tiled = k2.VARIANTS.index("tensor_core_tiled")
+    wgmma = k2.VARIANTS.index("wgmma")
 
     def k2b(dtype, n, variant, offset=0, d=64):
         t = torch.zeros(4 * n * d + 8, device=device, dtype=dtype)
@@ -986,7 +1029,9 @@ def check_variant_refusal(device) -> None:
 
     bf16 = torch.bfloat16
     require(k2b(bf16, 32, tc) == 0 and k2b(torch.float32, 32, cc) == 0
-            and k2b(bf16, 256, tiled) == 0 and k2(bf16, 256, tiled) == 0,
+            and k2b(bf16, 256, tiled) == 0 and k2(bf16, 256, tiled) == 0
+            and k2(bf16, 256, wgmma) == 0 and k2(bf16, 32, wgmma, d=512) == 0
+            and k2(bf16, 512, wgmma, d=128) == 0,
             "K2 / K2b entry refused calls its variants take")
     refused = {"tensor_core on float32": k2b(torch.float32, 32, tc),
                "tensor_core at N = 256": k2b(bf16, 256, tc),
@@ -997,7 +1042,14 @@ def check_variant_refusal(device) -> None:
                   for why, args in (
                       ("on float32", (torch.float32, 256, tiled)),
                       ("at D = 72", (bf16, 256, tiled, 0, 72)),
-                      ("misaligned", (bf16, 256, tiled, 1)))}}
+                      ("misaligned", (bf16, 256, tiled, 1)))},
+               **{f"K2 wgmma {why}": k2(*args) for why, args in (
+                   ("on float32", (torch.float32, 128, wgmma)),
+                   ("at D = 72", (bf16, 128, wgmma, 0, 72)),
+                   ("misaligned", (bf16, 128, wgmma, 1)),
+                   ("at (512, 256)", (bf16, 512, wgmma, 0, 256)),
+                   ("at (64, 384)", (bf16, 64, wgmma, 0, 384)))},
+               "K2b wgmma": k2b(bf16, 32, wgmma)}
     vec, strided = k1.VARIANTS.index("vector"), k1.VARIANTS.index("strided")
 
     def k1b(c, variant, offset=0):
@@ -1010,10 +1062,11 @@ def check_variant_refusal(device) -> None:
             partial.data_ptr(), w.data_ptr(), 64, c, 8, 1e-6,
             _build.DTYPES[bf16], variant, stream)
 
-    def k1(c, variant, dtype=bf16, w_dtype=bf16, offset=0):
+    def k1(c, variant, dtype=bf16, w_dtype=bf16, offset=0, w_offset=0):
         t = torch.zeros(64 * c + 8, device=device, dtype=dtype)
         x = t[offset:offset + 64 * c]
-        w = torch.ones(c, device=device, dtype=w_dtype)
+        w = torch.ones(c + 8, device=device, dtype=w_dtype)[
+            w_offset:w_offset + c]
         y = torch.empty(64 * c, device=device, dtype=dtype)
         return lib.tmt_rmsnorm(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), 64, c, 1e-6,
@@ -1024,6 +1077,8 @@ def check_variant_refusal(device) -> None:
             and k1b(1524, strided) == 0,
             "K1b entry refused calls its variants take")
     require(k1(96, vec) == 0 and k1(96, vec, f32, f32) == 0
+            and k1(96, vec, w_dtype=f32) == 0
+            and k1(512, vec, w_dtype=f32) == 0
             and k1(741, strided) == 0 and k1(741, strided, w_dtype=f32) == 0
             and k1(1524, strided, w_dtype=f32) == 0,
             "K1 entry refused calls its variants take")
@@ -1032,7 +1087,9 @@ def check_variant_refusal(device) -> None:
                     "K1b variant 7": k1b(96, 7),
                     "K1 vector at C = 741": k1(741, vec),
                     "K1 vector misaligned": k1(96, vec, offset=1),
-                    "K1 vector, float32 weight": k1(96, vec, w_dtype=f32),
+                    "K1 vector, float32 weight off 16 bytes": k1(
+                        96, vec, w_dtype=f32, w_offset=1),
+                    "K1 vector, float32 x, bf16 weight": k1(96, vec, f32),
                     "K1 strided, float32 x, bf16 weight": k1(741, strided,
                                                              f32),
                     "K1 variant 7": k1(96, 7)})
@@ -1954,14 +2011,20 @@ def per_call_counts(model) -> tuple:
 
 
 def expected_launches(counts: tuple, calls: int) -> tuple:
-    """(launches, launches by variant) of ``calls`` UNet calls."""
+    """(launches, launches by variant) of ``calls`` UNet calls: every
+    attention shape of the 638850 paths takes the variant the rule names
+    for the main path's (``K2_SHAPES``, one variant: ``wgmma``)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
     n_norm, n_vec, n_attn = counts
+    k2_variant, = {k2.attention_variant(n, d, torch.bfloat16, True)
+                   for _, n, d in K2_SHAPES}
     return ({"rmsnorm": n_norm * calls, "window_attention": n_attn * calls},
             {"rmsnorm": {"strided": (n_norm - n_vec) * calls,
                          "vector": n_vec * calls},
-             "window_attention": {"cuda_core": 0,
-                                  "tensor_core": n_attn * calls,
-                                  "tensor_core_tiled": 0}})
+             "window_attention": {v: n_attn * calls if v == k2_variant
+                                  else 0 for v in k2.VARIANTS}})
 
 
 def read_launches() -> tuple:
@@ -3512,6 +3575,8 @@ PRESET_KERNELS_ONLY = {
     "638850_64_229_all_8": ["--rna_slc", "8"],
     "609889_128_81_all_4 batch 32": ["--mouse", "609889", "--patch", "128",
                                      "--to_hbr", "--batch", "32"]}
+PRESET_CHAIN_STEPS = 5     # the 609882 bf16 chain: cut from 15 to keep
+                           # the whole smoke inside its cap
 PRESET_INT8_STEPS = 2      # the 609882 int8 chain
 PRESET_TRAIN_STEPS = 3     # full-width training steps a preset
 PRESET_TIMED_FROM = 2      # samples/s over steps 2..3
@@ -3916,7 +3981,8 @@ def run_presets(device) -> dict:
     res = {"kernels": check_preset_kernels(device, ks)}
     res["kernel_seconds"] = time.perf_counter() - t0
     res["small"] = check_small_presets(device, ks)
-    res["chains"] = {"609882 bf16": run_preset_chain(device, ks, "", STEPS),
+    res["chains"] = {"609882 bf16": run_preset_chain(device, ks, "",
+                                                     PRESET_CHAIN_STEPS),
                      "609882 int8": run_preset_chain(device, ks, "int8",
                                                      PRESET_INT8_STEPS)}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4146,8 +4212,9 @@ def main() -> int:
 
     sources = {"rmsnorm": ("tera_mind_tpu_torch/csrc/rmsnorm.cu",
                            "tera_mind_tpu/ops/rmsnorm_kernel.py:60"),
-               "window_attention": ("tera_mind_tpu_torch/csrc/attention.cu",
-                                    "tera_mind_tpu/ops/attention_kernel.py:62")}
+               "window_attention": (
+                   "tera_mind_tpu_torch/csrc/attention_wgmma.cu",
+                   "tera_mind_tpu/ops/attention_kernel.py:62")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rows[name][0]   # the largest shape the kernel gets
@@ -4302,28 +4369,80 @@ def presets_only(device, smi: str) -> int:
     return 0
 
 
-def attention_only(device, smi: str) -> int:
-    """``--attention``: K2 at phase 3's shapes and edge shapes, K2b at
-    phase 4's, the entry points' refusals, and K2 and K2b at phase 19's
-    shapes, for a call that tunes the attention kernels; prints its JSON,
-    the card line and a result line naming the part it ran."""
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds of one ``fn()`` call: ``calls`` calls enqueued
+    back to back (far fewer than the launch queue holds, so the host
+    never waits on the device), then a synchronise outside the clock."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def k2_host_costs(device) -> dict:
+    """The host's cost of a K2 call at the main path's shapes, the rule's
+    variant (``wgmma``, which encodes three TMA tensor maps a call) beside
+    the variant it replaced: {shape: {variant: us}}."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    g = torch.Generator(device="cpu").manual_seed(5)
+    out = {}
+    for b, n, d in K2_SHAPES:
+        q, k, v = k2_inputs(g, b, n, d, torch.bfloat16, device, False)
+        want = k2.attention_variant(n, d, torch.bfloat16, True)
+        costs = {v_: host_us(lambda: k2.attention_cuda(
+            q, k, v, 1.0 / d, variant=v_))
+            for v_ in (want, replaced_by(k2, want, n, d)) if v_}
+        log(f"K2 ({b}, {n}, {d}) host cost a call: " + ", ".join(
+            f"{v_} {us:.1f} us" for v_, us in costs.items()))
+        out[f"{b}x{n}x{d}"] = costs
+    return out
+
+
+def attention_only(device, smi: str) -> int:
+    """``--attention``: K2 at phase 3's shapes and edge shapes, K2b at
+    phase 4's, the entry points' refusals, and K2 and K2b at phase 19's
+    shapes, each row also timed in the variant its shape took before
+    (``FORCED_TIMINGS``: ``wgmma`` rows beside the forced ``tensor_core``
+    or ``tensor_core_tiled``, ``tensor_core_tiled`` rows beside
+    ``cuda_core``), and K2's host cost a call, for a call that tunes the
+    attention kernels; prints its JSON, the card line and a result line
+    naming the part it ran."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import attention_kernel as k2
+    global FORCED_TIMINGS
+    FORCED_TIMINGS = True
     g = torch.Generator(device="cpu").manual_seed(0)
     rows = {"window_attention": [k2_row(g, device, b, n, d, "block_major")
                                  for b, n, d in K2_SHAPES + K2_EDGE]}
+    for path, (_, k2_shapes) in PATH_SHAPES.items():
+        rows["window_attention"] += [k2_row(g, device, b, n, d, path)
+                                     for b, n, d in k2_shapes]
     gen = torch.Generator(device="cpu").manual_seed(2)
     rows["window_attention_bwd"] = [k2b_row(gen, device, b, n, d, "train")
                                     for b, n, d in TRAIN_K2_SHAPES + K2B_EDGE]
     check_variant_refusal(device)
     shapes = preset_kernel_shapes(kernel_shapes())
     g = torch.Generator(device="cpu").manual_seed(19)
+    seen = {tuple(r["shape"]) for r in rows["window_attention"]}
+    rows["window_attention"] += [
+        k2_row(g, device, b, n, d, "train")
+        for b, n, d in TRAIN_K2_SHAPES
+        if (b, n, d) not in seen | {s for s, _ in shapes["K2"]}]
     rows["window_attention"] += [k2_row(g, device, b, n, d, path)
                                  for (b, n, d), path in shapes["K2"]]
     rows["window_attention_bwd"] += [k2b_row(g, device, b, n, d, path)
                                      for (b, n, d), path in shapes["K2b"]]
-    print(json.dumps({"shapes": rows, "launches_by_variant": {
+    host = k2_host_costs(device)
+    print(json.dumps({"shapes": rows, "host_us": host,
+                      "launches_by_variant": {
         "window_attention": dict(k2.launches_by_variant),
         "window_attention_bwd": dict(k2.bwd.launches_by_variant)}}),
         flush=True)
@@ -4337,9 +4456,11 @@ def attention_only(device, smi: str) -> int:
 def norms_only(device, smi: str) -> int:
     """``--norms``: K1 at phase 3's shapes and edge shapes, K1b at phase
     4's, K1 at phase 4's strided shapes with the float32 weight that
-    training passes, the entry points' refusals, and K1 and K1b at phase
-    19's shapes, for a call that tunes the norm kernels; prints its JSON,
-    the card line and a result line naming the part it ran."""
+    training passes, the entry points' refusals, K1 and K1b at phase 19's
+    shapes, and K1 ``vector`` with the float32 weight at
+    ``K1_F32_WEIGHT_SMALL`` beside ``F.rms_norm``, for a call that tunes
+    the norm kernels; prints its JSON, the card line and a result line
+    naming the part it ran."""
     import torch
 
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
@@ -4358,6 +4479,7 @@ def norms_only(device, smi: str) -> int:
         k1_row(gen, device, n, c, "train", torch.float32)
         for n, c in TRAIN_K1_SHAPES
         if k1.rmsnorm_variant(c, 2, True) == "strided"]
+
     check_variant_refusal(device)
     shapes = preset_kernel_shapes(kernel_shapes())
     g = torch.Generator(device="cpu").manual_seed(19)
@@ -4367,6 +4489,11 @@ def norms_only(device, smi: str) -> int:
                         for (n, c), path in shapes["K1 train"]]
     rows["rmsnorm_bwd"] += [k1b_row(g, device, n, c, path)
                             for (n, c), path in shapes["K1b"]]
+    seen = {tuple(r["shape"]) for r in rows["rmsnorm"]
+            if r["weight"] == "float32"}
+    rows["rmsnorm"] += [k1_row(g, device, n, c, path, torch.float32)
+                        for (n, c), path in K1_F32_WEIGHT_SMALL
+                        if (n, c) not in seen]
     print(json.dumps({"shapes": rows, "launches_by_variant": {
         "rmsnorm": dict(k1.launches_by_variant),
         "rmsnorm_bwd": dict(k1.bwd.launches_by_variant)}}), flush=True)

@@ -116,7 +116,8 @@ from tera_mind_tpu_torch.models.unet_packed import (  # noqa: E402
     make_packed_model)
 from tera_mind_tpu_torch.ops import quant_kernel as qk  # noqa: E402
 from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
-    VARIANTS as K2_VARIANTS, attention_bwd_variant, attention_variant)
+    BWD_VARIANTS as K2B_VARIANTS, VARIANTS as K2_VARIANTS,
+    attention_bwd_variant, attention_variant)
 from tera_mind_tpu_torch.ops.rmsnorm_kernel import (  # noqa: E402
     VARIANTS as K1_VARIANTS, rmsnorm_bwd_variant, rmsnorm_variant)
 from tera_mind_tpu_torch.parallel.band import band_partition  # noqa: E402
@@ -451,7 +452,8 @@ def by_variant(kernel: str, counts: Counter, times: int = 1) -> dict:
     """Launches by variant (every variant named) of ``counts`` (shape ->
     launches) times ``times``."""
     out = dict.fromkeys(K1_VARIANTS if kernel in ("K1", "K1b")
-                        else K2_VARIANTS, 0)
+                        else K2_VARIANTS if kernel == "K2"
+                        else K2B_VARIANTS, 0)
     for shape, n in counts.items():
         out[variant(kernel, shape)] += n * times
     return out

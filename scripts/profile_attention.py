@@ -36,7 +36,8 @@ SHAPES = [(512, 512, 128), (612, 512, 128), (128, 512, 128),
 
 def short(name: str) -> str:
     """A kernel's name without its namespace and argument list."""
-    for key in ("attention_bwd_tiled_dkdv", "attention_bwd_tiled_dq",
+    for key in ("attention_wgmma_kernel", "attention_bwd_tiled_dkdv",
+                "attention_bwd_tiled_dq",
                 "attention_kernel_tiled", "attention_bwd_tc_dkdv",
                 "attention_bwd_tc_dq", "attention_kernel_tc",
                 "attention_bwd_dkdv", "attention_bwd_dq", "attention_kernel"):

@@ -68,10 +68,13 @@ CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("K1b rmsnorm_bwd vector", ("rmsnorm_bwd_vec",)),
     ("K1b rmsnorm_bwd dw sum", ("rmsnorm_bwd_dw",)),
     ("K1b rmsnorm_bwd strided", ("rmsnorm_bwd_",)),
+    ("K2b attention_bwd tensor_core_tiled", ("attention_bwd_tiled",)),
     ("K2b attention_bwd tensor_core", ("attention_bwd_tc",)),
     ("K2b attention_bwd cuda_core", ("attention_bwd_",)),
     ("K1 rmsnorm vector", ("rmsnorm_kernel_vec",)),
     ("K1 rmsnorm strided", ("rmsnorm_kernel",)),
+    ("K2 attention wgmma", ("attention_wgmma_kernel",)),
+    ("K2 attention tensor_core_tiled", ("attention_kernel_tiled",)),
     ("K2 attention tensor_core", ("attention_kernel_tc",)),
     ("K2 attention cuda_core", ("attention_kernel",)),
     ("convolution", ("conv", "implicit", "xmma_fprop", "dgrad", "wgrad",

@@ -8,8 +8,15 @@
 // divide by the row sum), p rounded to the input type after it is
 // normalised, f32 accumulation of p.v and one rounding of the output.
 //
-// Three variants, chosen by the caller from dtype, shape and alignment
+// Four variants, chosen by the caller from dtype, shape and alignment
 // before the launch (ops/attention_kernel.py attention_variant):
+//
+// wgmma (bf16; csrc/attention_wgmma.cu): Hopper's warpgroup products fed
+//   by TMA, a producer warp and two consumer warpgroups, persistent
+//   blocks; the main path's and every preset's shapes (wg::takes: D % 16
+//   == 0, D <= 256 or D = 512, N <= 512, D <= 128 over 256 keys).  The
+//   three below stay, reachable by a forced variant, and take the calls
+//   wgmma does not (the edge N = D = 512 takes tensor_core_tiled).
 //
 // tensor_core (bf16; D % 16 == 0, N <= 128, 16-byte aligned pointers,
 //   3 * round16(N) * (D + 8) * 2 bytes of shared memory, plus
@@ -71,10 +78,12 @@
 #include <math.h>
 
 #include "attention_tiled.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
-enum : int { kCudaCore = 0, kTensorCore = 1, kTensorCoreTiled = 2 };
+enum : int { kCudaCore = 0, kTensorCore = 1, kTensorCoreTiled = 2,
+             kWgmma = 3 };
 // (ops/attention_kernel.py VARIANTS)
 
 constexpr int kMaxN = 512;
@@ -613,8 +622,8 @@ int launch_tiled(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q, k, v, o: device pointers to contiguous (b, n, d) arrays of one dtype;
-// variant: 0 cuda_core, 1 tensor_core, 2 tensor_core_tiled (the last two
-// bf16 only, within the limits in the header of this file).  A variant that cannot take the call is an
+// variant: 0 cuda_core, 1 tensor_core, 2 tensor_core_tiled, 3 wgmma (the
+// last three bf16 only, within the limits in the header of this file).  A variant that cannot take the call is an
 // error, never a fallback.  Returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int tmt_window_attention(const void* q, const void* k,
@@ -624,6 +633,12 @@ extern "C" int tmt_window_attention(const void* q, const void* k,
   if (b <= 0 || n <= 0 || d <= 0 || n > kMaxN || d > kMaxD)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  if (variant == kWgmma) {
+    if (dtype != kBFloat16 || !wg::takes(n, d) || !aligned16(q) ||
+        !aligned16(k) || !aligned16(v) || !aligned16(o))
+      return (int)cudaErrorInvalidValue;
+    return attention_wgmma(q, k, v, o, b, n, d, scale, s);
+  }
   if (variant == kTensorCore || variant == kTensorCoreTiled) {
     const bool takes = variant == kTensorCore ? tc_takes(n, d)
                                               : tiled_takes(n, d);

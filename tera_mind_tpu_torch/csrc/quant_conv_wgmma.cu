@@ -23,7 +23,8 @@
 //   cost nothing (quantization maps 0 to 0).  w has a 3-D map (Ci_pad,
 //   kh*kw, Co), box (128 B, 1, BN).  cuTensorMapEncodeTiled, a driver
 //   function, is reached through cudaGetDriverEntryPoint[ByVersion]: the
-//   library links no -lcuda.
+//   library links no -lcuda.  The mbarrier, TMA, wgmma and tensor-map
+//   helpers are csrc/hopper.cuh's, shared with K2's wgmma variant.
 // - Rows of x and w that start off the 128-byte lines (Ci_pad % 128 !=
 //   0) load about half as fast; ops/quant_kernel.py::conv_align pads the
 //   deep concats to 128 channels.
@@ -42,14 +43,14 @@
 // Host side (the wrapper): the plan (box, BN, grid) from
 // ops/quant_kernel.py::k3_plan.
 
-#include <cuda.h>
-
 #include <atomic>
 
-#include "common.cuh"
+#include "hopper.cuh"
 #include "quant_conv.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kBM = 128;        // output pixels a tile (2 x 64 rows)
 constexpr int kBK = 128;        // k bytes a stage (one 128-byte row)
@@ -81,100 +82,7 @@ struct Args {
   long long m_total;   // b * h * w
 };
 
-// ---- mbarriers, TMA, wgmma (inline PTX) --------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait that
-// outlasts kMaxSpins tries (seconds) is a fault of the pipeline, and
-// traps rather than hanging the card
-constexpr unsigned kMaxSpins = 1u << 26;
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  unsigned spins = 0;
-  do {
-    if (++spins == kMaxSpins) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* m,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* m,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* m) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(m))
-               : "memory");
-}
-
-// the descriptor of a K-major tile with the 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1,024 bytes apart (the layout TMA writes with
-// CU_TENSOR_MAP_SWIZZLE_128B); a k32 step adds 32 bytes to the start
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// the accumulators are written by the asynchronous wgmma: keep the
-// compiler from moving their reads across a wait
-template <int N> __device__ __forceinline__ void fence_operands(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
+// ---- wgmma s8 (the mbarrier, TMA and descriptor helpers: hopper.cuh) ----
 
 template <int BN> struct Wgmma;
 
@@ -383,7 +291,7 @@ quant_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       mbar_init(full + s, 1);
       mbar_init(empty + s, kConsumers / 32);   // one arrival a warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -459,44 +367,13 @@ quant_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
 // ---- host side ----------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // an int8 tensor map of `rank` dims (innermost first) with the 128-byte
 // swizzle and zeros outside the tensor
 bool make_map(CUtensorMap* m, const void* base, int rank,
               const cuuint64_t* dims, const cuuint64_t* strides,
               const cuuint32_t* box) {
-  const EncodeTiled enc = encode_tiled();
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return enc && enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, (cuuint32_t)rank,
-                    const_cast<void*>(base), dims, strides, box, ones,
-                    CU_TENSOR_MAP_INTERLEAVE_NONE,
-                    CU_TENSOR_MAP_SWIZZLE_128B,
-                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::make_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims,
+                          strides, box);
 }
 
 template <int BN, typename OutT>

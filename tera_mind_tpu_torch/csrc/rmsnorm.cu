@@ -13,7 +13,11 @@
 //   its vectors of x and of w once, into registers, with every load in
 //   flight before the first use; the sum of squares is reduced with
 //   __shfl_xor_sync inside the group, and y is written from the same
-//   registers as 16-byte stores, so x leaves device memory once.
+//   registers as 16-byte stores, so x leaves device memory once.  A
+//   float32 weight of a bf16 x (the training's master weight) is read as
+//   two 16-byte vectors a bf16 vector and rounded to bf16 in the lane's
+//   registers, so the call is one launch (a cast would be a launch of its
+//   own, which at 2,048 x 512 costs about as much as the norm).
 // strided (any other C or pointer: the odd C of the 5D model's gene
 //   concats, 485, 741, 997 and 1,253, and of the 81-gene presets, 337,
 //   593, 849 and 1,105; the 500-gene presets' 756, 1,012, 1,268 and 1,524,
@@ -291,9 +295,24 @@ template <typename T> __device__ __forceinline__ float elem(const uint4& v,
   }
 }
 
-template <typename T, int G>
+// w's 16-byte vector vi in x's type: for WF32 (a float32 weight of a bf16
+// x) its two float vectors, each element rounded to bf16 (w.astype(x.dtype)
+// of the TPU kernel's order, as a cast before the call rounds it)
+template <typename T, bool WF32>
+__device__ __forceinline__ uint4 weight_vec(const void* w, int vi) {
+  if constexpr (WF32) {
+    const float4* wf = static_cast<const float4*>(w) + 2 * vi;
+    const float4 a = wf[0], b = wf[1];
+    return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
+                      pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w));
+  } else {
+    return static_cast<const uint4*>(w)[vi];
+  }
+}
+
+template <typename T, int G, bool WF32>
 __global__ void __launch_bounds__(kVecThreads)
-rmsnorm_kernel_vec(const T* __restrict__ x, const T* __restrict__ w,
+rmsnorm_kernel_vec(const T* __restrict__ x, const void* __restrict__ w,
                    T* __restrict__ y, long long rows, int c, float eps) {
   constexpr int E = 16 / sizeof(T);  // elements a vector
   const int nvec = c / E;
@@ -302,7 +321,6 @@ rmsnorm_kernel_vec(const T* __restrict__ x, const T* __restrict__ w,
       (long long)blockIdx.x * (kVecThreads / G) + threadIdx.x / G;
   const bool live = row < rows;      // dead lanes still join the shuffles
   const uint4* xr = reinterpret_cast<const uint4*>(x + (live ? row : 0) * c);
-  const uint4* wr = reinterpret_cast<const uint4*>(w);
 
   uint4 xv[kVecMax], wv[kVecMax];
 #pragma unroll
@@ -311,7 +329,7 @@ rmsnorm_kernel_vec(const T* __restrict__ x, const T* __restrict__ w,
     xv[i] = wv[i] = make_uint4(0, 0, 0, 0);
     if (live && vi < nvec) {
       xv[i] = xr[vi];
-      wv[i] = wr[vi];
+      wv[i] = weight_vec<T, WF32>(w, vi);
     }
   }
   float ss = 0.f;   // zero vectors add nothing
@@ -400,50 +418,54 @@ int launch_strided(const Args& a, bool w_f32) {
   }
 }
 
-template <typename T, int G>
-int launch_vec_g(const void* x, const void* w, void* y, long long rows,
-                 int c, float eps, cudaStream_t stream) {
+template <typename T, int G, bool WF32>
+int launch_vec_g(const Args& a) {
   constexpr int rows_per_block = kVecThreads / G;
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  rmsnorm_kernel_vec<T, G><<<(unsigned)blocks, kVecThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(y), rows, c, eps);
+  const long long blocks = (a.rows + rows_per_block - 1) / rows_per_block;
+  rmsnorm_kernel_vec<T, G, WF32><<<(unsigned)blocks, kVecThreads, 0,
+                                   a.stream>>>(
+      static_cast<const T*>(a.x), a.w, static_cast<T*>(a.y), a.rows, a.c,
+      a.eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_vector(const void* x, const void* w, void* y, long long rows,
-                  int c, float eps, cudaStream_t stream) {
-  const int nvec = c / (16 / (int)sizeof(T));
+template <typename T, bool WF32>
+int launch_vector(const Args& a) {
+  const int nvec = a.c / (16 / (int)sizeof(T));
   int g = 1;
   while (g < 32 && g * kVecMax < nvec) g *= 2;
   switch (g) {
-    case 1: return launch_vec_g<T, 1>(x, w, y, rows, c, eps, stream);
-    case 2: return launch_vec_g<T, 2>(x, w, y, rows, c, eps, stream);
-    case 4: return launch_vec_g<T, 4>(x, w, y, rows, c, eps, stream);
-    case 8: return launch_vec_g<T, 8>(x, w, y, rows, c, eps, stream);
-    case 16: return launch_vec_g<T, 16>(x, w, y, rows, c, eps, stream);
-    default: return launch_vec_g<T, 32>(x, w, y, rows, c, eps, stream);
+    case 1: return launch_vec_g<T, 1, WF32>(a);
+    case 2: return launch_vec_g<T, 2, WF32>(a);
+    case 4: return launch_vec_g<T, 4, WF32>(a);
+    case 8: return launch_vec_g<T, 8, WF32>(a);
+    case 16: return launch_vec_g<T, 16, WF32>(a);
+    default: return launch_vec_g<T, 32, WF32>(a);
   }
 }
 
 template <typename T>
 int launch(const Args& a, int w_dtype, int variant) {
   const bool w_same = w_dtype == (sizeof(T) == 2 ? kBFloat16 : kFloat32);
-  if (variant == kStrided && (w_same || w_dtype == kFloat32))
-    return launch_strided<T>(a, w_dtype == kFloat32);
-  if (variant != kVector || !w_same || a.c % 8 != 0 ||
+  // a float32 weight of a bf16 x: both variants round it in the kernel
+  const bool w_f32 = sizeof(T) == 2 && w_dtype == kFloat32;
+  if (variant == kStrided && (w_same || w_f32))
+    return launch_strided<T>(a, w_f32);
+  if (variant != kVector || !(w_same || w_f32) || a.c % 8 != 0 ||
       (long long)a.c * sizeof(T) > kVecMaxBytes || !aligned16(a.x) ||
       !aligned16(a.w) || !aligned16(a.y))
     return (int)cudaErrorInvalidValue;
-  return launch_vector<T>(a.x, a.w, a.y, a.rows, a.c, a.eps, a.stream);
+  if constexpr (sizeof(T) == 2) {
+    if (w_f32) return launch_vector<T, true>(a);
+  }
+  return launch_vector<T, false>(a);
 }
 
 }  // namespace
 
 // x, w, y: device pointers, x/y row-major (rows, c) of dtype, w (c,) of
-// w_dtype: dtype, or float32 for a bf16 x in the strided variant (rounded
-// to bf16 in the kernel); variant: 0 strided, 1 vector (within the limits
+// w_dtype: dtype, or float32 for a bf16 x (rounded to bf16 in the
+// kernel); variant: 0 strided, 1 vector (within the limits
 // above: a variant that cannot take the call is an error, never a
 // fallback).  Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int tmt_rmsnorm(const void* x, const void* w, void* y,

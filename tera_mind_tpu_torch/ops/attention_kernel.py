@@ -12,17 +12,28 @@ after it is normalised, f32 accumulation of p.v, one rounding of the
 output.  ``attention_variant`` picks the variant from dtype, shape and
 alignment before the launch (``csrc/attention.cu`` holds the designs):
 
+- ``wgmma`` (``csrc/attention_wgmma.cu``, ``sm_90a``): bf16 with D % 16 ==
+  0, D <= 256 or D = 512, N <= 512 (over 256 with D <= 128), 16-byte
+  aligned q, k, v, o: every path shape, the main path's three among them.
+  Hopper's own instructions: a producer warp keeps TMA loads of q and of
+  K / V tiles in flight under mbarriers, two consumer warpgroups run
+  ``wgmma`` (q.k^T from shared memory, p.v with p from registers) and the
+  exact softmax in registers (two passes over K at N > 256), persistent
+  blocks walk the batch indices.  ``wgmma_layout`` mirrors its plan.
 - ``tensor_core``: bf16 with D % 16 == 0, N <= 128, 16-byte aligned
   q, k, v, and ``tc_smem_bytes(N, D)`` within a block's 227 KB.  One block
   per batch index keeps q, k, v in shared memory as bf16, computes q.k^T
   and p.v with ``mma.sync`` on the tensor cores and the softmax in
-  registers.  All three main-path shapes take it.
+  registers.  The main-path shapes took it until ``wgmma``; it stays
+  reachable by a forced ``variant=`` and takes any bf16 call ``wgmma``
+  does not where it fits.
 - ``tensor_core_tiled``: every other bf16 call with D % 16 == 0, N <= 512,
   D <= 512 and aligned q, k, v: N > 128, or N <= 128 with q, k, v over
-  227 KB (``tiled_smem_bytes`` always fits).  The presets' (B, 128, 512)
-  at patch 128, (B, 512, 128) at 16 RNA slices and (B, 256, 256) at 8
-  take it.  A block takes 64 query rows (32 for D > 256), streams K and
-  then V through shared memory in row tiles, computes q.k^T and p.v with
+  227 KB (``tiled_smem_bytes`` always fits); since ``wgmma`` those it
+  does not take (256 < D < 512, or N > 256 with D > 128, such as the edge
+  (2, 512, 512)) and any forced call.  A block takes 64 query rows (32
+  for D > 256), streams K and then V through shared memory in row tiles,
+  computes q.k^T and p.v with
   ``mma.sync`` and keeps the rows' f32 logits in shared memory for an
   exact softmax over all N keys, p written back over them as bf16.
 - ``cuda_core``: float32, and bf16 with D not a multiple of 16 or
@@ -68,13 +79,15 @@ MAX_N = 512
 MAX_D = 512
 TC_MAX_N = 128
 SMEM_LIMIT = 232_448       # bytes of shared memory a block may use (H100)
-VARIANTS = ("cuda_core", "tensor_core", "tensor_core_tiled")  # .cu codes
+VARIANTS = ("cuda_core", "tensor_core", "tensor_core_tiled", "wgmma")
+# (csrc/attention.cu codes; K2b, csrc/attention_bwd.cu, has the first three)
+BWD_VARIANTS = VARIANTS[:3]
 
 TC_ROWS = 64               # csrc/attention_bwd.cu kTcRows: a K2b block's rows
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
-bwd = _build.Counters(VARIANTS)   # K2b's launches (csrc/attention_bwd.cu)
+bwd = _build.Counters(BWD_VARIANTS)   # K2b's (csrc/attention_bwd.cu)
 
 
 def reset_launches() -> None:
@@ -120,6 +133,50 @@ def tiled_smem_bytes(n: int, d: int) -> int:
     return tiled_layout(n, d)[3]
 
 
+WG_SLOT = 32 * 1024        # csrc/attention_wgmma.cuh wg::kSlot
+WG_STAGES = 4              # wg::kStages: ring slots
+WG_STAGE_BYTES = 8 * 16 * (64 * 2 + 16)   # wg::kStageBytes: 16 output
+#                            rows of 64 columns a consumer warp, padded
+
+
+def wgmma_takes(n: int, d: int) -> bool:
+    """The (N, D) of a bf16 call K2's ``wgmma`` variant takes
+    (``wg::takes``): D % 16 == 0 and 16 <= D <= 256 or D = 512, N <= 512,
+    and D <= 128 over 256 keys (where O lives across the chunks of
+    keys)."""
+    return (1 <= n <= MAX_N and 16 <= d <= MAX_D and d % 16 == 0
+            and (d <= 256 or d == 512) and (n <= 256 or d <= 128))
+
+
+def wgmma_layout(n: int, d: int) -> dict:
+    """K2 ``wgmma``'s plan (``wg::layout`` in csrc/attention_wgmma.cuh):
+    64-column slabs of D; for D = 512 both consumer warpgroups take the
+    same 64 query rows and half the slabs each (``dsplit``), else 64 rows
+    each of a 128-row unit; key tiles of ``kt`` keys (128, 64 at D = 512),
+    ``nt`` of them a chunk whose logits stay in registers (all of N up to
+    256 keys, else one tile, with a first pass over K for the rows' max
+    and sum); p.v in ``passes`` of ``nh`` slabs, V loaded a pass at a
+    time; ``kslabs`` slabs of a K tile a 32 KB ring slot (4 slots); the q
+    tile; and the dynamic shared memory with 1,024 bytes of alignment
+    slack, the output staging and the barriers."""
+    slabs = -(-d // 64)
+    dsplit = d > 256
+    rows = 64 if dsplit else 128
+    kt = 64 if dsplit else 128
+    per = slabs // 2 if dsplit else slabs
+    nh = 1 if per == 1 else 2
+    passes = -(-per // nh)
+    tiles = -(-n // kt)
+    nt = tiles if tiles * kt <= 256 else 1
+    chunks = -(-tiles // nt)
+    q_bytes = slabs * rows * 128
+    return dict(slabs=slabs, dsplit=dsplit, rows=rows, kt=kt, per=per,
+                nh=nh, passes=passes, tiles=tiles, nt=nt, chunks=chunks,
+                kslabs=WG_SLOT // (kt * 128), q_bytes=q_bytes,
+                smem=(1024 + q_bytes + WG_STAGES * WG_SLOT + WG_STAGE_BYTES
+                      + (2 * WG_STAGES + 2) * 8))
+
+
 def _takes_tensor_cores(n: int, d: int, dtype: torch.dtype,
                         aligned: bool) -> bool:
     return (dtype == torch.bfloat16 and aligned and 1 <= n <= MAX_N
@@ -132,11 +189,19 @@ def attention_variant(n: int, d: int, dtype: torch.dtype,
     alignment (all 16-byte aligned or not) launches."""
     if not _takes_tensor_cores(n, d, dtype, aligned):
         return "cuda_core"
+    if wgmma_takes(n, d):
+        return "wgmma"
+    return replaced_variant(n, d)
+
+
+def replaced_variant(n: int, d: int) -> str:
+    """The ``mma.sync`` variant a bf16 call with aligned tensors took
+    before ``wgmma`` (and takes where ``wgmma`` does not):
+    ``tensor_core`` for N <= 128 where q, k, v fit, else
+    ``tensor_core_tiled``."""
     if n <= TC_MAX_N and tc_smem_bytes(n, d) <= SMEM_LIMIT:
         return "tensor_core"
-    if tiled_smem_bytes(n, d) <= SMEM_LIMIT:
-        return "tensor_core_tiled"
-    return "cuda_core"
+    return "tensor_core_tiled"
 
 
 def bwd_tc_smem_bytes(n: int, d: int) -> tuple[int, int]:
@@ -248,12 +313,13 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
                          f"N<={MAX_N}, D<={MAX_D}")
 
 
-def _forced(variant: str | None, rule: str, name: str) -> str:
+def _forced(variant: str | None, rule: str, name: str,
+            variants: tuple = VARIANTS) -> str:
     """The variant to launch: the shape rule's, or ``variant`` (the C
     entry point refuses one that cannot take the call)."""
     if variant is None:
         return rule
-    if variant not in VARIANTS:
+    if variant not in variants:
         raise ValueError(f"{name}: no variant {variant!r}")
     return variant
 
@@ -305,11 +371,12 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     variant = _forced(variant, attention_bwd_variant(
         n, d, q.dtype,
         all(t.data_ptr() % 16 == 0 for t in (q, k, v, g, dq, dk, dv))),
-        "window_attention_bwd")
+        "window_attention_bwd", BWD_VARIANTS)
     err = _build.lib().tmt_window_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        b, n, d, scale, code, VARIANTS.index(variant), _build.stream_ptr(q))
+        b, n, d, scale, code, BWD_VARIANTS.index(variant),
+        _build.stream_ptr(q))
     _build.check(err, f"tmt_window_attention_bwd ({variant})")
     _build.count_launch(bwd, variant)
     return dq, dk, dv

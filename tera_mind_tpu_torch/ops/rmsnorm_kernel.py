@@ -25,8 +25,12 @@ alignment before the launch:
   x's layout, one copy for each offset a row can start at, so a word of y
   is one read of w and, in bf16, eight ``bf16x2`` multiplies; a float32
   weight of a bf16 x (the training's master weight) is passed as it is
-  and rounded to bf16 there, as the cast before a ``vector`` launch
-  rounds it.  Wider rows keep a second read of the row from L1.
+  and rounded to bf16 there, as a cast before the call would round it.
+  Wider rows keep a second read of the row from L1.
+
+``vector`` too reads a float32 weight of a bf16 x as it is (two 16-byte
+loads a bf16 vector, rounded in registers), so every K1 call is one
+launch.
 
 Any row count works, so the TPU kernel's fallback for rows that do not
 block has no counterpart: a CUDA tensor always goes through a kernel.
@@ -133,6 +137,17 @@ def rmsnorm_bwd_variant(c: int, itemsize: int, aligned: bool) -> str:
     return rmsnorm_variant(c, itemsize, aligned)
 
 
+def kernel_weight(x_dtype: torch.dtype, w: torch.Tensor) -> torch.Tensor:
+    """The weight as K1 takes it for an x of ``x_dtype``: as it is when of
+    x's dtype or a float32 weight of a bf16 x (either variant rounds it to
+    bf16 itself, in one launch), else cast to x's dtype (a new tensor,
+    which starts on 16 bytes)."""
+    if w.dtype == x_dtype or (x_dtype == torch.bfloat16
+                              and w.dtype == torch.float32):
+        return w
+    return w.to(x_dtype)
+
+
 def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """Plain PyTorch version: the CPU path and the kernel's check."""
@@ -161,9 +176,9 @@ def rmsnorm_bwd_plain(x: torch.Tensor, g: torch.Tensor,
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """Launch K1 on a CUDA tensor.  The weight is cast to x's dtype, but
-    for the strided variant a float32 weight of a bf16 x, which the kernel
-    rounds to bf16 itself.  Raises when autograd would need a backward
-    (``_build.autograd_required``)."""
+    a float32 weight of a bf16 x (the training's master weight), which
+    either variant rounds to bf16 itself in one launch.  Raises when
+    autograd would need a backward (``_build.autograd_required``)."""
     _build.refuse_autograd("rmsnorm", x, weight)
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
@@ -176,14 +191,9 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
     if x2.shape[0] == 0:
         return y.reshape(x.shape)
     code = _build.dtype_code(x, "rmsnorm")
-    # a cast makes a new tensor, which starts on 16 bytes
+    w = kernel_weight(x.dtype, w)
     variant = rmsnorm_variant(
-        c, x.element_size(), all(t.data_ptr() % 16 == 0 for t in (x2, y))
-        and (w.dtype != x.dtype or w.data_ptr() % 16 == 0))
-    if w.dtype != x.dtype and not (variant == "strided"
-                                   and x.dtype == torch.bfloat16
-                                   and w.dtype == torch.float32):
-        w = w.to(x.dtype)
+        c, x.element_size(), all(t.data_ptr() % 16 == 0 for t in (x2, y, w)))
     err = _build.lib().tmt_rmsnorm(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
                                    x2.shape[0], c, eps, code,
                                    _build.dtype_code(w, "rmsnorm weight"),

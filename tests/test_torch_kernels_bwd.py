@@ -195,7 +195,9 @@ def test_bwd_entry_points_take_the_variant():
             " = 2 };") in attn
     assert "int dtype, int variant, void* stream)" in norm
     assert "enum : int { kStrided = 0, kVector = 1 };" in norm
-    assert k2.VARIANTS == ("cuda_core", "tensor_core", "tensor_core_tiled")
+    assert k2.VARIANTS == ("cuda_core", "tensor_core", "tensor_core_tiled",
+                           "wgmma")
+    assert k2.BWD_VARIANTS == k2.VARIANTS[:3]   # K2b has no wgmma variant
     assert k1.VARIANTS == ("strided", "vector")
     assert len(_build.SIGNATURES["tmt_window_attention_bwd"]) == 15
     assert len(_build.SIGNATURES["tmt_rmsnorm_bwd"]) == 13
@@ -220,8 +222,8 @@ def test_k1b_grid_and_lane_groups_mirror_the_kernel():
 
 
 def test_backward_counters_count_by_variant_and_reset():
-    for mod in (k1, k2):
-        assert set(mod.bwd.launches_by_variant) == set(mod.VARIANTS)
+    assert set(k1.bwd.launches_by_variant) == set(k1.VARIANTS)
+    assert set(k2.bwd.launches_by_variant) == set(k2.BWD_VARIANTS)
     _build.count_launch(k2.bwd, "tensor_core")
     _build.count_launch(k2.bwd, "tensor_core")
     _build.count_launch(k2.bwd, "cuda_core")
@@ -494,10 +496,11 @@ def _k2_tiled_emulated(q, k, v, scale):
 @pytest.mark.parametrize("n,d", [(512, 128), (128, 512), (256, 256)])
 def test_tiled_forward_sums_keep_the_k2_gate(n, d, peaked):
     """An emulation of K2 tensor_core_tiled's sums at the presets' shapes
-    that take it passes chip_smoke.py's bf16 gate (2 spacings at max
-    |ref|, at most 1 % not bit-equal) against the plain version and
+    it took before wgmma (and takes when forced, as chip_smoke.py
+    --attention times it) passes chip_smoke.py's bf16 gate (2 spacings at
+    max |ref|, at most 1 % not bit-equal) against the plain version and
     against JAX's reference ``_attention_xla``."""
-    assert k2.attention_variant(n, d, BF16, True) == "tensor_core_tiled"
+    assert k2.replaced_variant(n, d) == "tensor_core_tiled"
     g_ = torch.Generator().manual_seed(300 * n + d + peaked)
     q, k, v = cs.k2_inputs(g_, 8, n, d, BF16, "cpu", peaked)
     got = _k2_tiled_emulated(q, k, v, 1.0 / d)

@@ -8,6 +8,8 @@ kernels do not run on the CPU.  The CUDA kernels themselves need the card
 and are checked by chip_smoke.py.
 """
 
+import functools
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -141,7 +143,11 @@ MAIN_K2 = [(324, 128, 256), (256, 128, 256), (324, 32, 512)]
 
 @pytest.mark.parametrize("b,n,d", MAIN_K2 + [(5, 100, 48)])
 def test_attention_routes_main_path_bf16_to_tensor_cores(b, n, d):
-    assert k2.attention_variant(n, d, torch.bfloat16, True) == "tensor_core"
+    """The main path's bf16 shapes take the tensor cores through Hopper's
+    wgmma; tensor_core, the mma.sync variant they took before, still fits
+    them (the forced variant chip_smoke.py times them in)."""
+    assert k2.attention_variant(n, d, torch.bfloat16, True) == "wgmma"
+    assert k2.replaced_variant(n, d) == "tensor_core"
     # the same shapes in f32, or misaligned, stay on CUDA cores
     assert k2.attention_variant(n, d, torch.float32, True) == "cuda_core"
     assert k2.attention_variant(n, d, torch.bfloat16, False) == "cuda_core"
@@ -160,10 +166,17 @@ def test_attention_routes_other_bf16_shapes_to_cuda_cores(n, d):
 def test_attention_routes_long_or_wide_bf16_to_tiled_tensor_cores(n, d):
     """N above 128, or q, k, v over 227 KB of shared memory for the
     tensor_core variant (N = 128, D = 512 needs 390 KB), take
-    tensor_core_tiled forward and backward in bf16; the same shapes in
-    float32, or misaligned, stay on CUDA cores."""
+    tensor_core_tiled backward in bf16, and forward where wgmma does not
+    take them (N = D = 512); wgmma takes the others forward, replacing
+    tensor_core_tiled.  The same shapes in float32, or misaligned, stay on
+    CUDA cores."""
+    want = "wgmma" if k2.wgmma_takes(n, d) else "tensor_core_tiled"
+    assert k2.wgmma_takes(n, d) == ((n, d) != (512, 512))
+    assert k2.attention_variant(n, d, torch.bfloat16, True) == want
+    assert k2.replaced_variant(n, d) == "tensor_core_tiled"
+    assert k2.attention_bwd_variant(n, d, torch.bfloat16, True) == \
+        "tensor_core_tiled"
     for rule in (k2.attention_variant, k2.attention_bwd_variant):
-        assert rule(n, d, torch.bfloat16, True) == "tensor_core_tiled"
         assert rule(n, d, torch.float32, True) == "cuda_core"
         assert rule(n, d, torch.bfloat16, False) == "cuda_core"
 
@@ -204,6 +217,59 @@ def test_tiled_smem_matches_the_kernels_layout():
     assert worst <= k2.SMEM_LIMIT
 
 
+def _k2_path_shapes():
+    """Every (B, N, D) a path gives K2 (chip_smoke.py's lists, which CPU
+    tests hold to scripts/kernel_shapes.py) and its edge shapes."""
+    import chip_smoke as cs
+    shapes = set(cs.K2_SHAPES) | set(cs.TRAIN_K2_SHAPES) | set(cs.K2_EDGE)
+    for _, k2s in cs.PATH_SHAPES.values():
+        shapes |= set(k2s)
+    shapes |= {sh for sh, _ in cs.preset_kernel_shapes(cs.kernel_shapes())[
+        "K2"]}
+    return sorted(shapes)
+
+
+def test_wgmma_layout_fits_at_every_path_shape():
+    """K2 wgmma's plan (the mirror of wg::layout) at every path shape from
+    scripts/kernel_shapes.py: each takes wgmma (the edge N = D = 512
+    stays on tensor_core_tiled), fits a block's 232,448 bytes, and puts
+    q, every ring slot and every slab at 1,024-byte multiples from the
+    aligned base (the 128-byte swizzle's atoms); the constants are the
+    header's."""
+    hdr = (_build.CSRC / "attention_wgmma.cuh").read_text()
+    assert "constexpr int kSlot = 32 * 1024;" in hdr
+    assert "constexpr int kStages = 4;" in hdr
+    assert "constexpr int kStageRow = 64 * 2 + 16;" in hdr
+    assert "constexpr int kConsumerWarps = 8;" in hdr
+    assert k2.WG_SLOT == 32 * 1024 and k2.WG_STAGES == 4
+    assert k2.WG_STAGE_BYTES == 8 * 16 * 144
+    shapes = _k2_path_shapes()
+    assert len(shapes) >= 25
+    for b, n, d in shapes:
+        if (n, d) == (512, 512):
+            assert k2.attention_variant(n, d, torch.bfloat16, True) == \
+                "tensor_core_tiled"
+            continue
+        if d % 16:
+            continue
+        assert k2.attention_variant(n, d, torch.bfloat16, True) == "wgmma"
+        lay = k2.wgmma_layout(n, d)
+        assert lay["smem"] <= k2.SMEM_LIMIT, (n, d, lay)
+        assert lay["q_bytes"] % 1024 == 0 and k2.WG_SLOT % 1024 == 0
+        assert (lay["q_bytes"] // lay["slabs"]) % 1024 == 0   # a q slab
+        assert (lay["kt"] * 128) % 1024 == 0                  # a tile slab
+        assert lay["kslabs"] * lay["kt"] * 128 == k2.WG_SLOT
+        # a V slot holds one pass's slabs of each consumer
+        assert lay["nh"] * (2 if lay["dsplit"] else 1) * lay["kt"] * 128 \
+            <= k2.WG_SLOT
+        # logits of a chunk (and O where it lives across chunks) fit the
+        # registers the design gives them
+        assert lay["nt"] * lay["kt"] <= 256
+        assert lay["chunks"] == 1 or lay["per"] <= 2
+    assert k2.wgmma_layout(128, 256)["smem"] == 216_144
+    assert k2.wgmma_layout(512, 128)["chunks"] == 4
+
+
 def test_rmsnorm_routes_by_channels_and_alignment():
     src = (_build.CSRC / "rmsnorm.cu").read_text()
     assert f"kVecMaxBytes = 32 * kVecMax * 16;" in src
@@ -216,6 +282,48 @@ def test_rmsnorm_routes_by_channels_and_alignment():
     assert k1.rmsnorm_variant(1032, 2, True) == "strided"     # > 2 KB a row
     assert k1.rmsnorm_variant(512, 4, True) == "vector"       # f32
     assert k1.rmsnorm_variant(520, 4, True) == "strided"
+
+
+def test_vector_keeps_the_float32_weight_of_a_bf16_x():
+    """K1 takes training's float32 master weight of a bf16 x as it is in
+    both variants (one launch: the vector kernel reads it as two 16-byte
+    vectors a bf16 vector and rounds it in registers), and casts any other
+    weight of another dtype than x's."""
+    w32 = torch.ones(512)
+    assert k1.kernel_weight(torch.bfloat16, w32) is w32
+    assert k1.rmsnorm_variant(512, 2, True) == "vector"
+    assert k1.rmsnorm_variant(256, 2, True) == "vector"
+    wb = torch.ones(512, dtype=torch.bfloat16)
+    assert k1.kernel_weight(torch.bfloat16, wb) is wb
+    cast = k1.kernel_weight(torch.float32, wb)
+    assert cast.dtype == torch.float32 and torch.equal(cast, w32)
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    assert "wv[i] = weight_vec<T, WF32>(w, vi);" in src
+    assert "if (w_f32) return launch_vector<T, true>(a);" in src
+    wrapper = (_build.PKG / "ops" / "rmsnorm_kernel.py").read_text()
+    assert "w = kernel_weight(x.dtype, w)" in wrapper
+
+
+@pytest.mark.parametrize("n,c", [(64, 512), (96, 256)])
+def test_rmsnorm_plain_with_float32_weight_matches_jax_fused(
+        n, c, pallas_interpret):
+    """The plain version with a float32 weight of a bf16 x (what K1 is
+    held against on the card) against the JAX package's rmsnorm_fused
+    with the same weight (Pallas, interpret mode: the weight rounded to
+    bf16, then the TPU kernel's two bf16 multiplies): within one bf16
+    spacing, the f32 statistics summing in another order."""
+    from tera_mind_tpu.ops.rmsnorm_kernel import rmsnorm_fused
+    x = (3.0 * randn(11, n, c)).astype(ml_dtypes.bfloat16)
+    w = 1.0 + 0.2 * randn(12, c)
+    got = k1.rmsnorm_plain(torch.from_numpy(x.astype(np.float32)).bfloat16(),
+                           torch.from_numpy(w))
+    want = np.asarray(rmsnorm_fused(jnp.asarray(x), jnp.asarray(w)))
+    assert got.dtype == torch.bfloat16 and want.dtype == x.dtype
+    got, want = got.float().numpy(), want.astype(np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    assert (np.abs(got - want) <= ulp).all()
+    assert (got == want).mean() > 0.99
 
 
 def _cu_const(src: str, name: str) -> int:
@@ -477,8 +585,47 @@ def _k2_tensor_core_order(q, k, v, scale):
     return _chunked_f32(p, v).to(q.dtype)
 
 
+def _k2_wgmma_order(q, k, v, scale):
+    """A mirror of K2 wgmma's order of work (csrc/attention_wgmma.cu), from
+    its plan (``wgmma_layout``): K and V padded to whole key tiles with
+    zero rows (TMA's fill past N), q.k^T over 64-column slabs in f32
+    chunks of 16, keys past N masked to -inf; up to 256 keys one chunk
+    and the plain exact softmax, past that a first pass over the key
+    tiles keeping each row's max and its sum (rescaled when the max
+    grows) and a second forming p = exp(s - m) / l with the final m, l;
+    p rounded once to bf16; p.v in f32 chunks of 16 keys, in column
+    passes of ``nh`` slabs (both consumers' halves at D = 512); one
+    rounding of o."""
+    b, n, d = q.shape
+    lay = k2.wgmma_layout(n, d)
+    kt, keys = lay["kt"], lay["tiles"] * lay["kt"]
+    pad = torch.zeros(b, keys - n, d)
+    kp, vp = (torch.cat([t.float(), pad], 1) for t in (k, v))
+    s = _chunked_f32(q.float(), kp.transpose(-1, -2)) * scale
+    s[..., n:] = -torch.inf
+    if lay["chunks"] == 1:
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
+    else:
+        m = torch.full((b, n, 1), -torch.inf)
+        lsum = torch.zeros(b, n, 1)
+        for c0 in range(0, keys, lay["nt"] * kt):
+            sc = s[..., c0:c0 + lay["nt"] * kt]
+            nm = torch.maximum(m, sc.amax(-1, keepdim=True))
+            lsum = lsum * torch.exp(m - nm) + torch.exp(sc - nm).sum(
+                -1, keepdim=True)
+            m = nm
+        p = torch.exp(s - m) / lsum
+    p = p.to(torch.bfloat16).float()
+    cols = 64 * lay["nh"]
+    o = torch.cat([_chunked_f32(p, vp[..., c0:c0 + cols])
+                   for c0 in range(0, d, cols)], -1)
+    return o.to(q.dtype)
+
+
 CORRECT_K2 = {"f64 sums": _k2_f64_sums,
-              "tensor-core order": _k2_tensor_core_order}
+              "tensor-core order": _k2_tensor_core_order,
+              "wgmma order": _k2_wgmma_order}
 
 
 def _to_bf16_toward_zero(x):
@@ -520,6 +667,49 @@ def test_chip_smoke_k2_check_separates_reorder_from_faults(n, d, peaked,
     for fault, out in _k2_faults(q, k, v, scale).items():
         with pytest.raises(cs.SmokeFailure):
             cs.require_k2(out, ref, fault)
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """The JAX package's Pallas kernels in interpret mode on the CPU (its
+    own tests skip them off the TPU): ``pl.pallas_call`` with
+    ``interpret=True``, restored after the test."""
+    from jax.experimental import pallas as pl
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=True))
+
+
+# each path's (N, D) of K2 wgmma: the main path, patch 128 (D = 512, N =
+# 128, and its generation's N = 32), 8 RNA slices (N = 256; N = 64 at D =
+# 512), 16 RNA slices (N = 512, two passes over K), an edge of D = 48
+WGMMA_PATH_ND = [(128, 256), (32, 512), (128, 512), (256, 256), (64, 512),
+                 (512, 128), (100, 48)]
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("n,d", WGMMA_PATH_ND)
+def test_wgmma_order_mirror_keeps_the_k2_gate(n, d, peaked,
+                                              pallas_interpret):
+    """The mirror of K2 wgmma's order of work (the chunked softmax with its
+    rescaled sum at N > 256, the keys masked past N, the D passes, the one
+    bf16 rounding of p) at each path's (N, D), small B, passes
+    chip_smoke.py's bf16 gate against the plain version and against the
+    JAX package's fused_attention (Pallas, interpret mode), closer than
+    the gate needs: at most 1 spacing, 0.5 % of outputs not bit-equal."""
+    import chip_smoke as cs
+    from tera_mind_tpu.ops.attention_kernel import fused_attention
+    b = 2 if n > 256 else 4
+    g_ = torch.Generator().manual_seed(7 * n + d + peaked)
+    q, k, v = cs.k2_inputs(g_, b, n, d, torch.bfloat16, "cpu", peaked)
+    got = _k2_wgmma_order(q, k, v, 1.0 / d)
+    as_jax = [jnp.asarray(t.float().numpy().astype(ml_dtypes.bfloat16))
+              for t in (q, k, v)]
+    jref = torch.from_numpy(np.asarray(
+        fused_attention(*as_jax, 1.0 / d)).astype(np.float32)).bfloat16()
+    for what, want in (("plain", k2.attention_plain(q, k, v, 1.0 / d)),
+                       ("jax", jref)):
+        _, spacings, share = cs.require_k2(got, want, f"wgmma {what}")
+        assert spacings <= 1.0 and share <= 5e-3, (what, spacings, share)
 
 
 def _k1_vector_group(c, itemsize):
@@ -592,7 +782,7 @@ def test_chip_smoke_times_tile_major_and_stream_shapes():
         assert all(k1.rmsnorm_variant(c, 2, True) == "vector"
                    for _, c in want_k1)
         assert all(k2.attention_variant(n, d, torch.bfloat16, True)
-                   == "tensor_core" for _, n, d in want_k2)
+                   == "wgmma" for _, n, d in want_k2)
         calls = {"tile_major": 4 * 5 * cs.TILE_MAJOR_STEPS,
                  "stream": 4 * 5 * cs.STREAM_STEPS}[path]
         assert cs.CHAIN_LAUNCHES[path] == {

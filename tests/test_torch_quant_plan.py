@@ -218,8 +218,14 @@ def test_kernel_sources_match_the_plan_constants():
             in WGMMA_CU)
     assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in WGMMA_CU
     assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in WGMMA_CU
-    assert "cp.async.bulk.tensor.4d" in WGMMA_CU
-    assert "CU_TENSOR_MAP_SWIZZLE_128B" in WGMMA_CU
+    # the TMA loads and tensor maps live in csrc/hopper.cuh, which the
+    # kernel includes (shared with K2's wgmma variant)
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in WGMMA_CU
+    assert "tma_load_4d(st, &xmap" in WGMMA_CU
+    assert "cp.async.bulk.tensor.4d" in hopper
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in hopper
+    assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in WGMMA_CU
     assert "s0 = __fmul_rn(sxv, sw[n]);" in WGMMA_CU
     assert "return __fadd_rn(__fmul_rn(__int2float_rn(v), s), b);" in \
         WGMMA_CU

@@ -7,7 +7,9 @@ Phases, each printed on its own line with elapsed seconds:
   1. the card (nvidia-smi name and power limit; compute capability 9.0);
   2. build the CUDA kernels (plain nvcc into a .so, loaded with ctypes);
   3. hold each kernel against its plain PyTorch version at every main
-     path shape in bf16 (and each variant at edge shapes), and time the
+     path shape in bf16 (and each variant at edge shapes; the large
+     random inputs of phases 3-5, 18 and 19 are drawn on the card from
+     seeds of the phase's generator), and time the
      kernel, the plain version and one PyTorch library call doing the
      same function (a yardstick only: the port never calls it) on the
      device (CUDA graph replay), beside the card's bound for the work;
@@ -16,11 +18,13 @@ Phases, each printed on its own line with elapsed seconds:
      ``mma.sync`` variant the shape took before (forced) against the plain
      version;
   4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
-     ``strided``, K2b ``tensor_core``, ``tensor_core_tiled`` and
-     ``cuda_core``) against its plain
+     ``strided``, K2b ``wgmma``, ``tensor_core``, ``tensor_core_tiled``
+     and ``cuda_core``) against its plain
      version at every shape of a training step (``scripts/kernel_shapes.py
      --train``) in bf16 and f32 and at edge shapes, randn and peaked for
-     K2b, each run twice for bit-equal results, and timed against their
+     K2b (``wgmma`` at every training shape, each row also holding the
+     ``mma.sync`` variant the shape took before, forced, against the plain
+     version), each run twice for bit-equal results, and timed against their
      bound, their plain version and a library yardstick (PyTorch autograd
      through ``F.rms_norm`` or SDPA); the C entry points' refusal of a
      variant that cannot take a call; then the autograd guard: each raw
@@ -62,13 +66,13 @@ Phases, each printed on its own line with elapsed seconds:
      run resumed from its epoch-1 spill, and bf16 transfers against f32;
   9. the main path: ``cli.generate.build`` with its defaults (the packed
      model) at the full width of the 638850 preset (2x2 tiles of 256^2 px
-     x 100 channels, 15 DDIM steps, bf16, block-major, window_chunk -1,
+     x 100 channels, 5 DDIM steps, bf16, block-major, window_chunk -1,
      which the memory planner resolves to the whole block and one
      z-window a call), one warm-up step that plans, then one timed chain
      with the kernels' launch counters (total and per variant) set to 0
      just before it; then the same with ``--quant int8`` and ``--quant
      int8_static`` (its build calibrates on the 2x2 block, timed with the
-     build; 5 steps since PR 16), each with exact K3 and K4 launches by
+     build), each with exact K3 and K4 launches by
      variant (75 wgmma and 117 dynamic or static a UNet call), tiles/s
      beside the bf16 chain's and int8's output against bf16's
      (informative); then the 5D model (``--no_packed``, 5 steps since PR
@@ -80,7 +84,7 @@ Phases, each printed on its own line with elapsed seconds:
  11. whole-brain streaming: ``cli.generate.main`` with ``--stream`` at
      its defaults (2x2-tile windows, K 1, f32 transfers, 3 windows in
      flight, 4 GB of device gene cache, window_chunk 5) on a 4x4 grid,
-     15 steps, with the counters set to 0 just before it; then a 2-step
+     2 steps, with the counters set to 0 just before it; then a 2-step
      run of the same grid with ``TMT_STREAM_TIMING`` for its per-phase
      seconds;
  12. training, small: one accumulated f32 train step of a narrow model on
@@ -89,7 +93,7 @@ Phases, each printed on its own line with elapsed seconds:
  13. training at full width: ``cli.train``'s builder on the 638850 preset
      (``--synthetic --batch 32``: accum 2, 128 patches a microbatch, bf16
      compute, f32 params, dropout 0.1), the 5D model, then ``--packed``,
-     8 steps each with the counters set to 0 just before ``fit``: finite
+     4 steps each with the counters set to 0 just before ``fit``: finite
      losses, changed parameters, exact K1 / K1b / K2 / K2b launches a
      step (K1b and K2b by variant), samples/s, data wait, peak memory;
      save -> restore bit-equal;
@@ -112,7 +116,7 @@ Phases, each printed on its own line with elapsed seconds:
      12's gates) on the card against the CPU; then ``cli.train``'s
      builder at full width with ``--method patch-dm`` and ``--method
      sinf`` (float32 compute outside the RNA tower, as JAX's promotions
-     give), 4 steps each (8 until PR 16) with the counters set to 0 just
+     give), 3 steps each with the counters set to 0 just
      before ``fit``:
      finite losses, changed parameters, exactly 4 K1 and 4 K1b launches a
      step (the RNA tower's gene block) and no K2 or K2b, save -> restore
@@ -130,7 +134,7 @@ Phases, each printed on its own line with elapsed seconds:
      blocks bit-equal, one sharded block-major step of the small packed
      model on an (N, 1) mesh, band streaming K = 1 and K = 2; then
      ``mp_demo --device cuda --band`` over 2 ranks.  Full width:
-     ``cli.generate.main`` over 2 ranks in memory (2x2 tiles, 15 steps,
+     ``cli.generate.main`` over 2 ranks in memory (2x2 tiles, 5 steps,
      the weights, noise and genes of phase 9's packed chain), the union
      of the rank blocks against phase 9's output by ``CHAIN_GATES``, each
      rank's K1 and K2 launches required (``scripts/kernel_shapes.py
@@ -164,17 +168,16 @@ Phases, each printed on its own line with elapsed seconds:
      this phase's runs that phases 3-5 do not check
      (``scripts/kernel_shapes.py``'s predictions), by their per-shape
      checks and timings, the variant each shape's rule names required
-     (K2 and K2b ``tensor_core_tiled`` at (B, 128, 512), (B, 512, 128)
-     and, from the 8-RNA-slice preset of ``PRESET_KERNELS_ONLY``, (B,
-     256, 256), each also timed in the ``cuda_core`` variant it took
-     before);
+     (K2 and K2b ``wgmma`` at (B, 128, 512), (B, 512, 128) and, from the
+     8-RNA-slice preset of ``PRESET_KERNELS_ONLY``, (B, 256, 256), the
+     ``tensor_core_tiled`` variant each took before checked forced);
      each preset's small f32 chain (5D card vs CPU, packed vs 5D,
      ``SMALL_ATOL``); then at full width, each with the counters set to
      0 just before it and its launches by kernel and variant required to
      be kernel_shapes.py's prediction: the 609882 packed bf16 chain over
      2x2 tiles (``PRESET_CHAIN_STEPS``, 5) and its int8 chain (2
      steps); ``cli.train``'s
-     builder with ``--synthetic`` for 3 steps on 609882 (5D, batch 32),
+     builder with ``--synthetic`` for 2 steps on 609882 (5D, batch 32),
      on 609889 at patch 128 with ``--to_hbr`` (5D, batch 8: 8
      microbatches, peak memory under 40 GiB) and on
      ``609889_32_81_DAPI_16`` (``--packed``), the last two followed by
@@ -192,9 +195,10 @@ phase 19 alone;
 ``python3 chip_smoke.py --int8`` runs phase 5 and phase 9's int8 and
 int8_static chains with the bf16 packed chain they are compared with,
 for a call that tunes the int8 kernels; ``--attention`` runs K2 and K2b
-at phase 3's and 4's shapes, the refusals and phase 19's K2 and K2b
-shapes, each row also timed in the variant its shape took before (K2
-``wgmma`` beside the forced ``tensor_core`` or ``tensor_core_tiled``),
+at phase 3's and 4's shapes, K2b at a data-parallel rank's, the
+refusals and phase 19's K2 and K2b shapes, each row also timed in the
+variant its shape took before (K2 and K2b ``wgmma`` beside the forced
+``tensor_core`` or ``tensor_core_tiled``),
 and K2's host cost a call, for a call that tunes the attention kernels;
 ``--norms`` runs K1 and K1b at phase 3's, 4's and 19's shapes (K1 also
 at phase 4's strided shapes and at ``K1_F32_WEIGHT_SMALL`` with the
@@ -424,12 +428,31 @@ def k2_agreement(out, ref):
             float((d > 0).float().mean()))
 
 
+def card_generator(g, device):
+    """A generator on ``device`` seeded by a draw of the CPU generator
+    ``g``: a large input drawn with it costs no host time and no copy (at
+    100 M samples a second, the host's randn took most of phases 3-5 and
+    19), and stays fixed by ``g``'s seed."""
+    import torch
+    seed = int(torch.randint(2 ** 62, (), generator=g))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def randn(g, *shape, device):
+    """float32 randn of ``shape`` on ``device``: from ``g`` on the CPU,
+    from :func:`card_generator` on the card."""
+    import torch
+    if torch.device(device).type == "cpu":
+        return torch.randn(*shape, generator=g)
+    return torch.randn(*shape, generator=card_generator(g, device),
+                       device=device)
+
+
 def k2_inputs(g, b, n, d, dtype, device, peaked):
     """q, k, v from randn; ``peaked`` scales q and k so that the logits
     q.k/d have std ``K2_LOGIT_STD``."""
-    import torch
     sig = (K2_LOGIT_STD * d ** 0.5) ** 0.5 if peaked else 1.0
-    return tuple((s * torch.randn(b, n, d, generator=g)).to(device, dtype)
+    return tuple((s * randn(g, b, n, d, device=device)).to(device, dtype)
                  for s in (sig, sig, 1.0))
 
 
@@ -477,11 +500,12 @@ def before_ms(fn, sets, replaced) -> dict:
         lambda *a: fn(*a, variant=replaced), sets)}
 
 
-def replaced_by(k2, variant: str, n: int, d: int):
-    """The K2 variant a bf16 shape that takes ``variant`` took before it,
-    or None."""
+def replaced_by(k2, variant: str, n: int, d: int, bwd: bool = False):
+    """The K2 (``bwd``: K2b) variant a bf16 shape that takes
+    ``variant`` took before it, or None."""
     if variant == "wgmma":
-        return k2.replaced_variant(n, d)
+        return (k2.replaced_bwd_variant if bwd else k2.replaced_variant)(
+            n, d)
     return "cuda_core" if variant == "tensor_core_tiled" else None
 
 
@@ -535,7 +559,7 @@ def k1_row(g, device, n, c, path, w_dtype=None) -> dict:
 
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     bf16 = torch.bfloat16
-    x = torch.randn(n, c, generator=g).to(device, bf16)
+    x = randn(g, n, c, device=device).to(bf16)
     w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, w_dtype or bf16)
     out, ref, err_ulp, variant = k1_agrees(x, w, f"{n}x{c}")
     err = float((out.float() - ref.float()).abs().max())
@@ -715,14 +739,15 @@ TRAIN_LAUNCHES = {"5d": {"rmsnorm": 252, "window_attention": 18},
 # --train): the odd C of the gene concats take K1b strided
 TRAIN_BWD_VARIANTS = {
     "5d": {"rmsnorm_bwd": {"strided": 18, "vector": 234},
-           "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18,
-                                    "tensor_core_tiled": 0}},
+           "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0,
+                                    "tensor_core_tiled": 0, "wgmma": 18}},
     "packed": {"rmsnorm_bwd": {"strided": 0, "vector": 76},
-               "window_attention_bwd": {"cuda_core": 0, "tensor_core": 18,
-                                        "tensor_core_tiled": 0}},
+               "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0,
+                                        "tensor_core_tiled": 0,
+                                        "wgmma": 18}},
     **{m: {"rmsnorm_bwd": {"strided": 0, "vector": 4},
            "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0,
-                                    "tensor_core_tiled": 0}}
+                                    "tensor_core_tiled": 0, "wgmma": 0}}
        for m in ("patch-dm", "sinf")}}
 # edge shapes: ragged and odd C, odd row counts, C = 741 and 1,253 (K1b
 # strided), C = 8, 264 and 1,024 (vector with one 16-byte vector a row,
@@ -731,12 +756,15 @@ TRAIN_BWD_VARIANTS = {
 # 2,050 (a row wider than its registers), and C = 1,524 with x and g
 # starting one element past 16 bytes (the third number); N = 17, 100, 512
 # and D = 48, 130, 512 (K2b tensor_core at (5, 100, 48), with N not a
-# multiple of 16; cuda_core at D = 130; tensor_core_tiled at N = D = 512,
-# the largest shared memory)
+# multiple of 16; cuda_core at D = 130; wgmma at N = D = 512, its blocked
+# design, tensor_core_tiled before); K2b wgmma at ragged N and odd B: fused
+# at (7, 100, 256) (the last unit's rows past N zero-filled), two-pass at
+# (3, 200, 128) (a 128-row block and a 128-key sweep tile past N)
 K1B_EDGE = [(7, 33), (13, 100), (1029, 741), (517, 1253), (3, 8),
             (517, 264), (1000, 1024), (33, 2050), (129, 1524, 1),
             (65, 2047), (65, 2048)]
-K2B_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512)]
+K2B_EDGE = [(5, 100, 48), (3, 17, 130), (2, 512, 512), (7, 100, 256),
+            (3, 200, 128)]
 # Tolerances, set before the first chip run.  Kernel and plain version
 # compute the same float32 formula from the same inputs and differ only
 # in the order of their sums.  float32 dx, dq, dk, dv: within 1e-5 of the
@@ -820,7 +848,7 @@ def time_k2b(k2, q, k, v, g, scale) -> dict:
                              sets),
                 **before_ms(lambda *a, variant: k2.attention_bwd_cuda(
                     *a, scale, variant=variant), sets,
-                    "cuda_core" if variant == "tensor_core_tiled" else None),
+                    replaced_by(k2, variant, n, d, bwd=True)),
                 plain_ms=device_ms(
                     lambda *a: k2.attention_bwd_plain(*a, scale), sets),
                 library_ms=lib, bound_ms=bms, bound_by=by)
@@ -829,8 +857,8 @@ def time_k2b(k2, q, k, v, g, scale) -> dict:
 def k1b_inputs(gen, device, n, c, dt):
     """x, g in ``dt`` and the float32 weight that training passes."""
     import torch
-    x = torch.randn(n, c, generator=gen).to(device, dt)
-    g = torch.randn(n, c, generator=gen).to(device, dt)
+    x = randn(gen, n, c, device=device).to(dt)
+    g = randn(gen, n, c, device=device).to(dt)
     w = (1 + 0.1 * torch.randn(c, generator=gen)).to(device)
     return x, g, w
 
@@ -878,20 +906,21 @@ def k1b_row(gen, device, n, c, path) -> dict:
                 dw_rel_err=dw_err, **t)
 
 
-def k2b_agrees(gen, device, b, n, d, dt, peaked, what):
+def k2b_agrees(gen, device, b, n, d, dt, peaked, what, forced=None):
     """K2b against its plain version on fresh inputs, run twice for
-    bit-equal outputs, the shape rule's variant required: (the worst of
-    dq, dk, dv's (max |error|, spacings, share), variant)."""
+    bit-equal outputs, the shape rule's variant required (or ``forced``
+    launched): (the worst of dq, dk, dv's (max |error|, spacings, share),
+    variant)."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     q, k, v = k2_inputs(gen, b, n, d, dt, device, peaked)
-    g = torch.randn(b, n, d, generator=gen).to(device, dt)
+    g = randn(gen, b, n, d, device=device).to(dt)
     out, variant = variant_of(k2.bwd, k2.attention_bwd_cuda, q, k, v, g,
-                              1.0 / d)
-    out2 = k2.attention_bwd_cuda(q, k, v, g, 1.0 / d)
+                              1.0 / d, variant=forced)
+    out2 = k2.attention_bwd_cuda(q, k, v, g, 1.0 / d, variant=forced)
     torch.cuda.synchronize()
-    want = k2.attention_bwd_variant(n, d, dt, True)
+    want = forced or k2.attention_bwd_variant(n, d, dt, True)
     require(variant == want, f"K2b {what} {dt} took {variant}, not {want}")
     require(all(torch.equal(a, c) for a, c in zip(out, out2)),
             f"K2b {what} ({variant}): two runs differ")
@@ -902,8 +931,12 @@ def k2b_agrees(gen, device, b, n, d, dt, peaked, what):
 
 
 def k2b_row(gen, device, b, n, d, path) -> dict:
-    """K2b at (b, n, d): bf16 on randn and on peaked inputs, float32 on 8
-    of the batch, each by :func:`k2b_agrees`; timed."""
+    """K2b at (b, n, d): bf16 on randn and on peaked inputs (the rule's
+    variant required: ``wgmma`` at every path shape), the variant a
+    ``wgmma`` shape took before (``tensor_core`` or ``tensor_core_tiled``,
+    forced) on peaked inputs, float32 on 8 of the batch, each by
+    :func:`k2b_agrees`; timed (with ``FORCED_TIMINGS`` also in the variant
+    it replaced)."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
@@ -911,18 +944,23 @@ def k2b_row(gen, device, b, n, d, path) -> dict:
     errs = [k2b_agrees(gen, device, b, n, d, bf16, peaked, f"{b}x{n}x{d}")
             for peaked in (False, True)]
     variant = errs[0][1]
+    old = k2.replaced_bwd_variant(n, d) if variant == "wgmma" else None
+    if old:
+        k2b_agrees(gen, device, b, n, d, bf16, True, f"{b}x{n}x{d} forced",
+                   forced=old)
     (errf, _, _), variant_f = k2b_agrees(gen, device, 8, n, d, torch.float32,
                                          False, f"8x{n}x{d}")
     q, k, v = k2_inputs(gen, b, n, d, bf16, device, False)
-    g = torch.randn(b, n, d, generator=gen).to(device, bf16)
+    g = randn(gen, b, n, d, device=device).to(bf16)
     t = time_k2b(k2, q, k, v, g, 1.0 / d)
     agree = "; ".join(f"{kind}: max_abs_err {e:.3g} = {sp:.2f} "
                       f"spacings, {sh:.2e} differ"
                       for kind, ((e, sp, sh), _) in zip(
                           ("randn", "peaked"), errs))
+    forced = f", forced {old} agrees" if old else ""
     log(f"K2b window_attention_bwd ({b}, {n}, {d}) bf16 [{variant}, {path}]:"
         f" dq, dk, dv {agree} (tol {K2_MAX_SPACINGS} spacings, "
-        f"{K2_MAX_SHARE}); f32 [{variant_f}] {errf:.3g}; "
+        f"{K2_MAX_SHARE}){forced}; f32 [{variant_f}] {errf:.3g}; "
         "deterministic; " + timing_text(t, "SDPA bwd"))
     return dict(shape=[b, n, d], path=path, variant=variant,
                 max_abs_err=max(e[0][0] for e in errs),
@@ -993,8 +1031,9 @@ def check_variant_refusal(device) -> None:
     misaligned gradient, an unknown variant; K2 and K2b
     ``tensor_core_tiled`` on float32, at D = 72 and on a misaligned
     tensor; K2 ``wgmma`` on float32, at D = 72, on a misaligned tensor,
-    at (512, 256) and (64, 384) (outside ``wgmma_takes``), and K2b
-    ``wgmma`` (K2b has no such variant); K1 and K1b ``vector`` on C = 741
+    at (512, 256) and (64, 384) (outside ``wgmma_takes``); K2b ``wgmma``
+    on float32, on a misaligned tensor, at D = 64 and (256, 192) (outside
+    ``wgmma_bwd_takes``); K1 and K1b ``vector`` on C = 741
     and on a misaligned x, K1 ``vector`` and ``strided`` with a bf16
     weight for a float32 x and ``vector`` with a float32 weight one
     element off 16 bytes, an unknown variant of each.  K1 ``vector`` takes
@@ -1031,7 +1070,10 @@ def check_variant_refusal(device) -> None:
     require(k2b(bf16, 32, tc) == 0 and k2b(torch.float32, 32, cc) == 0
             and k2b(bf16, 256, tiled) == 0 and k2(bf16, 256, tiled) == 0
             and k2(bf16, 256, wgmma) == 0 and k2(bf16, 32, wgmma, d=512) == 0
-            and k2(bf16, 512, wgmma, d=128) == 0,
+            and k2(bf16, 512, wgmma, d=128) == 0
+            and k2b(bf16, 32, wgmma, d=512) == 0
+            and k2b(bf16, 128, wgmma, d=256) == 0
+            and k2b(bf16, 512, wgmma, d=128) == 0,
             "K2 / K2b entry refused calls its variants take")
     refused = {"tensor_core on float32": k2b(torch.float32, 32, tc),
                "tensor_core at N = 256": k2b(bf16, 256, tc),
@@ -1049,7 +1091,11 @@ def check_variant_refusal(device) -> None:
                    ("misaligned", (bf16, 128, wgmma, 1)),
                    ("at (512, 256)", (bf16, 512, wgmma, 0, 256)),
                    ("at (64, 384)", (bf16, 64, wgmma, 0, 384)))},
-               "K2b wgmma": k2b(bf16, 32, wgmma)}
+               **{f"K2b wgmma {why}": k2b(*args) for why, args in (
+                   ("on float32", (torch.float32, 128, wgmma, 0, 128)),
+                   ("misaligned", (bf16, 128, wgmma, 1, 128)),
+                   ("at D = 64", (bf16, 128, wgmma, 0, 64)),
+                   ("at (256, 192)", (bf16, 256, wgmma, 0, 192)))}}
     vec, strided = k1.VARIANTS.index("vector"), k1.VARIANTS.index("strided")
 
     def k1b(c, variant, offset=0):
@@ -1213,13 +1259,13 @@ K4_SHAPES = [
 # rows (not a multiple of the 128-row tile) with H != W
 K3_EDGE = [((2, 8, 8, 970), (1024, 3, 3)), ((1, 8, 8, 18), (24, 3, 3)),
            ((1, 8, 8, 18), (24, 1, 1)), ((3, 5, 7, 40), (16, 3, 3))]
-# launches of K3 and K4, by variant, in a 2x2 chain of 375 UNet calls
-# (int8_static: 125, 5 steps)
+# launches of K3 and K4, by variant, in a 2x2 chain of 125 UNet calls
+# (5 steps, int8 and int8_static)
 # (scripts/kernel_shapes.py --quant: every K3 shape takes wgmma; K4 is one
 # launch a quantize, the dynamic abs-max included)
 QUANT_LAUNCHES = {
-    "int8": {"quant_conv": {"wgmma": 75 * 375, "mma_sync": 0},
-             "quantize": {"dynamic": 117 * 375, "static": 0}},
+    "int8": {"quant_conv": {"wgmma": 75 * 125, "mma_sync": 0},
+             "quantize": {"dynamic": 117 * 125, "static": 0}},
     "int8_static": {"quant_conv": {"wgmma": 75 * 125, "mma_sync": 0},
                     "quantize": {"dynamic": 0, "static": 117 * 125}}}
 # tests/test_quant.py's chain gates (mean |d|, correlation, mean shift,
@@ -1245,10 +1291,10 @@ def k3_inputs(g, x_shape, w_shape, device, align=None):
     b, h, w, ci = x_shape
     co, kh, kw = w_shape
     cip = qk.round_up(ci, align or qk.conv_align(ci))
-    xq = torch.randint(-127, 128, (b, h, w, cip), generator=g,
-                       dtype=torch.int8)
-    wq = torch.randint(-127, 128, (co, kh, kw, cip), generator=g,
-                       dtype=torch.int8)
+    xq, wq = (torch.randint(-127, 128, shape, dtype=torch.int8,
+                            device=device,
+                            generator=card_generator(g, device))
+              for shape in ((b, h, w, cip), (co, kh, kw, cip)))
     xq[..., ci:] = 0
     wq[..., ci:] = 0
     scale = torch.rand(co, generator=g) * 1e-4 + 1e-6
@@ -1423,7 +1469,7 @@ def k4_row(g, device, r: int, c: int, m: int, path: str = "int8") -> dict:
     import torch
 
     from tera_mind_tpu_torch.ops import quant_kernel as qk
-    x = torch.randn(r, c, generator=g).to(device, torch.bfloat16)
+    x = randn(g, r, c, device=device).to(torch.bfloat16)
     a_scale = (x.float().abs().amax() / 100).reshape(())
     seen, errs = zip(*[k4_agrees(qk, x, a, m, f"({r}, {c}, {m})")
                        for a in (None, a_scale)])
@@ -1966,7 +2012,11 @@ def stop_card_sampler(proc: subprocess.Popen) -> str:
 
 
 GRID = 2          # 2x2 tiles of 256^2 px x 100 channels
-STEPS = 15        # DDIM steps (eta 0)
+STEPS = 15        # DDIM steps (eta 0) of a tile: every tiles/s is per
+                  # 15-step tile, whatever depth a chain runs
+MAIN_STEPS = 5    # depth of the packed and int8 chains and of phase 17's
+                  # ranks in memory: cut from 15 to keep the run well
+                  # inside its cap
 TILE_MAJOR_STEPS = 5   # the tile-major chain's depth, cut to keep the
                        # whole run near 850 s (PR 13)
 # DDIM steps of each full-width chain of phase 9: the 5D and int8_static
@@ -1974,9 +2024,11 @@ TILE_MAJOR_STEPS = 5   # the tile-major chain's depth, cut to keep the
 # tiles/s stay a 15-step equivalent; their outputs are checked by
 # require_output, and int8_static's calibration runs over its 5 steps)
 # The streamed 4x4 chain's depth, cut from 15 to 5 steps in turn to keep
-# the run well inside its cap (its tiles/s stays a 15-step equivalent)
-STREAM_STEPS = 5
-CHAIN_STEPS = {"packed": STEPS, "int8": STEPS, "int8_static": 5, "5d": 5,
+# the run well inside its cap (its tiles/s stays a 15-step equivalent),
+# then to 2, the depth of the timing run after it
+STREAM_STEPS = 2
+CHAIN_STEPS = {"packed": MAIN_STEPS, "int8": MAIN_STEPS, "int8_static": 5,
+               "5d": 5,
                "tile_major": TILE_MAJOR_STEPS, "stream": STREAM_STEPS}
 
 
@@ -1984,17 +2036,17 @@ CHAIN_STEPS = {"packed": STEPS, "int8": STEPS, "int8_static": 5, "5d": 5,
 # calls.  The packed model's 46 ResBlock and output norms are
 # GroupedRMSNorm (plain PyTorch), so K1 runs only in the 6 DiT blocks
 # (norm1, norm2, q_norm, k_norm) and the gene-gene block (q_norm, norm2).
-# Block-major 2x2: 25 z-windows x 15 steps = 375 calls (5 steps: 125);
+# Block-major 2x2: 25 z-windows x 5 steps = 125 calls;
 # tile-major 2x2 at
 # window_chunk 5: 4 tiles x 5 calls x 5 steps = 100; streamed 4x4 in 2x2
-# windows at window_chunk 5: 4 windows x 5 calls x 5 steps = 100.
+# windows at window_chunk 5: 4 windows x 5 calls x 2 steps = 40.
 CHAIN_LAUNCHES = {
-    "packed": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
-    "int8": {"rmsnorm": 26 * 375, "window_attention": 6 * 375},
+    "packed": {"rmsnorm": 26 * 125, "window_attention": 6 * 125},
+    "int8": {"rmsnorm": 26 * 125, "window_attention": 6 * 125},
     "int8_static": {"rmsnorm": 26 * 125, "window_attention": 6 * 125},
     "5d": {"rmsnorm": 83 * 125, "window_attention": 6 * 125},
     "tile_major": {"rmsnorm": 26 * 100, "window_attention": 6 * 100},
-    "stream": {"rmsnorm": 26 * 100, "window_attention": 6 * 100}}
+    "stream": {"rmsnorm": 26 * 40, "window_attention": 6 * 40}}
 STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
 
 
@@ -2307,8 +2359,8 @@ TRAIN_LOSS_ATOL = 1e-4   # the small f32 train step, card vs CPU: the loss,
 TRAIN_GRAD_TOL = 2e-3    # and each gradient leaf within this share of its
                          # max |CPU grad| (cuDNN TF32 off; conv algorithms
                          # and kernel sums reassociate, as the small chains)
-TRAIN_STEPS = 8          # full-width steps a model
-TRAIN_TIMED_FROM = 3     # samples/s and data wait over steps 3..8
+TRAIN_STEPS = 4          # full-width steps a model (cut from 8)
+TRAIN_TIMED_FROM = 3     # samples/s and data wait over steps 3..4
 
 
 def small_train_config(**kw):
@@ -2750,8 +2802,9 @@ def run_evaluate(device, outs: dict, tmp: Path, int8_stats: dict) -> dict:
 
 BASELINE_FWD_TOL = 1e-4   # small f32 forward, card vs CPU, of |CPU out| max
 BASELINES = ("patch-dm", "sinf")
-BASELINE_STEPS = 4        # each baseline's full-width fit (8 until PR 16,
-                          # cut to make room for phase 19)
+BASELINE_STEPS = 3        # each baseline's full-width fit (cut from 8 to
+                          # make room for phase 19; timed from
+                          # TRAIN_TIMED_FROM)
 
 
 def check_small_baseline(device, method: str) -> dict:
@@ -2835,11 +2888,11 @@ RANK_STREAM_STEPS = 2     # depth of the band-parallel 4x4 chain
 RANK_TIMEOUT_S = 600      # a rank process's wall clock
 RANK_GROUP_TIMEOUT_S = 300   # a wait on another rank
 # each rank's launches (scripts/kernel_shapes.py --ranks 2 [--stream
-# --steps 2]): in memory a 1x2-tile block, 45 patches a z-window, 375 UNet
-# calls + the planner's probe; streamed a 2x4-tile band, two 2x2 windows
-# of 5 z-windows a call, 2 steps
+# --steps 2]): in memory a 1x2-tile block, 45 patches a z-window, 125 UNet
+# calls (MAIN_STEPS) + the planner's probe; streamed a 2x4-tile band, two
+# 2x2 windows of 5 z-windows a call, 2 steps
 RANK_LAUNCHES = {
-    "memory": {"rmsnorm": 26 * 376, "window_attention": 6 * 376},
+    "memory": {"rmsnorm": 26 * 126, "window_attention": 6 * 126},
     "stream": {"rmsnorm": 26 * 20, "window_attention": 6 * 20}}
 
 
@@ -3119,7 +3172,7 @@ def run_ranks(device, packed_out, stream_ref, counts) -> dict:
 
         runs = {
             "memory": (2, ["--synthetic", "--hnm", str(RANK_GRID), "--wnm",
-                           str(RANK_GRID), "--tot_epoch", str(STEPS)]),
+                           str(RANK_GRID), "--tot_epoch", str(MAIN_STEPS)]),
             "stream": (2, ["--synthetic", "--stream", "--hnm",
                            str(STREAM_GRID), "--wnm", str(STREAM_GRID),
                            "--tot_epoch", str(RANK_STREAM_STEPS)])}
@@ -3137,7 +3190,7 @@ def run_ranks(device, packed_out, stream_ref, counts) -> dict:
                 counts, RANK_LAUNCHES[kind]["window_attention"] // counts[2])
             g = RANK_GRID if kind == "memory" else STREAM_GRID
             require_output(union, (g * 256, g * 256, 100))
-            steps = STEPS if kind == "memory" else RANK_STREAM_STEPS
+            steps = MAIN_STEPS if kind == "memory" else RANK_STREAM_STEPS
             for rk in ranks:
                 tiles = rk["shape"][0] * rk["shape"][1] // 256 ** 2
                 ex = rk["halo"] if kind == "memory" else rk["strips"]
@@ -3568,7 +3621,8 @@ PRESETS = {
                              "--rna_slc", "16"]}
 # presets whose K2 and K2b shapes phase 19 checks and times one by one,
 # with no full-width run: 638850 at 8 RNA slices (12 z-windows), whose
-# (B, 256, 256) take K2 / K2b tensor_core_tiled, and patch 128 at
+# (B, 256, 256) take K2 / K2b wgmma (tensor_core_tiled until PRs 19 and
+# 20), and patch 128 at
 # cli.train's default batch of 32 (K2b at (512, 128, 512); phase 19's run
 # takes batch 8 to fit the card)
 PRESET_KERNELS_ONLY = {
@@ -3578,8 +3632,9 @@ PRESET_KERNELS_ONLY = {
 PRESET_CHAIN_STEPS = 5     # the 609882 bf16 chain: cut from 15 to keep
                            # the whole smoke inside its cap
 PRESET_INT8_STEPS = 2      # the 609882 int8 chain
-PRESET_TRAIN_STEPS = 3     # full-width training steps a preset
-PRESET_TIMED_FROM = 2      # samples/s over steps 2..3
+PRESET_TRAIN_STEPS = 2     # full-width training steps a preset (cut
+                           # from 3)
+PRESET_TIMED_FROM = 2      # samples/s over step 2
 PRESET_GEN_STEPS = 2       # cli.generate from a preset's checkpoint
 PRESET_SMALL_STEPS = 2     # the small f32 chains (DDIM steps)
 # the patch-128 training's peak device memory: 8 microbatches of 8
@@ -4247,7 +4302,8 @@ def main() -> int:
         "rmsnorm_bwd": ("rmsnorm", "tera_mind_tpu_torch/csrc/rmsnorm_bwd.cu",
                         "tera_mind_tpu/ops/rmsnorm_kernel.py:91"),
         "window_attention_bwd": (
-            "window_attention", "tera_mind_tpu_torch/csrc/attention_bwd.cu",
+            "window_attention",
+            "tera_mind_tpu_torch/csrc/attention_bwd_wgmma.cu",
             "tera_mind_tpu/ops/attention_kernel.py:81")}
     for name, (fwd, src, replaces) in bwd_sources.items():
         r = max(rows[name], key=lambda x: x["bound_ms"])  # the largest
@@ -4407,7 +4463,8 @@ def k2_host_costs(device) -> dict:
 
 def attention_only(device, smi: str) -> int:
     """``--attention``: K2 at phase 3's shapes and edge shapes, K2b at
-    phase 4's, the entry points' refusals, and K2 and K2b at phase 19's
+    phase 4's and at a data-parallel rank's (phase 18's over 2 ranks), the
+    entry points' refusals, and K2 and K2b at phase 19's
     shapes, each row also timed in the variant its shape took before
     (``FORCED_TIMINGS``: ``wgmma`` rows beside the forced ``tensor_core``
     or ``tensor_core_tiled``, ``tensor_core_tiled`` rows beside
@@ -4428,6 +4485,9 @@ def attention_only(device, smi: str) -> int:
     gen = torch.Generator(device="cpu").manual_seed(2)
     rows["window_attention_bwd"] = [k2b_row(gen, device, b, n, d, "train")
                                     for b, n, d in TRAIN_K2_SHAPES + K2B_EDGE]
+    rows["window_attention_bwd"] += [k2b_row(gen, device, b, n, d,
+                                             "dp rank train")
+                                     for b, n, d in train_rank_shapes(2)[1]]
     check_variant_refusal(device)
     shapes = preset_kernel_shapes(kernel_shapes())
     g = torch.Generator(device="cpu").manual_seed(19)

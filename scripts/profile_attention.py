@@ -2,15 +2,18 @@
 
     python scripts/profile_attention.py [--shapes B,N,D ...]
 
-Needs one CUDA card.  For each (B, N, D) in bf16 (default: the shapes of
-the presets that take ``tensor_core_tiled``), runs ``attention_cuda`` and
-``attention_bwd_cuda`` (the shape rule's variants) ``REPS`` times under
-``torch.profiler`` and prints each CUDA kernel's mean device
-time per call: K2's one kernel, K2b's dq pass and dk/dv pass apart, after
-``ptxas``'s registers and spills of the attention kernels.  The
-inputs are randn; timings are warm (the same tensors each call, so K and
-V of a call may sit in the L2).  Prints the card's name and power limit
-first.
+Needs one CUDA card.  For each (B, N, D) in bf16 (default: the presets'
+shapes with N > 128 or D = 512, the main training shape and the edge
+(2, 512, 512)), runs ``attention_cuda`` and ``attention_bwd_cuda`` (the
+shape rule's variants) ``REPS`` times under ``torch.profiler`` and
+prints each CUDA kernel's mean device time per call: K2's one kernel,
+K2b's passes apart (``wgmma``: one fused kernel at N <= 128, its dq
+kernel and its dk/dv kernel at N > 128 with D <= 256, else the blocks'
+statistics, the blocks' tiles and the sum of their partials; the
+``mma.sync`` variants' dq and dk/dv passes), after ``ptxas``'s registers
+and spills of the attention kernels.  The inputs are randn; timings are
+warm (the same tensors each call, so K and V of a call may sit in the
+L2).  Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -31,12 +34,25 @@ from tera_mind_tpu_torch.ops import attention_kernel as k2  # noqa: E402
 REPS = 20
 SHAPES = [(512, 512, 128), (612, 512, 128), (128, 512, 128),
           (100, 128, 512), (128, 128, 512), (512, 128, 512),
-          (256, 256, 256), (512, 256, 256), (128, 256, 256)]
+          (256, 256, 256), (512, 256, 256), (128, 256, 256),
+          (512, 128, 256), (2, 512, 512)]
+
+
+FUSED_MODES = {"0": "fused", "1": "block statistics", "2": "block tiles"}
 
 
 def short(name: str) -> str:
-    """A kernel's name without its namespace and argument list."""
-    for key in ("attention_wgmma_kernel", "attention_bwd_tiled_dkdv",
+    """A kernel's name without its namespace and argument list (K2b
+    wgmma's fused kernel with its mode: fused, or the blocked design's
+    statistics and tiles)."""
+    if "attention_bwd_fused_kernel<" in name:
+        args = name.split("attention_bwd_fused_kernel<", 1)[1]
+        mode = args.split(">", 1)[0].split(",")[-1].strip()
+        return f"attention_bwd_fused_kernel ({FUSED_MODES.get(mode, mode)})"
+    for key in ("attention_wgmma_kernel", "attention_bwd_fused_kernel",
+                "attention_bwd_reduce_kernel",
+                "attention_bwd_dq_wgmma", "attention_bwd_dkdv_wgmma",
+                "attention_bwd_tiled_dkdv",
                 "attention_bwd_tiled_dq",
                 "attention_kernel_tiled", "attention_bwd_tc_dkdv",
                 "attention_bwd_tc_dq", "attention_kernel_tc",
@@ -65,7 +81,7 @@ def kernel_ms(fn, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shapes", nargs="*", default=None,
-                    help="B,N,D triples (default: the tiled preset shapes)")
+                    help="B,N,D triples (default: SHAPES)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_attention: no CUDA device", file=sys.stderr)

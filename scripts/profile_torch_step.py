@@ -3,7 +3,8 @@ one CUDA card.
 
     python scripts/profile_torch_step.py [--no_packed]
         [--path block_major|tile_major|stream] [--json PATH]
-    python scripts/profile_torch_step.py --path train [--packed] [--json PATH]
+    python scripts/profile_torch_step.py --path train [--packed]
+        [--train_args "--mouse 609889 --patch 32 ..."] [--json PATH]
     python scripts/profile_torch_step.py --quant int8|int8_static [--json PATH]
 
 Builds the ``cli.generate`` path (638850 preset, bf16; the packed model,
@@ -25,7 +26,8 @@ time, which on one stream is 1 - summed kernel time / wall time.
 ``--path train`` is one step of ``cli.train``'s builder on the 638850
 preset (``--synthetic --batch 32``: 2 microbatches of 32 samples, bf16
 compute, f32 params, dropout 0.1; the 5D model, ``--packed`` the packed
-one) after a warm-up step.  ``--steps N`` first times N untraced steps
+one; ``--train_args`` adds ``cli.train`` flags, such as another preset's)
+after a warm-up step.  ``--steps N`` first times N untraced steps
 after the warm-up, each ending in ``torch.cuda.synchronize``, and prints
 them and their median.  Every line names the card and its power limit.
 ``--json PATH`` also writes the per-kernel table there.  ``--quant
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shlex
 import statistics
 import subprocess
 import sys
@@ -68,6 +71,10 @@ CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("K1b rmsnorm_bwd vector", ("rmsnorm_bwd_vec",)),
     ("K1b rmsnorm_bwd dw sum", ("rmsnorm_bwd_dw",)),
     ("K1b rmsnorm_bwd strided", ("rmsnorm_bwd_",)),
+    ("K2b attention_bwd wgmma", ("attention_bwd_fused",
+                                 "attention_bwd_dq_wgmma",
+                                 "attention_bwd_dkdv_wgmma",
+                                 "attention_bwd_reduce")),
     ("K2b attention_bwd tensor_core_tiled", ("attention_bwd_tiled",)),
     ("K2b attention_bwd tensor_core", ("attention_bwd_tc",)),
     ("K2b attention_bwd cuda_core", ("attention_bwd_",)),
@@ -123,10 +130,11 @@ def busy_us(intervals) -> float:
     return total
 
 
-def make_train_step(packed: bool, logdir: str):
-    """(one training step of cli.train's builder as a callable, device)."""
+def make_train_step(packed: bool, logdir: str, extra: list = ()):
+    """(one training step of cli.train's builder as a callable, device);
+    ``extra``: more cli.train flags."""
     args = train_cli.parse_args(["--synthetic", "--batch", "32"]
-                                + ["--packed"] * packed)
+                                + ["--packed"] * packed + list(extra))
     conf, ds, trainer, _ = train_cli.build(args)
     conf.base_dir = logdir
     state = trainer.init_state()
@@ -175,6 +183,9 @@ def main() -> None:
     ap.add_argument("--quant", default="", choices=("", "int8",
                                                    "int8_static"),
                     help="generation with cli.generate --quant")
+    ap.add_argument("--train_args", default="",
+                    help="with --path train: more cli.train flags, one "
+                    "string (--train_args=\"--mouse 609889 ...\")")
     ap.add_argument("--steps", type=int, default=0,
                     help="untraced steps to time before the traced one")
     ap.add_argument("--json", type=Path, default=None)
@@ -188,7 +199,9 @@ def main() -> None:
 
     trace_ranges()
     tmp = tempfile.TemporaryDirectory()
-    step, dev = (make_train_step(a.packed, tmp.name) if a.path == "train"
+    step, dev = (make_train_step(a.packed, tmp.name,
+                                 shlex.split(a.train_args))
+                 if a.path == "train"
                  else make_step(a.path, a.no_packed, a.quant))
     step()                                         # warm-up
     torch.cuda.synchronize(dev)

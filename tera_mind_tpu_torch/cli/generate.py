@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import math
 import time
 from pathlib import Path
 from typing import Callable, Optional, Sequence
@@ -142,10 +143,22 @@ def synthetic_gene_grid(rows, cols, gsz, z_pad, gdim, seed=0,
     block-major bin assembly relies on)."""
     nb = gsz - overlap_bins          # bins owned per tile side
     hb = overlap_bins // 2
-    rng = np.random.default_rng(seed)
     fshape = (rows * nb + 2 * hb, cols * nb + 2 * hb, z_pad, gdim)
-    field = ((rng.random(fshape) < 0.01) *
-             rng.integers(1, 5, fshape)).astype(np.uint8)
+    n = math.prod(fshape)
+    # JAX's field, ``(rng.random(fshape) < 0.01) * rng.integers(1, 5,
+    # fshape)`` from one generator, drawn in chunks (a 16x16-tile field of
+    # 500 genes is 1.8 G bins): the counts' generator starts where n
+    # doubles (one draw each) leave the other, and every chunk is even.
+    occupied = np.random.default_rng(seed)
+    counts = np.random.default_rng(seed)
+    counts.bit_generator.advance(n)
+    field = np.empty(n, np.uint8)
+    chunk = 1 << 22
+    for i in range(0, n, chunk):
+        m = min(chunk, n - i)
+        hit = occupied.random(m) < 0.01
+        field[i:i + m] = counts.integers(1, 5, m) * hit
+    field = field.reshape(fshape)
     return np.stack([
         np.stack([field[r * nb: r * nb + gsz, c * nb: c * nb + gsz]
                   for c in range(cols)]) for r in range(rows)])

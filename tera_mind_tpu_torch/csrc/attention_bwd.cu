@@ -102,6 +102,16 @@
 //     (kv_tiled_layout): 156,416 bytes at D = 256 (qt 32, two stages).
 //   Each dq, dk, dv row is summed inside one block in a fixed order.
 //
+// wgmma (bf16; N <= 512 and D = 128, 256, 384 or 512; all seven pointers
+//   16-byte aligned): Hopper's warpgroup products fed by TMA, in
+//   csrc/attention_bwd_wgmma.cu (its header there), with the same split
+//   pairs and row sums kept inside one block (or summed in a fixed order);
+//   one fused pass at N <= 128, the dq / dk-dv passes with `stats` above
+//   at N > 128, D <= 256, 128 x 128 blocks with float32 partials in
+//   `stats` (sized by the caller) above that.  Every path shape and the
+//   edge (2, 512, 512) take it; tensor_core and tensor_core_tiled take
+//   the bf16 calls it refuses and any forced call.
+//
 // cuda_core (float32, and bf16 with D % 16 != 0 or misaligned pointers),
 //   f32 fmaf chains on CUDA cores:
 // attention_bwd_dq_kernel, one block per batch index and kQT query rows:
@@ -120,11 +130,13 @@
 
 #include <math.h>
 
+#include "attention_bwd_wgmma.cuh"
 #include "attention_tiled.cuh"
 
 namespace {
 
-enum : int { kCudaCore = 0, kTensorCore = 1, kTensorCoreTiled = 2 };
+enum : int { kCudaCore = 0, kTensorCore = 1, kTensorCoreTiled = 2,
+             kWgmma = 3 };
 // (ops/attention_kernel.py VARIANTS)
 
 constexpr int kMaxN = 512;
@@ -1320,10 +1332,13 @@ int launch_tiled(const void* q, const void* k, const void* v, const void* g,
 
 // q, k, v, g, dq, dk, dv: device pointers to contiguous (b, n, d) arrays of
 // one dtype; stats: float32 scratch of b x n x 3 (row max, row sum, D)
-// that the dq pass writes and the dk/dv pass reads; variant: 0 cuda_core,
-// 1 tensor_core, 2 tensor_core_tiled (the last two bf16 only, within the
-// limits in the header of this file).  A variant that cannot take the call is an error, never a
-// fallback.  Returns cudaGetLastError() after the launches (0 = launched).
+// that the dq pass writes and the dk/dv pass reads (wgmma:
+// wgb::scratch_floats(b, n, d), more at N > 128 with D > 256); variant:
+// 0 cuda_core,
+// 1 tensor_core, 2 tensor_core_tiled, 3 wgmma (the last three bf16 only,
+// within the limits in the header of this file).  A variant that cannot
+// take the call is an error, never a fallback.  Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int tmt_window_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* g,
                                         void* dq, void* dk, void* dv,
@@ -1334,13 +1349,18 @@ extern "C" int tmt_window_attention_bwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto st = static_cast<float*>(stats);
-  if (variant == kTensorCore || variant == kTensorCoreTiled) {
+  if (variant == kTensorCore || variant == kTensorCoreTiled ||
+      variant == kWgmma) {
     const bool takes = variant == kTensorCore ? tc_takes(n, d)
+                       : variant == kWgmma    ? wgb::takes(n, d)
                                               : tiled_takes(n, d);
     if (dtype != kBFloat16 || !takes || !aligned16(q) || !aligned16(k) ||
         !aligned16(v) || !aligned16(g) || !aligned16(dq) || !aligned16(dk) ||
         !aligned16(dv))
       return (int)cudaErrorInvalidValue;
+    if (variant == kWgmma)
+      return attention_bwd_wgmma(q, k, v, g, dq, dk, dv, st, b, n, d, scale,
+                                 s);
     return variant == kTensorCore
                ? launch_tensor_core(q, k, v, g, dq, dk, dv, st, b, n, d,
                                     scale, s)

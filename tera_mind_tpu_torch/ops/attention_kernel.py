@@ -47,19 +47,33 @@ that also writes each row's softmax statistics, then a dk/dv pass over
 key tiles, each dq, dk and dv row summed inside one block
 (deterministic).  ``attention_bwd_variant`` picks its variant:
 
+- ``wgmma`` (``csrc/attention_bwd_wgmma.cu``, ``sm_90a``): bf16 with N
+  <= 512 and D = 128, 256, 384 or 512, the seven tensors 16-byte
+  aligned: every path shape and the edge (2, 512, 512).  Hopper's own instructions:
+  a producer warp keeps TMA loads in flight under mbarriers, two consumer
+  warpgroups run ``wgmma``, persistent blocks walk the batch indices.  At
+  N <= 128 one fused pass: s and dp in registers, p and ds to shared
+  memory as split pairs, then dq = ds k, dv = p^T g and dk = ds^T q from
+  shared memory (no statistics); at N > 128 with D <= 256 a dq kernel
+  (two sweeps over K and V: the rows' statistics, then dq) and a dk/dv
+  kernel; at N > 128 with D > 256 the fused steps on 128 x 128 blocks
+  with float32 partials, summed in block order by a last launch.
+  ``wgmma_bwd_layout`` mirrors its plan.
 - ``tensor_core``: bf16 with D % 16 == 0, N <= 128, q, k, v, g and the
   three gradients 16-byte aligned, and both passes' shared memory
   (``bwd_tc_smem_bytes``) within 227 KB.  q k^T and g v^T by ``mma.sync``
   on the bf16 inputs; every product with p or ds as two ``mma.sync`` on
   the split pair hi = bf16(x), lo = bf16(x - hi) into one f32
   accumulator, which keeps the f32 rule's rounding (a single bf16 operand
-  changes 37-44 % of the outputs).  The three training shapes take it.
+  changes 37-44 % of the outputs).  The training shapes took it until
+  ``wgmma``; it stays reachable by a forced ``variant=`` and takes the
+  bf16 calls ``wgmma`` refuses where it fits.
 - ``tensor_core_tiled``: every other bf16 call with D % 16 == 0, N <= 512,
   D <= 512 and the seven tensors aligned (``bwd_tiled_smem_bytes`` always
-  fits).  The same passes, statistics and split pairs, with q, k, v, g
-  streamed in row tiles: the dq pass holds 64 or 32 query rows' f32
-  logits and dp = g v^T in shared memory, the dk/dv pass a tile of key
-  rows and the query tiles of q and g in turn.
+  fits), such as N > 128 at D = 64.  The same passes, statistics and
+  split pairs, with q, k, v, g streamed in row tiles: the dq pass holds 64
+  or 32 query rows' f32 logits and dp = g v^T in shared memory, the dk/dv
+  pass a tile of key rows and the query tiles of q and g in turn.
 - ``cuda_core``: float32, and bf16 with D not a multiple of 16 or
   misaligned tensors; f32 ``fmaf`` on CUDA cores.
 ``window_attention`` dispatches as ``rmsnorm`` does: the raw K2 launch
@@ -80,8 +94,8 @@ MAX_D = 512
 TC_MAX_N = 128
 SMEM_LIMIT = 232_448       # bytes of shared memory a block may use (H100)
 VARIANTS = ("cuda_core", "tensor_core", "tensor_core_tiled", "wgmma")
-# (csrc/attention.cu codes; K2b, csrc/attention_bwd.cu, has the first three)
-BWD_VARIANTS = VARIANTS[:3]
+# (csrc/attention.cu codes; K2b, csrc/attention_bwd.cu, has the same four)
+BWD_VARIANTS = VARIANTS
 
 TC_ROWS = 64               # csrc/attention_bwd.cu kTcRows: a K2b block's rows
 
@@ -259,6 +273,101 @@ def bwd_tiled_smem_bytes(n: int, d: int) -> tuple[int, int]:
     return dq_tiled_layout(n, d)[3], kv_tiled_layout(d)[3]
 
 
+WGB_STAGE_BYTES = 8 * 16 * (64 * 2 + 16)   # wgb::kStageBytes
+WGB_FIXED = 1024 + WGB_STAGE_BYTES + 512     # alignment, staging, barriers
+WGB_MAX_FUSED_N = 128      # wgb::kMaxFusedN
+WGB_MAX_STAGES = 16        # wgb::kMaxStages (two-pass ring slots)
+WGB_STATS_BYTES = 512 * 16   # wgb::kStatsBytes: (m, l, 1 / l, D) of N rows
+
+
+def wgmma_bwd_layout(n: int, d: int) -> dict:
+    """K2b ``wgmma``'s plan (``wgb::layout`` in
+    csrc/attention_bwd_wgmma.cuh).  ``fused`` (N <= 128): a unit is 128
+    tile rows, one batch index (``bpu`` 1, N > 64) or 64 rows of two
+    (``bpu`` 2); the split pairs of p and ds in four arrays of ``ks``
+    64-key slabs of 128 rows (``split_bytes``); a ring of ``stages`` slots
+    of two 64-column slabs of 128 rows (32 KB), up to 4.  ``blocked`` (N >
+    128 with D > 256): the fused plan at ``bpu`` 1 on units of 128 query
+    rows x 128 keys, ``tiles`` 128-row blocks of N.  Two-pass (N > 128, D
+    <= 256): q and g (dq kernel) or k and v (dk/dv kernel) of 128 rows held
+    whole (``held``), slots of ``sps`` slabs of 64 rows x 64 columns (a
+    whole 64-row tile at D = 128, else one slab), up to 16, and a batch
+    index's statistics (8 KB); 64-row ``tiles`` of N.  ``halves``:
+    128-column halves of D.  ``smem``: the dynamic shared memory with
+    1,024 bytes of alignment slack, the output staging and 512 bytes of
+    barriers."""
+    slabs = -(-d // 64)
+    halves = -(-slabs // 2)
+    if n <= WGB_MAX_FUSED_N or d > 256:
+        blocked = n > WGB_MAX_FUSED_N
+        bpu = 1 if n > 64 else 2
+        ks = 2 if bpu == 1 else 1
+        split = 4 * ks * 128 * 128
+        slot = 2 * 128 * 128
+        stages = min(4, (SMEM_LIMIT - WGB_FIXED - split) // slot)
+        return dict(fused=True, blocked=blocked, slabs=slabs, halves=halves,
+                    bpu=bpu, nk=64 * ks, ks=ks, split_bytes=split,
+                    slot=slot, stages=stages, held=0,
+                    tiles=-(-n // 128) if blocked else 1, sps=2,
+                    smem=WGB_FIXED + split + stages * slot)
+    held = 2 * slabs * 128 * 128
+    sps = 2 if slabs == 2 else 1
+    slot = sps * 64 * 128
+    stages = min(WGB_MAX_STAGES,
+                 (SMEM_LIMIT - WGB_FIXED - held - WGB_STATS_BYTES) // slot)
+    return dict(fused=False, blocked=False, slabs=slabs, halves=halves,
+                bpu=1, nk=64, ks=1, split_bytes=0, slot=slot, stages=stages,
+                held=held,
+                tiles=-(-n // 64), sps=sps,
+                smem=WGB_FIXED + held + WGB_STATS_BYTES + stages * slot)
+
+
+def wgmma_bwd_hsplit(b: int, n: int, d: int, sms: int = 132) -> int:
+    """Blocks that share a fused (or blocked) unit's 128-column halves of
+    D (``wgb::fused_hsplit``): the largest power of two dividing the
+    halves with units x it <= the card's SMs (132 on an H100), each block
+    recomputing the unit's logits; 1 for the two-pass design."""
+    lay = wgmma_bwd_layout(n, d)
+    if not lay["fused"]:
+        return 1
+    units = (b * lay["tiles"] ** 2 if lay["blocked"]
+             else b if lay["bpu"] == 1 else -(-b // 2))
+    h = 1
+    while lay["halves"] % (2 * h) == 0 and units * 2 * h <= sms:
+        h *= 2
+    return h
+
+
+def wgmma_bwd_takes(n: int, d: int) -> bool:
+    """The (N, D) of a bf16 call K2b's ``wgmma`` variant takes
+    (``wgb::takes``): N <= 512 and D = 128, 256, 384 or 512 (fused at N <=
+    128, two-pass at N > 128 with D <= 256, blocked above), with a ring of
+    at least two slots."""
+    return (1 <= n <= MAX_N and 128 <= d <= MAX_D and d % 128 == 0
+            and wgmma_bwd_layout(n, d)["stages"] >= 2)
+
+
+def wgmma_bwd_scratch_floats(b: int, n: int, d: int) -> int:
+    """Float32 scratch of a ``wgmma`` call (``wgb::scratch_floats``): the
+    (B, N, 3) statistics, or at N > 128 with D > 256 (blocked) each (batch
+    index, key block) pair's row statistics, padded to 16 bytes, and
+    three sets of float32 partials, one a 128-row block, of (B, N, D)."""
+    if not wgmma_bwd_layout(n, d)["blocked"]:
+        return b * n * 3
+    nb = -(-n // 128)
+    return -(-(b * nb * n * 3) // 4) * 4 + 3 * nb * b * n * d
+
+
+def replaced_bwd_variant(n: int, d: int) -> str:
+    """The ``mma.sync`` variant a bf16 call with aligned tensors took
+    before K2b ``wgmma`` (and takes where ``wgmma`` does not):
+    ``tensor_core`` for N <= 128 where both passes fit, else
+    ``tensor_core_tiled``."""
+    if n <= TC_MAX_N and max(bwd_tc_smem_bytes(n, d)) <= SMEM_LIMIT:
+        return "tensor_core"
+    return "tensor_core_tiled"
+
+
 def attention_bwd_variant(n: int, d: int, dtype: torch.dtype,
                           aligned: bool) -> str:
     """The K2b variant a CUDA call with these N, D, dtype and pointer
@@ -266,11 +375,9 @@ def attention_bwd_variant(n: int, d: int, dtype: torch.dtype,
     launches."""
     if not _takes_tensor_cores(n, d, dtype, aligned):
         return "cuda_core"
-    if n <= TC_MAX_N and max(bwd_tc_smem_bytes(n, d)) <= SMEM_LIMIT:
-        return "tensor_core"
-    if max(bwd_tiled_smem_bytes(n, d)) <= SMEM_LIMIT:
-        return "tensor_core_tiled"
-    return "cuda_core"
+    if wgmma_bwd_takes(n, d):
+        return "wgmma"
+    return replaced_bwd_variant(n, d)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -366,12 +473,15 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if b == 0:
         return dq, dk, dv
-    stats = torch.empty(b, n, 3, device=q.device, dtype=torch.float32)
     code = _build.dtype_code(q, "window_attention_bwd")
     variant = _forced(variant, attention_bwd_variant(
         n, d, q.dtype,
         all(t.data_ptr() % 16 == 0 for t in (q, k, v, g, dq, dk, dv))),
         "window_attention_bwd", BWD_VARIANTS)
+    # the dq pass's (B, N, 3) statistics, or wgmma's scratch
+    stats = torch.empty(
+        wgmma_bwd_scratch_floats(b, n, d) if variant == "wgmma"
+        else b * n * 3, device=q.device, dtype=torch.float32)
     err = _build.lib().tmt_window_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),

@@ -185,6 +185,14 @@ def test_config_presets_match_jax(mouse):
 def test_cli_synthetic_grid_and_args():
     np.testing.assert_array_equal(tcli.synthetic_gene_grid(2, 3, 20, 6, 5),
                                   j_synth(2, 3, 20, 6, 5))
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 20, 52, 60), (2, 3, 20, 51, 229)])
+def test_synthetic_grid_matches_jax_across_chunks(shape):
+    """The port draws the synthetic field in chunks of 2^22 bins; a field
+    of several chunks, the last one partial, is JAX's, bin for bin."""
+    np.testing.assert_array_equal(tcli.synthetic_gene_grid(*shape),
+                                  j_synth(*shape))
     args = tcli.parse_args(["--synthetic", "--hnm", "2", "--wnm", "2"])
     assert (args.device, args.window_chunk, args.tot_epoch, args.mouse) == \
         ("cuda", -1, 15, "638850")

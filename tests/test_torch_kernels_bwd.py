@@ -53,16 +53,19 @@ def _kernel_shapes():
 # ------------------------------------------------------------------ #
 # which variant each shape takes                                      #
 # ------------------------------------------------------------------ #
-K2B_WANT = {(512, 128, 256): "tensor_core", (128, 128, 256): "tensor_core",
-            (512, 32, 512): "tensor_core", (5, 100, 48): "tensor_core",
-            (3, 17, 130): "cuda_core", (2, 512, 512): "tensor_core_tiled"}
+K2B_WANT = {(512, 128, 256): "wgmma", (128, 128, 256): "wgmma",
+            (512, 32, 512): "wgmma", (5, 100, 48): "tensor_core",
+            (3, 17, 130): "cuda_core", (2, 512, 512): "wgmma",
+            (7, 100, 256): "wgmma", (3, 200, 128): "wgmma"}
 
 
 @pytest.mark.parametrize("b,n,d", cs.TRAIN_K2_SHAPES + cs.K2B_EDGE)
 def test_attention_bwd_variant_of_every_chip_smoke_shape(b, n, d):
-    """bf16 training shapes and (5, 100, 48) take the tensor cores, N =
-    512 (over 128) the tiled tensor cores; D = 130 (not a multiple of 16)
-    stays on CUDA cores, and so do float32 and misaligned tensors."""
+    """bf16 training shapes take Hopper's wgmma, and so do the ragged
+    edges (7, 100, 256) (fused) and (3, 200, 128) (two-pass) and N = D =
+    512 (blocked); (5, 100, 48) (D not a multiple of 128) the tensor cores
+    through mma.sync; D = 130 (not a multiple of 16) stays on CUDA cores,
+    and so do float32 and misaligned tensors."""
     assert set(K2B_WANT) == set(cs.TRAIN_K2_SHAPES + cs.K2B_EDGE)
     assert k2.attention_bwd_variant(n, d, BF16, True) == K2B_WANT[(b, n, d)]
     assert k2.attention_bwd_variant(n, d, F32, True) == "cuda_core"
@@ -96,9 +99,8 @@ def test_chip_smoke_requires_the_training_counts_by_variant(packed, path):
     assert sum(by["rmsnorm_bwd"].values()) == \
         cs.TRAIN_LAUNCHES[path]["rmsnorm"]
     assert by["window_attention_bwd"] == {
-        "cuda_core": 0,
-        "tensor_core": cs.TRAIN_LAUNCHES[path]["window_attention"],
-        "tensor_core_tiled": 0}
+        "cuda_core": 0, "tensor_core": 0, "tensor_core_tiled": 0,
+        "wgmma": cs.TRAIN_LAUNCHES[path]["window_attention"]}
 
 
 @pytest.mark.parametrize("method", ["patch-dm", "sinf"])
@@ -138,12 +140,11 @@ def test_tensor_core_bwd_smem_matches_the_kernels_layout():
         2 * (2 * 64 * 56 + 2 * 112 * 56 + 2 * 64 * 120) + 4 * 6 * 64,
         2 * (2 * 112 * 56 + 4 * 64 * 120) + 4 * 3 * 112)
     # D = 512 at N = 128: k and v alone fill 266 KB; the tiled variant
-    # takes it
+    # took it, and takes it when forced (wgmma takes it by the rule)
     assert min(k2.bwd_tc_smem_bytes(128, 512)) > k2.SMEM_LIMIT
-    assert k2.attention_bwd_variant(128, 512, BF16, True) == \
-        "tensor_core_tiled"
-    assert k2.attention_bwd_variant(64, 512, BF16, True) == \
-        "tensor_core_tiled"
+    assert k2.replaced_bwd_variant(128, 512) == "tensor_core_tiled"
+    assert k2.replaced_bwd_variant(64, 512) == "tensor_core_tiled"
+    assert k2.attention_bwd_variant(128, 512, BF16, True) == "wgmma"
     assert k2.attention_bwd_variant(16, 16, BF16, True) == "tensor_core"
 
 
@@ -192,12 +193,13 @@ def test_bwd_entry_points_take_the_variant():
     norm = (_build.CSRC / "rmsnorm_bwd.cu").read_text()
     assert "float scale, int dtype, int variant," in attn
     assert ("enum : int { kCudaCore = 0, kTensorCore = 1, kTensorCoreTiled"
-            " = 2 };") in attn
+            " = 2,\n             kWgmma = 3 };") in attn
     assert "int dtype, int variant, void* stream)" in norm
     assert "enum : int { kStrided = 0, kVector = 1 };" in norm
     assert k2.VARIANTS == ("cuda_core", "tensor_core", "tensor_core_tiled",
                            "wgmma")
-    assert k2.BWD_VARIANTS == k2.VARIANTS[:3]   # K2b has no wgmma variant
+    assert k2.BWD_VARIANTS == k2.VARIANTS   # K2b's wgmma at K2's code 3
+    assert "if (variant == kWgmma)\n      return attention_bwd_wgmma(" in attn
     assert k1.VARIANTS == ("strided", "vector")
     assert len(_build.SIGNATURES["tmt_window_attention_bwd"]) == 15
     assert len(_build.SIGNATURES["tmt_rmsnorm_bwd"]) == 13
@@ -520,8 +522,9 @@ def test_presets_launch_no_cuda_core_attention(preset):
     """At full width, scripts/kernel_shapes.py predicts no K2 or K2b
     launch on ``cuda_core`` for any preset phase 19 runs or checks: the
     2x2 generation chain (packed and 5D) and a training step (5D and
-    packed) take the tensor cores, tiled where N > 128 or D = 512 at N =
-    128."""
+    packed) take the tensor cores, all through wgmma since K2b's wgmma
+    variant (the tiled variant, which took N > 128 or D = 512 at N = 128,
+    takes none of them)."""
     ks = _kernel_shapes()
     flags = cs.PRESETS.get(preset) or cs.PRESET_KERNELS_ONLY[preset]
     conf = cs.preset_conf(ks, flags)
@@ -530,11 +533,236 @@ def test_presets_launch_no_cuda_core_attention(preset):
     for packed in (False, True):
         conf.packed_compute = packed
         preds.append(ks.train_prediction(conf))
-    tiled = 0
+    tiled = wgmma = 0
     for pred in preds:
         for name in ("window_attention", "window_attention_bwd"):
             if name in pred:
                 by = pred[name]["by_variant"]
                 assert by["cuda_core"] == 0, (preset, name, by)
                 tiled += by["tensor_core_tiled"]
-    assert (tiled > 0) == (preset != "609882_64_500_all_4"), preset
+                wgmma += by["wgmma"]
+                assert by["wgmma"] == pred[name]["launches"], (preset, by)
+    assert tiled == 0 and wgmma > 0, preset
+
+
+# ------------------------------------------------------------------ #
+# K2b wgmma: its rule, its plan and its order of sums                 #
+# ------------------------------------------------------------------ #
+# (B, N, D) of every K2b launch on the training paths: 638850 (phase 4),
+# a data-parallel rank of 2 (phase 18), patch 128 at batch 8 and 32, 16
+# and 8 RNA slices (phase 19), with the mma.sync variant each took before
+K2B_PATH_SHAPES = {
+    (512, 128, 256): "tensor_core", (128, 128, 256): "tensor_core",
+    (512, 32, 512): "tensor_core", (256, 128, 256): "tensor_core",
+    (64, 128, 256): "tensor_core", (256, 32, 512): "tensor_core",
+    (128, 128, 512): "tensor_core_tiled", (32, 128, 512): "tensor_core_tiled",
+    (512, 128, 512): "tensor_core_tiled",
+    (512, 512, 128): "tensor_core_tiled", (128, 512, 128): "tensor_core_tiled",
+    (512, 256, 256): "tensor_core_tiled", (128, 256, 256): "tensor_core_tiled",
+    (512, 64, 512): "tensor_core_tiled"}
+
+
+def test_k2b_path_shapes_hold_the_smokes_training_shapes():
+    """The table holds chip_smoke.py's training shapes (phase 4) and a
+    data-parallel rank's (phase 18); phase 19's presets give the other
+    eight (scripts/kernel_shapes.py, held in test_torch_presets.py)."""
+    assert len(K2B_PATH_SHAPES) == 14
+    assert set(cs.TRAIN_K2_SHAPES) <= set(K2B_PATH_SHAPES)
+    assert set(cs.train_rank_shapes(2)[1]) <= set(K2B_PATH_SHAPES)
+
+
+@pytest.mark.parametrize("b,n,d", sorted(K2B_PATH_SHAPES))
+def test_wgmma_bwd_takes_every_path_shape(b, n, d):
+    """K2b's rule names wgmma for every bf16 path shape with aligned
+    tensors; its plan fits a block's shared memory with a ring deep enough
+    that a consumer can issue one tile's logits before it releases a slot
+    (the two-pass design's s and dp slabs, the fused design's two-slab
+    slots); the mma.sync variant it replaced stays reachable by a forced
+    variant; float32 and misaligned tensors stay on CUDA cores."""
+    assert k2.wgmma_bwd_takes(n, d)
+    assert k2.attention_bwd_variant(n, d, BF16, True) == "wgmma"
+    assert k2.replaced_bwd_variant(n, d) == K2B_PATH_SHAPES[(b, n, d)]
+    assert k2.attention_bwd_variant(n, d, F32, True) == "cuda_core"
+    assert k2.attention_bwd_variant(n, d, BF16, False) == "cuda_core"
+    lay = k2.wgmma_bwd_layout(n, d)
+    assert lay["smem"] <= k2.SMEM_LIMIT
+    assert lay["fused"] == (n <= 128)
+    if lay["fused"]:
+        assert lay["stages"] >= 2 and lay["bpu"] == (1 if n > 64 else 2)
+        assert lay["halves"] * 2 == lay["slabs"]     # D % 128 == 0
+    else:
+        assert lay["stages"] >= 2 * lay["slabs"] // lay["sps"]
+        assert lay["sps"] == (2 if d == 128 else 1)
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (100, 48, "tensor_core"), (128, 64, "tensor_core"),
+    (200, 64, "tensor_core_tiled"), (256, 192, "tensor_core_tiled"),
+    (17, 130, "cuda_core")])
+def test_wgmma_bwd_refuses_other_shapes(n, d, want):
+    """Shapes K2b wgmma does not take keep the variants they had: D not a
+    multiple of 128 (its 128-column halves of D whole), on mma.sync where
+    D % 16 == 0."""
+    assert not k2.wgmma_bwd_takes(n, d)
+    assert k2.attention_bwd_variant(n, d, BF16, True) == want
+
+
+def test_wgmma_bwd_layout_mirrors_the_kernels_plan():
+    """wgmma_bwd_layout and wgmma_bwd_takes against the constants and the
+    static_assert of csrc/attention_bwd_wgmma.cuh."""
+    import re
+    src = (_build.CSRC / "attention_bwd_wgmma.cuh").read_text()
+    for text in ("constexpr int kMaxStages = 16;",
+                 "constexpr int kStatsBytes = 512 * 16;",
+                 "constexpr int kMaxFusedN = 128;",
+                 "constexpr int kBarrierBytes = 512;",
+                 "constexpr int kStageRow = 64 * 2 + 16;",
+                 "stages = stages > 4 ? 4 : stages;",
+                 "const int sps = slabs == 2 ? 2 : 1;",
+                 "const int split = 4 * ks * 128 * 128;"):
+        assert text in src, text
+    assert k2.WGB_MAX_STAGES == 16 and k2.WGB_STATS_BYTES == 512 * 16
+    assert k2.WGB_FIXED == 1024 + 8 * 16 * 144 + 512
+    block = src[src.index("static_assert(takes("):]
+    block = block[:block.index(");")]
+    checks = re.findall(r"layout\((\d+), (\d+)\)\.(\w+) (==|>=) ([\d *]+)",
+                        block)
+    assert len(checks) >= 9
+    for n, d, field, op, value in checks:
+        got, want = k2.wgmma_bwd_layout(int(n), int(d))[field], eval(value)
+        assert (got == want) if op == "==" else (got >= want), (n, d, field)
+    blocked = re.findall(r"(!?)layout\((\d+), (\d+)\)\.blocked", block)
+    assert len(blocked) == 3
+    for neg, n, d in blocked:
+        assert k2.wgmma_bwd_layout(int(n), int(d))["blocked"] == (neg != "!")
+    takes = re.findall(r"(!?)takes\((\d+), (\d+)\)", block)
+    assert len(takes) == 9
+    for neg, n, d in takes:
+        assert k2.wgmma_bwd_takes(int(n), int(d)) == (neg != "!"), (n, d)
+    # the fused design's halves of D over blocks at a small B: units (a
+    # batch index each at N > 64) x hsplit within the 132 SMs
+    splits = re.findall(r"fused_hsplit\((\d+), (\d+), (\d+)\) == (\d+)",
+                        src)
+    assert len(splits) == 4
+    for units, halves, sms, want in splits:
+        d = 128 * int(halves)
+        assert k2.wgmma_bwd_hsplit(int(units), 128, d, int(sms)) == \
+            int(want), (units, halves)
+    assert [k2.wgmma_bwd_hsplit(b, n, d) for b, n, d in (
+        (32, 128, 512), (64, 128, 256), (512, 128, 256), (512, 512, 128))] \
+        == [4, 2, 1, 1]
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c): a b + c in float32 with one rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _k2b_wgmma_emulated(q, k, v, g, scale):
+    """K2b wgmma's order of sums (csrc/attention_bwd_wgmma.cu), in the
+    design ``wgmma_bwd_layout`` names: q k^T and g v^T from bf16 products
+    in 16-wide chunks of D, slab by slab; fused (N <= 128): the exact
+    softmax of each row over all its keys; two-pass: each row's max m, sum
+    l and D's sum of e dp kept over key tiles (128 keys at D = 128, else
+    64), both sums rescaled by exp(m - m_new) (fmaf) when the max grows,
+    D = that sum / l, and p recomputed as exp(s - m) / l from them (the
+    dk/dv kernel's p^T too); ds = p (dp - D); then dq = ds k over 16-key
+    chunks in key order, dv = p^T g and dk = ds^T q over 16-query chunks,
+    each chunk's hi then lo product into one float32 accumulator; each
+    output rounded once."""
+    n, d = q.shape[-2:]
+    lay = k2.wgmma_bwd_layout(n, d)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = _mma_sum((qf,), kf.transpose(-1, -2)) * scale
+    dp = _mma_sum((gf,), vf.transpose(-1, -2))
+    if lay["blocked"]:
+        return _k2b_blocked_emulated(qf, kf, gf, s, dp, scale)
+    if lay["fused"]:
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        l_ = e.sum(-1, keepdim=True)
+        p = e / l_
+        dd = (dp * p).sum(-1, keepdim=True)
+    else:
+        tile = 128 if lay["sps"] == 2 else 64
+        m = torch.full(s.shape[:-1] + (1,), -float("inf"))
+        l_ = torch.zeros_like(m)
+        es = torch.zeros_like(m)
+        for j0 in range(0, n, tile):
+            st, dt = s[..., j0:j0 + tile], dp[..., j0:j0 + tile]
+            tm = torch.maximum(m, st.amax(-1, keepdim=True))
+            e = torch.exp(st - tm)
+            f = torch.exp(m - tm)
+            l_ = _fma32(l_, f, e.sum(-1, keepdim=True))
+            es = _fma32(es, f, (e * dt).sum(-1, keepdim=True))
+            m = tm
+        dd = es / l_
+        p = torch.exp(s - m) / l_
+    ds = p * (dp - dd)
+    dq = _mma_sum(_split(ds), kf) * scale
+    dv = _mma_sum(_split(p.transpose(-1, -2)), gf)
+    dk = _mma_sum(_split(ds.transpose(-1, -2)), qf) * scale
+    return tuple(t.to(BF16) for t in (dq, dk, dv))
+
+
+def _k2b_blocked_emulated(qf, kf, gf, s, dp, scale):
+    """The blocked design's order (N > 128 with D > 256): each 128-key
+    block's row max, sum of e and sum of e dp (e = exp(s - block max));
+    those combined in block order (fmaf, rescaled to the row's max); p and
+    ds from them; each 128 x 128 block's dq, dv, dk partial over 16-wide
+    chunks of its keys or queries (hi then lo), summed over the blocks in
+    order in float32, then times scale (dq, dk) and rounded once."""
+    n = s.shape[-1]
+    blocks = [(j0, min(n, j0 + 128)) for j0 in range(0, n, 128)]
+    parts = []
+    for j0, j1 in blocks:
+        sj, dj = s[..., j0:j1], dp[..., j0:j1]
+        mj = sj.amax(-1, keepdim=True)
+        e = torch.exp(sj - mj)
+        parts.append((mj, e.sum(-1, keepdim=True),
+                      (e * dj).sum(-1, keepdim=True)))
+    m = torch.stack([pt[0] for pt in parts]).amax(0)
+    l_ = torch.zeros_like(m)
+    es = torch.zeros_like(m)
+    for mj, lj, ej in parts:
+        f = torch.exp(mj - m)
+        l_ = _fma32(lj, f, l_)
+        es = _fma32(ej, f, es)
+    dd = es / l_
+    p = torch.exp(s - m) / l_
+    ds = p * (dp - dd)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(gf)
+    for j0, j1 in blocks:      # dq: key blocks in order
+        dq = dq + _mma_sum(_split(ds[..., j0:j1]), kf[..., j0:j1, :])
+    for i0, i1 in blocks:      # dk, dv: query blocks in order
+        pt = p[..., i0:i1, :].transpose(-1, -2)
+        dst = ds[..., i0:i1, :].transpose(-1, -2)
+        dv = dv + _mma_sum(_split(pt), gf[..., i0:i1, :])
+        dk = dk + _mma_sum(_split(dst), qf[..., i0:i1, :])
+    return tuple(t.to(BF16) for t in (dq * scale, dk * scale, dv))
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("n,d", [(128, 256), (32, 512), (512, 128),
+                                 (128, 512), (256, 256), (512, 512)])
+def test_wgmma_bwd_order_mirror_keeps_the_gate(n, d, peaked):
+    """The mirror of K2b wgmma's order of sums (the fused pass at N <= 128,
+    the two passes with their rescaled statistics over key tiles at N >
+    128, the blocks' partials at the edge N = D = 512, the split pairs) at
+    each path's (N, D) and the edge passes chip_smoke.py's
+    bf16 gate (``require_k2``: 2 spacings at max |ref|, at most 1 % of
+    outputs not bit-equal) against the plain version and against the JAX
+    rule ``_bwd``, closer than the gate needs: at most 1 spacing, 0.5 % of
+    outputs not bit-equal."""
+    (q, k, v, g), plain, jax_out = _emulation(n, d, peaked)
+    assert k2.wgmma_bwd_layout(n, d)["fused"] == (n <= 128 or d > 256)
+    assert k2.wgmma_bwd_layout(n, d)["blocked"] == (n > 128 and d > 256)
+    got = _k2b_wgmma_emulated(q, k, v, g, 1.0 / d)
+    for name, out, ref, jref in zip(("dq", "dk", "dv"), got, plain, jax_out):
+        for what, want in (("plain", ref), ("jax", jref)):
+            _, spacings, share = cs.require_k2(out, want,
+                                               f"wgmma {name} {what}")
+            assert spacings <= 1.0 and share <= 5e-3, (name, what, spacings,
+                                                        share)

@@ -703,7 +703,7 @@ def test_explicit_backend_wins(tmp_path):
 def test_chip_smoke_requires_the_rank_launches_and_shapes():
     """chip_smoke.py's per-rank launch counts and the shapes it times for
     a rank are scripts/kernel_shapes.py --ranks 2's: in memory each rank's
-    1x2-tile block (5x9 patches, one z-window a call, 375 calls and the
+    1x2-tile block (5x9 patches, one z-window a call, 125 calls and the
     planner's probe), streamed each rank's 2x4-tile band (two 2x2 windows
     of 9x9 patches, 5 z-windows a call, 2 steps)."""
     import importlib.util
@@ -718,7 +718,7 @@ def test_chip_smoke_requires_the_rank_launches_and_shapes():
     stream = ks.rank_runs(2, cs.STREAM_GRID, stream=True)
     assert [r["block"] for r in mem] == [(0, 1, 2), (1, 1, 2)]
     assert [r["block"] for r in stream] == [(0, 2, 4), (2, 2, 4)]
-    for kind, runs, steps in (("memory", mem, cs.STEPS),
+    for kind, runs, steps in (("memory", mem, cs.MAIN_STEPS),
                               ("stream", stream, cs.RANK_STREAM_STEPS)):
         for run in runs:
             n1, n2, _ = ks.rank_launches(run, steps)

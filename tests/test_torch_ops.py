@@ -166,16 +166,18 @@ def test_attention_routes_other_bf16_shapes_to_cuda_cores(n, d):
 def test_attention_routes_long_or_wide_bf16_to_tiled_tensor_cores(n, d):
     """N above 128, or q, k, v over 227 KB of shared memory for the
     tensor_core variant (N = 128, D = 512 needs 390 KB), take
-    tensor_core_tiled backward in bf16, and forward where wgmma does not
-    take them (N = D = 512); wgmma takes the others forward, replacing
-    tensor_core_tiled.  The same shapes in float32, or misaligned, stay on
-    CUDA cores."""
+    tensor_core_tiled in bf16 where wgmma does not take them: forward at N
+    = D = 512, backward at D = 64 (K2b wgmma wants D % 128 == 0); wgmma
+    takes the others both ways, replacing tensor_core_tiled.
+    The same shapes in float32, or misaligned, stay on CUDA cores."""
     want = "wgmma" if k2.wgmma_takes(n, d) else "tensor_core_tiled"
     assert k2.wgmma_takes(n, d) == ((n, d) != (512, 512))
     assert k2.attention_variant(n, d, torch.bfloat16, True) == want
     assert k2.replaced_variant(n, d) == "tensor_core_tiled"
-    assert k2.attention_bwd_variant(n, d, torch.bfloat16, True) == \
-        "tensor_core_tiled"
+    assert k2.wgmma_bwd_takes(n, d) == ((n, d) != (129, 64))
+    assert k2.attention_bwd_variant(n, d, torch.bfloat16, True) == (
+        "wgmma" if k2.wgmma_bwd_takes(n, d) else "tensor_core_tiled")
+    assert k2.replaced_bwd_variant(n, d) == "tensor_core_tiled"
     for rule in (k2.attention_variant, k2.attention_bwd_variant):
         assert rule(n, d, torch.float32, True) == "cuda_core"
         assert rule(n, d, torch.bfloat16, False) == "cuda_core"
@@ -972,8 +974,8 @@ def test_chip_smoke_checks_the_int8_shapes_and_counts():
     """chip_smoke.py's K3 and K4 shapes are exactly the shapes one UNet
     call of ``cli.generate --quant int8`` gives them (scripts/kernel_shapes.py
     --quant, the same with int8_static), and its int8 chain counts are
-    those launches times the chain's calls (25 z-windows a step, 15 steps
-    for int8, 5 for int8_static): 75 K3, all in the variant k3_plan's
+    those launches times the chain's calls (25 z-windows a step, 5 steps
+    each): 75 K3, all in the variant k3_plan's
     rule picks (wgmma), 117 K4 (one launch each, dynamic or static), 42
     torch._int_mm."""
     import importlib.util
@@ -990,7 +992,7 @@ def test_chip_smoke_checks_the_int8_shapes_and_counts():
         assert {v for *_, v in k4} == {variant}
         want = cs.QUANT_LAUNCHES[quant]
         calls = 25 * cs.CHAIN_STEPS[quant]
-        assert calls == {"int8": 375, "int8_static": 125}[quant]
+        assert calls == {"int8": 125, "int8_static": 125}[quant]
         assert want["quant_conv"] == {
             v: n * calls for v, n in ks.k3_variants(k3).items()}
         assert want["quant_conv"] == {"wgmma": 75 * calls, "mma_sync": 0}

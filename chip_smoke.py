@@ -16,7 +16,12 @@ Phases, each printed on its own line with elapsed seconds:
      K1 also at the extraction's (3,664, 64) in float32; K2 takes
      ``wgmma`` at every path shape, and each row also holds the
      ``mma.sync`` variant the shape took before (forced) against the plain
-     version;
+     version; K5 (``grouped_rmsnorm``, the packed model's GroupedRMSNorm)
+     at every (rows, segments, Z) of the block-major chain
+     (``scripts/kernel_shapes.py``; bf16 bit-equal to its plain version
+     but on planes whose inv_z lies within ``K5_BOUNDARY`` of a bf16
+     rounding boundary, there K1's gate; f32 1e-5) and at ``K5_EDGE``,
+     with the C entry point's refusals;
   4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
      ``strided``, K2b ``wgmma``, ``tensor_core``, ``tensor_core_tiled``
      and ``cuda_core``) against its plain
@@ -31,7 +36,9 @@ Phases, each printed on its own line with elapsed seconds:
      forward launcher refuses a CUDA input that requires grad under grad
      mode and runs under ``torch.no_grad()``, and each dispatcher records
      its backward (one forward and one backward launch, finite
-     gradients);
+     gradients); K5b at every shape of a packed training microbatch (K5
+     forward there with the float32 5D weight) and at ``K5_EDGE``, bf16
+     and f32, both weight layouts, twice for bit-equal dx and dw;
   5. int8: K3 (``quant_conv``) in both variants (``wgmma``, the one
      every main-path shape takes, and PR 10's ``mma_sync``) bit-equal to
      its plain version in int32, bf16 and f32, with each shape's plan
@@ -203,7 +210,11 @@ and K2's host cost a call, for a call that tunes the attention kernels;
 ``--norms`` runs K1 and K1b at phase 3's, 4's and 19's shapes (K1 also
 at phase 4's strided shapes and at ``K1_F32_WEIGHT_SMALL`` with the
 float32 weight), their edge shapes and the refusals, for a call that
-tunes the norm kernels.
+tunes the norm kernels; ``--grouped`` runs K5 and K5b at phase 3's, 4's
+and 19's shapes and edges, and the autograd guard.  Every packed path's
+K5 and K5b launches (by variant) are required to be
+``scripts/kernel_shapes.py``'s: 57 a UNet call, 88 + 88 a training
+microbatch.
 """
 
 from __future__ import annotations
@@ -303,8 +314,17 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 
 def kernel_work(kernel: str, shape, itemsize: int = 2) -> tuple:
     """(bytes, operations, the peak rate of their type) of one launch of
-    K1, K1b, K2 or K2b at ``shape``: each input read once and each output
-    written once (K1b's dw and weight in float32)."""
+    K1, K1b, K2, K2b, K5 or K5b at ``shape`` (K5: (rows, segments, Z)):
+    each input read once and each output written once (K1b's and K5b's
+    dw and weight in float32)."""
+    if kernel in ("K5", "K5b"):
+        rows, segments, z = shape
+        width = z * sum(segments)
+        if kernel == "K5":
+            return (itemsize * (2 * rows * width + width), 4 * rows * width,
+                    H100_F32_FLOP_PER_S)
+        return (3 * rows * width * itemsize + 2 * 4 * width,
+                10 * rows * width, H100_F32_FLOP_PER_S)
     if kernel in ("K1", "K1b"):
         n, c = shape
         if kernel == "K1":
@@ -526,10 +546,14 @@ def time_k2(k2, q, k, v, scale, b, n, d) -> dict:
 
 
 def timing_text(t: dict, lib: str) -> str:
+    """A row's times; ``lib`` names the library call (none where
+    ``library_ms`` is None: no PyTorch call computes the function)."""
     before = (f" ({t['before']} {t['before_ms']:.4f} ms)"
               if "before_ms" in t else "")
+    lib = ("no library call" if t["library_ms"] is None
+           else f"{lib} {t['library_ms']:.4f} ms")
     return (f"kernel {t['ms']:.4f} ms{before}, plain {t['plain_ms']:.4f} ms,"
-            f" {lib} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f" {lib}, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f} % of it)")
 
 
@@ -728,26 +752,38 @@ TRAIN_K1_SHAPES = [
     (65_536, 640), (262_144, 448), (262_144, 320), (1_048_576, 128),
     (1_048_576, 224)]
 TRAIN_K2_SHAPES = [(512, 128, 256), (128, 128, 256), (512, 32, 512)]
-# K1 (and K1b) and K2 (and K2b) launches a training step
+# K1 (and K1b), K2 (and K2b) and K5 (and K5b) launches a training step
 # (the baselines: K1 in the RNA tower's gene block only, its q_norm and
-# norm2 at (29,312, 64), two a microbatch; no K2)
-TRAIN_LAUNCHES = {"5d": {"rmsnorm": 252, "window_attention": 18},
-                  "packed": {"rmsnorm": 76, "window_attention": 18},
-                  "patch-dm": {"rmsnorm": 4, "window_attention": 0},
-                  "sinf": {"rmsnorm": 4, "window_attention": 0}}
+# norm2 at (29,312, 64), two a microbatch; no K2; K5 in the packed model's
+# 28 ResBlocks and output norm only: 13 encoder and middle ResBlocks, 15
+# decoder ones and the output norm, the decoder's twice (collage and
+# original patches), 88 a microbatch)
+TRAIN_LAUNCHES = {
+    "5d": {"rmsnorm": 252, "window_attention": 18, "grouped_rmsnorm": 0},
+    "packed": {"rmsnorm": 76, "window_attention": 18,
+               "grouped_rmsnorm": 176},
+    "patch-dm": {"rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0},
+    "sinf": {"rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0}}
+# the kernels a training step counts, forward and backward
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "window_attention",
+                 "window_attention_bwd", "grouped_rmsnorm",
+                 "grouped_rmsnorm_bwd")
 # K1b and K2b launches a training step by variant (scripts/kernel_shapes.py
 # --train): the odd C of the gene concats take K1b strided
 TRAIN_BWD_VARIANTS = {
     "5d": {"rmsnorm_bwd": {"strided": 18, "vector": 234},
            "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0,
-                                    "tensor_core_tiled": 0, "wgmma": 18}},
+                                    "tensor_core_tiled": 0, "wgmma": 18},
+           "grouped_rmsnorm_bwd": {"staged": 0, "vector": 0}},
     "packed": {"rmsnorm_bwd": {"strided": 0, "vector": 76},
                "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0,
                                         "tensor_core_tiled": 0,
-                                        "wgmma": 18}},
+                                        "wgmma": 18},
+               "grouped_rmsnorm_bwd": {"staged": 26, "vector": 150}},
     **{m: {"rmsnorm_bwd": {"strided": 0, "vector": 4},
            "window_attention_bwd": {"cuda_core": 0, "tensor_core": 0,
-                                    "tensor_core_tiled": 0, "wgmma": 0}}
+                                    "tensor_core_tiled": 0, "wgmma": 0},
+           "grouped_rmsnorm_bwd": {"staged": 0, "vector": 0}}
        for m in ("patch-dm", "sinf")}}
 # edge shapes: ragged and odd C, odd row counts, C = 741 and 1,253 (K1b
 # strided), C = 8, 264 and 1,024 (vector with one 16-byte vector a row,
@@ -1024,6 +1060,330 @@ def check_backward_kernels(device) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 3 and 4, continued: K5 and K5b, the packed model's GroupedRMSNorm
+# ---------------------------------------------------------------------------
+
+# K5 in bf16 against its plain version: both round inv_z to bf16, then
+# each of the two products, so where they round inv_z alike their outputs
+# are bit-equal (within K5_MAX_ULP = 1 spacing at |ref|).  Their float32
+# sums of squares run in other orders, so where a plane's float64 inv_z
+# lies within K5_BOUNDARY (relative) of a bf16 rounding boundary the two
+# may round it one step apart (2^-8 relative), which the two rounded
+# products carry into y as up to K1_MAX_ULP spacings: those planes, a few
+# % of them, are held to K1's gate and counted.
+K5_MAX_ULP = 1.0
+K5_BOUNDARY = 1e-4
+# edge shapes (rows, segments, Z[, element offset of x]): an odd segment at
+# a misaligned start, the 229-gene segment at 1 and 2 RNA-slice planes, Z
+# = 3 (a plane group of idle warps), Z = 4 and 8 at the widest preset rows
+# (638850 at 8 RNA slices: 5,012; 609889_32_81_DAPI_16: 8,840), a row of
+# one 16-byte vector, ragged row counts; K5 with the float32 weight of
+# training and from_5d, K5b both ways
+K5_EDGE = [(129, (16, 8, 7), 2, 1), (7, (8,), 2), (333, (229,), 1),
+           (1000, (64, 32), 1), (517, (5, 3), 3), (1031, (512, 512, 229), 4),
+           (257, (512, 512, 81), 8), (4097, (512, 229), 2),
+           (65, (128, 64, 32), 2, 3)]
+
+
+def k5_shapes(train: bool = False, conf=None) -> list:
+    """The (rows, segments, Z) that the block-major chain's UNet call
+    (``train``: a packed training microbatch) gives K5, largest first
+    (``scripts/kernel_shapes.py``)."""
+    from collections import Counter
+    ks = kernel_shapes()
+    k5 = Counter()
+    if train:
+        ks.train_shapes(True, conf=conf, k5=k5)
+    else:
+        ks.per_call_shapes(conf=conf, k5=k5)
+    return sorted(k5, key=lambda s: -s[0] * s[2] * sum(s[1]))
+
+
+def k5_boundary(x, z, segs, eps=1e-6):
+    """(rows, Z * Ctot) bool: the elements of planes whose float64 inv_z
+    lies within K5_BOUNDARY of a bf16 rounding boundary."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    plane, _ = k5.element_planes(z, segs, False)
+    plane = plane.to(x.device)
+    x2 = x.reshape(-1, x.shape[-1])
+    ss = torch.zeros(x2.shape[0], z, dtype=torch.float64, device=x.device)
+    for i in range(0, x2.shape[0], 65536):   # float64 rows in chunks
+        xd = x2[i:i + 65536].double()
+        ss[i:i + 65536].index_add_(1, plane, xd * xd)
+    inv = torch.rsqrt(ss / sum(segs) + eps)
+    near = ((inv * (1 - K5_BOUNDARY)).to(torch.bfloat16)
+            != (inv * (1 + K5_BOUNDARY)).to(torch.bfloat16))
+    return near[:, plane], int(near.sum())
+
+
+def k5_agrees(x, w, z, segs, from_5d, what, want=None):
+    """K5 against its plain version: (out, ref, error, variant, planes
+    near a rounding boundary); bf16: within K5_MAX_ULP spacings at |ref|,
+    K1_MAX_ULP on the planes of :func:`k5_boundary`; float32 within 1e-5.
+    The variant the rule names (or ``want``) required."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    out, variant = variant_of(k5, k5.grouped_rmsnorm_cuda, x, w, z, segs,
+                              from_5d=from_5d)
+    ref = k5.grouped_rmsnorm_plain(x, w, z, segs, from_5d=from_5d)
+    require(bool(torch.isfinite(out.float()).all()),
+            f"K5 {what}: output not finite")
+    if want is None:
+        want = k5.grouped_variant(z, segs, x.element_size(), True)
+    require(variant == want, f"K5 {what} {x.dtype} took {variant}, not "
+            f"{want}")
+    if x.dtype != torch.bfloat16:
+        err = float((out - ref).abs().max())
+        require(err <= 1e-5, f"K5 {what} {x.dtype} ({variant}): {err}")
+        return out, ref, err, variant, 0
+    near, n_near = k5_boundary(x, z, segs)
+    r = ref.float().abs().clamp_min(2.0 ** -126)
+    sp = (out.float() - ref.float()).abs() / torch.exp2(
+        torch.floor(torch.log2(r)) - 7)
+    sp = sp.reshape(near.shape)
+    far_err = float(sp[~near].max()) if bool((~near).any()) else 0.0
+    near_err = float(sp[near].max()) if n_near else 0.0
+    require(far_err <= K5_MAX_ULP and near_err <= K1_MAX_ULP,
+            f"K5 {what} bf16 ({variant}): {far_err} spacings (tol "
+            f"{K5_MAX_ULP}), {near_err} on {n_near} planes near a rounding "
+            f"boundary (tol {K1_MAX_ULP})")
+    return out, ref, max(far_err, near_err), variant, n_near
+
+
+def k5_inputs(g, device, n, segs, z, dt, from_5d, w_dtype=None,
+              offset=0):
+    """x (n, Z * Ctot) in ``dt`` (``offset`` elements past 16 bytes) and
+    the weight of its layout in ``w_dtype`` (default x's)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    width = z * sum(segs)
+    x = randn(g, n * width + offset, device=device).to(dt)[offset:]
+    w = (1 + 0.1 * torch.randn(k5.weight_len(z, segs, from_5d),
+                               generator=g)).to(device, w_dtype or dt)
+    return x.view(n, width), w
+
+
+def time_k5(x, w, z, segs, from_5d) -> dict:
+    """Device times of K5 and its plain version, and with one segment and
+    the 5D weight (``from_5d``) of ``F.rms_norm`` over the (rows * Z,
+    Ctot) view, the same function in one PyTorch call; else no library
+    call computes it."""
+    import torch.nn.functional as F
+
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    n = x.shape[0]
+    sets = input_sets((x, w), 2 * x.numel() * x.element_size())
+    bms, by = bound(*kernel_work("K5", (n, segs, z), x.element_size()))
+    lib = None
+    if len(segs) == 1 and from_5d:
+        lib = device_ms(lambda a, b: F.rms_norm(
+            a.view(-1, segs[0]), (segs[0],), b, 1e-6),
+            [(a, b.to(a.dtype)) for a, b in sets])
+    return dict(ms=device_ms(lambda a, b: k5.grouped_rmsnorm_cuda(
+        a, b, z, segs, from_5d=from_5d), sets),
+        plain_ms=device_ms(lambda a, b: k5.grouped_rmsnorm_plain(
+            a, b, z, segs, from_5d=from_5d), sets),
+        library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def k5_row(g, device, n, segs, z, path, from_5d=False, w_dtype=None,
+           timed=True) -> dict:
+    """K5 at (n, segments, Z): bf16 against its plain version (the weight
+    in bf16 as generation passes it, or ``w_dtype``), float32 on 4,096 of
+    the rows, each by :func:`k5_agrees`; timed."""
+    import torch
+    bf16 = torch.bfloat16
+    x, w = k5_inputs(g, device, n, segs, z, bf16, from_5d, w_dtype)
+    out, ref, err_ulp, variant, n_near = k5_agrees(
+        x, w, z, segs, from_5d, f"{n}x{segs}x{z}")
+    err = float((out.float() - ref.float()).abs().max())
+    same = float((out != ref).float().mean())
+    xf = x[:4096].float()
+    _, _, errf, variant_f, _ = k5_agrees(xf, w.float(), z, segs, from_5d,
+                                         f"{n}x{segs}x{z}")
+    t = time_k5(x, w, z, segs, from_5d) if timed else {}
+    wt = "" if w.dtype == bf16 else f", weight {str(w.dtype)[6:]}"
+    lib = "; " + timing_text(t, "F.rms_norm") if t else ""
+    log(f"K5 grouped_rmsnorm ({n}, {segs}, z {z}) bf16{wt}"
+        f"{' from_5d' if from_5d else ''} [{variant}, {path}]: max_abs_err "
+        f"{err:.3g} ({err_ulp:.2f} bf16 ulp; {n_near} planes near a "
+        f"rounding boundary), {same:.2e} of outputs not bit-equal; f32 "
+        f"[{variant_f}] err {errf:.3g}" + lib)
+    return dict(shape=[n, list(segs), z], path=path, variant=variant,
+                max_abs_err=err, max_ulp=err_ulp, near_planes=n_near,
+                not_bit_equal=same, weight=str(w.dtype)[6:],
+                from_5d=from_5d, **t)
+
+
+def check_k5_edges(g, device) -> None:
+    """K5 against its plain version at ``K5_EDGE``, bf16 and float32, the
+    runtime weight and the 5D one (a float32 weight of the bf16 x), and
+    the C entry point's refusal of ``vector`` for an odd segment, a
+    misaligned x and an unknown variant."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import _build
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    seen = []
+    for n, segs, z, *off in K5_EDGE:
+        got = []
+        for dt, from_5d, w_dt in ((torch.bfloat16, False, None),
+                                  (torch.bfloat16, True, torch.float32),
+                                  (torch.float32, True, None)):
+            x, w = k5_inputs(g, device, n, segs, z, dt, from_5d, w_dt,
+                             *off)
+            want = "staged" if off else None
+            got.append(k5_agrees(x, w, z, segs, from_5d,
+                                 f"edge {n}x{segs}x{z}", want)[3])
+        seen.append(f"({n}, {segs}, z {z})"
+                    + (f" at offset {off[0]}" if off else "")
+                    + f" {'/'.join(got)}")
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    t = torch.zeros(64 * 64 + 8, device=device, dtype=torch.bfloat16)
+    vec = k5.VARIANTS.index("vector")
+    for what, segs, off, variant in (("odd segment", (16, 8, 7), 0, vec),
+                                     ("misaligned", (16, 16), 1, vec),
+                                     ("unknown variant", (16, 16), 0, 7)):
+        a = t[off:off + 64 * 2 * sum(segs)]
+        err = lib.tmt_grouped_rmsnorm(
+            a.data_ptr(), a.data_ptr(), a.data_ptr(), 64, 2, len(segs),
+            *k5._segment_args(tuple(segs)), 1e-6, 1, 1, 0, variant, stream)
+        require(err != 0, f"tmt_grouped_rmsnorm took {what}")
+    log(f"K5 edge shapes agree (bf16, bf16 with a float32 from_5d weight, "
+        f"f32): {'; '.join(seen)}; the entry point refuses vector on an odd"
+        " segment and a misaligned x, and an unknown variant")
+
+
+def check_grouped_kernels(device) -> dict:
+    """Phase 3's K5: every (rows, segments, Z) of the block-major chain,
+    bf16 with the bf16 weight, timed; the edges."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(5)
+    rows = [k5_row(g, device, n, segs, z, "block_major")
+            for n, segs, z in k5_shapes()]
+    check_k5_edges(g, device)
+    return {"grouped_rmsnorm": rows}
+
+
+def time_k5b(x, g, w, z, segs, from_5d) -> dict:
+    """Device times of K5b, its plain version and, with one segment and
+    ``from_5d``, ``F.rms_norm``'s forward and ``autograd.grad`` over the
+    (rows * Z, Ctot) view less its forward alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    n = x.shape[0]
+    sets = input_sets((x, g, w), 3 * x.numel() * x.element_size())
+    lib = None
+    if len(segs) == 1 and from_5d:
+        c = segs[0]
+        lib_sets = [(a.detach().view(-1, c).requires_grad_(),
+                     b.view(-1, c), cw.to(a.dtype).requires_grad_())
+                    for a, b, cw in sets]
+
+        def lib_fwd_bwd(a, b, cw):
+            return torch.autograd.grad(F.rms_norm(a, (c,), cw, 1e-6),
+                                       (a, cw), b)
+
+        lib = (device_ms(lib_fwd_bwd, lib_sets) - device_ms(
+            lambda a, b, cw: F.rms_norm(a, (c,), cw, 1e-6), lib_sets))
+    bms, by = bound(*kernel_work("K5b", (n, segs, z), x.element_size()))
+    return dict(ms=device_ms(lambda a, b, cw: k5.grouped_rmsnorm_bwd_cuda(
+        a, b, cw, z, segs, from_5d=from_5d), sets),
+        plain_ms=device_ms(lambda a, b, cw: k5.grouped_rmsnorm_bwd_plain(
+            a, b, cw, z, segs, from_5d=from_5d), sets),
+        library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def k5b_agrees(x, g, w, z, segs, from_5d, what, want=None):
+    """K5b against its plain version, run twice for bit-equal outputs, the
+    variant (the rule's, or ``want``) required: ((max |dx error|,
+    spacings, share), dw's error over max |ref|, variant)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    (dx, dw), variant = variant_of(k5.bwd, k5.grouped_rmsnorm_bwd_cuda, x, g,
+                                   w, z, segs, from_5d=from_5d)
+    dx2, dw2 = k5.grouped_rmsnorm_bwd_cuda(x, g, w, z, segs,
+                                           from_5d=from_5d)
+    torch.cuda.synchronize()
+    if want is None:
+        want = k5.grouped_variant(z, segs, x.element_size(), True)
+    require(variant == want,
+            f"K5b {what} {x.dtype} took {variant}, not {want}")
+    require(torch.equal(dw, dw2) and torch.equal(dx, dx2),
+            f"K5b {what} ({variant}): two runs differ")
+    rx, rw = k5.grouped_rmsnorm_bwd_plain(x, g, w, z, segs, from_5d=from_5d)
+    err = require_bwd(dx, rx, f"K5b {what} ({variant}) dx {x.dtype}")
+    dw_err = rel_err(dw, rw)
+    require(dw.dtype == torch.float32 and dw_err <= BWD_DW_TOL,
+            f"K5b {what} ({variant}) dw: {dw_err} of max |ref|")
+    return err, dw_err, variant
+
+
+def k5b_row(gen, device, n, segs, z, path, timed=True) -> dict:
+    """A packed training shape (the 5D weight, float32): K5 forward with
+    it against its plain version (bf16), then K5b bf16, and float32 on
+    4,096 of the rows, each by :func:`k5b_agrees`; K5b timed."""
+    import torch
+    bf16 = torch.bfloat16
+    x, w = k5_inputs(gen, device, n, segs, z, bf16, True, torch.float32)
+    _, _, fwd_ulp, fwd_variant, _ = k5_agrees(x, w, z, segs, True,
+                                              f"train {n}x{segs}x{z}")
+    g = randn(gen, n, x.shape[1], device=device).to(bf16)
+    (err, sp, sh), dw_err, variant = k5b_agrees(x, g, w, z, segs, True,
+                                                f"{n}x{segs}x{z}")
+    (errf, _, _), dwf, variant_f = k5b_agrees(
+        x[:4096].float(), g[:4096].float(), w, z, segs, True,
+        f"{n}x{segs}x{z}")
+    t = time_k5b(x, g, w, z, segs, True) if timed else {}
+    lib = "; " + timing_text(t, "F.rms_norm bwd") if t else ""
+    log(f"K5b grouped_rmsnorm_bwd ({n}, {segs}, z {z}) bf16 [{variant}, "
+        f"{path}]: K5 forward [{fwd_variant}] {fwd_ulp:.2f} ulp; dx "
+        f"max_abs_err {err:.3g} = {sp:.2f} spacings, {sh:.2e} differ, dw "
+        f"{dw_err:.2e} of max; f32 [{variant_f}] dx {errf:.3g}, dw "
+        f"{dwf:.2e}; deterministic" + lib)
+    return dict(shape=[n, list(segs), z], path=path, variant=variant,
+                max_abs_err=err, dw_rel_err=dw_err, **t)
+
+
+def check_grouped_bwd(device) -> dict:
+    """Phase 4's K5b: every (rows, segments, Z) of a packed training
+    microbatch (with K5 forward on the float32 5D weight), timed; the
+    edges in bf16 and float32, twice each for bit-equal results."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    rows = [k5b_row(gen, device, n, segs, z, "train")
+            for n, segs, z in k5_shapes(train=True)]
+    seen = []
+    for n, segs, z, *off in K5_EDGE:
+        got = []
+        for dt in (torch.bfloat16, torch.float32):
+            x, w = k5_inputs(gen, device, n, segs, z, dt, True,
+                             torch.float32, *off)
+            g = randn(gen, n, x.shape[1], device=device).to(dt)
+            got.append(k5b_agrees(x, g, w, z, segs, True,
+                                  f"edge {n}x{segs}x{z}",
+                                  "staged" if off else None)[2])
+            x, w = k5_inputs(gen, device, n, segs, z, dt, False,
+                             torch.float32, *off)
+            k5b_agrees(x, g, w, z, segs, False, f"edge {n}x{segs}x{z}",
+                       "staged" if off else None)
+        seen.append(f"({n}, {segs}, z {z})"
+                    + (f" at offset {off[0]}" if off else "")
+                    + f" bf16 {got[0]}, f32 {got[1]}")
+    log("K5b edge shapes agree, bf16 and f32, both weight layouts, "
+        f"deterministic: {'; '.join(seen)}")
+    return {"grouped_rmsnorm_bwd": rows}
+
+
 def check_variant_refusal(device) -> None:
     """The attention kernels' and the backward kernels' C entry points
     refuse a variant that cannot take the call (an error code, no
@@ -1151,15 +1511,17 @@ def check_variant_refusal(device) -> None:
 # ---------------------------------------------------------------------------
 
 def check_autograd_guard(device) -> None:
-    """Each raw forward launcher (``rmsnorm_cuda``, ``attention_cuda``)
-    raises before the launch on a CUDA input that requires grad while
-    grad mode is on, and runs the same call under ``torch.no_grad()``;
-    the dispatchers (``rmsnorm``, ``window_attention``) record a backward
+    """Each raw forward launcher (``rmsnorm_cuda``, ``attention_cuda``,
+    ``grouped_rmsnorm_cuda``) raises before the launch on a CUDA input
+    that requires grad while grad mode is on, and runs the same call under
+    ``torch.no_grad()``; the dispatchers (``rmsnorm``,
+    ``window_attention``, ``grouped_rmsnorm``) record a backward
     instead: one forward and one backward kernel launch, finite
     gradients, and a float32 dw for a float32 weight."""
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
 
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -1167,9 +1529,15 @@ def check_autograd_guard(device) -> None:
     w = torch.ones(96, device=device)
     q, k, v = (torch.randn(4, 32, 64, generator=g).to(device, torch.bfloat16)
                for _ in range(3))
+    xg = torch.randn(256, 2 * 101, generator=g).to(device, torch.bfloat16)
+    wg = torch.ones(101, device=device)     # the 5D float32 weight
+    grouped = {"z": 2, "segments": (64, 37), "from_5d": True}
     cases = (("rmsnorm", k1, k1.rmsnorm_cuda, k1.rmsnorm, (x, w)),
              ("window_attention", k2, k2.attention_cuda, k2.window_attention,
-              (q, k, v, 1.0 / 64)))
+              (q, k, v, 1.0 / 64)),
+             ("grouped_rmsnorm", k5,
+              lambda a, b: k5.grouped_rmsnorm_cuda(a, b, **grouped),
+              lambda a, b: k5.grouped_rmsnorm(a, b, **grouped), (xg, wg)))
     for name, mod, raw, dispatch, args in cases:
         args = [a.detach().requires_grad_(True) if torch.is_tensor(a) else a
                 for a in args]
@@ -1179,7 +1547,8 @@ def check_autograd_guard(device) -> None:
             raw(*args)
         except RuntimeError as err:
             refused = str(err)
-        require(refused is not None and "K1b and K2b" in refused,
+        require(refused is not None and ("K1b and K2b" in refused
+                                         or "K5b" in refused),
                 f"{name} ran on an input that requires grad: {refused}")
         require((mod.launches, mod.bwd.launches) == before,
                 f"{name} launched before refusing")
@@ -2032,34 +2401,49 @@ CHAIN_STEPS = {"packed": MAIN_STEPS, "int8": MAIN_STEPS, "int8_static": 5,
                "tile_major": TILE_MAJOR_STEPS, "stream": STREAM_STEPS}
 
 
-# launches per chain: K1 norms and K2 attentions per UNet call x UNet
-# calls.  The packed model's 46 ResBlock and output norms are
-# GroupedRMSNorm (plain PyTorch), so K1 runs only in the 6 DiT blocks
-# (norm1, norm2, q_norm, k_norm) and the gene-gene block (q_norm, norm2).
-# Block-major 2x2: 25 z-windows x 5 steps = 125 calls;
-# tile-major 2x2 at
-# window_chunk 5: 4 tiles x 5 calls x 5 steps = 100; streamed 4x4 in 2x2
-# windows at window_chunk 5: 4 windows x 5 calls x 2 steps = 40.
+# launches per chain: K1 norms, K2 attentions and K5 grouped norms per
+# UNet call x UNet calls.  The packed model's 57 ResBlock and output
+# norms (28 ResBlocks' in_norm and out_norm, and out_norm) are
+# GroupedRMSNorm, K5, so K1 runs only in the 6 DiT blocks (norm1, norm2,
+# q_norm, k_norm) and the gene-gene block (q_norm, norm2); the 5D model
+# has no GroupedRMSNorm.  Block-major 2x2: 25 z-windows x 5 steps = 125
+# calls; tile-major 2x2 at window_chunk 5: 4 tiles x 5 calls x 5 steps =
+# 100; streamed 4x4 in 2x2 windows at window_chunk 5: 4 windows x 5 calls
+# x 2 steps = 40.
 CHAIN_LAUNCHES = {
-    "packed": {"rmsnorm": 26 * 125, "window_attention": 6 * 125},
-    "int8": {"rmsnorm": 26 * 125, "window_attention": 6 * 125},
-    "int8_static": {"rmsnorm": 26 * 125, "window_attention": 6 * 125},
-    "5d": {"rmsnorm": 83 * 125, "window_attention": 6 * 125},
-    "tile_major": {"rmsnorm": 26 * 100, "window_attention": 6 * 100},
-    "stream": {"rmsnorm": 26 * 40, "window_attention": 6 * 40}}
+    "packed": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
+               "grouped_rmsnorm": 57 * 125},
+    "int8": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
+             "grouped_rmsnorm": 57 * 125},
+    "int8_static": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
+                    "grouped_rmsnorm": 57 * 125},
+    "5d": {"rmsnorm": 83 * 125, "window_attention": 6 * 125,
+           "grouped_rmsnorm": 0},
+    "tile_major": {"rmsnorm": 26 * 100, "window_attention": 6 * 100,
+                   "grouped_rmsnorm": 57 * 100},
+    "stream": {"rmsnorm": 26 * 40, "window_attention": 6 * 40,
+               "grouped_rmsnorm": 57 * 40}}
 STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
 
 
 def per_call_counts(model) -> tuple:
-    """(K1 norms, of them with C % 8 == 0, K2 attentions) per UNet call.
-    K1 runs in every RMSNorm itself; its GroupedRMSNorm subclass is plain
-    PyTorch."""
+    """(K1 norms, of them with C % 8 == 0, K2 attentions, K5 grouped norms
+    by variant) per UNet call of a bf16 chain.  K1 runs in every RMSNorm
+    itself; its GroupedRMSNorm subclass runs K5, each once a call (the
+    collage decoder alone)."""
     from tera_mind_tpu_torch.models.attention import CrossAttention
     from tera_mind_tpu_torch.models.nn import RMSNorm
+    from tera_mind_tpu_torch.models.unet_packed import GroupedRMSNorm
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     norms = [m.weight.numel() for m in model.modules()
              if type(m) is RMSNorm]
+    grouped = dict.fromkeys(k5.VARIANTS, 0)
+    for m in model.modules():
+        if isinstance(m, GroupedRMSNorm):
+            grouped[k5.grouped_variant(m.z, m.segments, 2, True)] += 1
     return (len(norms), sum(c % 8 == 0 for c in norms),
-            sum(isinstance(m, CrossAttention) for m in model.modules()))
+            sum(isinstance(m, CrossAttention) for m in model.modules()),
+            grouped)
 
 
 def expected_launches(counts: tuple, calls: int) -> tuple:
@@ -2069,30 +2453,37 @@ def expected_launches(counts: tuple, calls: int) -> tuple:
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
-    n_norm, n_vec, n_attn = counts
+    n_norm, n_vec, n_attn, grouped = counts
     k2_variant, = {k2.attention_variant(n, d, torch.bfloat16, True)
                    for _, n, d in K2_SHAPES}
-    return ({"rmsnorm": n_norm * calls, "window_attention": n_attn * calls},
+    return ({"rmsnorm": n_norm * calls, "window_attention": n_attn * calls,
+             "grouped_rmsnorm": sum(grouped.values()) * calls},
             {"rmsnorm": {"strided": (n_norm - n_vec) * calls,
                          "vector": n_vec * calls},
              "window_attention": {v: n_attn * calls if v == k2_variant
-                                  else 0 for v in k2.VARIANTS}})
+                                  else 0 for v in k2.VARIANTS},
+             "grouped_rmsnorm": {v: n * calls for v, n in grouped.items()}})
 
 
 def read_launches() -> tuple:
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
-    return ({"rmsnorm": k1.launches, "window_attention": k2.launches},
+    return ({"rmsnorm": k1.launches, "window_attention": k2.launches,
+             "grouped_rmsnorm": k5.launches},
             {"rmsnorm": dict(k1.launches_by_variant),
-             "window_attention": dict(k2.launches_by_variant)})
+             "window_attention": dict(k2.launches_by_variant),
+             "grouped_rmsnorm": dict(k5.launches_by_variant)})
 
 
 def reset_launches() -> None:
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import quant_kernel as qk
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     k1.reset_launches()
     k2.reset_launches()
+    k5.reset_launches()
     qk.reset_launches()
 
 
@@ -2447,14 +2838,19 @@ def check_small_train_step(device, method: str = "ours") -> dict:
 
 
 def read_train_launches() -> tuple:
-    """(launches of K1, K1b, K2, K2b; K1b's and K2b's by variant)."""
+    """(launches of K1, K1b, K2, K2b, K5, K5b; K1b's, K2b's and K5b's by
+    variant)."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     return ({"rmsnorm": k1.launches, "rmsnorm_bwd": k1.bwd.launches,
              "window_attention": k2.launches,
-             "window_attention_bwd": k2.bwd.launches},
+             "window_attention_bwd": k2.bwd.launches,
+             "grouped_rmsnorm": k5.launches,
+             "grouped_rmsnorm_bwd": k5.bwd.launches},
             {"rmsnorm_bwd": dict(k1.bwd.launches_by_variant),
-             "window_attention_bwd": dict(k2.bwd.launches_by_variant)})
+             "window_attention_bwd": dict(k2.bwd.launches_by_variant),
+             "grouped_rmsnorm_bwd": dict(k5.bwd.launches_by_variant)})
 
 
 def run_training(device, path: str, tmp: Path,
@@ -2609,7 +3005,8 @@ def run_attn(device, ckpt: Path, tmp: Path) -> dict:
     secs = time.perf_counter() - t0
     got, got_variants = read_launches()
     n_tiles = ATTN_ROI_SIDE ** 2
-    want = {"rmsnorm": n_tiles * ATTN_K1_PER_TILE, "window_attention": 0}
+    want = {"rmsnorm": n_tiles * ATTN_K1_PER_TILE, "window_attention": 0,
+            "grouped_rmsnorm": 0}
     log(f"attn [ROI 0, {n_tiles} tiles]: {secs:.2f} s = {n_tiles / secs:.3f}"
         f" tiles/s ({rec['seconds']:.2f} s in the tile loop = "
         f"{n_tiles / rec['seconds']:.3f} tiles/s; the rest builds the "
@@ -2892,8 +3289,10 @@ RANK_GROUP_TIMEOUT_S = 300   # a wait on another rank
 # calls (MAIN_STEPS) + the planner's probe; streamed a 2x4-tile band, two
 # 2x2 windows of 5 z-windows a call, 2 steps
 RANK_LAUNCHES = {
-    "memory": {"rmsnorm": 26 * 126, "window_attention": 6 * 126},
-    "stream": {"rmsnorm": 26 * 20, "window_attention": 6 * 20}}
+    "memory": {"rmsnorm": 26 * 126, "window_attention": 6 * 126,
+               "grouped_rmsnorm": 57 * 126},
+    "stream": {"rmsnorm": 26 * 20, "window_attention": 6 * 20,
+               "grouped_rmsnorm": 57 * 20}}
 
 
 def rank_count() -> tuple:
@@ -3504,8 +3903,7 @@ def run_dp(device, n: int = None) -> dict:
                  for r in range(n)]
         per_step = TRAIN_LAUNCHES["5d"]
         want_l = {k: per_step[k.removesuffix("_bwd")] * DP_STEPS
-                  for k in ("rmsnorm", "rmsnorm_bwd", "window_attention",
-                            "window_attention_bwd")}
+                  for k in TRAIN_KERNELS}
         want_v = {k: {v: c * DP_STEPS for v, c in by.items()}
                   for k, by in TRAIN_BWD_VARIANTS["5d"].items()}
 
@@ -3669,12 +4067,14 @@ def launches_now() -> dict:
     """Every kernel's launches and launches by variant since the last
     reset: {name: {"launches": n, "by_variant": {...}}}."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import quant_kernel as qk
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     out = {}
     for name, c in (("rmsnorm", k1), ("rmsnorm_bwd", k1.bwd),
                     ("window_attention", k2),
                     ("window_attention_bwd", k2.bwd),
+                    ("grouped_rmsnorm", k5), ("grouped_rmsnorm_bwd", k5.bwd),
                     ("quant_conv", qk.k3), ("quantize", qk.k4)):
         by = dict(c.launches_by_variant)
         out[name] = {"launches": sum(by.values()), "by_variant": by}
@@ -3706,7 +4106,8 @@ def require_no_cuda_core_attention(got: dict, what: str) -> None:
 def preset_kernel_shapes(ks) -> dict:
     """{kernel: [(shape, path)]} of phase 19's full-width runs that
     phases 3-5 do not check (K1 in generation with the bf16 weight, in
-    training with the float32 one), and the K2 and K2b shapes of
+    training with the float32 one; K5 and K5b each new layout of segments
+    and Z once, at its most rows), and the K2, K2b and K5 shapes of
     :data:`PRESET_KERNELS_ONLY`'s chains and training steps, from
     ``scripts/kernel_shapes.py``'s predictions, each shape once."""
     seen = {"K1": set(K1_SHAPES) | {s for k1s, _ in PATH_SHAPES.values()
@@ -3715,7 +4116,9 @@ def preset_kernel_shapes(ks) -> dict:
             "K2": set(K2_SHAPES) | {s for _, k2s in PATH_SHAPES.values()
                                     for s in k2s},
             "K2b": set(TRAIN_K2_SHAPES), "K3": set(K3_SHAPES),
-            "K4": set(K4_SHAPES)}
+            "K4": set(K4_SHAPES),
+            "K5": {s[1:] for s in k5_shapes()},
+            "K5b": {s[1:] for s in k5_shapes(train=True)}}
     out = {k: [] for k in seen}
 
     def add(kernel, pred, path):
@@ -3724,14 +4127,18 @@ def preset_kernel_shapes(ks) -> dict:
                           for x in shape)
             if kernel == "K4":
                 shape = shape[:3]
-            if shape not in seen[kernel]:
-                seen[kernel].add(shape)
+            # K5 and K5b: each new layout (segments, Z) once, at its most
+            # rows (the shapes come largest first)
+            key = shape[1:] if kernel in ("K5", "K5b") else shape
+            if key not in seen[kernel]:
+                seen[kernel].add(key)
                 out[kernel].append((shape, path))
 
     first = preset_conf(ks, PRESETS["609882_64_500_all_4"])
     chain = ks.chain_prediction(first)
     add("K1", chain["rmsnorm"], "609882 chain")
     add("K2", chain["window_attention"], "609882 chain")
+    add("K5", chain["grouped_rmsnorm"], "609882 chain")
     int8 = ks.chain_prediction(first, quant="int8")
     add("K3", int8["quant_conv"], "609882 int8")
     add("K4", int8["quantize"], "609882 int8")
@@ -3741,17 +4148,20 @@ def preset_kernel_shapes(ks) -> dict:
         train = ks.train_prediction(conf)
         for kernel, name in (("K1 train", "rmsnorm"), ("K1b", "rmsnorm_bwd"),
                              ("K2", "window_attention"),
-                             ("K2b", "window_attention_bwd")):
+                             ("K2b", "window_attention_bwd"),
+                             ("K5b", "grouped_rmsnorm_bwd")):
             add(kernel, train[name], f"{run} training")
         if gen is not None:
             for packed in (True, "--no_packed" not in gen):
                 chain = ks.chain_prediction(conf, probes=1, packed=packed)
                 add("K1", chain["rmsnorm"], f"{preset} generation")
                 add("K2", chain["window_attention"], f"{preset} generation")
+                add("K5", chain["grouped_rmsnorm"], f"{preset} generation")
     for preset, flags in PRESET_KERNELS_ONLY.items():
         conf = preset_conf(ks, flags)
-        add("K2", ks.chain_prediction(conf)["window_attention"],
-            f"{preset} chain")
+        chain = ks.chain_prediction(conf)
+        add("K2", chain["window_attention"], f"{preset} chain")
+        add("K5", chain["grouped_rmsnorm"], f"{preset} chain")
         add("K2b", ks.train_prediction(conf)["window_attention_bwd"],
             f"{preset} training")
     return out
@@ -3781,7 +4191,26 @@ def check_preset_kernels(device, ks) -> dict:
         "quant_conv": [k3_row(g, device, x, w, sms, path)
                        for (x, w), path in shapes["K3"]],
         "quantize": [k4_row(g, device, r, c, m, path)
-                     for (r, c, m), path in shapes["K4"]]}
+                     for (r, c, m), path in shapes["K4"]],
+        **preset_grouped_rows(g, device, shapes)}
+
+
+# rows of phase 19's K5 and K5b checks: their layouts are what is new (the
+# variant and the kernels' walk depend on the segments and Z alone), and a
+# grid-stride loop takes any row count
+K5_PRESET_ROWS = 8192
+
+
+def preset_grouped_rows(g, device, shapes) -> dict:
+    """K5 and K5b at each new layout of phase 19 (:func:`preset_kernel_
+    shapes`), at up to ``K5_PRESET_ROWS`` rows, checked, not timed."""
+    return {"grouped_rmsnorm": [
+        k5_row(g, device, min(n, K5_PRESET_ROWS), segs, z, path, timed=False)
+        for (n, segs, z), path in shapes["K5"]],
+        "grouped_rmsnorm_bwd": [
+        k5b_row(g, device, min(n, K5_PRESET_ROWS), segs, z, path,
+                timed=False)
+        for (n, segs, z), path in shapes["K5b"]]}
 
 
 def check_small_presets(device, ks) -> dict:
@@ -4130,6 +4559,71 @@ def quant_kernel_entries(rows: dict, chains: dict) -> list:
     return kernels
 
 
+GROUPED_SOURCES = {
+    "grouped_rmsnorm": (
+        "tera_mind_tpu_torch/csrc/grouped_rmsnorm.cu",
+        "tera_mind_tpu/models/unet_packed.py:73 (GroupedRMSNorm.__call__, "
+        "XLA's fusion of :85-108; not a Pallas kernel)"),
+    "grouped_rmsnorm_bwd": (
+        "tera_mind_tpu_torch/csrc/grouped_rmsnorm_bwd.cu",
+        "tera_mind_tpu/models/unet_packed.py:73 (jax.grad of "
+        "GroupedRMSNorm.__call__; not a Pallas kernel)")}
+
+
+def grouped_step_sums(rows: list, train: bool) -> dict:
+    """A block-major 2x2 step's (25 UNet calls) device ms of K5, or a
+    packed training step's (2 microbatches) of K5b: each shape's time
+    times its launches (``scripts/kernel_shapes.py``)."""
+    from collections import Counter
+    k5 = Counter()
+    ks = kernel_shapes()
+    if train:
+        ks.train_shapes(True, k5=k5)
+    else:
+        ks.per_call_shapes(k5=k5)
+    times = ks.TRAIN_ACCUM if train else 25
+    n = {(r, tuple(s), z): c * times for (r, s, z), c in k5.items()}
+    keyed = [(n[(r["shape"][0], tuple(r["shape"][1]), r["shape"][2])], r)
+             for r in rows if r["path"] in ("block_major", "train")]
+    out = {key: sum(c * r[key] for c, r in keyed)
+           for key in ("ms", "plain_ms", "bound_ms")}
+    out["launches"] = sum(c for c, _ in keyed)
+    return out
+
+
+def grouped_kernel_entries(rows: dict, chains: dict, train: dict) -> list:
+    """K5's and K5b's entries of the kernel line: the largest shape's
+    times, every shape's rows, a step's sums, the launches of every path
+    (K5: the chains; K5b: the packed training run's)."""
+    kernels = []
+    for name, (src, replaces) in GROUPED_SOURCES.items():
+        r = max(rows[name], key=lambda x: x["bound_ms"])   # the largest
+        bwd = name.endswith("_bwd")
+        if bwd:
+            by_path = {"train_packed": {
+                "launches": train["packed"]["launches"][name],
+                "by_variant": train["packed"]["launches_by_variant"][name]}}
+        else:
+            by_path = {path: {"launches": c["launches"][name],
+                              "by_variant": c["variants"][name]}
+                       for path, c in chains.items()}
+        main = by_path["train_packed" if bwd else "packed"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": main["launches"],
+            "launches_by_variant": main["by_variant"],
+            "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "step_ms": grouped_step_sums(rows[name], bwd),
+            "shapes": rows[name]})
+        log(f"{name} a {'packed training' if bwd else 'block-major 2x2'} "
+            f"step (ms): {kernels[-1]['step_ms']}")
+    return kernels
+
+
 def step_sums(rows: list) -> dict:
     """A 2x2 step's device ms of K3 (by variant, plain, cuDNN bf16,
     bound) or K4 (dynamic, static, bound): each shape's time times its
@@ -4190,14 +4684,18 @@ def main() -> int:
         return attention_only(device, smi)
     if sys.argv[1:] == ["--norms"]:
         return norms_only(device, smi)
+    if sys.argv[1:] == ["--grouped"]:
+        return grouped_only(device, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
-              "--ranks, --int8, --dp, --presets, --attention or --norms)",
-              file=sys.stderr, flush=True)
+              "--ranks, --int8, --dp, --presets, --attention, --norms or "
+              "--grouped)", file=sys.stderr, flush=True)
         return 2
 
     rows = check_kernels(device)
+    rows.update(check_grouped_kernels(device))
     rows.update(check_backward_kernels(device))
+    rows.update(check_grouped_bwd(device))
     check_variant_refusal(device)
     check_autograd_guard(device)
     rows.update(check_int8_kernels(device))
@@ -4328,6 +4826,7 @@ def main() -> int:
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         "shapes": rows[name]})
     kernels += quant_kernel_entries(rows, chains)
+    kernels += grouped_kernel_entries(rows, chains, train)
     preset_entries(kernels, presets)
     print(json.dumps({"kernels": kernels, "train": train,
                       "small_train": small_train, "chain_seconds":
@@ -4559,6 +5058,37 @@ def norms_only(device, smi: str) -> int:
         "rmsnorm_bwd": dict(k1.bwd.launches_by_variant)}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "only": "K1 and K1b", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def grouped_only(device, smi: str) -> int:
+    """``--grouped``: K5 and K5b at phase 3's and 4's shapes and edges
+    (timed), the autograd guard, and at phase 19's new layouts (checked),
+    for a call that tunes the grouped norm kernels; prints its JSON, the
+    card line and a result line naming the part it ran."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    rows = check_grouped_kernels(device)
+    rows.update(check_grouped_bwd(device))
+    check_autograd_guard(device)
+    presets = preset_grouped_rows(
+        torch.Generator(device="cpu").manual_seed(19), device,
+        preset_kernel_shapes(kernel_shapes()))
+    for name, more in presets.items():
+        rows[name] += more
+    steps = {name: grouped_step_sums(rows[name], name.endswith("_bwd"))
+             for name in rows}
+    log(f"K5 / K5b a step (ms): {steps}")
+    print(json.dumps({"shapes": rows, "step_ms": steps,
+                      "launches_by_variant": {
+                          "grouped_rmsnorm": dict(k5.launches_by_variant),
+                          "grouped_rmsnorm_bwd": dict(
+                              k5.bwd.launches_by_variant)}}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "only": "K5 and K5b", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

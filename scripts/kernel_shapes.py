@@ -112,9 +112,12 @@ from tera_mind_tpu_torch.config import prep_config  # noqa: E402
 from tera_mind_tpu_torch.constants import M2H  # noqa: E402
 from tera_mind_tpu_torch.models import attention as attention_mod  # noqa: E402
 from tera_mind_tpu_torch.models import nn as nn_mod  # noqa: E402
+from tera_mind_tpu_torch.models import unet_packed as packed_mod  # noqa: E402
 from tera_mind_tpu_torch.models.unet_packed import (  # noqa: E402
     make_packed_model)
 from tera_mind_tpu_torch.ops import quant_kernel as qk  # noqa: E402
+from tera_mind_tpu_torch.ops.grouped_rmsnorm_kernel import (  # noqa: E402
+    VARIANTS as K5_VARIANTS, grouped_variant)
 from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
     BWD_VARIANTS as K2B_VARIANTS, VARIANTS as K2_VARIANTS,
     attention_bwd_variant, attention_variant)
@@ -168,7 +171,13 @@ def gen_plan(conf, grid: int = 2) -> dict:
 
 
 @contextmanager
-def recording(k1: Counter, k2: Counter):
+def recording(k1: Counter, k2: Counter, k5: Counter = None):
+    """Stand-ins for K1, K2 and K5 that record their input shapes: K1
+    (rows, C), K2 (B, N, D), K5 (rows, segments, Z) into ``k5`` (or a
+    Counter of its own): every packed call must be stubbed on the meta
+    device, where the dispatcher has no path."""
+    k5 = Counter() if k5 is None else k5
+
     def rmsnorm(x, weight, eps=1e-6):
         k1[(x.numel() // x.shape[-1], x.shape[-1])] += 1
         return torch.empty_like(x)
@@ -177,12 +186,19 @@ def recording(k1: Counter, k2: Counter):
         k2[tuple(q.shape)] += 1
         return torch.empty_like(q)
 
-    saved = nn_mod.rmsnorm, attention_mod.window_attention
-    nn_mod.rmsnorm, attention_mod.window_attention = rmsnorm, window_attention
+    def grouped_rmsnorm(x, weight, z, segments, eps=1e-6, from_5d=False):
+        k5[(x.numel() // x.shape[-1], tuple(segments), z)] += 1
+        return torch.empty_like(x)
+
+    saved = (nn_mod.rmsnorm, attention_mod.window_attention,
+             packed_mod.grouped_rmsnorm)
+    (nn_mod.rmsnorm, attention_mod.window_attention,
+     packed_mod.grouped_rmsnorm) = rmsnorm, window_attention, grouped_rmsnorm
     try:
         yield
     finally:
-        nn_mod.rmsnorm, attention_mod.window_attention = saved
+        (nn_mod.rmsnorm, attention_mod.window_attention,
+         packed_mod.grouped_rmsnorm) = saved
 
 
 def patch_grid(conf, patches: int = None, grid: tuple = None) -> tuple:
@@ -199,18 +215,19 @@ def patch_grid(conf, patches: int = None, grid: tuple = None) -> tuple:
 
 
 def per_call_shapes(packed: bool = True, patches: int = None,
-                    chunk: int = 1, grid: tuple = None, conf=None
-                    ) -> tuple[Counter, Counter]:
+                    chunk: int = 1, grid: tuple = None, conf=None,
+                    k5: Counter = None) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one UNet
     call on ``chunk`` z-windows of ``patches`` patches each (a square, or
     a ``grid`` of p1 x p2 patches; default the preset's plan), for the
-    packed model or the 5D one, of ``conf``'s preset (default 638850)."""
+    packed model or the 5D one, of ``conf``'s preset (default 638850);
+    ``k5`` gets K5's (rows, segments, Z) -> launches."""
     conf = conf or preset_conf()
     p1, p2 = patch_grid(conf, patches, grid)
     patches = p1 * p2
     conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
-    with recording(k1, k2), torch.device("meta"):
+    with recording(k1, k2, k5), torch.device("meta"):
         model = make_packed_model(conf) if packed else conf.make_model()
         model = model.to(torch.bfloat16)
         p = conf.image_size
@@ -342,7 +359,8 @@ def quant_shapes(quant: str = "int8", attn: bool = True,
     prequantized int8 packed model (``cli.generate --quant``) of
     ``conf``'s preset (default 638850; the patch grid as
     :func:`per_call_shapes` takes it), as :func:`quant_recording` keys
-    them; ``k12``: two Counters that get its K1 and K2 shapes."""
+    them; ``k12``: two Counters that get its K1 and K2 shapes (and a third
+    that gets K5's)."""
     conf = conf or preset_conf()
     p1, p2 = patch_grid(conf, patches, grid)
     conf = conf.make_model_conf()
@@ -405,18 +423,19 @@ def main_quant(quant: str, attn: bool, patches: int, chunk: int,
 
 
 def train_shapes(packed: bool = False, batch: int = None,
-                 method: str = "ours", conf=None
+                 method: str = "ours", conf=None, k5: Counter = None
                  ) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one
     training forward on a microbatch of ``batch`` samples (default the
     preset's, ``conf.batch_size``; 2x2 blocks of patches, both decoders)
     of ``method``'s model on ``conf``'s preset (default 638850); K1b and
-    K2b get the same."""
+    K2b get the same, and K5b ``k5``'s K5 shapes (the packed model's
+    GroupedRMSNorm, every input of which requires grad)."""
     conf = conf or preset_conf(method=method)
     batch = batch or conf.batch_size
     conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
-    with recording(k1, k2), torch.device("meta"):
+    with recording(k1, k2, k5), torch.device("meta"):
         model = (make_packed_model(conf, torch.float32, from_5d=True)
                  if packed else conf.make_model(torch.float32)).train()
         p = conf.image_size
@@ -429,19 +448,26 @@ def train_shapes(packed: bool = False, batch: int = None,
 
 def train_bwd_variants(packed: bool = False, method: str = "ours",
                        batch: int = None, conf=None) -> dict:
-    """K1b's and K2b's launches a training step by variant: the shapes of
-    ``train_shapes`` (a microbatch of ``batch`` samples) in bf16 with
-    aligned tensors, the preset's ``accum`` microbatches."""
+    """K1b's, K2b's and K5b's launches a training step by variant: the
+    shapes of ``train_shapes`` (a microbatch of ``batch`` samples) in
+    bf16 with aligned tensors, the preset's ``accum`` microbatches."""
     conf = conf or preset_conf(method=method)
-    k1, k2 = train_shapes(packed, batch=batch, method=method, conf=conf)
+    k5 = Counter()
+    k1, k2 = train_shapes(packed, batch=batch, method=method, conf=conf,
+                          k5=k5)
     return {"rmsnorm_bwd": by_variant("K1b", k1, conf.accum_batches),
             "window_attention_bwd": by_variant("K2b", k2,
-                                               conf.accum_batches)}
+                                               conf.accum_batches),
+            "grouped_rmsnorm_bwd": by_variant("K5b", k5,
+                                              conf.accum_batches)}
 
 
 def variant(kernel: str, shape: tuple) -> str:
-    """The variant of K1, K1b, K2 or K2b that a bf16 call with aligned
-    tensors at ``shape`` launches."""
+    """The variant of K1, K1b, K2, K2b, K5 or K5b that a bf16 call with
+    aligned tensors at ``shape`` launches."""
+    if kernel in ("K5", "K5b"):
+        _, segments, z = shape
+        return grouped_variant(z, segments, BF16, True)
     if kernel in ("K1", "K1b"):
         return rmsnorm_variant(shape[-1], BF16, True)
     rule = attention_variant if kernel == "K2" else attention_bwd_variant
@@ -452,6 +478,7 @@ def by_variant(kernel: str, counts: Counter, times: int = 1) -> dict:
     """Launches by variant (every variant named) of ``counts`` (shape ->
     launches) times ``times``."""
     out = dict.fromkeys(K1_VARIANTS if kernel in ("K1", "K1b")
+                        else K5_VARIANTS if kernel in ("K5", "K5b")
                         else K2_VARIANTS if kernel == "K2"
                         else K2B_VARIANTS, 0)
     for shape, n in counts.items():
@@ -486,32 +513,37 @@ def chain_prediction(conf, quant: str = "", steps: int = STEPS,
     False the 5D one), and with ``quant`` K3 and K4, as
     :func:`prediction` gives them."""
     calls = gen_plan(conf)["calls"] * steps + probes
-    k1, k2 = Counter(), Counter()
+    k1, k2, k5 = Counter(), Counter(), Counter()
     counts = {}
     if quant:
-        k3, k4, _ = quant_shapes(quant, conf=conf, k12=(k1, k2))
+        k3, k4, _ = quant_shapes(quant, conf=conf, k12=(k1, k2, k5))
         counts = {"quant_conv": ("K3", k3), "quantize": ("K4", k4)}
     else:
-        k1, k2 = per_call_shapes(packed, conf=conf)
+        k1, k2 = per_call_shapes(packed, conf=conf, k5=k5)
     return prediction({"rmsnorm": ("K1", k1),
-                       "window_attention": ("K2", k2), **counts}, calls)
+                       "window_attention": ("K2", k2),
+                       "grouped_rmsnorm": ("K5", k5), **counts}, calls)
 
 
 def train_prediction(conf, steps: int = 1) -> dict:
     """The launches of ``steps`` training steps of ``cli.train`` on
     ``conf``'s preset (the packed model where ``conf.packed_compute``):
-    K1, K1b, K2 and K2b, as :func:`prediction` gives them."""
-    k1, k2 = train_shapes(conf.packed_compute, conf=conf)
+    K1, K1b, K2, K2b, K5 and K5b, as :func:`prediction` gives them."""
+    k5 = Counter()
+    k1, k2 = train_shapes(conf.packed_compute, conf=conf, k5=k5)
     times = conf.accum_batches * steps
     return prediction({"rmsnorm": ("K1", k1), "rmsnorm_bwd": ("K1b", k1),
                        "window_attention": ("K2", k2),
-                       "window_attention_bwd": ("K2b", k2)}, times)
+                       "window_attention_bwd": ("K2b", k2),
+                       "grouped_rmsnorm": ("K5", k5),
+                       "grouped_rmsnorm_bwd": ("K5b", k5)}, times)
 
 
 def main_train(packed: bool, method: str = "ours", conf=None) -> None:
     conf = conf or preset_conf(method=method)
     accum = conf.accum_batches
-    k1, k2 = train_shapes(packed, method=method, conf=conf)
+    k5 = Counter()
+    k1, k2 = train_shapes(packed, method=method, conf=conf, k5=k5)
     name = ("PackedTeraUNet(from_5d)" if packed else "TeraUNet (5D)") \
         if method == "ours" else f"the {method} baseline"
     print(f"{name} training on {conf.name}, {accum} microbatches of "
@@ -525,10 +557,50 @@ def main_train(packed: bool, method: str = "ours", conf=None) -> None:
                   "step")
     for name, by in train_bwd_variants(packed, method, conf=conf).items():
         print(f"{name} launches a step by variant: {by}")
+    if k5:
+        print_k5(k5, accum, accum, ("K5", "K5b"))
+        for kernel in ("K5", "K5b"):
+            print(f"{kernel} launches a step by variant: "
+                  f"{by_variant(kernel, k5, accum)}")
     step = norm_step_bytes(k1, accum) + attention_step_bytes(k2, accum)
     for kernel, nbytes in sorted(step.items()):
         print(f"{kernel}: {nbytes / 1e9:.3f} GB a step, byte bound "
               f"{nbytes / H100_BYTES_PER_S * 1e3:.4f} ms a step")
+
+
+def print_k5(k5: Counter, times: int, per_step: int,
+             kernels: tuple = ("K5",)) -> None:
+    """K5's (rows, segments, Z) with launches a call (a microbatch) and a
+    chain (a step: ``times``), variant, and bytes and byte bound a launch
+    and a step (``per_step`` calls), for each of ``kernels`` (K5, K5b)."""
+    for kernel in kernels:
+        print(f"{kernel} grouped_rmsnorm{'_bwd' if kernel == 'K5b' else ''}"
+              f" (rows, segments, Z): {sum(k5.values())} per call, "
+              f"{sum(k5.values()) * times} per chain")
+        for shape, n in sorted(k5.items(), key=lambda kv: -kv[1]):
+            nbytes = kernel_work(kernel, shape)[0]
+            print(f"  {shape} width {shape[2] * sum(shape[1])}: {n} per "
+                  f"call, {n * times} per chain; {variant(kernel, shape)};"
+                  f" {nbytes / 1e6:.2f} MB a launch, bound "
+                  f"{bound_ms(kernel, shape)[0]:.4f} ms; "
+                  f"{n * per_step * nbytes / 1e9:.3f} GB a step")
+    for name, nbytes in sorted(grouped_step_bytes(k5, per_step,
+                                                  kernels).items()):
+        print(f"{name}: {nbytes / 1e9:.3f} GB a step, byte bound "
+              f"{nbytes / H100_BYTES_PER_S * 1e3:.2f} ms a step")
+
+
+def grouped_step_bytes(k5: Counter, times: int,
+                       kernels: tuple = ("K5", "K5b")) -> Counter:
+    """{"K5 <variant>" / "K5b <variant>": bytes} that ``times`` rounds of
+    the K5 launches ``k5`` (shape -> launches) and, with K5b, their
+    backward launches move in bf16 with aligned tensors, by variant."""
+    out = Counter()
+    for shape, n in k5.items():
+        for kernel in kernels:
+            out[f"{kernel} {variant(kernel, shape)}"] += (
+                n * times * kernel_work(kernel, shape)[0])
+    return out
 
 
 def norm_step_bytes(k1: Counter, times: int) -> Counter:
@@ -710,9 +782,10 @@ def main() -> None:
     visits = args.visits * (plan["visits"] if args.patches is None else 1)
     per_step = plan["windows"] // args.chunk * visits
     calls = STEPS * per_step
+    k5 = Counter()
     k1, k2 = per_call_shapes(packed=not args.no_packed,
                              patches=args.patches, chunk=args.chunk,
-                             conf=conf)
+                             conf=conf, k5=k5)
     print(("PackedTeraUNet" if not args.no_packed else "TeraUNet (5D)")
           + f" on {conf.name}: {plan['windows']} z-windows, "
           f"{per_step} UNet calls a step")
@@ -722,10 +795,11 @@ def main() -> None:
               f"{sum(counts.values()) * calls} per chain of {calls} calls")
         for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
             print(f"  {shape}: {n} per call, {n * calls} per chain")
-    for kernel, counts in (("K1", k1), ("K2", k2)):
+    print_k5(k5, calls, per_step)
+    for kernel, counts in (("K1", k1), ("K2", k2), ("K5", k5)):
         print(f"{kernel} launches a chain by variant: "
               f"{by_variant(kernel, counts, calls)}")
-    step = Counter()
+    step = grouped_step_bytes(k5, per_step, ("K5",))
     for (rows, c), n in k1.items():
         step["K1 " + rmsnorm_variant(c, BF16, True)] += (
             n * per_step * BF16 * (2 * rows * c + c))

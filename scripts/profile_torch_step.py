@@ -17,12 +17,13 @@ step with ``torch.profiler``: it prints device time by category
 (convolution, each variant of K1 rmsnorm, of K2 window attention and of
 their backward kernels K1b (with its dw sum over the blocks) and K2b,
 matmul, elementwise/copies, other), the
-device time of the kernels launched inside ``GroupedRMSNorm`` (plain
-PyTorch, spread over the categories above; each call is wrapped in a
-``record_function`` range for the trace) and, for ``--path train``,
-inside the optimizer's update, the top kernels, and the device's idle
-share over the step: 1 - (time in which at least one kernel runs) / wall
-time, which on one stream is 1 - summed kernel time / wall time.
+device time of the kernels launched inside ``GroupedRMSNorm`` (K5, or
+in a tree without it its plain PyTorch passes spread over the categories
+above; each call is wrapped in a ``record_function`` range for the
+trace), inside its autograd Function's backward (K5b) and, for ``--path
+train``, inside the optimizer's update, the top kernels, and the device's
+idle share over the step: 1 - (time in which at least one kernel runs) /
+wall time, which on one stream is 1 - summed kernel time / wall time.
 ``--path train`` is one step of ``cli.train``'s builder on the 638850
 preset (``--synthetic --batch 32``: 2 microbatches of 32 samples, bf16
 compute, f32 params, dropout 0.1; the 5D model, ``--packed`` the packed
@@ -63,6 +64,11 @@ from tera_mind_tpu_torch.training import harness  # noqa: E402
 TILES = {"block_major": 2, "tile_major": 2, "stream": 4}  # grid side
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
+    ("K5b grouped_rmsnorm_bwd dw sum", ("grouped_bwd_dw",)),
+    ("K5b grouped_rmsnorm_bwd vector", ("grouped_bwd_vec",)),
+    ("K5b grouped_rmsnorm_bwd staged", ("grouped_bwd_staged",)),
+    ("K5 grouped_rmsnorm vector", ("grouped_vec",)),
+    ("K5 grouped_rmsnorm staged", ("grouped_staged",)),
     ("K3 quant_conv wgmma", ("quant_conv_wgmma",)),
     ("K3 quant_conv mma_sync", ("quant_conv_kernel",)),
     ("K4 quantize", ("quantize_kernel",)),
@@ -100,23 +106,31 @@ def category(name: str) -> str:
     return "other"
 
 
-RANGES = ("GroupedRMSNorm", "optimizer")   # profiler ranges reported
+# profiler ranges reported
+RANGES = ("GroupedRMSNorm", "GroupedRMSNorm backward", "optimizer")
 
 
 def trace_ranges() -> None:
-    """Wrap every GroupedRMSNorm call and every optimizer update in a
-    profiler range of that name."""
+    """Wrap every GroupedRMSNorm call, every backward of its autograd
+    Function (K5b; a tree whose GroupedRMSNorm is plain PyTorch has none)
+    and every optimizer update in a profiler range of that name."""
     from torch.profiler import record_function
 
-    def wrap(cls, attr, name):
+    def wrap(cls, attr, name, static=False):
         fn = getattr(cls, attr)
 
         def traced(*a, **kw):
             with record_function(name):
                 return fn(*a, **kw)
-        setattr(cls, attr, traced)
+        setattr(cls, attr, staticmethod(traced) if static else traced)
     wrap(unet_packed.GroupedRMSNorm, "forward", "GroupedRMSNorm")
     wrap(harness.Optimizer, "step", "optimizer")
+    try:
+        from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    except ImportError:
+        return
+    wrap(k5.GroupedRMSNormFunction, "backward", "GroupedRMSNorm backward",
+         static=True)
 
 
 def busy_us(intervals) -> float:

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.collage import to_collage
+from ..ops.grouped_rmsnorm_kernel import grouped_rmsnorm
 from ..ops.quant import QuantModule, quant_conv2d
 from ..ops.quant_kernel import conv_align, round_up
 from ..ops.zpack import (pack_channel_param, pack_conv3d_bias,
@@ -61,14 +62,10 @@ class GroupedRMSNorm(RMSNorm):
     concatenated channels at each (z, h, w).
 
     The weight is ``(Z*Ctot,)`` in the segment-major runtime layout, or
-    the 5D model's ``(Ctot,)`` with ``from_5d``.  Plain PyTorch, not K1:
-    the statistics gather strided segments.  Per segment, the sum of
-    squares per z is taken in float32 (``vector_norm`` with an f32
-    accumulator); then each segment is scaled as ``(x * inv) * w``, the
-    JAX module's and K1's two roundings, and the segments are
-    concatenated.  (Writing the segments into one preallocated output
-    through ``out=`` would save the concat's copy, but ``out=`` does not
-    take part in autograd.)"""
+    the 5D model's ``(Ctot,)`` with ``from_5d``.  Runs through
+    ``ops/grouped_rmsnorm_kernel.grouped_rmsnorm``: one launch of K5 on a
+    CUDA tensor (K5b records the backward when autograd needs one), the
+    plain multi-pass version on a CPU tensor."""
 
     def __init__(self, z: int, segments: Sequence[int], eps: float = 1e-6,
                  from_5d: bool = False):
@@ -77,30 +74,8 @@ class GroupedRMSNorm(RMSNorm):
         self.z, self.segments, self.from_5d = z, segments, from_5d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        z, segs = self.z, self.segments
-        ctot = sum(segs)
-        assert x.shape[-1] == z * ctot, (x.shape, z, segs)
-
-        def planes(t, off, cs):                     # (..., Z, cs) view
-            return t[..., off:off + z * cs].unflatten(-1, (z, cs))
-
-        sq, off = None, 0
-        for cs in segs:
-            s = torch.linalg.vector_norm(planes(x, off, cs), dim=-1,
-                                         dtype=torch.float32).square()
-            sq = s if sq is None else sq + s
-            off += z * cs
-        inv = torch.rsqrt(sq / ctot + self.eps).to(x.dtype)[..., None]
-        w = self.weight.to(x.dtype)
-        parts, off, woff = [], 0, 0
-        for cs in segs:
-            ws = w[woff:woff + cs] if self.from_5d \
-                else w[off:off + z * cs].view(z, cs)
-            parts.append(torch.mul(planes(x, off, cs), inv).mul_(ws)
-                         .flatten(-2))
-            off += z * cs
-            woff += cs
-        return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+        return grouped_rmsnorm(x, self.weight, self.z, self.segments,
+                               self.eps, self.from_5d)
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,10 @@ SIGNATURES = {
                                  _ptr],
     "tmt_quant_conv": [_ptr] * 6 + [_int] * 14 + [_ptr],
     "tmt_quantize": [_ptr] * 6 + [_int, _i64, _int, _int, _int, _int, _ptr],
+    "tmt_grouped_rmsnorm": [_ptr, _ptr, _ptr, _i64] + [_int] * 5
+    + [_f32] + [_int] * 4 + [_ptr],
+    "tmt_grouped_rmsnorm_bwd": [_ptr] * 6 + [_i64] + [_int] * 6 + [_f32]
+    + [_int] * 3 + [_ptr],
 }
 
 _lib = None

@@ -98,6 +98,8 @@ def test_chip_smoke_requires_the_training_counts_by_variant(packed, path):
     assert by == cs.TRAIN_BWD_VARIANTS[path]
     assert sum(by["rmsnorm_bwd"].values()) == \
         cs.TRAIN_LAUNCHES[path]["rmsnorm"]
+    assert sum(by["grouped_rmsnorm_bwd"].values()) == \
+        cs.TRAIN_LAUNCHES[path]["grouped_rmsnorm"]
     assert by["window_attention_bwd"] == {
         "cuda_core": 0, "tensor_core": 0, "tensor_core_tiled": 0,
         "wgmma": cs.TRAIN_LAUNCHES[path]["window_attention"]}
@@ -115,7 +117,8 @@ def test_chip_smoke_requires_the_baseline_training_counts(method):
     assert set(k1_shapes) <= set(cs.TRAIN_K1_SHAPES)
     assert cs.TRAIN_LAUNCHES[method] == {
         "rmsnorm": sum(k1_shapes.values()) * ks.TRAIN_ACCUM,
-        "window_attention": 0} == {"rmsnorm": 4, "window_attention": 0}
+        "window_attention": 0, "grouped_rmsnorm": 0} == {
+        "rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0}
     assert ks.train_bwd_variants(method=method) == \
         cs.TRAIN_BWD_VARIANTS[method]
 

@@ -705,7 +705,8 @@ def test_chip_smoke_requires_the_rank_launches_and_shapes():
     a rank are scripts/kernel_shapes.py --ranks 2's: in memory each rank's
     1x2-tile block (5x9 patches, one z-window a call, 125 calls and the
     planner's probe), streamed each rank's 2x4-tile band (two 2x2 windows
-    of 9x9 patches, 5 z-windows a call, 2 steps)."""
+    of 9x9 patches, 5 z-windows a call, 2 steps), K5 57 a UNet call
+    of either."""
     import importlib.util
 
     import chip_smoke as cs
@@ -721,9 +722,13 @@ def test_chip_smoke_requires_the_rank_launches_and_shapes():
     for kind, runs, steps in (("memory", mem, cs.MAIN_STEPS),
                               ("stream", stream, cs.RANK_STREAM_STEPS)):
         for run in runs:
-            n1, n2, _ = ks.rank_launches(run, steps)
-            assert cs.RANK_LAUNCHES[kind] == {"rmsnorm": n1,
-                                              "window_attention": n2}
+            n1, n2, calls = ks.rank_launches(run, steps)
+            k5 = ks.Counter()
+            ks.per_call_shapes(grid=run["patches"], chunk=run["chunk"],
+                               k5=k5)
+            assert cs.RANK_LAUNCHES[kind] == {
+                "rmsnorm": n1, "window_attention": n2,
+                "grouped_rmsnorm": sum(k5.values()) * calls}
     assert mem[0]["patches"] == (5, 9) and mem[0]["chunk"] == 1
     k1, k2 = ks.per_call_shapes(grid=(5, 9))
     assert set(cs.PATH_SHAPES["rank"][0]) == set(k1)

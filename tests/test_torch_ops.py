@@ -730,7 +730,9 @@ def test_chip_smoke_times_main_path_shapes():
     shape of every vector-variant instantiation (lane group G) of K1 that
     the main path launches in bf16.  The packed chain (the CLI's default)
     launches a subset of the 5D chain's shapes: its ResBlock norms are
-    GroupedRMSNorm, not K1."""
+    GroupedRMSNorm, not K1, and go through K5, 57 a call (28 ResBlocks'
+    in_norm and out_norm, and out_norm), every one of which chip_smoke.py
+    checks and times; the 5D chain launches no K5."""
     import importlib.util
 
     import chip_smoke as cs
@@ -740,8 +742,19 @@ def test_chip_smoke_times_main_path_shapes():
     spec.loader.exec_module(ks)
     k1_shapes, k2_shapes = ks.per_call_shapes(packed=False)
     assert sum(k1_shapes.values()) == 83 and sum(k2_shapes.values()) == 6
-    k1_packed, k2_packed = ks.per_call_shapes()
+    k5_5d, k5_packed = ks.Counter(), ks.Counter()
+    ks.per_call_shapes(packed=False, k5=k5_5d)
+    k1_packed, k2_packed = ks.per_call_shapes(k5=k5_packed)
     assert sum(k1_packed.values()) == 26 and k2_packed == k2_shapes
+    assert not k5_5d and sum(k5_packed.values()) == 57
+    assert set(cs.k5_shapes()) == set(k5_packed)
+    # chip_smoke.py's chain counts take K5's by variant from the model's
+    # GroupedRMSNorm modules, one call each: kernel_shapes.py's
+    from tera_mind_tpu_torch.models.unet_packed import make_packed_model
+    with torch.device("meta"):
+        model = make_packed_model(ks.preset_conf().make_model_conf())
+    assert cs.per_call_counts(model)[3] == ks.by_variant("K5", k5_packed) \
+        == {"staged": 8, "vector": 49}
     assert set(k1_packed) <= set(k1_shapes)
     assert set(cs.K1_SHAPES) <= set(k1_shapes)
     src = (_build.CSRC / "rmsnorm.cu").read_text()
@@ -787,9 +800,12 @@ def test_chip_smoke_times_tile_major_and_stream_shapes():
                    == "wgmma" for _, n, d in want_k2)
         calls = {"tile_major": 4 * 5 * cs.TILE_MAJOR_STEPS,
                  "stream": 4 * 5 * cs.STREAM_STEPS}[path]
+        k5_shapes = ks.Counter()
+        ks.per_call_shapes(patches=patches, chunk=5, k5=k5_shapes)
         assert cs.CHAIN_LAUNCHES[path] == {
             "rmsnorm": sum(k1_shapes.values()) * calls,
-            "window_attention": sum(k2_shapes.values()) * calls}
+            "window_attention": sum(k2_shapes.values()) * calls,
+            "grouped_rmsnorm": sum(k5_shapes.values()) * calls}
     # the streamed window's rows and batches are the main path's x 5
     main_k1, main_k2 = ks.per_call_shapes()
     assert {(5 * n, c) for n, c in main_k1} == set(cs.PATH_SHAPES["stream"][0])
@@ -948,7 +964,9 @@ def test_chip_smoke_checks_the_training_shapes_and_counts():
     """chip_smoke.py's K1b/K2b shapes are exactly the shapes one training
     step of the preset gives K1 and K2 (scripts/kernel_shapes.py
     --train), and its per-step launch counts are the script's, for the
-    5D and the packed model (whose K1 shapes are the first four)."""
+    5D and the packed model (whose K1 shapes are the first four, and
+    whose 88 GroupedRMSNorm calls a microbatch launch K5 and K5b, at the
+    shapes phase 4 checks)."""
     import importlib.util
 
     import chip_smoke as cs
@@ -957,10 +975,15 @@ def test_chip_smoke_checks_the_training_shapes_and_counts():
     ks = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ks)
     for packed, path in ((False, "5d"), (True, "packed")):
-        k1_shapes, k2_shapes = ks.train_shapes(packed)
+        k5_shapes = ks.Counter()
+        k1_shapes, k2_shapes = ks.train_shapes(packed, k5=k5_shapes)
         assert cs.TRAIN_LAUNCHES[path] == {
             "rmsnorm": sum(k1_shapes.values()) * ks.TRAIN_ACCUM,
-            "window_attention": sum(k2_shapes.values()) * ks.TRAIN_ACCUM}
+            "window_attention": sum(k2_shapes.values()) * ks.TRAIN_ACCUM,
+            "grouped_rmsnorm": sum(k5_shapes.values()) * ks.TRAIN_ACCUM}
+        assert sum(k5_shapes.values()) == (88 if packed else 0)
+        if packed:
+            assert set(cs.k5_shapes(train=True)) == set(k5_shapes)
         assert set(cs.TRAIN_K2_SHAPES) == set(k2_shapes)
         if packed:
             assert set(k1_shapes) == set(cs.TRAIN_K1_SHAPES[:4])

@@ -62,6 +62,7 @@ from tera_mind_tpu_torch.diffusion.schedule import spaced_schedule
 from tera_mind_tpu_torch.models import unet_packed as tpk
 from tera_mind_tpu_torch.ops import attention_kernel as k2
 from tera_mind_tpu_torch.ops import collage as tcollage
+from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
 from tera_mind_tpu_torch.ops import quant_kernel as qk
 from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
 from tera_mind_tpu_torch.parallel import generator as tgen
@@ -424,13 +425,13 @@ def kernel_shapes():
 
 
 class PlainRecorder:
-    """Records the shapes the port's plain K1, K1b, K2, K2b, K3 and K4
-    functions get (their dispatchers look them up in the module at each
-    call)."""
+    """Records the shapes the port's plain K1, K1b, K2, K2b, K3, K4, K5
+    and K5b functions get (their dispatchers look them up in the module
+    at each call)."""
 
     def __init__(self, monkeypatch):
         self.k = {n: Counter() for n in ("K1", "K1b", "K2", "K2b", "K3",
-                                         "K4")}
+                                         "K4", "K5", "K5b")}
         ci = {}
 
         def wrap(mod, name, key):
@@ -446,13 +447,18 @@ class PlainRecorder:
                                (k2, "attention_plain", "K2"),
                                (k2, "attention_bwd_plain", "K2b"),
                                (qk, "quantize_plain", "K4"),
-                               (qk, "quant_conv_plain", "K3")):
+                               (qk, "quant_conv_plain", "K3"),
+                               (k5, "grouped_rmsnorm_plain", "K5"),
+                               (k5, "grouped_rmsnorm_bwd_plain", "K5b")):
             wrap(mod, name, key)
 
 
 def shape_of(key, a, kw, out, ci):
     """A recorded call's key, as ``kernel_shapes.py`` keys it."""
     x = a[0]
+    if key in ("K5", "K5b"):     # (x[, g], weight, z, segments, ...)
+        z, segs = a[2:4] if key == "K5" else a[3:5]
+        return (x.numel() // x.shape[-1], tuple(segs), z)
     if key in ("K1", "K1b"):
         return (x.numel() // x.shape[-1], x.shape[-1])
     if key in ("K2", "K2b"):
@@ -470,12 +476,13 @@ def shape_of(key, a, kw, out, ci):
 
 @pytest.mark.parametrize("preset", PRESETS, ids=IDS)
 def test_kernel_shapes_lists_the_cpu_passes_shapes(preset, monkeypatch):
-    """For each preset (small width), the K1 / K2 shapes
+    """For each preset (small width), the K1 / K2 / K5 shapes
     ``kernel_shapes.py`` lists for a generation call of the packed model
-    (2x2 patches) and the K3 / K4 shapes of an int8 call are exactly
+    (2x2 patches) and the K3 / K4 / K5 shapes of an int8 call are exactly
     those the CPU forward passes to the plain functions, as often (a
     training microbatch's K1 / K1b / K2 / K2b:
-    test_train_step_matches_jax)."""
+    test_train_step_matches_jax; its K5 / K5b: the packed training
+    microbatch here)."""
     ks = kernel_shapes()
     mouse, size, nrna, stain, srna = preset
     conf = ks.preset_conf(mouse, size, nrna == 81, stain, srna, batch=1)
@@ -489,10 +496,22 @@ def test_kernel_shapes_lists_the_cpu_passes_shapes(preset, monkeypatch):
     rec = PlainRecorder(monkeypatch)
 
     # generation: the packed model, collage decoder, no gradient
-    k1s, k2s = ks.per_call_shapes(grid=(2, 2), conf=conf)
+    k5s = Counter()
+    k1s, k2s = ks.per_call_shapes(grid=(2, 2), conf=conf, k5=k5s)
     with torch.no_grad():
         tpk.make_packed_model(mconf)(*args, decode_original=False)
-    assert (rec.k["K1"], rec.k["K2"]) == (k1s, k2s)
+    assert (rec.k["K1"], rec.k["K2"], rec.k["K5"]) == (k1s, k2s, k5s)
+    assert sum(k5s.values()) > 0
+
+    # a packed training microbatch (both decoders, the 5D weights): K5
+    # and K5b at train_shapes' K5 shapes, once each a call
+    rec.k["K5"].clear()
+    k5t = Counter()
+    ks.train_shapes(True, batch=1, conf=conf, k5=k5t)
+    model = tpk.make_packed_model(mconf, torch.float32, from_5d=True)
+    pred, orig = model(*args)
+    (pred.sum() + orig.sum()).backward()
+    assert rec.k["K5"] == rec.k["K5b"] == k5t
 
     # a training step's prediction counts train_shapes' launches (the
     # shapes themselves: test_train_step_matches_jax)
@@ -509,7 +528,10 @@ def test_kernel_shapes_lists_the_cpu_passes_shapes(preset, monkeypatch):
     qmodel = load_jax_params(tpk.make_packed_model(
         mconf, quant="int8", prequant=True, quant_attn=True),
         prequantize_params(tree, attn=True))
-    k3s, k4s, _ = ks.quant_shapes(grid=(2, 2), conf=conf)
+    rec.k["K5"].clear()
+    k5q = Counter()
+    k3s, k4s, _ = ks.quant_shapes(grid=(2, 2), conf=conf,
+                                  k12=(Counter(), Counter(), k5q))
     with torch.no_grad():
         qmodel(*args, decode_original=False)
-    assert (rec.k["K3"], rec.k["K4"]) == (k3s, k4s)
+    assert (rec.k["K3"], rec.k["K4"], rec.k["K5"]) == (k3s, k4s, k5q)

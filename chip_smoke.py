@@ -20,8 +20,14 @@ Phases, each printed on its own line with elapsed seconds:
      at every (rows, segments, Z) of the block-major chain
      (``scripts/kernel_shapes.py``; bf16 bit-equal to its plain version
      but on planes whose inv_z lies within ``K5_BOUNDARY`` of a bf16
-     rounding boundary, there K1's gate; f32 1e-5) and at ``K5_EDGE``,
-     with the C entry point's refusals;
+     rounding boundary, there K1's gate; f32 1e-5), each also with the
+     epilogue its launches take there (the SiLU, or the adaLN modulate
+     and the SiLU: against the plain sequence off those planes and
+     against the plain epilogue on K5's own norm everywhere, within
+     ``K5_MAX_ULP``) and timed so, one single-segment norm beside
+     ``F.rms_norm``, and at ``K5_EDGE`` (each also with the SiLU, one
+     segment also with the modulate at one row a batch, one at a
+     misaligned start), with the C entry point's refusals;
   4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
      ``strided``, K2b ``wgmma``, ``tensor_core``, ``tensor_core_tiled``
      and ``cuda_core``) against its plain
@@ -212,9 +218,10 @@ at phase 4's strided shapes and at ``K1_F32_WEIGHT_SMALL`` with the
 float32 weight), their edge shapes and the refusals, for a call that
 tunes the norm kernels; ``--grouped`` runs K5 and K5b at phase 3's, 4's
 and 19's shapes and edges, and the autograd guard.  Every packed path's
-K5 and K5b launches (by variant) are required to be
-``scripts/kernel_shapes.py``'s: 57 a UNet call, 88 + 88 a training
-microbatch.
+K5 and K5b launches (by variant, K5's by epilogue) are required to be
+``scripts/kernel_shapes.py``'s: 57 a UNet call (29 with the SiLU, 28
+with the modulate and the SiLU), 88 + 88 a training microbatch (K5 with
+no epilogue: autograd records the eager one).
 """
 
 from __future__ import annotations
@@ -312,17 +319,20 @@ def bound(nbytes: float, flops: float, flop_rate: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def kernel_work(kernel: str, shape, itemsize: int = 2) -> tuple:
+def kernel_work(kernel: str, shape, itemsize: int = 2,
+                batches: int = 0) -> tuple:
     """(bytes, operations, the peak rate of their type) of one launch of
     K1, K1b, K2, K2b, K5 or K5b at ``shape`` (K5: (rows, segments, Z)):
     each input read once and each output written once (K1b's and K5b's
-    dw and weight in float32)."""
+    dw and weight in float32; K5 with the modulate epilogue also its
+    (``batches``, C) scale and shift)."""
     if kernel in ("K5", "K5b"):
         rows, segments, z = shape
         width = z * sum(segments)
         if kernel == "K5":
-            return (itemsize * (2 * rows * width + width), 4 * rows * width,
-                    H100_F32_FLOP_PER_S)
+            return (itemsize * (2 * rows * width + width
+                                + 2 * batches * segments[0]),
+                    4 * rows * width, H100_F32_FLOP_PER_S)
         return (3 * rows * width * itemsize + 2 * 4 * width,
                 10 * rows * width, H100_F32_FLOP_PER_S)
     if kernel in ("K1", "K1b"):
@@ -1071,33 +1081,47 @@ def check_backward_kernels(device) -> dict:
 # lies within K5_BOUNDARY (relative) of a bf16 rounding boundary the two
 # may round it one step apart (2^-8 relative), which the two rounded
 # products carry into y as up to K1_MAX_ULP spacings: those planes, a few
-# % of them, are held to K1's gate and counted.
+# % of them, are held to K1's gate and counted.  K5 with an epilogue (the
+# SiLU, or the adaLN modulate and the SiLU) rounds where the plain
+# sequence rounds: off those planes it is held to the plain sequence
+# within K5_MAX_ULP, and everywhere within K5_MAX_ULP of the plain
+# epilogue applied to K5's own norm, so what follows from a near plane is
+# what follows from K5's y there (the modulate's sum can cancel, so a
+# spacing of y may be many of the output's).
 K5_MAX_ULP = 1.0
 K5_BOUNDARY = 1e-4
 # edge shapes (rows, segments, Z[, element offset of x]): an odd segment at
 # a misaligned start, the 229-gene segment at 1 and 2 RNA-slice planes, Z
 # = 3 (a plane group of idle warps), Z = 4 and 8 at the widest preset rows
 # (638850 at 8 RNA slices: 5,012; 609889_32_81_DAPI_16: 8,840), a row of
-# one 16-byte vector, ragged row counts; K5 with the float32 weight of
-# training and from_5d, K5b both ways
+# one 16-byte vector, ragged row counts, one segment at a misaligned start
+# (the modulate in the staged variant); K5 with the float32 weight of
+# training and from_5d, K5b both ways; K5 with the SiLU epilogue at each,
+# and with the modulate (rows per batch of 1) at each single segment
 K5_EDGE = [(129, (16, 8, 7), 2, 1), (7, (8,), 2), (333, (229,), 1),
            (1000, (64, 32), 1), (517, (5, 3), 3), (1031, (512, 512, 229), 4),
            (257, (512, 512, 81), 8), (4097, (512, 229), 2),
-           (65, (128, 64, 32), 2, 3)]
+           (65, (128, 64, 32), 2, 3), (97, (40,), 2, 5)]
+# the single-segment K5 row timed beside F.rms_norm on its (rows * Z, C)
+# view (the 5D (C,) weight, no epilogue: the same function)
+K5_RMS_NORM_ROW = (262144, (64,), 2)
 
 
-def k5_shapes(train: bool = False, conf=None) -> list:
+def k5_shapes(train: bool = False, conf=None, acts: bool = False) -> list:
     """The (rows, segments, Z) that the block-major chain's UNet call
     (``train``: a packed training microbatch) gives K5, largest first
-    (``scripts/kernel_shapes.py``)."""
+    (``scripts/kernel_shapes.py``); ``acts``: (rows, segments, Z,
+    epilogue, B), each shape with the epilogue its launches take and the
+    batches of the modulate's scale and shift (0 without it)."""
     from collections import Counter
     ks = kernel_shapes()
-    k5 = Counter()
+    k5, k5_act = Counter(), Counter()
     if train:
-        ks.train_shapes(True, conf=conf, k5=k5)
+        ks.train_shapes(True, conf=conf, k5=k5, k5_act=k5_act)
     else:
-        ks.per_call_shapes(conf=conf, k5=k5)
-    return sorted(k5, key=lambda s: -s[0] * s[2] * sum(s[1]))
+        ks.per_call_shapes(conf=conf, k5=k5, k5_act=k5_act)
+    return sorted(k5_act if acts else k5,
+                  key=lambda s: -s[0] * s[2] * sum(s[1]))
 
 
 def k5_boundary(x, z, segs, eps=1e-6):
@@ -1117,6 +1141,16 @@ def k5_boundary(x, z, segs, eps=1e-6):
     near = ((inv * (1 - K5_BOUNDARY)).to(torch.bfloat16)
             != (inv * (1 + K5_BOUNDARY)).to(torch.bfloat16))
     return near[:, plane], int(near.sum())
+
+
+def spacings(out, ref):
+    """|out - ref| elementwise in bf16 spacings at |ref|, as (rows,
+    width)."""
+    import torch
+    r = ref.float().abs().clamp_min(2.0 ** -126)
+    sp = (out.float() - ref.float()).abs() / torch.exp2(
+        torch.floor(torch.log2(r)) - 7)
+    return sp.reshape(-1, out.shape[-1])
 
 
 def k5_agrees(x, w, z, segs, from_5d, what, want=None):
@@ -1141,10 +1175,7 @@ def k5_agrees(x, w, z, segs, from_5d, what, want=None):
         require(err <= 1e-5, f"K5 {what} {x.dtype} ({variant}): {err}")
         return out, ref, err, variant, 0
     near, n_near = k5_boundary(x, z, segs)
-    r = ref.float().abs().clamp_min(2.0 ** -126)
-    sp = (out.float() - ref.float()).abs() / torch.exp2(
-        torch.floor(torch.log2(r)) - 7)
-    sp = sp.reshape(near.shape)
+    sp = spacings(out, ref)
     far_err = float(sp[~near].max()) if bool((~near).any()) else 0.0
     near_err = float(sp[near].max()) if n_near else 0.0
     require(far_err <= K5_MAX_ULP and near_err <= K1_MAX_ULP,
@@ -1152,6 +1183,49 @@ def k5_agrees(x, w, z, segs, from_5d, what, want=None):
             f"{K5_MAX_ULP}), {near_err} on {n_near} planes near a rounding "
             f"boundary (tol {K1_MAX_ULP})")
     return out, ref, max(far_err, near_err), variant, n_near
+
+
+def k5_act_agrees(x, w, z, segs, from_5d, act, scale, shift, what,
+                  want=None):
+    """K5 with the epilogue ``act`` against ``grouped_rmsnorm_act_plain``
+    (the norm's plain version, then the eager modulate and SiLU): (out,
+    ref, spacings off the near planes, spacings from the plain epilogue
+    on K5's own norm, variant); bf16 both within K5_MAX_ULP (see
+    K5_MAX_ULP); float32 within 1e-5 of the plain sequence.  The
+    variant the rule names (or ``want``) required."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    kw = dict(from_5d=from_5d, act=act, scale=scale, shift=shift)
+    out, variant = variant_of(k5, k5.grouped_rmsnorm_cuda, x, w, z, segs,
+                              **kw)
+    ref = k5.grouped_rmsnorm_act_plain(x, w, z, segs, **kw)
+    require(bool(torch.isfinite(out.float()).all()),
+            f"K5 {act} {what}: output not finite")
+    if want is None:   # x and the weight are aligned; scale and shift?
+        aligned = scale is None or (
+            scale.stride(0) * x.element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (scale, shift)))
+        want = k5.grouped_variant(z, segs, x.element_size(), aligned, act)
+    require(variant == want, f"K5 {act} {what} {x.dtype} took {variant}, "
+            f"not {want}")
+    if x.dtype != torch.bfloat16:
+        err = float((out - ref).abs().max())
+        require(err <= 1e-5, f"K5 {act} {what} {x.dtype} ({variant}): "
+                f"{err}")
+        return out, ref, err, 0.0, variant
+    near, _ = k5_boundary(x, z, segs)
+    sp = spacings(out, ref)
+    far_err = float(sp[~near].max()) if bool((~near).any()) else 0.0
+    own = k5.act_plain(k5.grouped_rmsnorm_cuda(x, w, z, segs,
+                                               from_5d=from_5d),
+                       act, z, scale, shift)
+    comp_err = float(spacings(out, own).max())
+    require(far_err <= K5_MAX_ULP and comp_err <= K5_MAX_ULP,
+            f"K5 {act} {what} bf16 ({variant}): {far_err} spacings from "
+            f"the plain sequence off the near planes, {comp_err} from the "
+            f"plain epilogue on K5's norm (tol {K5_MAX_ULP})")
+    return out, ref, far_err, comp_err, variant
 
 
 def k5_inputs(g, device, n, segs, z, dt, from_5d, w_dtype=None,
@@ -1168,34 +1242,53 @@ def k5_inputs(g, device, n, segs, z, dt, from_5d, w_dtype=None,
     return x.view(n, width), w
 
 
-def time_k5(x, w, z, segs, from_5d) -> dict:
-    """Device times of K5 and its plain version, and with one segment and
-    the 5D weight (``from_5d``) of ``F.rms_norm`` over the (rows * Z,
+def k5_epilogue_inputs(g, device, x, c, act, batches):
+    """(x as (B, rows / B, width), scale, shift) for ``act``: with the
+    modulate, the two (B, C) halves of one (B, 2C) adaLN projection, as
+    the ResBlock passes them (views with a row stride of 2C)."""
+    if act != "modulate_silu":
+        return x, None, None
+    emb = (0.5 * randn(g, batches, 2 * c, device=device)).to(x.dtype)
+    scale, shift = emb.chunk(2, dim=-1)
+    return x.view(batches, -1, x.shape[-1]), scale, shift
+
+
+def time_k5(x, w, z, segs, from_5d, act="none", scale=None,
+            shift=None) -> dict:
+    """Device times of K5 (with its epilogue ``act``) and its plain
+    version (the plain sequence), and with one segment, the 5D weight
+    (``from_5d``) and no epilogue of ``F.rms_norm`` over the (rows * Z,
     Ctot) view, the same function in one PyTorch call; else no library
     call computes it."""
     import torch.nn.functional as F
 
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
-    n = x.shape[0]
+    n = x.numel() // x.shape[-1]
+    kw = dict(from_5d=from_5d, act=act, scale=scale, shift=shift)
     sets = input_sets((x, w), 2 * x.numel() * x.element_size())
-    bms, by = bound(*kernel_work("K5", (n, segs, z), x.element_size()))
+    bms, by = bound(*kernel_work(
+        "K5", (n, segs, z), x.element_size(),
+        scale.shape[0] if scale is not None else 0))
     lib = None
-    if len(segs) == 1 and from_5d:
+    if len(segs) == 1 and from_5d and act == "none":
         lib = device_ms(lambda a, b: F.rms_norm(
             a.view(-1, segs[0]), (segs[0],), b, 1e-6),
             [(a, b.to(a.dtype)) for a, b in sets])
     return dict(ms=device_ms(lambda a, b: k5.grouped_rmsnorm_cuda(
-        a, b, z, segs, from_5d=from_5d), sets),
-        plain_ms=device_ms(lambda a, b: k5.grouped_rmsnorm_plain(
-            a, b, z, segs, from_5d=from_5d), sets),
+        a, b, z, segs, **kw), sets),
+        plain_ms=device_ms(lambda a, b: k5.grouped_rmsnorm_act_plain(
+            a, b, z, segs, **kw), sets),
         library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 def k5_row(g, device, n, segs, z, path, from_5d=False, w_dtype=None,
-           timed=True) -> dict:
-    """K5 at (n, segments, Z): bf16 against its plain version (the weight
-    in bf16 as generation passes it, or ``w_dtype``), float32 on 4,096 of
-    the rows, each by :func:`k5_agrees`; timed."""
+           timed=True, act="none", batches=0) -> dict:
+    """K5 at (n, segments, Z): the norm in bf16 against its plain version
+    (the weight in bf16 as generation passes it, or ``w_dtype``) and, with
+    ``act``, K5 with that epilogue against the plain sequence (the
+    modulate's scale and shift of ``batches`` batches), each by
+    :func:`k5_agrees` / :func:`k5_act_agrees`, float32 on 4,096 of the
+    rows (whole batches); timed with the epilogue."""
     import torch
     bf16 = torch.bfloat16
     x, w = k5_inputs(g, device, n, segs, z, bf16, from_5d, w_dtype)
@@ -1203,28 +1296,59 @@ def k5_row(g, device, n, segs, z, path, from_5d=False, w_dtype=None,
         x, w, z, segs, from_5d, f"{n}x{segs}x{z}")
     err = float((out.float() - ref.float()).abs().max())
     same = float((out != ref).float().mean())
-    xf = x[:4096].float()
-    _, _, errf, variant_f, _ = k5_agrees(xf, w.float(), z, segs, from_5d,
-                                         f"{n}x{segs}x{z}")
-    t = time_k5(x, w, z, segs, from_5d) if timed else {}
+    require(act != "modulate_silu" or batches > 0 and n % batches == 0,
+            f"K5 modulate at {n} rows: {batches} batches")
+    xa, scale, shift = k5_epilogue_inputs(g, device, x, segs[0], act,
+                                          batches)
+    comp = None
+    if act != "none":
+        out, ref, err_ulp, comp, variant = k5_act_agrees(
+            xa, w, z, segs, from_5d, act, scale, shift, f"{n}x{segs}x{z}")
+        err = float((out.float() - ref.float()).abs().max())
+        same = float((out != ref).float().mean())
+    if scale is None:
+        xf, sf, hf = x[:4096].float(), None, None
+    else:   # whole batches
+        nb = max(1, 4096 // (n // batches))
+        xf, sf, hf = xa[:nb].float(), scale[:nb].float(), shift[:nb].float()
+    if act == "none":
+        _, _, errf, variant_f, _ = k5_agrees(xf, w.float(), z, segs,
+                                             from_5d, f"{n}x{segs}x{z}")
+    else:
+        _, _, errf, _, variant_f = k5_act_agrees(
+            xf, w.float(), z, segs, from_5d, act, sf, hf, f"{n}x{segs}x{z}")
+    t = time_k5(xa, w, z, segs, from_5d, act, scale, shift) if timed else {}
+    if t and act != "none" and variant == "staged":   # the norm alone too
+        t["norm_ms"] = time_k5(x, w, z, segs, from_5d)["ms"]
     wt = "" if w.dtype == bf16 else f", weight {str(w.dtype)[6:]}"
     lib = "; " + timing_text(t, "F.rms_norm") if t else ""
-    log(f"K5 grouped_rmsnorm ({n}, {segs}, z {z}) bf16{wt}"
+    if "norm_ms" in t:
+        lib += f"; the norm alone {t['norm_ms']:.4f} ms"
+    epi = "" if act == "none" else (
+        f" + {act}" + (f" ({batches} batches)" if scale is not None else ""))
+    log(f"K5 grouped_rmsnorm ({n}, {segs}, z {z}){epi} bf16{wt}"
         f"{' from_5d' if from_5d else ''} [{variant}, {path}]: max_abs_err "
-        f"{err:.3g} ({err_ulp:.2f} bf16 ulp; {n_near} planes near a "
+        f"{err:.3g} ({err_ulp:.2f} bf16 ulp"
+        + ("" if comp is None else
+           f" off the near planes, {comp:.2f} from the plain epilogue on "
+           "K5's norm")
+        + f"; {n_near} planes near a "
         f"rounding boundary), {same:.2e} of outputs not bit-equal; f32 "
         f"[{variant_f}] err {errf:.3g}" + lib)
-    return dict(shape=[n, list(segs), z], path=path, variant=variant,
-                max_abs_err=err, max_ulp=err_ulp, near_planes=n_near,
-                not_bit_equal=same, weight=str(w.dtype)[6:],
-                from_5d=from_5d, **t)
+    return dict(shape=[n, list(segs), z], act=act, path=path,
+                variant=variant, max_abs_err=err, max_ulp=err_ulp,
+                epilogue_ulp=comp, near_planes=n_near, not_bit_equal=same,
+                weight=str(w.dtype)[6:], from_5d=from_5d, **t)
 
 
 def check_k5_edges(g, device) -> None:
     """K5 against its plain version at ``K5_EDGE``, bf16 and float32, the
-    runtime weight and the 5D one (a float32 weight of the bf16 x), and
-    the C entry point's refusal of ``vector`` for an odd segment, a
-    misaligned x and an unknown variant."""
+    runtime weight and the 5D one (a float32 weight of the bf16 x), with
+    the SiLU epilogue at each and the modulate at each single segment
+    (rows per batch of 1); the C entry point's refusal of ``vector`` for
+    an odd segment and a misaligned x, of the modulate on two segments
+    and a misaligned scale in ``vector``, and of an unknown variant or
+    epilogue."""
     import torch
 
     from tera_mind_tpu_torch.ops import _build
@@ -1232,14 +1356,20 @@ def check_k5_edges(g, device) -> None:
     seen = []
     for n, segs, z, *off in K5_EDGE:
         got = []
+        want = "staged" if off else None
         for dt, from_5d, w_dt in ((torch.bfloat16, False, None),
                                   (torch.bfloat16, True, torch.float32),
                                   (torch.float32, True, None)):
             x, w = k5_inputs(g, device, n, segs, z, dt, from_5d, w_dt,
                              *off)
-            want = "staged" if off else None
             got.append(k5_agrees(x, w, z, segs, from_5d,
                                  f"edge {n}x{segs}x{z}", want)[3])
+            for act in ("silu", "modulate_silu")[:1 + (len(segs) == 1)]:
+                xa, scale, shift = k5_epilogue_inputs(g, device, x, segs[0],
+                                                      act, n)
+                got.append(k5_act_agrees(
+                    xa, w, z, segs, from_5d, act, scale, shift,
+                    f"edge {n}x{segs}x{z}", want)[4])
         seen.append(f"({n}, {segs}, z {z})"
                     + (f" at offset {off[0]}" if off else "")
                     + f" {'/'.join(got)}")
@@ -1247,26 +1377,41 @@ def check_k5_edges(g, device) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     t = torch.zeros(64 * 64 + 8, device=device, dtype=torch.bfloat16)
     vec = k5.VARIANTS.index("vector")
-    for what, segs, off, variant in (("odd segment", (16, 8, 7), 0, vec),
-                                     ("misaligned", (16, 16), 1, vec),
-                                     ("unknown variant", (16, 16), 0, 7)):
+    mod = k5.EPILOGUES.index("modulate_silu")
+    for what, segs, off, variant, act, s_off in (
+            ("odd segment", (16, 8, 7), 0, vec, 0, 0),
+            ("misaligned", (16, 16), 1, vec, 0, 0),
+            ("unknown variant", (16, 16), 0, 7, 0, 0),
+            ("unknown epilogue", (16, 16), 0, vec, 3, 0),
+            ("the modulate on two segments", (16, 16), 0, vec, mod, 0),
+            ("a misaligned scale in vector", (16,), 0, vec, mod, 1)):
         a = t[off:off + 64 * 2 * sum(segs)]
+        sc = t[s_off:]
         err = lib.tmt_grouped_rmsnorm(
             a.data_ptr(), a.data_ptr(), a.data_ptr(), 64, 2, len(segs),
-            *k5._segment_args(tuple(segs)), 1e-6, 1, 1, 0, variant, stream)
+            *k5._segment_args(tuple(segs)), 1e-6, 1, 1, 0, variant, act,
+            sc.data_ptr(), sc.data_ptr(), 16, 1, stream)
         require(err != 0, f"tmt_grouped_rmsnorm took {what}")
     log(f"K5 edge shapes agree (bf16, bf16 with a float32 from_5d weight, "
-        f"f32): {'; '.join(seen)}; the entry point refuses vector on an odd"
-        " segment and a misaligned x, and an unknown variant")
+        f"f32; each also with the SiLU, one segment also with the "
+        f"modulate): {'; '.join(seen)}; the entry point refuses vector on "
+        "an odd segment and a misaligned x, the modulate on two segments "
+        "and a misaligned scale in vector, an unknown variant and "
+        "epilogue")
 
 
 def check_grouped_kernels(device) -> dict:
-    """Phase 3's K5: every (rows, segments, Z) of the block-major chain,
-    bf16 with the bf16 weight, timed; the edges."""
+    """Phase 3's K5: every (rows, segments, Z) of the block-major chain
+    with each epilogue its launches take, bf16 with the bf16 weight,
+    timed; one single-segment norm beside ``F.rms_norm``; the edges."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(5)
-    rows = [k5_row(g, device, n, segs, z, "block_major")
-            for n, segs, z in k5_shapes()]
+    rows = [k5_row(g, device, n, segs, z, "block_major", act=act,
+                   batches=b)
+            for n, segs, z, act, b in k5_shapes(acts=True)]
+    n, segs, z = K5_RMS_NORM_ROW
+    rows.append(k5_row(g, device, n, segs, z, "rms_norm_yardstick",
+                       from_5d=True))
     check_k5_edges(g, device)
     return {"grouped_rmsnorm": rows}
 
@@ -1515,7 +1660,7 @@ def check_autograd_guard(device) -> None:
     ``grouped_rmsnorm_cuda``) raises before the launch on a CUDA input
     that requires grad while grad mode is on, and runs the same call under
     ``torch.no_grad()``; the dispatchers (``rmsnorm``,
-    ``window_attention``, ``grouped_rmsnorm``) record a backward
+    ``window_attention``, ``grouped_rmsnorm_act``) record a backward
     instead: one forward and one backward kernel launch, finite
     gradients, and a float32 dw for a float32 weight."""
     import torch
@@ -1537,7 +1682,8 @@ def check_autograd_guard(device) -> None:
               (q, k, v, 1.0 / 64)),
              ("grouped_rmsnorm", k5,
               lambda a, b: k5.grouped_rmsnorm_cuda(a, b, **grouped),
-              lambda a, b: k5.grouped_rmsnorm(a, b, **grouped), (xg, wg)))
+              lambda a, b: k5.grouped_rmsnorm_act(a, b, **grouped),
+              (xg, wg)))
     for name, mod, raw, dispatch, args in cases:
         args = [a.detach().requires_grad_(True) if torch.is_tensor(a) else a
                 for a in args]
@@ -2428,12 +2574,15 @@ STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
 
 def per_call_counts(model) -> tuple:
     """(K1 norms, of them with C % 8 == 0, K2 attentions, K5 grouped norms
-    by variant) per UNet call of a bf16 chain.  K1 runs in every RMSNorm
-    itself; its GroupedRMSNorm subclass runs K5, each once a call (the
-    collage decoder alone)."""
+    by variant, K5 by epilogue) per UNet call of a bf16 chain.  K1 runs in
+    every RMSNorm itself; its GroupedRMSNorm subclass runs K5, each once a
+    call (the collage decoder alone): a ResBlock's in_norm with the SiLU,
+    its out_norm with the modulate and the SiLU where it has the adaLN
+    projection, the UNet's out_norm with the SiLU."""
     from tera_mind_tpu_torch.models.attention import CrossAttention
     from tera_mind_tpu_torch.models.nn import RMSNorm
-    from tera_mind_tpu_torch.models.unet_packed import GroupedRMSNorm
+    from tera_mind_tpu_torch.models.unet_packed import (GroupedRMSNorm,
+                                                        PackedResBlock)
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     norms = [m.weight.numel() for m in model.modules()
              if type(m) is RMSNorm]
@@ -2441,9 +2590,15 @@ def per_call_counts(model) -> tuple:
     for m in model.modules():
         if isinstance(m, GroupedRMSNorm):
             grouped[k5.grouped_variant(m.z, m.segments, 2, True)] += 1
+    epilogues = dict.fromkeys(k5.EPILOGUES, 0)
+    if sum(grouped.values()):
+        blocks = [m for m in model.modules() if isinstance(m, PackedResBlock)]
+        mod = sum(hasattr(m, "emb_proj") for m in blocks)
+        epilogues.update(silu=sum(grouped.values()) - mod,
+                         modulate_silu=mod)
     return (len(norms), sum(c % 8 == 0 for c in norms),
             sum(isinstance(m, CrossAttention) for m in model.modules()),
-            grouped)
+            grouped, epilogues)
 
 
 def expected_launches(counts: tuple, calls: int) -> tuple:
@@ -2453,7 +2608,7 @@ def expected_launches(counts: tuple, calls: int) -> tuple:
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
-    n_norm, n_vec, n_attn, grouped = counts
+    n_norm, n_vec, n_attn, grouped, epilogues = counts
     k2_variant, = {k2.attention_variant(n, d, torch.bfloat16, True)
                    for _, n, d in K2_SHAPES}
     return ({"rmsnorm": n_norm * calls, "window_attention": n_attn * calls,
@@ -2462,10 +2617,13 @@ def expected_launches(counts: tuple, calls: int) -> tuple:
                          "vector": n_vec * calls},
              "window_attention": {v: n_attn * calls if v == k2_variant
                                   else 0 for v in k2.VARIANTS},
-             "grouped_rmsnorm": {v: n * calls for v, n in grouped.items()}})
+             "grouped_rmsnorm": {v: n * calls for v, n in grouped.items()},
+             "grouped_rmsnorm_epilogue": {e: n * calls
+                                          for e, n in epilogues.items()}})
 
 
 def read_launches() -> tuple:
+    """(launches of K1, K2 and K5; by variant, and K5's by epilogue)."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
@@ -2473,7 +2631,8 @@ def read_launches() -> tuple:
              "grouped_rmsnorm": k5.launches},
             {"rmsnorm": dict(k1.launches_by_variant),
              "window_attention": dict(k2.launches_by_variant),
-             "grouped_rmsnorm": dict(k5.launches_by_variant)})
+             "grouped_rmsnorm": dict(k5.launches_by_variant),
+             "grouped_rmsnorm_epilogue": dict(k5.launches_by_epilogue)})
 
 
 def reset_launches() -> None:
@@ -2933,6 +3092,12 @@ def run_training(device, path: str, tmp: Path,
     require(got_variants == want_variants,
             f"training backward launches by variant {got_variants}, "
             f"expected {want_variants}")
+    # where autograd records, K5 runs no epilogue (the eager one follows)
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    epi = dict(k5.launches_by_epilogue)
+    require(epi == {e: want["grouped_rmsnorm"] if e == "none" else 0
+                    for e in k5.EPILOGUES},
+            f"training K5 launches by epilogue {epi}")
 
     # save -> restore on the card, bit for bit
     trainer.save(state)
@@ -4078,20 +4243,22 @@ def launches_now() -> dict:
                     ("quant_conv", qk.k3), ("quantize", qk.k4)):
         by = dict(c.launches_by_variant)
         out[name] = {"launches": sum(by.values()), "by_variant": by}
+    out["grouped_rmsnorm"]["by_epilogue"] = dict(k5.launches_by_epilogue)
     return out
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
-    """Each kernel's launches and launches by variant as
-    ``scripts/kernel_shapes.py`` predicts them (``want``; a kernel it
-    does not name launches no time)."""
+    """Each kernel's launches and launches by variant (and K5's by
+    epilogue) as ``scripts/kernel_shapes.py`` predicts them (``want``; a
+    kernel it does not name launches no time)."""
     for name, g in got.items():
-        w = want.get(name, {"launches": 0, "by_variant": {
-            v: 0 for v in g["by_variant"]}})
-        require(g["launches"] == w["launches"]
-                and g["by_variant"] == w["by_variant"],
+        w = want.get(name, {k: ({v: 0 for v in g[k]} if k != "launches"
+                                else 0) for k in g})
+        keys = [k for k in ("launches", "by_variant", "by_epilogue")
+                if k in g]
+        require(all(g[k] == w[k] for k in keys),
                 f"{what}: {name} launches {g}, kernel_shapes.py predicts "
-                f"{ {k: w[k] for k in ('launches', 'by_variant')} }")
+                f"{ {k: w[k] for k in keys} }")
 
 
 def require_no_cuda_core_attention(got: dict, what: str) -> None:
@@ -4106,8 +4273,9 @@ def require_no_cuda_core_attention(got: dict, what: str) -> None:
 def preset_kernel_shapes(ks) -> dict:
     """{kernel: [(shape, path)]} of phase 19's full-width runs that
     phases 3-5 do not check (K1 in generation with the bf16 weight, in
-    training with the float32 one; K5 and K5b each new layout of segments
-    and Z once, at its most rows), and the K2, K2b and K5 shapes of
+    training with the float32 one; K5b each new layout of segments and Z
+    once, K5 each new (segments, Z, epilogue), at its most rows, as
+    (rows, segments, Z, epilogue, B)), and the K2, K2b and K5 shapes of
     :data:`PRESET_KERNELS_ONLY`'s chains and training steps, from
     ``scripts/kernel_shapes.py``'s predictions, each shape once."""
     seen = {"K1": set(K1_SHAPES) | {s for k1s, _ in PATH_SHAPES.values()
@@ -4117,19 +4285,24 @@ def preset_kernel_shapes(ks) -> dict:
                                     for s in k2s},
             "K2b": set(TRAIN_K2_SHAPES), "K3": set(K3_SHAPES),
             "K4": set(K4_SHAPES),
-            "K5": {s[1:] for s in k5_shapes()},
+            "K5": {s[1:4] for s in k5_shapes(acts=True)},
             "K5b": {s[1:] for s in k5_shapes(train=True)}}
     out = {k: [] for k in seen}
 
     def add(kernel, pred, path):
-        for shape, _ in pred["shapes"]:
+        # K5 by its epilogue, with its launches' batches; K5 and K5b at
+        # their most rows first
+        shapes = [s for s, _ in pred["act_shapes" if kernel == "K5"
+                                     else "shapes"]]
+        if kernel in ("K5", "K5b"):
+            shapes.sort(key=lambda s: -s[0])
+        for shape in shapes:
             shape = tuple(tuple(x) if isinstance(x, list) else x
                           for x in shape)
             if kernel == "K4":
                 shape = shape[:3]
-            # K5 and K5b: each new layout (segments, Z) once, at its most
-            # rows (the shapes come largest first)
-            key = shape[1:] if kernel in ("K5", "K5b") else shape
+            key = (shape[1:4] if kernel == "K5" else
+                   shape[1:] if kernel == "K5b" else shape)
             if key not in seen[kernel]:
                 seen[kernel].add(key)
                 out[kernel].append((shape, path))
@@ -4201,13 +4374,28 @@ def check_preset_kernels(device, ks) -> dict:
 K5_PRESET_ROWS = 8192
 
 
+def preset_k5_cut(n: int, act: str, batches: int) -> tuple:
+    """(rows, batches) of a phase 19 K5 check of an (n, ..., act,
+    batches) launch: at most ``K5_PRESET_ROWS`` rows, and with the
+    modulate whole batches of the launch's rows a batch (one at least)."""
+    if act != "modulate_silu":
+        return min(n, K5_PRESET_ROWS), batches
+    per = n // batches
+    keep = min(batches, max(1, K5_PRESET_ROWS // per))
+    return keep * per, keep
+
+
 def preset_grouped_rows(g, device, shapes) -> dict:
-    """K5 and K5b at each new layout of phase 19 (:func:`preset_kernel_
-    shapes`), at up to ``K5_PRESET_ROWS`` rows, checked, not timed."""
-    return {"grouped_rmsnorm": [
-        k5_row(g, device, min(n, K5_PRESET_ROWS), segs, z, path, timed=False)
-        for (n, segs, z), path in shapes["K5"]],
-        "grouped_rmsnorm_bwd": [
+    """K5 (with the epilogue of its launches) and K5b at each new layout
+    of phase 19 (:func:`preset_kernel_shapes`), at up to
+    ``K5_PRESET_ROWS`` rows (:func:`preset_k5_cut`), checked, not
+    timed."""
+    k5_rows = []
+    for (n, segs, z, act, b), path in shapes["K5"]:
+        n, b = preset_k5_cut(n, act, b)
+        k5_rows.append(k5_row(g, device, n, segs, z, path, timed=False,
+                              act=act, batches=b))
+    return {"grouped_rmsnorm": k5_rows, "grouped_rmsnorm_bwd": [
         k5b_row(g, device, min(n, K5_PRESET_ROWS), segs, z, path,
                 timed=False)
         for (n, segs, z), path in shapes["K5b"]]}
@@ -4571,19 +4759,24 @@ GROUPED_SOURCES = {
 
 
 def grouped_step_sums(rows: list, train: bool) -> dict:
-    """A block-major 2x2 step's (25 UNet calls) device ms of K5, or a
-    packed training step's (2 microbatches) of K5b: each shape's time
-    times its launches (``scripts/kernel_shapes.py``)."""
+    """A block-major 2x2 step's (25 UNet calls) device ms of K5 (each
+    shape with its epilogue), or a packed training step's (2
+    microbatches) of K5b: each shape's time times its launches
+    (``scripts/kernel_shapes.py``)."""
     from collections import Counter
-    k5 = Counter()
+    k5, k5_act = Counter(), Counter()
     ks = kernel_shapes()
     if train:
         ks.train_shapes(True, k5=k5)
+        n = {(r, tuple(s), z): c * ks.TRAIN_ACCUM
+             for (r, s, z), c in k5.items()}
     else:
-        ks.per_call_shapes(k5=k5)
-    times = ks.TRAIN_ACCUM if train else 25
-    n = {(r, tuple(s), z): c * times for (r, s, z), c in k5.items()}
-    keyed = [(n[(r["shape"][0], tuple(r["shape"][1]), r["shape"][2])], r)
+        ks.per_call_shapes(k5=k5, k5_act=k5_act)
+        n = Counter()
+        for (r, s, z, a, _), c in k5_act.items():
+            n[(r, tuple(s), z, a)] += c * 25
+    keyed = [(n[(r["shape"][0], tuple(r["shape"][1]), r["shape"][2])
+                + (() if train else (r["act"],))], r)
              for r in rows if r["path"] in ("block_major", "train")]
     out = {key: sum(c * r[key] for c, r in keyed)
            for key in ("ms", "plain_ms", "bound_ms")}
@@ -4605,13 +4798,16 @@ def grouped_kernel_entries(rows: dict, chains: dict, train: dict) -> list:
                 "by_variant": train["packed"]["launches_by_variant"][name]}}
         else:
             by_path = {path: {"launches": c["launches"][name],
-                              "by_variant": c["variants"][name]}
+                              "by_variant": c["variants"][name],
+                              "by_epilogue": c["variants"][
+                                  "grouped_rmsnorm_epilogue"]}
                        for path, c in chains.items()}
         main = by_path["train_packed" if bwd else "packed"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": main["launches"],
             "launches_by_variant": main["by_variant"],
+            **({} if bwd else {"launches_by_epilogue": main["by_epilogue"]}),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -5086,7 +5282,9 @@ def grouped_only(device, smi: str) -> int:
                       "launches_by_variant": {
                           "grouped_rmsnorm": dict(k5.launches_by_variant),
                           "grouped_rmsnorm_bwd": dict(
-                              k5.bwd.launches_by_variant)}}), flush=True)
+                              k5.bwd.launches_by_variant)},
+                      "launches_by_epilogue": dict(
+                          k5.launches_by_epilogue)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "only": "K5 and K5b", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,6 +92,13 @@ z-window a call, ``n_win`` z-windows (25 at 4 RNA slices, 12 at 8, 6 at
 16).  ``chain_prediction`` and ``train_prediction`` give a path's
 launches by shape and by variant, which ``chip_smoke.py``'s preset
 phase requires.
+
+K5 (the packed model's ``GroupedRMSNorm``) is recorded as (rows,
+segments, Z) and with the epilogue each launch takes (``none``, ``silu``,
+``modulate_silu``: 29 SiLU and 28 modulate launches a 638850 UNet call;
+``none`` wherever autograd records, as in training); the default listing
+prints the launches by epilogue and the bytes of the eager passes the
+epilogues leave out a step (236.91 GB on the block-major 2x2 path).
 """
 
 from __future__ import annotations
@@ -116,8 +123,9 @@ from tera_mind_tpu_torch.models import unet_packed as packed_mod  # noqa: E402
 from tera_mind_tpu_torch.models.unet_packed import (  # noqa: E402
     make_packed_model)
 from tera_mind_tpu_torch.ops import quant_kernel as qk  # noqa: E402
+from tera_mind_tpu_torch.ops._build import autograd_required  # noqa: E402
 from tera_mind_tpu_torch.ops.grouped_rmsnorm_kernel import (  # noqa: E402
-    VARIANTS as K5_VARIANTS, grouped_variant)
+    EPILOGUES as K5_EPILOGUES, VARIANTS as K5_VARIANTS, grouped_variant)
 from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
     BWD_VARIANTS as K2B_VARIANTS, VARIANTS as K2_VARIANTS,
     attention_bwd_variant, attention_variant)
@@ -171,12 +179,18 @@ def gen_plan(conf, grid: int = 2) -> dict:
 
 
 @contextmanager
-def recording(k1: Counter, k2: Counter, k5: Counter = None):
+def recording(k1: Counter, k2: Counter, k5: Counter = None,
+              k5_act: Counter = None):
     """Stand-ins for K1, K2 and K5 that record their input shapes: K1
     (rows, C), K2 (B, N, D), K5 (rows, segments, Z) into ``k5`` (or a
-    Counter of its own): every packed call must be stubbed on the meta
-    device, where the dispatcher has no path."""
+    Counter of its own) and (rows, segments, Z, epilogue, B) into
+    ``k5_act`` (the epilogue K5 launches with: ``none`` where autograd
+    records, as the dispatcher runs the eager epilogue after the Function
+    there; B the batches of the modulate's scale and shift, 0 without
+    it): every packed call must be stubbed on the meta device, where the
+    dispatcher has no path."""
     k5 = Counter() if k5 is None else k5
+    k5_act = Counter() if k5_act is None else k5_act
 
     def rmsnorm(x, weight, eps=1e-6):
         k1[(x.numel() // x.shape[-1], x.shape[-1])] += 1
@@ -186,19 +200,50 @@ def recording(k1: Counter, k2: Counter, k5: Counter = None):
         k2[tuple(q.shape)] += 1
         return torch.empty_like(q)
 
-    def grouped_rmsnorm(x, weight, z, segments, eps=1e-6, from_5d=False):
-        k5[(x.numel() // x.shape[-1], tuple(segments), z)] += 1
+    def grouped_rmsnorm_act(x, weight, z, segments, eps=1e-6,
+                            from_5d=False, act="none", scale=None,
+                            shift=None):
+        key = (x.numel() // x.shape[-1], tuple(segments), z)
+        k5[key] += 1
+        mod = [t for t in (scale, shift) if t is not None]
+        if autograd_required(x, weight, *mod):
+            act = "none"
+        k5_act[key + (act, scale.shape[0] if act == "modulate_silu"
+                      else 0)] += 1
         return torch.empty_like(x)
 
     saved = (nn_mod.rmsnorm, attention_mod.window_attention,
-             packed_mod.grouped_rmsnorm)
+             packed_mod.grouped_rmsnorm_act)
     (nn_mod.rmsnorm, attention_mod.window_attention,
-     packed_mod.grouped_rmsnorm) = rmsnorm, window_attention, grouped_rmsnorm
+     packed_mod.grouped_rmsnorm_act) = (rmsnorm, window_attention,
+                                        grouped_rmsnorm_act)
     try:
         yield
     finally:
         (nn_mod.rmsnorm, attention_mod.window_attention,
-         packed_mod.grouped_rmsnorm) = saved
+         packed_mod.grouped_rmsnorm_act) = saved
+
+
+def by_epilogue(k5_act: Counter, times: int = 1) -> dict:
+    """K5's launches by epilogue (every epilogue named) of ``k5_act``
+    ((rows, segments, Z, epilogue, B) -> launches) times ``times``."""
+    out = dict.fromkeys(K5_EPILOGUES, 0)
+    for key, n in k5_act.items():
+        out[key[3]] += n * times
+    return out
+
+
+def eager_epilogue_bytes(k5_act: Counter, times: int) -> Counter:
+    """{epilogue: bytes} that the eager passes after ``times`` rounds of
+    the K5 launches ``k5_act`` would move in bf16 (each pass reads and
+    writes the norm's whole output: one SiLU, or the modulate's product
+    and sum and the SiLU), which the fused epilogue leaves out."""
+    passes = {"none": 0, "silu": 1, "modulate_silu": 3}
+    out = Counter()
+    for (rows, segments, z, act, _), n in k5_act.items():
+        out[act] += n * times * passes[act] * 2 * BF16 * rows * z * sum(
+            segments)
+    return out
 
 
 def patch_grid(conf, patches: int = None, grid: tuple = None) -> tuple:
@@ -216,18 +261,22 @@ def patch_grid(conf, patches: int = None, grid: tuple = None) -> tuple:
 
 def per_call_shapes(packed: bool = True, patches: int = None,
                     chunk: int = 1, grid: tuple = None, conf=None,
-                    k5: Counter = None) -> tuple[Counter, Counter]:
+                    k5: Counter = None, k5_act: Counter = None
+                    ) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one UNet
     call on ``chunk`` z-windows of ``patches`` patches each (a square, or
     a ``grid`` of p1 x p2 patches; default the preset's plan), for the
     packed model or the 5D one, of ``conf``'s preset (default 638850);
-    ``k5`` gets K5's (rows, segments, Z) -> launches."""
+    ``k5`` gets K5's (rows, segments, Z) -> launches, ``k5_act`` its
+    (rows, segments, Z, epilogue, B) -> launches."""
     conf = conf or preset_conf()
     p1, p2 = patch_grid(conf, patches, grid)
     patches = p1 * p2
     conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
-    with recording(k1, k2, k5), torch.device("meta"):
+    # generation runs the model under inference mode: no autograd records
+    with recording(k1, k2, k5, k5_act), torch.device("meta"), \
+            torch.no_grad():
         model = make_packed_model(conf) if packed else conf.make_model()
         model = model.to(torch.bfloat16)
         p = conf.image_size
@@ -360,13 +409,14 @@ def quant_shapes(quant: str = "int8", attn: bool = True,
     ``conf``'s preset (default 638850; the patch grid as
     :func:`per_call_shapes` takes it), as :func:`quant_recording` keys
     them; ``k12``: two Counters that get its K1 and K2 shapes (and a third
-    that gets K5's)."""
+    that gets K5's, a fourth K5's with their epilogues)."""
     conf = conf or preset_conf()
     p1, p2 = patch_grid(conf, patches, grid)
     conf = conf.make_model_conf()
     k3, k4, mm = Counter(), Counter(), Counter()
     with quant_recording(k3, k4, mm), recording(
-            *(k12 or (Counter(), Counter()))), torch.device("meta"):
+            *(k12 or (Counter(), Counter()))), torch.device("meta"), \
+            torch.no_grad():
         model = make_packed_model(conf, quant="int8", prequant=True,
                                   static_act=quant == "int8_static",
                                   quant_attn=attn).to(torch.bfloat16)
@@ -423,8 +473,8 @@ def main_quant(quant: str, attn: bool, patches: int, chunk: int,
 
 
 def train_shapes(packed: bool = False, batch: int = None,
-                 method: str = "ours", conf=None, k5: Counter = None
-                 ) -> tuple[Counter, Counter]:
+                 method: str = "ours", conf=None, k5: Counter = None,
+                 k5_act: Counter = None) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one
     training forward on a microbatch of ``batch`` samples (default the
     preset's, ``conf.batch_size``; 2x2 blocks of patches, both decoders)
@@ -435,7 +485,7 @@ def train_shapes(packed: bool = False, batch: int = None,
     batch = batch or conf.batch_size
     conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
-    with recording(k1, k2, k5), torch.device("meta"):
+    with recording(k1, k2, k5, k5_act), torch.device("meta"):
         model = (make_packed_model(conf, torch.float32, from_5d=True)
                  if packed else conf.make_model(torch.float32)).train()
         p = conf.image_size
@@ -486,10 +536,12 @@ def by_variant(kernel: str, counts: Counter, times: int = 1) -> dict:
     return out
 
 
-def prediction(counts: dict, times: int) -> dict:
+def prediction(counts: dict, times: int, k5_act: Counter = None) -> dict:
     """{name: {launches, by_variant, shapes}} of {name: (kernel, shape ->
     launches a call)} over ``times`` calls (``chip_smoke.py``'s launch
-    counters' names; shapes as lists, for JSON)."""
+    counters' names; shapes as lists, for JSON); with ``k5_act`` K5's
+    ``by_epilogue`` and ``act_shapes`` ((rows, segments, Z, epilogue, B)
+    -> launches) too."""
     out = {}
     for name, (kernel, c) in counts.items():
         if kernel in ("K3", "K4"):
@@ -502,6 +554,11 @@ def prediction(counts: dict, times: int) -> dict:
         out[name] = dict(launches=sum(c.values()) * times, by_variant=by,
                          shapes=[[list(s), n * times] for s, n in
                                  sorted(c.items(), key=lambda kv: -kv[1])])
+        if kernel == "K5" and k5_act is not None:
+            out[name]["by_epilogue"] = by_epilogue(k5_act, times)
+            out[name]["act_shapes"] = [
+                [list(s), n * times] for s, n in
+                sorted(k5_act.items(), key=lambda kv: -kv[1])]
     return out
 
 
@@ -513,30 +570,33 @@ def chain_prediction(conf, quant: str = "", steps: int = STEPS,
     False the 5D one), and with ``quant`` K3 and K4, as
     :func:`prediction` gives them."""
     calls = gen_plan(conf)["calls"] * steps + probes
-    k1, k2, k5 = Counter(), Counter(), Counter()
+    k1, k2, k5, k5_act = Counter(), Counter(), Counter(), Counter()
     counts = {}
     if quant:
-        k3, k4, _ = quant_shapes(quant, conf=conf, k12=(k1, k2, k5))
+        k3, k4, _ = quant_shapes(quant, conf=conf,
+                                 k12=(k1, k2, k5, k5_act))
         counts = {"quant_conv": ("K3", k3), "quantize": ("K4", k4)}
     else:
-        k1, k2 = per_call_shapes(packed, conf=conf, k5=k5)
+        k1, k2 = per_call_shapes(packed, conf=conf, k5=k5, k5_act=k5_act)
     return prediction({"rmsnorm": ("K1", k1),
                        "window_attention": ("K2", k2),
-                       "grouped_rmsnorm": ("K5", k5), **counts}, calls)
+                       "grouped_rmsnorm": ("K5", k5), **counts}, calls,
+                      k5_act)
 
 
 def train_prediction(conf, steps: int = 1) -> dict:
     """The launches of ``steps`` training steps of ``cli.train`` on
     ``conf``'s preset (the packed model where ``conf.packed_compute``):
     K1, K1b, K2, K2b, K5 and K5b, as :func:`prediction` gives them."""
-    k5 = Counter()
-    k1, k2 = train_shapes(conf.packed_compute, conf=conf, k5=k5)
+    k5, k5_act = Counter(), Counter()
+    k1, k2 = train_shapes(conf.packed_compute, conf=conf, k5=k5,
+                          k5_act=k5_act)
     times = conf.accum_batches * steps
     return prediction({"rmsnorm": ("K1", k1), "rmsnorm_bwd": ("K1b", k1),
                        "window_attention": ("K2", k2),
                        "window_attention_bwd": ("K2b", k2),
                        "grouped_rmsnorm": ("K5", k5),
-                       "grouped_rmsnorm_bwd": ("K5b", k5)}, times)
+                       "grouped_rmsnorm_bwd": ("K5b", k5)}, times, k5_act)
 
 
 def main_train(packed: bool, method: str = "ours", conf=None) -> None:
@@ -782,10 +842,10 @@ def main() -> None:
     visits = args.visits * (plan["visits"] if args.patches is None else 1)
     per_step = plan["windows"] // args.chunk * visits
     calls = STEPS * per_step
-    k5 = Counter()
+    k5, k5_act = Counter(), Counter()
     k1, k2 = per_call_shapes(packed=not args.no_packed,
                              patches=args.patches, chunk=args.chunk,
-                             conf=conf, k5=k5)
+                             conf=conf, k5=k5, k5_act=k5_act)
     print(("PackedTeraUNet" if not args.no_packed else "TeraUNet (5D)")
           + f" on {conf.name}: {plan['windows']} z-windows, "
           f"{per_step} UNet calls a step")
@@ -799,6 +859,14 @@ def main() -> None:
     for kernel, counts in (("K1", k1), ("K2", k2), ("K5", k5)):
         print(f"{kernel} launches a chain by variant: "
               f"{by_variant(kernel, counts, calls)}")
+    print(f"K5 launches by epilogue: {by_epilogue(k5_act)} per call, "
+          f"{by_epilogue(k5_act, calls)} per chain")
+    removed = eager_epilogue_bytes(k5_act, per_step)
+    print("eager passes the K5 epilogues leave out: "
+          + ", ".join(f"{act} {n / 1e9:.2f} GB" for act, n in
+                      sorted(removed.items()))
+          + f" a step, {sum(removed.values()) / 1e9:.2f} GB in all, byte "
+          f"bound {sum(removed.values()) / H100_BYTES_PER_S * 1e3:.2f} ms")
     step = grouped_step_bytes(k5, per_step, ("K5",))
     for (rows, c), n in k1.items():
         step["K1 " + rmsnorm_variant(c, BF16, True)] += (

@@ -19,19 +19,23 @@
 //   (ZMAX compile-time slots: plane_slots(Z), 2, 4 or 8), the
 //   sums are reduced over the row's G lanes with __shfl_xor_sync, and each
 //   vector is scaled by its own plane's factor.
-// staged (any other row): one warp a row (a grid-stride loop over the
-//   rows, up to kStagedMaxWarps rows in flight a block, as many as the
-//   block's shared memory holds: staged_warps), the row read from device
-//   memory once as K1's 16-byte words (csrc/rmsnorm_words.cuh) into the
-//   warp's own buffer of shared memory, where element e of the row lies at
-//   position off + e of the words.  The warp walks the planes in turn: for
-//   plane z, lane l takes channels l, l + 32, ... of each segment's part of
-//   the plane, so that the plane of every element is known without a
-//   division, the plane's sum is one warp_sum, and the same lanes then
-//   scale the same elements in place; the row goes back through the same
-//   words.  Only __syncwarp orders a warp's steps, so the block's warps
-//   (and the SM's blocks) overlap one row's loads with another's
-//   arithmetic.
+// staged (any other row), K5: one warp a row (a grid-stride loop over the
+//   rows, up to kStagedMaxWarps warps a block, as many as the block's
+//   shared memory holds: staged_warps), each warp with two row buffers of
+//   shared memory: the next row's 16-byte words (K1's words,
+//   csrc/rmsnorm_words.cuh) arrive by cp.async while the warp walks the
+//   current one, where element e of the row lies at position off + e of
+//   the words.  The warp walks the planes in turn: for plane z, lane l
+//   takes channels l, l + 32, ... of each segment's part of the plane, so
+//   that the plane of every element is known without a division, the
+//   plane's sum is one warp_sum, and the same lanes then scale the same
+//   elements in place; the row goes back through the same words.
+// staged, K5b: one block a row (rows grid-strided over the blocks), the
+//   rows' x and g words double-buffered in shared memory by cp.async as
+//   in K5; thread t owns elements t, t + T, ... of every row (at most
+//   bwd_ept a thread), so its weights, planes and dw sums stay in
+//   registers over all the block's rows; the planes' two sums are
+//   reduced over the block through shared memory (two barriers a row).
 #pragma once
 
 #include "rmsnorm_words.cuh"
@@ -41,12 +45,17 @@ namespace grouped {
 using namespace rmsnorm_words;
 
 enum : int { kStaged = 0, kVector = 1 };   // ops/grouped_rmsnorm_kernel.py
+// K5's epilogues (ops/grouped_rmsnorm_kernel.py EPILOGUES)
+enum : int { kActNone = 0, kActSilu = 1, kActModulateSilu = 2 };
 
 constexpr int kMaxZ = 8;
 constexpr int kMaxSegments = 3;
 constexpr int kMaxWidth = 12288;          // Z * Ctot, elements a row
 constexpr int kThreads = 256;
 constexpr int kStagedMaxWarps = 8;        // rows in flight a staged block
+constexpr int kStagedBlocks = 4;          // K5 staged's __launch_bounds__:
+constexpr int kStagedRegs =               // 64 registers a thread
+    65536 / (32 * kStagedMaxWarps * kStagedBlocks);
 constexpr int kVecMax = 4;                // 16-byte vectors a lane holds
 constexpr int kVecMaxBytes = 32 * kVecMax * 16;   // one row, at most
 
@@ -88,10 +97,8 @@ __device__ __forceinline__ void locate(const Layout& L, int e, int& z,
   widx = L.from_5d ? L.cum[s] + j : e;
 }
 
-// Shared memory of the staged kernels: the weight by element (floats, a
-// whole number of 16-byte words), then each warp's buffers: the row's
-// words (nwmax: the most words a row can touch) of x (K5b: and of g) and,
-// in K5b, the warp's dw sums by element.
+// The most 16-byte words a row of w elements of T can touch, at any
+// phase.
 template <typename T> __host__ __device__ constexpr int staged_words(int w) {
   return (w + 2 * (kWordBytes / (int)sizeof(T)) - 2) /
          (kWordBytes / (int)sizeof(T));
@@ -99,39 +106,65 @@ template <typename T> __host__ __device__ constexpr int staged_words(int w) {
 __host__ __device__ constexpr int weight_floats(int w) {
   return (w + 3) / 4 * 4;
 }
+// K5 staged's shared memory: the weight by element (floats, a whole
+// number of 16-byte words), then each warp's two row buffers.
 template <typename T>
-__host__ __device__ constexpr int staged_warp_bytes(int w, bool bwd) {
-  return kWordBytes * staged_words<T>(w) * (bwd ? 2 : 1) +
-         (bwd ? (int)sizeof(float) * weight_floats(w) : 0);
+__host__ __device__ constexpr int staged_warp_bytes(int w) {
+  return 2 * kWordBytes * staged_words<T>(w);
 }
-// The warps of a staged block: as many as kMaxBlockSmem holds beside the
-// weight, at most kStagedMaxWarps (ops/grouped_rmsnorm_kernel.py
-// staged_warps mirrors this).
+// The warps of a K5 staged block: as many as kMaxBlockSmem holds beside
+// the weight, at most kStagedMaxWarps.
 template <typename T>
-__host__ __device__ constexpr int staged_warps(int w, bool bwd) {
+__host__ __device__ constexpr int staged_warps(int w) {
   const int fit = (kMaxBlockSmem - (int)sizeof(float) * weight_floats(w)) /
-                  staged_warp_bytes<T>(w, bwd);
+                  staged_warp_bytes<T>(w);
   return fit < 1 ? 1 : fit > kStagedMaxWarps ? kStagedMaxWarps : fit;
 }
 template <typename T>
-__host__ __device__ constexpr int staged_smem(int w, bool bwd) {
+__host__ __device__ constexpr int staged_smem(int w) {
   return (int)sizeof(float) * weight_floats(w) +
-         staged_warps<T>(w, bwd) * staged_warp_bytes<T>(w, bwd);
+         staged_warps<T>(w) * staged_warp_bytes<T>(w);
 }
-static_assert(staged_smem<float>(kMaxWidth, true) <= kMaxBlockSmem,
-              "a float32 row of kMaxWidth fits one warp of K5b");
+static_assert(staged_smem<float>(kMaxWidth) <= kMaxBlockSmem,
+              "a float32 row of kMaxWidth fits one warp of K5");
 // The staged blocks an SM holds at once (its 228 KB of shared memory, 1 KB
-// of it reserved a block, and its 64 warps): their grid, so that each warp
-// walks many rows and a block stages the weight once for all of them
-// (ops/grouped_rmsnorm_kernel.py bwd_blocks mirrors this for K5b).
+// of it reserved a block, its 2,048 threads and 65,536 registers at
+// `regs` a thread): their grid, so that each warp or block walks many
+// rows and a block stages what it keeps once for all of them
+// (ops/grouped_rmsnorm_kernel.py blocks_per_sm mirrors this for K5b's
+// grid, bwd_blocks).
 constexpr int kSmSmem = 233472;
-template <typename T>
-__host__ __device__ constexpr int staged_blocks_per_sm(int w, bool bwd) {
-  const int by_smem = kSmSmem / (staged_smem<T>(w, bwd) + 1024);
-  const int by_warps = 64 / staged_warps<T>(w, bwd);
-  const int n = by_smem < by_warps ? by_smem : by_warps;
-  return n < 1 ? 1 : n;
+__host__ __device__ constexpr int blocks_per_sm(int smem, int threads,
+                                                int regs) {
+  const int by_smem = kSmSmem / (smem + 1024);
+  const int by_threads = 2048 / threads;
+  const int by_regs = 65536 / (threads * regs);
+  const int n = by_smem < by_threads ? by_smem : by_threads;
+  const int m = n < by_regs ? n : by_regs;
+  return m < 1 ? 1 : m;
 }
+
+// K5b staged: T threads a row (a multiple of 32, at most kBwdMaxThreads),
+// each owning at most bwd_ept(w) elements (8, 16 or 24), which the
+// kernel's template covers.
+constexpr int kBwdMaxThreads = 512;
+__host__ __device__ constexpr int bwd_ept(int w) {
+  return w <= 8 * kBwdMaxThreads ? 8 : w <= 16 * kBwdMaxThreads ? 16 : 24;
+}
+__host__ __device__ constexpr int bwd_threads(int w) {
+  return ((w + bwd_ept(w) - 1) / bwd_ept(w) + 31) / 32 * 32;
+}
+// K5b staged's shared memory: two slots of a row's x and g words (one
+// row on its way while the block walks the other), then each warp's two
+// sums a plane (kMaxZ planes).
+template <typename T>
+__host__ __device__ constexpr int bwd_staged_smem(int w) {
+  return 2 * 2 * kWordBytes * staged_words<T>(w) +
+         (int)sizeof(float) * (bwd_threads(w) / 32) * 2 * kMaxZ;
+}
+static_assert(bwd_ept(kMaxWidth) * kBwdMaxThreads >= kMaxWidth &&
+                  bwd_staged_smem<float>(kMaxWidth) <= kMaxBlockSmem,
+              "a float32 row of kMaxWidth fits one block of K5b");
 
 // The vector variant's plane slots for z planes: 2, 4 or 8 (one
 // instantiation fewer for Z = 1, which no preset's path runs, at the cost
@@ -229,6 +262,33 @@ __device__ __forceinline__ void add_to(float (&v)[ZMAX], int p, float a) {
 #pragma unroll
   for (int zz = 0; zz < ZMAX; ++zz) v[zz] += p == zz ? a : 0.f;
 }
+
+// PyTorch's CUDA SiLU (its ActivationSiluKernel.cu: x / (1 + exp(-x)) in
+// float, compiled without fast math): expf and an IEEE division, each
+// rounded as there.
+__device__ __forceinline__ float silu(float v) {
+  return __fdiv_rn(v, __fadd_rn(1.0f, expf(-v)));
+}
+
+// The modulate of K5's epilogue: y (a value of T) times (1 + s), plus sh,
+// each of 1 + s, the product and the sum rounded to T as PyTorch's
+// elementwise ops round them (in float, then to T; no fused multiply-add).
+template <typename T>
+__device__ __forceinline__ float modulate(float y, float s, float sh) {
+  const float m = round_to<T>(__fadd_rn(1.0f, s));
+  return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(y, m)), sh));
+}
+
+// What the epilogue reads: kActModulateSilu's scale and shift, (B, C) of
+// T with `stride` elements from one batch's row to the next, batch b
+// covering rows b * rpb .. b * rpb + rpb - 1 of x.
+struct Epi {
+  int act;
+  const void* scale;
+  const void* shift;
+  long long stride;
+  long long rpb;
+};
 
 // The lanes of a row's group in the vector variant: the smallest power of
 // two up to 32 that leaves each lane at most kVecMax vectors (K1's rule)

@@ -13,17 +13,19 @@
 // JAX package has no custom_vjp for it), which eager PyTorch's autograd
 // runs as dozens of launches.  Bound by memory: x and g read once, dx
 // written once.  As K1b (csrc/rmsnorm_bwd.cu) does for K1, each row is
-// read once into registers (vector) or a warp's buffers of shared memory
-// (staged), its planes' two sums taken from there, dx written from there,
-// and each element's share of dw added to float sums that stay on the SM
-// over all the rows a block visits (a grid-stride loop, the grid capped by
-// the caller, ops/grouped_rmsnorm_kernel.py bwd_blocks): in the vector
-// variant a lane's channels are the same in every row, so their weight and
-// dw sums stay in registers; in the staged variant (a warp a row) each
-// warp sums its rows' dw by element in its own row of shared memory, and
-// the block adds its warps' rows in order.  At the end each block writes
-// its dw by element into its row of `partial` (blocks x Z Ctot floats) and
-// grouped_bwd_dw_kernel sums the
+// read once into registers (vector) or shared memory (staged), its
+// planes' two sums taken from there, dx written from there, and each
+// element's share of dw added to float sums that stay on the SM over all
+// the rows a block visits (a grid-stride loop, the grid capped by the
+// caller, ops/grouped_rmsnorm_kernel.py bwd_blocks).  vector: a lane's
+// channels are the same in every row, so their weight and dw sums stay in
+// registers.  staged: a block a row, the next row's x and g words on
+// their way by cp.async into the other of two buffers while the block
+// walks the current one; thread t owns elements t, t + T, ... of every
+// row, so its weights and dw sums stay in registers too, and the planes'
+// two sums are reduced over the block's warps through shared memory (two
+// barriers a row).  At the end each block writes its dw by element into its row of
+// `partial` (blocks x Z Ctot floats) and grouped_bwd_dw_kernel sums the
 // blocks (and, from_5d, the planes) in a fixed order: no float atomics, so
 // the same inputs give the same dx and dw bit for bit.  Rows of up to
 // kMaxWidth (12,288) elements, above K1b's 7,264: the 16-RNA-slice
@@ -138,91 +140,139 @@ grouped_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// Issue the loads of one row's words into buf (thread t's words t, t + T,
+// ...): a word inside the tensor by cp.async, one that reaches outside it
+// element by element (rmsnorm_words.cuh load_word) at once.
 template <typename T>
-__global__ void __launch_bounds__(32 * kStagedMaxWarps)
-grouped_bwd_staged_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                          const float* __restrict__ w, T* __restrict__ dx,
-                          float* __restrict__ partial, long long rows,
-                          Layout L, float eps, int phx, int phg,
-                          int whole_stores) {
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = staged_words<T>(L.width), wf = weight_floats(L.width);
-  extern __shared__ uint4 smem4[];
-  float* wsh = reinterpret_cast<float*>(smem4);              // (width)
-  uint4* xbuf = smem4 + wf / 4 +
-                warp * (staged_warp_bytes<T>(L.width, true) / kWordBytes);
-  uint4* gbuf = xbuf + nw;
-  float* sdw = reinterpret_cast<float*>(gbuf + nw);          // (width)
-  const T* xb = x - phx;
-  const T* gb = g - phg;
-  T* db = dx - phx;   // dx is written from x's words (whole_stores: dx
-                      // shares x's phase within 16 bytes)
-  const long long xend = phx + rows * (long long)L.width;
-  const long long gend = phg + rows * (long long)L.width;
-  for (int e = threadIdx.x; e < L.width; e += blockDim.x) {
-    int z, widx;
-    locate(L, e, z, widx);
-    wsh[e] = w[widx];
-  }
-  for (int e = lane; e < L.width; e += 32) sdw[e] = 0.f;
-  __syncthreads();
-
-  for (long long row = (long long)blockIdx.x * warps + warp; row < rows;
-       row += (long long)gridDim.x * warps) {
-    const Row<T> rx(row, L.width, phx), rg(row, L.width, phg);
-    for (int k = lane; k < rx.nw; k += 32)
-      xbuf[k] = load_word<T>(xb, rx.k0 + k, rx.ch(k, 0), L.width, phx, xend);
-    for (int k = lane; k < rg.nw; k += 32)
-      gbuf[k] = load_word<T>(gb, rg.k0 + k, rg.ch(k, 0), L.width, phg, gend);
-    __syncwarp();
-    T* xe = reinterpret_cast<T*>(xbuf) + rx.off;   // the row's element e
-    const T* ge = reinterpret_cast<const T*>(gbuf) + rg.off;
-    for (int z = 0; z < L.z; ++z) {
-      float a = 0.f, b = 0.f;
-      for (int s = 0; s < L.nseg; ++s) {
-        const int base = L.off[s] + z * L.c[s];
-        for (int j = lane; j < L.c[s]; j += 32) {
-          const float xf = to_f32(xe[base + j]);
-          a = fmaf(xf, xf, a);
-          b = fmaf(to_f32(ge[base + j]) * wsh[base + j], xf, b);
-        }
-      }
-      const float inv = rsqrtf(warp_sum(a) / (float)L.ctot + eps);
-      const float m = warp_sum(b) / (float)L.ctot;
-      const float inv3 = inv * inv * inv;
-      for (int s = 0; s < L.nseg; ++s) {
-        const int base = L.off[s] + z * L.c[s];
-        for (int j = lane; j < L.c[s]; j += 32) {
-          const int e = base + j;
-          const float xf = to_f32(xe[e]), gf = to_f32(ge[e]);
-          sdw[e] += gf * xf * inv;
-          xe[e] = from_f32<T>(inv * (gf * wsh[e]) - inv3 * xf * m);
-        }
-      }
-    }
-    __syncwarp();
-    for (int k = lane; k < rx.nw; k += 32)
-      store_word<T>(db, rx.k0 + k, rx.ch(k, 0), L.width, whole_stores != 0,
-                    xbuf[k]);
-    __syncwarp();   // the next row's words overwrite the buffers
-  }
-  __syncthreads();
-  const float* first = reinterpret_cast<const float*>(
-      smem4 + wf / 4 + staged_words<T>(L.width) * 2);
-  const int stride = staged_warp_bytes<T>(L.width, true) / 4;   // floats
-  for (int e = threadIdx.x; e < L.width; e += blockDim.x) {
-    float t = 0.f;
-    for (int wi = 0; wi < warps; ++wi) t += first[wi * stride + e];
-    partial[(long long)blockIdx.x * L.width + e] = t;
+__device__ __forceinline__ void stage_row(uint4* buf, const T* base,
+                                          const Row<T>& r, int width,
+                                          int ph, long long end) {
+  constexpr int E = kWordBytes / sizeof(T);
+  const uint4* words = reinterpret_cast<const uint4*>(base);
+  for (int k = threadIdx.x; k < r.nw; k += blockDim.x) {
+    const long long kw = r.k0 + k;
+    if (kw * E >= ph && kw * E + E <= end)
+      cp_async16(buf + k, words + kw);
+    else
+      buf[k] = load_word<T>(base, kw, r.ch(k, 0), width, ph, end);
   }
 }
 
-constexpr int kDwGroups = 8;
+template <typename T, int EPT, int ZMAX>
+__global__ void __launch_bounds__(kBwdMaxThreads, EPT == 8 ? 2 : 1)
+grouped_bwd_staged_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                          const float* __restrict__ w, T* __restrict__ dx,
+                          float* __restrict__ partial, long long rows,
+                          Layout L, float eps, int phx, int phg) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
+  const int nw = staged_words<T>(L.width);
+  extern __shared__ uint4 smem4[];
+  uint4* xbufs = smem4;                  // two slots of the row's x words
+  uint4* gbufs = smem4 + 2 * nw;         // and of its g words
+  float* red = reinterpret_cast<float*>(smem4 + 4 * nw);  // (warps, kMaxZ,
+                                                          //  2) sums
+  const T* xb = x - phx;   // the 16-byte boundaries below x and g
+  const T* gb = g - phg;
+  const long long xend = phx + rows * (long long)L.width;
+  const long long gend = phg + rows * (long long)L.width;
+  long long row = blockIdx.x;
+  if (row < rows) {   // the first row's words, in flight from the start
+    stage_row<T>(xbufs, xb, Row<T>(row, L.width, phx), L.width, phx, xend);
+    stage_row<T>(gbufs, gb, Row<T>(row, L.width, phg), L.width, phg, gend);
+  }
+  cp_async_commit();
+  // this thread's elements e_k = tid + k T: plane (-1 past the row),
+  // weight and dw sum, the same in every row
+  int plane[EPT];
+  float wf[EPT], dw[EPT];
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) {
+    const int e = tid + k * nthr;
+    plane[k] = -1;
+    wf[k] = dw[k] = 0.f;
+    if (e < L.width) {
+      int z, widx;
+      locate(L, e, z, widx);
+      plane[k] = z;
+      wf[k] = w[widx];
+    }
+  }
+
+  for (int slot = 0; row < rows; row += gridDim.x, slot ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();   // the row's words from every thread; the other
+                       // slot and `red` free again
+    const long long next = row + gridDim.x;
+    if (next < rows) {
+      stage_row<T>(xbufs + (slot ^ 1) * nw, xb, Row<T>(next, L.width, phx),
+                   L.width, phx, xend);
+      stage_row<T>(gbufs + (slot ^ 1) * nw, gb, Row<T>(next, L.width, phg),
+                   L.width, phg, gend);
+    }
+    cp_async_commit();
+    const T* xe = reinterpret_cast<const T*>(xbufs + slot * nw) +
+                  Row<T>(row, L.width, phx).off;   // the row's element e
+    const T* ge = reinterpret_cast<const T*>(gbufs + slot * nw) +
+                  Row<T>(row, L.width, phg).off;
+    float a[ZMAX], b[ZMAX];
+#pragma unroll
+    for (int zz = 0; zz < ZMAX; ++zz) a[zz] = b[zz] = 0.f;
+#pragma unroll
+    for (int k = 0; k < EPT; ++k) {
+      if (plane[k] < 0) continue;
+      const int e = tid + k * nthr;
+      const float xf = to_f32(xe[e]);
+      add_to<ZMAX>(a, plane[k], xf * xf);
+      add_to<ZMAX>(b, plane[k], to_f32(ge[e]) * wf[k] * xf);
+    }
+#pragma unroll
+    for (int zz = 0; zz < ZMAX; ++zz) {
+      a[zz] = warp_sum(a[zz]);
+      b[zz] = warp_sum(b[zz]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int zz = 0; zz < ZMAX; ++zz) {
+        red[(warp * kMaxZ + zz) * 2] = a[zz];
+        red[(warp * kMaxZ + zz) * 2 + 1] = b[zz];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int zz = 0; zz < ZMAX; ++zz) {
+      float sa = 0.f, sb = 0.f;
+      for (int wi = 0; wi < nwarps; ++wi) {
+        const float2 p =
+            *reinterpret_cast<const float2*>(red + (wi * kMaxZ + zz) * 2);
+        sa += p.x;
+        sb += p.y;
+      }
+      a[zz] = rsqrtf(sa / (float)L.ctot + eps);   // now inv
+      b[zz] = sb / (float)L.ctot;                 // now m
+    }
+    T* dr = dx + row * L.width;
+#pragma unroll
+    for (int k = 0; k < EPT; ++k) {
+      if (plane[k] < 0) continue;
+      const int e = tid + k * nthr;
+      const float inv = pick<ZMAX>(a, plane[k]), m = pick<ZMAX>(b, plane[k]);
+      const float xf = to_f32(xe[e]), gf = to_f32(ge[e]);
+      dw[k] += gf * xf * inv;
+      dr[e] = from_f32<T>(inv * (gf * wf[k]) - inv * inv * inv * xf * m);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < EPT; ++k)
+    if (plane[k] >= 0)
+      partial[(long long)blockIdx.x * L.width + tid + k * nthr] = dw[k];
+}
+
+constexpr int kDwGroups = 32;
 
 // dw[k] = the sum over the blocks' rows of `partial` (and, from_5d, over
-// the planes' elements of channel k): one block per 32 channels, 8 row
-// groups each taking every 8th block in order, then the 8 group sums in
+// the planes' elements of channel k): one block per 32 channels, 32 row
+// groups each taking every 32nd block in order, then the 32 group sums in
 // order.
 __global__ void __launch_bounds__(32 * kDwGroups)
 grouped_bwd_dw_kernel(const float* __restrict__ partial,
@@ -241,6 +291,7 @@ grouped_bwd_dw_kernel(const float* __restrict__ partial,
       step = L.c[sg];
       planes = L.z;
     }
+#pragma unroll 4
     for (int b = grp; b < blocks; b += kDwGroups) {
       const float* p = partial + (long long)b * L.width + base;
       for (int zz = 0; zz < planes; ++zz) s += p[zz * step];
@@ -299,21 +350,36 @@ int launch_vector(const Args& a) {
   }
 }
 
-template <typename T>
-int launch_staged(const Args& a) {
+template <typename T, int EPT, int ZMAX>
+int launch_staged_z(const Args& a) {
   static std::atomic<int> opted_in[kMaxDevices];
-  const cudaError_t attr = smem_opt_in(grouped_bwd_staged_kernel<T>,
+  const cudaError_t attr = smem_opt_in(grouped_bwd_staged_kernel<T, EPT, ZMAX>,
                                        kMaxBlockSmem, opted_in);
   if (attr != cudaSuccess) return (int)attr;
-  grouped_bwd_staged_kernel<T><<<
-      a.blocks, 32 * staged_warps<T>(a.L.width, true),
-      staged_smem<T>(a.L.width, true), a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.w,
-      static_cast<T*>(a.dx), a.partial, a.rows, a.L, a.eps, phase<T>(a.x),
-      phase<T>(a.g),
-      (reinterpret_cast<uintptr_t>(a.dx) - reinterpret_cast<uintptr_t>(a.x))
-              % kWordBytes == 0);
+  grouped_bwd_staged_kernel<T, EPT, ZMAX><<<
+      a.blocks, bwd_threads(a.L.width), bwd_staged_smem<T>(a.L.width),
+      a.stream>>>(static_cast<const T*>(a.x), static_cast<const T*>(a.g),
+                  a.w, static_cast<T*>(a.dx), a.partial, a.rows, a.L, a.eps,
+                  phase<T>(a.x), phase<T>(a.g));
   return (int)cudaGetLastError();
+}
+
+template <typename T, int EPT>
+int launch_staged_ept(const Args& a) {
+  switch (plane_slots(a.L.z)) {
+    case 2: return launch_staged_z<T, EPT, 2>(a);
+    case 4: return launch_staged_z<T, EPT, 4>(a);
+    default: return launch_staged_z<T, EPT, 8>(a);
+  }
+}
+
+template <typename T>
+int launch_staged(const Args& a) {
+  switch (bwd_ept(a.L.width)) {
+    case 8: return launch_staged_ept<T, 8>(a);
+    case 16: return launch_staged_ept<T, 16>(a);
+    default: return launch_staged_ept<T, 24>(a);
+  }
 }
 
 template <typename T>

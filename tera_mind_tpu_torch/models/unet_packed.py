@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.collage import to_collage
-from ..ops.grouped_rmsnorm_kernel import grouped_rmsnorm
+from ..ops.grouped_rmsnorm_kernel import grouped_rmsnorm_act
 from ..ops.quant import QuantModule, quant_conv2d
 from ..ops.quant_kernel import conv_align, round_up
 from ..ops.zpack import (pack_channel_param, pack_conv3d_bias,
@@ -63,9 +63,12 @@ class GroupedRMSNorm(RMSNorm):
 
     The weight is ``(Z*Ctot,)`` in the segment-major runtime layout, or
     the 5D model's ``(Ctot,)`` with ``from_5d``.  Runs through
-    ``ops/grouped_rmsnorm_kernel.grouped_rmsnorm``: one launch of K5 on a
-    CUDA tensor (K5b records the backward when autograd needs one), the
-    plain multi-pass version on a CPU tensor."""
+    ``ops/grouped_rmsnorm_kernel.grouped_rmsnorm_act``, with the norm's
+    consumer ``act`` (``silu``, or the adaLN ``modulate_silu`` by (B, C)
+    ``scale`` and ``shift``): one launch of K5 with that epilogue on a
+    CUDA tensor; where autograd records, K5, then the eager epilogue
+    (K5b records the norm's backward); the plain multi-pass version on a
+    CPU tensor."""
 
     def __init__(self, z: int, segments: Sequence[int], eps: float = 1e-6,
                  from_5d: bool = False):
@@ -73,9 +76,12 @@ class GroupedRMSNorm(RMSNorm):
         super().__init__(sum(segments) * (1 if from_5d else z), eps)
         self.z, self.segments, self.from_5d = z, segments, from_5d
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return grouped_rmsnorm(x, self.weight, self.z, self.segments,
-                               self.eps, self.from_5d)
+    def forward(self, x: torch.Tensor, act: str = "none",
+                scale: Optional[torch.Tensor] = None,
+                shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return grouped_rmsnorm_act(x, self.weight, self.z, self.segments,
+                                   self.eps, self.from_5d, act, scale,
+                                   shift)
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:
@@ -208,21 +214,21 @@ class PackedResBlock(nn.Module):
                 *, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         dt = self.in_conv.dtype
-        z = self.z
-        h = F.silu(self.in_norm(x.to(dt)))
+        h = self.in_norm(x.to(dt), act="silu")
         if self.up:
             h, x = _up2(h), _up2(x)
         elif self.down:
             h, x = _down2(h), _down2(x)
-        h = self.out_norm(self.in_conv(h))
+        h = self.in_conv(h)
         if emb is not None:
             emb_out = self.emb_proj(F.silu(emb.to(dt))).to(h.dtype)
+            # per-C scale and shift, the same on every z plane: the norm
+            # applies silu(h * (1 + scale) + shift) before its store
             scale, shift = emb_out.chunk(2, dim=-1)
-            # per-C scale and shift, the same on every z plane (z-major)
-            scale = scale.repeat(1, z)[:, None, None, :]
-            shift = shift.repeat(1, z)[:, None, None, :]
-            h = h * (1.0 + scale) + shift
-        h = F.silu(h)
+            h = self.out_norm(h, act="modulate_silu", scale=scale,
+                              shift=shift)
+        else:
+            h = self.out_norm(h, act="silu")
         if self.training and self.dropout > 0 and generator is not None:
             h = dropout(h, self.dropout, generator)   # on the packed map
         h = self.out_conv(h)
@@ -413,7 +419,7 @@ class PackedTeraUNet(nn.Module):
                         hdec = up(hdec, emb, generator=generator)
                     k += 1
 
-            out = self.out_conv(F.silu(self.out_norm(hdec)))
+            out = self.out_conv(self.out_norm(hdec, act="silu"))
             preds.append(packed_to_pixel(out, z).float())
 
         return preds[0], (preds[1] if decode_original else None)

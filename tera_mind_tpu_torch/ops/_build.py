@@ -50,7 +50,7 @@ SIGNATURES = {
     "tmt_quant_conv": [_ptr] * 6 + [_int] * 14 + [_ptr],
     "tmt_quantize": [_ptr] * 6 + [_int, _i64, _int, _int, _int, _int, _ptr],
     "tmt_grouped_rmsnorm": [_ptr, _ptr, _ptr, _i64] + [_int] * 5
-    + [_f32] + [_int] * 4 + [_ptr],
+    + [_f32] + [_int] * 5 + [_ptr, _ptr, _i64, _i64, _ptr],
     "tmt_grouped_rmsnorm_bwd": [_ptr] * 6 + [_i64] + [_int] * 6 + [_f32]
     + [_int] * 3 + [_ptr],
 }
@@ -174,22 +174,28 @@ class Counters:
         self.launches_by_variant = dict.fromkeys(variants, 0)
 
 
-def count_launch(counters, variant: str) -> None:
+def count_launch(counters, variant: str, epilogue: str = None) -> None:
     """Add one launch of ``variant`` to ``counters.launches`` and
-    ``counters.launches_by_variant`` (a kernel wrapper module) under one
+    ``counters.launches_by_variant`` (a kernel wrapper module), and of
+    ``epilogue`` to its ``launches_by_epilogue`` where given, under one
     lock: streaming runs windows on worker threads, where a bare
     ``+= 1`` can lose an increment."""
     with _count_lock:
         counters.launches += 1
         counters.launches_by_variant[variant] += 1
+        if epilogue is not None:
+            counters.launches_by_epilogue[epilogue] += 1
 
 
 def reset_launches(counters) -> None:
-    """Set ``counters.launches`` and every variant's count to 0."""
+    """Set ``counters.launches`` and every variant's (and epilogue's)
+    count to 0."""
     with _count_lock:
         counters.launches = 0
-        for name in counters.launches_by_variant:
-            counters.launches_by_variant[name] = 0
+        for table in (counters.launches_by_variant,
+                      getattr(counters, "launches_by_epilogue", {})):
+            for name in table:
+                table[name] = 0
 
 
 def check(err: int, name: str) -> None:

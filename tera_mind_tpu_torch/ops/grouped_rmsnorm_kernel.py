@@ -28,13 +28,15 @@ of y.  ``grouped_variant`` picks its variant before the launch:
   and y 16-byte aligned: every 16-byte vector lies in one plane, so a
   lane group sized to the row (K1's ``vector_group``) holds the row in
   registers, and each lane's vectors, their planes and their weight stay
-  the same from row to row (weight loaded once, grid-stride loop).
+  the same from row to row (the weight staged in shared memory once a
+  block, grid-stride loop).
 - ``staged``: any other row (the 229-gene segment's odd widths, rows over
-  2,048 bytes, misaligned tensors): a warp a row, the row staged in the
-  warp's buffer of shared memory from K1's 16-byte words
-  (``csrc/rmsnorm_words.cuh``), the planes walked in turn (a plane's sum
-  one ``warp_sum``), y written back through the same words; as many
-  warps a block as its shared memory holds (:func:`staged_smem`).
+  2,048 bytes, misaligned tensors): a warp a row, the row staged in one of
+  the warp's two buffers of shared memory from K1's 16-byte words
+  (``csrc/rmsnorm_words.cuh``) by ``cp.async`` while the warp walks the
+  row before, the planes walked in turn (a plane's sum one ``warp_sum``),
+  y written back through the same words; as many warps a block as its
+  shared memory holds, at most 8.
 
 K5b (``csrc/grouped_rmsnorm_bwd.cu``) is the gradient of that function in
 float32 from x, g and the float32 weight, each plane's statistics
@@ -47,9 +49,28 @@ recomputed:
 
 dw from per-block float32 partials summed in a second launch in a fixed
 order (no atomics: the same inputs give the same dw bit for bit), by the
-same two variants.  :class:`GroupedRMSNormFunction` records it;
-:func:`grouped_rmsnorm` dispatches: K5 (or, with a gradient to record,
-the Function) for a CUDA tensor, the plain versions for a CPU tensor.
+same two variants; K5b ``staged`` takes a block a row, each thread owning
+fixed elements of every row (:func:`bwd_staged_plan`), the next row's x
+and g on their way by ``cp.async``.  :class:`GroupedRMSNormFunction`
+records it; :func:`grouped_rmsnorm_act` dispatches: K5 (or, with a
+gradient to record, the Function) for a CUDA tensor, the plain versions
+for a CPU tensor.
+
+Every norm of the packed model feeds an elementwise consumer, which K5
+applies before its store (``EPILOGUES``; :func:`grouped_rmsnorm_act`):
+
+- ``silu``: ``F.silu(y)`` (each ``in_norm``, the UNet's ``out_norm``);
+- ``modulate_silu``: ``F.silu(y * (1.0 + scale) + shift)`` with the
+  adaLN ``scale`` and ``shift`` of shape (B, C), channel c of every plane
+  of batch b reading ``scale[b, c]`` (each ResBlock's ``out_norm``, one
+  segment of C channels); batch b holds rows b*R .. b*R + R - 1, R the
+  rows of x per batch.
+
+rounded where that eager sequence rounds (each of ``1 + scale``, the
+product, the sum and the SiLU in x's dtype), so that in bf16 the fused
+launch gives the plain sequence's bits.  Under autograd the Function and
+the eager epilogue run instead, so training's numbers and gradients are
+the unfused ones.
 """
 
 from __future__ import annotations
@@ -59,29 +80,32 @@ import sys
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .rmsnorm_kernel import (_device_type, _stat_dtype, kernel_weight,
                              vector_group)
 
 VARIANTS = ("staged", "vector")   # csrc/grouped_rmsnorm*.cu codes
+EPILOGUES = ("none", "silu", "modulate_silu")   # grouped_rmsnorm.cuh codes
 VEC_MAX_ROW_BYTES = 2048   # csrc/grouped_rmsnorm.cuh kVecMaxBytes
 MAX_Z = 8                  # csrc/grouped_rmsnorm.cuh kMaxZ
 MAX_SEGMENTS = 3           # csrc/grouped_rmsnorm.cuh kMaxSegments
 MAX_WIDTH = 12288          # csrc/grouped_rmsnorm.cuh kMaxWidth: Z * Ctot
 THREADS = 256              # csrc/grouped_rmsnorm.cuh kThreads: a block
-STAGED_MAX_WARPS = 8       # csrc/grouped_rmsnorm.cuh kStagedMaxWarps
-BLOCK_SMEM = 232448        # csrc/common.cuh kMaxBlockSmem
+MAX_Z_SLOTS = 8            # csrc/grouped_rmsnorm.cuh kMaxZ (K5b's sums)
+BWD_MAX_THREADS = 512      # csrc/grouped_rmsnorm.cuh kBwdMaxThreads
 SM_SMEM = 233472           # csrc/grouped_rmsnorm.cuh kSmSmem (228 KB)
 BWD_MAX_BLOCKS = 8 * 132   # csrc/grouped_rmsnorm_bwd.cu kMaxBlocks
 BWD_VEC_BLOCKS_PER_SM = 2  # grouped_bwd_vec_kernel's __launch_bounds__
 
 launches = 0  # K5 launches since the last reset (chip_smoke reads it)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+launches_by_epilogue = dict.fromkeys(EPILOGUES, 0)
 bwd = _build.Counters(VARIANTS)   # K5b's launches
 
 NO_BACKWARD = ("this raw CUDA launcher records no backward; call the "
-               "dispatcher grouped_rmsnorm, whose autograd.Function "
+               "dispatcher grouped_rmsnorm_act, whose autograd.Function "
                "launches K5b, or call it under torch.no_grad()")
 
 
@@ -107,11 +131,14 @@ def weight_len(z: int, segments: Sequence[int], from_5d: bool) -> int:
 
 
 def grouped_variant(z: int, segments: Sequence[int], itemsize: int,
-                    aligned: bool) -> str:
+                    aligned: bool, act: str = "none") -> str:
     """The K5 / K5b variant a CUDA call launches; ``aligned``: every
-    tensor of the call starts on 16 bytes."""
+    tensor of the call starts on 16 bytes; ``act``: K5's epilogue, which
+    ``vector`` is compiled with for bf16 rows only (float32 runs only the
+    small checks; its epilogues take ``staged``)."""
     if (aligned and all(c % 8 == 0 for c in segments)
-            and z * sum(segments) * itemsize <= VEC_MAX_ROW_BYTES):
+            and z * sum(segments) * itemsize <= VEC_MAX_ROW_BYTES
+            and (itemsize == 2 or act == "none")):
         return "vector"
     return "staged"
 
@@ -169,6 +196,63 @@ def grouped_rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, z: int,
     return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
 
+def check_epilogue(act: str, segs: tuple, x: torch.Tensor,
+                   scale, shift) -> int:
+    """The rows of x a batch of ``scale`` / ``shift`` covers (0 without
+    them), after checking the epilogue ``act`` and its operands:
+    ``modulate_silu`` takes one segment of C channels and a (B, C) scale
+    and shift, B x's leading dimension (or 1: every row reads row 0)."""
+    if act not in EPILOGUES:
+        raise ValueError(f"grouped_rmsnorm: epilogue {act!r} is none of "
+                         f"{EPILOGUES}")
+    if act != "modulate_silu":
+        if scale is not None or shift is not None:
+            raise ValueError(f"grouped_rmsnorm: epilogue {act!r} takes no "
+                             "scale or shift")
+        return 0
+    if len(segs) != 1:
+        raise ValueError(f"grouped_rmsnorm: modulate_silu takes one "
+                         f"segment, not {segs}")
+    if scale is None or shift is None:
+        raise ValueError("grouped_rmsnorm: modulate_silu needs scale and "
+                         "shift")
+    b = scale.shape[0] if scale.dim() == 2 else -1
+    if (tuple(scale.shape) != (b, segs[0]) or shift.shape != scale.shape
+            or x.dim() < 2 or b not in (1, x.shape[0])):
+        raise ValueError(f"grouped_rmsnorm: scale {tuple(scale.shape)} and "
+                         f"shift {tuple(shift.shape)} are not (B, "
+                         f"{segs[0]}) for x {tuple(x.shape)}")
+    return x.numel() // x.shape[-1] // b
+
+
+def act_plain(y: torch.Tensor, act: str, z: int, scale=None,
+              shift=None) -> torch.Tensor:
+    """The eager epilogue after the norm: ``modulate_silu`` is the
+    ResBlock's ``y * (1.0 + scale) + shift`` with (B, C) scale and shift
+    repeated over the Z planes and broadcast over y's middle dimensions,
+    then ``F.silu``; ``silu`` the SiLU alone."""
+    if act == "none":
+        return y
+    if act == "modulate_silu":
+        shape = (scale.shape[0],) + (1,) * (y.dim() - 2) + (-1,)
+        y = y * (1.0 + scale.repeat(1, z).view(shape)) \
+            + shift.repeat(1, z).view(shape)
+    return F.silu(y)
+
+
+def grouped_rmsnorm_act_plain(x: torch.Tensor, weight: torch.Tensor, z: int,
+                              segments: Sequence[int], eps: float = 1e-6,
+                              from_5d: bool = False, act: str = "none",
+                              scale=None, shift=None) -> torch.Tensor:
+    """Plain PyTorch version of K5 with its epilogue: the CPU path and
+    the kernel's check; :func:`grouped_rmsnorm_plain`, then
+    :func:`act_plain`, each op rounding in x's dtype."""
+    segs = check_layout(z, segments, x.shape[-1])
+    check_epilogue(act, segs, x, scale, shift)
+    return act_plain(grouped_rmsnorm_plain(x, weight, z, segs, eps, from_5d),
+                     act, z, scale, shift)
+
+
 def grouped_rmsnorm_bwd_plain(x: torch.Tensor, g: torch.Tensor,
                               weight: torch.Tensor, z: int,
                               segments: Sequence[int], eps: float = 1e-6,
@@ -213,14 +297,29 @@ def _check_cuda_call(name: str, z: int, segs: tuple, weight: torch.Tensor,
 
 def grouped_rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, z: int,
                          segments: Sequence[int], eps: float = 1e-6,
-                         from_5d: bool = False) -> torch.Tensor:
+                         from_5d: bool = False, act: str = "none",
+                         scale=None, shift=None) -> torch.Tensor:
     """Launch K5 on a CUDA tensor: one launch, the weight read as it is
-    (x's dtype, or the float32 master weight of a bf16 x).  Raises when
-    autograd would need a backward."""
-    _build.refuse_autograd("grouped_rmsnorm", x, weight, why=NO_BACKWARD)
+    (x's dtype, or the float32 master weight of a bf16 x), the epilogue
+    ``act`` applied before the store (scale and shift of x's dtype, read
+    in place: the two halves of one (B, 2C) tensor need no copy).
+    Raises when autograd would need a backward."""
+    mod = [t for t in (scale, shift) if t is not None]
+    _build.refuse_autograd("grouped_rmsnorm", x, weight, *mod,
+                           why=NO_BACKWARD)
     width = x.shape[-1]
     segs = check_layout(z, segments, width)
     _check_cuda_call("grouped_rmsnorm", z, segs, weight, from_5d)
+    rows_per_batch = check_epilogue(act, segs, x, scale, shift)
+    stride = 0
+    if mod:
+        if any(t.dtype != x.dtype or t.device != x.device for t in mod):
+            raise ValueError(f"grouped_rmsnorm: scale and shift must be "
+                             f"{x.dtype} on {x.device}")
+        if (scale.stride(1) != 1 or shift.stride(1) != 1
+                or scale.stride(0) != shift.stride(0)):
+            scale, shift = scale.contiguous(), shift.contiguous()
+        stride = scale.stride(0)
     x2 = x.reshape(-1, width)
     if not x2.is_contiguous():
         x2 = x2.contiguous()
@@ -230,14 +329,25 @@ def grouped_rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, z: int,
         return y.reshape(x.shape)
     code = _build.dtype_code(x, "grouped_rmsnorm")
     variant = grouped_variant(z, segs, x.element_size(), all(
-        t.data_ptr() % 16 == 0 for t in (x2, y, w)))
+        t.data_ptr() % 16 == 0 for t in (x2, y, w, *mod))
+        and stride * x.element_size() % 16 == 0, act)
+    if variant == "vector" and act != "none" and w.dtype != x.dtype:
+        # vector reads a float32 weight of a bf16 x only with no epilogue
+        # (training's forward, under autograd); Trainer.preview samples
+        # the packed training model under no_grad, its float32 master
+        # weight with bf16 activations: rounded to bf16 here, as vector
+        # would round it itself
+        w = w.to(x.dtype)
     err = _build.lib().tmt_grouped_rmsnorm(
         x2.data_ptr(), w.data_ptr(), y.data_ptr(), x2.shape[0], z,
         len(segs), *_segment_args(segs), eps, code,
         _build.dtype_code(w, "grouped_rmsnorm weight"), int(from_5d),
-        VARIANTS.index(variant), _build.stream_ptr(x))
-    _build.check(err, f"tmt_grouped_rmsnorm ({variant})")
-    _build.count_launch(sys.modules[__name__], variant)
+        VARIANTS.index(variant), EPILOGUES.index(act),
+        scale.data_ptr() if mod else None,
+        shift.data_ptr() if mod else None, stride, rows_per_batch,
+        _build.stream_ptr(x))
+    _build.check(err, f"tmt_grouped_rmsnorm ({variant}, {act})")
+    _build.count_launch(sys.modules[__name__], variant, act)
     return y.reshape(x.shape)
 
 
@@ -248,33 +358,43 @@ def staged_words(width: int, itemsize: int) -> int:
     return (width + 2 * e - 2) // e
 
 
-def staged_smem(width: int, itemsize: int, bwd: bool) -> tuple:
-    """(warps a block, shared-memory bytes a block) of the staged kernels
-    (``staged_warps`` and ``staged_smem`` in csrc/grouped_rmsnorm.cuh): the
-    weight by element in floats, then per warp the row's words of x (K5b:
-    and of g, and the warp's dw sums), as many warps as the block's shared
-    memory holds, at most ``STAGED_MAX_WARPS``."""
-    wbytes = 4 * (-(-width // 4) * 4)
-    per_warp = (16 * staged_words(width, itemsize) * (2 if bwd else 1)
-                + (wbytes if bwd else 0))
-    warps = max(1, min(STAGED_MAX_WARPS, (BLOCK_SMEM - wbytes) // per_warp))
-    return warps, wbytes + warps * per_warp
+def blocks_per_sm(smem: int, threads: int, regs: int) -> int:
+    """The blocks an SM holds at once (``blocks_per_sm`` in
+    csrc/grouped_rmsnorm.cuh): its 228 KB of shared memory (1 KB reserved
+    a block), 2,048 threads and 65,536 registers at ``regs`` a thread."""
+    return max(1, min(SM_SMEM // (smem + 1024), 2048 // threads,
+                      65536 // (threads * regs)))
+
+
+def bwd_staged_plan(width: int, itemsize: int) -> tuple:
+    """(elements a thread, threads a block, shared-memory bytes a block)
+    of K5b ``staged`` (``bwd_ept``, ``bwd_threads`` and
+    ``bwd_staged_smem`` in csrc/grouped_rmsnorm.cuh): a block a row, at
+    most ``BWD_MAX_THREADS`` threads of 8, 16 or 24 elements each; two
+    slots of a row's x and g words and each warp's two sums a plane."""
+    ept = next(e for e in (8, 16, 24) if width <= e * BWD_MAX_THREADS)
+    threads = -(-(-(-width // ept)) // 32) * 32
+    smem = (2 * 2 * 16 * staged_words(width, itemsize)
+            + 4 * (threads // 32) * 2 * MAX_Z_SLOTS)
+    return ept, threads, smem
 
 
 def bwd_blocks(rows: int, variant: str, width: int, itemsize: int,
                sms: int) -> int:
     """K5b's row-kernel grid (the rows of ``partial``): ``THREADS / G``
-    rows in flight a block in the vector variant (two blocks an SM), a
-    warp's row in each of the staged variant's warps (as many blocks an
-    SM as its threads and shared memory allow: ``staged_blocks_per_sm`` in
-    csrc/grouped_rmsnorm.cuh); no more blocks than the card holds at
-    once, so every block runs its share of the rows from the start."""
+    rows in flight a block in the vector variant (two blocks an SM), one
+    row a block in the staged variant (as many blocks an SM as its
+    threads, registers and shared memory allow:
+    :func:`bwd_staged_plan`, :func:`blocks_per_sm`); no more blocks than
+    the card holds at once, so every block runs its share of the rows
+    from the start."""
     if variant == "vector":
         per_block = THREADS // vector_group(width, itemsize)
         per_sm = BWD_VEC_BLOCKS_PER_SM
     else:
-        per_block, smem = staged_smem(width, itemsize, True)
-        per_sm = max(1, min(64 // per_block, SM_SMEM // (smem + 1024)))
+        ept, threads, smem = bwd_staged_plan(width, itemsize)
+        per_block = 1   # registers a thread: its __launch_bounds__'
+        per_sm = blocks_per_sm(smem, threads, 64 if ept == 8 else 128)
     return max(1, min(-(-rows // per_block), per_sm * sms, BWD_MAX_BLOCKS))
 
 
@@ -348,16 +468,24 @@ class GroupedRMSNormFunction(torch.autograd.Function):
                 None, None, None, None)
 
 
-def grouped_rmsnorm(x: torch.Tensor, weight: torch.Tensor, z: int,
-                    segments: Sequence[int], eps: float = 1e-6,
-                    from_5d: bool = False) -> torch.Tensor:
-    """K5 for a CUDA tensor, the plain version for a CPU tensor; through
-    :class:`GroupedRMSNormFunction` (K5b or the plain backward) when
-    autograd has a gradient to record."""
+def grouped_rmsnorm_act(x: torch.Tensor, weight: torch.Tensor, z: int,
+                        segments: Sequence[int], eps: float = 1e-6,
+                        from_5d: bool = False, act: str = "none",
+                        scale=None, shift=None) -> torch.Tensor:
+    """The norm and its epilogue ``act`` (``EPILOGUES``): one K5 launch
+    for a CUDA tensor with no gradient to record; where autograd records,
+    :class:`GroupedRMSNormFunction` (K5 and K5b on the card) and then the
+    eager epilogue (:func:`act_plain`); the plain versions for a CPU
+    tensor.  A variant or epilogue that cannot take a call raises."""
     dev = _device_type(x, "grouped_rmsnorm")
-    if _build.autograd_required(x, weight):
-        return GroupedRMSNormFunction.apply(x, weight, z, tuple(segments),
-                                            eps, from_5d)
+    segs = check_layout(z, segments, x.shape[-1])
+    check_epilogue(act, segs, x, scale, shift)
+    mod = [t for t in (scale, shift) if t is not None]
+    if _build.autograd_required(x, weight, *mod):
+        return act_plain(GroupedRMSNormFunction.apply(
+            x, weight, z, segs, eps, from_5d), act, z, scale, shift)
     if dev == "cuda":
-        return grouped_rmsnorm_cuda(x, weight, z, segments, eps, from_5d)
-    return grouped_rmsnorm_plain(x, weight, z, segments, eps, from_5d)
+        return grouped_rmsnorm_cuda(x, weight, z, segs, eps, from_5d, act,
+                                    scale, shift)
+    return grouped_rmsnorm_act_plain(x, weight, z, segs, eps, from_5d, act,
+                                     scale, shift)

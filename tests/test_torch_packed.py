@@ -175,6 +175,60 @@ def test_packed_resblock_matches_jax(segs, cout, up, down, from_5d):
     close(tm(t(x), t(emb)), jm.apply(p, x, emb))
 
 
+def former_resblock(blk, x, emb):
+    """PackedResBlock.forward as it ran before the norm took its consumer:
+    the norm alone, then the eager SiLU, and the modulate by the
+    repeated (B, C) halves and the SiLU after out_norm."""
+    import torch.nn.functional as F
+    dt, z = blk.in_conv.dtype, blk.z
+    h = F.silu(blk.in_norm(x.to(dt)))
+    if blk.up:
+        h, x = tpk._up2(h), tpk._up2(x)
+    elif blk.down:
+        h, x = tpk._down2(h), tpk._down2(x)
+    h = blk.out_norm(blk.in_conv(h))
+    if emb is not None:
+        emb_out = blk.emb_proj(F.silu(emb.to(dt))).to(h.dtype)
+        scale, shift = emb_out.chunk(2, dim=-1)
+        h = (h * (1.0 + scale.repeat(1, z)[:, None, None, :])
+             + shift.repeat(1, z)[:, None, None, :])
+    h = blk.out_conv(F.silu(h))
+    if hasattr(blk, "skip_conv"):
+        x = blk.skip_conv(x)
+    return (x + h).to(dt)
+
+
+@pytest.mark.parametrize("segs,cout,up,from_5d,with_emb", [
+    ((5, 3), 8, False, False, True), ((6,), 6, True, False, True),
+    ((4, 3, 5), 7, False, True, True), ((5, 3), 8, False, False, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_resblock_fused_norms_are_the_former_sequence(
+        segs, cout, up, from_5d, with_emb, dtype):
+    """The ResBlock's norms with their consumers (in_norm's SiLU,
+    out_norm's modulate and SiLU, or the SiLU alone without an embedding)
+    give the former eager sequence's output bit for bit on the CPU, and
+    under autograd the same gradients of every parameter."""
+    rng = np.random.default_rng(11)
+    z = 2
+    blk = tpk.PackedResBlock(sum(segs), cout, z, 32 if with_emb else None,
+                             in_segments=segs, up=up, from_5d=from_5d)
+    with torch.no_grad():
+        for prm in blk.parameters():   # the module allocates, unset
+            prm.copy_(t(1.0 * (prm.dim() == 1 and prm.numel() % z == 0)
+                        + 0.2 * randn(rng, *prm.shape)))
+    blk = blk.to(dtype)
+    x = t(randn(rng, 3, 8, 8, z * sum(segs))).to(dtype)
+    emb = t(randn(rng, 3, 32)).to(dtype) if with_emb else None
+    with torch.no_grad():
+        assert torch.equal(blk(x, emb), former_resblock(blk, x, emb))
+    grads = []
+    for fn in (blk, lambda a, b: former_resblock(blk, a, b)):
+        blk.zero_grad()
+        fn(x, emb).float().square().sum().backward()
+        grads.append([p.grad.clone() for p in blk.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
 def test_window_fold_hwz_matches_jax():
     x = randn(np.random.default_rng(7), 2, 3, 2 * 8 * 8, 5)
     folded = tattn._window_fold(t(x), 2, 2, "hwz")

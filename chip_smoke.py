@@ -27,7 +27,18 @@ Phases, each printed on its own line with elapsed seconds:
      ``K5_MAX_ULP``) and timed so, one single-segment norm beside
      ``F.rms_norm``, and at ``K5_EDGE`` (each also with the SiLU, one
      segment also with the modulate at one row a batch, one at a
-     misaligned start), with the C entry point's refusals;
+     misaligned start, each single segment also with a conv's bias), with
+     the C entry point's refusals; each ``out_norm`` row (the modulate)
+     with in_conv's bias as K5's prologue, as the chain launches it; K6
+     (``residual``, the packed ResBlock's residual sum with out_conv's
+     and skip_conv's biases) at every (rows, width, skip) of the
+     block-major chain, bf16 and float32 bit-equal to its plain version
+     (the eager bias adds and sum), timed beside its byte bound and the
+     plain sequence (no library call computes it), and at ``K6_EDGE``
+     (widths not a multiple of 8, misaligned, zero rows, float32) with
+     the wrapper's and the C entry point's refusals; the folded
+     ResBlock bit-equal to the eager one on the card at main-path
+     widths;
   4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
      ``strided``, K2b ``wgmma``, ``tensor_core``, ``tensor_core_tiled``
      and ``cuda_core``) against its plain
@@ -216,12 +227,15 @@ and K2's host cost a call, for a call that tunes the attention kernels;
 ``--norms`` runs K1 and K1b at phase 3's, 4's and 19's shapes (K1 also
 at phase 4's strided shapes and at ``K1_F32_WEIGHT_SMALL`` with the
 float32 weight), their edge shapes and the refusals, for a call that
-tunes the norm kernels; ``--grouped`` runs K5 and K5b at phase 3's, 4's
-and 19's shapes and edges, and the autograd guard.  Every packed path's
-K5 and K5b launches (by variant, K5's by epilogue) are required to be
-``scripts/kernel_shapes.py``'s: 57 a UNet call (29 with the SiLU, 28
-with the modulate and the SiLU), 88 + 88 a training microbatch (K5 with
-no epilogue: autograd records the eager one).
+tunes the norm kernels; ``--grouped`` runs K5, K6 and K5b at phase 3's,
+4's and 19's shapes and edges, the folded ResBlock against the eager
+one, and the autograd guard.  Every packed path's K5, K5b and K6
+launches (by variant, K5's by epilogue and prologue) are required to be
+``scripts/kernel_shapes.py``'s: K5 57 a UNet call (29 with the SiLU, 28
+with the bias, the modulate and the SiLU), K6 28 a UNet call on every
+bf16 or float32 packed generation path (0 on int8, the 5D model,
+training and the baselines), 88 + 88 K5 / K5b a training microbatch (no
+epilogue or prologue: autograd records the eager ones).
 """
 
 from __future__ import annotations
@@ -320,19 +334,25 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 
 
 def kernel_work(kernel: str, shape, itemsize: int = 2,
-                batches: int = 0) -> tuple:
+                batches: int = 0, bias: bool = False) -> tuple:
     """(bytes, operations, the peak rate of their type) of one launch of
-    K1, K1b, K2, K2b, K5 or K5b at ``shape`` (K5: (rows, segments, Z)):
-    each input read once and each output written once (K1b's and K5b's
-    dw and weight in float32; K5 with the modulate epilogue also its
-    (``batches``, C) scale and shift)."""
+    K1, K1b, K2, K2b, K5, K5b or K6 at ``shape`` (K5: (rows, segments, Z);
+    K6: (rows, width, skip)): each input read once and each output
+    written once (K1b's and K5b's dw and weight in float32; K5 with the
+    modulate epilogue also its (``batches``, C) scale and shift, with
+    ``bias`` its (Z*C,) bias; K6 its biases)."""
+    if kernel == "K6":
+        rows, width, skip = shape
+        conv = skip == "conv"
+        return (itemsize * (3 * rows * width + (1 + conv) * width),
+                (2 + conv) * rows * width, H100_F32_FLOP_PER_S)
     if kernel in ("K5", "K5b"):
         rows, segments, z = shape
         width = z * sum(segments)
         if kernel == "K5":
-            return (itemsize * (2 * rows * width + width
+            return (itemsize * (2 * rows * width + (1 + bias) * width
                                 + 2 * batches * segments[0]),
-                    4 * rows * width, H100_F32_FLOP_PER_S)
+                    (4 + bias) * rows * width, H100_F32_FLOP_PER_S)
         return (3 * rows * width * itemsize + 2 * 4 * width,
                 10 * rows * width, H100_F32_FLOP_PER_S)
     if kernel in ("K1", "K1b"):
@@ -767,17 +787,21 @@ TRAIN_K2_SHAPES = [(512, 128, 256), (128, 128, 256), (512, 32, 512)]
 # norm2 at (29,312, 64), two a microbatch; no K2; K5 in the packed model's
 # 28 ResBlocks and output norm only: 13 encoder and middle ResBlocks, 15
 # decoder ones and the output norm, the decoder's twice (collage and
-# original patches), 88 a microbatch)
+# original patches), 88 a microbatch; no K6: autograd records, so the
+# ResBlocks run their eager bias adds and sum)
 TRAIN_LAUNCHES = {
-    "5d": {"rmsnorm": 252, "window_attention": 18, "grouped_rmsnorm": 0},
+    "5d": {"rmsnorm": 252, "window_attention": 18, "grouped_rmsnorm": 0,
+           "residual": 0},
     "packed": {"rmsnorm": 76, "window_attention": 18,
-               "grouped_rmsnorm": 176},
-    "patch-dm": {"rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0},
-    "sinf": {"rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0}}
-# the kernels a training step counts, forward and backward
+               "grouped_rmsnorm": 176, "residual": 0},
+    "patch-dm": {"rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0,
+                 "residual": 0},
+    "sinf": {"rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0,
+             "residual": 0}}
+# the kernels a training step counts, forward and backward (K6 none)
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "window_attention",
                  "window_attention_bwd", "grouped_rmsnorm",
-                 "grouped_rmsnorm_bwd")
+                 "grouped_rmsnorm_bwd", "residual")
 # K1b and K2b launches a training step by variant (scripts/kernel_shapes.py
 # --train): the odd C of the gene concats take K1b strided
 TRAIN_BWD_VARIANTS = {
@@ -1111,8 +1135,9 @@ def k5_shapes(train: bool = False, conf=None, acts: bool = False) -> list:
     """The (rows, segments, Z) that the block-major chain's UNet call
     (``train``: a packed training microbatch) gives K5, largest first
     (``scripts/kernel_shapes.py``); ``acts``: (rows, segments, Z,
-    epilogue, B), each shape with the epilogue its launches take and the
-    batches of the modulate's scale and shift (0 without it)."""
+    epilogue, B, prologue), each shape with the epilogue its launches
+    take, the batches of the modulate's scale and shift (0 without it)
+    and whether it adds a conv's bias first (``bias`` or ``none``)."""
     from collections import Counter
     ks = kernel_shapes()
     k5, k5_act = Counter(), Counter()
@@ -1153,17 +1178,19 @@ def spacings(out, ref):
     return sp.reshape(-1, out.shape[-1])
 
 
-def k5_agrees(x, w, z, segs, from_5d, what, want=None):
-    """K5 against its plain version: (out, ref, error, variant, planes
-    near a rounding boundary); bf16: within K5_MAX_ULP spacings at |ref|,
-    K1_MAX_ULP on the planes of :func:`k5_boundary`; float32 within 1e-5.
-    The variant the rule names (or ``want``) required."""
+def k5_agrees(x, w, z, segs, from_5d, what, want=None, bias=None):
+    """K5 (with the prologue's ``bias``, where given) against its plain
+    version: (out, ref, error, variant, planes near a rounding boundary);
+    bf16: within K5_MAX_ULP spacings at |ref|, K1_MAX_ULP on the planes of
+    :func:`k5_boundary` (of ``x + bias``); float32 within 1e-5.  The
+    variant the rule names (or ``want``) required."""
     import torch
 
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     out, variant = variant_of(k5, k5.grouped_rmsnorm_cuda, x, w, z, segs,
-                              from_5d=from_5d)
-    ref = k5.grouped_rmsnorm_plain(x, w, z, segs, from_5d=from_5d)
+                              from_5d=from_5d, bias=bias)
+    ref = k5.grouped_rmsnorm_act_plain(x, w, z, segs, from_5d=from_5d,
+                                       bias=bias)
     require(bool(torch.isfinite(out.float()).all()),
             f"K5 {what}: output not finite")
     if want is None:
@@ -1174,7 +1201,7 @@ def k5_agrees(x, w, z, segs, from_5d, what, want=None):
         err = float((out - ref).abs().max())
         require(err <= 1e-5, f"K5 {what} {x.dtype} ({variant}): {err}")
         return out, ref, err, variant, 0
-    near, n_near = k5_boundary(x, z, segs)
+    near, n_near = k5_boundary(x if bias is None else x + bias, z, segs)
     sp = spacings(out, ref)
     far_err = float(sp[~near].max()) if bool((~near).any()) else 0.0
     near_err = float(sp[near].max()) if n_near else 0.0
@@ -1186,26 +1213,29 @@ def k5_agrees(x, w, z, segs, from_5d, what, want=None):
 
 
 def k5_act_agrees(x, w, z, segs, from_5d, act, scale, shift, what,
-                  want=None):
-    """K5 with the epilogue ``act`` against ``grouped_rmsnorm_act_plain``
-    (the norm's plain version, then the eager modulate and SiLU): (out,
-    ref, spacings off the near planes, spacings from the plain epilogue
-    on K5's own norm, variant); bf16 both within K5_MAX_ULP (see
-    K5_MAX_ULP); float32 within 1e-5 of the plain sequence.  The
-    variant the rule names (or ``want``) required."""
+                  want=None, bias=None):
+    """K5 with the epilogue ``act`` (and the prologue's ``bias``, where
+    given) against ``grouped_rmsnorm_act_plain`` (the eager bias add, the
+    norm's plain version, then the eager modulate and SiLU): (out, ref,
+    spacings off the near planes, spacings from the plain epilogue on
+    K5's own norm, variant); bf16 both within K5_MAX_ULP (see
+    K5_MAX_ULP); float32 within 1e-5 of the plain sequence.  The variant
+    the rule names (or ``want``) required."""
     import torch
 
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
-    kw = dict(from_5d=from_5d, act=act, scale=scale, shift=shift)
+    kw = dict(from_5d=from_5d, act=act, scale=scale, shift=shift,
+              bias=bias)
     out, variant = variant_of(k5, k5.grouped_rmsnorm_cuda, x, w, z, segs,
                               **kw)
     ref = k5.grouped_rmsnorm_act_plain(x, w, z, segs, **kw)
     require(bool(torch.isfinite(out.float()).all()),
             f"K5 {act} {what}: output not finite")
-    if want is None:   # x and the weight are aligned; scale and shift?
-        aligned = scale is None or (
+    if want is None:   # x and the weight are aligned; the others?
+        aligned = (scale is None or (
             scale.stride(0) * x.element_size() % 16 == 0
-            and all(t.data_ptr() % 16 == 0 for t in (scale, shift)))
+            and all(t.data_ptr() % 16 == 0 for t in (scale, shift)))) \
+            and (bias is None or bias.data_ptr() % 16 == 0)
         want = k5.grouped_variant(z, segs, x.element_size(), aligned, act)
     require(variant == want, f"K5 {act} {what} {x.dtype} took {variant}, "
             f"not {want}")
@@ -1214,11 +1244,11 @@ def k5_act_agrees(x, w, z, segs, from_5d, act, scale, shift, what,
         require(err <= 1e-5, f"K5 {act} {what} {x.dtype} ({variant}): "
                 f"{err}")
         return out, ref, err, 0.0, variant
-    near, _ = k5_boundary(x, z, segs)
+    near, _ = k5_boundary(x if bias is None else x + bias, z, segs)
     sp = spacings(out, ref)
     far_err = float(sp[~near].max()) if bool((~near).any()) else 0.0
     own = k5.act_plain(k5.grouped_rmsnorm_cuda(x, w, z, segs,
-                                               from_5d=from_5d),
+                                               from_5d=from_5d, bias=bias),
                        act, z, scale, shift)
     comp_err = float(spacings(out, own).max())
     require(far_err <= K5_MAX_ULP and comp_err <= K5_MAX_ULP,
@@ -1242,6 +1272,14 @@ def k5_inputs(g, device, n, segs, z, dt, from_5d, w_dtype=None,
     return x.view(n, width), w
 
 
+def k5_bias(g, device, x, on: bool = True):
+    """A prologue's bias for x: (width,) of x's dtype, a conv bias's
+    spread (0.5 a standard normal), or None where ``on`` is false."""
+    if not on:
+        return None
+    return (0.5 * randn(g, x.shape[-1], device=device)).to(x.dtype)
+
+
 def k5_epilogue_inputs(g, device, x, c, act, batches):
     """(x as (B, rows / B, width), scale, shift) for ``act``: with the
     modulate, the two (B, C) halves of one (B, 2C) adaLN projection, as
@@ -1254,23 +1292,24 @@ def k5_epilogue_inputs(g, device, x, c, act, batches):
 
 
 def time_k5(x, w, z, segs, from_5d, act="none", scale=None,
-            shift=None) -> dict:
-    """Device times of K5 (with its epilogue ``act``) and its plain
-    version (the plain sequence), and with one segment, the 5D weight
-    (``from_5d``) and no epilogue of ``F.rms_norm`` over the (rows * Z,
-    Ctot) view, the same function in one PyTorch call; else no library
-    call computes it."""
+            shift=None, bias=None) -> dict:
+    """Device times of K5 (with its prologue's ``bias`` and its epilogue
+    ``act``) and its plain version (the plain sequence), and with one
+    segment, the 5D weight (``from_5d``), no bias and no epilogue of
+    ``F.rms_norm`` over the (rows * Z, Ctot) view, the same function in
+    one PyTorch call; else no library call computes it."""
     import torch.nn.functional as F
 
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     n = x.numel() // x.shape[-1]
-    kw = dict(from_5d=from_5d, act=act, scale=scale, shift=shift)
+    kw = dict(from_5d=from_5d, act=act, scale=scale, shift=shift,
+              bias=bias)
     sets = input_sets((x, w), 2 * x.numel() * x.element_size())
     bms, by = bound(*kernel_work(
         "K5", (n, segs, z), x.element_size(),
-        scale.shape[0] if scale is not None else 0))
+        scale.shape[0] if scale is not None else 0, bias is not None))
     lib = None
-    if len(segs) == 1 and from_5d and act == "none":
+    if len(segs) == 1 and from_5d and act == "none" and bias is None:
         lib = device_ms(lambda a, b: F.rms_norm(
             a.view(-1, segs[0]), (segs[0],), b, 1e-6),
             [(a, b.to(a.dtype)) for a, b in sets])
@@ -1282,18 +1321,20 @@ def time_k5(x, w, z, segs, from_5d, act="none", scale=None,
 
 
 def k5_row(g, device, n, segs, z, path, from_5d=False, w_dtype=None,
-           timed=True, act="none", batches=0) -> dict:
-    """K5 at (n, segments, Z): the norm in bf16 against its plain version
-    (the weight in bf16 as generation passes it, or ``w_dtype``) and, with
+           timed=True, act="none", batches=0, prologue="none") -> dict:
+    """K5 at (n, segments, Z): the norm (with a conv's bias added first
+    where ``prologue`` is ``bias``) in bf16 against its plain version (the
+    weight in bf16 as generation passes it, or ``w_dtype``) and, with
     ``act``, K5 with that epilogue against the plain sequence (the
     modulate's scale and shift of ``batches`` batches), each by
     :func:`k5_agrees` / :func:`k5_act_agrees`, float32 on 4,096 of the
-    rows (whole batches); timed with the epilogue."""
+    rows (whole batches); timed with the prologue and the epilogue."""
     import torch
     bf16 = torch.bfloat16
     x, w = k5_inputs(g, device, n, segs, z, bf16, from_5d, w_dtype)
+    bias = k5_bias(g, device, x, prologue == "bias")
     out, ref, err_ulp, variant, n_near = k5_agrees(
-        x, w, z, segs, from_5d, f"{n}x{segs}x{z}")
+        x, w, z, segs, from_5d, f"{n}x{segs}x{z}", bias=bias)
     err = float((out.float() - ref.float()).abs().max())
     same = float((out != ref).float().mean())
     require(act != "modulate_silu" or batches > 0 and n % batches == 0,
@@ -1303,7 +1344,8 @@ def k5_row(g, device, n, segs, z, path, from_5d=False, w_dtype=None,
     comp = None
     if act != "none":
         out, ref, err_ulp, comp, variant = k5_act_agrees(
-            xa, w, z, segs, from_5d, act, scale, shift, f"{n}x{segs}x{z}")
+            xa, w, z, segs, from_5d, act, scale, shift, f"{n}x{segs}x{z}",
+            bias=bias)
         err = float((out.float() - ref.float()).abs().max())
         same = float((out != ref).float().mean())
     if scale is None:
@@ -1311,21 +1353,26 @@ def k5_row(g, device, n, segs, z, path, from_5d=False, w_dtype=None,
     else:   # whole batches
         nb = max(1, 4096 // (n // batches))
         xf, sf, hf = xa[:nb].float(), scale[:nb].float(), shift[:nb].float()
+    bf = None if bias is None else bias.float()
     if act == "none":
         _, _, errf, variant_f, _ = k5_agrees(xf, w.float(), z, segs,
-                                             from_5d, f"{n}x{segs}x{z}")
+                                             from_5d, f"{n}x{segs}x{z}",
+                                             bias=bf)
     else:
         _, _, errf, _, variant_f = k5_act_agrees(
-            xf, w.float(), z, segs, from_5d, act, sf, hf, f"{n}x{segs}x{z}")
-    t = time_k5(xa, w, z, segs, from_5d, act, scale, shift) if timed else {}
+            xf, w.float(), z, segs, from_5d, act, sf, hf, f"{n}x{segs}x{z}",
+            bias=bf)
+    t = time_k5(xa, w, z, segs, from_5d, act, scale, shift,
+                bias) if timed else {}
     if t and act != "none" and variant == "staged":   # the norm alone too
         t["norm_ms"] = time_k5(x, w, z, segs, from_5d)["ms"]
     wt = "" if w.dtype == bf16 else f", weight {str(w.dtype)[6:]}"
     lib = "; " + timing_text(t, "F.rms_norm") if t else ""
     if "norm_ms" in t:
         lib += f"; the norm alone {t['norm_ms']:.4f} ms"
-    epi = "" if act == "none" else (
-        f" + {act}" + (f" ({batches} batches)" if scale is not None else ""))
+    epi = ("" if bias is None else " with the bias") + (
+        "" if act == "none" else f" + {act}"
+        + (f" ({batches} batches)" if scale is not None else ""))
     log(f"K5 grouped_rmsnorm ({n}, {segs}, z {z}){epi} bf16{wt}"
         f"{' from_5d' if from_5d else ''} [{variant}, {path}]: max_abs_err "
         f"{err:.3g} ({err_ulp:.2f} bf16 ulp"
@@ -1335,8 +1382,8 @@ def k5_row(g, device, n, segs, z, path, from_5d=False, w_dtype=None,
         + f"; {n_near} planes near a "
         f"rounding boundary), {same:.2e} of outputs not bit-equal; f32 "
         f"[{variant_f}] err {errf:.3g}" + lib)
-    return dict(shape=[n, list(segs), z], act=act, path=path,
-                variant=variant, max_abs_err=err, max_ulp=err_ulp,
+    return dict(shape=[n, list(segs), z], act=act, prologue=prologue,
+                path=path, variant=variant, max_abs_err=err, max_ulp=err_ulp,
                 epilogue_ulp=comp, near_planes=n_near, not_bit_equal=same,
                 weight=str(w.dtype)[6:], from_5d=from_5d, **t)
 
@@ -1345,10 +1392,13 @@ def check_k5_edges(g, device) -> None:
     """K5 against its plain version at ``K5_EDGE``, bf16 and float32, the
     runtime weight and the 5D one (a float32 weight of the bf16 x), with
     the SiLU epilogue at each and the modulate at each single segment
-    (rows per batch of 1); the C entry point's refusal of ``vector`` for
-    an odd segment and a misaligned x, of the modulate on two segments
-    and a misaligned scale in ``vector``, and of an unknown variant or
-    epilogue."""
+    (rows per batch of 1), each single segment also with a conv's bias
+    (the prologue) before the SiLU and before the modulate; the C entry
+    point's refusal of ``vector`` for an odd segment and a misaligned x,
+    of the modulate on two segments and a misaligned scale in ``vector``,
+    of a bias on two segments and a misaligned bias in ``vector``, and of
+    an unknown variant or epilogue; the wrapper's refusal of a
+    multi-segment bias before any launch."""
     import torch
 
     from tera_mind_tpu_torch.ops import _build
@@ -1367,9 +1417,12 @@ def check_k5_edges(g, device) -> None:
             for act in ("silu", "modulate_silu")[:1 + (len(segs) == 1)]:
                 xa, scale, shift = k5_epilogue_inputs(g, device, x, segs[0],
                                                       act, n)
-                got.append(k5_act_agrees(
-                    xa, w, z, segs, from_5d, act, scale, shift,
-                    f"edge {n}x{segs}x{z}", want)[4])
+                for bias in (None, k5_bias(g, device, x))[
+                        :1 + (len(segs) == 1)]:
+                    got.append(k5_act_agrees(
+                        xa, w, z, segs, from_5d, act, scale, shift,
+                        f"edge {n}x{segs}x{z}", want, bias)[4]
+                        + ("+bias" if bias is not None else ""))
         seen.append(f"({n}, {segs}, z {z})"
                     + (f" at offset {off[0]}" if off else "")
                     + f" {'/'.join(got)}")
@@ -1378,26 +1431,41 @@ def check_k5_edges(g, device) -> None:
     t = torch.zeros(64 * 64 + 8, device=device, dtype=torch.bfloat16)
     vec = k5.VARIANTS.index("vector")
     mod = k5.EPILOGUES.index("modulate_silu")
-    for what, segs, off, variant, act, s_off in (
-            ("odd segment", (16, 8, 7), 0, vec, 0, 0),
-            ("misaligned", (16, 16), 1, vec, 0, 0),
-            ("unknown variant", (16, 16), 0, 7, 0, 0),
-            ("unknown epilogue", (16, 16), 0, vec, 3, 0),
-            ("the modulate on two segments", (16, 16), 0, vec, mod, 0),
-            ("a misaligned scale in vector", (16,), 0, vec, mod, 1)):
+    for what, segs, off, variant, act, s_off, b_off in (
+            ("odd segment", (16, 8, 7), 0, vec, 0, 0, None),
+            ("misaligned", (16, 16), 1, vec, 0, 0, None),
+            ("unknown variant", (16, 16), 0, 7, 0, 0, None),
+            ("unknown epilogue", (16, 16), 0, vec, 3, 0, None),
+            ("the modulate on two segments", (16, 16), 0, vec, mod, 0, None),
+            ("a misaligned scale in vector", (16,), 0, vec, mod, 1, None),
+            ("a bias on two segments", (16, 16), 0, vec, 0, 0, 0),
+            ("a misaligned bias in vector", (16,), 0, vec, mod, 0, 1)):
         a = t[off:off + 64 * 2 * sum(segs)]
         sc = t[s_off:]
         err = lib.tmt_grouped_rmsnorm(
-            a.data_ptr(), a.data_ptr(), a.data_ptr(), 64, 2, len(segs),
+            a.data_ptr(), a.data_ptr(),
+            None if b_off is None else t[b_off:].data_ptr(),
+            a.data_ptr(), 64, 2, len(segs),
             *k5._segment_args(tuple(segs)), 1e-6, 1, 1, 0, variant, act,
             sc.data_ptr(), sc.data_ptr(), 16, 1, stream)
         require(err != 0, f"tmt_grouped_rmsnorm took {what}")
+    before = k5.launches
+    x2 = t[:64 * 32].view(64, 32)
+    try:
+        k5.grouped_rmsnorm_cuda(x2, x2[0], 2, (8, 8), bias=x2[1])
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    require(refused is not None and k5.launches == before,
+            f"grouped_rmsnorm_cuda took a bias on two segments: {refused}")
     log(f"K5 edge shapes agree (bf16, bf16 with a float32 from_5d weight, "
         f"f32; each also with the SiLU, one segment also with the "
-        f"modulate): {'; '.join(seen)}; the entry point refuses vector on "
-        "an odd segment and a misaligned x, the modulate on two segments "
-        "and a misaligned scale in vector, an unknown variant and "
-        "epilogue")
+        f"modulate, each of those also with a bias): {'; '.join(seen)}; "
+        "the entry point refuses vector on an odd segment and a "
+        "misaligned x, the modulate on two segments and a misaligned "
+        "scale in vector, a bias on two segments and a misaligned bias in "
+        "vector, an unknown variant and epilogue; the wrapper refuses a "
+        f"multi-segment bias before any launch ({refused})")
 
 
 def check_grouped_kernels(device) -> dict:
@@ -1407,8 +1475,8 @@ def check_grouped_kernels(device) -> dict:
     import torch
     g = torch.Generator(device="cpu").manual_seed(5)
     rows = [k5_row(g, device, n, segs, z, "block_major", act=act,
-                   batches=b)
-            for n, segs, z, act, b in k5_shapes(acts=True)]
+                   batches=b, prologue=pro)
+            for n, segs, z, act, b, pro in k5_shapes(acts=True)]
     n, segs, z = K5_RMS_NORM_ROW
     rows.append(k5_row(g, device, n, segs, z, "rms_norm_yardstick",
                        from_5d=True))
@@ -1527,6 +1595,247 @@ def check_grouped_bwd(device) -> dict:
     log("K5b edge shapes agree, bf16 and f32, both weight layouts, "
         f"deterministic: {'; '.join(seen)}")
     return {"grouped_rmsnorm_bwd": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 3, continued: K6, the packed ResBlock's residual sum and conv biases
+# ---------------------------------------------------------------------------
+
+# K6 and its plain version (the eager bias adds, then the sum) round the
+# same adds once each in the same order, so they agree bit for bit, bf16
+# and float32 alike.
+# edge shapes (rows, width, skip[, element offset of h]): widths that are
+# not a multiple of 8 (scalar), Z = 1 of the narrowest ResBlock (64), a
+# misaligned h (scalar), zero rows, one row, ragged row counts, and the
+# widest rows of the presets (Z = 8 x 512)
+K6_EDGE = [(129, 100, "conv"), (77, 100, "x"), (1000, 64, "conv"),
+           (333, 256, "x", 1), (513, 128, "conv", 3), (0, 256, "conv"),
+           (1, 1024, "x"), (4097, 520, "conv"), (257, 4096, "conv")]
+
+
+def k6_shapes(conf=None) -> list:
+    """The (rows, width, skip) that the block-major chain's UNet call
+    gives K6, largest first (``scripts/kernel_shapes.py``)."""
+    from collections import Counter
+    k6 = Counter()
+    kernel_shapes().per_call_shapes(conf=conf, k6=k6)
+    return sorted(k6, key=lambda s: (-s[0] * s[1], s[2]))
+
+
+def k6_inputs(g, device, n, width, skip, dt, offset=0):
+    """(h (n, width) ``offset`` elements past 16 bytes, its bias, s, the
+    skip conv's bias or None) in ``dt``: products of a standard normal's
+    spread, biases half of it."""
+    h = randn(g, n * width + offset, device=device).to(dt)[offset:]
+    hb = (0.5 * randn(g, width, device=device)).to(dt)
+    sb = (0.5 * randn(g, width, device=device)).to(dt) \
+        if skip == "conv" else None
+    return (h.view(n, width), hb, randn(g, n, width, device=device).to(dt),
+            sb)
+
+
+def k6_agrees(h, hb, s, sb, what, want=None):
+    """K6 against ``residual_plain``: bit-equal (bf16 and float32), the
+    variant the rule names (or ``want``) required; returns the variant."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
+    out, variant = variant_of(k6, k6.residual_cuda, h, hb, s, sb)
+    ref = k6.residual_plain(h, hb, s, sb)
+    if want is None:
+        want = k6.residual_variant(h.shape[-1], h.element_size(), all(
+            t.data_ptr() % 16 == 0 for t in (h, hb, s) + (
+                () if sb is None else (sb,))))
+    require(variant == want, f"K6 {what} {h.dtype} took {variant}, not "
+            f"{want}")
+    require(out.dtype == ref.dtype and torch.equal(out, ref),
+            f"K6 {what} {h.dtype} ({variant}): not bit-equal to the plain "
+            f"sequence, max |d| "
+            f"{float((out.float() - ref.float()).abs().max())}")
+    return variant
+
+
+def time_k6(h, hb, s, sb) -> dict:
+    """Device times of K6 and its plain sequence (CUDA graph replays, h
+    and s copied past the L2) beside its bound; no single PyTorch call
+    computes it."""
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
+    n, width = h.shape
+    sets = input_sets((h, s), 2 * h.numel() * h.element_size())
+    bms, by = bound(*kernel_work("K6", (n, width, k6.skip_kind(sb)),
+                                 h.element_size()))
+    return dict(ms=device_ms(lambda a, b: k6.residual_cuda(a, hb, b, sb),
+                             sets),
+                plain_ms=device_ms(lambda a, b: k6.residual_plain(a, hb, b,
+                                                                  sb), sets),
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def k6_row(g, device, n, width, skip, path, timed=True) -> dict:
+    """K6 at (n, width, skip) in bf16 and float32, each bit-equal to its
+    plain version; timed in bf16."""
+    import torch
+    h, hb, s, sb = k6_inputs(g, device, n, width, skip, torch.bfloat16)
+    variant = k6_agrees(h, hb, s, sb, f"({n}, {width}, {skip})")
+    variant_f = k6_agrees(*(None if t is None else t.float()
+                            for t in (h, hb, s, sb)),
+                          f"({n}, {width}, {skip})")
+    t = time_k6(h, hb, s, sb) if timed else {}
+    log(f"K6 residual ({n}, {width}, skip {skip}) bf16 [{variant}, {path}]"
+        f": bit-equal to the plain sequence; f32 [{variant_f}] bit-equal"
+        + ("; " + timing_text(t, "-") if t else ""))
+    return dict(shape=[n, width, skip], path=path, variant=variant,
+                max_abs_err=0.0, **t)
+
+
+def check_k6_edges(g, device) -> None:
+    """K6 bit-equal to its plain version at ``K6_EDGE``, bf16 and float32
+    (zero rows: no launch, an empty output); the wrapper's refusals before
+    any launch (h and s of two shapes, a bias of another width or dtype,
+    an input that requires grad under grad mode: the raw launcher, which
+    runs it under ``torch.no_grad()``); the dispatcher under autograd (no
+    launch: the plain sequence, recorded); the C entry point's refusals
+    (``vector`` at a width that is not a multiple of 16 bytes and on a
+    misaligned tensor, an unknown variant and dtype, no rows)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import _build
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
+    seen = []
+    for n, width, skip, *off in K6_EDGE:
+        got = []
+        for dt in (torch.bfloat16, torch.float32):
+            h, hb, s, sb = k6_inputs(g, device, n, width, skip, dt, *off)
+            if n == 0:
+                before = k6.launches
+                out = k6.residual_cuda(h, hb, s, sb)
+                require(out.shape == h.shape and k6.launches == before,
+                        "K6 at zero rows launched or changed the shape")
+                got.append("no launch")
+                continue
+            got.append(k6_agrees(h, hb, s, sb, f"edge ({n}, {width}, {skip})",
+                                 "scalar" if off else None))
+        seen.append(f"({n}, {width}, {skip})"
+                    + (f" at offset {off[0]}" if off else "")
+                    + f" {'/'.join(got)}")
+    h, hb, s, sb = k6_inputs(g, device, 64, 128, "conv", torch.bfloat16)
+    before = k6.launches
+    refused = {}
+    for what, args in (("s of another shape", (h, hb, s[:32], sb)),
+                       ("a bias of another width", (h, hb[:64], s, sb)),
+                       ("a float32 bias", (h, hb, s, sb.float())),
+                       ("a float32 s", (h, hb, s.float(), sb))):
+        try:
+            k6.residual_cuda(*args)
+        except ValueError as err:
+            refused[what] = str(err)[:50]
+    hg = h.detach().requires_grad_(True)
+    try:
+        k6.residual_cuda(hg, hb, s, sb)
+    except RuntimeError as err:
+        refused["an input that requires grad"] = str(err)[:50]
+    require(len(refused) == 5 and k6.launches == before,
+            f"K6 wrapper took a call it must refuse: {refused}")
+    with torch.no_grad():
+        require(torch.equal(k6.residual_cuda(hg, hb, s, sb),
+                            k6.residual_plain(h, hb, s, sb)),
+                "K6 under no_grad differs from its plain version")
+    out = k6.residual(hg, hb, s, sb)
+    grad, = torch.autograd.grad(out.float().sum(), hg)
+    require(k6.launches == before + 1 and out.grad_fn is not None
+            and bool((grad == 1).all()),
+            "K6's dispatcher under autograd: "
+            f"{k6.launches - before - 1} launches, grad_fn {out.grad_fn}")
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    t = torch.zeros(64 * 128 + 8, device=device, dtype=torch.bfloat16)
+    vec = k6.VARIANTS.index("vector")
+    errs = {}
+    for what, off, width, rows, dtype, variant in (
+            ("vector at width 100", 0, 100, 64, 1, vec),
+            ("vector misaligned", 1, 128, 32, 1, vec),
+            ("unknown variant", 0, 128, 32, 1, 7),
+            ("unknown dtype", 0, 128, 32, 5, vec),
+            ("no rows", 0, 128, 0, 1, vec)):
+        a = t[off:].data_ptr()
+        errs[what] = lib.tmt_residual(a, a, a, a, a, rows, width, dtype,
+                                      variant, stream)
+    torch.cuda.synchronize()
+    require(all(e != 0 for e in errs.values()),
+            f"tmt_residual took a call it must refuse: {errs}")
+    log(f"K6 edge shapes bit-equal (bf16/f32): {'; '.join(seen)}; the "
+        f"wrapper refuses {refused}; the dispatcher under autograd runs "
+        f"the plain sequence; the entry point refuses (error codes) {errs}")
+
+
+def check_fold_route(device) -> dict:
+    """The folded ResBlock (K5 adds in_conv's bias, one K6 launch adds
+    out_conv's and skip_conv's and the residual) against the same block
+    with ``fold = False`` (cuDNN's convs with their biases, the eager
+    adds) on the same input on the card: bit-equal in bf16 at main-path
+    widths (a concat input with a skip conv at 64^2 x 81 patches, a down
+    block, an up block, the 5D parameters' ``Conv3DAsPacked``), and in
+    float32; each folded call exactly one K6 launch and one K5 launch
+    with the bias."""
+    import torch
+
+    from tera_mind_tpu_torch.models.nn import channels_last_, init_weights
+    from tera_mind_tpu_torch.models.unet_packed import PackedResBlock
+    from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
+    conf = kernel_shapes().preset_conf().make_model_conf()
+    emb_c, z = conf.embed_channels, conf.z_size
+    g = torch.Generator(device="cpu").manual_seed(23)
+    out = {}
+    for what, cin, cout, kw, b, hw, dt in (
+            ("concat + skip conv", 96, 64, dict(in_segments=(64, 32)), 81,
+             64, torch.bfloat16),
+            ("down", 64, 64, dict(down=True), 81, 64, torch.bfloat16),
+            ("up", 256, 256, dict(up=True), 64, 16, torch.bfloat16),
+            ("from_5d + skip conv", 96, 64,
+             dict(in_segments=(64, 32), from_5d=True), 16, 32,
+             torch.bfloat16),
+            ("float32 + skip conv", 96, 64, dict(in_segments=(64, 32)), 16,
+             32, torch.float32)):
+        blk = PackedResBlock(cin, cout, z, emb_c, use_zero_module=False,
+                             **kw)
+        blk = channels_last_(init_weights(blk, 7).to(device, dt)).eval()
+        with torch.no_grad():
+            for p in blk.parameters():   # biases and norms off their init
+                if p.dim() == 1:
+                    p.add_(0.1 * randn(g, *p.shape, device=device).to(dt))
+        x = randn(g, b, hw, hw, z * cin, device=device).to(dt)
+        emb = randn(g, b, emb_c, device=device).to(dt)
+        with torch.inference_mode():
+            before = (k6.launches, k5.launches_by_prologue["bias"])
+            folded = blk(x, emb)
+            got = (k6.launches - before[0],
+                   k5.launches_by_prologue["bias"] - before[1])
+            blk.fold = False
+            eager = blk(x, emb)
+        torch.cuda.synchronize()
+        require(got == (1, 1), f"fold route {what}: {got[0]} K6 and "
+                f"{got[1]} K5 launches with the bias, not 1 and 1")
+        require(torch.equal(folded, eager), f"fold route {what} {dt}: not "
+                "bit-equal to the eager sequence, max |d| "
+                f"{float((folded.float() - eager.float()).abs().max())}")
+        out[what] = list(folded.shape)
+    log(f"the folded ResBlock is bit-equal to the eager one on the card: "
+        f"{out}")
+    return out
+
+
+def check_residual_kernels(device) -> dict:
+    """Phase 3's K6: every (rows, width, skip) of the block-major chain,
+    bf16 and float32 bit-equal, timed; the edges and refusals; the folded
+    ResBlock against the eager one."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(6)
+    rows = [k6_row(g, device, n, width, skip, "block_major")
+            for n, width, skip in k6_shapes()]
+    check_k6_edges(g, device)
+    check_fold_route(device)
+    return {"residual": rows}
 
 
 def check_variant_refusal(device) -> None:
@@ -2547,43 +2856,48 @@ CHAIN_STEPS = {"packed": MAIN_STEPS, "int8": MAIN_STEPS, "int8_static": 5,
                "tile_major": TILE_MAJOR_STEPS, "stream": STREAM_STEPS}
 
 
-# launches per chain: K1 norms, K2 attentions and K5 grouped norms per
-# UNet call x UNet calls.  The packed model's 57 ResBlock and output
-# norms (28 ResBlocks' in_norm and out_norm, and out_norm) are
-# GroupedRMSNorm, K5, so K1 runs only in the 6 DiT blocks (norm1, norm2,
-# q_norm, k_norm) and the gene-gene block (q_norm, norm2); the 5D model
-# has no GroupedRMSNorm.  Block-major 2x2: 25 z-windows x 5 steps = 125
-# calls; tile-major 2x2 at window_chunk 5: 4 tiles x 5 calls x 5 steps =
-# 100; streamed 4x4 in 2x2 windows at window_chunk 5: 4 windows x 5 calls
-# x 2 steps = 40.
+# launches per chain: K1 norms, K2 attentions, K5 grouped norms and K6
+# residual sums per UNet call x UNet calls.  The packed model's 57
+# ResBlock and output norms (28 ResBlocks' in_norm and out_norm, and
+# out_norm) are GroupedRMSNorm, K5, so K1 runs only in the 6 DiT blocks
+# (norm1, norm2, q_norm, k_norm) and the gene-gene block (q_norm, norm2);
+# each of the 28 ResBlocks ends in one K6 launch where its convs are bf16
+# (not int8); the 5D model has no GroupedRMSNorm and no K6.  Block-major
+# 2x2: 25 z-windows x 5 steps = 125 calls; tile-major 2x2 at window_chunk
+# 5: 4 tiles x 5 calls x 5 steps = 100; streamed 4x4 in 2x2 windows at
+# window_chunk 5: 4 windows x 5 calls x 2 steps = 40.
 CHAIN_LAUNCHES = {
     "packed": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
-               "grouped_rmsnorm": 57 * 125},
+               "grouped_rmsnorm": 57 * 125, "residual": 28 * 125},
     "int8": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
-             "grouped_rmsnorm": 57 * 125},
+             "grouped_rmsnorm": 57 * 125, "residual": 0},
     "int8_static": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
-                    "grouped_rmsnorm": 57 * 125},
+                    "grouped_rmsnorm": 57 * 125, "residual": 0},
     "5d": {"rmsnorm": 83 * 125, "window_attention": 6 * 125,
-           "grouped_rmsnorm": 0},
+           "grouped_rmsnorm": 0, "residual": 0},
     "tile_major": {"rmsnorm": 26 * 100, "window_attention": 6 * 100,
-                   "grouped_rmsnorm": 57 * 100},
+                   "grouped_rmsnorm": 57 * 100, "residual": 28 * 100},
     "stream": {"rmsnorm": 26 * 40, "window_attention": 6 * 40,
-               "grouped_rmsnorm": 57 * 40}}
+               "grouped_rmsnorm": 57 * 40, "residual": 28 * 40}}
 STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
 
 
 def per_call_counts(model) -> tuple:
     """(K1 norms, of them with C % 8 == 0, K2 attentions, K5 grouped norms
-    by variant, K5 by epilogue) per UNet call of a bf16 chain.  K1 runs in
-    every RMSNorm itself; its GroupedRMSNorm subclass runs K5, each once a
-    call (the collage decoder alone): a ResBlock's in_norm with the SiLU,
-    its out_norm with the modulate and the SiLU where it has the adaLN
-    projection, the UNet's out_norm with the SiLU."""
+    by variant, K5 by epilogue, K5 by prologue, K6 by variant) per UNet
+    call of a bf16 chain.  K1 runs in every RMSNorm itself; its
+    GroupedRMSNorm subclass runs K5, each once a call (the collage
+    decoder alone): a ResBlock's in_norm with the SiLU, its out_norm with
+    the modulate and the SiLU where it has the adaLN projection, the
+    UNet's out_norm with the SiLU; each ResBlock whose convs are not int8
+    folds (``PackedResBlock.plain_convs``): its out_norm adds in_conv's
+    bias, and one K6 launch ends it."""
     from tera_mind_tpu_torch.models.attention import CrossAttention
     from tera_mind_tpu_torch.models.nn import RMSNorm
     from tera_mind_tpu_torch.models.unet_packed import (GroupedRMSNorm,
                                                         PackedResBlock)
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
     norms = [m.weight.numel() for m in model.modules()
              if type(m) is RMSNorm]
     grouped = dict.fromkeys(k5.VARIANTS, 0)
@@ -2591,14 +2905,23 @@ def per_call_counts(model) -> tuple:
         if isinstance(m, GroupedRMSNorm):
             grouped[k5.grouped_variant(m.z, m.segments, 2, True)] += 1
     epilogues = dict.fromkeys(k5.EPILOGUES, 0)
+    prologues = dict.fromkeys(k5.PROLOGUES, 0)
+    residual = dict.fromkeys(k6.VARIANTS, 0)
     if sum(grouped.values()):
         blocks = [m for m in model.modules() if isinstance(m, PackedResBlock)]
         mod = sum(hasattr(m, "emb_proj") for m in blocks)
         epilogues.update(silu=sum(grouped.values()) - mod,
                          modulate_silu=mod)
+        folded = [m for m in blocks if m.plain_convs()]
+        prologues.update(none=sum(grouped.values()) - len(folded),
+                         bias=len(folded))
+        for m in folded:
+            residual[k6.residual_variant(m.out_norm.weight.numel()
+                                         * (m.z if m.out_norm.from_5d
+                                            else 1), 2, True)] += 1
     return (len(norms), sum(c % 8 == 0 for c in norms),
             sum(isinstance(m, CrossAttention) for m in model.modules()),
-            grouped, epilogues)
+            grouped, epilogues, prologues, residual)
 
 
 def expected_launches(counts: tuple, calls: int) -> tuple:
@@ -2608,41 +2931,51 @@ def expected_launches(counts: tuple, calls: int) -> tuple:
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
-    n_norm, n_vec, n_attn, grouped, epilogues = counts
+    n_norm, n_vec, n_attn, grouped, epilogues, prologues, residual = counts
     k2_variant, = {k2.attention_variant(n, d, torch.bfloat16, True)
                    for _, n, d in K2_SHAPES}
     return ({"rmsnorm": n_norm * calls, "window_attention": n_attn * calls,
-             "grouped_rmsnorm": sum(grouped.values()) * calls},
+             "grouped_rmsnorm": sum(grouped.values()) * calls,
+             "residual": sum(residual.values()) * calls},
             {"rmsnorm": {"strided": (n_norm - n_vec) * calls,
                          "vector": n_vec * calls},
              "window_attention": {v: n_attn * calls if v == k2_variant
                                   else 0 for v in k2.VARIANTS},
              "grouped_rmsnorm": {v: n * calls for v, n in grouped.items()},
              "grouped_rmsnorm_epilogue": {e: n * calls
-                                          for e, n in epilogues.items()}})
+                                          for e, n in epilogues.items()},
+             "grouped_rmsnorm_prologue": {p: n * calls
+                                          for p, n in prologues.items()},
+             "residual": {v: n * calls for v, n in residual.items()}})
 
 
 def read_launches() -> tuple:
-    """(launches of K1, K2 and K5; by variant, and K5's by epilogue)."""
+    """(launches of K1, K2, K5 and K6; by variant, and K5's by epilogue
+    and prologue)."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     return ({"rmsnorm": k1.launches, "window_attention": k2.launches,
-             "grouped_rmsnorm": k5.launches},
+             "grouped_rmsnorm": k5.launches, "residual": k6.launches},
             {"rmsnorm": dict(k1.launches_by_variant),
              "window_attention": dict(k2.launches_by_variant),
              "grouped_rmsnorm": dict(k5.launches_by_variant),
-             "grouped_rmsnorm_epilogue": dict(k5.launches_by_epilogue)})
+             "grouped_rmsnorm_epilogue": dict(k5.launches_by_epilogue),
+             "grouped_rmsnorm_prologue": dict(k5.launches_by_prologue),
+             "residual": dict(k6.launches_by_variant)})
 
 
 def reset_launches() -> None:
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import quant_kernel as qk
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     k1.reset_launches()
     k2.reset_launches()
     k5.reset_launches()
+    k6.reset_launches()
     qk.reset_launches()
 
 
@@ -2997,16 +3330,18 @@ def check_small_train_step(device, method: str = "ours") -> dict:
 
 
 def read_train_launches() -> tuple:
-    """(launches of K1, K1b, K2, K2b, K5, K5b; K1b's, K2b's and K5b's by
-    variant)."""
+    """(launches of K1, K1b, K2, K2b, K5, K5b, K6; K1b's, K2b's and K5b's
+    by variant)."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     return ({"rmsnorm": k1.launches, "rmsnorm_bwd": k1.bwd.launches,
              "window_attention": k2.launches,
              "window_attention_bwd": k2.bwd.launches,
              "grouped_rmsnorm": k5.launches,
-             "grouped_rmsnorm_bwd": k5.bwd.launches},
+             "grouped_rmsnorm_bwd": k5.bwd.launches,
+             "residual": k6.launches},
             {"rmsnorm_bwd": dict(k1.bwd.launches_by_variant),
              "window_attention_bwd": dict(k2.bwd.launches_by_variant),
              "grouped_rmsnorm_bwd": dict(k5.bwd.launches_by_variant)})
@@ -3093,11 +3428,15 @@ def run_training(device, path: str, tmp: Path,
             f"training backward launches by variant {got_variants}, "
             f"expected {want_variants}")
     # where autograd records, K5 runs no epilogue (the eager one follows)
+    # and no prologue (the ResBlocks run their eager bias adds)
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     epi = dict(k5.launches_by_epilogue)
     require(epi == {e: want["grouped_rmsnorm"] if e == "none" else 0
                     for e in k5.EPILOGUES},
             f"training K5 launches by epilogue {epi}")
+    pro = dict(k5.launches_by_prologue)
+    require(pro == {"none": want["grouped_rmsnorm"], "bias": 0},
+            f"training K5 launches by prologue {pro}")
 
     # save -> restore on the card, bit for bit
     trainer.save(state)
@@ -3171,7 +3510,7 @@ def run_attn(device, ckpt: Path, tmp: Path) -> dict:
     got, got_variants = read_launches()
     n_tiles = ATTN_ROI_SIDE ** 2
     want = {"rmsnorm": n_tiles * ATTN_K1_PER_TILE, "window_attention": 0,
-            "grouped_rmsnorm": 0}
+            "grouped_rmsnorm": 0, "residual": 0}
     log(f"attn [ROI 0, {n_tiles} tiles]: {secs:.2f} s = {n_tiles / secs:.3f}"
         f" tiles/s ({rec['seconds']:.2f} s in the tile loop = "
         f"{n_tiles / rec['seconds']:.3f} tiles/s; the rest builds the "
@@ -3455,9 +3794,9 @@ RANK_GROUP_TIMEOUT_S = 300   # a wait on another rank
 # 2x2 windows of 5 z-windows a call, 2 steps
 RANK_LAUNCHES = {
     "memory": {"rmsnorm": 26 * 126, "window_attention": 6 * 126,
-               "grouped_rmsnorm": 57 * 126},
+               "grouped_rmsnorm": 57 * 126, "residual": 28 * 126},
     "stream": {"rmsnorm": 26 * 20, "window_attention": 6 * 20,
-               "grouped_rmsnorm": 57 * 20}}
+               "grouped_rmsnorm": 57 * 20, "residual": 28 * 20}}
 
 
 def rank_count() -> tuple:
@@ -4234,28 +4573,31 @@ def launches_now() -> dict:
     from tera_mind_tpu_torch.ops import attention_kernel as k2
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import quant_kernel as qk
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     out = {}
     for name, c in (("rmsnorm", k1), ("rmsnorm_bwd", k1.bwd),
                     ("window_attention", k2),
                     ("window_attention_bwd", k2.bwd),
                     ("grouped_rmsnorm", k5), ("grouped_rmsnorm_bwd", k5.bwd),
+                    ("residual", k6),
                     ("quant_conv", qk.k3), ("quantize", qk.k4)):
         by = dict(c.launches_by_variant)
         out[name] = {"launches": sum(by.values()), "by_variant": by}
     out["grouped_rmsnorm"]["by_epilogue"] = dict(k5.launches_by_epilogue)
+    out["grouped_rmsnorm"]["by_prologue"] = dict(k5.launches_by_prologue)
     return out
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
     """Each kernel's launches and launches by variant (and K5's by
-    epilogue) as ``scripts/kernel_shapes.py`` predicts them (``want``; a
-    kernel it does not name launches no time)."""
+    epilogue and prologue) as ``scripts/kernel_shapes.py`` predicts them
+    (``want``; a kernel it does not name launches no time)."""
     for name, g in got.items():
         w = want.get(name, {k: ({v: 0 for v in g[k]} if k != "launches"
                                 else 0) for k in g})
-        keys = [k for k in ("launches", "by_variant", "by_epilogue")
-                if k in g]
+        keys = [k for k in ("launches", "by_variant", "by_epilogue",
+                            "by_prologue") if k in g]
         require(all(g[k] == w[k] for k in keys),
                 f"{what}: {name} launches {g}, kernel_shapes.py predicts "
                 f"{ {k: w[k] for k in keys} }")
@@ -4274,8 +4616,9 @@ def preset_kernel_shapes(ks) -> dict:
     """{kernel: [(shape, path)]} of phase 19's full-width runs that
     phases 3-5 do not check (K1 in generation with the bf16 weight, in
     training with the float32 one; K5b each new layout of segments and Z
-    once, K5 each new (segments, Z, epilogue), at its most rows, as
-    (rows, segments, Z, epilogue, B)), and the K2, K2b and K5 shapes of
+    once, K5 each new (segments, Z, epilogue, prologue), at its most rows,
+    as (rows, segments, Z, epilogue, B, prologue); K6 each new (width,
+    skip) at its most rows), and the K2, K2b, K5 and K6 shapes of
     :data:`PRESET_KERNELS_ONLY`'s chains and training steps, from
     ``scripts/kernel_shapes.py``'s predictions, each shape once."""
     seen = {"K1": set(K1_SHAPES) | {s for k1s, _ in PATH_SHAPES.values()
@@ -4285,8 +4628,9 @@ def preset_kernel_shapes(ks) -> dict:
                                     for s in k2s},
             "K2b": set(TRAIN_K2_SHAPES), "K3": set(K3_SHAPES),
             "K4": set(K4_SHAPES),
-            "K5": {s[1:4] for s in k5_shapes(acts=True)},
-            "K5b": {s[1:] for s in k5_shapes(train=True)}}
+            "K5": {s[1:4] + s[5:] for s in k5_shapes(acts=True)},
+            "K5b": {s[1:] for s in k5_shapes(train=True)},
+            "K6": {s[1:] for s in k6_shapes()}}
     out = {k: [] for k in seen}
 
     def add(kernel, pred, path):
@@ -4294,15 +4638,15 @@ def preset_kernel_shapes(ks) -> dict:
         # their most rows first
         shapes = [s for s, _ in pred["act_shapes" if kernel == "K5"
                                      else "shapes"]]
-        if kernel in ("K5", "K5b"):
+        if kernel in ("K5", "K5b", "K6"):
             shapes.sort(key=lambda s: -s[0])
         for shape in shapes:
             shape = tuple(tuple(x) if isinstance(x, list) else x
                           for x in shape)
             if kernel == "K4":
                 shape = shape[:3]
-            key = (shape[1:4] if kernel == "K5" else
-                   shape[1:] if kernel == "K5b" else shape)
+            key = (shape[1:4] + shape[5:] if kernel == "K5" else
+                   shape[1:] if kernel in ("K5b", "K6") else shape)
             if key not in seen[kernel]:
                 seen[kernel].add(key)
                 out[kernel].append((shape, path))
@@ -4312,6 +4656,7 @@ def preset_kernel_shapes(ks) -> dict:
     add("K1", chain["rmsnorm"], "609882 chain")
     add("K2", chain["window_attention"], "609882 chain")
     add("K5", chain["grouped_rmsnorm"], "609882 chain")
+    add("K6", chain["residual"], "609882 chain")
     int8 = ks.chain_prediction(first, quant="int8")
     add("K3", int8["quant_conv"], "609882 int8")
     add("K4", int8["quantize"], "609882 int8")
@@ -4330,11 +4675,13 @@ def preset_kernel_shapes(ks) -> dict:
                 add("K1", chain["rmsnorm"], f"{preset} generation")
                 add("K2", chain["window_attention"], f"{preset} generation")
                 add("K5", chain["grouped_rmsnorm"], f"{preset} generation")
+                add("K6", chain["residual"], f"{preset} generation")
     for preset, flags in PRESET_KERNELS_ONLY.items():
         conf = preset_conf(ks, flags)
         chain = ks.chain_prediction(conf)
         add("K2", chain["window_attention"], f"{preset} chain")
         add("K5", chain["grouped_rmsnorm"], f"{preset} chain")
+        add("K6", chain["residual"], f"{preset} chain")
         add("K2b", ks.train_prediction(conf)["window_attention_bwd"],
             f"{preset} training")
     return out
@@ -4386,19 +4733,22 @@ def preset_k5_cut(n: int, act: str, batches: int) -> tuple:
 
 
 def preset_grouped_rows(g, device, shapes) -> dict:
-    """K5 (with the epilogue of its launches) and K5b at each new layout
-    of phase 19 (:func:`preset_kernel_shapes`), at up to
-    ``K5_PRESET_ROWS`` rows (:func:`preset_k5_cut`), checked, not
+    """K5 (with the prologue and epilogue of its launches), K5b and K6
+    at each new layout of phase 19 (:func:`preset_kernel_shapes`), at up
+    to ``K5_PRESET_ROWS`` rows (:func:`preset_k5_cut`), checked, not
     timed."""
     k5_rows = []
-    for (n, segs, z, act, b), path in shapes["K5"]:
+    for (n, segs, z, act, b, pro), path in shapes["K5"]:
         n, b = preset_k5_cut(n, act, b)
         k5_rows.append(k5_row(g, device, n, segs, z, path, timed=False,
-                              act=act, batches=b))
+                              act=act, batches=b, prologue=pro))
     return {"grouped_rmsnorm": k5_rows, "grouped_rmsnorm_bwd": [
         k5b_row(g, device, min(n, K5_PRESET_ROWS), segs, z, path,
                 timed=False)
-        for (n, segs, z), path in shapes["K5b"]]}
+        for (n, segs, z), path in shapes["K5b"]],
+        "residual": [k6_row(g, device, min(n, K5_PRESET_ROWS), width, skip,
+                            path, timed=False)
+                     for (n, width, skip), path in shapes["K6"]]}
 
 
 def check_small_presets(device, ks) -> dict:
@@ -4755,29 +5105,40 @@ GROUPED_SOURCES = {
     "grouped_rmsnorm_bwd": (
         "tera_mind_tpu_torch/csrc/grouped_rmsnorm_bwd.cu",
         "tera_mind_tpu/models/unet_packed.py:73 (jax.grad of "
-        "GroupedRMSNorm.__call__; not a Pallas kernel)")}
+        "GroupedRMSNorm.__call__; not a Pallas kernel)"),
+    "residual": (
+        "tera_mind_tpu_torch/csrc/residual.cu",
+        "tera_mind_tpu/models/unet_packed.py:299 (PackedResBlock's "
+        "(x + h).astype(dt) with the conv biases of :132-133 and :226: "
+        "XLA's fusion; not a Pallas kernel)")}
 
 
-def grouped_step_sums(rows: list, train: bool) -> dict:
+def grouped_step_sums(rows: list, name: str) -> dict:
     """A block-major 2x2 step's (25 UNet calls) device ms of K5 (each
-    shape with its epilogue), or a packed training step's (2
-    microbatches) of K5b: each shape's time times its launches
-    (``scripts/kernel_shapes.py``)."""
+    shape with its prologue and epilogue) or K6 (``name`` "residual"), or
+    a packed training step's (2 microbatches) of K5b: each shape's time
+    times its launches (``scripts/kernel_shapes.py``)."""
     from collections import Counter
-    k5, k5_act = Counter(), Counter()
+    k5, k5_act, k6 = Counter(), Counter(), Counter()
     ks = kernel_shapes()
+    train = name.endswith("_bwd")
     if train:
         ks.train_shapes(True, k5=k5)
         n = {(r, tuple(s), z): c * ks.TRAIN_ACCUM
              for (r, s, z), c in k5.items()}
     else:
-        ks.per_call_shapes(k5=k5, k5_act=k5_act)
-        n = Counter()
-        for (r, s, z, a, _), c in k5_act.items():
-            n[(r, tuple(s), z, a)] += c * 25
-    keyed = [(n[(r["shape"][0], tuple(r["shape"][1]), r["shape"][2])
-                + (() if train else (r["act"],))], r)
-             for r in rows if r["path"] in ("block_major", "train")]
+        ks.per_call_shapes(k5=k5, k5_act=k5_act, k6=k6)
+        n = Counter({shape: c * 25 for shape, c in k6.items()})
+        for (r, s, z, a, _, p), c in k5_act.items():
+            n[(r, tuple(s), z, a, p)] += c * 25
+
+    def key(r):
+        if name == "residual":
+            return tuple(r["shape"])
+        return ((r["shape"][0], tuple(r["shape"][1]), r["shape"][2])
+                + (() if train else (r["act"], r["prologue"])))
+    keyed = [(n[key(r)], r) for r in rows
+             if r["path"] in ("block_major", "train")]
     out = {key: sum(c * r[key] for c, r in keyed)
            for key in ("ms", "plain_ms", "bound_ms")}
     out["launches"] = sum(c for c, _ in keyed)
@@ -4785,9 +5146,10 @@ def grouped_step_sums(rows: list, train: bool) -> dict:
 
 
 def grouped_kernel_entries(rows: dict, chains: dict, train: dict) -> list:
-    """K5's and K5b's entries of the kernel line: the largest shape's
-    times, every shape's rows, a step's sums, the launches of every path
-    (K5: the chains; K5b: the packed training run's)."""
+    """K5's, K5b's and K6's entries of the kernel line: the largest
+    shape's times, every shape's rows, a step's sums, the launches of
+    every path (K5, K6: the chains, with K5's by epilogue and prologue;
+    K5b: the packed training run's)."""
     kernels = []
     for name, (src, replaces) in GROUPED_SOURCES.items():
         r = max(rows[name], key=lambda x: x["bound_ms"])   # the largest
@@ -4799,21 +5161,26 @@ def grouped_kernel_entries(rows: dict, chains: dict, train: dict) -> list:
         else:
             by_path = {path: {"launches": c["launches"][name],
                               "by_variant": c["variants"][name],
-                              "by_epilogue": c["variants"][
-                                  "grouped_rmsnorm_epilogue"]}
+                              **({} if name == "residual" else {
+                                  "by_epilogue": c["variants"][
+                                      "grouped_rmsnorm_epilogue"],
+                                  "by_prologue": c["variants"][
+                                      "grouped_rmsnorm_prologue"]})}
                        for path, c in chains.items()}
         main = by_path["train_packed" if bwd else "packed"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": main["launches"],
             "launches_by_variant": main["by_variant"],
-            **({} if bwd else {"launches_by_epilogue": main["by_epilogue"]}),
+            **({"launches_by_epilogue": main["by_epilogue"],
+                "launches_by_prologue": main["by_prologue"]}
+               if "by_epilogue" in main else {}),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "step_ms": grouped_step_sums(rows[name], bwd),
+            "step_ms": grouped_step_sums(rows[name], name),
             "shapes": rows[name]})
         log(f"{name} a {'packed training' if bwd else 'block-major 2x2'} "
             f"step (ms): {kernels[-1]['step_ms']}")
@@ -4890,6 +5257,7 @@ def main() -> int:
 
     rows = check_kernels(device)
     rows.update(check_grouped_kernels(device))
+    rows.update(check_residual_kernels(device))
     rows.update(check_backward_kernels(device))
     rows.update(check_grouped_bwd(device))
     check_variant_refusal(device)
@@ -5260,14 +5628,17 @@ def norms_only(device, smi: str) -> int:
 
 
 def grouped_only(device, smi: str) -> int:
-    """``--grouped``: K5 and K5b at phase 3's and 4's shapes and edges
-    (timed), the autograd guard, and at phase 19's new layouts (checked),
-    for a call that tunes the grouped norm kernels; prints its JSON, the
-    card line and a result line naming the part it ran."""
+    """``--grouped``: K5, K6 and K5b at phase 3's and 4's shapes and
+    edges (timed), the folded ResBlock against the eager one, the
+    autograd guard, and at phase 19's new layouts (checked), for a call
+    that tunes the packed ResBlock's kernels; prints its JSON, the card
+    line and a result line naming the part it ran."""
     import torch
 
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
     rows = check_grouped_kernels(device)
+    rows.update(check_residual_kernels(device))
     rows.update(check_grouped_bwd(device))
     check_autograd_guard(device)
     presets = preset_grouped_rows(
@@ -5275,18 +5646,20 @@ def grouped_only(device, smi: str) -> int:
         preset_kernel_shapes(kernel_shapes()))
     for name, more in presets.items():
         rows[name] += more
-    steps = {name: grouped_step_sums(rows[name], name.endswith("_bwd"))
-             for name in rows}
-    log(f"K5 / K5b a step (ms): {steps}")
+    steps = {name: grouped_step_sums(rows[name], name) for name in rows}
+    log(f"K5 / K6 / K5b a step (ms): {steps}")
     print(json.dumps({"shapes": rows, "step_ms": steps,
                       "launches_by_variant": {
                           "grouped_rmsnorm": dict(k5.launches_by_variant),
                           "grouped_rmsnorm_bwd": dict(
-                              k5.bwd.launches_by_variant)},
+                              k5.bwd.launches_by_variant),
+                          "residual": dict(k6.launches_by_variant)},
                       "launches_by_epilogue": dict(
-                          k5.launches_by_epilogue)}), flush=True)
+                          k5.launches_by_epilogue),
+                      "launches_by_prologue": dict(
+                          k5.launches_by_prologue)}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"ok": True, "only": "K5 and K5b", "device": {
+    print(json.dumps({"ok": True, "only": "K5, K6 and K5b", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -96,9 +96,18 @@ phase requires.
 K5 (the packed model's ``GroupedRMSNorm``) is recorded as (rows,
 segments, Z) and with the epilogue each launch takes (``none``, ``silu``,
 ``modulate_silu``: 29 SiLU and 28 modulate launches a 638850 UNet call;
-``none`` wherever autograd records, as in training); the default listing
-prints the launches by epilogue and the bytes of the eager passes the
+``none`` wherever autograd records, as in training) and its prologue
+(``bias``: in generation each ResBlock's ``out_norm`` adds ``in_conv``'s
+bias, 28 a call; ``none`` elsewhere); the default listing prints the
+launches by epilogue and prologue and the bytes of the eager passes the
 epilogues leave out a step (236.91 GB on the block-major 2x2 path).
+K6 (the ResBlocks' residual sum with their convs' biases,
+``ops/residual_kernel.py``) is recorded as (rows, width, skip), skip
+``conv`` (the skip conv's product and bias) or ``x`` (the block's
+input): one a ResBlock in generation (28 a 638850 UNet call), none in
+training (autograd records) or int8; the default listing prints its
+launches, bytes and byte bound a step, and the bytes of the eager passes
+that the bias prologue and K6 leave out.
 """
 
 from __future__ import annotations
@@ -125,7 +134,10 @@ from tera_mind_tpu_torch.models.unet_packed import (  # noqa: E402
 from tera_mind_tpu_torch.ops import quant_kernel as qk  # noqa: E402
 from tera_mind_tpu_torch.ops._build import autograd_required  # noqa: E402
 from tera_mind_tpu_torch.ops.grouped_rmsnorm_kernel import (  # noqa: E402
-    EPILOGUES as K5_EPILOGUES, VARIANTS as K5_VARIANTS, grouped_variant)
+    EPILOGUES as K5_EPILOGUES, PROLOGUES as K5_PROLOGUES,
+    VARIANTS as K5_VARIANTS, grouped_variant)
+from tera_mind_tpu_torch.ops.residual_kernel import (  # noqa: E402
+    VARIANTS as K6_VARIANTS, residual_variant, skip_kind)
 from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
     BWD_VARIANTS as K2B_VARIANTS, VARIANTS as K2_VARIANTS,
     attention_bwd_variant, attention_variant)
@@ -180,17 +192,19 @@ def gen_plan(conf, grid: int = 2) -> dict:
 
 @contextmanager
 def recording(k1: Counter, k2: Counter, k5: Counter = None,
-              k5_act: Counter = None):
-    """Stand-ins for K1, K2 and K5 that record their input shapes: K1
-    (rows, C), K2 (B, N, D), K5 (rows, segments, Z) into ``k5`` (or a
-    Counter of its own) and (rows, segments, Z, epilogue, B) into
-    ``k5_act`` (the epilogue K5 launches with: ``none`` where autograd
-    records, as the dispatcher runs the eager epilogue after the Function
-    there; B the batches of the modulate's scale and shift, 0 without
-    it): every packed call must be stubbed on the meta device, where the
-    dispatcher has no path."""
+              k5_act: Counter = None, k6: Counter = None):
+    """Stand-ins for K1, K2, K5 and K6 that record their input shapes:
+    K1 (rows, C), K2 (B, N, D), K5 (rows, segments, Z) into ``k5`` (or a
+    Counter of its own) and (rows, segments, Z, epilogue, B, prologue)
+    into ``k5_act`` (the epilogue K5 launches with: ``none`` where
+    autograd records, as the dispatcher runs the eager epilogue after the
+    Function there; B the batches of the modulate's scale and shift, 0
+    without it; prologue ``bias`` where the call adds a conv's bias, else
+    ``none``), K6 (rows, width, skip) into ``k6``: every packed call must
+    be stubbed on the meta device, where the dispatchers have no path."""
     k5 = Counter() if k5 is None else k5
     k5_act = Counter() if k5_act is None else k5_act
+    k6 = Counter() if k6 is None else k6
 
     def rmsnorm(x, weight, eps=1e-6):
         k1[(x.numel() // x.shape[-1], x.shape[-1])] += 1
@@ -202,26 +216,30 @@ def recording(k1: Counter, k2: Counter, k5: Counter = None,
 
     def grouped_rmsnorm_act(x, weight, z, segments, eps=1e-6,
                             from_5d=False, act="none", scale=None,
-                            shift=None):
+                            shift=None, bias=None):
         key = (x.numel() // x.shape[-1], tuple(segments), z)
         k5[key] += 1
-        mod = [t for t in (scale, shift) if t is not None]
+        mod = [t for t in (scale, shift, bias) if t is not None]
         if autograd_required(x, weight, *mod):
             act = "none"
         k5_act[key + (act, scale.shape[0] if act == "modulate_silu"
-                      else 0)] += 1
+                      else 0, K5_PROLOGUES[bias is not None])] += 1
         return torch.empty_like(x)
 
+    def residual(h, h_bias, s, s_bias=None):
+        k6[(h.numel() // h.shape[-1], h.shape[-1], skip_kind(s_bias))] += 1
+        return torch.empty_like(h)
+
     saved = (nn_mod.rmsnorm, attention_mod.window_attention,
-             packed_mod.grouped_rmsnorm_act)
+             packed_mod.grouped_rmsnorm_act, packed_mod.residual)
     (nn_mod.rmsnorm, attention_mod.window_attention,
-     packed_mod.grouped_rmsnorm_act) = (rmsnorm, window_attention,
-                                        grouped_rmsnorm_act)
+     packed_mod.grouped_rmsnorm_act, packed_mod.residual) = (
+        rmsnorm, window_attention, grouped_rmsnorm_act, residual)
     try:
         yield
     finally:
         (nn_mod.rmsnorm, attention_mod.window_attention,
-         packed_mod.grouped_rmsnorm_act) = saved
+         packed_mod.grouped_rmsnorm_act, packed_mod.residual) = saved
 
 
 def by_epilogue(k5_act: Counter, times: int = 1) -> dict:
@@ -233,6 +251,15 @@ def by_epilogue(k5_act: Counter, times: int = 1) -> dict:
     return out
 
 
+def by_prologue(k5_act: Counter, times: int = 1) -> dict:
+    """K5's launches by prologue (``none``, ``bias``) of ``k5_act``
+    times ``times``."""
+    out = dict.fromkeys(K5_PROLOGUES, 0)
+    for key, n in k5_act.items():
+        out[key[5]] += n * times
+    return out
+
+
 def eager_epilogue_bytes(k5_act: Counter, times: int) -> Counter:
     """{epilogue: bytes} that the eager passes after ``times`` rounds of
     the K5 launches ``k5_act`` would move in bf16 (each pass reads and
@@ -240,9 +267,30 @@ def eager_epilogue_bytes(k5_act: Counter, times: int) -> Counter:
     and sum and the SiLU), which the fused epilogue leaves out."""
     passes = {"none": 0, "silu": 1, "modulate_silu": 3}
     out = Counter()
-    for (rows, segments, z, act, _), n in k5_act.items():
+    for (rows, segments, z, act, _, _), n in k5_act.items():
         out[act] += n * times * passes[act] * 2 * BF16 * rows * z * sum(
             segments)
+    return out
+
+
+def fold_bytes(k5_act: Counter, k6: Counter, times: int) -> Counter:
+    """{pass: bytes} of ``times`` rounds of the eager passes that K5's
+    bias prologue (``k5_act``) and K6 (``k6``) take the place of, in bf16:
+    ``in_conv``'s bias add before the norm, ``out_conv``'s and
+    ``skip_conv``'s bias adds (each reads and writes the map) and the
+    residual sum (reads two maps, writes one); and ``K6`` itself (reads
+    two, writes one, and its biases), which the fold adds."""
+    out = Counter()
+    for (rows, segments, z, _, _, pro), n in k5_act.items():
+        if pro == "bias":
+            out["in_conv bias"] += n * times * 2 * BF16 * rows * z * sum(
+                segments)
+    for (rows, width, skip), n in k6.items():
+        unit = n * times * BF16 * rows * width
+        out["out_conv bias"] += 2 * unit
+        out["skip_conv bias"] += 2 * unit * (skip == "conv")
+        out["residual sum"] += 3 * unit
+        out["K6"] += n * times * kernel_work("K6", (rows, width, skip))[0]
     return out
 
 
@@ -261,21 +309,22 @@ def patch_grid(conf, patches: int = None, grid: tuple = None) -> tuple:
 
 def per_call_shapes(packed: bool = True, patches: int = None,
                     chunk: int = 1, grid: tuple = None, conf=None,
-                    k5: Counter = None, k5_act: Counter = None
-                    ) -> tuple[Counter, Counter]:
+                    k5: Counter = None, k5_act: Counter = None,
+                    k6: Counter = None) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one UNet
     call on ``chunk`` z-windows of ``patches`` patches each (a square, or
     a ``grid`` of p1 x p2 patches; default the preset's plan), for the
     packed model or the 5D one, of ``conf``'s preset (default 638850);
     ``k5`` gets K5's (rows, segments, Z) -> launches, ``k5_act`` its
-    (rows, segments, Z, epilogue, B) -> launches."""
+    (rows, segments, Z, epilogue, B, prologue) -> launches, ``k6`` K6's
+    (rows, width, skip) -> launches."""
     conf = conf or preset_conf()
     p1, p2 = patch_grid(conf, patches, grid)
     patches = p1 * p2
     conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
     # generation runs the model under inference mode: no autograd records
-    with recording(k1, k2, k5, k5_act), torch.device("meta"), \
+    with recording(k1, k2, k5, k5_act, k6), torch.device("meta"), \
             torch.no_grad():
         model = make_packed_model(conf) if packed else conf.make_model()
         model = model.to(torch.bfloat16)
@@ -409,7 +458,7 @@ def quant_shapes(quant: str = "int8", attn: bool = True,
     ``conf``'s preset (default 638850; the patch grid as
     :func:`per_call_shapes` takes it), as :func:`quant_recording` keys
     them; ``k12``: two Counters that get its K1 and K2 shapes (and a third
-    that gets K5's, a fourth K5's with their epilogues)."""
+    that gets K5's, a fourth K5's with their epilogues, a fifth K6's)."""
     conf = conf or preset_conf()
     p1, p2 = patch_grid(conf, patches, grid)
     conf = conf.make_model_conf()
@@ -474,18 +523,20 @@ def main_quant(quant: str, attn: bool, patches: int, chunk: int,
 
 def train_shapes(packed: bool = False, batch: int = None,
                  method: str = "ours", conf=None, k5: Counter = None,
-                 k5_act: Counter = None) -> tuple[Counter, Counter]:
+                 k5_act: Counter = None, k6: Counter = None
+                 ) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one
     training forward on a microbatch of ``batch`` samples (default the
     preset's, ``conf.batch_size``; 2x2 blocks of patches, both decoders)
     of ``method``'s model on ``conf``'s preset (default 638850); K1b and
     K2b get the same, and K5b ``k5``'s K5 shapes (the packed model's
-    GroupedRMSNorm, every input of which requires grad)."""
+    GroupedRMSNorm, every input of which requires grad); ``k6`` K6's
+    shapes (none: autograd records, so the ResBlocks run eagerly)."""
     conf = conf or preset_conf(method=method)
     batch = batch or conf.batch_size
     conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
-    with recording(k1, k2, k5, k5_act), torch.device("meta"):
+    with recording(k1, k2, k5, k5_act, k6), torch.device("meta"):
         model = (make_packed_model(conf, torch.float32, from_5d=True)
                  if packed else conf.make_model(torch.float32)).train()
         p = conf.image_size
@@ -513,8 +564,10 @@ def train_bwd_variants(packed: bool = False, method: str = "ours",
 
 
 def variant(kernel: str, shape: tuple) -> str:
-    """The variant of K1, K1b, K2, K2b, K5 or K5b that a bf16 call with
-    aligned tensors at ``shape`` launches."""
+    """The variant of K1, K1b, K2, K2b, K5, K5b or K6 that a bf16 call
+    with aligned tensors at ``shape`` launches."""
+    if kernel == "K6":
+        return residual_variant(shape[1], BF16, True)
     if kernel in ("K5", "K5b"):
         _, segments, z = shape
         return grouped_variant(z, segments, BF16, True)
@@ -529,6 +582,7 @@ def by_variant(kernel: str, counts: Counter, times: int = 1) -> dict:
     launches) times ``times``."""
     out = dict.fromkeys(K1_VARIANTS if kernel in ("K1", "K1b")
                         else K5_VARIANTS if kernel in ("K5", "K5b")
+                        else K6_VARIANTS if kernel == "K6"
                         else K2_VARIANTS if kernel == "K2"
                         else K2B_VARIANTS, 0)
     for shape, n in counts.items():
@@ -540,8 +594,8 @@ def prediction(counts: dict, times: int, k5_act: Counter = None) -> dict:
     """{name: {launches, by_variant, shapes}} of {name: (kernel, shape ->
     launches a call)} over ``times`` calls (``chip_smoke.py``'s launch
     counters' names; shapes as lists, for JSON); with ``k5_act`` K5's
-    ``by_epilogue`` and ``act_shapes`` ((rows, segments, Z, epilogue, B)
-    -> launches) too."""
+    ``by_epilogue``, ``by_prologue`` and ``act_shapes`` ((rows, segments,
+    Z, epilogue, B, prologue) -> launches) too."""
     out = {}
     for name, (kernel, c) in counts.items():
         if kernel in ("K3", "K4"):
@@ -556,6 +610,7 @@ def prediction(counts: dict, times: int, k5_act: Counter = None) -> dict:
                                  sorted(c.items(), key=lambda kv: -kv[1])])
         if kernel == "K5" and k5_act is not None:
             out[name]["by_epilogue"] = by_epilogue(k5_act, times)
+            out[name]["by_prologue"] = by_prologue(k5_act, times)
             out[name]["act_shapes"] = [
                 [list(s), n * times] for s, n in
                 sorted(k5_act.items(), key=lambda kv: -kv[1])]
@@ -566,37 +621,40 @@ def chain_prediction(conf, quant: str = "", steps: int = STEPS,
                      probes: int = 0, packed: bool = True) -> dict:
     """The launches of ``cli.generate``'s block-major chain of ``steps``
     steps over 2x2 tiles of ``conf``'s preset (:func:`gen_plan`), plus
-    ``probes`` planner calls: K1 and K2 (the packed model, ``packed``
-    False the 5D one), and with ``quant`` K3 and K4, as
+    ``probes`` planner calls: K1, K2, K5 and K6 (the packed model,
+    ``packed`` False the 5D one), and with ``quant`` K3 and K4, as
     :func:`prediction` gives them."""
     calls = gen_plan(conf)["calls"] * steps + probes
-    k1, k2, k5, k5_act = Counter(), Counter(), Counter(), Counter()
+    k1, k2, k5, k5_act, k6 = (Counter() for _ in range(5))
     counts = {}
     if quant:
         k3, k4, _ = quant_shapes(quant, conf=conf,
-                                 k12=(k1, k2, k5, k5_act))
+                                 k12=(k1, k2, k5, k5_act, k6))
         counts = {"quant_conv": ("K3", k3), "quantize": ("K4", k4)}
     else:
-        k1, k2 = per_call_shapes(packed, conf=conf, k5=k5, k5_act=k5_act)
+        k1, k2 = per_call_shapes(packed, conf=conf, k5=k5, k5_act=k5_act,
+                                 k6=k6)
     return prediction({"rmsnorm": ("K1", k1),
                        "window_attention": ("K2", k2),
-                       "grouped_rmsnorm": ("K5", k5), **counts}, calls,
-                      k5_act)
+                       "grouped_rmsnorm": ("K5", k5),
+                       "residual": ("K6", k6), **counts}, calls, k5_act)
 
 
 def train_prediction(conf, steps: int = 1) -> dict:
     """The launches of ``steps`` training steps of ``cli.train`` on
     ``conf``'s preset (the packed model where ``conf.packed_compute``):
-    K1, K1b, K2, K2b, K5 and K5b, as :func:`prediction` gives them."""
-    k5, k5_act = Counter(), Counter()
+    K1, K1b, K2, K2b, K5, K5b and K6 (none), as :func:`prediction`
+    gives them."""
+    k5, k5_act, k6 = Counter(), Counter(), Counter()
     k1, k2 = train_shapes(conf.packed_compute, conf=conf, k5=k5,
-                          k5_act=k5_act)
+                          k5_act=k5_act, k6=k6)
     times = conf.accum_batches * steps
     return prediction({"rmsnorm": ("K1", k1), "rmsnorm_bwd": ("K1b", k1),
                        "window_attention": ("K2", k2),
                        "window_attention_bwd": ("K2b", k2),
                        "grouped_rmsnorm": ("K5", k5),
-                       "grouped_rmsnorm_bwd": ("K5b", k5)}, times, k5_act)
+                       "grouped_rmsnorm_bwd": ("K5b", k5),
+                       "residual": ("K6", k6)}, times, k5_act)
 
 
 def main_train(packed: bool, method: str = "ours", conf=None) -> None:
@@ -650,6 +708,25 @@ def print_k5(k5: Counter, times: int, per_step: int,
               f"{nbytes / H100_BYTES_PER_S * 1e3:.2f} ms a step")
 
 
+def print_k6(k6: Counter, times: int, per_step: int) -> None:
+    """K6's (rows, width, skip) with launches a call and a chain
+    (``times`` calls), variant, and bytes and byte bound a launch and a
+    step (``per_step`` calls)."""
+    print(f"K6 residual (rows, width, skip): {sum(k6.values())} per call, "
+          f"{sum(k6.values()) * times} per chain")
+    total = 0
+    for shape, n in sorted(k6.items(), key=lambda kv: -kv[1]):
+        nbytes = kernel_work("K6", shape)[0]
+        total += n * per_step * nbytes
+        print(f"  {shape}: {n} per call, {n * times} per chain; "
+              f"{variant('K6', shape)}; {nbytes / 1e6:.2f} MB a launch, "
+              f"bound {bound_ms('K6', shape)[0]:.4f} ms; "
+              f"{n * per_step * nbytes / 1e9:.3f} GB a step")
+    if k6:
+        print(f"K6: {total / 1e9:.3f} GB a step, byte bound "
+              f"{total / H100_BYTES_PER_S * 1e3:.2f} ms a step")
+
+
 def grouped_step_bytes(k5: Counter, times: int,
                        kernels: tuple = ("K5", "K5b")) -> Counter:
     """{"K5 <variant>" / "K5b <variant>": bytes} that ``times`` rounds of
@@ -693,7 +770,8 @@ def attention_step_bytes(k2: Counter, times: int) -> Counter:
 
 def bound_ms(kernel: str, shape: tuple, itemsize: int = BF16) -> tuple:
     """(least ms on the H100, 'bytes' or 'operations') for one launch of
-    ``kernel`` (K1, K1b, K2, K2b) at ``shape``: the larger of the bytes it
+    ``kernel`` (K1, K1b, K2, K2b, K5, K5b, K6) at ``shape``: the larger of
+    the bytes it
     must move over 3.35 TB/s and its operations over the peak rate of
     their type (``chip_smoke.py``'s ``kernel_work``, as its timings
     count them)."""
@@ -842,10 +920,10 @@ def main() -> None:
     visits = args.visits * (plan["visits"] if args.patches is None else 1)
     per_step = plan["windows"] // args.chunk * visits
     calls = STEPS * per_step
-    k5, k5_act = Counter(), Counter()
+    k5, k5_act, k6 = Counter(), Counter(), Counter()
     k1, k2 = per_call_shapes(packed=not args.no_packed,
                              patches=args.patches, chunk=args.chunk,
-                             conf=conf, k5=k5, k5_act=k5_act)
+                             conf=conf, k5=k5, k5_act=k5_act, k6=k6)
     print(("PackedTeraUNet" if not args.no_packed else "TeraUNet (5D)")
           + f" on {conf.name}: {plan['windows']} z-windows, "
           f"{per_step} UNet calls a step")
@@ -856,17 +934,29 @@ def main() -> None:
         for shape, n in sorted(counts.items(), key=lambda kv: -kv[1]):
             print(f"  {shape}: {n} per call, {n * calls} per chain")
     print_k5(k5, calls, per_step)
-    for kernel, counts in (("K1", k1), ("K2", k2), ("K5", k5)):
+    print_k6(k6, calls, per_step)
+    for kernel, counts in (("K1", k1), ("K2", k2), ("K5", k5), ("K6", k6)):
         print(f"{kernel} launches a chain by variant: "
               f"{by_variant(kernel, counts, calls)}")
     print(f"K5 launches by epilogue: {by_epilogue(k5_act)} per call, "
-          f"{by_epilogue(k5_act, calls)} per chain")
+          f"{by_epilogue(k5_act, calls)} per chain; by prologue: "
+          f"{by_prologue(k5_act)} per call, {by_prologue(k5_act, calls)} "
+          "per chain")
     removed = eager_epilogue_bytes(k5_act, per_step)
     print("eager passes the K5 epilogues leave out: "
           + ", ".join(f"{act} {n / 1e9:.2f} GB" for act, n in
                       sorted(removed.items()))
           + f" a step, {sum(removed.values()) / 1e9:.2f} GB in all, byte "
           f"bound {sum(removed.values()) / H100_BYTES_PER_S * 1e3:.2f} ms")
+    fold = fold_bytes(k5_act, k6, per_step)
+    eager = sum(v for k, v in fold.items() if k != "K6")
+    print("eager passes the bias prologue and K6 replace: "
+          + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in sorted(
+              fold.items()) if k != "K6")
+          + f" a step, {eager / 1e9:.2f} GB in all; K6 moves "
+          f"{fold['K6'] / 1e9:.2f} GB, so the fold removes "
+          f"{(eager - fold['K6']) / 1e9:.2f} GB a step, byte bound "
+          f"{(eager - fold['K6']) / H100_BYTES_PER_S * 1e3:.2f} ms")
     step = grouped_step_bytes(k5, per_step, ("K5",))
     for (rows, c), n in k1.items():
         step["K1 " + rmsnorm_variant(c, BF16, True)] += (

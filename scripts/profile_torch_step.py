@@ -6,6 +6,7 @@ one CUDA card.
     python scripts/profile_torch_step.py --path train [--packed]
         [--train_args "--mouse 609889 --patch 32 ..."] [--json PATH]
     python scripts/profile_torch_step.py --quant int8|int8_static [--json PATH]
+    python scripts/profile_torch_step.py --shapes [--path ...] [--json PATH]
 
 Builds the ``cli.generate`` path (638850 preset, bf16; the packed model,
 or the 5D one with ``--no_packed``): ``block_major`` (the default, 2x2
@@ -36,7 +37,15 @@ int8|int8_static`` builds the generation path with ``cli.generate
 --quant`` (int8_static calibrates first); K3 (``quant_conv``, by
 variant), K4 (``quantize``, one launch with its abs-max) and
 ``torch._int_mm``'s cuBLASLt int8 products are then categories of their
-own.
+own, as is K6 (``residual``, the packed ResBlocks' residual sum with
+their convs' biases).  ``--shapes`` (generation paths) traces the step
+with ``record_shapes=True`` and each conv of the model, each
+``PackedResBlock``, DiT block and the RNA tower wrapped in a profiler
+range named by its role (``in_conv``, ``out_conv``, ``skip_conv``,
+``stem``, ``out_conv (UNet)``, ...), and prints the elementwise ops
+(adds, copies, casts, cats, products) with their input shapes and the
+innermost range they ran in, by count a step: which broadcast adds are
+conv biases ``(N, C, H, W) + (1, C, 1, 1)`` and of which conv.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from tera_mind_tpu_torch.training import harness  # noqa: E402
 TILES = {"block_major": 2, "tile_major": 2, "stream": 4}  # grid side
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
+    ("K6 residual", ("residual_kernel",)),
     ("K5b grouped_rmsnorm_bwd dw sum", ("grouped_bwd_dw",)),
     ("K5b grouped_rmsnorm_bwd vector", ("grouped_bwd_vec",)),
     ("K5b grouped_rmsnorm_bwd staged", ("grouped_bwd_staged",)),
@@ -133,6 +143,57 @@ def trace_ranges() -> None:
          static=True)
 
 
+# the ops --shapes lists, and the profiler ranges it wraps around modules
+SHAPE_OPS = ("aten::add", "aten::add_", "aten::copy_", "aten::cat",
+             "aten::mul", "aten::mul_", "aten::_to_copy", "aten::silu")
+ROLE_RANGES = ("in_conv", "out_conv", "skip_conv", "stem", "out_conv (UNet)",
+               "PackedResBlock", "DiTBlock", "RNATower")
+
+
+def wrap_roles(model) -> None:
+    """Wrap each conv of ``model`` (its ``forward`` and, where it has
+    one, ``product``), each ``PackedResBlock``, DiT block and the RNA
+    tower in a profiler range named by its role (:data:`ROLE_RANGES`)."""
+    from torch.profiler import record_function
+
+    def wrap(mod, attr, name):
+        fn = getattr(mod, attr)
+
+        def traced(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        setattr(mod, attr, traced)
+    for name, mod in model.named_modules():
+        role = name.rsplit(".", 1)[-1]
+        if role in ("in_conv", "out_conv", "skip_conv", "stem"):
+            role = "out_conv (UNet)" if name == "out_conv" else role
+            for attr in ("forward", "product"):
+                if hasattr(mod, attr):
+                    wrap(mod, attr, role)
+        elif type(mod).__name__ in ROLE_RANGES:
+            wrap(mod, "forward", type(mod).__name__)
+
+
+def shape_table(prof) -> list:
+    """[(count, op, input shapes, innermost role range)] of the
+    :data:`SHAPE_OPS` CPU ops a ``record_shapes`` trace recorded, most
+    frequent first."""
+    rows = defaultdict(int)
+    for ev in prof.events():
+        if ev.name not in SHAPE_OPS or \
+                ev.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        parent, role = ev.cpu_parent, "-"
+        while parent is not None:
+            if parent.name in ROLE_RANGES:
+                role = parent.name
+                break
+            parent = parent.cpu_parent
+        shapes = tuple(tuple(s) for s in ev.input_shapes if s)
+        rows[(ev.name, shapes, role)] += 1
+    return sorted(((n,) + k for k, n in rows.items()), key=lambda r: -r[0])
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals: the time in which at
     least one kernel runs, on any stream."""
@@ -161,14 +222,15 @@ def make_train_step(packed: bool, logdir: str, extra: list = ()):
 
 
 def make_step(path: str, no_packed: bool, quant: str = ""):
-    """(one step of ``path`` as a callable, the CUDA device)."""
+    """(one step of ``path`` as a callable, the CUDA device, the
+    model)."""
     n = TILES[path]
     flags = {"block_major": [], "tile_major": ["--tile_major"],
              "stream": ["--stream"]}[path]
     args = generate.parse_args(["--synthetic", "--hnm", str(n), "--wnm",
                                 str(n)] + flags + ["--no_packed"] * no_packed
                                + (["--quant", quant] if quant else []))
-    gen, _, gene, (row0, col0) = generate.build(args)
+    gen, model, gene, (row0, col0) = generate.build(args)
     dev = gen.device
     state0 = gen.init_state(n, n, row0=row0, col0=col0)
     t = 7
@@ -180,11 +242,11 @@ def make_step(path: str, no_packed: bool, quant: str = ""):
         def step():   # one sweep: the last timestep of the chain
             hs.read[:] = torch.from_numpy(state0)
             sgen.run(n, n, gene, row0=row0, col0=col0, state=hs, start_t=1)
-        return step, dev
+        return step, dev, model
     state = torch.as_tensor(state0, device=dev)
     gene = torch.as_tensor(gene, device=dev)
     fn = gen.compile_step(n, n, block_major=path == "block_major")
-    return (lambda: fn(state, gene, t)), dev
+    return (lambda: fn(state, gene, t)), dev, model
 
 
 def main() -> None:
@@ -202,8 +264,13 @@ def main() -> None:
                     "string (--train_args=\"--mouse 609889 ...\")")
     ap.add_argument("--steps", type=int, default=0,
                     help="untraced steps to time before the traced one")
+    ap.add_argument("--shapes", action="store_true",
+                    help="record input shapes: the elementwise ops by "
+                    "shape and by the module role they ran in")
     ap.add_argument("--json", type=Path, default=None)
     a = ap.parse_args()
+    if a.shapes and a.path == "train":
+        ap.error("--shapes traces the generation paths")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -213,10 +280,13 @@ def main() -> None:
 
     trace_ranges()
     tmp = tempfile.TemporaryDirectory()
-    step, dev = (make_train_step(a.packed, tmp.name,
-                                 shlex.split(a.train_args))
-                 if a.path == "train"
-                 else make_step(a.path, a.no_packed, a.quant))
+    if a.path == "train":
+        step, dev = make_train_step(a.packed, tmp.name,
+                                    shlex.split(a.train_args))
+    else:
+        step, dev, model = make_step(a.path, a.no_packed, a.quant)
+        if a.shapes:
+            wrap_roles(model)
     step()                                         # warm-up
     torch.cuda.synchronize(dev)
     untraced = []
@@ -231,8 +301,8 @@ def main() -> None:
               f"{[round(t, 4) for t in untraced]} ({card})", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=a.shapes) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize(dev)
@@ -256,7 +326,7 @@ def main() -> None:
             else:
                 r[0] += dev_us(ev)
                 r[1] += 1
-        elif on_card:
+        elif on_card and ev.name not in ROLE_RANGES:   # not --shapes' spans
             k = kernels[ev.name]
             k[0] += dev_us(ev)
             k[1] += 1
@@ -284,6 +354,21 @@ def main() -> None:
     for name, (us, n) in top[:25]:
         print(f"  {us / 1e3:9.2f} ms  {n:6d}x  [{category(name)}] "
               f"{name[:110]}")
+    shapes = shape_table(prof) if a.shapes else []
+    for n, op, ins, role in shapes[:40]:
+        print(f"  shapes {n:6d}x  {op:16s} [{role}] {list(ins)}")
+    if shapes:
+        bias = sum(n for n, op, ins, role in shapes
+                   if op == "aten::add_" and len(ins) == 2
+                   and len(ins[1]) == 4 and ins[1][0] == 1
+                   and ins[1][2:] == (1, 1))
+        by_role = defaultdict(int)
+        for n, op, ins, role in shapes:
+            if op == "aten::add_" and len(ins) == 2 and len(ins[1]) == 4 \
+                    and ins[1][2:] == (1, 1):
+                by_role[role] += n
+        print(f"  conv bias adds (N, C, H, W) + (1, C, 1, 1): {bias} a "
+              f"step, by range {dict(by_role)}")
     if a.json is None:
         return
     a.json.parent.mkdir(parents=True, exist_ok=True)
@@ -295,7 +380,9 @@ def main() -> None:
         "categories_us": cats,
         "ranges": {name: {"us": r[0], "calls": r[1], "span_us": r[2]}
                    for name, r in ranges.items()},
-        "kernels": {n: v for n, v in top}}, indent=1))
+        "kernels": {n: v for n, v in top},
+        "shapes": [[n, op, [list(s) for s in ins], role]
+                   for n, op, ins, role in shapes]}, indent=1))
 
 
 if __name__ == "__main__":

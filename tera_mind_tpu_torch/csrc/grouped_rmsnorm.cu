@@ -3,7 +3,10 @@
 // segments (layout: csrc/grouped_rmsnorm.cuh),
 //   inv_z = rsqrt(sum over plane z's Ctot channels of x^2 / Ctot + eps)
 //   y = (x * inv_z) * w          (bf16: inv_z, then each product rounded)
-// with the statistics in float32, then the epilogue the caller names
+// with the statistics in float32, x first made x + bias (rounded to x's
+// type) where the caller passes a per-element bias (a ResBlock's out_norm
+// reads in_conv's product without its bias, which this prologue adds),
+// then the epilogue the caller names
 // (grouped_rmsnorm.cuh `epilogue`): none, SiLU(y) (a ResBlock's in_norm,
 // the UNet's out_norm) or SiLU(y * (1 + scale[b, c]) + shift[b, c]) (a
 // ResBlock's out_norm with its adaLN scale and shift, one segment of C
@@ -25,6 +28,10 @@
 // own layout: a float32 master weight of a bf16 x is rounded to bf16 as
 // it is read, and the 5D model's (Ctot,) weight is indexed per element
 // (from_5d), so a call is one launch with no cast or gather before it.
+// The conv bias before it (unet_packed.py:132-133, :226) is a prologue
+// here: it saves the eager pass that reads and writes the conv's output
+// to add it (PyTorch adds a cuDNN conv's bias as a broadcast add after
+// the convolution).
 // Variants (chosen by ops/grouped_rmsnorm_kernel.py grouped_variant):
 //
 // vector: the row in registers, G lanes a row (K1's rule: at most kVecMax
@@ -63,6 +70,27 @@ __device__ __forceinline__ uint4 weight_vec(const void* w, int vi) {
   } else {
     return static_cast<const uint4*>(w)[vi];
   }
+}
+
+// x + b of two 16-byte vectors of T, each sum rounded once to T (bf16x2
+// adds, or float adds), as PyTorch's add of two tensors of T rounds it
+template <typename T>
+__device__ __forceinline__ uint4 add_vec(const uint4& a, const uint4& b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  uint32_t out[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162 r =
+          __hadd2_rn(*reinterpret_cast<const __nv_bfloat162*>(&x[t]),
+                     *reinterpret_cast<const __nv_bfloat162*>(&y[t]));
+      out[t] = *reinterpret_cast<const uint32_t*>(&r);
+    } else {
+      out[t] = __float_as_uint(
+          __fadd_rn(__uint_as_float(x[t]), __uint_as_float(y[t])));
+    }
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
 // The modulate of a 16-byte vector of bf16: y * (1 + s) + sh by bf16x2
@@ -111,8 +139,8 @@ __device__ __forceinline__ uint4 epilogue_vec(uint4 yv, const uint4& sv,
 template <typename T, int G, int ZMAX, bool WF32, int ACT>
 __global__ void __launch_bounds__(kThreads, 4)
 grouped_vec_kernel(const T* __restrict__ x, const void* __restrict__ w,
-                   T* __restrict__ y, long long rows, Layout L, float eps,
-                   Epi epi) {
+                   const T* __restrict__ bias, T* __restrict__ y,
+                   long long rows, Layout L, float eps, Epi epi) {
   constexpr int E = 16 / sizeof(T);
   constexpr int kRows = kThreads / G;   // rows a block holds at a time
   const int sub = threadIdx.x % G;
@@ -121,11 +149,14 @@ grouped_vec_kernel(const T* __restrict__ x, const void* __restrict__ w,
   const VecPlan plan(L, sub, G, E);
   // the row's weight vectors in shared memory (the lanes' registers go to
   // the row and the epilogue), in x's type, once a block
+  // (and the bias's, by element, where there is one)
   __shared__ uint4 wsm[32 * kVecMax];
+  __shared__ uint4 bsm[32 * kVecMax];
   for (int vi = threadIdx.x; vi < nvec; vi += kThreads) {
     int z, widx;
     locate(L, vi * E, z, widx);
     wsm[vi] = weight_vec<T, WF32>(w, widx / E);
+    if (bias != nullptr) bsm[vi] = reinterpret_cast<const uint4*>(bias)[vi];
   }
   int cvec[kVecMax];   // modulate (one segment): each vector's channels
 #pragma unroll
@@ -148,6 +179,11 @@ grouped_vec_kernel(const T* __restrict__ x, const void* __restrict__ w,
     for (int i = 0; i < kVecMax; ++i) {
       const int vi = sub + i * G;
       xv[i] = live && vi < nvec ? xr[vi] : make_uint4(0, 0, 0, 0);
+    }
+    if (bias != nullptr) {   // the prologue: x + bias, rounded to T
+#pragma unroll
+      for (int i = 0; i < kVecMax; ++i)
+        if (plan.plane[i] >= 0) xv[i] = add_vec<T>(xv[i], bsm[sub + i * G]);
     }
     float ss[ZMAX];
 #pragma unroll
@@ -216,7 +252,8 @@ __device__ __forceinline__ void stage_row(uint4* buf, const T* base,
 template <typename T, int ACT>
 __global__ void __launch_bounds__(32 * kStagedMaxWarps, kStagedBlocks)
 grouped_staged_kernel(const T* __restrict__ x, const void* __restrict__ w,
-                      int w_f32, T* __restrict__ y, long long rows, Layout L,
+                      int w_f32, const T* __restrict__ bias,
+                      T* __restrict__ y, long long rows, Layout L,
                       float eps, int ph, int whole_stores, Epi epi) {
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -266,10 +303,15 @@ grouped_staged_kernel(const T* __restrict__ x, const void* __restrict__ w,
     for (int z = 0; z < L.z; ++z) {
       float ss = 0.f;
       for (int s = 0; s < L.nseg; ++s) {
-        const T* p = el + L.off[s] + z * L.c[s];
+        const int base = L.off[s] + z * L.c[s];
+        T* p = el + base;
 #pragma unroll 4
         for (int j = lane; j < L.c[s]; j += 32) {
-          const float v = to_f32(p[j]);
+          float v = to_f32(p[j]);
+          if (bias != nullptr) {   // the prologue, written back in place:
+            v = round_to<T>(__fadd_rn(v, to_f32(__ldg(bias + base + j))));
+            p[j] = from_f32<T>(v);   // this lane scales it below
+          }
           ss = fmaf(v, v, ss);
         }
       }
@@ -298,6 +340,7 @@ grouped_staged_kernel(const T* __restrict__ x, const void* __restrict__ w,
 struct Args {
   const void* x;
   const void* w;
+  const void* bias;
   void* y;
   long long rows;
   Layout L;
@@ -315,8 +358,8 @@ int launch_vec(const Args& a) {
                                                8LL * sms);
   grouped_vec_kernel<T, G, ZMAX, WF32, ACT><<<(unsigned)blocks, kThreads, 0,
                                               a.stream>>>(
-      static_cast<const T*>(a.x), a.w, static_cast<T*>(a.y), a.rows, a.L,
-      a.eps, a.epi);
+      static_cast<const T*>(a.x), a.w, static_cast<const T*>(a.bias),
+      static_cast<T*>(a.y), a.rows, a.L, a.eps, a.epi);
   return (int)cudaGetLastError();
 }
 
@@ -356,8 +399,8 @@ int launch_staged(const Args& a, bool w_f32) {
       (long long)blocks_per_sm(smem, 32 * warps, kStagedRegs) * sms);
   grouped_staged_kernel<T, ACT><<<(unsigned)blocks, 32 * warps, smem,
                                   a.stream>>>(
-      static_cast<const T*>(a.x), a.w, w_f32, static_cast<T*>(a.y), a.rows,
-      a.L, a.eps, phase<T>(a.x),
+      static_cast<const T*>(a.x), a.w, w_f32, static_cast<const T*>(a.bias),
+      static_cast<T*>(a.y), a.rows, a.L, a.eps, phase<T>(a.x),
       (reinterpret_cast<uintptr_t>(a.y) - reinterpret_cast<uintptr_t>(a.x))
               % kWordBytes == 0,
       a.epi);
@@ -373,6 +416,8 @@ int launch(const Args& a, int w_dtype, int variant) {
   if (mod && (a.L.nseg != 1 || a.epi.rpb <= 0 || a.epi.stride < 0 ||
               a.epi.scale == nullptr || a.epi.shift == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (a.bias != nullptr && a.L.nseg != 1)   // a conv's bias: one segment
+    return (int)cudaErrorInvalidValue;
   if (variant == kStaged) {
     switch (a.epi.act) {
       case kActNone: return launch_staged<T, kActNone>(a, w_f32);
@@ -382,7 +427,8 @@ int launch(const Args& a, int w_dtype, int variant) {
   }
   bool vec = variant == kVector &&
              (long long)a.L.width * sizeof(T) <= kVecMaxBytes &&
-             aligned16(a.x) && aligned16(a.w) && aligned16(a.y);
+             aligned16(a.x) && aligned16(a.w) && aligned16(a.y) &&
+             aligned16(a.bias);
   for (int s = 0; s < a.L.nseg; ++s) vec = vec && a.L.c[s] % 8 == 0;
   if (mod)
     vec = vec && aligned16(a.epi.scale) && aligned16(a.epi.shift) &&
@@ -417,9 +463,12 @@ int launch(const Args& a, int w_dtype, int variant) {
 // modulate and SiLU, which takes one segment and scale, shift: (B, c0) of
 // dtype, `stride` elements from one batch to the next (the vector variant:
 // both 16-byte aligned, stride a whole number of 16 bytes), batch b
-// covering rows b * rows_per_batch .. (b + 1) * rows_per_batch - 1.
+// covering rows b * rows_per_batch .. (b + 1) * rows_per_batch - 1;
+// bias: null, or (z * c0,) of dtype added to x before the norm (one
+// segment; the vector variant: 16-byte aligned).
 // Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int tmt_grouped_rmsnorm(const void* x, const void* w, void* y,
+extern "C" int tmt_grouped_rmsnorm(const void* x, const void* w,
+                                   const void* bias, void* y,
                                    long long rows, int z, int nseg, int c0,
                                    int c1, int c2, float eps, int dtype,
                                    int w_dtype, int from_5d, int variant,
@@ -431,7 +480,7 @@ extern "C" int tmt_grouped_rmsnorm(const void* x, const void* w, void* y,
   const Layout L = make_layout(z, nseg, c, from_5d, ok);
   if (!ok || rows <= 0 || act < kActNone || act > kActModulateSilu)
     return (int)cudaErrorInvalidValue;
-  const Args a{x, w, y, rows, L, eps,
+  const Args a{x, w, bias, y, rows, L, eps,
                Epi{act, scale, shift, stride, rows_per_batch},
                static_cast<cudaStream_t>(stream)};
   switch (dtype) {

@@ -208,11 +208,27 @@ class Conv2d(Conv3d):
     z-packed model's convs (``models/unet_packed.py``).  Weight
     ``(out, in, kh, kw)``; flax's HWIO kernel is its transpose.  Handed to
     ``F.conv2d`` as an NCHW view of the channels-last storage, as
-    :class:`Conv3d` does, whose parameters, padding and init it shares."""
+    :class:`Conv3d` does, whose parameters, padding and init it shares.
+    :meth:`product` is the convolution without its bias and
+    :meth:`packed_bias` the bias, which a kernel that reads the product
+    adds (``models/unet_packed.py``'s ResBlocks: K5's prologue, K6)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, self.cast(self.bias))
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution without its bias: on the card cuDNN's output
+        before PyTorch's broadcast add of the bias."""
+        return self._conv(x, None)
+
+    def packed_bias(self) -> Optional[torch.Tensor]:
+        """The bias (out,) in the compute dtype, as :meth:`forward`
+        adds it."""
+        return self.cast(self.bias)
+
+    def _conv(self, x: torch.Tensor, bias) -> torch.Tensor:
         x = self.cast(x).permute(0, 3, 1, 2)
-        y = F.conv2d(x, self.cast(self.weight), self.cast(self.bias),
+        y = F.conv2d(x, self.cast(self.weight), bias,
                      padding=self.padding, groups=self.groups)
         return y.permute(0, 2, 3, 1)
 

@@ -29,6 +29,13 @@ branch of :class:`Conv3DAsPacked`), with ``prequant`` (``kernel_q`` and
 (calibrated ``a_scale`` buffers); ``quant_attn`` also makes the DiT
 blocks' denses ``QuantDense``.  The stem and the output conv stay in the
 compute dtype (they touch raw pixels).  Inference-only.
+
+In generation (no gradient to record) on the card, each bf16 or float32
+``PackedResBlock`` hands its convs' biases to the kernels that read
+their products: ``in_conv``'s bias to ``out_norm`` (K5's prologue), and
+``out_conv``'s and ``skip_conv``'s, with the residual sum, to one K6
+launch (``ops/residual_kernel.py``), where eager PyTorch adds each bias
+in a pass of its own after cuDNN's convolution (``PackedResBlock.fold``).
 """
 
 from __future__ import annotations
@@ -40,10 +47,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import _build
 from ..ops.collage import to_collage
 from ..ops.grouped_rmsnorm_kernel import grouped_rmsnorm_act
 from ..ops.quant import QuantModule, quant_conv2d
 from ..ops.quant_kernel import conv_align, round_up
+from ..ops.residual_kernel import residual
 from ..ops.zpack import (pack_channel_param, pack_conv3d_bias,
                          pack_conv3d_kernel, pack_conv3d_kernel_t,
                          pack_features, packed_to_pixel, pixel_to_packed,
@@ -65,7 +74,8 @@ class GroupedRMSNorm(RMSNorm):
     the 5D model's ``(Ctot,)`` with ``from_5d``.  Runs through
     ``ops/grouped_rmsnorm_kernel.grouped_rmsnorm_act``, with the norm's
     consumer ``act`` (``silu``, or the adaLN ``modulate_silu`` by (B, C)
-    ``scale`` and ``shift``): one launch of K5 with that epilogue on a
+    ``scale`` and ``shift``), after the prologue ``bias`` (a conv's
+    bias, added to x first): one launch of K5 with them on a
     CUDA tensor; where autograd records, K5, then the eager epilogue
     (K5b records the norm's backward); the plain multi-pass version on a
     CPU tensor."""
@@ -78,10 +88,11 @@ class GroupedRMSNorm(RMSNorm):
 
     def forward(self, x: torch.Tensor, act: str = "none",
                 scale: Optional[torch.Tensor] = None,
-                shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+                shift: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         return grouped_rmsnorm_act(x, self.weight, self.z, self.segments,
                                    self.eps, self.from_5d, act, scale,
-                                   shift)
+                                   shift, bias)
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:
@@ -163,11 +174,22 @@ class Conv3DAsPacked(Conv3d):
                                       self.segments)
             return quant_conv2d(x, w2, self.bias.float().repeat(self.z),
                                 self.padding[1:], out_dtype=self.dtype)
+        return self._conv(x, self.packed_bias())
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The packed convolution without its bias (not int8)."""
+        return self._conv(x, None)
+
+    def packed_bias(self) -> torch.Tensor:
+        """The bias tiled over the z planes, (z*co,) in the compute
+        dtype, as :meth:`forward` adds it."""
+        return self.cast(self.bias).repeat(self.z)
+
+    def _conv(self, x: torch.Tensor, bias) -> torch.Tensor:
         w2 = pack_conv3d_kernel_t(self.cast(self.weight), self.z,
                                   self.segments)
         x = self.cast(x).permute(0, 3, 1, 2)
-        y = F.conv2d(x, w2, self.cast(self.bias).repeat(self.z),
-                     padding=self.padding[1:])
+        y = F.conv2d(x, w2, bias, padding=self.padding[1:])
         return y.permute(0, 2, 3, 1)
 
 
@@ -176,7 +198,20 @@ class PackedResBlock(nn.Module):
 
     ``in_channels`` and ``out_channels`` count channels per z plane;
     ``in_segments`` splits the input's per-z channels into the plainly
-    concatenated segments it is made of (skip and RNA concats)."""
+    concatenated segments it is made of (skip and RNA concats).
+
+    ``fold`` (:meth:`folds`): whether the block hands its convs' biases
+    and its residual sum to the kernels that read the conv products (K5's
+    prologue adds ``in_conv``'s bias, one K6 launch adds ``out_conv``'s
+    and ``skip_conv``'s and the skip path), where no gradient is recorded
+    and the convs are bf16 or float32 (not int8): None (the default) on
+    a CUDA tensor (and on the meta device, which stands in for the card
+    in ``scripts/kernel_shapes.py``), True also on the CPU (through the
+    kernels' plain versions), False never.  On the card the folded block
+    gives the eager sequence's bits; on the CPU a conv adds its bias
+    inside the convolution, so there it rounds once less."""
+
+    fold: Optional[bool] = None
 
     def __init__(self, in_channels: int, out_channels: int, z: int,
                  emb_channels: Optional[int] = None, *,
@@ -210,30 +245,62 @@ class PackedResBlock(nn.Module):
         if in_channels != out_channels:
             self.skip_conv = conv(in_channels, out_channels, 1, segs)
 
+    def plain_convs(self) -> bool:
+        """Whether every conv of the block is a bf16 or float32 one
+        (``Conv2d`` or ``Conv3DAsPacked``, not int8): the convs whose
+        biases the block can fold."""
+        convs = [self.in_conv, self.out_conv,
+                 getattr(self, "skip_conv", None)]
+        return all(c is None or isinstance(c, Conv2d) or (
+            isinstance(c, Conv3DAsPacked) and c.quant is None)
+            for c in convs) and self.in_conv.dtype in (torch.bfloat16,
+                                                       torch.float32)
+
+    def folds(self, x: torch.Tensor,
+              emb: Optional[torch.Tensor] = None) -> bool:
+        """Whether this call folds the convs' biases and the residual
+        sum into K5 and K6 (see the class docstring)."""
+        tensors = [x] + ([] if emb is None else [emb])
+        return (self.fold is not False and self.plain_convs()
+                and (hasattr(self, "skip_conv")
+                     or x.dtype == self.in_conv.dtype)
+                and (self.fold or x.device.type != "cpu")
+                and not _build.autograd_required(*tensors,
+                                                 *self.parameters()))
+
     def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None,
                 *, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         dt = self.in_conv.dtype
+        fold = self.folds(x, emb)
         h = self.in_norm(x.to(dt), act="silu")
         if self.up:
             h, x = _up2(h), _up2(x)
         elif self.down:
             h, x = _down2(h), _down2(x)
-        h = self.in_conv(h)
+        # folded: the bias-free product; out_norm adds in_conv's bias
+        h = self.in_conv.product(h) if fold else self.in_conv(h)
+        bias = self.in_conv.packed_bias() if fold else None
         if emb is not None:
             emb_out = self.emb_proj(F.silu(emb.to(dt))).to(h.dtype)
             # per-C scale and shift, the same on every z plane: the norm
             # applies silu(h * (1 + scale) + shift) before its store
             scale, shift = emb_out.chunk(2, dim=-1)
             h = self.out_norm(h, act="modulate_silu", scale=scale,
-                              shift=shift)
+                              shift=shift, bias=bias)
         else:
-            h = self.out_norm(h, act="silu")
+            h = self.out_norm(h, act="silu", bias=bias)
         if self.training and self.dropout > 0 and generator is not None:
             h = dropout(h, self.dropout, generator)   # on the packed map
+        skip = getattr(self, "skip_conv", None)
+        if fold:   # one K6 launch: both biases and the residual sum
+            return residual(
+                self.out_conv.product(h), self.out_conv.packed_bias(),
+                x if skip is None else skip.product(x),
+                None if skip is None else skip.packed_bias())
         h = self.out_conv(h)
-        if hasattr(self, "skip_conv"):
-            x = self.skip_conv(x)
+        if skip is not None:
+            x = skip(x)
         return (x + h).to(dt)
 
 

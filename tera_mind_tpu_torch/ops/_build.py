@@ -49,10 +49,11 @@ SIGNATURES = {
                                  _ptr],
     "tmt_quant_conv": [_ptr] * 6 + [_int] * 14 + [_ptr],
     "tmt_quantize": [_ptr] * 6 + [_int, _i64, _int, _int, _int, _int, _ptr],
-    "tmt_grouped_rmsnorm": [_ptr, _ptr, _ptr, _i64] + [_int] * 5
+    "tmt_grouped_rmsnorm": [_ptr, _ptr, _ptr, _ptr, _i64] + [_int] * 5
     + [_f32] + [_int] * 5 + [_ptr, _ptr, _i64, _i64, _ptr],
     "tmt_grouped_rmsnorm_bwd": [_ptr] * 6 + [_i64] + [_int] * 6 + [_f32]
     + [_int] * 3 + [_ptr],
+    "tmt_residual": [_ptr] * 5 + [_i64, _int, _int, _int, _ptr],
 }
 
 _lib = None
@@ -174,26 +175,31 @@ class Counters:
         self.launches_by_variant = dict.fromkeys(variants, 0)
 
 
-def count_launch(counters, variant: str, epilogue: str = None) -> None:
+def count_launch(counters, variant: str, epilogue: str = None,
+                 prologue: str = None) -> None:
     """Add one launch of ``variant`` to ``counters.launches`` and
     ``counters.launches_by_variant`` (a kernel wrapper module), and of
-    ``epilogue`` to its ``launches_by_epilogue`` where given, under one
-    lock: streaming runs windows on worker threads, where a bare
-    ``+= 1`` can lose an increment."""
+    ``epilogue`` to its ``launches_by_epilogue`` and ``prologue`` to its
+    ``launches_by_prologue`` where given, under one lock: streaming runs
+    windows on worker threads, where a bare ``+= 1`` can lose an
+    increment."""
     with _count_lock:
         counters.launches += 1
         counters.launches_by_variant[variant] += 1
         if epilogue is not None:
             counters.launches_by_epilogue[epilogue] += 1
+        if prologue is not None:
+            counters.launches_by_prologue[prologue] += 1
 
 
 def reset_launches(counters) -> None:
-    """Set ``counters.launches`` and every variant's (and epilogue's)
-    count to 0."""
+    """Set ``counters.launches`` and every variant's (and epilogue's and
+    prologue's) count to 0."""
     with _count_lock:
         counters.launches = 0
         for table in (counters.launches_by_variant,
-                      getattr(counters, "launches_by_epilogue", {})):
+                      getattr(counters, "launches_by_epilogue", {}),
+                      getattr(counters, "launches_by_prologue", {})):
             for name in table:
                 table[name] = 0
 

@@ -71,6 +71,13 @@ product, the sum and the SiLU in x's dtype), so that in bf16 the fused
 launch gives the plain sequence's bits.  Under autograd the Function and
 the eager epilogue run instead, so training's numbers and gradients are
 the unfused ones.
+
+A ResBlock's ``out_norm`` reads ``in_conv``'s product, whose bias PyTorch
+adds as a separate broadcast pass after cuDNN's convolution; K5 takes
+that bias as a prologue instead (``bias``, ``PROLOGUES``): a (Z*C,)
+tensor of x's dtype in the packed layout, one segment, each element
+first made ``x + bias`` rounded to x's dtype (the eager add's rounding),
+then normalised.
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ from .rmsnorm_kernel import (_device_type, _stat_dtype, kernel_weight,
 
 VARIANTS = ("staged", "vector")   # csrc/grouped_rmsnorm*.cu codes
 EPILOGUES = ("none", "silu", "modulate_silu")   # grouped_rmsnorm.cuh codes
+PROLOGUES = ("none", "bias")   # the conv bias added before the norm
 VEC_MAX_ROW_BYTES = 2048   # csrc/grouped_rmsnorm.cuh kVecMaxBytes
 MAX_Z = 8                  # csrc/grouped_rmsnorm.cuh kMaxZ
 MAX_SEGMENTS = 3           # csrc/grouped_rmsnorm.cuh kMaxSegments
@@ -102,6 +110,7 @@ BWD_VEC_BLOCKS_PER_SM = 2  # grouped_bwd_vec_kernel's __launch_bounds__
 launches = 0  # K5 launches since the last reset (chip_smoke reads it)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 launches_by_epilogue = dict.fromkeys(EPILOGUES, 0)
+launches_by_prologue = dict.fromkeys(PROLOGUES, 0)
 bwd = _build.Counters(VARIANTS)   # K5b's launches
 
 NO_BACKWARD = ("this raw CUDA launcher records no backward; call the "
@@ -225,6 +234,21 @@ def check_epilogue(act: str, segs: tuple, x: torch.Tensor,
     return x.numel() // x.shape[-1] // b
 
 
+def check_bias(segs: tuple, x: torch.Tensor, bias) -> None:
+    """A prologue's ``bias`` (None: no prologue) must be one segment's
+    (Z*C,) of x's dtype on x's device."""
+    if bias is None:
+        return
+    if len(segs) != 1:
+        raise ValueError(f"grouped_rmsnorm: a bias takes one segment, not "
+                         f"{segs}")
+    if (tuple(bias.shape) != (x.shape[-1],) or bias.dtype != x.dtype
+            or bias.device != x.device):
+        raise ValueError(f"grouped_rmsnorm: bias {tuple(bias.shape)} "
+                         f"{bias.dtype} on {bias.device} is not "
+                         f"({x.shape[-1]},) {x.dtype} on {x.device}")
+
+
 def act_plain(y: torch.Tensor, act: str, z: int, scale=None,
               shift=None) -> torch.Tensor:
     """The eager epilogue after the norm: ``modulate_silu`` is the
@@ -243,12 +267,17 @@ def act_plain(y: torch.Tensor, act: str, z: int, scale=None,
 def grouped_rmsnorm_act_plain(x: torch.Tensor, weight: torch.Tensor, z: int,
                               segments: Sequence[int], eps: float = 1e-6,
                               from_5d: bool = False, act: str = "none",
-                              scale=None, shift=None) -> torch.Tensor:
-    """Plain PyTorch version of K5 with its epilogue: the CPU path and
-    the kernel's check; :func:`grouped_rmsnorm_plain`, then
-    :func:`act_plain`, each op rounding in x's dtype."""
+                              scale=None, shift=None,
+                              bias=None) -> torch.Tensor:
+    """Plain PyTorch version of K5 with its prologue and epilogue: the
+    CPU path and the kernel's check; ``x + bias`` where a bias is given,
+    :func:`grouped_rmsnorm_plain`, then :func:`act_plain`, each op
+    rounding in x's dtype."""
     segs = check_layout(z, segments, x.shape[-1])
     check_epilogue(act, segs, x, scale, shift)
+    check_bias(segs, x, bias)
+    if bias is not None:
+        x = x + bias
     return act_plain(grouped_rmsnorm_plain(x, weight, z, segs, eps, from_5d),
                      act, z, scale, shift)
 
@@ -298,19 +327,25 @@ def _check_cuda_call(name: str, z: int, segs: tuple, weight: torch.Tensor,
 def grouped_rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, z: int,
                          segments: Sequence[int], eps: float = 1e-6,
                          from_5d: bool = False, act: str = "none",
-                         scale=None, shift=None) -> torch.Tensor:
+                         scale=None, shift=None,
+                         bias=None) -> torch.Tensor:
     """Launch K5 on a CUDA tensor: one launch, the weight read as it is
-    (x's dtype, or the float32 master weight of a bf16 x), the epilogue
-    ``act`` applied before the store (scale and shift of x's dtype, read
-    in place: the two halves of one (B, 2C) tensor need no copy).
-    Raises when autograd would need a backward."""
+    (x's dtype, or the float32 master weight of a bf16 x), the prologue's
+    ``bias`` added to x first, the epilogue ``act`` applied before the
+    store (scale and shift of x's dtype, read in place: the two halves of
+    one (B, 2C) tensor need no copy).  Raises when autograd would need a
+    backward."""
     mod = [t for t in (scale, shift) if t is not None]
-    _build.refuse_autograd("grouped_rmsnorm", x, weight, *mod,
+    pro = [] if bias is None else [bias]
+    _build.refuse_autograd("grouped_rmsnorm", x, weight, *mod, *pro,
                            why=NO_BACKWARD)
     width = x.shape[-1]
     segs = check_layout(z, segments, width)
     _check_cuda_call("grouped_rmsnorm", z, segs, weight, from_5d)
     rows_per_batch = check_epilogue(act, segs, x, scale, shift)
+    check_bias(segs, x, bias)
+    if bias is not None and not bias.is_contiguous():
+        bias = pro[0] = bias.contiguous()
     stride = 0
     if mod:
         if any(t.dtype != x.dtype or t.device != x.device for t in mod):
@@ -329,7 +364,7 @@ def grouped_rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, z: int,
         return y.reshape(x.shape)
     code = _build.dtype_code(x, "grouped_rmsnorm")
     variant = grouped_variant(z, segs, x.element_size(), all(
-        t.data_ptr() % 16 == 0 for t in (x2, y, w, *mod))
+        t.data_ptr() % 16 == 0 for t in (x2, y, w, *mod, *pro))
         and stride * x.element_size() % 16 == 0, act)
     if variant == "vector" and act != "none" and w.dtype != x.dtype:
         # vector reads a float32 weight of a bf16 x only with no epilogue
@@ -339,15 +374,17 @@ def grouped_rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, z: int,
         # would round it itself
         w = w.to(x.dtype)
     err = _build.lib().tmt_grouped_rmsnorm(
-        x2.data_ptr(), w.data_ptr(), y.data_ptr(), x2.shape[0], z,
+        x2.data_ptr(), w.data_ptr(), bias.data_ptr() if pro else None,
+        y.data_ptr(), x2.shape[0], z,
         len(segs), *_segment_args(segs), eps, code,
         _build.dtype_code(w, "grouped_rmsnorm weight"), int(from_5d),
         VARIANTS.index(variant), EPILOGUES.index(act),
         scale.data_ptr() if mod else None,
         shift.data_ptr() if mod else None, stride, rows_per_batch,
         _build.stream_ptr(x))
-    _build.check(err, f"tmt_grouped_rmsnorm ({variant}, {act})")
-    _build.count_launch(sys.modules[__name__], variant, act)
+    prologue = PROLOGUES[bool(pro)]
+    _build.check(err, f"tmt_grouped_rmsnorm ({variant}, {prologue}, {act})")
+    _build.count_launch(sys.modules[__name__], variant, act, prologue)
     return y.reshape(x.shape)
 
 
@@ -471,21 +508,27 @@ class GroupedRMSNormFunction(torch.autograd.Function):
 def grouped_rmsnorm_act(x: torch.Tensor, weight: torch.Tensor, z: int,
                         segments: Sequence[int], eps: float = 1e-6,
                         from_5d: bool = False, act: str = "none",
-                        scale=None, shift=None) -> torch.Tensor:
-    """The norm and its epilogue ``act`` (``EPILOGUES``): one K5 launch
-    for a CUDA tensor with no gradient to record; where autograd records,
+                        scale=None, shift=None,
+                        bias=None) -> torch.Tensor:
+    """The norm with its prologue ``bias`` (None: none) and its epilogue
+    ``act`` (``EPILOGUES``): one K5 launch for a CUDA tensor with no
+    gradient to record; where autograd records, the eager ``x + bias``,
     :class:`GroupedRMSNormFunction` (K5 and K5b on the card) and then the
     eager epilogue (:func:`act_plain`); the plain versions for a CPU
-    tensor.  A variant or epilogue that cannot take a call raises."""
+    tensor.  A variant, prologue or epilogue that cannot take a call
+    raises before any launch."""
     dev = _device_type(x, "grouped_rmsnorm")
     segs = check_layout(z, segments, x.shape[-1])
     check_epilogue(act, segs, x, scale, shift)
-    mod = [t for t in (scale, shift) if t is not None]
+    check_bias(segs, x, bias)
+    mod = [t for t in (scale, shift, bias) if t is not None]
     if _build.autograd_required(x, weight, *mod):
+        if bias is not None:
+            x = x + bias
         return act_plain(GroupedRMSNormFunction.apply(
             x, weight, z, segs, eps, from_5d), act, z, scale, shift)
     if dev == "cuda":
         return grouped_rmsnorm_cuda(x, weight, z, segs, eps, from_5d, act,
-                                    scale, shift)
+                                    scale, shift, bias)
     return grouped_rmsnorm_act_plain(x, weight, z, segs, eps, from_5d, act,
-                                     scale, shift)
+                                     scale, shift, bias)

@@ -354,6 +354,104 @@ def test_modulate_refused_where_it_cannot_run():
                    shift=shift)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "silu", "modulate_silu"])
+@pytest.mark.parametrize("from_5d", [False, True])
+def test_bias_prologue_is_the_plain_sequence_on_the_biased_x(dtype, act,
+                                                             from_5d):
+    """K5's prologue (in_conv's bias, added before the out_norm) in the
+    plain version: bit-equal to the plain sequence run on ``r(x + b)``,
+    the conv's eager bias add rounded to x's dtype, with each epilogue;
+    the dispatcher takes it on the CPU, no launch."""
+    x, w, sc, sh = act_inputs((12,), 2, from_5d, act, 6)
+    xt = torch.from_numpy(x).to(dtype)
+    wt = torch.from_numpy(w).to(dtype)
+    b = torch.from_numpy(np.random.default_rng(7).standard_normal(24)
+                         .astype(np.float32)).to(dtype)
+    mod = ({} if sc is None else dict(scale=torch.from_numpy(sc).to(dtype),
+                                      shift=torch.from_numpy(sh).to(dtype)))
+    biased = xt.clone()
+    biased.permute(0, 3, 1, 2).add_(b.reshape(1, -1, 1, 1))   # eager add_
+    want = k5.grouped_rmsnorm_act_plain(biased, wt, 2, (12,),
+                                        from_5d=from_5d, act=act, **mod)
+    got = k5.grouped_rmsnorm_act_plain(xt, wt, 2, (12,), from_5d=from_5d,
+                                       act=act, bias=b, **mod)
+    assert got.dtype == dtype and torch.equal(got, want)
+    k5.reset_launches()
+    with torch.no_grad():
+        assert torch.equal(k5.grouped_rmsnorm_act(
+            xt, wt, 2, (12,), from_5d=from_5d, act=act, bias=b, **mod), want)
+    assert k5.launches == 0
+    # the module passes it through
+    norm = tpk.GroupedRMSNorm(2, (12,), from_5d=from_5d).to(dtype)
+    with torch.no_grad():
+        norm.weight.copy_(wt)
+        assert torch.equal(norm(xt, act, bias=b, **mod), want)
+
+
+def test_bias_prologue_refused_where_it_cannot_run():
+    """A prologue's bias takes one segment (a conv's output feeds one
+    out_norm) and is (Z*C,) of x's dtype: anything else is refused by the
+    dispatcher, the plain version and the CUDA launcher alike, before any
+    launch."""
+    x, w = inputs((8, 16), 2, False, 4)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    calls = (k5.grouped_rmsnorm_act, k5.grouped_rmsnorm_act_plain,
+             k5.grouped_rmsnorm_cuda)
+    k5.reset_launches()
+    for fn in calls:
+        with pytest.raises(ValueError, match="one segment"):
+            fn(xt, wt, 2, (8, 16), bias=torch.zeros(48))
+    x1, w1 = torch.zeros(2, 3, 5, 24), torch.ones(24)
+    for bias in (torch.zeros(12), torch.zeros(1, 24),
+                 torch.zeros(24, dtype=torch.bfloat16)):
+        for fn in calls:
+            with pytest.raises(ValueError, match="bias"):
+                fn(x1, w1, 2, (12,), act="silu", bias=bias)
+    assert k5.launches == 0 and k5.launches_by_prologue == {"none": 0,
+                                                            "bias": 0}
+
+
+def test_bias_prologue_under_autograd_is_the_eager_add():
+    """Where autograd records, the dispatcher adds the bias eagerly and
+    runs the norm's Function: the output and every gradient (x, the
+    weight, the bias, scale and shift) equal the eager add followed by
+    the dispatcher without a bias."""
+    x, w, sc, sh = act_inputs((12,), 2, False, "modulate_silu", 8)
+
+    def run(with_bias):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        wt = torch.from_numpy(w).requires_grad_(True)
+        b = torch.linspace(-1, 1, 24).requires_grad_(True)
+        st = torch.from_numpy(sc).requires_grad_(True)
+        ht = torch.from_numpy(sh).requires_grad_(True)
+        if with_bias:
+            out = k5.grouped_rmsnorm_act(xt, wt, 2, (12,),
+                                         act="modulate_silu", scale=st,
+                                         shift=ht, bias=b)
+        else:
+            out = k5.grouped_rmsnorm_act(xt + b, wt, 2, (12,),
+                                         act="modulate_silu", scale=st,
+                                         shift=ht)
+        (out * torch.linspace(-1, 1, 24)).sum().backward()
+        return out, [t.grad for t in (xt, wt, b, st, ht)]
+
+    out, grads = run(True)
+    want, want_grads = run(False)
+    assert torch.equal(out, want)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+
+
+def test_counters_count_prologues():
+    """K5's launches by prologue reset with its other counters."""
+    k5.reset_launches()
+    _build.count_launch(k5, "vector", "modulate_silu", "bias")
+    _build.count_launch(k5, "vector", "silu", "none")
+    assert k5.launches_by_prologue == {"none": 1, "bias": 1}
+    k5.reset_launches()
+    assert set(k5.launches_by_prologue.values()) == {0}
+
+
 @pytest.mark.parametrize("act", ["silu", "modulate_silu"])
 def test_dispatcher_splits_the_epilogue_under_autograd(act):
     """Where autograd records, the dispatcher runs the norm's Function (K5
@@ -419,13 +517,22 @@ def test_unet_call_takes_each_epilogue_where_the_model_asks():
     out_norm), which removes 236.9 GB of eager passes a block-major step;
     a training microbatch's 88 launches take no epilogue (autograd
     records the eager one); chip_smoke.py's count from the model's
-    modules is the same."""
+    modules is the same.  Each ResBlock's out_norm (the 28 modulates) adds
+    in_conv's bias as its prologue and each ResBlock ends in one K6
+    launch, which with the prologue removes 131.07 GB of eager passes a
+    step; training takes neither."""
     import chip_smoke as cs
     ks = _kernel_shapes()
-    k5s, acts = ks.Counter(), ks.Counter()
-    ks.per_call_shapes(k5=k5s, k5_act=acts)
+    k5s, acts, k6s = ks.Counter(), ks.Counter(), ks.Counter()
+    ks.per_call_shapes(k5=k5s, k5_act=acts, k6=k6s)
     assert ks.by_epilogue(acts) == {"none": 0, "silu": 29,
                                     "modulate_silu": 28}
+    assert ks.by_prologue(acts) == {"none": 29, "bias": 28}
+    assert {k[5] for k in acts if k[3] == "modulate_silu"} == {"bias"}
+    assert sum(k6s.values()) == 28
+    assert sum(n for (_, _, skip), n in k6s.items() if skip == "conv") == 19
+    fold = ks.fold_bytes(acts, k6s, 25)
+    assert abs((sum(fold.values()) - 2 * fold["K6"]) / 1e9 - 131.07) < 0.01
     assert {k[3] for k in acts if len(k[1]) > 1} == {"silu"}
     # the modulate's batches: a z-window's 81 patches, the collage
     # decoder's 64; rows whole batches of H x W
@@ -436,39 +543,57 @@ def test_unet_call_takes_each_epilogue_where_the_model_asks():
     assert abs(sum(removed.values()) / 1e9 - 236.91) < 0.01
     # the modulate's product, sum and SiLU each read and write the map
     assert removed["modulate_silu"] == 25 * sum(
-        n * 3 * 2 * 2 * r * z * sum(s) for (r, s, z, a, _), n in acts.items()
-        if a == "modulate_silu")
-    train = ks.Counter()
-    ks.train_shapes(True, k5_act=train)
+        n * 3 * 2 * 2 * r * z * sum(s)
+        for (r, s, z, a, _, _), n in acts.items() if a == "modulate_silu")
+    train, train_k6 = ks.Counter(), ks.Counter()
+    ks.train_shapes(True, k5_act=train, k6=train_k6)
     assert ks.by_epilogue(train) == {"none": 88, "silu": 0,
                                      "modulate_silu": 0}
+    assert ks.by_prologue(train) == {"none": 88, "bias": 0}
+    assert not train_k6
     with torch.device("meta"):
         model = tpk.make_packed_model(ks.preset_conf().make_model_conf())
-    assert cs.per_call_counts(model)[4] == ks.by_epilogue(acts)
+    counts = cs.per_call_counts(model)
+    assert counts[4] == ks.by_epilogue(acts)
+    assert counts[5] == ks.by_prologue(acts)
+    assert counts[6] == ks.by_variant("K6", k6s) == {"scalar": 0,
+                                                     "vector": 28}
     pred = ks.chain_prediction(ks.preset_conf(), steps=1)
     assert pred["grouped_rmsnorm"]["by_epilogue"] == {
         "none": 0, "silu": 29 * 25, "modulate_silu": 28 * 25}
+    assert pred["grouped_rmsnorm"]["by_prologue"] == {
+        "none": 29 * 25, "bias": 28 * 25}
+    assert pred["residual"]["launches"] == 28 * 25
+    # int8 convs fold nothing
+    k12 = tuple(ks.Counter() for _ in range(5))
+    ks.quant_shapes("int8", k12=k12)
+    assert not k12[4] and ks.by_prologue(k12[3]) == {"none": 57, "bias": 0}
 
 
 def test_preset_k5_checks_keep_each_epilogue_and_whole_batches():
-    """chip_smoke.py's phase 19 checks K5 at each (segments, Z, epilogue)
-    the presets' chains launch that phase 3 does not, with the batches of
-    the launches' scale and shift: the 609882 chain's SiLU in staged, the
-    Z = 8 preset's modulate in staged over many batches; each check cut
-    to at most K5_PRESET_ROWS rows keeps whole batches."""
+    """chip_smoke.py's phase 19 checks K5 at each (segments, Z, epilogue,
+    prologue) the presets' chains launch that phase 3 does not, with the
+    batches of the launches' scale and shift: the 609882 chain's SiLU in
+    staged, the Z = 8 preset's modulate (after in_conv's bias) in staged
+    over many batches; each check cut to at most K5_PRESET_ROWS rows
+    keeps whole batches.  Every modulate of a generation chain adds the
+    bias, no SiLU does."""
     import chip_smoke as cs
     shapes = [s for s, _ in cs.preset_kernel_shapes(cs.kernel_shapes())[
         "K5"]]
-    keys = [s[1:4] for s in shapes]
+    keys = [s[1:4] + s[5:] for s in shapes]
     assert len(keys) == len(set(keys))
-    assert not set(keys) & {s[1:4] for s in cs.k5_shapes(acts=True)}
+    assert not set(keys) & {s[1:4] + s[5:]
+                            for s in cs.k5_shapes(acts=True)}
     assert {s[3] for s in shapes} == {"silu", "modulate_silu"}
-    assert (5184, (512, 500), 2, "silu", 0) in shapes
+    assert (5184, (512, 500), 2, "silu", 0, "none") in shapes
     mod = [s for s in shapes if s[3] == "modulate_silu"]
-    assert (8192, (512,), 8, "modulate_silu", 128) in mod
+    assert (8192, (512,), 8, "modulate_silu", 128, "bias") in mod
+    assert {s[5] for s in mod} == {"bias"}
+    assert {s[5] for s in shapes if s[3] == "silu"} == {"none"}
     assert any(k5.grouped_variant(z, segs, 2, True, a) == "staged"
-               for _, segs, z, a, _ in mod)
-    for n, segs, z, act, b in shapes:
+               for _, segs, z, a, _, _ in mod)
+    for n, segs, z, act, b, _ in shapes:
         assert (b > 0 and n % b == 0) == (act == "modulate_silu")
         rows, keep = cs.preset_k5_cut(n, act, b)
         if act == "modulate_silu":
@@ -491,12 +616,12 @@ def test_preview_gives_k5_a_float32_weight_with_an_epilogue(monkeypatch,
     real = tpk.grouped_rmsnorm_act
 
     def spy(x, weight, z, segments, eps=1e-6, from_5d=False, act="none",
-            scale=None, shift=None):
+            scale=None, shift=None, bias=None):
         mod = [t for t in (scale, shift) if t is not None]
         seen.add((x.dtype, weight.dtype, act,
                   _build.autograd_required(x, weight, *mod)))
         return real(x, weight, z, segments, eps, from_5d, act, scale,
-                    shift)
+                    shift, bias)
 
     monkeypatch.setattr(tpk, "grouped_rmsnorm_act", spy)
     conf = TrainConfig(image_size=32, net_ch=8, embed_channels=32,
@@ -796,5 +921,9 @@ def test_wrapper_mirrors_the_sources():
     assert {p.name for p in _build.sources()} >= {
         "grouped_rmsnorm.cu", "grouped_rmsnorm_bwd.cu",
         "grouped_rmsnorm.cuh"}
-    assert len(_build.SIGNATURES["tmt_grouped_rmsnorm"]) == 20
+    assert len(_build.SIGNATURES["tmt_grouped_rmsnorm"]) == 21
+    # the prologue's bias pointer follows the weight's
+    assert re.search(r"tmt_grouped_rmsnorm\(const void\* x, const void\* w,"
+                     r"\s*const void\* bias, void\* y,", fwd)
+    assert k5.PROLOGUES == ("none", "bias")
     assert len(_build.SIGNATURES["tmt_grouped_rmsnorm_bwd"]) == 18

@@ -706,7 +706,7 @@ def test_chip_smoke_requires_the_rank_launches_and_shapes():
     1x2-tile block (5x9 patches, one z-window a call, 125 calls and the
     planner's probe), streamed each rank's 2x4-tile band (two 2x2 windows
     of 9x9 patches, 5 z-windows a call, 2 steps), K5 57 a UNet call
-    of either."""
+    of either, K6 28."""
     import importlib.util
 
     import chip_smoke as cs
@@ -723,12 +723,14 @@ def test_chip_smoke_requires_the_rank_launches_and_shapes():
                               ("stream", stream, cs.RANK_STREAM_STEPS)):
         for run in runs:
             n1, n2, calls = ks.rank_launches(run, steps)
-            k5 = ks.Counter()
+            k5, k6 = ks.Counter(), ks.Counter()
             ks.per_call_shapes(grid=run["patches"], chunk=run["chunk"],
-                               k5=k5)
+                               k5=k5, k6=k6)
             assert cs.RANK_LAUNCHES[kind] == {
                 "rmsnorm": n1, "window_attention": n2,
-                "grouped_rmsnorm": sum(k5.values()) * calls}
+                "grouped_rmsnorm": sum(k5.values()) * calls,
+                "residual": sum(k6.values()) * calls}
+            assert sum(k6.values()) == 28
     assert mem[0]["patches"] == (5, 9) and mem[0]["chunk"] == 1
     k1, k2 = ks.per_call_shapes(grid=(5, 9))
     assert set(cs.PATH_SHAPES["rank"][0]) == set(k1)

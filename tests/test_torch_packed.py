@@ -229,6 +229,138 @@ def test_packed_resblock_fused_norms_are_the_former_sequence(
     assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
+FOLD_CASES = [((5, 3), 8, False, False, False), ((6,), 6, False, False, False),
+              ((6,), 6, True, False, False), ((6,), 6, False, True, False),
+              ((4, 3, 5), 7, False, False, True), ((6,), 6, True, False, True)]
+
+
+def resblock_case(segs, cout, up, down, from_5d, dtype=jnp.float32):
+    """Inputs, the JAX PackedResBlock (``compute_dtype``) and its seeded
+    params, and the port's block loaded from them, folded on the CPU."""
+    rng = np.random.default_rng(15)
+    z = 2
+    x, emb = randn(rng, 3, 8, 8, z * sum(segs)), randn(rng, 3, 32)
+    jm = jpk.PackedResBlock(out_channels=cout, z=z,
+                            in_segments=segs if len(segs) > 1 else None,
+                            up=up, down=down, dropout=0.0, from_5d=from_5d,
+                            compute_dtype=dtype)
+    p = seeded_params(jm, x, emb, seed=16)
+    p = jax.tree.map(lambda a: a + 0.1 * (a.ndim == 1), p)   # biases on
+    tm = load_jax_params(tpk.PackedResBlock(
+        sum(segs), cout, z, 32, in_segments=segs, up=up, down=down,
+        from_5d=from_5d), p)
+    tm.fold = True
+    return x, emb, jm, p, tm
+
+
+@pytest.mark.parametrize("segs,cout,up,down,from_5d", FOLD_CASES)
+def test_folded_resblock_matches_jax_f32(segs, cout, up, down, from_5d):
+    """The folded route (in_conv's bias in out_norm's prologue, out_conv's
+    and skip_conv's biases with the residual sum in K6; the kernels' plain
+    versions on the CPU) against the JAX PackedResBlock: float32 within
+    1e-5 of the output's max, with and without a skip conv, up and
+    down, both parameter layouts."""
+    x, emb, jm, p, tm = resblock_case(segs, cout, up, down, from_5d)
+    with torch.no_grad():
+        assert tm.folds(t(x), t(emb))
+        got = tm(t(x), t(emb))
+    want = np.asarray(jm.apply(p, x, emb))
+    assert hasattr(tm, "skip_conv") == (sum(segs) != cout)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("segs,cout,up,down,from_5d", FOLD_CASES)
+def test_folded_resblock_matches_jax_bf16(segs, cout, up, down, from_5d):
+    """The folded route in bf16 against the JAX PackedResBlock in bf16:
+    the two round after different ops (XLA adds the conv bias in the
+    conv's float32 output), so they agree to bf16 noise, within the bf16
+    model's bounds (test_torch_models.py's test_teraunet_bf16_matches_jax_
+    bf16: mean 2e-2, max 0.2) scaled to the output's max; and as close
+    as the eager route is."""
+    x, emb, jm, p, tm = resblock_case(segs, cout, up, down, from_5d,
+                                      jnp.bfloat16)
+    tm = tm.to(torch.bfloat16)
+    xb, eb = t(x).bfloat16(), t(emb).bfloat16()
+    want = np.asarray(jm.apply(p, jnp.asarray(xb.float().numpy(),
+                                              jnp.bfloat16),
+                               jnp.asarray(eb.float().numpy(),
+                                           jnp.bfloat16))).astype(np.float32)
+    diffs = []
+    for fold in (True, False):
+        tm.fold = fold
+        with torch.no_grad():
+            got = tm(xb, eb)
+        assert got.dtype == torch.bfloat16
+        diffs.append(np.abs(got.float().numpy() - want) / np.abs(want).max())
+    for d in diffs:
+        assert d.mean() <= 2e-2 and d.max() <= 0.2, (d.mean(), d.max())
+    assert diffs[0].max() <= 2 * diffs[1].max() + 2 ** -7
+
+
+def card_eager_resblock(blk, x, emb):
+    """The ResBlock as it runs unfolded on the card: each conv's product
+    without its bias, then PyTorch's broadcast ``add_`` of the bias
+    (``at::cudnn_convolution`` then ``output.add_(bias)``), the norms
+    with their epilogues, then ``(x + h).to(dt)``."""
+    import torch.nn.functional as F
+
+    def conv(c, a):
+        y = c.product(a)
+        y.permute(0, 3, 1, 2).add_(c.packed_bias().reshape(1, -1, 1, 1))
+        return y
+    dt = blk.in_conv.dtype
+    h = blk.in_norm(x.to(dt), act="silu")
+    if blk.up:
+        h, x = tpk._up2(h), tpk._up2(x)
+    elif blk.down:
+        h, x = tpk._down2(h), tpk._down2(x)
+    h = conv(blk.in_conv, h)
+    scale, shift = blk.emb_proj(F.silu(emb.to(dt))).to(h.dtype).chunk(2, -1)
+    h = conv(blk.out_conv, blk.out_norm(h, act="modulate_silu",
+                                        scale=scale, shift=shift))
+    if hasattr(blk, "skip_conv"):
+        x = conv(blk.skip_conv, x)
+    return (x + h).to(dt)
+
+
+@pytest.mark.parametrize("segs,cout,up,down,from_5d", FOLD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_folded_resblock_is_the_card_eager_sequence(segs, cout, up, down,
+                                                    from_5d, dtype):
+    """The folded route gives the bits of the eager sequence as it runs on
+    the card (the bias-free product, then the bias adds and the sum),
+    bf16 and float32: the fold moves no chain there.  Where autograd
+    records, the block does not fold; with ``fold = False`` never."""
+    x, emb, _, _, tm = resblock_case(segs, cout, up, down, from_5d)
+    tm = tm.to(dtype)
+    xt, et = t(x).to(dtype), t(emb).to(dtype)
+    with torch.no_grad():
+        assert torch.equal(tm(xt, et), card_eager_resblock(tm, xt, et))
+    assert not tm.folds(xt, et)          # grad mode on, parameters
+    with torch.no_grad():
+        assert tm.folds(xt, et)
+        tm.fold = None                   # the default: on the card only
+        assert not tm.folds(xt, et) and tm.folds(xt.to("meta"), et)
+        tm.fold = False
+        assert not tm.folds(xt.to("meta"), et)
+
+
+def test_int8_resblock_does_not_fold():
+    """int8 convs keep their biases in K3's dequantize: an int8 block
+    never folds, nor does a block whose identity skip has another dtype
+    than its convs."""
+    blk = tpk.PackedResBlock(6, 6, 2, 32, quant="int8")
+    blk.fold = True
+    with torch.no_grad():
+        assert not blk.plain_convs()
+        assert not blk.folds(torch.zeros(1, 4, 4, 12))
+    blk = tpk.PackedResBlock(6, 6, 2, 32).to(torch.bfloat16)
+    blk.fold = True
+    with torch.no_grad():
+        assert blk.folds(torch.zeros(1, 4, 4, 12, dtype=torch.bfloat16))
+        assert not blk.folds(torch.zeros(1, 4, 4, 12))
+
+
 def test_window_fold_hwz_matches_jax():
     x = randn(np.random.default_rng(7), 2, 3, 2 * 8 * 8, 5)
     folded = tattn._window_fold(t(x), 2, 2, "hwz")
@@ -296,6 +428,36 @@ def test_packed_teraunet_matches_jax(packed_case, from_5d, packed_attn):
     assert col.dtype == torch.float32 and col.shape == want[packed_attn][0].shape
     close(col, want[packed_attn][0], atol=1e-4, rtol=1e-4)
     close(orig, want[packed_attn][1], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("from_5d", [False, True])
+def test_folded_packed_teraunet_matches_jax(packed_case, from_5d):
+    """The whole packed model with every ResBlock folded (K5's bias
+    prologue, K6; the plain versions on the CPU) against the JAX packed
+    model, both decoders: float32 within 1e-5 of the output's max.  The
+    fold adds no parameter: the same trees load (``convert``
+    unchanged)."""
+    x, rna, ts, p5, pp, want = packed_case
+    model = tpk.make_packed_model(TUNetConfig(**GOLDEN_KW), from_5d=from_5d)
+    load_jax_params(model, p5 if from_5d else pp)
+    blocks = [m for m in model.modules()
+              if isinstance(m, tpk.PackedResBlock)]
+    for m in blocks:
+        m.fold = True
+    from tera_mind_tpu_torch.ops import residual_kernel as k6
+    calls = []
+    real = k6.residual_plain
+    k6.residual_plain = lambda *a: calls.append(1) or real(*a)
+    try:
+        with torch.no_grad():
+            col, orig = model(t(x), t(ts).long(), t(rna), 3, 3)
+    finally:
+        k6.residual_plain = real
+    assert len(calls) == 2 * len(blocks) - sum(
+        name.startswith(("enc_", "mid_")) for name, m in
+        model.named_children() if isinstance(m, tpk.PackedResBlock))
+    for got, ref in zip((col, orig), want[False]):
+        assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 def test_packed_teraunet_matches_the_ports_5d_model(packed_case):

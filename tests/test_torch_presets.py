@@ -64,6 +64,7 @@ from tera_mind_tpu_torch.ops import attention_kernel as k2
 from tera_mind_tpu_torch.ops import collage as tcollage
 from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
 from tera_mind_tpu_torch.ops import quant_kernel as qk
+from tera_mind_tpu_torch.ops import residual_kernel as k6
 from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
 from tera_mind_tpu_torch.parallel import generator as tgen
 from tera_mind_tpu_torch.training import harness as th
@@ -425,13 +426,13 @@ def kernel_shapes():
 
 
 class PlainRecorder:
-    """Records the shapes the port's plain K1, K1b, K2, K2b, K3, K4, K5
-    and K5b functions get (their dispatchers look them up in the module
-    at each call)."""
+    """Records the shapes the port's plain K1, K1b, K2, K2b, K3, K4, K5,
+    K5b and K6 functions get (their dispatchers look them up in the
+    module at each call)."""
 
     def __init__(self, monkeypatch):
         self.k = {n: Counter() for n in ("K1", "K1b", "K2", "K2b", "K3",
-                                         "K4", "K5", "K5b")}
+                                         "K4", "K5", "K5b", "K6")}
         ci = {}
 
         def wrap(mod, name, key):
@@ -449,13 +450,17 @@ class PlainRecorder:
                                (qk, "quantize_plain", "K4"),
                                (qk, "quant_conv_plain", "K3"),
                                (k5, "grouped_rmsnorm_plain", "K5"),
-                               (k5, "grouped_rmsnorm_bwd_plain", "K5b")):
+                               (k5, "grouped_rmsnorm_bwd_plain", "K5b"),
+                               (k6, "residual_plain", "K6")):
             wrap(mod, name, key)
 
 
 def shape_of(key, a, kw, out, ci):
     """A recorded call's key, as ``kernel_shapes.py`` keys it."""
     x = a[0]
+    if key == "K6":              # (h, h_bias, s, s_bias=None)
+        s_bias = a[3] if len(a) > 3 else kw.get("s_bias")
+        return (x.numel() // x.shape[-1], x.shape[-1], k6.skip_kind(s_bias))
     if key in ("K5", "K5b"):     # (x[, g], weight, z, segments, ...)
         z, segs = a[2:4] if key == "K5" else a[3:5]
         return (x.numel() // x.shape[-1], tuple(segs), z)
@@ -495,13 +500,23 @@ def test_kernel_shapes_lists_the_cpu_passes_shapes(preset, monkeypatch):
             torch.from_numpy(rna), 2, 2)
     rec = PlainRecorder(monkeypatch)
 
-    # generation: the packed model, collage decoder, no gradient
-    k5s = Counter()
-    k1s, k2s = ks.per_call_shapes(grid=(2, 2), conf=conf, k5=k5s)
+    # generation: the packed model, collage decoder, no gradient; on the
+    # CPU the ResBlocks fold their biases and sum (K5's prologue, K6) only
+    # when asked, as the card does by default
+    k5s, k6s = Counter(), Counter()
+    k1s, k2s = ks.per_call_shapes(grid=(2, 2), conf=conf, k5=k5s, k6=k6s)
+    model = tpk.make_packed_model(mconf)
     with torch.no_grad():
-        tpk.make_packed_model(mconf)(*args, decode_original=False)
-    assert (rec.k["K1"], rec.k["K2"], rec.k["K5"]) == (k1s, k2s, k5s)
-    assert sum(k5s.values()) > 0
+        model(*args, decode_original=False)
+        assert not rec.k["K6"]
+        for m in model.modules():
+            if isinstance(m, tpk.PackedResBlock):
+                m.fold = True
+        rec.k["K5"].clear(), rec.k["K1"].clear(), rec.k["K2"].clear()
+        model(*args, decode_original=False)
+    assert (rec.k["K1"], rec.k["K2"], rec.k["K5"], rec.k["K6"]) == (
+        k1s, k2s, k5s, k6s)
+    assert sum(k5s.values()) > 0 and sum(k6s.values()) > 0
 
     # a packed training microbatch (both decoders, the 5D weights): K5
     # and K5b at train_shapes' K5 shapes, once each a call

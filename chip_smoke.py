@@ -38,7 +38,17 @@ Phases, each printed on its own line with elapsed seconds:
      (widths not a multiple of 8, misaligned, zero rows, float32) with
      the wrapper's and the C entry point's refusals; the folded
      ResBlock bit-equal to the eager one on the card at main-path
-     widths;
+     widths; K1 with the DiT blocks' adaLN modulate (``rmsnorm_modulate``)
+     and K7 (``gated_residual``, the DiT block's ``xt + gate * y``) at
+     every (rows, C) of the block-major chain, bf16 and float32, on the
+     DiT block's layout (scale, shift and gate strided chunks of a
+     (rows, 7C) adaLN output): K7 bit-equal to its plain version, K1's
+     modulate bit-equal to the plain modulate of its own norm (which is
+     K1's, within K1's gate of the plain norm); timed beside their byte
+     bound, the plain sequence, K1 then the eager modulate, and for K7
+     ``torch.addcmul``; at ``DIT_EDGE`` with the wrappers' and the C
+     entry points' refusals; the folded DiT block bit-equal to the eager
+     one on the card at the chain's widths and token counts;
   4. the backward kernels K1b and K2b, each variant (K1b ``vector`` and
      ``strided``, K2b ``wgmma``, ``tensor_core``, ``tensor_core_tiled``
      and ``cuda_core``) against its plain
@@ -229,13 +239,19 @@ at phase 4's strided shapes and at ``K1_F32_WEIGHT_SMALL`` with the
 float32 weight), their edge shapes and the refusals, for a call that
 tunes the norm kernels; ``--grouped`` runs K5, K6 and K5b at phase 3's,
 4's and 19's shapes and edges, the folded ResBlock against the eager
-one, and the autograd guard.  Every packed path's K5, K5b and K6
+one, and the autograd guard; ``--dit`` runs K1's modulate and K7 at
+phase 3's and 19's shapes and edges and the folded DiT block against the
+eager one.  Every packed path's K5, K5b and K6
 launches (by variant, K5's by epilogue and prologue) are required to be
 ``scripts/kernel_shapes.py``'s: K5 57 a UNet call (29 with the SiLU, 28
 with the bias, the modulate and the SiLU), K6 28 a UNet call on every
 bf16 or float32 packed generation path (0 on int8, the 5D model,
 training and the baselines), 88 + 88 K5 / K5b a training microbatch (no
-epilogue or prologue: autograd records the eager ones).
+epilogue or prologue: autograd records the eager ones).  Every
+generation path's K1 launches by epilogue and K7 launches by variant are
+required too: 12 K1 with the modulate and 12 K7 a UNet call wherever a
+DiT block runs (packed, int8, 5D, tile-major, streamed, ranks), none in
+training, the extraction and the baselines.
 """
 
 from __future__ import annotations
@@ -336,11 +352,20 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 def kernel_work(kernel: str, shape, itemsize: int = 2,
                 batches: int = 0, bias: bool = False) -> tuple:
     """(bytes, operations, the peak rate of their type) of one launch of
-    K1, K1b, K2, K2b, K5, K5b or K6 at ``shape`` (K5: (rows, segments, Z);
-    K6: (rows, width, skip)): each input read once and each output
-    written once (K1b's and K5b's dw and weight in float32; K5 with the
-    modulate epilogue also its (``batches``, C) scale and shift, with
-    ``bias`` its (Z*C,) bias; K6 its biases)."""
+    K1, K1m (K1 with the modulate), K1b, K2, K2b, K5, K5b, K6 or K7 at
+    ``shape`` (K5: (rows, segments, Z); K6: (rows, width, skip); K1m, K7:
+    (rows, C)): each input read once and each output written once (K1b's
+    and K5b's dw and weight in float32; K5 with the modulate epilogue
+    also its (``batches``, C) scale and shift, with ``bias`` its (Z*C,)
+    bias; K6 its biases; K1m x, its per-token scale and shift and the
+    weight; K7 x, the gate and y)."""
+    if kernel == "K7":
+        rows, c = shape
+        return itemsize * 4 * rows * c, 2 * rows * c, H100_F32_FLOP_PER_S
+    if kernel == "K1m":
+        rows, c = shape
+        return (itemsize * (4 * rows * c + c), 7 * rows * c,
+                H100_F32_FLOP_PER_S)
     if kernel == "K6":
         rows, width, skip = shape
         conv = skip == "conv"
@@ -787,21 +812,23 @@ TRAIN_K2_SHAPES = [(512, 128, 256), (128, 128, 256), (512, 32, 512)]
 # norm2 at (29,312, 64), two a microbatch; no K2; K5 in the packed model's
 # 28 ResBlocks and output norm only: 13 encoder and middle ResBlocks, 15
 # decoder ones and the output norm, the decoder's twice (collage and
-# original patches), 88 a microbatch; no K6: autograd records, so the
-# ResBlocks run their eager bias adds and sum)
+# original patches), 88 a microbatch; no K6 and no K7: autograd records,
+# so the ResBlocks run their eager bias adds and sum and the DiT blocks
+# their eager modulate and gated residual, and every K1 launch is
+# without the epilogue)
 TRAIN_LAUNCHES = {
     "5d": {"rmsnorm": 252, "window_attention": 18, "grouped_rmsnorm": 0,
-           "residual": 0},
+           "residual": 0, "gated_residual": 0},
     "packed": {"rmsnorm": 76, "window_attention": 18,
-               "grouped_rmsnorm": 176, "residual": 0},
+               "grouped_rmsnorm": 176, "residual": 0, "gated_residual": 0},
     "patch-dm": {"rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0,
-                 "residual": 0},
+                 "residual": 0, "gated_residual": 0},
     "sinf": {"rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0,
-             "residual": 0}}
-# the kernels a training step counts, forward and backward (K6 none)
+             "residual": 0, "gated_residual": 0}}
+# the kernels a training step counts, forward and backward (K6, K7 none)
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "window_attention",
                  "window_attention_bwd", "grouped_rmsnorm",
-                 "grouped_rmsnorm_bwd", "residual")
+                 "grouped_rmsnorm_bwd", "residual", "gated_residual")
 # K1b and K2b launches a training step by variant (scripts/kernel_shapes.py
 # --train): the odd C of the gene concats take K1b strided
 TRAIN_BWD_VARIANTS = {
@@ -1838,6 +1865,417 @@ def check_residual_kernels(device) -> dict:
     return {"residual": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 3, continued: K1's modulate epilogue and K7, the DiT block's fold
+# ---------------------------------------------------------------------------
+
+# K1 with the modulate and K7 round each step where the eager ops do, so:
+# K7 is bit-equal to its plain version (x + gate * y), bf16 and float32;
+# K1's modulate is bit-equal to the plain modulate applied to K1's own norm
+# (the same launch with a zero scale and shift, whose norm must be K1's
+# without the epilogue, bit for bit, and within K1's gate of the plain
+# norm).  Against the whole plain sequence the norm's statistics, summed
+# in another order, move a few outputs by a rounding step, as K1's own do.
+# edge shapes (rows, C[, element offset of x and of the adaLN output, or
+# (0, k): the adaLN output alone k elements off]): a C that is not a
+# multiple of 8 (K1 strided, K7 scalar), C = 33 (half-warp rows), a row
+# wider than K1's registers (the wide kernel), one row, zero rows, both
+# bases misaligned, the adaLN output alone misaligned (K1 strided, K7
+# scalar on an aligned x)
+DIT_EDGE = [(77, 100), (129, 33), (33, 2050), (1, 256), (0, 256),
+            (333, 256, 1), (513, 512, 0, 3), (4097, 64)]
+
+
+def dit_shapes(conf=None, packed: bool = True) -> list:
+    """The (rows, C) that the block-major chain's UNet call gives K1's
+    modulate and K7 (the same), largest first
+    (``scripts/kernel_shapes.py``)."""
+    from collections import Counter
+    k7 = Counter()
+    kernel_shapes().per_call_shapes(packed, conf=conf, k7=k7)
+    return sorted(k7, key=lambda s: -s[0] * s[1])
+
+
+def dit_inputs(g, device, n, c, dt, offsets=(0, 0)):
+    """(x (n, c), the adaLN output (n, 7c), y (n, c), the norm's weight)
+    in ``dt``; x and the adaLN output ``offsets`` elements past 16 bytes.
+    The adaLN output is what the DiT block chunks: shift, scale and gate
+    are its first three (n, c) column blocks."""
+    import torch
+    x = randn(g, n * c + offsets[0], device=device).to(dt)[offsets[0]:]
+    ada = (0.5 * randn(g, n * 7 * c + offsets[1], device=device)).to(dt)
+    ada = ada[offsets[1]:].view(n, 7 * c)
+    y = randn(g, n, c, device=device).to(dt)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(device, dt)
+    return x.view(n, c), ada, y, w
+
+
+def chunks(ada, c):
+    """(shift, scale, gate): the adaLN output's views as the DiT block
+    takes them (``chunk(7, -1)``)."""
+    return ada[:, :c], ada[:, c:2 * c], ada[:, 2 * c:3 * c]
+
+
+def zeros_like_layout(t):
+    """Zeros with t's shape, strides, storage offset and so its 16-byte
+    phase (a new allocation starts on 16 bytes, as t's storage does)."""
+    import torch
+    base = torch.zeros(t.untyped_storage().nbytes() // t.element_size(),
+                       device=t.device, dtype=t.dtype)
+    return base.as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+def k1m_agrees(x, w, ada, what, want=None) -> tuple:
+    """K1 with the modulate on x and the adaLN output's scale and shift:
+    (the largest |out - the whole plain sequence|, its variant).  Required:
+    the variant the rule names (or ``want``); out bit-equal to the plain
+    modulate of the launch's own norm (the same launch on zero scale and
+    shift); that norm bit-equal to K1's without the epilogue where both
+    take one variant, and within K1's gate of the plain norm."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    c = x.shape[-1]
+    shift, scale, _ = chunks(ada, c)
+    out, variant = variant_of(k1, k1.rmsnorm_modulate_cuda, x, w, scale,
+                              shift)
+    zero = zeros_like_layout(ada)
+    zshift, zscale, _ = chunks(zero, c)
+    y0, v0 = variant_of(k1, k1.rmsnorm_modulate_cuda, x, w, zscale, zshift)
+    if want is None:
+        item = x.element_size()
+        want = k1.rmsnorm_modulate_variant(
+            c, item, x.data_ptr() % 16 == 0,
+            ada.data_ptr() % 16 == 0 and 7 * c * item % 16 == 0)
+    tag = f"K1 modulate {what} {x.dtype}"
+    require(variant == want == v0, f"{tag} took {variant} ({v0} on zero "
+            f"scale), not {want}")
+    require(out.dtype == x.dtype and torch.equal(
+        out, k1.modulate_plain(y0, scale, shift)),
+        f"{tag} ({variant}): not bit-equal to the plain modulate of its "
+        f"own norm")
+    plain_norm = k1.rmsnorm_plain(x, w)
+    bf = x.dtype == torch.bfloat16
+    err = ulp_err(y0, plain_norm) if bf else float(
+        (y0 - plain_norm).abs().max())
+    require(err <= (K1_MAX_ULP if bf else 1e-5),
+            f"{tag} ({variant}): its norm is {err} from the plain norm")
+    y1, v1 = variant_of(k1, k1.rmsnorm_cuda, x, w)
+    require(v1 != variant or torch.equal(y0, y1),
+            f"{tag} ({variant}): its norm differs from K1's own")
+    ref = k1.rmsnorm_modulate_plain(x, w, scale, shift)
+    return float((out.float() - ref.float()).abs().max()), variant
+
+
+def k7_agrees(x, ada, y, what, want=None) -> str:
+    """K7 on x, the adaLN output's gate and y against
+    ``gated_residual_plain``: bit-equal, the variant the rule names (or
+    ``want``) required; returns the variant."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
+    c = x.shape[-1]
+    gate = chunks(ada, c)[2]
+    out, variant = variant_of(k7, k7.gated_residual_cuda, x, gate, y)
+    ref = k7.gated_residual_plain(x, gate, y)
+    if want is None:
+        want = k7.gated_variant(c, 7 * c, x.element_size(), all(
+            t.data_ptr() % 16 == 0 for t in (x, gate, y)))
+    require(variant == want, f"K7 {what} {x.dtype} took {variant}, not "
+            f"{want}")
+    require(out.dtype == ref.dtype and torch.equal(out, ref),
+            f"K7 {what} {x.dtype} ({variant}): not bit-equal to the plain "
+            f"sequence, max |d| "
+            f"{float((out.float() - ref.float()).abs().max())}")
+    return variant
+
+
+def time_dit(x, w, ada, y) -> tuple:
+    """Device times (CUDA graph replays, inputs copied past the L2) of K1
+    with the modulate beside its plain sequence, the sequence the path
+    ran before (K1, then the eager modulate: ``eager_ms``) and its bound
+    (no single PyTorch call computes it), and of K7 beside its plain
+    sequence, ``torch.addcmul`` (x + gate * y in one call, rounded once)
+    and its bound."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    n, c = x.shape
+    item = x.element_size()
+    # what a call reads: x, y and three of the adaLN output's seven
+    # chunks at most
+    sets = input_sets((x, ada, y), 3 * x.numel() * item)
+
+    def mod(fn):
+        return lambda a, d, _: fn(a, w, d[:, c:2 * c], d[:, :c])
+
+    def gated(fn):
+        return lambda a, d, b: fn(a, d[:, 2 * c:3 * c], b)
+    bms, by = bound(*kernel_work("K1m", (n, c), item))
+    t1 = dict(ms=device_ms(mod(k1.rmsnorm_modulate_cuda), sets),
+              plain_ms=device_ms(mod(k1.rmsnorm_modulate_plain), sets),
+              eager_ms=device_ms(mod(lambda a, b, s, h: k1.modulate_plain(
+                  k1.rmsnorm_cuda(a, b), s, h)), sets),
+              library_ms=None, bound_ms=bms, bound_by=by)
+    bms, by = bound(*kernel_work("K7", (n, c), item))
+    t7 = dict(ms=device_ms(gated(k7.gated_residual_cuda), sets),
+              plain_ms=device_ms(gated(k7.gated_residual_plain), sets),
+              library_ms=device_ms(gated(torch.addcmul), sets),
+              bound_ms=bms, bound_by=by)
+    return t1, t7
+
+
+def dit_row(g, device, n, c, path, timed=True) -> tuple:
+    """K1 with the modulate and K7 at (n, c) in bf16 and float32 (the
+    DiT block's layout: scale, shift and gate chunks of an (n, 7c)
+    adaLN output), each held as ``k1m_agrees`` and ``k7_agrees`` hold
+    it; timed in bf16.  Returns (K1 modulate's row, K7's row)."""
+    import torch
+    x, ada, y, w = dit_inputs(g, device, n, c, torch.bfloat16)
+    err, v1 = k1m_agrees(x, w, ada, f"({n}, {c})")
+    v7 = k7_agrees(x, ada, y, f"({n}, {c})")
+    errf, v1f = k1m_agrees(x.float(), w.float(), ada.float(),
+                           f"({n}, {c})")
+    v7f = k7_agrees(x.float(), ada.float(), y.float(), f"({n}, {c})")
+    t1, t7 = time_dit(x, w, ada, y) if timed else ({}, {})
+    log(f"K1 modulate ({n}, {c}) bf16 [{v1}, {path}]: bit-equal to the "
+        f"plain modulate of its norm, {err:.3g} from the whole plain "
+        f"sequence; f32 [{v1f}] {errf:.3g}"
+        + (f"; {timing_text(t1, '-')}; K1 + eager modulate "
+           f"{t1['eager_ms']:.4f} ms" if t1 else ""))
+    log(f"K7 gated_residual ({n}, {c}) bf16 [{v7}, {path}]: bit-equal to "
+        f"the plain sequence; f32 [{v7f}] bit-equal"
+        + ("; " + timing_text(t7, "torch.addcmul") if t7 else ""))
+    return (dict(shape=[n, c], path=path, variant=v1, max_abs_err=err,
+                 **t1),
+            dict(shape=[n, c], path=path, variant=v7, max_abs_err=0.0,
+                 **t7))
+
+
+def check_dit_edges(g, device) -> None:
+    """K1's modulate and K7 at ``DIT_EDGE``, bf16 and float32, held as
+    ``dit_row`` holds them (zero rows: no launch, an empty output); the
+    wrappers' refusals before any launch (a scale, shift or gate of
+    another shape or dtype, channels not contiguous, rows not one stride
+    apart, an input that requires grad under grad mode); the
+    dispatchers under autograd (no launch: the eager sequence, recorded);
+    the C entry points' refusals (``vector`` at a C, stride or base it
+    cannot take, strides under C, an unknown variant or dtype, no
+    rows)."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import _build
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    seen = []
+    for n, c, *off in DIT_EDGE:
+        offsets = (off[0], off[-1]) if off else (0, 0)
+        got = []
+        for dt in (torch.bfloat16, torch.float32):
+            x, ada, y, w = dit_inputs(g, device, n, c, dt, offsets)
+            shift, scale, gate = chunks(ada, c)
+            if n == 0:
+                before = (k1.launches, k7.launches)
+                o1 = k1.rmsnorm_modulate_cuda(x, w, scale, shift)
+                o7 = k7.gated_residual_cuda(x, gate, y)
+                require(o1.shape == o7.shape == x.shape
+                        and (k1.launches, k7.launches) == before,
+                        "K1 modulate or K7 at zero rows launched or changed "
+                        "the shape")
+                got.append("no launch")
+                continue
+            _, v1 = k1m_agrees(x, w, ada, f"edge ({n}, {c}) {offsets}")
+            v7 = k7_agrees(x, ada, y, f"edge ({n}, {c}) {offsets}")
+            got.append(f"{v1}+{v7}")
+        seen.append(f"({n}, {c})" + (f" at offsets {offsets}" if off
+                                     else "") + f" {'/'.join(got)}")
+    x, ada, y, w = dit_inputs(g, device, 64, 128, torch.bfloat16)
+    shift, scale, gate = chunks(ada, 128)
+    before = (k1.launches, k7.launches)
+    refused = {}
+    for what, fn, args in (
+            ("K1: a scale of another shape", k1.rmsnorm_modulate_cuda,
+             (x, w, scale[:32], shift)),
+            ("K1: a float32 shift", k1.rmsnorm_modulate_cuda,
+             (x, w, scale, shift.float())),
+            ("K1: channels not contiguous", k1.rmsnorm_modulate_cuda,
+             (x, w, ada[:, :256:2], shift)),
+            ("K1: rows not one stride apart", k1.rmsnorm_modulate_cuda,
+             (x.view(8, 8, 128), w, ada.view(8, 8, 896)[:, :, :128]
+              .transpose(0, 1), shift.view(8, 8, 128))),
+            ("K7: a gate of another shape", k7.gated_residual_cuda,
+             (x, gate[:32], y)),
+            ("K7: a float32 y", k7.gated_residual_cuda,
+             (x, gate, y.float())),
+            ("K7: gate channels not contiguous", k7.gated_residual_cuda,
+             (x, ada[:, :256:2], y))):
+        try:
+            fn(*args)
+        except ValueError as err:
+            refused[what] = str(err)[:50]
+    xg = x.detach().requires_grad_(True)
+    for what, fn, args in (("K1: x requires grad", k1.rmsnorm_modulate_cuda,
+                            (xg, w, scale, shift)),
+                           ("K7: x requires grad", k7.gated_residual_cuda,
+                            (xg, gate, y))):
+        try:
+            fn(*args)
+        except RuntimeError as err:
+            refused[what] = str(err)[:50]
+    require(len(refused) == 9 and (k1.launches, k7.launches) == before,
+            f"K1 modulate / K7 wrappers took a call they must refuse: "
+            f"{refused}")
+    # under autograd the dispatchers run the eager sequence: K1 through
+    # its Function (one K1 launch without the epilogue), no K7
+    mod_before = k1.launches_by_epilogue["modulate"]
+    o1 = k1.rmsnorm_modulate(xg, w, scale, shift)
+    o7 = k7.gated_residual(xg, gate, y)
+    gx, = torch.autograd.grad((o1.float().sum() + o7.float().sum()), xg)
+    require(k7.launches == before[1] and k1.launches == before[0] + 1
+            and k1.launches_by_epilogue["modulate"] == mod_before
+            and o1.grad_fn is not None and o7.grad_fn is not None
+            and bool(torch.isfinite(gx.float()).all()),
+            "the DiT dispatchers under autograd: K1 "
+            f"{k1.launches - before[0]} launches, K7 "
+            f"{k7.launches - before[1]}")
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    t = torch.zeros(64 * 7 * 128 + 8, device=device, dtype=torch.bfloat16)
+    vec1, vec7 = k1.VARIANTS.index("vector"), k7.VARIANTS.index("vector")
+    errs = {}
+    a, m = t.data_ptr(), t[1:].data_ptr()
+    for what, xp, sp, c, rows, ss, dtype, variant in (
+            ("K1 vector, scale misaligned", a, m, 128, 32, 896, 1, vec1),
+            ("K1 vector, a stride not of 16 bytes", a, a, 128, 32, 900, 1,
+             vec1),
+            ("K1 scale stride under C", a, a, 128, 32, 64, 1, 0),
+            ("K1 unknown variant", a, a, 128, 32, 896, 1, 7),
+            ("K1 no rows", a, a, 128, 0, 896, 1, vec1)):
+        errs[what] = lib.tmt_rmsnorm_modulate(
+            xp, a, a, rows, c, 1e-6, dtype, dtype, variant, sp, sp, ss, ss,
+            stream)
+    for what, xp, c, rows, gs, dtype, variant in (
+            ("K7 vector at C 100", a, 100, 32, 700, 1, vec7),
+            ("K7 vector misaligned", m, 128, 32, 896, 1, vec7),
+            ("K7 vector, a stride not of 16 bytes", a, 128, 32, 900, 1,
+             vec7),
+            ("K7 gate stride under C", a, 128, 32, 64, 1, 0),
+            ("K7 unknown dtype", a, 128, 32, 896, 5, vec7),
+            ("K7 no rows", a, 128, 0, 896, 1, vec7)):
+        errs[what] = lib.tmt_gated_residual(xp, a, a, a, rows, c, gs, dtype,
+                                            variant, stream)
+    torch.cuda.synchronize()
+    require(all(e != 0 for e in errs.values()),
+            f"tmt_rmsnorm_modulate / tmt_gated_residual took a call they "
+            f"must refuse: {errs}")
+    log(f"K1 modulate / K7 edge shapes (bf16/f32): {'; '.join(seen)}; the "
+        f"wrappers refuse {refused}; the dispatchers under autograd run "
+        f"the eager sequence; the entry points refuse (error codes) {errs}")
+
+
+def dit_block_widths(conf=None, packed: bool = True) -> list:
+    """[(hidden C, cond channels, heads, patches, z, side)] of the DiT
+    blocks one block-major UNet call runs, each kind once (built on the
+    meta device; its resolution from the K7 rows it records)."""
+    import torch
+
+    from tera_mind_tpu_torch.models.attention import DiTBlock
+    ks = kernel_shapes()
+    conf = (conf or ks.preset_conf()).make_model_conf()
+    with torch.device("meta"):
+        model = ks.make_packed_model(conf) if packed else conf.make_model()
+    return sorted({(m.hidden_size, m.adaLN.in_features,
+                    m.attn.num_heads) for m in model.modules()
+                   if isinstance(m, DiTBlock)})
+
+
+def check_dit_route(device) -> dict:
+    """The DiT block with its fold (each norm's modulate in K1, each
+    gated residual one K7 launch) against the same block's eager sequence
+    (K1, then the eager modulate; the eager ``x + gate * y``: the
+    dispatchers' plain versions, which the block ran before) on the same
+    input on the card: bit-equal in bf16 at the 638850 chain's widths and
+    token counts (5D and packed token order), and in float32; each folded
+    call exactly two K1 launches with the modulate and two K7 launches,
+    the eager one none."""
+    import torch
+
+    from tera_mind_tpu_torch.models import attention as attn_mod
+    from tera_mind_tpu_torch.models.attention import DiTBlock
+    from tera_mind_tpu_torch.models.nn import init_weights
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    conf = kernel_shapes().preset_conf().make_model_conf()
+    z = conf.z_size
+    g = torch.Generator(device="cpu").manual_seed(24)
+    widths = dit_block_widths()
+    out = {}
+    cases = []
+    for c, cond, heads in widths:
+        side = 16 if c == min(w[0] for w in widths) else 8
+        for b in (81, 64):
+            cases.append((f"C {c} 5D x {b}", c, cond, heads, b, side,
+                          False, torch.bfloat16))
+    c, cond, heads = widths[0]
+    cases += [(f"C {c} packed tokens", c, cond, heads, 81, 16, True,
+               torch.bfloat16),
+              (f"C {c} float32", c, cond, heads, 4, 16, False,
+               torch.float32)]
+    eager = (lambda x, w, s, h, eps: k1.modulate_plain(
+        k1.rmsnorm(x, w, eps), s, h), k7.gated_residual_plain)
+    for what, c, cond, heads, b, side, packed, dt in cases:
+        blk = DiTBlock(c, cond, heads, n_win=2, packed_tokens=packed)
+        blk = init_weights(blk, 7).to(device, dt).eval()
+        with torch.no_grad():
+            for p in blk.parameters():   # the adaLN zero init and norms off
+                p.add_(0.05 * randn(g, *p.shape, device=device).to(dt))
+        shape = ((b, side, side, z * c) if packed else (b, z, side, side, c))
+        cshape = ((b, side, side, z * cond) if packed
+                  else (b, z, side, side, cond))
+        x = randn(g, *shape, device=device).to(dt)
+        cnd = randn(g, *cshape, device=device).to(dt)
+        with torch.inference_mode():
+            before = (k1.launches_by_epilogue["modulate"], k7.launches)
+            folded = blk(x, cnd, z)
+            got = (k1.launches_by_epilogue["modulate"] - before[0],
+                   k7.launches - before[1])
+            saved = attn_mod.rmsnorm_modulate, attn_mod.gated_residual
+            attn_mod.rmsnorm_modulate, attn_mod.gated_residual = eager
+            try:
+                before = (k1.launches_by_epilogue["modulate"], k7.launches)
+                ref = blk(x, cnd, z)
+                got_eager = (k1.launches_by_epilogue["modulate"] - before[0],
+                             k7.launches - before[1])
+            finally:
+                attn_mod.rmsnorm_modulate, attn_mod.gated_residual = saved
+        torch.cuda.synchronize()
+        require(got == (2, 2) and got_eager == (0, 0),
+                f"DiT route {what}: {got} K1 modulate and K7 launches "
+                f"folded, {got_eager} eager; expected (2, 2) and (0, 0)")
+        require(torch.equal(folded, ref), f"DiT route {what}: not "
+                "bit-equal to the eager sequence, max |d| "
+                f"{float((folded.float() - ref.float()).abs().max())}")
+        out[what] = list(folded.shape)
+    log(f"the folded DiT block is bit-equal to the eager one on the card: "
+        f"{out}")
+    return out
+
+
+def check_dit_kernels(device) -> dict:
+    """Phase 3's K1 modulate and K7: every (rows, C) of the block-major
+    chain, bf16 and float32, timed; the edges and refusals; the folded
+    DiT block against the eager one."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(21)
+    pairs = [dit_row(g, device, n, c, "block_major")
+             for n, c in dit_shapes()]
+    check_dit_edges(g, device)
+    check_dit_route(device)
+    return {"rmsnorm_modulate": [p[0] for p in pairs],
+            "gated_residual": [p[1] for p in pairs]}
+
+
 def check_variant_refusal(device) -> None:
     """The attention kernels' and the backward kernels' C entry points
     refuse a variant that cannot take the call (an error code, no
@@ -2856,43 +3294,54 @@ CHAIN_STEPS = {"packed": MAIN_STEPS, "int8": MAIN_STEPS, "int8_static": 5,
                "tile_major": TILE_MAJOR_STEPS, "stream": STREAM_STEPS}
 
 
-# launches per chain: K1 norms, K2 attentions, K5 grouped norms and K6
-# residual sums per UNet call x UNet calls.  The packed model's 57
+# launches per chain: K1 norms, K2 attentions, K5 grouped norms, K6
+# residual sums and K7 gated residuals per UNet call x UNet calls.  The
+# packed model's 57
 # ResBlock and output norms (28 ResBlocks' in_norm and out_norm, and
 # out_norm) are GroupedRMSNorm, K5, so K1 runs only in the 6 DiT blocks
 # (norm1, norm2, q_norm, k_norm) and the gene-gene block (q_norm, norm2);
 # each of the 28 ResBlocks ends in one K6 launch where its convs are bf16
-# (not int8); the 5D model has no GroupedRMSNorm and no K6.  Block-major
+# (not int8); the 5D model has no GroupedRMSNorm and no K6.  Each DiT
+# block's norm1 and norm2 take K1's modulate and its two sub-layers end
+# in K7 on every path, int8 and the 5D model included: 12 a call.  Block-major
 # 2x2: 25 z-windows x 5 steps = 125 calls; tile-major 2x2 at window_chunk
 # 5: 4 tiles x 5 calls x 5 steps = 100; streamed 4x4 in 2x2 windows at
 # window_chunk 5: 4 windows x 5 calls x 2 steps = 40.
 CHAIN_LAUNCHES = {
     "packed": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
-               "grouped_rmsnorm": 57 * 125, "residual": 28 * 125},
+               "grouped_rmsnorm": 57 * 125, "residual": 28 * 125,
+               "gated_residual": 12 * 125},
     "int8": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
-             "grouped_rmsnorm": 57 * 125, "residual": 0},
+             "grouped_rmsnorm": 57 * 125, "residual": 0,
+             "gated_residual": 12 * 125},
     "int8_static": {"rmsnorm": 26 * 125, "window_attention": 6 * 125,
-                    "grouped_rmsnorm": 57 * 125, "residual": 0},
+                    "grouped_rmsnorm": 57 * 125, "residual": 0,
+                    "gated_residual": 12 * 125},
     "5d": {"rmsnorm": 83 * 125, "window_attention": 6 * 125,
-           "grouped_rmsnorm": 0, "residual": 0},
+           "grouped_rmsnorm": 0, "residual": 0, "gated_residual": 12 * 125},
     "tile_major": {"rmsnorm": 26 * 100, "window_attention": 6 * 100,
-                   "grouped_rmsnorm": 57 * 100, "residual": 28 * 100},
+                   "grouped_rmsnorm": 57 * 100, "residual": 28 * 100,
+                   "gated_residual": 12 * 100},
     "stream": {"rmsnorm": 26 * 40, "window_attention": 6 * 40,
-               "grouped_rmsnorm": 57 * 40, "residual": 28 * 40}}
+               "grouped_rmsnorm": 57 * 40, "residual": 28 * 40,
+               "gated_residual": 12 * 40}}
 STREAM_GRID = 4   # 4x4 tiles: four 2x2-tile windows a step
 
 
 def per_call_counts(model) -> tuple:
     """(K1 norms, of them with C % 8 == 0, K2 attentions, K5 grouped norms
-    by variant, K5 by epilogue, K5 by prologue, K6 by variant) per UNet
-    call of a bf16 chain.  K1 runs in every RMSNorm itself; its
+    by variant, K5 by epilogue, K5 by prologue, K6 by variant, K7 by
+    variant) per UNet call of a bf16 chain.  K1 runs in every RMSNorm itself; its
     GroupedRMSNorm subclass runs K5, each once a call (the collage
     decoder alone): a ResBlock's in_norm with the SiLU, its out_norm with
     the modulate and the SiLU where it has the adaLN projection, the
     UNet's out_norm with the SiLU; each ResBlock whose convs are not int8
     folds (``PackedResBlock.plain_convs``): its out_norm adds in_conv's
-    bias, and one K6 launch ends it."""
-    from tera_mind_tpu_torch.models.attention import CrossAttention
+    bias, and one K6 launch ends it.  Each DiT block's norm1 and norm2
+    launch K1 with the modulate, and each of its two sub-layers ends in
+    one K7 launch (its gate a chunk of the (rows, 7C) adaLN output)."""
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
+    from tera_mind_tpu_torch.models.attention import CrossAttention, DiTBlock
     from tera_mind_tpu_torch.models.nn import RMSNorm
     from tera_mind_tpu_torch.models.unet_packed import (GroupedRMSNorm,
                                                         PackedResBlock)
@@ -2919,9 +3368,14 @@ def per_call_counts(model) -> tuple:
             residual[k6.residual_variant(m.out_norm.weight.numel()
                                          * (m.z if m.out_norm.from_5d
                                             else 1), 2, True)] += 1
+    gated = dict.fromkeys(k7.VARIANTS, 0)
+    for m in model.modules():
+        if isinstance(m, DiTBlock):
+            c = m.hidden_size
+            gated[k7.gated_variant(c, 7 * c, 2, True)] += 2
     return (len(norms), sum(c % 8 == 0 for c in norms),
             sum(isinstance(m, CrossAttention) for m in model.modules()),
-            grouped, epilogues, prologues, residual)
+            grouped, epilogues, prologues, residual, gated)
 
 
 def expected_launches(counts: tuple, calls: int) -> tuple:
@@ -2931,14 +3385,19 @@ def expected_launches(counts: tuple, calls: int) -> tuple:
     import torch
 
     from tera_mind_tpu_torch.ops import attention_kernel as k2
-    n_norm, n_vec, n_attn, grouped, epilogues, prologues, residual = counts
+    (n_norm, n_vec, n_attn, grouped, epilogues, prologues, residual,
+     gated) = counts
+    n_mod = sum(gated.values())   # a K1 modulate launch for each K7
     k2_variant, = {k2.attention_variant(n, d, torch.bfloat16, True)
                    for _, n, d in K2_SHAPES}
     return ({"rmsnorm": n_norm * calls, "window_attention": n_attn * calls,
              "grouped_rmsnorm": sum(grouped.values()) * calls,
-             "residual": sum(residual.values()) * calls},
+             "residual": sum(residual.values()) * calls,
+             "gated_residual": n_mod * calls},
             {"rmsnorm": {"strided": (n_norm - n_vec) * calls,
                          "vector": n_vec * calls},
+             "rmsnorm_epilogue": {"none": (n_norm - n_mod) * calls,
+                                  "modulate": n_mod * calls},
              "window_attention": {v: n_attn * calls if v == k2_variant
                                   else 0 for v in k2.VARIANTS},
              "grouped_rmsnorm": {v: n * calls for v, n in grouped.items()},
@@ -2946,28 +3405,34 @@ def expected_launches(counts: tuple, calls: int) -> tuple:
                                           for e, n in epilogues.items()},
              "grouped_rmsnorm_prologue": {p: n * calls
                                           for p, n in prologues.items()},
-             "residual": {v: n * calls for v, n in residual.items()}})
+             "residual": {v: n * calls for v, n in residual.items()},
+             "gated_residual": {v: n * calls for v, n in gated.items()}})
 
 
 def read_launches() -> tuple:
-    """(launches of K1, K2, K5 and K6; by variant, and K5's by epilogue
-    and prologue)."""
+    """(launches of K1, K2, K5, K6 and K7; by variant, K1's by epilogue
+    and K5's by epilogue and prologue)."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import residual_kernel as k6
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
     return ({"rmsnorm": k1.launches, "window_attention": k2.launches,
-             "grouped_rmsnorm": k5.launches, "residual": k6.launches},
+             "grouped_rmsnorm": k5.launches, "residual": k6.launches,
+             "gated_residual": k7.launches},
             {"rmsnorm": dict(k1.launches_by_variant),
+             "rmsnorm_epilogue": dict(k1.launches_by_epilogue),
              "window_attention": dict(k2.launches_by_variant),
              "grouped_rmsnorm": dict(k5.launches_by_variant),
              "grouped_rmsnorm_epilogue": dict(k5.launches_by_epilogue),
              "grouped_rmsnorm_prologue": dict(k5.launches_by_prologue),
-             "residual": dict(k6.launches_by_variant)})
+             "residual": dict(k6.launches_by_variant),
+             "gated_residual": dict(k7.launches_by_variant)})
 
 
 def reset_launches() -> None:
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import quant_kernel as qk
     from tera_mind_tpu_torch.ops import residual_kernel as k6
@@ -2976,6 +3441,7 @@ def reset_launches() -> None:
     k2.reset_launches()
     k5.reset_launches()
     k6.reset_launches()
+    k7.reset_launches()
     qk.reset_launches()
 
 
@@ -3330,18 +3796,23 @@ def check_small_train_step(device, method: str = "ours") -> dict:
 
 
 def read_train_launches() -> tuple:
-    """(launches of K1, K1b, K2, K2b, K5, K5b, K6; K1b's, K2b's and K5b's
-    by variant)."""
+    """(launches of K1, K1b, K2, K2b, K5, K5b, K6, K7; K1b's, K2b's and
+    K5b's by variant).  Requires every K1 launch to be without the
+    epilogue."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import residual_kernel as k6
     from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    require(k1.launches_by_epilogue["modulate"] == 0,
+            f"training launched K1 with the modulate "
+            f"{k1.launches_by_epilogue}")
     return ({"rmsnorm": k1.launches, "rmsnorm_bwd": k1.bwd.launches,
              "window_attention": k2.launches,
              "window_attention_bwd": k2.bwd.launches,
              "grouped_rmsnorm": k5.launches,
              "grouped_rmsnorm_bwd": k5.bwd.launches,
-             "residual": k6.launches},
+             "residual": k6.launches, "gated_residual": k7.launches},
             {"rmsnorm_bwd": dict(k1.bwd.launches_by_variant),
              "window_attention_bwd": dict(k2.bwd.launches_by_variant),
              "grouped_rmsnorm_bwd": dict(k5.bwd.launches_by_variant)})
@@ -3510,7 +3981,7 @@ def run_attn(device, ckpt: Path, tmp: Path) -> dict:
     got, got_variants = read_launches()
     n_tiles = ATTN_ROI_SIDE ** 2
     want = {"rmsnorm": n_tiles * ATTN_K1_PER_TILE, "window_attention": 0,
-            "grouped_rmsnorm": 0, "residual": 0}
+            "grouped_rmsnorm": 0, "residual": 0, "gated_residual": 0}
     log(f"attn [ROI 0, {n_tiles} tiles]: {secs:.2f} s = {n_tiles / secs:.3f}"
         f" tiles/s ({rec['seconds']:.2f} s in the tile loop = "
         f"{n_tiles / rec['seconds']:.3f} tiles/s; the rest builds the "
@@ -3794,9 +4265,11 @@ RANK_GROUP_TIMEOUT_S = 300   # a wait on another rank
 # 2x2 windows of 5 z-windows a call, 2 steps
 RANK_LAUNCHES = {
     "memory": {"rmsnorm": 26 * 126, "window_attention": 6 * 126,
-               "grouped_rmsnorm": 57 * 126, "residual": 28 * 126},
+               "grouped_rmsnorm": 57 * 126, "residual": 28 * 126,
+               "gated_residual": 12 * 126},
     "stream": {"rmsnorm": 26 * 20, "window_attention": 6 * 20,
-               "grouped_rmsnorm": 57 * 20, "residual": 28 * 20}}
+               "grouped_rmsnorm": 57 * 20, "residual": 28 * 20,
+               "gated_residual": 12 * 20}}
 
 
 def rank_count() -> tuple:
@@ -4571,6 +5044,7 @@ def launches_now() -> dict:
     """Every kernel's launches and launches by variant since the last
     reset: {name: {"launches": n, "by_variant": {...}}}."""
     from tera_mind_tpu_torch.ops import attention_kernel as k2
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
     from tera_mind_tpu_torch.ops import grouped_rmsnorm_kernel as k5
     from tera_mind_tpu_torch.ops import quant_kernel as qk
     from tera_mind_tpu_torch.ops import residual_kernel as k6
@@ -4580,10 +5054,11 @@ def launches_now() -> dict:
                     ("window_attention", k2),
                     ("window_attention_bwd", k2.bwd),
                     ("grouped_rmsnorm", k5), ("grouped_rmsnorm_bwd", k5.bwd),
-                    ("residual", k6),
+                    ("residual", k6), ("gated_residual", k7),
                     ("quant_conv", qk.k3), ("quantize", qk.k4)):
         by = dict(c.launches_by_variant)
         out[name] = {"launches": sum(by.values()), "by_variant": by}
+    out["rmsnorm"]["by_epilogue"] = dict(k1.launches_by_epilogue)
     out["grouped_rmsnorm"]["by_epilogue"] = dict(k5.launches_by_epilogue)
     out["grouped_rmsnorm"]["by_prologue"] = dict(k5.launches_by_prologue)
     return out
@@ -4618,7 +5093,8 @@ def preset_kernel_shapes(ks) -> dict:
     training with the float32 one; K5b each new layout of segments and Z
     once, K5 each new (segments, Z, epilogue, prologue), at its most rows,
     as (rows, segments, Z, epilogue, B, prologue); K6 each new (width,
-    skip) at its most rows), and the K2, K2b, K5 and K6 shapes of
+    skip) at its most rows; "DiT" each new (rows, C) of K7, which K1's
+    modulate takes too), and the K2, K2b, K5, K6 and DiT shapes of
     :data:`PRESET_KERNELS_ONLY`'s chains and training steps, from
     ``scripts/kernel_shapes.py``'s predictions, each shape once."""
     seen = {"K1": set(K1_SHAPES) | {s for k1s, _ in PATH_SHAPES.values()
@@ -4630,7 +5106,8 @@ def preset_kernel_shapes(ks) -> dict:
             "K4": set(K4_SHAPES),
             "K5": {s[1:4] + s[5:] for s in k5_shapes(acts=True)},
             "K5b": {s[1:] for s in k5_shapes(train=True)},
-            "K6": {s[1:] for s in k6_shapes()}}
+            "K6": {s[1:] for s in k6_shapes()},
+            "DiT": set(dit_shapes())}
     out = {k: [] for k in seen}
 
     def add(kernel, pred, path):
@@ -4657,6 +5134,7 @@ def preset_kernel_shapes(ks) -> dict:
     add("K2", chain["window_attention"], "609882 chain")
     add("K5", chain["grouped_rmsnorm"], "609882 chain")
     add("K6", chain["residual"], "609882 chain")
+    add("DiT", chain["gated_residual"], "609882 chain")
     int8 = ks.chain_prediction(first, quant="int8")
     add("K3", int8["quant_conv"], "609882 int8")
     add("K4", int8["quantize"], "609882 int8")
@@ -4676,12 +5154,14 @@ def preset_kernel_shapes(ks) -> dict:
                 add("K2", chain["window_attention"], f"{preset} generation")
                 add("K5", chain["grouped_rmsnorm"], f"{preset} generation")
                 add("K6", chain["residual"], f"{preset} generation")
+                add("DiT", chain["gated_residual"], f"{preset} generation")
     for preset, flags in PRESET_KERNELS_ONLY.items():
         conf = preset_conf(ks, flags)
         chain = ks.chain_prediction(conf)
         add("K2", chain["window_attention"], f"{preset} chain")
         add("K5", chain["grouped_rmsnorm"], f"{preset} chain")
         add("K6", chain["residual"], f"{preset} chain")
+        add("DiT", chain["gated_residual"], f"{preset} chain")
         add("K2b", ks.train_prediction(conf)["window_attention_bwd"],
             f"{preset} training")
     return out
@@ -4712,7 +5192,8 @@ def check_preset_kernels(device, ks) -> dict:
                        for (x, w), path in shapes["K3"]],
         "quantize": [k4_row(g, device, r, c, m, path)
                      for (r, c, m), path in shapes["K4"]],
-        **preset_grouped_rows(g, device, shapes)}
+        **preset_grouped_rows(g, device, shapes),
+        **preset_dit_rows(g, device, shapes)}
 
 
 # rows of phase 19's K5 and K5b checks: their layouts are what is new (the
@@ -4749,6 +5230,16 @@ def preset_grouped_rows(g, device, shapes) -> dict:
         "residual": [k6_row(g, device, min(n, K5_PRESET_ROWS), width, skip,
                             path, timed=False)
                      for (n, width, skip), path in shapes["K6"]]}
+
+
+def preset_dit_rows(g, device, shapes) -> dict:
+    """K1's modulate and K7 at each new (rows, C) of phase 19
+    (:func:`preset_kernel_shapes`), at all their rows, checked as
+    ``dit_row`` checks them, not timed."""
+    pairs = [dit_row(g, device, n, c, path, timed=False)
+             for (n, c), path in shapes["DiT"]]
+    return {"rmsnorm_modulate": [p[0] for p in pairs],
+            "gated_residual": [p[1] for p in pairs]}
 
 
 def check_small_presets(device, ks) -> dict:
@@ -5033,8 +5524,9 @@ def preset_entries(kernels: list, presets: dict) -> None:
     for k in kernels:
         name = k["name"]
         k.setdefault("launches_by_path", {}).update(
-            {path: got[name] for path, got in
-             presets["launches_by_path"].items()})
+            {path: got[name] if name != "rmsnorm_modulate" else
+             {"launches": got["rmsnorm"]["by_epilogue"]["modulate"]}
+             for path, got in presets["launches_by_path"].items()})
         k["preset_shapes"] = presets["kernels"][name]
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             r["max_abs_err"] for r in presets["kernels"][name]])
@@ -5187,6 +5679,69 @@ def grouped_kernel_entries(rows: dict, chains: dict, train: dict) -> list:
     return kernels
 
 
+DIT_SOURCES = {
+    "rmsnorm_modulate": (
+        "tera_mind_tpu_torch/csrc/rmsnorm.cu",
+        "tera_mind_tpu/models/nn.py:127 (modulate after the DiT block's "
+        "norms, XLA's fusion of :127-130 after rmsnorm_fused; not a Pallas "
+        "kernel: K1's epilogue)"),
+    "gated_residual": (
+        "tera_mind_tpu_torch/csrc/gated_residual.cu",
+        "tera_mind_tpu/models/attention.py:196 (DiTBlock's xt + gate * "
+        "attn(...) and xt + gate * mlp(...), :196-202: XLA's fusion; not a "
+        "Pallas kernel)")}
+
+
+def dit_step_sums(rows: list) -> dict:
+    """A block-major 2x2 step's (25 UNet calls) device ms of K1 with the
+    modulate or of K7: each main-path shape's time times its launches
+    (``scripts/kernel_shapes.py``; the two take the same shapes, as
+    often)."""
+    from collections import Counter
+    k7 = Counter()
+    kernel_shapes().per_call_shapes(k7=k7)
+    keyed = [(k7[tuple(r["shape"])] * 25, r) for r in rows
+             if r["path"] == "block_major"]
+    out = {key: sum(c * r[key] for c, r in keyed)
+           for key in ("ms", "plain_ms", "bound_ms") + (
+               ("eager_ms",) if "eager_ms" in rows[0] else
+               ("library_ms",))}
+    out["launches"] = sum(c for c, _ in keyed)
+    return out
+
+
+def dit_kernel_entries(rows: dict, chains: dict) -> list:
+    """K1's modulate (its epilogue's launches; K1's entry counts them
+    too) and K7's entries of the kernel line: the largest shape's times,
+    every shape's rows, a step's sums, the launches of every path."""
+    kernels = []
+    for name, (src, replaces) in DIT_SOURCES.items():
+        r = max(rows[name], key=lambda x: x["bound_ms"])   # the largest
+        if name == "gated_residual":
+            by_path = {path: {"launches": c["launches"][name],
+                              "by_variant": c["variants"][name]}
+                       for path, c in chains.items()}
+        else:
+            by_path = {path: {"launches": c["variants"]["rmsnorm_epilogue"][
+                "modulate"], "by_epilogue": c["variants"]["rmsnorm_epilogue"]}
+                for path, c in chains.items()}
+        main = by_path["packed"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": main["launches"],
+            **({"launches_by_variant": main["by_variant"]}
+               if "by_variant" in main else
+               {"launches_by_epilogue": main["by_epilogue"]}),
+            "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "step_ms": dit_step_sums(rows[name]), "shapes": rows[name]})
+        log(f"{name} a block-major 2x2 step (ms): {kernels[-1]['step_ms']}")
+    return kernels
+
+
 def step_sums(rows: list) -> dict:
     """A 2x2 step's device ms of K3 (by variant, plain, cuDNN bf16,
     bound) or K4 (dynamic, static, bound): each shape's time times its
@@ -5249,15 +5804,18 @@ def main() -> int:
         return norms_only(device, smi)
     if sys.argv[1:] == ["--grouped"]:
         return grouped_only(device, smi)
+    if sys.argv[1:] == ["--dit"]:
+        return dit_only(device, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
-              "--ranks, --int8, --dp, --presets, --attention, --norms or "
-              "--grouped)", file=sys.stderr, flush=True)
+              "--ranks, --int8, --dp, --presets, --attention, --norms, "
+              "--grouped or --dit)", file=sys.stderr, flush=True)
         return 2
 
     rows = check_kernels(device)
     rows.update(check_grouped_kernels(device))
     rows.update(check_residual_kernels(device))
+    rows.update(check_dit_kernels(device))
     rows.update(check_backward_kernels(device))
     rows.update(check_grouped_bwd(device))
     check_variant_refusal(device)
@@ -5391,6 +5949,7 @@ def main() -> int:
                         "shapes": rows[name]})
     kernels += quant_kernel_entries(rows, chains)
     kernels += grouped_kernel_entries(rows, chains, train)
+    kernels += dit_kernel_entries(rows, chains)
     preset_entries(kernels, presets)
     print(json.dumps({"kernels": kernels, "train": train,
                       "small_train": small_train, "chain_seconds":
@@ -5662,6 +6221,39 @@ def grouped_only(device, smi: str) -> int:
     print(json.dumps({"ok": True, "only": "K5, K6 and K5b", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def dit_only(device, smi: str) -> int:
+    """``--dit``: K1's modulate and K7 at phase 3's shapes and edges
+    (timed), the folded DiT block against the eager one, and at phase
+    19's new shapes (checked), for a call that tunes the DiT block's
+    kernels; prints its JSON, the card line and a result line naming the
+    part it ran."""
+    import torch
+
+    from tera_mind_tpu_torch.ops import gated_residual_kernel as k7
+    from tera_mind_tpu_torch.ops import rmsnorm_kernel as k1
+    rows = check_dit_kernels(device)
+    presets = preset_dit_rows(
+        torch.Generator(device="cpu").manual_seed(19), device,
+        preset_kernel_shapes(kernel_shapes()))
+    steps = {name: dit_step_sums(rows[name]) for name in rows}
+    for name, more in presets.items():
+        rows[name] += more
+    log(f"K1 modulate / K7 a step (ms): {steps}")
+    print(json.dumps({"shapes": rows, "step_ms": steps,
+                      "launches_by_variant": {
+                          "rmsnorm": dict(k1.launches_by_variant),
+                          "gated_residual": dict(k7.launches_by_variant)},
+                      "launches_by_epilogue": dict(
+                          k1.launches_by_epilogue)}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "only": "K1's modulate and K7",
+                      "device": {
+                          "platform": "gpu",
+                          "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -108,6 +108,16 @@ input): one a ResBlock in generation (28 a 638850 UNet call), none in
 training (autograd records) or int8; the default listing prints its
 launches, bytes and byte bound a step, and the bytes of the eager passes
 that the bias prologue and K6 leave out.
+
+The DiT blocks' fold: K1 is also recorded as (rows, C, epilogue),
+``modulate`` where a DiT block's norm1 / norm2 launches with the adaLN
+modulate (``ops/rmsnorm_kernel.rmsnorm_modulate``: 12 a 638850 UNet call
+on every generation path, int8 included; ``none`` for every other K1
+launch and wherever autograd records), and K7 (the DiT block's gated
+residual, ``ops/gated_residual_kernel.py``) as (rows, C): 12 a UNet call
+in generation, none in training.  The default listing prints K1's
+launches by epilogue, K7's shapes, launches, bytes and byte bound, and
+the bytes of the eager passes the fold removes.
 """
 
 from __future__ import annotations
@@ -138,11 +148,14 @@ from tera_mind_tpu_torch.ops.grouped_rmsnorm_kernel import (  # noqa: E402
     VARIANTS as K5_VARIANTS, grouped_variant)
 from tera_mind_tpu_torch.ops.residual_kernel import (  # noqa: E402
     VARIANTS as K6_VARIANTS, residual_variant, skip_kind)
+from tera_mind_tpu_torch.ops.gated_residual_kernel import (  # noqa: E402
+    VARIANTS as K7_VARIANTS, gated_variant)
 from tera_mind_tpu_torch.ops.attention_kernel import (  # noqa: E402
     BWD_VARIANTS as K2B_VARIANTS, VARIANTS as K2_VARIANTS,
     attention_bwd_variant, attention_variant)
 from tera_mind_tpu_torch.ops.rmsnorm_kernel import (  # noqa: E402
-    VARIANTS as K1_VARIANTS, rmsnorm_bwd_variant, rmsnorm_variant)
+    EPILOGUES as K1_EPILOGUES, VARIANTS as K1_VARIANTS,
+    rmsnorm_bwd_variant, rmsnorm_modulate_variant, rmsnorm_variant)
 from tera_mind_tpu_torch.parallel.band import band_partition  # noqa: E402
 from tera_mind_tpu_torch.parallel.generator import (  # noqa: E402
     GeneratorConfig, plan_candidates)
@@ -192,22 +205,40 @@ def gen_plan(conf, grid: int = 2) -> dict:
 
 @contextmanager
 def recording(k1: Counter, k2: Counter, k5: Counter = None,
-              k5_act: Counter = None, k6: Counter = None):
-    """Stand-ins for K1, K2, K5 and K6 that record their input shapes:
-    K1 (rows, C), K2 (B, N, D), K5 (rows, segments, Z) into ``k5`` (or a
-    Counter of its own) and (rows, segments, Z, epilogue, B, prologue)
+              k5_act: Counter = None, k6: Counter = None,
+              k1_act: Counter = None, k7: Counter = None):
+    """Stand-ins for K1, K2, K5, K6 and K7 that record their input
+    shapes: K1 (rows, C) and, in ``k1_act``, (rows, C, epilogue) (the DiT
+    blocks' ``rmsnorm_modulate`` launches with ``modulate``, but where
+    autograd records, as its dispatcher then runs ``rmsnorm`` and the
+    eager modulate), K2 (B, N, D), K5 (rows, segments, Z) into ``k5`` (or
+    a Counter of its own) and (rows, segments, Z, epilogue, B, prologue)
     into ``k5_act`` (the epilogue K5 launches with: ``none`` where
     autograd records, as the dispatcher runs the eager epilogue after the
     Function there; B the batches of the modulate's scale and shift, 0
     without it; prologue ``bias`` where the call adds a conv's bias, else
-    ``none``), K6 (rows, width, skip) into ``k6``: every packed call must
-    be stubbed on the meta device, where the dispatchers have no path."""
+    ``none``), K6 (rows, width, skip) into ``k6``, K7 (rows, C) into
+    ``k7`` (none where autograd records): every packed call must be
+    stubbed on the meta device, where the dispatchers have no path."""
     k5 = Counter() if k5 is None else k5
     k5_act = Counter() if k5_act is None else k5_act
     k6 = Counter() if k6 is None else k6
+    k1_act = Counter() if k1_act is None else k1_act
+    k7 = Counter() if k7 is None else k7
 
-    def rmsnorm(x, weight, eps=1e-6):
-        k1[(x.numel() // x.shape[-1], x.shape[-1])] += 1
+    def rmsnorm(x, weight, eps=1e-6, epilogue="none"):
+        key = (x.numel() // x.shape[-1], x.shape[-1])
+        k1[key] += 1
+        k1_act[key + (epilogue,)] += 1
+        return torch.empty_like(x)
+
+    def rmsnorm_modulate(x, weight, scale, shift, eps=1e-6):
+        grad = autograd_required(x, weight, scale, shift)
+        return rmsnorm(x, weight, eps, "none" if grad else "modulate")
+
+    def gated_residual(x, gate, y):
+        if not autograd_required(x, gate, y):
+            k7[(x.numel() // x.shape[-1], x.shape[-1])] += 1
         return torch.empty_like(x)
 
     def window_attention(q, k, v, scale):
@@ -231,15 +262,20 @@ def recording(k1: Counter, k2: Counter, k5: Counter = None,
         return torch.empty_like(h)
 
     saved = (nn_mod.rmsnorm, attention_mod.window_attention,
-             packed_mod.grouped_rmsnorm_act, packed_mod.residual)
+             packed_mod.grouped_rmsnorm_act, packed_mod.residual,
+             attention_mod.rmsnorm_modulate, attention_mod.gated_residual)
     (nn_mod.rmsnorm, attention_mod.window_attention,
-     packed_mod.grouped_rmsnorm_act, packed_mod.residual) = (
-        rmsnorm, window_attention, grouped_rmsnorm_act, residual)
+     packed_mod.grouped_rmsnorm_act, packed_mod.residual,
+     attention_mod.rmsnorm_modulate, attention_mod.gated_residual) = (
+        rmsnorm, window_attention, grouped_rmsnorm_act, residual,
+        rmsnorm_modulate, gated_residual)
     try:
         yield
     finally:
         (nn_mod.rmsnorm, attention_mod.window_attention,
-         packed_mod.grouped_rmsnorm_act, packed_mod.residual) = saved
+         packed_mod.grouped_rmsnorm_act, packed_mod.residual,
+         attention_mod.rmsnorm_modulate,
+         attention_mod.gated_residual) = saved
 
 
 def by_epilogue(k5_act: Counter, times: int = 1) -> dict:
@@ -270,6 +306,36 @@ def eager_epilogue_bytes(k5_act: Counter, times: int) -> Counter:
     for (rows, segments, z, act, _, _), n in k5_act.items():
         out[act] += n * times * passes[act] * 2 * BF16 * rows * z * sum(
             segments)
+    return out
+
+
+def k1_by_epilogue(k1_act: Counter, times: int = 1) -> dict:
+    """K1's launches by epilogue (``none``, ``modulate``) of ``k1_act``
+    ((rows, C, epilogue) -> launches) times ``times``."""
+    out = dict.fromkeys(K1_EPILOGUES, 0)
+    for key, n in k1_act.items():
+        out[key[2]] += n * times
+    return out
+
+
+def dit_fold_bytes(k1_act: Counter, k7: Counter, times: int) -> Counter:
+    """{pass: bytes} of ``times`` rounds of the DiT blocks' eager passes
+    that K1's modulate epilogue (``k1_act``) and K7 (``k7``) take the
+    place of, in bf16, in units of one (rows, C) map: the modulate's
+    ``scale + 1.0`` (reads the scale chunk, writes a map: 2), its product
+    and its sum (3 each), the gated residual's product and sum (3 each);
+    and what the fold moves instead: ``K1 modulate`` (the scale and shift
+    K1 now reads, 2) and ``K7`` (``kernel_work``: reads x, the gate and
+    y, writes one map)."""
+    out = Counter()
+    for (rows, c, epi), n in k1_act.items():
+        if epi == "modulate":
+            unit = n * times * BF16 * rows * c
+            out["modulate"] += 8 * unit
+            out["K1 modulate"] += 2 * unit
+    for (rows, c), n in k7.items():
+        out["gated residual"] += 6 * n * times * BF16 * rows * c
+        out["K7"] += n * times * kernel_work("K7", (rows, c))[0]
     return out
 
 
@@ -310,22 +376,24 @@ def patch_grid(conf, patches: int = None, grid: tuple = None) -> tuple:
 def per_call_shapes(packed: bool = True, patches: int = None,
                     chunk: int = 1, grid: tuple = None, conf=None,
                     k5: Counter = None, k5_act: Counter = None,
-                    k6: Counter = None) -> tuple[Counter, Counter]:
+                    k6: Counter = None, k1_act: Counter = None,
+                    k7: Counter = None) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one UNet
     call on ``chunk`` z-windows of ``patches`` patches each (a square, or
     a ``grid`` of p1 x p2 patches; default the preset's plan), for the
     packed model or the 5D one, of ``conf``'s preset (default 638850);
     ``k5`` gets K5's (rows, segments, Z) -> launches, ``k5_act`` its
     (rows, segments, Z, epilogue, B, prologue) -> launches, ``k6`` K6's
-    (rows, width, skip) -> launches."""
+    (rows, width, skip) -> launches, ``k1_act`` K1's (rows, C, epilogue)
+    -> launches, ``k7`` K7's (rows, C) -> launches."""
     conf = conf or preset_conf()
     p1, p2 = patch_grid(conf, patches, grid)
     patches = p1 * p2
     conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
     # generation runs the model under inference mode: no autograd records
-    with recording(k1, k2, k5, k5_act, k6), torch.device("meta"), \
-            torch.no_grad():
+    with recording(k1, k2, k5, k5_act, k6, k1_act, k7), \
+            torch.device("meta"), torch.no_grad():
         model = make_packed_model(conf) if packed else conf.make_model()
         model = model.to(torch.bfloat16)
         p = conf.image_size
@@ -458,7 +526,8 @@ def quant_shapes(quant: str = "int8", attn: bool = True,
     ``conf``'s preset (default 638850; the patch grid as
     :func:`per_call_shapes` takes it), as :func:`quant_recording` keys
     them; ``k12``: two Counters that get its K1 and K2 shapes (and a third
-    that gets K5's, a fourth K5's with their epilogues, a fifth K6's)."""
+    that gets K5's, a fourth K5's with their epilogues, a fifth K6's, a
+    sixth K1's with their epilogues, a seventh K7's)."""
     conf = conf or preset_conf()
     p1, p2 = patch_grid(conf, patches, grid)
     conf = conf.make_model_conf()
@@ -523,7 +592,8 @@ def main_quant(quant: str, attn: bool, patches: int, chunk: int,
 
 def train_shapes(packed: bool = False, batch: int = None,
                  method: str = "ours", conf=None, k5: Counter = None,
-                 k5_act: Counter = None, k6: Counter = None
+                 k5_act: Counter = None, k6: Counter = None,
+                 k1_act: Counter = None, k7: Counter = None
                  ) -> tuple[Counter, Counter]:
     """(K1 (rows, C) -> launches, K2 (B, N, D) -> launches) of one
     training forward on a microbatch of ``batch`` samples (default the
@@ -531,12 +601,15 @@ def train_shapes(packed: bool = False, batch: int = None,
     of ``method``'s model on ``conf``'s preset (default 638850); K1b and
     K2b get the same, and K5b ``k5``'s K5 shapes (the packed model's
     GroupedRMSNorm, every input of which requires grad); ``k6`` K6's
-    shapes (none: autograd records, so the ResBlocks run eagerly)."""
+    and ``k7`` K7's shapes (none: autograd records, so the ResBlocks and
+    the DiT blocks run eagerly), ``k1_act`` K1's by epilogue (all
+    ``none``)."""
     conf = conf or preset_conf(method=method)
     batch = batch or conf.batch_size
     conf = conf.make_model_conf()
     k1, k2 = Counter(), Counter()
-    with recording(k1, k2, k5, k5_act, k6), torch.device("meta"):
+    with recording(k1, k2, k5, k5_act, k6, k1_act, k7), \
+            torch.device("meta"):
         model = (make_packed_model(conf, torch.float32, from_5d=True)
                  if packed else conf.make_model(torch.float32)).train()
         p = conf.image_size
@@ -564,8 +637,13 @@ def train_bwd_variants(packed: bool = False, method: str = "ours",
 
 
 def variant(kernel: str, shape: tuple) -> str:
-    """The variant of K1, K1b, K2, K2b, K5, K5b or K6 that a bf16 call
-    with aligned tensors at ``shape`` launches."""
+    """The variant of K1, K1b, K2, K2b, K5, K5b, K6 or K7 that a bf16
+    call with aligned tensors at ``shape`` launches (K7's gate a chunk of
+    a (rows, 7C) tensor, as in the DiT block)."""
+    if kernel == "K7":
+        return gated_variant(shape[1], 7 * shape[1], BF16, True)
+    if kernel == "K1m":
+        return rmsnorm_modulate_variant(shape[1], BF16, True, True)
     if kernel == "K6":
         return residual_variant(shape[1], BF16, True)
     if kernel in ("K5", "K5b"):
@@ -583,6 +661,7 @@ def by_variant(kernel: str, counts: Counter, times: int = 1) -> dict:
     out = dict.fromkeys(K1_VARIANTS if kernel in ("K1", "K1b")
                         else K5_VARIANTS if kernel in ("K5", "K5b")
                         else K6_VARIANTS if kernel == "K6"
+                        else K7_VARIANTS if kernel == "K7"
                         else K2_VARIANTS if kernel == "K2"
                         else K2B_VARIANTS, 0)
     for shape, n in counts.items():
@@ -590,12 +669,15 @@ def by_variant(kernel: str, counts: Counter, times: int = 1) -> dict:
     return out
 
 
-def prediction(counts: dict, times: int, k5_act: Counter = None) -> dict:
+def prediction(counts: dict, times: int, k5_act: Counter = None,
+               k1_act: Counter = None) -> dict:
     """{name: {launches, by_variant, shapes}} of {name: (kernel, shape ->
     launches a call)} over ``times`` calls (``chip_smoke.py``'s launch
     counters' names; shapes as lists, for JSON); with ``k5_act`` K5's
     ``by_epilogue``, ``by_prologue`` and ``act_shapes`` ((rows, segments,
-    Z, epilogue, B, prologue) -> launches) too."""
+    Z, epilogue, B, prologue) -> launches) too, with ``k1_act`` K1's
+    ``by_epilogue`` and ``act_shapes`` ((rows, C, epilogue) ->
+    launches)."""
     out = {}
     for name, (kernel, c) in counts.items():
         if kernel in ("K3", "K4"):
@@ -614,6 +696,11 @@ def prediction(counts: dict, times: int, k5_act: Counter = None) -> dict:
             out[name]["act_shapes"] = [
                 [list(s), n * times] for s, n in
                 sorted(k5_act.items(), key=lambda kv: -kv[1])]
+        if kernel == "K1" and k1_act is not None:
+            out[name]["by_epilogue"] = k1_by_epilogue(k1_act, times)
+            out[name]["act_shapes"] = [
+                [list(s), n * times] for s, n in
+                sorted(k1_act.items(), key=lambda kv: -kv[1])]
     return out
 
 
@@ -621,40 +708,44 @@ def chain_prediction(conf, quant: str = "", steps: int = STEPS,
                      probes: int = 0, packed: bool = True) -> dict:
     """The launches of ``cli.generate``'s block-major chain of ``steps``
     steps over 2x2 tiles of ``conf``'s preset (:func:`gen_plan`), plus
-    ``probes`` planner calls: K1, K2, K5 and K6 (the packed model,
+    ``probes`` planner calls: K1, K2, K5, K6 and K7 (the packed model,
     ``packed`` False the 5D one), and with ``quant`` K3 and K4, as
     :func:`prediction` gives them."""
     calls = gen_plan(conf)["calls"] * steps + probes
-    k1, k2, k5, k5_act, k6 = (Counter() for _ in range(5))
+    k1, k2, k5, k5_act, k6, k1_act, k7 = (Counter() for _ in range(7))
     counts = {}
     if quant:
         k3, k4, _ = quant_shapes(quant, conf=conf,
-                                 k12=(k1, k2, k5, k5_act, k6))
+                                 k12=(k1, k2, k5, k5_act, k6, k1_act, k7))
         counts = {"quant_conv": ("K3", k3), "quantize": ("K4", k4)}
     else:
         k1, k2 = per_call_shapes(packed, conf=conf, k5=k5, k5_act=k5_act,
-                                 k6=k6)
+                                 k6=k6, k1_act=k1_act, k7=k7)
     return prediction({"rmsnorm": ("K1", k1),
                        "window_attention": ("K2", k2),
                        "grouped_rmsnorm": ("K5", k5),
-                       "residual": ("K6", k6), **counts}, calls, k5_act)
+                       "residual": ("K6", k6),
+                       "gated_residual": ("K7", k7), **counts}, calls,
+                      k5_act, k1_act)
 
 
 def train_prediction(conf, steps: int = 1) -> dict:
     """The launches of ``steps`` training steps of ``cli.train`` on
     ``conf``'s preset (the packed model where ``conf.packed_compute``):
-    K1, K1b, K2, K2b, K5, K5b and K6 (none), as :func:`prediction`
+    K1, K1b, K2, K2b, K5, K5b, K6 and K7 (none), as :func:`prediction`
     gives them."""
-    k5, k5_act, k6 = Counter(), Counter(), Counter()
+    k5, k5_act, k6, k1_act, k7 = (Counter() for _ in range(5))
     k1, k2 = train_shapes(conf.packed_compute, conf=conf, k5=k5,
-                          k5_act=k5_act, k6=k6)
+                          k5_act=k5_act, k6=k6, k1_act=k1_act, k7=k7)
     times = conf.accum_batches * steps
     return prediction({"rmsnorm": ("K1", k1), "rmsnorm_bwd": ("K1b", k1),
                        "window_attention": ("K2", k2),
                        "window_attention_bwd": ("K2b", k2),
                        "grouped_rmsnorm": ("K5", k5),
                        "grouped_rmsnorm_bwd": ("K5b", k5),
-                       "residual": ("K6", k6)}, times, k5_act)
+                       "residual": ("K6", k6),
+                       "gated_residual": ("K7", k7)}, times, k5_act,
+                      k1_act)
 
 
 def main_train(packed: bool, method: str = "ours", conf=None) -> None:
@@ -727,6 +818,46 @@ def print_k6(k6: Counter, times: int, per_step: int) -> None:
               f"{total / H100_BYTES_PER_S * 1e3:.2f} ms a step")
 
 
+def print_k7(k1_act: Counter, k7: Counter, times: int,
+             per_step: int) -> None:
+    """K1's launches by epilogue and K7's (rows, C) with launches a call
+    and a chain (``times`` calls), variant, and bytes and byte bound a
+    launch and a step (``per_step`` calls); then the eager passes the
+    DiT fold removes a step."""
+    print(f"K1 launches by epilogue: {k1_by_epilogue(k1_act)} per call, "
+          f"{k1_by_epilogue(k1_act, times)} per chain")
+    for (rows, c, epi), n in sorted(k1_act.items(), key=lambda kv: -kv[1]):
+        if epi == "modulate":
+            nbytes = kernel_work("K1m", (rows, c))[0]
+            print(f"  K1 modulate ({rows}, {c}): {n} per call, {n * times} "
+                  f"per chain; {variant('K1m', (rows, c))}; "
+                  f"{nbytes / 1e6:.2f} MB a launch, bound "
+                  f"{bound_ms('K1m', (rows, c))[0]:.4f} ms")
+    print(f"K7 gated_residual (rows, C): {sum(k7.values())} per call, "
+          f"{sum(k7.values()) * times} per chain")
+    for shape, n in sorted(k7.items(), key=lambda kv: -kv[1]):
+        nbytes = kernel_work("K7", shape)[0]
+        print(f"  {shape}: {n} per call, {n * times} per chain; "
+              f"{variant('K7', shape)}; {nbytes / 1e6:.2f} MB a launch, "
+              f"bound {bound_ms('K7', shape)[0]:.4f} ms; "
+              f"{n * per_step * nbytes / 1e9:.3f} GB a step")
+    fold = dit_fold_bytes(k1_act, k7, per_step)
+    if not fold:
+        return
+    eager = fold["modulate"] + fold["gated residual"]
+    moved = fold["K1 modulate"] + fold["K7"]
+    print(f"K7: {fold['K7'] / 1e9:.3f} GB a step, byte bound "
+          f"{fold['K7'] / H100_BYTES_PER_S * 1e3:.2f} ms a step")
+    print(f"eager passes the DiT fold replaces: modulate "
+          f"{fold['modulate'] / 1e9:.2f} GB, gated residual "
+          f"{fold['gated residual'] / 1e9:.2f} GB a step, "
+          f"{eager / 1e9:.2f} GB in all; K1's scale and shift reads "
+          f"{fold['K1 modulate'] / 1e9:.2f} GB and K7 "
+          f"{fold['K7'] / 1e9:.2f} GB, so the fold removes "
+          f"{(eager - moved) / 1e9:.2f} GB a step, byte bound "
+          f"{(eager - moved) / H100_BYTES_PER_S * 1e3:.2f} ms")
+
+
 def grouped_step_bytes(k5: Counter, times: int,
                        kernels: tuple = ("K5", "K5b")) -> Counter:
     """{"K5 <variant>" / "K5b <variant>": bytes} that ``times`` rounds of
@@ -770,7 +901,8 @@ def attention_step_bytes(k2: Counter, times: int) -> Counter:
 
 def bound_ms(kernel: str, shape: tuple, itemsize: int = BF16) -> tuple:
     """(least ms on the H100, 'bytes' or 'operations') for one launch of
-    ``kernel`` (K1, K1b, K2, K2b, K5, K5b, K6) at ``shape``: the larger of
+    ``kernel`` (K1, K1m: K1 with the modulate, K1b, K2, K2b, K5, K5b, K6,
+    K7) at ``shape``: the larger of
     the bytes it
     must move over 3.35 TB/s and its operations over the peak rate of
     their type (``chip_smoke.py``'s ``kernel_work``, as its timings
@@ -920,10 +1052,11 @@ def main() -> None:
     visits = args.visits * (plan["visits"] if args.patches is None else 1)
     per_step = plan["windows"] // args.chunk * visits
     calls = STEPS * per_step
-    k5, k5_act, k6 = Counter(), Counter(), Counter()
+    k5, k5_act, k6, k1_act, k7 = (Counter() for _ in range(5))
     k1, k2 = per_call_shapes(packed=not args.no_packed,
                              patches=args.patches, chunk=args.chunk,
-                             conf=conf, k5=k5, k5_act=k5_act, k6=k6)
+                             conf=conf, k5=k5, k5_act=k5_act, k6=k6,
+                             k1_act=k1_act, k7=k7)
     print(("PackedTeraUNet" if not args.no_packed else "TeraUNet (5D)")
           + f" on {conf.name}: {plan['windows']} z-windows, "
           f"{per_step} UNet calls a step")
@@ -935,7 +1068,9 @@ def main() -> None:
             print(f"  {shape}: {n} per call, {n * calls} per chain")
     print_k5(k5, calls, per_step)
     print_k6(k6, calls, per_step)
-    for kernel, counts in (("K1", k1), ("K2", k2), ("K5", k5), ("K6", k6)):
+    print_k7(k1_act, k7, calls, per_step)
+    for kernel, counts in (("K1", k1), ("K2", k2), ("K5", k5), ("K6", k6),
+                           ("K7", k7)):
         print(f"{kernel} launches a chain by variant: "
               f"{by_variant(kernel, counts, calls)}")
     print(f"K5 launches by epilogue: {by_epilogue(k5_act)} per call, "
@@ -958,9 +1093,10 @@ def main() -> None:
           f"{(eager - fold['K6']) / 1e9:.2f} GB a step, byte bound "
           f"{(eager - fold['K6']) / H100_BYTES_PER_S * 1e3:.2f} ms")
     step = grouped_step_bytes(k5, per_step, ("K5",))
-    for (rows, c), n in k1.items():
-        step["K1 " + rmsnorm_variant(c, BF16, True)] += (
-            n * per_step * BF16 * (2 * rows * c + c))
+    for (rows, c, epi), n in k1_act.items():
+        kernel = "K1m" if epi == "modulate" else "K1"
+        step["K1 " + variant(kernel, (rows, c))] += (
+            n * per_step * kernel_work(kernel, (rows, c))[0])
     step.update({k: v for k, v in attention_step_bytes(k2, per_step).items()
                  if k.startswith("K2 ")})
     for name, nbytes in sorted(step.items()):

@@ -37,8 +37,10 @@ int8|int8_static`` builds the generation path with ``cli.generate
 --quant`` (int8_static calibrates first); K3 (``quant_conv``, by
 variant), K4 (``quantize``, one launch with its abs-max) and
 ``torch._int_mm``'s cuBLASLt int8 products are then categories of their
-own, as is K6 (``residual``, the packed ResBlocks' residual sum with
-their convs' biases).  ``--shapes`` (generation paths) traces the step
+own, as are K6 (``residual``, the packed ResBlocks' residual sum with
+their convs' biases) and K7 (``gated_residual``, the DiT blocks' gated
+residual; K1's launches with the DiT blocks' modulate count in K1's
+categories).  ``--shapes`` (generation paths) traces the step
 with ``record_shapes=True`` and each conv of the model, each
 ``PackedResBlock``, DiT block and the RNA tower wrapped in a profiler
 range named by its role (``in_conv``, ``out_conv``, ``skip_conv``,
@@ -73,6 +75,7 @@ from tera_mind_tpu_torch.training import harness  # noqa: E402
 TILES = {"block_major": 2, "tile_major": 2, "stream": 4}  # grid side
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
+    ("K7 gated_residual", ("gated_residual_kernel",)),
     ("K6 residual", ("residual_kernel",)),
     ("K5b grouped_rmsnorm_bwd dw sum", ("grouped_bwd_dw",)),
     ("K5b grouped_rmsnorm_bwd vector", ("grouped_bwd_vec",)),

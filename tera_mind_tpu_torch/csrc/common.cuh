@@ -74,6 +74,18 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// The adaLN modulate, y * (1 + s) + sh, of K5's epilogue
+// (csrc/grouped_rmsnorm.cu) and K1's (csrc/rmsnorm.cu): y a value of T,
+// each of 1 + s, the product and the sum rounded to T as PyTorch's
+// elementwise ops round them (in float, then to T).  The _rn forms keep
+// nvcc from contracting the product and the sum into one fused
+// multiply-add, which would round once for both.
+template <typename T>
+__device__ __forceinline__ float modulate(float y, float s, float sh) {
+  const float m = round_to<T>(__fadd_rn(1.0f, s));
+  return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(y, m)), sh));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

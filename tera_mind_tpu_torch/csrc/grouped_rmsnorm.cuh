@@ -270,15 +270,6 @@ __device__ __forceinline__ float silu(float v) {
   return __fdiv_rn(v, __fadd_rn(1.0f, expf(-v)));
 }
 
-// The modulate of K5's epilogue: y (a value of T) times (1 + s), plus sh,
-// each of 1 + s, the product and the sum rounded to T as PyTorch's
-// elementwise ops round them (in float, then to T; no fused multiply-add).
-template <typename T>
-__device__ __forceinline__ float modulate(float y, float s, float sh) {
-  const float m = round_to<T>(__fadd_rn(1.0f, s));
-  return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(y, m)), sh));
-}
-
 // What the epilogue reads: kActModulateSilu's scale and shift, (B, C) of
 // T with `stride` elements from one batch's row to the next, batch b
 // covering rows b * rpb .. b * rpb + rpb - 1 of x.

@@ -54,6 +54,23 @@
 // Any row count works: the last block masks its missing rows.  Rounding
 // follows the TPU kernel: for bf16, inv and w are cast to bf16 and
 // y = bf16(bf16(x * bf16(inv)) * bf16(w)); for float, y = w * (x * inv).
+//
+// Epilogue "modulate" (tmt_rmsnorm_modulate): the DiT block's adaLN
+// modulate after its norms, out = r(r(y * r(s + 1)) + sh) on the rounded
+// y, with s and sh the per-token scale and shift: (rows, C) views of T
+// with their own row strides (chunks of the adaLN dense's (B, N, 7C)
+// output, 7C elements a row).  It replaces no Pallas kernel: XLA fuses
+// tera_mind_tpu/models/nn.py:127-130 `modulate` after the norm, where
+// eager PyTorch runs three passes over the norm's output (the scale's
+// + 1 on a strided chunk, the product, the sum), each reading and
+// writing a map.  The fold reads s and sh once more and writes nothing
+// else.  Every variant takes it: vector reads s and sh as 16-byte vectors
+// beside x (their bases and row strides 16-byte aligned, else the call
+// takes strided), strided and the wide kernel read them an element at a
+// time.  The helper `modulate` (csrc/common.cuh) is K5's: one rounding
+// rule, each step rounded to T as PyTorch rounds it, no fused
+// multiply-add, so the result is the eager sequence's bits in bf16 and
+// float32.
 
 #include <algorithm>
 
@@ -64,6 +81,15 @@ namespace {
 using namespace rmsnorm_words;
 
 enum : int { kStrided = 0, kVector = 1 };  // ops/rmsnorm_kernel.py
+
+// The epilogue's operands: null scale for none, else scale and shift
+// (rows, c) of T with sstride / hstride elements from row to row.
+struct Mod {
+  const void* scale;
+  const void* shift;
+  long long sstride;
+  long long hstride;
+};
 
 template <typename T>
 __device__ __forceinline__ float apply(float v, float inv, float wv) {
@@ -145,6 +171,24 @@ __device__ __forceinline__ uint4 scale_word(const uint4& v, float inv,
   return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
+// y's word yw through the modulate: the elements whose channel ch0 + j is
+// the row's (0 .. c - 1) with s[ch] and h[ch] (the row's scale and shift),
+// the others as they are (store_word leaves them out).
+template <typename T>
+__device__ __forceinline__ uint4 modulate_word(const uint4& yw, const T* s,
+                                               const T* h, int ch0, int c) {
+  constexpr int E = kWordBytes / sizeof(T);
+  float f[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int ch = ch0 + j;
+    f[j] = word_elem<T>(yw, j);
+    if (ch >= 0 && ch < c)
+      f[j] = modulate<T>(f[j], to_f32(s[ch]), to_f32(h[ch]));
+  }
+  return pack<T>(f);
+}
+
 // Row `row`'s words into v, lane `sub` of the row's G (all 0 past the
 // last row).
 template <typename T, int KW, int G>
@@ -173,11 +217,11 @@ __device__ __forceinline__ void load_row(uint4 (&v)[KW], const T* xb,
 // next rows' words are loaded before a row is reduced (4 more registers a
 // word; at 5 and 6 words they would spill under the 64 that two blocks
 // an SM leave).
-template <typename T, int KW, int G>
+template <typename T, int KW, int G, bool MOD>
 __global__ void __launch_bounds__(kRowThreads, row_blocks_per_sm(KW))
 rmsnorm_rows_kernel(const T* __restrict__ x, const void* __restrict__ w,
                     int w_f32, T* __restrict__ y, long long rows, int c,
-                    float eps, int ph, int whole_stores) {
+                    float eps, int ph, int whole_stores, Mod m) {
   constexpr int E = kWordBytes / sizeof(T);
   constexpr int kRowsPerWarp = 32 / G;
   constexpr bool kPrefetch = KW <= 4;
@@ -233,9 +277,15 @@ rmsnorm_rows_kernel(const T* __restrict__ x, const void* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < KW; ++i) {
       const int k = sub + G * i;
-      if (row < rows && k < r.nw)
-        store_word<T>(yb, r.k0 + k, r.ch(k, 0), c, whole_stores != 0,
-                      scale_word<T>(v[i], inv, wr[k]));
+      if (row < rows && k < r.nw) {
+        uint4 yw = scale_word<T>(v[i], inv, wr[k]);
+        if constexpr (MOD)
+          yw = modulate_word<T>(
+              yw, static_cast<const T*>(m.scale) + row * m.sstride,
+              static_cast<const T*>(m.shift) + row * m.hstride, r.ch(k, 0),
+              c);
+        store_word<T>(yb, r.k0 + k, r.ch(k, 0), c, whole_stores != 0, yw);
+      }
     }
     if constexpr (kPrefetch) {
 #pragma unroll
@@ -250,11 +300,11 @@ constexpr int kWideWarps = 8;   // rows a block of the two-pass kernel
 
 // Rows over kRegMaxBytes: one warp a row, a strided pass for the sum of
 // squares, a second that re-reads the row (from L1) and writes y.
-template <typename T>
+template <typename T, bool MOD>
 __global__ void __launch_bounds__(kWideWarps * 32)
 rmsnorm_wide_kernel(const T* __restrict__ x, const void* __restrict__ w,
                     int w_f32, T* __restrict__ y, long long rows, int c,
-                    float eps) {
+                    float eps, Mod m) {
   const int lane = threadIdx.x & 31;
   const long long row =
       (long long)blockIdx.x * kWideWarps + (threadIdx.x >> 5);
@@ -270,9 +320,15 @@ rmsnorm_wide_kernel(const T* __restrict__ x, const void* __restrict__ w,
   ss = warp_sum(ss);
   const float inv = rsqrtf(ss / (float)c + eps);
 
-  for (int i = lane; i < c; i += 32)
-    yr[i] = from_f32<T>(apply<T>(to_f32(xr[i]), inv,
-                                 round_to<T>(weight_at<T>(w, w_f32, i))));
+  const T* sr = static_cast<const T*>(m.scale) + row * m.sstride;
+  const T* hr = static_cast<const T*>(m.shift) + row * m.hstride;
+  for (int i = lane; i < c; i += 32) {
+    float v = apply<T>(to_f32(xr[i]), inv,
+                       round_to<T>(weight_at<T>(w, w_f32, i)));
+    if constexpr (MOD)
+      v = modulate<T>(round_to<T>(v), to_f32(sr[i]), to_f32(hr[i]));
+    yr[i] = from_f32<T>(v);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -310,10 +366,13 @@ __device__ __forceinline__ uint4 weight_vec(const void* w, int vi) {
   }
 }
 
-template <typename T, int G, bool WF32>
+// With MOD the row's scale and shift vectors are loaded beside x's, so
+// that their latency overlaps the reduction's.
+template <typename T, int G, bool WF32, bool MOD>
 __global__ void __launch_bounds__(kVecThreads)
 rmsnorm_kernel_vec(const T* __restrict__ x, const void* __restrict__ w,
-                   T* __restrict__ y, long long rows, int c, float eps) {
+                   T* __restrict__ y, long long rows, int c, float eps,
+                   Mod m) {
   constexpr int E = 16 / sizeof(T);  // elements a vector
   const int nvec = c / E;
   const int sub = threadIdx.x % G;   // lane within the row's group
@@ -322,14 +381,26 @@ rmsnorm_kernel_vec(const T* __restrict__ x, const void* __restrict__ w,
   const bool live = row < rows;      // dead lanes still join the shuffles
   const uint4* xr = reinterpret_cast<const uint4*>(x + (live ? row : 0) * c);
 
-  uint4 xv[kVecMax], wv[kVecMax];
+  const long long lrow = live ? row : 0;
+  const uint4* sr = reinterpret_cast<const uint4*>(
+      static_cast<const T*>(m.scale) + lrow * m.sstride);
+  const uint4* hr = reinterpret_cast<const uint4*>(
+      static_cast<const T*>(m.shift) + lrow * m.hstride);
+
+  uint4 xv[kVecMax], wv[kVecMax], sv[MOD ? kVecMax : 1],
+      hv[MOD ? kVecMax : 1];
 #pragma unroll
   for (int i = 0; i < kVecMax; ++i) {
     const int vi = sub + i * G;
     xv[i] = wv[i] = make_uint4(0, 0, 0, 0);
+    if constexpr (MOD) sv[i] = hv[i] = make_uint4(0, 0, 0, 0);
     if (live && vi < nvec) {
       xv[i] = xr[vi];
       wv[i] = weight_vec<T, WF32>(w, vi);
+      if constexpr (MOD) {
+        sv[i] = sr[vi];
+        hv[i] = hr[vi];
+      }
     }
   }
   float ss = 0.f;   // zero vectors add nothing
@@ -354,8 +425,12 @@ rmsnorm_kernel_vec(const T* __restrict__ x, const void* __restrict__ w,
     if (vi < nvec) {
       float out[E];
 #pragma unroll
-      for (int j = 0; j < E; ++j)
+      for (int j = 0; j < E; ++j) {
         out[j] = apply<T>(elem<T>(xv[i], j), inv, elem<T>(wv[i], j));
+        if constexpr (MOD)
+          out[j] = modulate<T>(round_to<T>(out[j]), elem<T>(sv[i], j),
+                               elem<T>(hv[i], j));
+      }
       yr[vi] = pack<T>(out);
     }
   }
@@ -369,23 +444,30 @@ struct Args {
   int c;
   float eps;
   cudaStream_t stream;
+  Mod m;   // m.scale null: no epilogue
 };
 
-template <typename T, int KW, int G>
-int launch_rows(const Args& a, bool w_f32) {
+template <typename T, int KW, int G, bool MOD>
+int launch_rows_m(const Args& a, bool w_f32) {
   const int sms = sm_count();
   if (sms == 0) return (int)cudaErrorInvalidDevice;
   constexpr int kRowsPerBlock = kRowWarps * 32 / G;
   const long long blocks = std::min<long long>(
       (a.rows + kRowsPerBlock - 1) / kRowsPerBlock,
       (long long)row_blocks_per_sm(KW) * sms);
-  rmsnorm_rows_kernel<T, KW, G><<<(unsigned)blocks, kRowThreads,
-                                  copy_bytes<T>(a.c), a.stream>>>(
+  rmsnorm_rows_kernel<T, KW, G, MOD><<<(unsigned)blocks, kRowThreads,
+                                       copy_bytes<T>(a.c), a.stream>>>(
       static_cast<const T*>(a.x), a.w, w_f32, static_cast<T*>(a.y), a.rows,
       a.c, a.eps, phase<T>(a.x),
       (reinterpret_cast<uintptr_t>(a.y) - reinterpret_cast<uintptr_t>(a.x))
-              % kWordBytes == 0);
+              % kWordBytes == 0, a.m);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int KW, int G>
+int launch_rows(const Args& a, bool w_f32) {
+  return a.m.scale != nullptr ? launch_rows_m<T, KW, G, true>(a, w_f32)
+                              : launch_rows_m<T, KW, G, false>(a, w_f32);
 }
 
 // w_f32: w holds float (x's type otherwise)
@@ -393,10 +475,16 @@ template <typename T>
 int launch_strided(const Args& a, bool w_f32) {
   if ((long long)a.c * sizeof(T) > kRegMaxBytes) {
     const long long blocks = (a.rows + kWideWarps - 1) / kWideWarps;
-    rmsnorm_wide_kernel<T><<<(unsigned)blocks, kWideWarps * 32, 0,
-                             a.stream>>>(
-        static_cast<const T*>(a.x), a.w, w_f32, static_cast<T*>(a.y),
-        a.rows, a.c, a.eps);
+    if (a.m.scale != nullptr)
+      rmsnorm_wide_kernel<T, true><<<(unsigned)blocks, kWideWarps * 32, 0,
+                                     a.stream>>>(
+          static_cast<const T*>(a.x), a.w, w_f32, static_cast<T*>(a.y),
+          a.rows, a.c, a.eps, a.m);
+    else
+      rmsnorm_wide_kernel<T, false><<<(unsigned)blocks, kWideWarps * 32, 0,
+                                      a.stream>>>(
+          static_cast<const T*>(a.x), a.w, w_f32, static_cast<T*>(a.y),
+          a.rows, a.c, a.eps, a.m);
     return (int)cudaGetLastError();
   }
   switch (words_per_lane<T>(a.c)) {
@@ -422,10 +510,16 @@ template <typename T, int G, bool WF32>
 int launch_vec_g(const Args& a) {
   constexpr int rows_per_block = kVecThreads / G;
   const long long blocks = (a.rows + rows_per_block - 1) / rows_per_block;
-  rmsnorm_kernel_vec<T, G, WF32><<<(unsigned)blocks, kVecThreads, 0,
-                                   a.stream>>>(
-      static_cast<const T*>(a.x), a.w, static_cast<T*>(a.y), a.rows, a.c,
-      a.eps);
+  if (a.m.scale != nullptr)
+    rmsnorm_kernel_vec<T, G, WF32, true><<<(unsigned)blocks, kVecThreads, 0,
+                                           a.stream>>>(
+        static_cast<const T*>(a.x), a.w, static_cast<T*>(a.y), a.rows, a.c,
+        a.eps, a.m);
+  else
+    rmsnorm_kernel_vec<T, G, WF32, false><<<(unsigned)blocks, kVecThreads,
+                                            0, a.stream>>>(
+        static_cast<const T*>(a.x), a.w, static_cast<T*>(a.y), a.rows, a.c,
+        a.eps, a.m);
   return (int)cudaGetLastError();
 }
 
@@ -455,6 +549,11 @@ int launch(const Args& a, int w_dtype, int variant) {
       (long long)a.c * sizeof(T) > kVecMaxBytes || !aligned16(a.x) ||
       !aligned16(a.w) || !aligned16(a.y))
     return (int)cudaErrorInvalidValue;
+  if (a.m.scale != nullptr &&
+      (!aligned16(a.m.scale) || !aligned16(a.m.shift) ||
+       a.m.sstride * (long long)sizeof(T) % 16 != 0 ||
+       a.m.hstride * (long long)sizeof(T) % 16 != 0))
+    return (int)cudaErrorInvalidValue;   // vector reads s, sh by 16 bytes
   if constexpr (sizeof(T) == 2) {
     if (w_f32) return launch_vector<T, true>(a);
   }
@@ -472,7 +571,31 @@ extern "C" int tmt_rmsnorm(const void* x, const void* w, void* y,
                            long long rows, int c, float eps, int dtype,
                            int w_dtype, int variant, void* stream) {
   if (rows <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
-  const Args a{x, w, y, rows, c, eps, static_cast<cudaStream_t>(stream)};
+  const Args a{x, w, y, rows, c, eps, static_cast<cudaStream_t>(stream),
+               Mod{nullptr, nullptr, 0, 0}};
+  switch (dtype) {
+    case kFloat32: return launch<float>(a, w_dtype, variant);
+    case kBFloat16: return launch<__nv_bfloat16>(a, w_dtype, variant);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K1 with the modulate epilogue: tmt_rmsnorm's arguments, then scale and
+// shift, device pointers to (rows, c) of dtype whose rows lie sstride and
+// hstride elements apart (at least c: a row's channels are contiguous).
+// The vector variant also needs scale and shift 16-byte aligned and their
+// row strides whole 16-byte vectors; an error otherwise, never a fallback.
+extern "C" int tmt_rmsnorm_modulate(const void* x, const void* w, void* y,
+                                    long long rows, int c, float eps,
+                                    int dtype, int w_dtype, int variant,
+                                    const void* scale, const void* shift,
+                                    long long sstride, long long hstride,
+                                    void* stream) {
+  if (rows <= 0 || c <= 0 || scale == nullptr || shift == nullptr ||
+      sstride < c || hstride < c)
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, w, y, rows, c, eps, static_cast<cudaStream_t>(stream),
+               Mod{scale, shift, sstride, hstride}};
   switch (dtype) {
     case kFloat32: return launch<float>(a, w_dtype, variant);
     case kBFloat16: return launch<__nv_bfloat16>(a, w_dtype, variant);

@@ -4,7 +4,10 @@ spatial windowing, and the symmetric gene-gene attention block.
 Port of ``tera_mind_tpu/models/attention.py`` (both token orders).
 Logits are ``(q . k) / d``, NOT ``/ sqrt(d)`` (the reference's scaling
 quirk).  The windowed cross-attention runs K2
-(``ops/attention_kernel``) on CUDA tensors.
+(``ops/attention_kernel``) on CUDA tensors; the DiT block's adaLN
+modulate runs as K1's epilogue (``ops/rmsnorm_kernel.rmsnorm_modulate``)
+and its gated residual as K7 (``ops/gated_residual_kernel``) where no
+gradient is recorded.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention_kernel import window_attention
-from .nn import Conv3d, Dense, Mlp, RMSNorm, modulate
+from ..ops.gated_residual_kernel import gated_residual
+from ..ops.rmsnorm_kernel import rmsnorm_modulate
+from .nn import Conv3d, Dense, Mlp, RMSNorm
 
 
 def _window_fold(t: torch.Tensor, z: int, n_win: int,
@@ -113,7 +118,13 @@ class DiTBlock(nn.Module):
 
     ``quant='int8'`` runs adaLN, q, k, v, proj, fc1 and fc2 as
     ``QuantDense`` (``prequant``, ``static_act`` as there); the logits,
-    the value product and the norms stay in the compute dtype."""
+    the value product and the norms stay in the compute dtype.
+
+    Each sub-layer reads ``norm(xt) * (scale + 1.0) + shift`` through
+    :func:`rmsnorm_modulate` and ends in ``xt + gate * out`` through
+    :func:`gated_residual`: on a CUDA tensor with no gradient to record
+    one K1 launch with the modulate and one K7 launch, elsewhere the eager
+    sequence (the same bits on the card)."""
 
     def __init__(self, hidden_size: int, cond_channels: int,
                  num_heads: int = 1, n_win: Optional[int] = 2,
@@ -149,10 +160,12 @@ class DiTBlock(nn.Module):
             ct = cond.reshape(b, z * h * w, cond.shape[-1])
         (shift_msa, scale_msa, gate_msa, crss_cnd,
          shift_mlp, scale_mlp, gate_mlp) = self.adaLN(F.silu(ct)).chunk(7, -1)
-        xt = xt + gate_msa * self.attn(
-            modulate(self.norm1, xt, shift_msa, scale_msa), crss_cnd, z)
-        xt = xt + gate_mlp * self.mlp(
-            modulate(self.norm2, xt, shift_mlp, scale_mlp))
+        h = rmsnorm_modulate(xt, self.norm1.weight, scale_msa, shift_msa,
+                             self.norm1.eps)
+        xt = gated_residual(xt, gate_msa, self.attn(h, crss_cnd, z))
+        h = rmsnorm_modulate(xt, self.norm2.weight, scale_mlp, shift_mlp,
+                             self.norm2.eps)
+        xt = gated_residual(xt, gate_mlp, self.mlp(h))
         return xt.reshape(x.shape)
 
 

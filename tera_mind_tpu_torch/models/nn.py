@@ -17,7 +17,7 @@ a flax tree one for one.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -142,12 +142,6 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
-
-
-def modulate(norm: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
-             shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """adaLN modulation: norm(x) * (1 + scale) + shift."""
-    return norm(x) * (scale + 1.0) + shift
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -54,6 +54,9 @@ SIGNATURES = {
     "tmt_grouped_rmsnorm_bwd": [_ptr] * 6 + [_i64] + [_int] * 6 + [_f32]
     + [_int] * 3 + [_ptr],
     "tmt_residual": [_ptr] * 5 + [_i64, _int, _int, _int, _ptr],
+    "tmt_rmsnorm_modulate": [_ptr, _ptr, _ptr, _i64, _int, _f32, _int, _int,
+                             _int, _ptr, _ptr, _i64, _i64, _ptr],
+    "tmt_gated_residual": [_ptr] * 4 + [_i64, _int, _i64, _int, _int, _ptr],
 }
 
 _lib = None

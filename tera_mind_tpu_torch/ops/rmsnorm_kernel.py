@@ -56,12 +56,25 @@ float32 rows over ``BWD_LANE_ROW_MAX_C`` and an x and g of different
 (or the plain version on the CPU); with one, :class:`RMSNormFunction`,
 whose forward is K1 and backward K1b (on the CPU the plain forward and
 the plain ``_bwd`` formula).
+
+K1 has one epilogue (``EPILOGUES``; counted in ``launches_by_epilogue``):
+``modulate``, the DiT block's adaLN modulate after its norms,
+``y * (scale + 1.0) + shift`` (``tera_mind_tpu/models/nn.py:127-130``,
+which XLA fuses after the norm) with per-token (rows, C) scale and shift
+that are strided chunks of the adaLN dense's (B, N, 7C) output.
+:func:`rmsnorm_modulate` dispatches it: one K1 launch for a CUDA tensor
+with no gradient to record (every variant takes it: ``vector`` where
+scale and shift start on 16 bytes with rows a whole number of 16 bytes
+apart, else ``strided``); where autograd records, :func:`rmsnorm` and the
+eager modulate; on the CPU the plain sequence.  The kernel rounds each
+step to x's dtype as the eager ops do, so the result is their bits.
 """
 
 from __future__ import annotations
 
 import functools
 import sys
+from typing import Optional
 
 import torch
 
@@ -69,6 +82,7 @@ from . import _build
 
 VEC_MAX_ROW_BYTES = 2048   # csrc/rmsnorm.cu kVecMaxBytes
 VARIANTS = ("strided", "vector")   # csrc/rmsnorm.cu codes
+EPILOGUES = ("none", "modulate")   # tmt_rmsnorm, tmt_rmsnorm_modulate
 BWD_WARPS = 8              # csrc/rmsnorm_bwd.cu kBwdWarps: rows a block
 BWD_MAX_BLOCKS = 8 * 132   # csrc/rmsnorm_bwd.cu kMaxBlocks
 BWD_MAX_C = 7264           # csrc/rmsnorm_bwd.cu kMaxC
@@ -80,6 +94,7 @@ BWD_REGISTER_MAX_C = 32 * 64    # csrc/rmsnorm_bwd.cu 32 * kStridedMaxPer
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+launches_by_epilogue = dict.fromkeys(EPILOGUES, 0)
 bwd = _build.Counters(VARIANTS)   # K1b's launches (csrc/rmsnorm_bwd.cu)
 
 
@@ -180,6 +195,14 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
     either variant rounds to bf16 itself in one launch.  Raises when
     autograd would need a backward (``_build.autograd_required``)."""
     _build.refuse_autograd("rmsnorm", x, weight)
+    return _launch(x, weight, eps)
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, eps: float,
+            scale: Optional[torch.Tensor] = None,
+            shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One K1 launch on a CUDA tensor: ``tmt_rmsnorm``, or with scale and
+    shift (checked by the caller) ``tmt_rmsnorm_modulate``."""
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
     if not x2.is_contiguous():
@@ -192,15 +215,28 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
         return y.reshape(x.shape)
     code = _build.dtype_code(x, "rmsnorm")
     w = kernel_weight(x.dtype, w)
-    variant = rmsnorm_variant(
-        c, x.element_size(), all(t.data_ptr() % 16 == 0 for t in (x2, y, w)))
-    err = _build.lib().tmt_rmsnorm(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                   x2.shape[0], c, eps, code,
-                                   _build.dtype_code(w, "rmsnorm weight"),
-                                   VARIANTS.index(variant),
-                                   _build.stream_ptr(x))
-    _build.check(err, f"tmt_rmsnorm ({variant})")
-    _build.count_launch(sys.modules[__name__], variant)
+    item = x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, y, w))
+    args = (x2.data_ptr(), w.data_ptr(), y.data_ptr(), x2.shape[0], c, eps,
+            code, _build.dtype_code(w, "rmsnorm weight"))
+    if scale is None:
+        epilogue, name = "none", "tmt_rmsnorm"
+        variant = rmsnorm_variant(c, item, aligned)
+        err = _build.lib().tmt_rmsnorm(*args, VARIANTS.index(variant),
+                                       _build.stream_ptr(x))
+    else:
+        epilogue, name = "modulate", "tmt_rmsnorm_modulate"
+        s2, sstride = row_view(scale, c, "rmsnorm_modulate scale")
+        h2, hstride = row_view(shift, c, "rmsnorm_modulate shift")
+        variant = rmsnorm_modulate_variant(
+            c, item, aligned,
+            all(t.data_ptr() % 16 == 0 for t in (s2, h2))
+            and sstride * item % 16 == 0 and hstride * item % 16 == 0)
+        err = _build.lib().tmt_rmsnorm_modulate(
+            *args, VARIANTS.index(variant), s2.data_ptr(), h2.data_ptr(),
+            sstride, hstride, _build.stream_ptr(x))
+    _build.check(err, f"{name} ({variant})")
+    _build.count_launch(sys.modules[__name__], variant, epilogue)
     return y.reshape(x.shape)
 
 
@@ -285,3 +321,103 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     if dev == "cuda":
         return rmsnorm_cuda(x, weight, eps)
     return rmsnorm_plain(x, weight, eps)
+
+
+# ---------------------------------------------------------------------------
+# the modulate epilogue
+# ---------------------------------------------------------------------------
+
+NO_BACKWARD = ("K1's modulate epilogue records no backward; call the "
+               "dispatcher rmsnorm_modulate, which runs rmsnorm and the "
+               "eager modulate where autograd records, or call it under "
+               "torch.no_grad()")
+
+
+def modulate_plain(y: torch.Tensor, scale: torch.Tensor,
+                   shift: torch.Tensor) -> torch.Tensor:
+    """The eager adaLN modulate after a norm: ``y * (scale + 1.0) +
+    shift``, each op rounding to its dtype."""
+    return y * (scale + 1.0) + shift
+
+
+def rmsnorm_modulate_plain(x: torch.Tensor, weight: torch.Tensor,
+                           scale: torch.Tensor, shift: torch.Tensor,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of K1 with the modulate: the CPU path and the
+    kernel's check."""
+    return modulate_plain(rmsnorm_plain(x, weight, eps), scale, shift)
+
+
+def row_view(t: torch.Tensor, c: int, name: str) -> tuple:
+    """(t as a (rows, c) view, its row stride in elements): t's channels
+    contiguous and its rows one stride apart (a chunk of a wider
+    tensor's last axis is), without a copy; raises otherwise."""
+    if t.dim() < 1 or t.shape[-1] != c:
+        raise ValueError(f"{name}: {tuple(t.shape)} does not end in {c}")
+    if t.numel() and c > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: channel stride {t.stride(-1)}, not 1")
+    try:
+        t2 = t.view(-1, c)
+    except RuntimeError:
+        raise ValueError(f"{name}: rows of {tuple(t.shape)} with strides "
+                         f"{t.stride()} are not one stride apart") from None
+    return t2, (t2.stride(0) if t2.shape[0] > 1 else c)
+
+
+def check_modulate(x: torch.Tensor, scale: torch.Tensor,
+                   shift: torch.Tensor) -> None:
+    """scale and shift of x's shape, dtype (bf16 or float32) and device,
+    each a (rows, C) view with contiguous channels (any row stride)."""
+    for name, t in (("scale", scale), ("shift", shift)):
+        if tuple(t.shape) != tuple(x.shape):
+            raise ValueError(f"rmsnorm_modulate: {name} {tuple(t.shape)} "
+                             f"is not x's {tuple(x.shape)}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"rmsnorm_modulate: {name} {t.dtype} on "
+                             f"{t.device} is not x's {x.dtype} on "
+                             f"{x.device}")
+        row_view(t, x.shape[-1], f"rmsnorm_modulate {name}")
+    if x.dtype not in _build.DTYPES:
+        raise TypeError(f"rmsnorm_modulate: no kernel for dtype {x.dtype}")
+
+
+def rmsnorm_modulate_variant(c: int, itemsize: int, aligned: bool,
+                             mod_aligned: bool) -> str:
+    """The variant a CUDA call of K1 with the modulate launches: K1's rule
+    (``aligned``: x, w and y on 16 bytes), and ``vector`` only where
+    ``mod_aligned`` too: scale and shift start on 16 bytes and their rows
+    lie a whole number of 16 bytes apart."""
+    if mod_aligned and rmsnorm_variant(c, itemsize, aligned) == "vector":
+        return "vector"
+    return "strided"
+
+
+def rmsnorm_modulate_cuda(x: torch.Tensor, weight: torch.Tensor,
+                          scale: torch.Tensor, shift: torch.Tensor,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """Launch K1 with the modulate epilogue on CUDA tensors: one launch;
+    scale and shift read through their strides, never copied.  Raises
+    when autograd would need a backward, and on a call the kernel cannot
+    take, before any launch."""
+    _build.refuse_autograd("rmsnorm_modulate", x, weight, scale, shift,
+                           why=NO_BACKWARD)
+    check_modulate(x, scale, shift)
+    return _launch(x, weight, eps, scale, shift)
+
+
+def rmsnorm_modulate(x: torch.Tensor, weight: torch.Tensor,
+                     scale: torch.Tensor, shift: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm(x) * (scale + 1.0) + shift``: one K1 launch with the
+    modulate for a CUDA tensor with no gradient to record; where autograd
+    records, :func:`rmsnorm` (K1 and K1b on the card) and the eager
+    modulate; the plain sequence on the CPU.  A CUDA call the kernel
+    cannot take raises before any launch, as does one the card could not
+    take on the CPU."""
+    dev = _device_type(x, "rmsnorm_modulate")
+    if _build.autograd_required(x, weight, scale, shift):
+        return modulate_plain(rmsnorm(x, weight, eps), scale, shift)
+    check_modulate(x, scale, shift)
+    if dev == "cuda":
+        return rmsnorm_modulate_cuda(x, weight, scale, shift, eps)
+    return rmsnorm_modulate_plain(x, weight, scale, shift, eps)

@@ -117,9 +117,10 @@ def test_chip_smoke_requires_the_baseline_training_counts(method):
     assert set(k1_shapes) <= set(cs.TRAIN_K1_SHAPES)
     assert cs.TRAIN_LAUNCHES[method] == {
         "rmsnorm": sum(k1_shapes.values()) * ks.TRAIN_ACCUM,
-        "window_attention": 0, "grouped_rmsnorm": 0, "residual": 0} == {
+        "window_attention": 0, "grouped_rmsnorm": 0, "residual": 0,
+        "gated_residual": 0} == {
         "rmsnorm": 4, "window_attention": 0, "grouped_rmsnorm": 0,
-        "residual": 0}
+        "residual": 0, "gated_residual": 0}
     assert ks.train_bwd_variants(method=method) == \
         cs.TRAIN_BWD_VARIANTS[method]
 

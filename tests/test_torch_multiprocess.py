@@ -723,14 +723,15 @@ def test_chip_smoke_requires_the_rank_launches_and_shapes():
                               ("stream", stream, cs.RANK_STREAM_STEPS)):
         for run in runs:
             n1, n2, calls = ks.rank_launches(run, steps)
-            k5, k6 = ks.Counter(), ks.Counter()
+            k5, k6, k7 = ks.Counter(), ks.Counter(), ks.Counter()
             ks.per_call_shapes(grid=run["patches"], chunk=run["chunk"],
-                               k5=k5, k6=k6)
+                               k5=k5, k6=k6, k7=k7)
             assert cs.RANK_LAUNCHES[kind] == {
                 "rmsnorm": n1, "window_attention": n2,
                 "grouped_rmsnorm": sum(k5.values()) * calls,
-                "residual": sum(k6.values()) * calls}
-            assert sum(k6.values()) == 28
+                "residual": sum(k6.values()) * calls,
+                "gated_residual": sum(k7.values()) * calls}
+            assert sum(k6.values()) == 28 and sum(k7.values()) == 12
     assert mem[0]["patches"] == (5, 9) and mem[0]["chunk"] == 1
     k1, k2 = ks.per_call_shapes(grid=(5, 9))
     assert set(cs.PATH_SHAPES["rank"][0]) == set(k1)

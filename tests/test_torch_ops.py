@@ -800,15 +800,17 @@ def test_chip_smoke_times_tile_major_and_stream_shapes():
                    == "wgmma" for _, n, d in want_k2)
         calls = {"tile_major": 4 * 5 * cs.TILE_MAJOR_STEPS,
                  "stream": 4 * 5 * cs.STREAM_STEPS}[path]
-        k5_shapes, k6_shapes = ks.Counter(), ks.Counter()
+        k5_shapes, k6_shapes, k7_shapes = (ks.Counter() for _ in range(3))
         ks.per_call_shapes(patches=patches, chunk=5, k5=k5_shapes,
-                           k6=k6_shapes)
+                           k6=k6_shapes, k7=k7_shapes)
         assert cs.CHAIN_LAUNCHES[path] == {
             "rmsnorm": sum(k1_shapes.values()) * calls,
             "window_attention": sum(k2_shapes.values()) * calls,
             "grouped_rmsnorm": sum(k5_shapes.values()) * calls,
-            "residual": sum(k6_shapes.values()) * calls}
+            "residual": sum(k6_shapes.values()) * calls,
+            "gated_residual": sum(k7_shapes.values()) * calls}
         assert sum(k6_shapes.values()) == 28
+        assert sum(k7_shapes.values()) == 12
     # the streamed window's rows and batches are the main path's x 5
     main_k1, main_k2 = ks.per_call_shapes()
     assert {(5 * n, c) for n, c in main_k1} == set(cs.PATH_SHAPES["stream"][0])
@@ -978,15 +980,17 @@ def test_chip_smoke_checks_the_training_shapes_and_counts():
     ks = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ks)
     for packed, path in ((False, "5d"), (True, "packed")):
-        k5_shapes, k6_shapes = ks.Counter(), ks.Counter()
+        k5_shapes, k6_shapes, k7_shapes = (ks.Counter() for _ in range(3))
         k1_shapes, k2_shapes = ks.train_shapes(packed, k5=k5_shapes,
-                                               k6=k6_shapes)
+                                               k6=k6_shapes, k7=k7_shapes)
         assert cs.TRAIN_LAUNCHES[path] == {
             "rmsnorm": sum(k1_shapes.values()) * ks.TRAIN_ACCUM,
             "window_attention": sum(k2_shapes.values()) * ks.TRAIN_ACCUM,
             "grouped_rmsnorm": sum(k5_shapes.values()) * ks.TRAIN_ACCUM,
-            "residual": sum(k6_shapes.values()) * ks.TRAIN_ACCUM}
+            "residual": sum(k6_shapes.values()) * ks.TRAIN_ACCUM,
+            "gated_residual": sum(k7_shapes.values()) * ks.TRAIN_ACCUM}
         assert not k6_shapes   # autograd records: the eager residual
+        assert not k7_shapes   # and the eager gated residual
         assert sum(k5_shapes.values()) == (88 if packed else 0)
         if packed:
             assert set(cs.k5_shapes(train=True)) == set(k5_shapes)
